@@ -1,23 +1,32 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (rnn_transducer_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py [--seed 0] [--requests 24]
+    python3 chip_smoke.py [--seed 0] [--requests 24] [--profile-dir DIR]
 
-Drives the port's serving path once at the full width of the libri100
-config (4x512 LSTM encoder, 1x512 predictor, vocab 1024, bf16) with random
-weights from --seed, through the entry points a user calls: BatchingEngine
-behind http_server, with serve.py's CLI defaults. Phases, in order:
+Drives the port's two main paths at the full width and depth of the
+libri100 config (4x512 LSTM encoder, 1x512 predictor, joint 512, vocab
+1024, bf16) with random weights from --seed, through the entry points a
+user calls: serving (BatchingEngine behind http_server, with serve.py's
+CLI defaults) and training (init_train_state + make_train_step at
+bench.py's headline shape, B=32, T=400, U=40, and the training CLI).
+Phases, in order:
 
   1. card   require CUDA; print the card's name and power limit
   2. build  build the kernel library from csrc/ with nvcc
   3. kernel each kernel against its plain PyTorch version on the card, at
-            the serving path's shapes, in f32 and bf16 (max abs error,
-            kernel ms and plain ms from CUDA events, in turns
-            plain, kernel, kernel, plain)
-  4. e2e    concurrent HTTP /recognize requests; every kernel of the path
+            the main paths' shapes, in f32 and bf16 (max error, kernel ms
+            and plain ms from CUDA events, in turns plain, kernel, kernel,
+            plain); joint_bwd run twice must give identical bits
+  4. e2e    concurrent HTTP /recognize requests; every serving kernel
             must have launched while they were served; the f32 tokens of
             the kernel path and the plain path must be identical
-  5. the kernels' JSON line, then {"ok": true, "device": {...}} last
+  5. train  training steps: finite loss and grad norm on every step, no
+            skipped update, the params move, every training kernel
+            launched; ms/step by the slope of bench.py and utt/s; one
+            torch.profiler step split by layer; an f32 loss and gradient
+            through the kernels against the plain versions; the CLI for
+            a few steps with a checkpoint round trip
+  6. the kernels' JSON line, the card line, then {"ok": true, ...} last
 
 TF32 is off for matmuls and cuDNN: every float32 product runs in float32.
 Any failed check exits non-zero; with no CUDA device it exits before any
@@ -30,10 +39,13 @@ import argparse
 import concurrent.futures
 import contextlib
 import dataclasses
+import io
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -44,10 +56,15 @@ import torch
 
 from rnn_transducer_tpu_torch.decode.greedy import recognize_greedy
 from rnn_transducer_tpu_torch.models import transducer as m
-from rnn_transducer_tpu_torch.models.config import config_libri100
+from rnn_transducer_tpu_torch.models.config import TrainConfig, config_libri100
 from rnn_transducer_tpu_torch.ops import lstm_cuda
+from rnn_transducer_tpu_torch.ops import rnnt_joint_fused as jf
+from rnn_transducer_tpu_torch.ops import rnnt_loss as rl
 from rnn_transducer_tpu_torch.ops.lstm import _dot
 from rnn_transducer_tpu_torch.serve import BatchingEngine, http_server
+from rnn_transducer_tpu_torch.train import checkpoint as ckpt
+from rnn_transducer_tpu_torch.train import loop as tl
+from rnn_transducer_tpu_torch.train.__main__ import main as train_cli
 from rnn_transducer_tpu_torch.utils import build
 from rnn_transducer_tpu_torch.weights import params_from_numpy, params_to_numpy
 
@@ -61,6 +78,23 @@ CASES = (("l0_b800", 8, 800, 80, False), ("l0_b400", 8, 400, 80, False),
          ("l1_b800", 8, 400, 1024, False), ("l1_b400", 8, 200, 1024, False),
          ("ragged_b1", 1, 37, 80, True), ("ragged_b3", 3, 37, 80, True))
 MAIN_CASE = ("l0_b800", torch.bfloat16)  # the kernel line's ms / plain_ms
+# The training path's shapes: bench.py's headline batch, B=32, T=400
+# frames (layer 0), T'=200 after 2x stacking (layers 1-3 and the joint),
+# U+1=41, J=512, V=1024.
+TRAIN_B, TRAIN_T, TRAIN_U = 32, 400, 40
+TRAIN_LSTM_CASES = (("l0_train", 32, 400, 80, False),
+                    ("l1_train", 32, 200, 1024, False),
+                    ("ragged_b3", 3, 37, 80, True))
+TRAIN_MAIN = ("l0_train", torch.bfloat16)
+# Backward outputs and gradients: max |kernel - plain| over max |plain|.
+# f32: summation order only. bf16: both sides round the same operands, but
+# a 1-ulp difference before a rounding can flip one bf16 value (2^-8).
+REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# The f32 training step through the kernels against the plain versions:
+# the loss within 1e-5 relative, every gradient leaf within 1e-3 of its
+# largest value (400 steps of BPTT and lattice sums in another order).
+LOSS_RTOL, GRAD_RTOL = 1e-5, 1e-3
+SLOPE_STEPS, SLOPE_REPEATS = (3, 8), 2  # bench.py's slope method, shorter
 
 
 def fail(msg: str):
@@ -88,6 +122,51 @@ def cuda_ms(fn) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end)
+
+
+def rel_err(got, want) -> float:
+    return float((got - want).abs().max()) / max(float(want.abs().max()),
+                                                 1e-30)
+
+
+def max_abs(got, want) -> float:
+    return float((got - want).abs().max())
+
+
+def timed_pair(kernel_fn, plain_fn) -> tuple[float, float]:
+    """Mean kernel ms and plain ms from CUDA events, in turns plain,
+    kernel, kernel, plain."""
+    times = {"plain": [], "kernel": []}
+    for which in ("plain", "kernel", "kernel", "plain"):
+        times[which].append(cuda_ms(kernel_fn if which == "kernel"
+                                    else plain_fn))
+    return statistics.mean(times["kernel"]), statistics.mean(times["plain"])
+
+
+def reset_counts() -> None:
+    lstm_cuda.LAUNCHES = lstm_cuda.LAUNCHES_WITH_ACTS = 0
+    lstm_cuda.LAUNCHES_BWD = 0
+    jf.LAUNCHES_FWD = jf.LAUNCHES_BWD = 0
+
+
+def read_counts() -> dict:
+    return {"lstm_fwd": lstm_cuda.LAUNCHES,
+            "lstm_fwd_with_acts": lstm_cuda.LAUNCHES_WITH_ACTS,
+            "lstm_bwd": lstm_cuda.LAUNCHES_BWD,
+            "joint_fwd": jf.LAUNCHES_FWD, "joint_bwd": jf.LAUNCHES_BWD}
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Every kernel wrapper replaced by its plain version, on the card."""
+    with contextlib.ExitStack() as stack:
+        for mod, name in ((lstm_cuda, "lstm_recurrence"),
+                          (lstm_cuda, "lstm_recurrence_with_acts"),
+                          (lstm_cuda, "lstm_recurrence_bwd"),
+                          (jf, "joint_lp_fwd"), (jf, "joint_lp_bwd")):
+            stack.enter_context(mock.patch.object(
+                mod, name, getattr(mod, name + "_reference")))
+        yield
 
 
 # ------------------------------ phase 3 ----------------------------------
@@ -135,6 +214,125 @@ def kernel_vs_plain(rng: np.random.Generator, dev) -> dict:
             if (name, cd) == MAIN_CASE:
                 main = row
     return {"rows": rows, "max_abs_err": worst, "main": main}
+
+
+def lstm_train_vs_plain(rng: np.random.Generator, dev) -> dict:
+    """lstm_fwd with activations and lstm_bwd against their plain loops at
+    the training path's shapes."""
+    H = 512
+    rows, worst, main = [], {"fwd": 0.0, "bwd": 0.0}, None
+    for name, B, T, I, with_state in TRAIN_LSTM_CASES:
+        k = 1.0 / np.sqrt(H)
+        w_ih = torch.from_numpy(rng.uniform(-k, k, (I, 4 * H))).float().to(dev)
+        w_hh = torch.from_numpy(rng.uniform(-k, k, (H, 4 * H))).float().to(dev)
+        b = torch.from_numpy(rng.uniform(-2 * k, 2 * k, 4 * H)).float().to(dev)
+        x = torch.from_numpy(rng.normal(size=(B, T, I))).float().to(dev)
+        h0 = torch.zeros(B, H, device=dev)
+        c0 = torch.zeros(B, H, device=dev)
+        dcT = torch.zeros(B, H, device=dev)  # training: final state unused
+        if with_state:
+            h0 = torch.from_numpy(0.5 * rng.normal(size=(B, H))).float().to(dev)
+            c0 = torch.from_numpy(rng.normal(size=(B, H))).float().to(dev)
+            dcT = torch.from_numpy(rng.normal(size=(B, H))).float().to(dev)
+        dhs = torch.from_numpy(rng.normal(size=(B, T, H))).float().to(dev)
+        for cd in (torch.float32, torch.bfloat16):
+            x_proj = (_dot(x, w_ih, cd) + b).contiguous()
+            w = w_hh.to(cd).contiguous()
+            fwd_args = (x_proj, w, h0, c0)
+            want = lstm_cuda.lstm_recurrence_with_acts_reference(*fwd_args)
+            got = lstm_cuda.lstm_recurrence_with_acts(*fwd_args)
+            cs_prev = torch.cat([c0[:, None], want[1][:, :-1]], 1)
+            bwd_args = (want[2], cs_prev, dhs, dcT, w)
+            want_b = lstm_cuda.lstm_recurrence_bwd_reference(*bwd_args)
+            got_b = lstm_cuda.lstm_recurrence_bwd(*bwd_args)
+            torch.cuda.synchronize()
+            err_f = max(max_abs(g, r) for g, r in zip(got, want))
+            err_b = max(max_abs(g, r) for g, r in zip(got_b, want_b))
+            rel_b = max(rel_err(g, r) for g, r in zip(got_b, want_b))
+            ok = (all(bool(torch.isfinite(g).all()) for g in got + got_b)
+                  and err_f <= ATOL[cd] and rel_b <= REL_TOL[cd])
+            kf, pf = timed_pair(
+                lambda: lstm_cuda.lstm_recurrence_with_acts(*fwd_args),
+                lambda: lstm_cuda.lstm_recurrence_with_acts_reference(
+                    *fwd_args))
+            kb, pb = timed_pair(
+                lambda: lstm_cuda.lstm_recurrence_bwd(*bwd_args),
+                lambda: lstm_cuda.lstm_recurrence_bwd_reference(*bwd_args))
+            row = {"case": name, "B": B, "T": T, "I": I, "H": H,
+                   "dtype": str(cd).replace("torch.", ""),
+                   "fwd_max_abs_err": err_f, "fwd_atol": ATOL[cd],
+                   "bwd_max_abs_err": err_b, "bwd_rel_err": rel_b,
+                   "bwd_rtol": REL_TOL[cd], "fwd_kernel_ms": kf,
+                   "fwd_plain_ms": pf, "bwd_kernel_ms": kb,
+                   "bwd_plain_ms": pb}
+            print("kernel lstm_fwd_with_acts+lstm_bwd " + json.dumps(row))
+            check(ok, f"lstm training kernels {name} {cd}: fwd err {err_f}, "
+                      f"bwd rel err {rel_b}, or non-finite output")
+            rows.append(row)
+            worst["fwd"] = max(worst["fwd"], err_f)
+            worst["bwd"] = max(worst["bwd"], err_b)
+            if (name, cd) == TRAIN_MAIN:
+                main = row
+    return {"rows": rows, "worst": worst, "main": main}
+
+
+def joint_vs_plain(rng: np.random.Generator, dev) -> dict:
+    """joint_fwd and joint_bwd against their plain versions at the training
+    path's joint shape, with ragged frame and label lengths, one
+    zero-frame row and the occupancies of the real lattice; joint_bwd run
+    twice must give identical bits."""
+    B, T, U, J, V = TRAIN_B, TRAIN_T // 2, TRAIN_U, 512, 1024
+    k = 1.0 / np.sqrt(J)
+    f = torch.from_numpy(0.5 * rng.normal(size=(B, T, J))).float().to(dev)
+    g = torch.from_numpy(0.5 * rng.normal(size=(B, U + 1, J))).float().to(dev)
+    w32 = torch.from_numpy(rng.uniform(-k, k, (J, V))).float().to(dev)
+    b = torch.from_numpy(rng.uniform(-k, k, V)).float().to(dev)
+    labels = torch.from_numpy(rng.integers(1, V, (B, U))).int().to(dev)
+    fl = rng.integers(T // 2, T + 1, B)
+    ll = rng.integers(U // 2, U + 1, B)
+    fl[0], ll[0], fl[1], ll[2] = T, U, 0, 0  # full, zero-frame, no labels
+    fl = torch.from_numpy(fl).int().to(dev)
+    ll = torch.from_numpy(ll).int().to(dev)
+    gbar = torch.full((B,), 1.0 / B, device=dev)  # the batch mean's
+    out = {}
+    for cd in (torch.float32, torch.bfloat16):
+        w = w32.to(cd).contiguous()
+        fwd_args = (f, g, labels, w, b)
+        want = jf.joint_lp_fwd_reference(*fwd_args)
+        got = jf.joint_lp_fwd(*fwd_args)
+        gb, gy = rl.occupancies_from_lp(want[0], want[1], fl, ll)
+        bwd_args = (f, g, labels, w, b, gb, gy, want[2], gbar)
+        want_b = jf.joint_lp_bwd_reference(*bwd_args)
+        got_b = jf.joint_lp_bwd(*bwd_args)
+        again = jf.joint_lp_bwd(*bwd_args)
+        torch.cuda.synchronize()
+        err_f = max(max_abs(x, y) for x, y in zip(got, want))
+        err_b = max(max_abs(x, y) for x, y in zip(got_b, want_b))
+        rel_b = {n: rel_err(x, y) for n, x, y in
+                 zip(("df", "dg", "dw", "db"), got_b, want_b)}
+        same_bits = all(torch.equal(x, y) for x, y in zip(got_b, again))
+        kf, pf = timed_pair(lambda: jf.joint_lp_fwd(*fwd_args),
+                            lambda: jf.joint_lp_fwd_reference(*fwd_args))
+        kb, pb = timed_pair(lambda: jf.joint_lp_bwd(*bwd_args),
+                            lambda: jf.joint_lp_bwd_reference(*bwd_args))
+        row = {"B": B, "T": T, "U1": U + 1, "J": J, "V": V,
+               "dtype": str(cd).replace("torch.", ""),
+               "fwd_max_abs_err": err_f, "fwd_atol": ATOL[cd],
+               "bwd_max_abs_err": err_b, "bwd_rel_err": rel_b,
+               "bwd_rtol": REL_TOL[cd], "bwd_bitwise_repeat": same_bits,
+               "fwd_kernel_ms": kf, "fwd_plain_ms": pf,
+               "bwd_kernel_ms": kb, "bwd_plain_ms": pb}
+        print("kernel joint_fwd+joint_bwd " + json.dumps(row))
+        check(all(bool(torch.isfinite(x).all()) for x in got_b)
+              and err_f <= ATOL[cd] and max(rel_b.values()) <= REL_TOL[cd],
+              f"joint kernels {cd}: fwd err {err_f}, bwd rel err {rel_b}")
+        check(same_bits, f"joint_bwd {cd}: two runs gave different bits")
+        check(float(got_b[0][1].abs().max()) == 0.0,
+              "joint_bwd: the zero-frame row has a non-zero gradient")
+        out[cd] = row
+    return {"rows": out, "main": out[torch.bfloat16],
+            "worst_fwd": max(r["fwd_max_abs_err"] for r in out.values()),
+            "worst_bwd": max(r["bwd_max_abs_err"] for r in out.values())}
 
 
 # ------------------------------ phase 4 ----------------------------------
@@ -190,9 +388,7 @@ def serve_requests(engine, utts) -> list[tuple[int, dict, float]]:
 def decode_batch(params, cfg, feats, lens, plain: bool):
     """recognize_greedy + the encoder output, through the kernel or, with
     plain=True, through the plain recurrence (on the same card)."""
-    ctx = (mock.patch.object(lstm_cuda, "lstm_recurrence",
-                             lstm_cuda.lstm_recurrence_reference)
-           if plain else contextlib.nullcontext())
+    ctx = plain_kernels() if plain else contextlib.nullcontext()
     with ctx, torch.inference_mode():
         enc, _ = m.encode(params, cfg, feats, lens)
         tok, n = recognize_greedy(params, cfg, feats, lens, MAX_SYMBOLS)
@@ -288,10 +484,233 @@ def end_to_end(seed: int, n_requests: int, dev) -> dict:
     return result
 
 
+# ------------------------------ phase 5 ----------------------------------
+
+def bench_batch(cfg, seed: int, dev):
+    """bench.py's headline batch: noise features, full frame and label
+    lengths, random labels, from the seed."""
+    rng = np.random.default_rng(seed)
+    B, T, U = TRAIN_B, TRAIN_T, TRAIN_U
+    feats = rng.normal(size=(B, T, cfg.input_dim)).astype(np.float32)
+    labels = rng.integers(1, cfg.vocab_size, size=(B, U)).astype(np.int32)
+    return (torch.from_numpy(feats).to(dev),
+            torch.full((B,), T, dtype=torch.int32, device=dev),
+            torch.from_numpy(labels).to(dev),
+            torch.full((B,), U, dtype=torch.int32, device=dev))
+
+
+def leaves(tree):
+    return torch.utils._pytree.tree_leaves(tree)
+
+
+def profile_step(step, state, batch, profile_dir):
+    """One training step under torch.profiler: device time by kernel
+    family, host time by the step's spans, the device's busy share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = step(state, *batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    families = {"lstm_fwd": ("lstm_step_kernel",),
+                "lstm_bwd": ("lstm_bwd_step_kernel",),
+                "joint_fwd": ("joint_fwd",),
+                "joint_bwd_a": ("joint_bwd_a",),
+                "joint_bwd_b": ("joint_bwd_b",),
+                "joint_bwd_sums": ("reduce_parts_kernel",),
+                "gemm": ("gemm", "Gemm", "cutlass", "sm90_xmma")}
+    device = {k: 0.0 for k in (*families, "other")}
+    launches = {k: 0 for k in device}
+    host, span = {}, {}
+    for evt in prof.key_averages():
+        if evt.key in tl.SPANS:  # a span: host time, and its device range
+            if evt.device_type == DeviceType.CUDA:
+                span[evt.key] = evt.device_time_total / 1e3
+            else:
+                host[evt.key] = evt.cpu_time_total / 1e3
+            continue
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        fam = next((k for k, names in families.items()
+                    if any(n in evt.key for n in names)), "other")
+        device[fam] += getattr(evt, "self_device_time_total",
+                               getattr(evt, "self_cuda_time_total", 0)) / 1e3
+        launches[fam] += evt.count
+    busy = sum(device.values())
+    out = {"wall_ms": wall_ms, "device_ms": device, "device_launches":
+           launches, "device_busy_share": busy / wall_ms,
+           "host_span_ms": host, "device_span_ms": span}
+    if profile_dir:
+        os.makedirs(profile_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(profile_dir, "train_step.json"))
+        with open(os.path.join(profile_dir, "train_step.txt"), "w") as f:
+            f.write(prof.key_averages().table(sort_by="self_cuda_time_total",
+                                              row_limit=60))
+    return state, out
+
+
+def lattice_ms(dev, seed: int) -> dict:
+    """The plain alpha / beta (K3's case) at the training shape, CUDA
+    events, min of 3: loss with alpha, then the occupancies (beta)."""
+    rng = np.random.default_rng(seed)
+    B, T, U1 = TRAIN_B, TRAIN_T // 2, TRAIN_U + 1
+    lp = torch.log_softmax(torch.from_numpy(
+        rng.normal(size=(B, T, U1, 2))).float().to(dev), dim=-1)
+    lpb, lpy = lp[..., 0].contiguous(), lp[..., 1].contiguous()
+    fl = torch.full((B,), T, dtype=torch.int32, device=dev)
+    ll = torch.full((B,), TRAIN_U, dtype=torch.int32, device=dev)
+    alpha = rl.forward_from_lp_with_alpha(lpb, lpy, fl, ll)[1]
+    a = min(cuda_ms(lambda: rl.forward_from_lp_with_alpha(lpb, lpy, fl, ll))
+            for _ in range(3))
+    b = min(cuda_ms(lambda: rl.occupancies_from_lp(lpb, lpy, fl, ll, alpha))
+            for _ in range(3))
+    return {"alpha_ms": a, "beta_occupancies_ms": b}
+
+
+def f32_kernels_vs_plain(seed: int, dev) -> dict:
+    """One f32 loss and gradient of the libri100 model, B=32, T=400,
+    U=40, through the kernels and through the plain versions."""
+    cfg = dataclasses.replace(config_libri100(), compute_dtype="float32")
+    params = m.init_params(cfg, np.random.default_rng(seed + 2), dev)
+    batch = bench_batch(cfg, seed + 2, dev)
+    flat, spec = torch.utils._pytree.tree_flatten(params)
+
+    def loss_and_grads(plain: bool):
+        ctx = plain_kernels() if plain else contextlib.nullcontext()
+        with ctx:
+            xs = [p.detach().requires_grad_(True) for p in flat]
+            loss, _ = tl.loss_fn(torch.utils._pytree.tree_unflatten(xs, spec),
+                                 cfg, *batch, loss_impl="fused")
+            grads = torch.autograd.grad(loss, xs)
+        return float(loss.detach()), grads
+
+    lk, gk = loss_and_grads(plain=False)
+    lp, gp = loss_and_grads(plain=True)
+    loss_rel = abs(lk - lp) / abs(lp)
+    worst = max(rel_err(a, b) for a, b in zip(gk, gp))
+    row = {"loss_kernels": lk, "loss_plain": lp, "loss_rel_err": loss_rel,
+           "loss_rtol": LOSS_RTOL, "grad_worst_rel_err": worst,
+           "grad_rtol": GRAD_RTOL, "leaves": len(gk)}
+    print("train_f32_kernels_vs_plain " + json.dumps(row))
+    check(loss_rel <= LOSS_RTOL, f"f32 loss: kernels {lk} vs plain {lp}")
+    check(worst <= GRAD_RTOL, f"f32 gradients: worst rel err {worst}")
+    return row
+
+
+def trees_equal(a, b) -> bool:
+    la, lb = leaves(a), leaves(b)
+    return len(la) == len(lb) and all(
+        torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+        for x, y in zip(la, lb))
+
+
+def cli_round_trip(dev) -> dict:
+    """The training CLI for 3 steps with a checkpoint; the checkpoint
+    restores to the state the CLI ended with."""
+    with tempfile.TemporaryDirectory() as d:
+        argv = ["--config", "libri100", "--data", "synthetic", "--steps", "3",
+                "--batch-size", "8", "--max-frames", "200", "--max-labels",
+                "20", "--warmup-steps", "1", "--log-every", "1",
+                "--ckpt-dir", d, "--device", dev.type]
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            state = train_cli(argv)
+        last = json.loads(out.getvalue().strip().splitlines()[-1])
+        restored, step = ckpt.restore_checkpoint(d, device=dev)
+    same = (step == state.step == 3
+            and trees_equal(restored.params, state.params)
+            and trees_equal(restored.opt_state, state.opt_state))
+    row = {"final_json": last, "restored_step": step,
+           "restored_equals_state": same}
+    print("train_cli " + json.dumps(row))
+    check(last.get("steps") == 3 and np.isfinite(last.get("final_loss")),
+          f"training CLI final line {last}")
+    check(same, "the restored checkpoint differs from the CLI's state")
+    return row
+
+
+def train_phase(seed: int, dev, profile_dir) -> dict:
+    cfg = config_libri100()
+    tcfg = TrainConfig(batch_size=TRAIN_B, warmup_steps=100,
+                       total_steps=10000)  # bench.py's TrainConfig
+    state = tl.init_train_state(np.random.default_rng(seed), cfg, tcfg, dev)
+    step = tl.make_train_step(cfg, tcfg)
+    batch = bench_batch(cfg, seed, dev)
+    p0 = [p.clone() for p in leaves(state.params)]
+    infos = []
+    torch.cuda.reset_peak_memory_stats()
+
+    reset_counts()  # count only the training steps' launches
+    t0 = time.perf_counter()
+    state, info = step(state, *batch)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    infos.append(info)
+    times = []
+    for n in SLOPE_STEPS:
+        best = float("inf")
+        for _ in range(SLOPE_REPEATS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                state, info = step(state, *batch)
+                infos.append(info)
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+        times.append(best)
+    counts = read_counts()
+
+    dt = (times[1] - times[0]) / (SLOPE_STEPS[1] - SLOPE_STEPS[0])
+    losses = [float(i["loss"]) for i in infos]
+    gnorms = [float(i["grad_norm"]) for i in infos]
+    skipped = sum(int(i["skipped_nonfinite"]) for i in infos)
+    moved = max(float((a - b).abs().max())
+                for a, b in zip(leaves(state.params), p0))
+    result = {"B": TRAIN_B, "T": TRAIN_T, "U": TRAIN_U, "dtype": "bfloat16",
+              "steps": len(infos), "first_step_s": first_s,
+              "ms_per_step": dt * 1e3, "utt_per_s": TRAIN_B / dt,
+              "slope_times_s": times, "loss_first": losses[0],
+              "loss_last": losses[-1], "grad_norm_last": gnorms[-1],
+              "skipped_nonfinite": skipped, "param_max_change": moved,
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "launches": counts}
+    print("train " + json.dumps(result))
+    check(all(np.isfinite(x) for x in losses + gnorms),
+          "non-finite loss or grad norm in a training step")
+    check(skipped == 0, f"{skipped} training steps skipped as non-finite")
+    check(moved > 0.0, "the params did not change over the training steps")
+    for name in ("lstm_fwd_with_acts", "lstm_bwd", "joint_fwd", "joint_bwd"):
+        check(counts[name] > 0, f"the training step never launched {name}")
+
+    state, prof = profile_step(step, state, batch, profile_dir)
+    print("train_profile " + json.dumps(prof))
+    lat = lattice_ms(dev, seed)
+    print("train_lattice_plain " + json.dumps(lat))
+    result["profile"], result["lattice"] = prof, lat
+    result["f32"] = f32_kernels_vs_plain(seed, dev)
+    result["cli"] = cli_round_trip(dev)
+    return result
+
+
+def kernel_entry(name, source, replaces, launches, err, row, ms_key,
+                 plain_key) -> dict:
+    return {"name": name, "route": "cuda",
+            "source": f"rnn_transducer_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": row[ms_key], "plain_ms": row[plain_key]}
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--requests", type=int, default=24)
+    p.add_argument("--profile-dir", default=None,
+                   help="write the training step's torch.profiler trace "
+                        "and table here")
     args = p.parse_args(argv)
 
     # phase 1: card
@@ -313,23 +732,46 @@ def main(argv=None):
     build.load_library()
     print(f"build: {time.perf_counter() - t0:.1f} s -> {build.library_path()}")
     for line in build.build_log().splitlines():
-        if "ptxas info" in line:
+        if "ptxas info" in line and ("Used" in line or "Compiling" in line):
             print(f"build: {line.strip()}")
 
     # phase 3: each kernel against its plain version
+    t0 = time.perf_counter()
     k = kernel_vs_plain(np.random.default_rng(args.seed + 1), dev)
+    kt = lstm_train_vs_plain(np.random.default_rng(args.seed + 3), dev)
+    kj = joint_vs_plain(np.random.default_rng(args.seed + 4), dev)
+    print(f"phase kernel: {time.perf_counter() - t0:.1f} s")
 
-    # phase 4: end to end
+    # phase 4: serving end to end
+    t0 = time.perf_counter()
     e2e = end_to_end(args.seed, args.requests, dev)
+    print(f"phase e2e: {time.perf_counter() - t0:.1f} s")
 
-    # phase 5: results
-    main_row = k["main"]
-    print(json.dumps({"kernels": [{
-        "name": "lstm_fwd", "route": "cuda",
-        "source": "rnn_transducer_tpu_torch/csrc/lstm_fwd.cu",
-        "replaces": "rnn_transducer_tpu/ops/lstm_pallas.py:119",
-        "launches": e2e["launches"], "max_abs_err": k["max_abs_err"],
-        "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"]}]}))
+    # phase 5: training
+    t0 = time.perf_counter()
+    train = train_phase(args.seed, dev, args.profile_dir)
+    print(f"phase train: {time.perf_counter() - t0:.1f} s")
+
+    # phase 6: results
+    lp = "rnn_transducer_tpu/ops/lstm_pallas.py"
+    jp = "rnn_transducer_tpu/ops/rnnt_joint_fused.py"
+    counts = train["launches"]
+    print(json.dumps({"kernels": [
+        kernel_entry("lstm_fwd", "lstm_fwd.cu", f"{lp}:119", e2e["launches"],
+                     k["max_abs_err"], k["main"], "kernel_ms", "plain_ms"),
+        kernel_entry("lstm_fwd_with_acts", "lstm_fwd.cu", f"{lp}:119",
+                     counts["lstm_fwd_with_acts"], kt["worst"]["fwd"],
+                     kt["main"], "fwd_kernel_ms", "fwd_plain_ms"),
+        kernel_entry("lstm_bwd", "lstm_bwd.cu", f"{lp}:222",
+                     counts["lstm_bwd"], kt["worst"]["bwd"], kt["main"],
+                     "bwd_kernel_ms", "bwd_plain_ms"),
+        kernel_entry("joint_fwd", "joint_fwd.cu", f"{jp}:132",
+                     counts["joint_fwd"], kj["worst_fwd"], kj["main"],
+                     "fwd_kernel_ms", "fwd_plain_ms"),
+        kernel_entry("joint_bwd", "joint_bwd.cu", f"{jp}:374",
+                     counts["joint_bwd"], kj["worst_bwd"], kj["main"],
+                     "bwd_kernel_ms", "bwd_plain_ms"),
+    ]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

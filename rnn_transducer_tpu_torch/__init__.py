@@ -2,15 +2,23 @@
 
 The JAX package beside it is the reference this port is held against. The
 port mirrors its layout and names and imports neither jax nor the JAX
-package. This slice covers greedy offline serving of the LSTM family:
+package. Two slices are ported, both for the LSTM family: greedy offline
+serving, and the training step.
 
     models/config.py      TransducerConfig, TrainConfig, NAMED_CONFIGS
-    models/transducer.py  init_params, encode, predict_step, joint_step
-    ops/lstm.py           lstm_cell, lstm_layer, mask_padding
-    ops/lstm_cuda.py      LSTM recurrence: CUDA kernel + plain version
-    csrc/lstm_fwd.cu      the kernel (CUDA C++, sm_90a)
+    models/transducer.py  init_params, encode, predict_step, joint_step,
+                          predict, joint, joint_activations, forward
+    ops/lstm.py           lstm_cell, lstm_layer, LSTMCore, mask_padding
+    ops/lstm_cuda.py      LSTM recurrence fwd / bwd: kernels + plain versions
+    ops/rnnt_loss.py      RNN-T loss, alpha / beta, occupancies
+    ops/rnnt_joint_fused.py  fused joint + loss: kernels + plain versions
+    csrc/*.cu             the kernels (CUDA C++, sm_90a)
+    data/synthetic.py     random_batch, learnable_batch
     decode/greedy.py      greedy_decode, recognize_greedy
     serve.py              BatchingEngine, http_server, CLI
+    train/loop.py         TrainState, init_train_state, make_train_step
+    train/checkpoint.py   save_checkpoint, restore_checkpoint, latest_step
+    train/__main__.py     training CLI
     weights.py            JAX params <-> port params, torch state dicts
     utils/build.py        nvcc build + ctypes load of csrc/
 """

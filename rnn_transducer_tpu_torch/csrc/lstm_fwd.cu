@@ -1,9 +1,11 @@
-// LSTM recurrence, inference forward, for Hopper (sm_90a).
+// LSTM recurrence, forward, for Hopper (sm_90a).
 //
 // Replaces: rnn_transducer_tpu/ops/lstm_pallas.py `_lstm_core_fwd` (v1,
 // batch-major, kernel `_fwd_kernel`) and `_lstm_core_fwd_v2` (v2,
-// time-major, kernel `_fwd_kernel_v2`) on the primal path of `_lstm_core`
-// (with_acts=False: no gate activations are saved).
+// time-major, kernel `_fwd_kernel_v2`), both on the primal path of
+// `_lstm_core` (with_acts=False) and on the training path of `_core_fwd`
+// (with_acts=True: the gate activations and cell states are saved for the
+// backward, csrc/lstm_bwd.cu).
 //
 // Computes, for t = 0 .. T-1, with gate order i, f, g, o:
 //   gates = x_proj[:, t] + round(h_{t-1}) @ W_hh      (fp32 accumulate)
@@ -16,7 +18,10 @@
 // Layout: x_proj (B, T, 4H) f32, W_hh (H, 4H) bf16 or f32, h0/c0 (B, H) f32
 // -> hs (B, T, H) f32 and c (B, H) f32 (the final cell state). h_{t-1} is
 // read back from hs[:, t-1] (or h0), so no step writes what it reads and
-// no ping-pong buffer is needed.
+// no ping-pong buffer is needed. With activations (acts and cs not null)
+// it also writes acts (B, T, 4H) f32 = sigmoid(i), sigmoid(f), tanh(g),
+// sigmoid(o) of every step, as `_fwd_kernel` stores them, and cs (B, T, H)
+// f32, every step's cell state.
 //
 // Design: the host entry point launches one step kernel per t on the
 // caller's stream. A block owns kUnits hidden units j (one per lane) and
@@ -75,8 +80,9 @@ template <typename W>
 __global__ void __launch_bounds__(kThreads)
 lstm_step_kernel(const float* __restrict__ x_proj, const W* __restrict__ w_hh,
                  const float* __restrict__ h0, const float* __restrict__ c0,
-                 float* __restrict__ hs, float* __restrict__ c, int B, int T,
-                 int H, int t) {
+                 float* __restrict__ hs, float* __restrict__ c,
+                 float* __restrict__ acts, float* __restrict__ cs, int B,
+                 int T, int H, int t) {
   extern __shared__ float smem[];
   float* h_s = smem;                  // [kRows][H]: h_{t-1}, rounded
   float* part = smem + kRows * H;     // [kSlices][kRows][4][kUnits]
@@ -158,13 +164,22 @@ lstm_step_kernel(const float* __restrict__ x_proj, const W* __restrict__ w_hh,
   const float c_prev = (t == 0) ? c0[bj] : c[bj];
   const float c_new = gf * c_prev + gi * gg;
   c[bj] = c_new;
-  hs[((size_t)b * T + t) * H + j] = go * tanhf(c_new);
+  const size_t bt = (size_t)b * T + t;
+  hs[bt * H + j] = go * tanhf(c_new);
+  if (acts != nullptr) {
+    float* a = acts + bt * H4 + j;
+    a[0] = gi;
+    a[H] = gf;
+    a[2 * H] = gg;
+    a[3 * H] = go;
+    cs[bt * H + j] = c_new;
+  }
 }
 
 template <typename W>
 int run_layer(const void* x_proj, const void* w_hh, const void* h0,
-              const void* c0, void* hs, void* c, int B, int T, int H,
-              cudaStream_t stream) {
+              const void* c0, void* hs, void* c, void* acts, void* cs, int B,
+              int T, int H, cudaStream_t stream) {
   const size_t smem =
       ((size_t)kRows * H + (size_t)kSlices * kRows * 4 * kUnits) *
       sizeof(float);
@@ -179,7 +194,8 @@ int run_layer(const void* x_proj, const void* w_hh, const void* h0,
     lstm_step_kernel<W><<<grid, kThreads, smem, stream>>>(
         static_cast<const float*>(x_proj), static_cast<const W*>(w_hh),
         static_cast<const float*>(h0), static_cast<const float*>(c0),
-        static_cast<float*>(hs), static_cast<float*>(c), B, T, H, t);
+        static_cast<float*>(hs), static_cast<float*>(c),
+        static_cast<float*>(acts), static_cast<float*>(cs), B, T, H, t);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
@@ -189,19 +205,24 @@ int run_layer(const void* x_proj, const void* w_hh, const void* h0,
 }  // namespace
 
 // One call runs one layer: T step launches on `stream`. Returns 0, or the
-// first cudaError_t a launch reported. `w_is_bf16` selects the W_hh type.
+// first cudaError_t a launch reported. `w_is_bf16` selects the W_hh type;
+// acts and cs are both null (serving) or both set (training).
 extern "C" int lstm_fwd(const void* x_proj, const void* w_hh, int w_is_bf16,
                         const void* h0, const void* c0, void* hs, void* c,
-                        int B, int T, int H, int device, void* stream) {
+                        void* acts, void* cs, int B, int T, int H, int device,
+                        void* stream) {
   const cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
+  if ((acts == nullptr) != (cs == nullptr)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (w_is_bf16) {
-    return run_layer<__nv_bfloat16>(x_proj, w_hh, h0, c0, hs, c, B, T, H, s);
+    return run_layer<__nv_bfloat16>(x_proj, w_hh, h0, c0, hs, c, acts, cs, B,
+                                    T, H, s);
   }
-  return run_layer<float>(x_proj, w_hh, h0, c0, hs, c, B, T, H, s);
+  return run_layer<float>(x_proj, w_hh, h0, c0, hs, c, acts, cs, B, T, H, s);
 }
 
-extern "C" const char* lstm_error_string(int code) {
+// The message of a cudaError_t any entry point of the library returned.
+extern "C" const char* kernel_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

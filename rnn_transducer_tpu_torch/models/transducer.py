@@ -4,9 +4,10 @@
 Plain functions on tensors over a parameter dict in the JAX layout:
 {"encoder": [lstm layer, ...], "embed": (V, E), "predictor": [lstm layer,
 ...], "joint": {"enc_proj", "pred_proj", "out": {"w": (in, out), "b"}}}.
-This slice covers the inference path of greedy serving: `encode`,
-`predict_step` and `joint_step`. Configurations outside it raise
-NotImplementedError naming their ROADMAP item.
+It covers greedy serving (`encode`, `predict_step`, `joint_step`) and
+the training forward (`predict`, `joint`, `joint_activations`,
+`forward`). Configurations outside it raise NotImplementedError naming
+their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -176,3 +177,52 @@ def joint_step(params: Params, cfg: TransducerConfig, enc_t, pred_u):
     g = _dot(pred_u, jp["pred_proj"]["w"], cd) + jp["pred_proj"]["b"].float()
     z = torch.tanh(f + g)
     return _dot(z, jp["out"]["w"], cd) + jp["out"]["b"].float()
+
+
+def predict(params: Params, cfg: TransducerConfig, labels):
+    """Prediction network over blank-prefixed labels.
+
+    labels (B, U) -> (outputs (B, U+1, pred_hidden), final states): position
+    u conditions on labels[:u]; u = 0 is the start symbol, the blank
+    embedding. The final states are a list of (h, c) per layer.
+    """
+    check_supported(cfg)
+    B = labels.shape[0]
+    labels = labels.to(torch.int64)
+    bos = torch.full((B, 1), cfg.blank, dtype=torch.int64,
+                     device=labels.device)
+    x = params["embed"][torch.cat([bos, labels], dim=1)]  # (B, U+1, E)
+    states = []
+    for layer in params["predictor"]:
+        x, st = lstm_layer(layer, x, compute_dtype=cfg.cdtype)
+        states.append(st)
+    return x, states
+
+
+def joint_activations(params: Params, cfg: TransducerConfig, enc_out,
+                      pred_out):
+    """Per-side joint activations for the fused joint + loss op:
+    f = enc_proj(enc_out) (B, T, J), g = pred_proj(pred_out) (B, U+1, J),
+    both fp32, and the output layer's w (J, V) and b (V,)."""
+    jp = params["joint"]
+    cd = cfg.cdtype
+    f = _dot(enc_out, jp["enc_proj"]["w"], cd) + jp["enc_proj"]["b"].float()
+    g = _dot(pred_out, jp["pred_proj"]["w"], cd) + jp["pred_proj"]["b"].float()
+    return f, g, jp["out"]["w"], jp["out"]["b"]
+
+
+def joint(params: Params, cfg: TransducerConfig, enc_out, pred_out):
+    """Joint network over the lattice: enc_out (B, T, De), pred_out
+    (B, U+1, Dp) -> fp32 logits (B, T, U+1, V), materialised."""
+    check_supported(cfg)
+    f, g, w, b = joint_activations(params, cfg, enc_out, pred_out)
+    z = torch.tanh(f[:, :, None, :] + g[:, None, :, :])
+    return _dot(z, w, cfg.cdtype) + b.float()
+
+
+def forward(params: Params, cfg: TransducerConfig, feats, feat_lens,
+            labels):
+    """features + labels -> (logits (B, T', U+1, V), enc_lens (B,))."""
+    enc_out, enc_lens = encode(params, cfg, feats, feat_lens)
+    pred_out, _ = predict(params, cfg, labels)
+    return joint(params, cfg, enc_out, pred_out), enc_lens

@@ -3,9 +3,11 @@
 Each layer is a plain function over a parameter dict in the JAX layout:
 `w_ih` (I, 4H), `w_hh` (H, 4H), one fused bias `b` (4H,), gate order
 i, f, g, o. The input projection for all timesteps is one matmul; the time
-recurrence runs in `ops/lstm_cuda.py`: the hand-written CUDA kernel for a
-CUDA tensor, its plain PyTorch step loop for a CPU tensor. The cell state
-is fp32; matmul operands are rounded to the compute dtype (`_dot`).
+recurrence runs in `ops/lstm_cuda.py`: the hand-written CUDA kernels for a
+CUDA tensor, their plain PyTorch step loops for a CPU tensor. The cell
+state is fp32; matmul operands are rounded to the compute dtype (`_dot`).
+`LSTMCore` is the recurrence's autograd op, the counterpart of the JAX
+package's `_lstm_core` custom VJP.
 """
 
 from __future__ import annotations
@@ -54,9 +56,69 @@ def lstm_layer(params, x, h0=None, c0=None, *, compute_dtype=torch.bfloat16):
         h0 = torch.zeros((B, H), dtype=torch.float32, device=x.device)
     if c0 is None:
         c0 = torch.zeros((B, H), dtype=torch.float32, device=x.device)
+    x_proj, h0, c0 = (x_proj.contiguous(), h0.float().contiguous(),
+                      c0.float().contiguous())
+    if torch.is_grad_enabled() and any(
+            a.requires_grad for a in (x_proj, params["w_hh"], h0, c0)):
+        hs, hT, cT = LSTMCore.apply(x_proj, params["w_hh"], h0, c0,
+                                    compute_dtype)
+        return hs, (hT, cT)
     return lstm_cuda.lstm_recurrence(
-        x_proj.contiguous(), params["w_hh"].to(compute_dtype).contiguous(),
-        h0.float().contiguous(), c0.float().contiguous())
+        x_proj, params["w_hh"].to(compute_dtype).contiguous(), h0, c0)
+
+
+class LSTMCore(torch.autograd.Function):
+    """The LSTM recurrence with its gradient: hs, h_T, c_T from x_proj
+    (B, T, 4H) f32, w_hh (H, 4H) (any float dtype; rounded to the compute
+    dtype inside), h0 and c0 (B, H) f32.
+
+    The counterpart of `_lstm_core` with `_core_fwd` / `_core_bwd`
+    (rnn_transducer_tpu/ops/lstm_pallas.py:583-613). The forward runs the
+    recurrence with its gate activations and cell states saved
+    (`lstm_cuda.lstm_recurrence_with_acts`); the backward runs the
+    time-reversed recurrence from them (`lstm_cuda.lstm_recurrence_bwd`)
+    and takes dW_hh = hs_prev^T . dgates as one matmul with compute-dtype
+    operands and an fp32 result, as the JAX package does in XLA.
+    """
+
+    @staticmethod
+    def forward(ctx, x_proj, w_hh, h0, c0, compute_dtype):
+        from rnn_transducer_tpu_torch.ops import lstm_cuda
+
+        w_c = w_hh.to(compute_dtype).contiguous()
+        hs, cs, acts = lstm_cuda.lstm_recurrence_with_acts(x_proj, w_c, h0,
+                                                           c0)
+        ctx.save_for_backward(acts, w_c, h0, c0, hs, cs)
+        ctx.w_dtype = w_hh.dtype
+        if hs.shape[1] == 0:
+            return hs, h0.clone(), c0.clone()
+        return hs, hs[:, -1].clone(), cs[:, -1].clone()
+
+    @staticmethod
+    def backward(ctx, dhs, dhT, dcT):
+        from rnn_transducer_tpu_torch.ops import lstm_cuda
+
+        acts, w_c, h0, c0, hs, cs = ctx.saved_tensors
+        B, T, H = hs.shape
+        zeros = lambda: torch.zeros((B, H), dtype=torch.float32,  # noqa: E731
+                                    device=hs.device)
+        # autograd hands None for an output the loss does not use: the
+        # encoder's and predictor's final states in training
+        dhT = zeros() if dhT is None else dhT.float()
+        dcT = zeros() if dcT is None else dcT.float().contiguous()
+        if T == 0:
+            return (None, torch.zeros(w_c.shape, dtype=ctx.w_dtype,
+                                      device=hs.device), dhT, dcT, None)
+        dhs = (torch.zeros_like(hs) if dhs is None
+               else dhs.float().clone(memory_format=torch.contiguous_format))
+        dhs[:, T - 1] += dhT  # fold the final-state cotangent into step T-1
+        cs_prev = torch.cat([c0[:, None], cs[:, :-1]], dim=1)
+        dgates, dh0, dc0 = lstm_cuda.lstm_recurrence_bwd(acts, cs_prev, dhs,
+                                                         dcT, w_c)
+        hs_prev = torch.cat([h0[:, None], hs[:, :-1]], dim=1)
+        dw_hh = _dot(hs_prev.reshape(B * T, H).t(),
+                     dgates.reshape(B * T, 4 * H), w_c.dtype)
+        return dgates, dw_hh.to(ctx.w_dtype), dh0, dc0, None
 
 
 def mask_padding(x, lens):

@@ -1,0 +1,295 @@
+"""Training step (PyTorch port of `rnn_transducer_tpu/train/loop.py`).
+
+The standard branch of the JAX package's training step: forward, RNN-T
+loss (`fused` or `xla`), backward, the non-finite guard, the clip by the
+guard's global norm and AdamW as `optax.adamw` with the repo's learning
+rate schedules, with optional gradient accumulation as `optax.MultiSteps`.
+
+The optimizer is written out here rather than taken from `torch.optim`,
+so that it follows optax step for step: the schedule is evaluated at the
+count before the update (the first update under warmup_cosine has
+learning rate schedule(0) = 0), and a skipped non-finite update advances
+`TrainState.step` but neither Adam's count nor the schedule's.
+
+Everything outside the standard branch raises NotImplementedError naming
+its ROADMAP item. The step is functional: it returns a new TrainState and
+leaves the one it was given as it was.
+
+The step's phases run under `torch.profiler.record_function` spans
+(SPANS), which cost nothing measurable outside a profiler; a profile of a
+step reads its host time per phase from them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+import numpy as np
+import torch
+from torch.utils import _pytree as pytree
+
+from rnn_transducer_tpu_torch.models import transducer as m
+from rnn_transducer_tpu_torch.models.config import TrainConfig, TransducerConfig
+from rnn_transducer_tpu_torch.ops.rnnt_joint_fused import rnnt_loss_fused
+from rnn_transducer_tpu_torch.ops.rnnt_loss import rnnt_loss
+
+# optax.adamw's defaults
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
+SPANS = ("encode", "predict", "joint_loss", "backward", "optimizer")
+_span = torch.profiler.record_function
+
+
+@dataclasses.dataclass
+class TrainState:
+    """params: the model's tree of tensors. opt_state: {"count", "mu",
+    "nu"} as optax's ScaleByAdamState (the schedule's count equals
+    Adam's), wrapped as {"mini_step", "gradient_step", "acc_grads",
+    "inner"} when grad_accum > 1, as optax.MultiStepsState. step: every
+    call of the training step, skipped or not."""
+    params: Any
+    opt_state: Any
+    step: int
+
+
+def check_train_supported(tcfg: TrainConfig) -> None:
+    """Raise NotImplementedError for a TrainConfig outside the port."""
+    todo = []
+    for field, item in (("dropout", "dropout"),
+                        ("embed_dropout", "dropout"),
+                        ("ema_decay", "EMA"),
+                        ("weight_noise_std", "weight noise"),
+                        ("distill_weight", "distillation"),
+                        ("ar_range", "alignment-restricted loss")):
+        if getattr(tcfg, field):
+            todo.append(f"{field} (ROADMAP queue 1, item 13: training "
+                        f"regularizers, {item})")
+    if tcfg.ctc_weight:
+        todo.append("ctc_weight (ROADMAP queue 1, item 8: CTC multitask)")
+    if tcfg.loss_impl in ("pruned", "ar"):
+        todo.append(f"loss_impl={tcfg.loss_impl!r} (ROADMAP queue 1, item "
+                    "10: pruned and AR losses)")
+    elif tcfg.loss_impl == "pallas":
+        todo.append("loss_impl='pallas' (ROADMAP queue 1, item 7: two-pass "
+                    "loss)")
+    elif tcfg.loss_impl not in ("auto", "fused", "xla"):
+        raise ValueError(f"unknown loss_impl {tcfg.loss_impl!r}")
+    if tcfg.data_parallel > 1:
+        todo.append("data_parallel > 1 (ROADMAP queue 1, item 6: "
+                    "data-parallel training)")
+    if todo:
+        raise NotImplementedError("not ported yet: " + "; ".join(todo))
+
+
+# ------------------------------ schedules --------------------------------
+
+def make_lr_schedule(tcfg: TrainConfig):
+    """count (int) -> learning rate, per TrainConfig.lr_schedule; the
+    formulas of the JAX package's `make_lr_schedule` and of optax's
+    warmup_cosine_decay_schedule."""
+    peak, warm = tcfg.learning_rate, max(tcfg.warmup_steps, 1)
+    if tcfg.lr_schedule == "warmup_cosine":
+        wsteps = tcfg.warmup_steps
+        decay = max(tcfg.total_steps, wsteps + 1) - wsteps
+        alpha = 0.0 if peak == 0.0 else (peak * 0.05) / peak
+
+        def warmup_cosine(count):
+            if count < wsteps:  # optax linear_schedule from 0 to peak
+                c = min(max(count, 0), wsteps)
+                return (0.0 - peak) * (1 - c / wsteps) + peak
+            c = min(float(count - wsteps), float(decay))
+            cosine = 0.5 * (1 + math.cos(math.pi * c / decay))
+            return peak * ((1 - alpha) * cosine + alpha)
+        return warmup_cosine
+    if tcfg.lr_schedule == "noam":
+        def noam(count):
+            s = max(float(count), 1.0)
+            return peak * min(s / warm, math.sqrt(warm / s))
+        return noam
+    if tcfg.lr_schedule == "step_decay":
+        def step_decay(count):
+            s = float(count)
+            return (peak * min(s / warm, 1.0)
+                    * tcfg.decay_rate ** math.floor(s / tcfg.decay_every))
+        return step_decay
+    if tcfg.lr_schedule == "constant":
+        return lambda count: peak * min(float(count) / warm, 1.0)
+    raise ValueError(f"unknown lr_schedule {tcfg.lr_schedule!r}")
+
+
+# ------------------------------ optimizer --------------------------------
+
+def _zeros_like_tree(tree):
+    return pytree.tree_map(torch.zeros_like, tree)
+
+
+def init_opt_state(params, tcfg: TrainConfig):
+    adam = {"count": 0, "mu": _zeros_like_tree(params),
+            "nu": _zeros_like_tree(params)}
+    if tcfg.grad_accum > 1:
+        return {"mini_step": 0, "gradient_step": 0,
+                "acc_grads": _zeros_like_tree(params), "inner": adam}
+    return adam
+
+
+def global_norm(leaves) -> torch.Tensor:
+    """sqrt(sum of squares) over all leaves, as optax.global_norm."""
+    return torch.sqrt(sum(torch.sum(g.float() * g.float()) for g in leaves))
+
+
+def _clip(leaves, gnorm, c: float):
+    """optax.clip_by_global_norm's arithmetic with a given norm."""
+    trigger = gnorm < c
+    return [torch.where(trigger, g, (g / gnorm.to(g.dtype)) * c)
+            for g in leaves]
+
+
+def _adamw(p_leaves, g_leaves, adam, tcfg: TrainConfig, schedule):
+    """One optax.adamw update -> (new param leaves, new adam state)."""
+    count = adam["count"] + 1
+    bc1 = 1 - ADAM_B1 ** count
+    bc2 = 1 - ADAM_B2 ** count
+    lr = schedule(adam["count"])  # the schedule's count before the update
+    mu_l = pytree.tree_leaves(adam["mu"])
+    nu_l = pytree.tree_leaves(adam["nu"])
+    new_p, new_mu, new_nu = [], [], []
+    for p, g, mu, nu in zip(p_leaves, g_leaves, mu_l, nu_l):
+        mu = (1 - ADAM_B1) * g + ADAM_B1 * mu
+        nu = (1 - ADAM_B2) * (g * g) + ADAM_B2 * nu
+        upd = (mu / bc1) / (torch.sqrt(nu / bc2) + ADAM_EPS)
+        if tcfg.weight_decay:
+            upd = upd + tcfg.weight_decay * p
+        new_p.append(p + (-lr) * upd)
+        new_mu.append(mu)
+        new_nu.append(nu)
+    spec = pytree.tree_structure(adam["mu"])
+    return new_p, {"count": count,
+                   "mu": pytree.tree_unflatten(new_mu, spec),
+                   "nu": pytree.tree_unflatten(new_nu, spec)}
+
+
+def init_train_state(rng, cfg: TransducerConfig, tcfg: TrainConfig,
+                     device: str | torch.device = "cpu",
+                     params=None) -> TrainState:
+    """Fresh TrainState: params from `m.init_params` with the numpy
+    Generator `rng` (or the given tree of tensors), zero Adam moments."""
+    check_train_supported(tcfg)
+    if params is None:
+        if not isinstance(rng, np.random.Generator):
+            rng = np.random.default_rng(rng)
+        params = m.init_params(cfg, rng, device)
+    return TrainState(params=params, opt_state=init_opt_state(params, tcfg),
+                      step=0)
+
+
+# -------------------------------- loss -----------------------------------
+
+def _resolve_loss_impl(loss_impl: str, device: torch.device) -> str:
+    """auto -> fused on CUDA, xla on the CPU, as the JAX package picks by
+    backend."""
+    if loss_impl == "auto":
+        return "fused" if device.type == "cuda" else "xla"
+    return loss_impl
+
+
+def loss_fn(params, cfg: TransducerConfig, feats, feat_lens, labels,
+            label_lens, loss_impl: str = "auto", fastemit: float = 0.0):
+    """Batch-mean RNN-T loss and the per-utterance losses (B,).
+
+    "fused" never materialises the (B, T, U+1, V) logits (joint + loss in
+    the K1 / K2 kernels, `ops/rnnt_joint_fused.py`); "xla" materialises
+    them (`m.joint` + `ops/rnnt_loss.rnnt_loss`).
+    """
+    m.check_supported(cfg)
+    impl = _resolve_loss_impl(loss_impl, feats.device)
+    if impl not in ("fused", "xla"):
+        raise ValueError(f"unknown loss_impl {loss_impl!r}")
+    with _span("encode"):
+        enc_out, enc_lens = m.encode(params, cfg, feats, feat_lens)
+    with _span("predict"):
+        pred_out, _ = m.predict(params, cfg, labels)
+    with _span("joint_loss"):
+        if impl == "fused":
+            f, g, w, b = m.joint_activations(params, cfg, enc_out, pred_out)
+            per_utt = rnnt_loss_fused(f, g, w, b, labels, enc_lens,
+                                      label_lens, cfg.blank, cfg.cdtype,
+                                      fastemit)
+        else:
+            logits = m.joint(params, cfg, enc_out, pred_out)
+            per_utt = rnnt_loss(logits, labels, enc_lens, label_lens,
+                                cfg.blank, fastemit)
+    return per_utt.mean(), per_utt
+
+
+# -------------------------------- steps ----------------------------------
+
+def make_train_step(cfg: TransducerConfig, tcfg: TrainConfig, mesh=None):
+    """Build the training step:
+    step(state, feats, feat_lens, labels, label_lens) -> (state', metrics)
+    with metrics {"loss", "grad_norm", "skipped_nonfinite"} as tensors."""
+    if mesh is not None:
+        raise NotImplementedError("not ported yet: mesh (ROADMAP queue 1, "
+                                  "item 6: data-parallel training)")
+    check_train_supported(tcfg)
+    m.check_supported(cfg)
+    schedule = make_lr_schedule(tcfg)
+    k = tcfg.grad_accum
+
+    def step_fn(state: TrainState, feats, feat_lens, labels, label_lens):
+        p_leaves, spec = pytree.tree_flatten(state.params)
+        leaves = [p.detach().requires_grad_(True) for p in p_leaves]
+        loss, _ = loss_fn(pytree.tree_unflatten(leaves, spec), cfg, feats,
+                          feat_lens, labels, label_lens, tcfg.loss_impl,
+                          tcfg.fastemit_lambda)
+        with _span("backward"):
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if gr is None else gr
+                 for p, gr in zip(p_leaves, grads)]
+        loss = loss.detach()
+        gnorm = global_norm(grads)
+        ok = bool(torch.isfinite(loss) & torch.isfinite(gnorm))
+        metrics = {"loss": loss, "grad_norm": gnorm,
+                   "skipped_nonfinite": torch.tensor(int(not ok))}
+        if not ok:  # skip: params and opt_state (Adam's count) unchanged
+            return dataclasses.replace(state, step=state.step + 1), metrics
+        with torch.no_grad(), _span("optimizer"):
+            if k == 1:
+                new_p, opt_state = _adamw(
+                    p_leaves, _clip(grads, gnorm, tcfg.grad_clip_norm),
+                    state.opt_state, tcfg, schedule)
+            else:
+                new_p, opt_state = _multi_steps(p_leaves, grads,
+                                                state.opt_state, tcfg,
+                                                schedule)
+        return TrainState(params=pytree.tree_unflatten(new_p, spec),
+                          opt_state=opt_state, step=state.step + 1), metrics
+
+    return step_fn
+
+
+def _multi_steps(p_leaves, grads, ms, tcfg: TrainConfig, schedule):
+    """optax.MultiSteps over chain(clip_by_global_norm, adamw): the running
+    mean of the gradients (Welford); on every k-th call the clip of the
+    mean and one AdamW update, else the params stay."""
+    n = ms["mini_step"]
+    acc_spec = pytree.tree_structure(ms["acc_grads"])
+    acc = [a + (g - a) / (n + 1)
+           for a, g in zip(pytree.tree_leaves(ms["acc_grads"]), grads)]
+    if n < tcfg.grad_accum - 1:
+        return p_leaves, {**ms, "mini_step": n + 1,
+                          "acc_grads": pytree.tree_unflatten(acc, acc_spec)}
+    clipped = _clip(acc, global_norm(acc), tcfg.grad_clip_norm)
+    new_p, inner = _adamw(p_leaves, clipped, ms["inner"], tcfg, schedule)
+    return new_p, {"mini_step": 0, "gradient_step": ms["gradient_step"] + 1,
+                   "acc_grads": _zeros_like_tree(ms["acc_grads"]),
+                   "inner": inner}
+
+
+def make_eval_step(cfg: TransducerConfig):
+    """eval(params, feats, feat_lens, labels, label_lens) -> (loss, per_utt)
+    without gradients."""
+    def eval_fn(params, feats, feat_lens, labels, label_lens):
+        with torch.no_grad():
+            return loss_fn(params, cfg, feats, feat_lens, labels, label_lens)
+    return eval_fn

@@ -1,6 +1,7 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
-Every `csrc/*.cu` file is compiled for Hopper (`sm_90a`) into one shared
+Every `csrc/*.cu` file is compiled for Hopper (`sm_90a`), one nvcc per
+source, all started together, and the objects are linked into one shared
 library with a plain C interface; the counterpart of `utils/hostio.py` in
 the JAX package, which loads its C++ host library the same way. The
 library is built at first use into `csrc/build/` (listed in .gitignore),
@@ -28,7 +29,7 @@ _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 BUILD_DIR = os.path.join(_CSRC, "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # C signatures of the library's entry points: name -> (restype, argtypes).
 # Every pointer and the stream are c_void_p: ctypes would otherwise pass a
@@ -36,9 +37,25 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 SIGNATURES = {
-    # x_proj, w_hh, w_is_bf16, h0, c0, hs, c, B, T, H, device, stream
-    "lstm_fwd": (_I, [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
-    "lstm_error_string": (ctypes.c_char_p, [_I]),
+    # x_proj, w_hh, w_is_bf16, h0, c0, hs, c, acts, cs, B, T, H, device,
+    # stream
+    "lstm_fwd": (_I, [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                      _P]),
+    # acts, cs_prev, dhs, dcT, w_hh, w_is_bf16, dgates, dh0, dc0, B, T, H,
+    # device, stream
+    "lstm_bwd": (_I, [_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I,
+                      _P]),
+    # f, g, labels, w, w_is_bf16, b, lp_blank, lp_y, base, B, T, U1, J, V,
+    # blank, device, stream
+    "joint_fwd": (_I, [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I,
+                       _I, _I, _I, _P]),
+    # f, g, labels, w, w_is_bf16, b, gb, gy, base, gbar, df, dg, dw, db,
+    # dg_part, dw_part, db_part, B, T, U1, J, V, blank, frames_per_tile,
+    # row_splits, device, stream
+    "joint_bwd": (_I, [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                       _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                       _P]),
+    "kernel_error_string": (ctypes.c_char_p, [_I]),
 }
 
 _lock = threading.Lock()
@@ -67,17 +84,35 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def _run_all(cmds: list[list[str]]) -> tuple[list[int], str]:
+    """Run the commands side by side; their exit codes and joint log."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    log = "".join(f"$ {' '.join(c)}\n{o}" for c, o in zip(cmds, outs))
+    return [p.returncode for p in procs], log
+
+
 def _build(path: str) -> None:
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources()]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+    stem = f"{path[:-3]}.{os.getpid()}"
+    objs = [f"{stem}.{os.path.basename(src)}.o" for src in sources()]
+    nvcc = _nvcc()
+    rcs, log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+                         for src, obj in zip(sources(), objs)])
+    if not any(rcs):
+        link = [nvcc, *NVCC_FLAGS, "-shared", "-o", f"{stem}.tmp", *objs]
+        rcs2, log2 = _run_all([link])
+        rcs, log = rcs + rcs2, log + log2
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
     with open(path[:-3] + ".log", "w") as f:
         f.write(log)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-    os.replace(tmp, path)
+    if any(rcs):
+        raise RuntimeError(f"nvcc failed ({rcs}):\n{log}")
+    os.replace(f"{stem}.tmp", path)
 
 
 def build_log() -> str:
@@ -88,6 +123,23 @@ def build_log() -> str:
         return ""
     with open(log) as f:
         return f.read()
+
+
+def stream_args(device) -> tuple[int, int]:
+    """(device index, CUDA stream handle) of the current stream on
+    `device`: the last two arguments of every entry point."""
+    import torch
+
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    return index, torch.cuda.current_stream(device).cuda_stream
+
+
+def check_launch(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if an entry point returned a cudaError_t other than 0."""
+    if err:
+        raise RuntimeError(f"{what} launch failed: "
+                           f"{lib.kernel_error_string(err).decode()} ({err})")
 
 
 def load_library() -> ctypes.CDLL:

@@ -111,6 +111,35 @@ def test_joint_step_matches_jax(params_np):
                                rtol=0)
 
 
+@pytest.mark.parametrize("labels", [
+    np.array([[3, 1, 4], [10, 2, 0], [5, 9, 2], [0, 0, 0]], np.int32),
+    np.zeros((4, 0), np.int32),  # U = 0: only the start symbol
+])
+def test_forward_and_joint_activations_match_jax(params_np, labels):
+    """The training forward: blank-prefixed `predict`, the per-side joint
+    activations and the materialised lattice logits of `forward`."""
+    feats, lens = _feats(seed=4)
+    jp = jax.tree.map(jnp.asarray, params_np)
+    want, want_lens = jm.forward(jp, JCFG, jnp.asarray(feats),
+                                 jnp.asarray(lens), jnp.asarray(labels))
+    tp = params_from_numpy(params_np)
+    got, got_lens = tm.forward(tp, TCFG, torch.from_numpy(feats),
+                               torch.from_numpy(lens),
+                               torch.from_numpy(labels))
+    assert got.shape == want.shape == (4, 10, labels.shape[1] + 1, 11)
+    np.testing.assert_array_equal(got_lens.numpy(), np.asarray(want_lens))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
+                               rtol=0)
+    enc, _ = jm.encode(jp, JCFG, jnp.asarray(feats), jnp.asarray(lens))
+    pred, _ = jm.predict(jp, JCFG, jnp.asarray(labels))
+    want_fg = jm.joint_activations(jp, JCFG, enc, pred)
+    got_fg = tm.joint_activations(tp, TCFG, torch.tensor(np.asarray(enc)),
+                                  torch.tensor(np.asarray(pred)))
+    for a, b in zip(got_fg, want_fg):
+        np.testing.assert_allclose(a.detach().numpy(), np.asarray(b),
+                                   atol=1e-5, rtol=0)
+
+
 def test_init_params_has_the_jax_tree_shapes(params_np):
     cfg = dataclasses.replace(TCFG, ctc_head=True, pruned_range=3)
     jcfg = dataclasses.replace(JCFG, ctc_head=True, pruned_range=3)
