@@ -8,15 +8,18 @@ libri100 config (4x512 LSTM encoder, 1x512 predictor, joint 512, vocab
 1024, bf16) with random weights from --seed, through the entry points a
 user calls: serving (BatchingEngine behind http_server, with serve.py's
 CLI defaults) and training (init_train_state + make_train_step at
-bench.py's headline shape, B=32, T=400, U=40, and the training CLI).
-Phases, in order:
+bench.py's headline shape, B=32, T=400, U=40, through the default fused
+loss, and at U=80 through the two-pass loss, loss_impl="pallas"; and the
+training CLI). Phases, in order:
 
   1. card   require CUDA; print the card's name and power limit
   2. build  build the kernel library from csrc/ with nvcc
   3. kernel each kernel against its plain PyTorch version on the card, at
             the main paths' shapes, in f32 and bf16 (max error, kernel ms
             and plain ms from CUDA events, in turns plain, kernel, kernel,
-            plain); joint_bwd run twice must give identical bits
+            plain); joint_bwd run twice must give identical bits; the
+            lattice (alpha, beta and the occupancies) at U+1 = 41 and 81
+            with ragged lengths and a zero-frame row
   4. e2e    concurrent HTTP /recognize requests; every serving kernel
             must have launched while they were served; the f32 tokens of
             the kernel path and the plain path must be identical
@@ -26,6 +29,10 @@ Phases, in order:
             torch.profiler step split by layer; an f32 loss and gradient
             through the kernels against the plain versions; the CLI for
             a few steps with a checkpoint round trip
+  5b. train_pallas  the same for loss_impl="pallas" at U=80 (extract_lp,
+            assemble_grad and the lattice kernels launched), the same
+            batch through the fused route for comparison, and the CLI
+            with --loss-impl pallas
   6. the kernels' JSON line, the card line, then {"ok": true, ...} last
 
 TF32 is off for matmuls and cuDNN: every float32 product runs in float32.
@@ -59,7 +66,9 @@ from rnn_transducer_tpu_torch.models import transducer as m
 from rnn_transducer_tpu_torch.models.config import TrainConfig, config_libri100
 from rnn_transducer_tpu_torch.ops import lstm_cuda
 from rnn_transducer_tpu_torch.ops import rnnt_joint_fused as jf
+from rnn_transducer_tpu_torch.ops import rnnt_lattice_cuda as lat
 from rnn_transducer_tpu_torch.ops import rnnt_loss as rl
+from rnn_transducer_tpu_torch.ops import rnnt_loss_cuda as lc
 from rnn_transducer_tpu_torch.ops.lstm import _dot
 from rnn_transducer_tpu_torch.serve import BatchingEngine, http_server
 from rnn_transducer_tpu_torch.train import checkpoint as ckpt
@@ -94,6 +103,13 @@ REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # the loss within 1e-5 relative, every gradient leaf within 1e-3 of its
 # largest value (400 steps of BPTT and lattice sums in another order).
 LOSS_RTOL, GRAD_RTOL = 1e-5, 1e-3
+# The two-pass route's label length: bench.py's batch at the U where the
+# JAX package's auto turns from fused to two-pass on the TPU.
+PALLAS_U = 80
+# Lattice kernel vs plain: alpha and beta on reachable cells within
+# 1e-5 max(1, |plain|) (float32 sums of up to T + U terms, in the same
+# order on both sides), the occupancies within 1e-5 absolute.
+LATTICE_RTOL, OCC_ATOL = 1e-5, 1e-5
 SLOPE_STEPS, SLOPE_REPEATS = (3, 8), 2  # bench.py's slope method, shorter
 
 
@@ -147,13 +163,19 @@ def reset_counts() -> None:
     lstm_cuda.LAUNCHES = lstm_cuda.LAUNCHES_WITH_ACTS = 0
     lstm_cuda.LAUNCHES_BWD = 0
     jf.LAUNCHES_FWD = jf.LAUNCHES_BWD = 0
+    lat.LAUNCHES_ALPHA = lat.LAUNCHES_BETA = 0
+    lc.LAUNCHES_EXTRACT = lc.LAUNCHES_GRAD = 0
 
 
 def read_counts() -> dict:
     return {"lstm_fwd": lstm_cuda.LAUNCHES,
             "lstm_fwd_with_acts": lstm_cuda.LAUNCHES_WITH_ACTS,
             "lstm_bwd": lstm_cuda.LAUNCHES_BWD,
-            "joint_fwd": jf.LAUNCHES_FWD, "joint_bwd": jf.LAUNCHES_BWD}
+            "joint_fwd": jf.LAUNCHES_FWD, "joint_bwd": jf.LAUNCHES_BWD,
+            "lattice_alpha": lat.LAUNCHES_ALPHA,
+            "lattice_beta": lat.LAUNCHES_BETA,
+            "extract_lp": lc.LAUNCHES_EXTRACT,
+            "assemble_grad": lc.LAUNCHES_GRAD}
 
 
 @contextlib.contextmanager
@@ -163,7 +185,10 @@ def plain_kernels():
         for mod, name in ((lstm_cuda, "lstm_recurrence"),
                           (lstm_cuda, "lstm_recurrence_with_acts"),
                           (lstm_cuda, "lstm_recurrence_bwd"),
-                          (jf, "joint_lp_fwd"), (jf, "joint_lp_bwd")):
+                          (jf, "joint_lp_fwd"), (jf, "joint_lp_bwd"),
+                          (lat, "alpha_wavefront"), (lat, "beta_wavefront"),
+                          (lat, "beta_occupancies"), (lc, "extract_lp"),
+                          (lc, "assemble_grad")):
             stack.enter_context(mock.patch.object(
                 mod, name, getattr(mod, name + "_reference")))
         yield
@@ -335,6 +360,145 @@ def joint_vs_plain(rng: np.random.Generator, dev) -> dict:
             "worst_bwd": max(r["bwd_max_abs_err"] for r in out.values())}
 
 
+def ragged_lengths(rng: np.random.Generator, dev, B: int, T: int, U: int):
+    """Frame and label lengths (B,) int32: row 0 full, row 1 without
+    frames, row 2 without labels, the rest from [T/2, T] and [U/2, U]."""
+    fl = rng.integers(T // 2, T + 1, B)
+    ll = rng.integers(U // 2, U + 1, B)
+    fl[0], ll[0], fl[1], ll[2] = T, U, 0, 0
+    return (torch.from_numpy(fl).int().to(dev),
+            torch.from_numpy(ll).int().to(dev))
+
+
+def lattice_scores(rng: np.random.Generator, dev, B: int, T: int, U: int):
+    """Blank and label log-probs (B, T, U+1) of a random 3-way softmax
+    (every path stays alive) and ragged lengths."""
+    lp = torch.log_softmax(torch.from_numpy(
+        rng.normal(size=(B, T, U + 1, 3))).float().to(dev), dim=-1)
+    return (lp[..., 0].contiguous(), lp[..., 1].contiguous(),
+            *ragged_lengths(rng, dev, B, T, U))
+
+
+def lattice_err(got, want) -> tuple[float, float, bool]:
+    """Max abs error and max error over max(1, |plain|) on the reachable
+    cells; whether every unreachable cell is at or below -1e29."""
+    reach = want > -1e29
+    d = (got - want).abs()[reach]
+    scale = want.abs()[reach].clamp(min=1.0)
+    return (float(d.max()), float((d / scale).max()),
+            bool((got[~reach] <= -1e29).all()))
+
+
+def lattice_vs_plain(rng: np.random.Generator, dev) -> dict:
+    """lattice_alpha and lattice_beta (with the occupancies) against their
+    plain versions at the training step's lattice, T'=200 and U+1 = 41
+    (the fused route) and 81 (the two-pass route), ragged lengths and a
+    zero-frame row; and the loss through them against the plain path."""
+    B, T = TRAIN_B, TRAIN_T // 2
+    rows = {}
+    for U in (TRAIN_U, PALLAS_U):
+        lpb, lpy, fl, ll = lattice_scores(rng, dev, B, T, U)
+        lpb_m, lpy_m = rl._masked_transitions(lpb, lpy, fl, ll)
+        accept = rl._accept_scores(lpb, fl, ll)
+        a_args = (lpb_m, lpy_m)
+        want_a = lat.alpha_wavefront_reference(*a_args)
+        got_a = lat.alpha_wavefront(*a_args)
+        b_args = (lpb_m, lpy_m, accept, want_a, fl)
+        want_b = lat.beta_occupancies_reference(*b_args)
+        got_b = lat.beta_occupancies(*b_args)
+        loss_k = rl.forward_from_lp_with_alpha(lpb, lpy, fl, ll)[0]
+        with plain_kernels():
+            loss_p = rl.forward_from_lp_with_alpha(lpb, lpy, fl, ll)[0]
+        torch.cuda.synchronize()
+        err_a, rel_a, unreach_a = lattice_err(got_a, want_a)
+        err_b, rel_b, unreach_b = lattice_err(got_b[0], want_b[0])
+        err_occ = max(max_abs(got_b[1], want_b[1]),
+                      max_abs(got_b[2], want_b[2]))
+        loss_rel = rel_err(loss_k, loss_p)
+        ka, pa = timed_pair(lambda: lat.alpha_wavefront(*a_args),
+                            lambda: lat.alpha_wavefront_reference(*a_args))
+        kb, pb = timed_pair(lambda: lat.beta_occupancies(*b_args),
+                            lambda: lat.beta_occupancies_reference(*b_args))
+        row = {"B": B, "T": T, "U1": U + 1,
+               "alpha_max_abs_err": err_a, "alpha_rel_err": rel_a,
+               "beta_max_abs_err": err_b, "beta_rel_err": rel_b,
+               "rtol": LATTICE_RTOL, "occ_max_abs_err": err_occ,
+               "occ_atol": OCC_ATOL, "loss_rel_err": loss_rel,
+               "loss_rtol": LOSS_RTOL, "alpha_kernel_ms": ka,
+               "alpha_plain_ms": pa, "beta_kernel_ms": kb,
+               "beta_plain_ms": pb}
+        print("kernel lattice " + json.dumps(row))
+        check(rel_a <= LATTICE_RTOL and rel_b <= LATTICE_RTOL,
+              f"lattice U+1={U + 1}: alpha rel err {rel_a}, beta {rel_b}")
+        check(unreach_a and unreach_b,
+              f"lattice U+1={U + 1}: an unreachable cell above -1e29")
+        check(err_occ <= OCC_ATOL and loss_rel <= LOSS_RTOL,
+              f"lattice U+1={U + 1}: occupancy err {err_occ}, loss rel "
+              f"err {loss_rel}")
+        check(not got_b[1][1].any() and not got_b[2][1].any(),
+              "lattice_beta: the zero-frame row has occupancies")
+        rows[U] = row
+    return {"rows": rows, "main": rows[TRAIN_U],
+            "worst_alpha": max(r["alpha_max_abs_err"] for r in rows.values()),
+            "worst_beta": max(r["beta_max_abs_err"] for r in rows.values())}
+
+
+def loss_rows_vs_plain(rng: np.random.Generator, dev) -> dict:
+    """extract_lp and assemble_grad against their plain versions at the
+    two-pass step's logits, (32, 200, 81, 1024) in f32 and bf16, with the
+    occupancies of the real lattice scaled by the batch mean's 1/B."""
+    B, T, U, V = TRAIN_B, TRAIN_T // 2, PALLAS_U, 1024
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(rng.integers(2 ** 31)))
+    x32 = 2.0 * torch.randn(B, T, U + 1, V, generator=gen, device=dev)
+    labels = torch.randint(1, V, (B, U), generator=gen, device=dev,
+                           dtype=torch.int32)
+    fl, ll = ragged_lengths(rng, dev, B, T, U)
+    gb, gy = rl.occupancies_from_lp(*lc.extract_lp_reference(x32, labels),
+                                    fl, ll)
+    occ, gb, gy = ((gb + gy) / B, gb / B, gy / B)
+    out = {}
+    for cd in (torch.float32, torch.bfloat16):
+        x = x32.to(cd)
+        want = lc.extract_lp_reference(x, labels)
+        got = lc.extract_lp(x, labels)
+        live = [w > -1e29 for w in want]
+        rel_x = max(rel_err(g[m], w[m]) for g, w, m in zip(got, want, live))
+        err_x = max(max_abs(g[m], w[m]) for g, w, m in zip(got, want, live))
+        same_dead = all(torch.equal(g[~m], w[~m])
+                        for g, w, m in zip(got, want, live))
+        g_args = (x, labels, occ, gb, gy)
+        want_g = lc.assemble_grad_reference(*g_args)
+        got_g = lc.assemble_grad(*g_args)
+        torch.cuda.synchronize()
+        rel_g = rel_err(got_g.float(), want_g.float())
+        err_g = max_abs(got_g.float(), want_g.float())
+        finite = bool(torch.isfinite(got_g).all())
+        del want_g, got_g
+        kx, px = timed_pair(lambda: lc.extract_lp(x, labels),
+                            lambda: lc.extract_lp_reference(x, labels))
+        kg, pg = timed_pair(lambda: lc.assemble_grad(*g_args),
+                            lambda: lc.assemble_grad_reference(*g_args))
+        row = {"B": B, "T": T, "U1": U + 1, "V": V,
+               "dtype": str(cd).replace("torch.", ""),
+               "extract_max_abs_err": err_x, "extract_rel_err": rel_x,
+               "grad_max_abs_err": err_g, "grad_rel_err": rel_g,
+               "rtol": REL_TOL[cd], "extract_kernel_ms": kx,
+               "extract_plain_ms": px, "grad_kernel_ms": kg,
+               "grad_plain_ms": pg}
+        print("kernel loss_rows " + json.dumps(row))
+        check(rel_x <= REL_TOL[cd] and rel_g <= REL_TOL[cd] and finite,
+              f"loss rows {cd}: extract rel err {rel_x}, grad rel err "
+              f"{rel_g}, or a non-finite gradient")
+        check(same_dead, f"extract_lp {cd}: lp_y at u = U is not NEG_INF")
+        out[cd] = row
+        del x
+    return {"rows": out, "main": out[torch.float32],
+            "worst_extract": max(r["extract_max_abs_err"]
+                                 for r in out.values()),
+            "worst_grad": max(r["grad_max_abs_err"] for r in out.values())}
+
+
 # ------------------------------ phase 4 ----------------------------------
 
 def blank_offset(params, cfg, dev, rng) -> float:
@@ -486,11 +650,11 @@ def end_to_end(seed: int, n_requests: int, dev) -> dict:
 
 # ------------------------------ phase 5 ----------------------------------
 
-def bench_batch(cfg, seed: int, dev):
+def bench_batch(cfg, seed: int, dev, U: int = TRAIN_U):
     """bench.py's headline batch: noise features, full frame and label
-    lengths, random labels, from the seed."""
+    lengths, U random labels, from the seed."""
     rng = np.random.default_rng(seed)
-    B, T, U = TRAIN_B, TRAIN_T, TRAIN_U
+    B, T = TRAIN_B, TRAIN_T
     feats = rng.normal(size=(B, T, cfg.input_dim)).astype(np.float32)
     labels = rng.integers(1, cfg.vocab_size, size=(B, U)).astype(np.int32)
     return (torch.from_numpy(feats).to(dev),
@@ -503,7 +667,7 @@ def leaves(tree):
     return torch.utils._pytree.tree_leaves(tree)
 
 
-def profile_step(step, state, batch, profile_dir):
+def profile_step(step, state, batch, profile_dir, name="train_step"):
     """One training step under torch.profiler: device time by kernel
     family, host time by the step's spans, the device's busy share."""
     from torch.autograd import DeviceType
@@ -522,6 +686,8 @@ def profile_step(step, state, batch, profile_dir):
                 "joint_bwd_a": ("joint_bwd_a",),
                 "joint_bwd_b": ("joint_bwd_b",),
                 "joint_bwd_sums": ("reduce_parts_kernel",),
+                "lattice": ("lattice_alpha_kernel", "lattice_beta_kernel"),
+                "loss_rows": ("extract_lp_kernel", "assemble_grad_kernel"),
                 "gemm": ("gemm", "Gemm", "cutlass", "sm90_xmma")}
     device = {k: 0.0 for k in (*families, "other")}
     launches = {k: 0 for k in device}
@@ -546,37 +712,49 @@ def profile_step(step, state, batch, profile_dir):
            "host_span_ms": host, "device_span_ms": span}
     if profile_dir:
         os.makedirs(profile_dir, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(profile_dir, "train_step.json"))
-        with open(os.path.join(profile_dir, "train_step.txt"), "w") as f:
+        prof.export_chrome_trace(os.path.join(profile_dir, f"{name}.json"))
+        with open(os.path.join(profile_dir, f"{name}.txt"), "w") as f:
             f.write(prof.key_averages().table(sort_by="self_cuda_time_total",
                                               row_limit=60))
     return state, out
 
 
 def lattice_ms(dev, seed: int) -> dict:
-    """The plain alpha / beta (K3's case) at the training shape, CUDA
-    events, min of 3: loss with alpha, then the occupancies (beta)."""
+    """The loss's lattice layer at the training shape, through K3 and
+    through the plain versions, masking and gathers included:
+    forward_from_lp_with_alpha (alpha) and occupancies_from_lp (beta and
+    the occupancies); CUDA events, in turns plain, kernel, kernel, plain."""
     rng = np.random.default_rng(seed)
-    B, T, U1 = TRAIN_B, TRAIN_T // 2, TRAIN_U + 1
-    lp = torch.log_softmax(torch.from_numpy(
-        rng.normal(size=(B, T, U1, 2))).float().to(dev), dim=-1)
-    lpb, lpy = lp[..., 0].contiguous(), lp[..., 1].contiguous()
-    fl = torch.full((B,), T, dtype=torch.int32, device=dev)
-    ll = torch.full((B,), TRAIN_U, dtype=torch.int32, device=dev)
+    lpb, lpy, fl, ll = lattice_scores(rng, dev, TRAIN_B, TRAIN_T // 2,
+                                      TRAIN_U)
     alpha = rl.forward_from_lp_with_alpha(lpb, lpy, fl, ll)[1]
-    a = min(cuda_ms(lambda: rl.forward_from_lp_with_alpha(lpb, lpy, fl, ll))
-            for _ in range(3))
-    b = min(cuda_ms(lambda: rl.occupancies_from_lp(lpb, lpy, fl, ll, alpha))
-            for _ in range(3))
-    return {"alpha_ms": a, "beta_occupancies_ms": b}
+
+    def plain(fn):
+        def run():
+            with plain_kernels():
+                fn()
+        return run
+
+    def fwd():
+        rl.forward_from_lp_with_alpha(lpb, lpy, fl, ll)
+
+    def occ():
+        rl.occupancies_from_lp(lpb, lpy, fl, ll, alpha)
+
+    ka, pa = timed_pair(fwd, plain(fwd))
+    kb, pb = timed_pair(occ, plain(occ))
+    return {"alpha_kernel_ms": ka, "alpha_plain_ms": pa,
+            "beta_occupancies_kernel_ms": kb,
+            "beta_occupancies_plain_ms": pb}
 
 
-def f32_kernels_vs_plain(seed: int, dev) -> dict:
-    """One f32 loss and gradient of the libri100 model, B=32, T=400,
-    U=40, through the kernels and through the plain versions."""
+def f32_kernels_vs_plain(seed: int, dev, loss_impl: str = "fused",
+                         U: int = TRAIN_U) -> dict:
+    """One f32 loss and gradient of the libri100 model, B=32, T=400, U
+    labels, through the kernels and through the plain versions."""
     cfg = dataclasses.replace(config_libri100(), compute_dtype="float32")
     params = m.init_params(cfg, np.random.default_rng(seed + 2), dev)
-    batch = bench_batch(cfg, seed + 2, dev)
+    batch = bench_batch(cfg, seed + 2, dev, U)
     flat, spec = torch.utils._pytree.tree_flatten(params)
 
     def loss_and_grads(plain: bool):
@@ -584,7 +762,7 @@ def f32_kernels_vs_plain(seed: int, dev) -> dict:
         with ctx:
             xs = [p.detach().requires_grad_(True) for p in flat]
             loss, _ = tl.loss_fn(torch.utils._pytree.tree_unflatten(xs, spec),
-                                 cfg, *batch, loss_impl="fused")
+                                 cfg, *batch, loss_impl=loss_impl)
             grads = torch.autograd.grad(loss, xs)
         return float(loss.detach()), grads
 
@@ -592,12 +770,15 @@ def f32_kernels_vs_plain(seed: int, dev) -> dict:
     lp, gp = loss_and_grads(plain=True)
     loss_rel = abs(lk - lp) / abs(lp)
     worst = max(rel_err(a, b) for a, b in zip(gk, gp))
-    row = {"loss_kernels": lk, "loss_plain": lp, "loss_rel_err": loss_rel,
+    row = {"loss_impl": loss_impl, "U": U, "loss_kernels": lk,
+           "loss_plain": lp, "loss_rel_err": loss_rel,
            "loss_rtol": LOSS_RTOL, "grad_worst_rel_err": worst,
            "grad_rtol": GRAD_RTOL, "leaves": len(gk)}
     print("train_f32_kernels_vs_plain " + json.dumps(row))
-    check(loss_rel <= LOSS_RTOL, f"f32 loss: kernels {lk} vs plain {lp}")
-    check(worst <= GRAD_RTOL, f"f32 gradients: worst rel err {worst}")
+    check(loss_rel <= LOSS_RTOL,
+          f"f32 loss ({loss_impl}): kernels {lk} vs plain {lp}")
+    check(worst <= GRAD_RTOL,
+          f"f32 gradients ({loss_impl}): worst rel err {worst}")
     return row
 
 
@@ -633,18 +814,11 @@ def cli_round_trip(dev) -> dict:
     return row
 
 
-def train_phase(seed: int, dev, profile_dir) -> dict:
-    cfg = config_libri100()
-    tcfg = TrainConfig(batch_size=TRAIN_B, warmup_steps=100,
-                       total_steps=10000)  # bench.py's TrainConfig
-    state = tl.init_train_state(np.random.default_rng(seed), cfg, tcfg, dev)
-    step = tl.make_train_step(cfg, tcfg)
-    batch = bench_batch(cfg, seed, dev)
-    p0 = [p.clone() for p in leaves(state.params)]
+def timed_steps(step, state, batch):
+    """One step, then bench.py's slope runs (SLOPE_STEPS steps, best of
+    SLOPE_REPEATS), with the launch counts of exactly these steps."""
     infos = []
-    torch.cuda.reset_peak_memory_stats()
-
-    reset_counts()  # count only the training steps' launches
+    reset_counts()
     t0 = time.perf_counter()
     state, info = step(state, *batch)
     torch.cuda.synchronize()
@@ -663,36 +837,100 @@ def train_phase(seed: int, dev, profile_dir) -> dict:
             best = min(best, time.perf_counter() - t0)
         times.append(best)
     counts = read_counts()
-
     dt = (times[1] - times[0]) / (SLOPE_STEPS[1] - SLOPE_STEPS[0])
     losses = [float(i["loss"]) for i in infos]
     gnorms = [float(i["grad_norm"]) for i in infos]
     skipped = sum(int(i["skipped_nonfinite"]) for i in infos)
-    moved = max(float((a - b).abs().max())
-                for a, b in zip(leaves(state.params), p0))
-    result = {"B": TRAIN_B, "T": TRAIN_T, "U": TRAIN_U, "dtype": "bfloat16",
-              "steps": len(infos), "first_step_s": first_s,
+    result = {"steps": len(infos), "first_step_s": first_s,
               "ms_per_step": dt * 1e3, "utt_per_s": TRAIN_B / dt,
               "slope_times_s": times, "loss_first": losses[0],
               "loss_last": losses[-1], "grad_norm_last": gnorms[-1],
-              "skipped_nonfinite": skipped, "param_max_change": moved,
+              "skipped_nonfinite": skipped,
               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
               "launches": counts}
-    print("train " + json.dumps(result))
     check(all(np.isfinite(x) for x in losses + gnorms),
           "non-finite loss or grad norm in a training step")
     check(skipped == 0, f"{skipped} training steps skipped as non-finite")
+    return state, result
+
+
+def train_run(seed: int, dev, loss_impl: str, U: int):
+    """A fresh libri100 state trained on bench.py's batch with U labels:
+    the step, its state after the timed steps, the batch and the result."""
+    cfg = config_libri100()
+    tcfg = TrainConfig(batch_size=TRAIN_B, warmup_steps=100,
+                       total_steps=10000,  # bench.py's TrainConfig
+                       loss_impl=loss_impl)
+    state = tl.init_train_state(np.random.default_rng(seed), cfg, tcfg, dev)
+    step = tl.make_train_step(cfg, tcfg)
+    batch = bench_batch(cfg, seed, dev, U)
+    p0 = [p.clone() for p in leaves(state.params)]
+    torch.cuda.reset_peak_memory_stats()
+    state, result = timed_steps(step, state, batch)
+    moved = max(float((a - b).abs().max())
+                for a, b in zip(leaves(state.params), p0))
+    result = {"B": TRAIN_B, "T": TRAIN_T, "U": U, "dtype": "bfloat16",
+              "loss_impl": loss_impl, **result, "param_max_change": moved}
     check(moved > 0.0, "the params did not change over the training steps")
-    for name in ("lstm_fwd_with_acts", "lstm_bwd", "joint_fwd", "joint_bwd"):
+    return step, state, batch, result
+
+
+def train_phase(seed: int, dev, profile_dir) -> dict:
+    step, state, batch, result = train_run(seed, dev, "auto", TRAIN_U)
+    print("train " + json.dumps(result))
+    counts = result["launches"]
+    for name in ("lstm_fwd_with_acts", "lstm_bwd", "joint_fwd", "joint_bwd",
+                 "lattice_alpha", "lattice_beta"):
         check(counts[name] > 0, f"the training step never launched {name}")
 
     state, prof = profile_step(step, state, batch, profile_dir)
     print("train_profile " + json.dumps(prof))
-    lat = lattice_ms(dev, seed)
-    print("train_lattice_plain " + json.dumps(lat))
-    result["profile"], result["lattice"] = prof, lat
+    lat_ms = lattice_ms(dev, seed)
+    print("train_lattice " + json.dumps(lat_ms))
+    result["profile"], result["lattice"] = prof, lat_ms
     result["f32"] = f32_kernels_vs_plain(seed, dev)
     result["cli"] = cli_round_trip(dev)
+    return result
+
+
+def train_pallas_phase(seed: int, dev, profile_dir) -> dict:
+    """The two-pass route (loss_impl="pallas") at B=32, T=400, U=80, then
+    the same batch through the fused route; the f32 check of the
+    two-pass route; the CLI with --loss-impl pallas."""
+    step, state, batch, result = train_run(seed, dev, "pallas", PALLAS_U)
+    print("train_pallas " + json.dumps(result))
+    counts = result["launches"]
+    for name in ("extract_lp", "assemble_grad", "lattice_alpha",
+                 "lattice_beta", "lstm_fwd_with_acts", "lstm_bwd"):
+        check(counts[name] > 0,
+              f"the two-pass training step never launched {name}")
+    check(counts["joint_fwd"] == counts["joint_bwd"] == 0,
+          "the two-pass training step launched the fused joint kernels")
+    state, prof = profile_step(step, state, batch, profile_dir,
+                               "train_pallas_step")
+    print("train_pallas_profile " + json.dumps(prof))
+    result["profile"] = prof
+    del step, state, batch
+    torch.cuda.empty_cache()
+
+    fused = train_run(seed, dev, "fused", PALLAS_U)[3]
+    print("train_fused_U80 " + json.dumps(fused))
+    result["fused_same_batch"] = fused
+    torch.cuda.empty_cache()
+    result["f32"] = f32_kernels_vs_plain(seed, dev, "pallas", PALLAS_U)
+
+    argv = ["--config", "libri100", "--data", "synthetic", "--steps", "2",
+            "--batch-size", "8", "--max-frames", "200", "--max-labels", "20",
+            "--warmup-steps", "1", "--log-every", "1", "--loss-impl",
+            "pallas", "--device", dev.type]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        train_cli(argv)
+    last = json.loads(out.getvalue().strip().splitlines()[-1])
+    print("train_cli_pallas " + json.dumps(last))
+    check(last.get("steps") == 2 and np.isfinite(last.get("final_loss")),
+          f"training CLI with --loss-impl pallas: final line {last}")
+    result["cli"] = last
     return result
 
 
@@ -740,6 +978,8 @@ def main(argv=None):
     k = kernel_vs_plain(np.random.default_rng(args.seed + 1), dev)
     kt = lstm_train_vs_plain(np.random.default_rng(args.seed + 3), dev)
     kj = joint_vs_plain(np.random.default_rng(args.seed + 4), dev)
+    kl = lattice_vs_plain(np.random.default_rng(args.seed + 5), dev)
+    kr = loss_rows_vs_plain(np.random.default_rng(args.seed + 6), dev)
     print(f"phase kernel: {time.perf_counter() - t0:.1f} s")
 
     # phase 4: serving end to end
@@ -751,11 +991,17 @@ def main(argv=None):
     t0 = time.perf_counter()
     train = train_phase(args.seed, dev, args.profile_dir)
     print(f"phase train: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    pallas = train_pallas_phase(args.seed, dev, args.profile_dir)
+    print(f"phase train_pallas: {time.perf_counter() - t0:.1f} s")
 
     # phase 6: results
     lp = "rnn_transducer_tpu/ops/lstm_pallas.py"
     jp = "rnn_transducer_tpu/ops/rnnt_joint_fused.py"
+    wp = "rnn_transducer_tpu/ops/rnnt_lattice_pallas.py"
+    rp = "rnn_transducer_tpu/ops/rnnt_loss_pallas.py"
     counts = train["launches"]
+    two_pass = pallas["launches"]
     print(json.dumps({"kernels": [
         kernel_entry("lstm_fwd", "lstm_fwd.cu", f"{lp}:119", e2e["launches"],
                      k["max_abs_err"], k["main"], "kernel_ms", "plain_ms"),
@@ -771,6 +1017,18 @@ def main(argv=None):
         kernel_entry("joint_bwd", "joint_bwd.cu", f"{jp}:374",
                      counts["joint_bwd"], kj["worst_bwd"], kj["main"],
                      "bwd_kernel_ms", "bwd_plain_ms"),
+        kernel_entry("lattice_alpha", "lattice.cu", f"{wp}:65",
+                     counts["lattice_alpha"], kl["worst_alpha"], kl["main"],
+                     "alpha_kernel_ms", "alpha_plain_ms"),
+        kernel_entry("lattice_beta", "lattice.cu", f"{wp}:65",
+                     counts["lattice_beta"], kl["worst_beta"], kl["main"],
+                     "beta_kernel_ms", "beta_plain_ms"),
+        kernel_entry("extract_lp", "loss_rows.cu", f"{rp}:82",
+                     two_pass["extract_lp"], kr["worst_extract"], kr["main"],
+                     "extract_kernel_ms", "extract_plain_ms"),
+        kernel_entry("assemble_grad", "loss_rows.cu", f"{rp}:126",
+                     two_pass["assemble_grad"], kr["worst_grad"], kr["main"],
+                     "grad_kernel_ms", "grad_plain_ms"),
     ]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -17,14 +17,16 @@ on chip and reduces it at once:
 
 round() is the cast to the compute dtype of W (bf16 or f32) and the
 products accumulate in fp32, the JAX package's `preferred_element_type`
-semantics. The alpha / beta recursions between the two run in plain
-PyTorch on the small (B, T, U+1) arrays (`ops/rnnt_loss.py`).
+semantics. The alpha / beta recursions between the two run on the small
+(B, T, U+1) arrays through `ops/rnnt_loss.py`, in the K3 lattice kernel
+(`csrc/lattice.cu`) on the card.
 
 Each wrapper launches its kernel for a CUDA tensor and runs its
 `*_reference` version, which materialises the logits, for a CPU tensor.
 The TPU's padding (U+1 to a multiple of 8, V to 128 lanes, T to a tile)
-and its VMEM gates (`fused_supported`, the backward variant selector) have
-no counterpart here.
+and its VMEM gates (the backward variant selector) have no counterpart
+here; `fused_supported` is the kernels' own limit, J <= MAX_J, and does
+not depend on U or V.
 """
 
 from __future__ import annotations
@@ -56,6 +58,12 @@ ROW_SPLITS = 16
 MAX_J = 512  # the kernels keep (64, J) tiles of z and dz in shared memory
 
 _W_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def fused_supported(joint_dim: int) -> bool:
+    """Whether joint_fwd and joint_bwd take a joint of this width; the
+    port's counterpart of the JAX package's VMEM gate of the same name."""
+    return joint_dim <= MAX_J
 
 
 def _count(name: str) -> None:

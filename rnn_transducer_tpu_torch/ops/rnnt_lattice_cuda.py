@@ -1,0 +1,257 @@
+"""RNN-T lattice recursions: the CUDA kernel and its plain PyTorch versions.
+
+`csrc/lattice.cu` (K3) replaces the JAX package's Pallas wavefront,
+`rnn_transducer_tpu/ops/rnnt_lattice_pallas.py` `wavefront`, which it runs
+through `alpha_wavefront` and `beta_wavefront`:
+
+  * `alpha_wavefront` -> alpha (B, T, U+1): one launch of `lattice_alpha`;
+  * `beta_wavefront` -> beta, and `beta_occupancies` -> beta with the
+    blank and emit occupancies of `occupancies_from_lp` (rnnt_loss.py), both
+    from one launch of `lattice_beta`.
+
+All take the masked transition scores of `ops/rnnt_loss._masked_transitions`
+(and its `_accept_scores`), (B, T, U+1) f32; the lattice conventions are the
+JAX package's (NEG_INF = -1e30, unreachable cells at or below -1e29, an
+utterance with no frames has zero occupancies).
+
+The plain versions run along the same anti-diagonals d = t + u: every cell
+of a diagonal depends only on the diagonal before it, so each step is one
+vectorised update over (B, U+1), and a lattice takes T + U steps of about
+ten small launches each. The JAX package runs its default alpha / beta as a
+scan over t with a log-depth row solve (`_alpha_scan`, `_beta_scan`); the
+two give the same values up to float32 summation order.
+
+Each wrapper launches its kernel for a CUDA tensor and runs its
+`*_reference` version for a CPU tensor; it never falls back from one to
+the other. Each counts the calls that launched its kernel.
+"""
+
+from __future__ import annotations
+
+import threading
+
+import torch
+
+from rnn_transducer_tpu_torch.utils import build
+
+NEG_INF = -1.0e30
+
+LAUNCHES_ALPHA = 0  # alpha_wavefront calls that launched lattice_alpha
+LAUNCHES_BETA = 0   # beta_wavefront / beta_occupancies: lattice_beta
+_launches_lock = threading.Lock()
+
+
+def _count(name: str) -> None:
+    with _launches_lock:
+        globals()[name] += 1
+
+
+def _logaddexp(a, b):
+    """logaddexp that keeps a doubly masked cell at NEG_INF."""
+    mx = torch.maximum(a, b)
+    mn = torch.minimum(a, b)
+    out = mx + torch.log1p(torch.exp(mn - mx))
+    return torch.where(mx <= NEG_INF * 0.5,
+                       torch.full_like(out, NEG_INF), out)
+
+
+def _check(**named):
+    """Every array (B, T, U+1) f32, contiguous, on one device."""
+    shape = tuple(next(iter(named.values())).shape)
+    if len(shape) != 3 or shape[2] < 1:
+        raise ValueError(f"lattice arrays must be (B, T, U+1); got {shape}")
+    for name, a in named.items():
+        if tuple(a.shape) != shape:
+            raise ValueError(f"{name} must be {shape}; got {tuple(a.shape)}")
+        if a.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32; got {a.dtype}")
+        if not a.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if len({a.device for a in named.values()}) != 1:
+        raise ValueError("inputs on different devices")
+
+
+def _require_cuda(dev: torch.device, what: str) -> None:
+    if dev.type != "cuda":
+        raise ValueError(f"no {what} for device {dev}")
+
+
+# ------------------------------- alpha -----------------------------------
+
+def alpha_wavefront(lp_blank_m, lp_y_m):
+    """alpha (B, T, U+1) f32: alpha[t, u] = logaddexp(alpha[t-1, u] +
+    lp_blank[t-1, u], alpha[t, u-1] + lp_y[t, u-1]), alpha[0, 0] = 0."""
+    _check(lp_blank_m=lp_blank_m, lp_y_m=lp_y_m)
+    dev = lp_blank_m.device
+    if dev.type == "cpu":
+        return alpha_wavefront_reference(lp_blank_m, lp_y_m)
+    _require_cuda(dev, "lattice_alpha")
+    B, T, U1 = lp_blank_m.shape
+    alpha = torch.empty((B, T, U1), dtype=torch.float32, device=dev)
+    if B * T == 0:
+        return alpha
+    fn = build.load_library()
+    err = fn.lattice_alpha(lp_blank_m.data_ptr(), lp_y_m.data_ptr(),
+                           alpha.data_ptr(), B, T, U1,
+                           *build.stream_args(dev))
+    build.check_launch(fn, err, "lattice_alpha")
+    _count("LAUNCHES_ALPHA")
+    return alpha
+
+
+def _skew_index(T: int, U1: int, device):
+    """(D, U1) time index t = d - u of diagonal d, and its validity."""
+    D = T + U1 - 1
+    t = (torch.arange(D, device=device)[:, None]
+         - torch.arange(U1, device=device)[None, :])
+    return t.clamp(0, max(T - 1, 0)), (t >= 0) & (t < T)
+
+
+def _skew(x, t_idx, valid):
+    """(B, T, U1) -> (B, D, U1) with s[:, d, u] = x[:, d - u, u], NEG_INF
+    off the lattice."""
+    B, T, U1 = x.shape
+    idx = t_idx[None].expand(B, -1, -1)
+    s = torch.gather(x, 1, idx)
+    return torch.where(valid[None], s, torch.full_like(s, NEG_INF))
+
+
+def _unskew(s, T: int):
+    """(B, D, U1) -> (B, T, U1): x[:, t, u] = s[:, t + u, u]."""
+    B, D, U1 = s.shape
+    idx = (torch.arange(T, device=s.device)[:, None]
+           + torch.arange(U1, device=s.device)[None, :])
+    return torch.gather(s, 1, idx[None].expand(B, -1, -1))
+
+
+def alpha_wavefront_reference(lp_blank_m, lp_y_m):
+    """Plain version of `alpha_wavefront`: one (B, U+1) update per
+    anti-diagonal."""
+    _check(lp_blank_m=lp_blank_m, lp_y_m=lp_y_m)
+    B, T, U1 = lp_blank_m.shape
+    dev = lp_blank_m.device
+    if B * T == 0:
+        return lp_blank_m.new_empty((B, T, U1))
+    t_idx, valid = _skew_index(T, U1, dev)
+    lpb = _skew(lp_blank_m, t_idx, valid)
+    lpy = _skew(lp_y_m, t_idx, valid)
+    D = T + U1 - 1
+    neg_col = torch.full((B, 1), NEG_INF, dtype=lp_blank_m.dtype, device=dev)
+    rows = [torch.cat([torch.zeros_like(neg_col),
+                       neg_col.expand(B, U1 - 1)], dim=1)]
+    for d in range(1, D):
+        prev = rows[-1]
+        below = prev + lpb[:, d - 1]
+        left = torch.cat([neg_col, (prev + lpy[:, d - 1])[:, :-1]], dim=1)
+        row = torch.maximum(_logaddexp(below, left),
+                            torch.full_like(below, NEG_INF))
+        rows.append(torch.where(valid[d][None], row, neg_col))
+    return _unskew(torch.stack(rows, dim=1), T)
+
+
+# ------------------------------- beta ------------------------------------
+
+def _launch_beta(lp_blank_m, lp_y_m, accept, alpha=None, frame_lens=None):
+    """lattice_beta on the card -> beta, and (g_blank, g_y) or (None,
+    None)."""
+    dev = lp_blank_m.device
+    B, T, U1 = lp_blank_m.shape
+    beta = torch.empty((B, T, U1), dtype=torch.float32, device=dev)
+    occ = alpha is not None
+    g_blank = torch.empty_like(beta) if occ else None
+    g_y = torch.empty_like(beta) if occ else None
+    if B * T == 0:
+        return beta, g_blank, g_y
+    fl = frame_lens.to(dev, torch.int32).contiguous() if occ else None
+    fn = build.load_library()
+    err = fn.lattice_beta(
+        lp_blank_m.data_ptr(), lp_y_m.data_ptr(), accept.data_ptr(),
+        alpha.data_ptr() if occ else None, fl.data_ptr() if occ else None,
+        beta.data_ptr(), g_blank.data_ptr() if occ else None,
+        g_y.data_ptr() if occ else None, B, T, U1, *build.stream_args(dev))
+    build.check_launch(fn, err, "lattice_beta")
+    _count("LAUNCHES_BETA")
+    return beta, g_blank, g_y
+
+
+def beta_wavefront(lp_blank_m, lp_y_m, accept):
+    """beta (B, T, U+1) f32: beta[t, u] = logaddexp(accept[t, u],
+    lp_blank[t, u] + beta[t+1, u], lp_y[t, u] + beta[t, u+1])."""
+    _check(lp_blank_m=lp_blank_m, lp_y_m=lp_y_m, accept=accept)
+    dev = lp_blank_m.device
+    if dev.type == "cpu":
+        return beta_wavefront_reference(lp_blank_m, lp_y_m, accept)
+    _require_cuda(dev, "lattice_beta")
+    return _launch_beta(lp_blank_m, lp_y_m, accept)[0]
+
+
+def beta_wavefront_reference(lp_blank_m, lp_y_m, accept):
+    """Plain version of `beta_wavefront`: the reversed anti-diagonal loop."""
+    _check(lp_blank_m=lp_blank_m, lp_y_m=lp_y_m, accept=accept)
+    B, T, U1 = lp_blank_m.shape
+    dev = lp_blank_m.device
+    if B * T == 0:
+        return lp_blank_m.new_empty((B, T, U1))
+    t_idx, valid = _skew_index(T, U1, dev)
+    lpb = _skew(lp_blank_m, t_idx, valid)
+    lpy = _skew(lp_y_m, t_idx, valid)
+    acc = _skew(accept, t_idx, valid)
+    D = T + U1 - 1
+    neg_col = torch.full((B, 1), NEG_INF, dtype=lp_blank_m.dtype, device=dev)
+    nxt = neg_col.expand(B, U1)
+    rows = [None] * D
+    for d in reversed(range(D)):
+        down = lpb[:, d] + nxt
+        right = lpy[:, d] + torch.cat([nxt[:, 1:], neg_col], dim=1)
+        row = _logaddexp(_logaddexp(acc[:, d], down), right)
+        row = torch.maximum(row, torch.full_like(row, NEG_INF))
+        nxt = torch.where(valid[d][None], row, neg_col)
+        rows[d] = nxt
+    return _unskew(torch.stack(rows, dim=1), T)
+
+
+def _check_occ(lp_blank_m, lp_y_m, accept, alpha, frame_lens):
+    _check(lp_blank_m=lp_blank_m, lp_y_m=lp_y_m, accept=accept, alpha=alpha)
+    B = lp_blank_m.shape[0]
+    if tuple(frame_lens.shape) != (B,):
+        raise ValueError(f"frame_lens must be ({B},); got "
+                         f"{tuple(frame_lens.shape)}")
+
+
+def beta_occupancies(lp_blank_m, lp_y_m, accept, alpha, frame_lens):
+    """beta and the blank and emit arc posteriors g_blank, g_y, each
+    (B, T, U+1) f32, from one launch:
+
+        g_blank = exp(alpha + logaddexp(lp_blank + beta[t+1], accept) - log_z)
+        g_y     = exp(alpha + lp_y + beta[u+1] - log_z)
+
+    with log_z = beta[:, 0, 0]; zeros for a row with frame_lens 0."""
+    _check_occ(lp_blank_m, lp_y_m, accept, alpha, frame_lens)
+    dev = lp_blank_m.device
+    if dev.type == "cpu":
+        return beta_occupancies_reference(lp_blank_m, lp_y_m, accept, alpha,
+                                          frame_lens)
+    _require_cuda(dev, "lattice_beta")
+    return _launch_beta(lp_blank_m, lp_y_m, accept, alpha, frame_lens)
+
+
+def beta_occupancies_reference(lp_blank_m, lp_y_m, accept, alpha,
+                               frame_lens):
+    """Plain version of `beta_occupancies`: the plain beta, then the
+    occupancy arithmetic of the JAX package's `occupancies_from_lp`."""
+    _check_occ(lp_blank_m, lp_y_m, accept, alpha, frame_lens)
+    beta = beta_wavefront_reference(lp_blank_m, lp_y_m, accept)
+    B, T, U1 = lp_blank_m.shape
+    if B * T == 0:
+        return beta, torch.zeros_like(beta), torch.zeros_like(beta)
+    log_z = beta[:, 0, 0][:, None, None]
+    neg = torch.full((), NEG_INF, dtype=beta.dtype, device=beta.device)
+    beta_down = torch.cat([beta[:, 1:], neg.expand(B, 1, U1)], dim=1)
+    beta_right = torch.cat([beta[:, :, 1:], neg.expand(B, T, 1)], dim=2)
+    arc_blank = _logaddexp(lp_blank_m + beta_down, accept)
+    valid = (frame_lens.to(beta.device, torch.int64) >= 1)[:, None, None]
+    zero = torch.zeros((), dtype=beta.dtype, device=beta.device)
+    g_blank = torch.where(valid, torch.exp(alpha + arc_blank - log_z), zero)
+    g_y = torch.where(valid, torch.exp(alpha + lp_y_m + beta_right - log_z),
+                      zero)
+    return beta, g_blank, g_y

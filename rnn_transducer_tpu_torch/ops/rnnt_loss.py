@@ -5,30 +5,23 @@ The lattice conventions are the JAX package's: the stand-in NEG_INF is
 terminal blank is the acceptance score injected at (t_len-1, u_len), and
 an utterance with zero frames has loss 0 and zero gradient.
 
-The alpha and beta recursions run along anti-diagonals d = t + u: every
-cell of a diagonal depends only on the diagonal before it, so each step is
-one vectorised update over (B, U+1), and a lattice takes T + U steps. The
-JAX package runs them as a scan over t with a log-depth row solve
-(`_alpha_scan`, `_beta_scan`, rnnt_loss.py:99-164); the two give the same
-values up to float32 summation order. The JAX package's Pallas wavefront
-(K3, `ops/rnnt_lattice_pallas.py`) is off by default, so these stay plain
-PyTorch on the card too.
+The alpha and beta recursions, and the occupancies with them, run in
+`ops/rnnt_lattice_cuda.py`: on the card in the K3 kernel (`csrc/lattice.cu`,
+one launch for alpha and one for beta with the occupancies), on the CPU
+along the same anti-diagonals in plain PyTorch. They are called through
+the module attribute, so that a caller can swap in the plain versions on
+the card. The masking and the final gathers stay PyTorch here. This module
+is the `loss_impl="xla"` path, and every loss route of the port (xla,
+fused, two-pass) goes through its `forward_from_lp_with_alpha` and
+`occupancies_from_lp`.
 """
 
 from __future__ import annotations
 
 import torch
 
-NEG_INF = -1.0e30
-
-
-def _logaddexp(a, b):
-    """logaddexp that keeps a doubly masked cell at NEG_INF."""
-    mx = torch.maximum(a, b)
-    mn = torch.minimum(a, b)
-    out = mx + torch.log1p(torch.exp(mn - mx))
-    return torch.where(mx <= NEG_INF * 0.5,
-                       torch.full_like(out, NEG_INF), out)
+from rnn_transducer_tpu_torch.ops import rnnt_lattice_cuda
+from rnn_transducer_tpu_torch.ops.rnnt_lattice_cuda import NEG_INF
 
 
 def _masked_transitions(lp_blank, lp_y, frame_lens, label_lens):
@@ -59,82 +52,12 @@ def _accept_scores(lp_blank, frame_lens, label_lens):
                                   device=dev))
 
 
-def _skew_index(T: int, U1: int, device):
-    """(D, U1) time index t = d - u of diagonal d, and its validity."""
-    D = T + U1 - 1
-    t = (torch.arange(D, device=device)[:, None]
-         - torch.arange(U1, device=device)[None, :])
-    return t.clamp(0, max(T - 1, 0)), (t >= 0) & (t < T)
-
-
-def _skew(x, t_idx, valid):
-    """(B, T, U1) -> (B, D, U1) with s[:, d, u] = x[:, d - u, u], NEG_INF
-    off the lattice."""
-    B, T, U1 = x.shape
-    idx = t_idx[None].expand(B, -1, -1)
-    s = torch.gather(x, 1, idx)
-    return torch.where(valid[None], s, torch.full_like(s, NEG_INF))
-
-
-def _unskew(s, T: int):
-    """(B, D, U1) -> (B, T, U1): x[:, t, u] = s[:, t + u, u]."""
-    B, D, U1 = s.shape
-    idx = (torch.arange(T, device=s.device)[:, None]
-           + torch.arange(U1, device=s.device)[None, :])
-    return torch.gather(s, 1, idx[None].expand(B, -1, -1))
-
-
-def _alpha(lp_blank_m, lp_y_m):
-    """alpha (B, T, U1): alpha[t, u] = logaddexp(alpha[t-1, u] +
-    lp_blank[t-1, u], alpha[t, u-1] + lp_y[t, u-1]), alpha[0, 0] = 0."""
-    B, T, U1 = lp_blank_m.shape
-    dev = lp_blank_m.device
-    t_idx, valid = _skew_index(T, U1, dev)
-    lpb = _skew(lp_blank_m, t_idx, valid)
-    lpy = _skew(lp_y_m, t_idx, valid)
-    D = T + U1 - 1
-    neg_col = torch.full((B, 1), NEG_INF, dtype=lp_blank_m.dtype, device=dev)
-    rows = [torch.cat([torch.zeros_like(neg_col),
-                       neg_col.expand(B, U1 - 1)], dim=1)]
-    for d in range(1, D):
-        prev = rows[-1]
-        below = prev + lpb[:, d - 1]
-        left = torch.cat([neg_col, (prev + lpy[:, d - 1])[:, :-1]], dim=1)
-        row = torch.maximum(_logaddexp(below, left),
-                            torch.full_like(below, NEG_INF))
-        rows.append(torch.where(valid[d][None], row, neg_col))
-    return _unskew(torch.stack(rows, dim=1), T)
-
-
-def _beta(lp_blank_m, lp_y_m, accept):
-    """beta (B, T, U1): beta[t, u] = logaddexp(accept[t, u],
-    lp_blank[t, u] + beta[t+1, u], lp_y[t, u] + beta[t, u+1])."""
-    B, T, U1 = lp_blank_m.shape
-    dev = lp_blank_m.device
-    t_idx, valid = _skew_index(T, U1, dev)
-    lpb = _skew(lp_blank_m, t_idx, valid)
-    lpy = _skew(lp_y_m, t_idx, valid)
-    acc = _skew(accept, t_idx, valid)
-    D = T + U1 - 1
-    neg_col = torch.full((B, 1), NEG_INF, dtype=lp_blank_m.dtype, device=dev)
-    nxt = neg_col.expand(B, U1)
-    rows = [None] * D
-    for d in reversed(range(D)):
-        down = lpb[:, d] + nxt
-        right = lpy[:, d] + torch.cat([nxt[:, 1:], neg_col], dim=1)
-        row = _logaddexp(_logaddexp(acc[:, d], down), right)
-        row = torch.maximum(row, torch.full_like(row, NEG_INF))
-        nxt = torch.where(valid[d][None], row, neg_col)
-        rows[d] = nxt
-    return _unskew(torch.stack(rows, dim=1), T)
-
-
 def forward_from_lp_with_alpha(lp_blank, lp_y, frame_lens, label_lens):
     """Per-utterance loss (B,) and alpha (B, T, U1) from the blank and label
     log-probs (B, T, U1)."""
     lp_blank_m, lp_y_m = _masked_transitions(lp_blank, lp_y, frame_lens,
                                              label_lens)
-    alpha = _alpha(lp_blank_m, lp_y_m)
+    alpha = rnnt_lattice_cuda.alpha_wavefront(lp_blank_m, lp_y_m)
     B = lp_blank.shape[0]
     dev = lp_blank.device
     b_idx = torch.arange(B, device=dev)
@@ -153,19 +76,9 @@ def occupancies_from_lp(lp_blank, lp_y, frame_lens, label_lens, alpha=None):
                                              label_lens)
     accept = _accept_scores(lp_blank, frame_lens, label_lens)
     if alpha is None:
-        alpha = _alpha(lp_blank_m, lp_y_m)
-    beta = _beta(lp_blank_m, lp_y_m, accept)
-    B, T, U1 = lp_blank.shape
-    log_z = beta[:, 0, 0][:, None, None]
-    neg = torch.full((), NEG_INF, dtype=beta.dtype, device=beta.device)
-    beta_down = torch.cat([beta[:, 1:], neg.expand(B, 1, U1)], dim=1)
-    beta_right = torch.cat([beta[:, :, 1:], neg.expand(B, T, 1)], dim=2)
-    arc_blank = _logaddexp(lp_blank_m + beta_down, accept)
-    valid = (frame_lens.to(beta.device, torch.int64) >= 1)[:, None, None]
-    zero = torch.zeros((), dtype=beta.dtype, device=beta.device)
-    g_blank = torch.where(valid, torch.exp(alpha + arc_blank - log_z), zero)
-    g_y = torch.where(valid, torch.exp(alpha + lp_y_m + beta_right - log_z),
-                      zero)
+        alpha = rnnt_lattice_cuda.alpha_wavefront(lp_blank_m, lp_y_m)
+    _, g_blank, g_y = rnnt_lattice_cuda.beta_occupancies(
+        lp_blank_m, lp_y_m, accept, alpha, frame_lens)
     return g_blank, g_y
 
 
@@ -180,6 +93,18 @@ def _gather_label_logprobs(log_probs, labels):
     pad = torch.full((B, T, 1), NEG_INF, dtype=log_probs.dtype,
                      device=log_probs.device)
     return torch.cat([lp_y, pad], dim=2)
+
+
+def _grad_from_occupancies(log_probs, labels, occ, g_blank, g_y, blank):
+    """dlogits (B, T, U1, V) f32, materialised from the log-softmax:
+    exp(log_probs) occ - [v = blank] g_blank - [v = label] g_y."""
+    B, T, U1, V = log_probs.shape
+    grad = torch.exp(log_probs) * occ[..., None]
+    grad[..., blank] -= g_blank
+    idx = labels.to(grad.device, torch.int64)[:, None, :, None].expand(
+        B, T, U1 - 1, 1)
+    grad[:, :, :U1 - 1].scatter_add_(3, idx, -g_y[:, :, :U1 - 1, None])
+    return grad
 
 
 class _RNNTLoss(torch.autograd.Function):
@@ -206,12 +131,8 @@ class _RNNTLoss(torch.autograd.Function):
                                            label_lens, alpha=alpha)
         if ctx.fastemit:
             g_y = g_y * (1.0 + ctx.fastemit)
-        B, T, U1, V = log_probs.shape
-        grad = torch.exp(log_probs) * (g_blank + g_y)[..., None]
-        grad[..., ctx.blank] -= g_blank
-        idx = labels.to(grad.device, torch.int64)[:, None, :, None].expand(
-            B, T, U1 - 1, 1)
-        grad[:, :, :U1 - 1].scatter_add_(3, idx, -g_y[:, :, :U1 - 1, None])
+        grad = _grad_from_occupancies(log_probs, labels, g_blank + g_y,
+                                      g_blank, g_y, ctx.blank)
         grad = grad * g.float()[:, None, None, None]
         return grad.to(ctx.logits_dtype), None, None, None, None, None
 

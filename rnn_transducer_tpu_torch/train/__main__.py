@@ -30,7 +30,8 @@ from rnn_transducer_tpu_torch.models.config import (NAMED_CONFIGS,
                                                     TrainConfig,
                                                     TransducerConfig)
 from rnn_transducer_tpu_torch.train import checkpoint as ckpt
-from rnn_transducer_tpu_torch.train.loop import (init_train_state,
+from rnn_transducer_tpu_torch.train.loop import (LOSS_IMPLS,
+                                                 init_train_state,
                                                  make_train_step)
 
 
@@ -52,8 +53,10 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--max-frames", type=int, default=200)
     p.add_argument("--max-labels", type=int, default=20)
-    p.add_argument("--loss-impl", default="auto",
-                   choices=["auto", "fused", "xla"])
+    p.add_argument("--loss-impl", default="auto", choices=LOSS_IMPLS,
+                   help="auto: fused on cuda where the joint width allows, "
+                        "else pallas (two passes over materialised "
+                        "logits); xla on cpu")
     p.add_argument("--fastemit-lambda", type=float, default=0.0)
     p.add_argument("--ckpt-dir", default=None)
     p.add_argument("--ckpt-every", type=int, default=500)

@@ -1,9 +1,10 @@
 """Training step (PyTorch port of `rnn_transducer_tpu/train/loop.py`).
 
 The standard branch of the JAX package's training step: forward, RNN-T
-loss (`fused` or `xla`), backward, the non-finite guard, the clip by the
-guard's global norm and AdamW as `optax.adamw` with the repo's learning
-rate schedules, with optional gradient accumulation as `optax.MultiSteps`.
+loss (`fused`, `pallas` or `xla`), backward, the non-finite guard, the
+clip by the guard's global norm and AdamW as `optax.adamw` with the repo's
+learning rate schedules, with optional gradient accumulation as
+`optax.MultiSteps`.
 
 The optimizer is written out here rather than taken from `torch.optim`,
 so that it follows optax step for step: the schedule is evaluated at the
@@ -32,12 +33,15 @@ from torch.utils import _pytree as pytree
 
 from rnn_transducer_tpu_torch.models import transducer as m
 from rnn_transducer_tpu_torch.models.config import TrainConfig, TransducerConfig
-from rnn_transducer_tpu_torch.ops.rnnt_joint_fused import rnnt_loss_fused
+from rnn_transducer_tpu_torch.ops.rnnt_joint_fused import (fused_supported,
+                                                          rnnt_loss_fused)
 from rnn_transducer_tpu_torch.ops.rnnt_loss import rnnt_loss
+from rnn_transducer_tpu_torch.ops.rnnt_loss_cuda import rnnt_loss_twopass
 
 # optax.adamw's defaults
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 SPANS = ("encode", "predict", "joint_loss", "backward", "optimizer")
+LOSS_IMPLS = ("auto", "fused", "pallas", "xla")
 _span = torch.profiler.record_function
 
 
@@ -70,10 +74,7 @@ def check_train_supported(tcfg: TrainConfig) -> None:
     if tcfg.loss_impl in ("pruned", "ar"):
         todo.append(f"loss_impl={tcfg.loss_impl!r} (ROADMAP queue 1, item "
                     "10: pruned and AR losses)")
-    elif tcfg.loss_impl == "pallas":
-        todo.append("loss_impl='pallas' (ROADMAP queue 1, item 7: two-pass "
-                    "loss)")
-    elif tcfg.loss_impl not in ("auto", "fused", "xla"):
+    elif tcfg.loss_impl not in LOSS_IMPLS:
         raise ValueError(f"unknown loss_impl {tcfg.loss_impl!r}")
     if tcfg.data_parallel > 1:
         todo.append("data_parallel > 1 (ROADMAP queue 1, item 6: "
@@ -185,12 +186,16 @@ def init_train_state(rng, cfg: TransducerConfig, tcfg: TrainConfig,
 
 # -------------------------------- loss -----------------------------------
 
-def _resolve_loss_impl(loss_impl: str, device: torch.device) -> str:
-    """auto -> fused on CUDA, xla on the CPU, as the JAX package picks by
-    backend."""
-    if loss_impl == "auto":
-        return "fused" if device.type == "cuda" else "xla"
-    return loss_impl
+def _resolve_loss_impl(loss_impl: str, device: torch.device,
+                       cfg: TransducerConfig) -> str:
+    """auto -> on CUDA fused where the fused kernels take the joint width,
+    else the two-pass pallas loss; xla on the CPU. The JAX package picks
+    the same by backend and its own gate (train/loop.py:276-283)."""
+    if loss_impl != "auto":
+        return loss_impl
+    if device.type != "cuda":
+        return "xla"
+    return "fused" if fused_supported(cfg.joint_dim) else "pallas"
 
 
 def loss_fn(params, cfg: TransducerConfig, feats, feat_lens, labels,
@@ -198,12 +203,15 @@ def loss_fn(params, cfg: TransducerConfig, feats, feat_lens, labels,
     """Batch-mean RNN-T loss and the per-utterance losses (B,).
 
     "fused" never materialises the (B, T, U+1, V) logits (joint + loss in
-    the K1 / K2 kernels, `ops/rnnt_joint_fused.py`); "xla" materialises
-    them (`m.joint` + `ops/rnnt_loss.rnnt_loss`).
+    the K1 / K2 kernels, `ops/rnnt_joint_fused.py`); "pallas" materialises
+    them and makes two streaming passes over them (the K5 kernels,
+    `ops/rnnt_loss_cuda.py`); "xla" materialises them and their log-softmax
+    (`ops/rnnt_loss.rnnt_loss`). Every route runs its alpha / beta through
+    the K3 lattice kernel on the card.
     """
     m.check_supported(cfg)
-    impl = _resolve_loss_impl(loss_impl, feats.device)
-    if impl not in ("fused", "xla"):
+    impl = _resolve_loss_impl(loss_impl, feats.device, cfg)
+    if impl not in ("fused", "pallas", "xla"):
         raise ValueError(f"unknown loss_impl {loss_impl!r}")
     with _span("encode"):
         enc_out, enc_lens = m.encode(params, cfg, feats, feat_lens)
@@ -217,8 +225,9 @@ def loss_fn(params, cfg: TransducerConfig, feats, feat_lens, labels,
                                       fastemit)
         else:
             logits = m.joint(params, cfg, enc_out, pred_out)
-            per_utt = rnnt_loss(logits, labels, enc_lens, label_lens,
-                                cfg.blank, fastemit)
+            loss_op = rnnt_loss_twopass if impl == "pallas" else rnnt_loss
+            per_utt = loss_op(logits, labels, enc_lens, label_lens,
+                              cfg.blank, fastemit)
     return per_utt.mean(), per_utt
 
 

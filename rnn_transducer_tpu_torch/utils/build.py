@@ -55,6 +55,19 @@ SIGNATURES = {
     "joint_bwd": (_I, [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                        _P]),
+    # lp_blank_m, lp_y_m, alpha, B, T, U1, device, stream
+    "lattice_alpha": (_I, [_P, _P, _P, _I, _I, _I, _I, _P]),
+    # lp_blank_m, lp_y_m, accept, alpha, frame_lens, beta, g_blank, g_y,
+    # B, T, U1, device, stream
+    "lattice_beta": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                          _P]),
+    # logits, logits_is_bf16, labels, lp_blank, lp_y, B, T, U1, V, blank,
+    # device, stream
+    "extract_lp": (_I, [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    # logits, logits_is_bf16, labels, occ, g_blank, g_y, grad, B, T, U1, V,
+    # blank, device, stream
+    "assemble_grad": (_I, [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                           _I, _P]),
     "kernel_error_string": (ctypes.c_char_p, [_I]),
 }
 

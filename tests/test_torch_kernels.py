@@ -5,7 +5,7 @@ This file imports no jax, so it also runs where jax is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
 
-`chip_smoke.py` checks the same kernels at the serving path's shapes.
+`chip_smoke.py` checks the same kernels at the main paths' shapes.
 """
 
 import pytest
@@ -169,3 +169,112 @@ def test_cuda_encoder_and_predictor_weights_get_gradients(cuda_device):
     for a, e in zip(grads[str(cuda_device)], grads["cpu"]):
         assert a is not None
         assert _rel_err(a.cpu(), e) <= 1e-4
+
+
+def _lattice_args(B, T, U, device, seed=0):
+    """Masked scores, acceptance scores and frame lengths of a ragged batch
+    with a zero-frame row (b = 1) and a label_len-0 row (b = 2)."""
+    from rnn_transducer_tpu_torch.ops import rnnt_loss as rl
+    g = torch.Generator().manual_seed(seed)
+    lp = torch.log_softmax(torch.randn(B, T, U + 1, 3, generator=g), dim=-1)
+    fl = torch.randint(max(T // 2, 1), T + 1, (B,), generator=g,
+                       dtype=torch.int32)
+    ll = torch.randint(0, U + 1, (B,), generator=g, dtype=torch.int32)
+    fl[0], ll[0] = T, U
+    fl[1:2], ll[2:3] = 0, 0
+    lpb_m, lpy_m = rl._masked_transitions(lp[..., 0], lp[..., 1], fl, ll)
+    accept = rl._accept_scores(lp[..., 0].contiguous(), fl, ll)
+    return [a.contiguous().to(device) for a in (lpb_m, lpy_m, accept, fl)]
+
+
+def _assert_lattice_close(got, want):
+    """Reachable cells within 1e-5 of max(1, |plain|); unreachable ones at
+    or below -1e29 on both sides."""
+    reach = want > -1e29
+    err = (got - want).abs()
+    assert bool((err[reach] <= 1e-5 * want[reach].abs().clamp(min=1)).all())
+    assert bool((got[~reach] <= -1e29).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B, T, U", [(3, 7, 4), (32, 200, 40), (32, 200, 80),
+                                     (3, 5, 1100)])
+def test_cuda_lattice_matches_reference(cuda_device, B, T, U):
+    """The training shapes (U+1 = 41 and 81) and U+1 > 1024, where the
+    threads stride over the diagonal."""
+    from rnn_transducer_tpu_torch.ops import rnnt_lattice_cuda as lat
+    lpb_m, lpy_m, accept, fl = _lattice_args(B, T, U, cuda_device)
+    before = (lat.LAUNCHES_ALPHA, lat.LAUNCHES_BETA)
+    alpha = lat.alpha_wavefront(lpb_m, lpy_m)
+    want_a = lat.alpha_wavefront_reference(lpb_m, lpy_m)
+    beta, gb, gy = lat.beta_occupancies(lpb_m, lpy_m, accept, want_a, fl)
+    want_b, want_gb, want_gy = lat.beta_occupancies_reference(
+        lpb_m, lpy_m, accept, want_a, fl)
+    beta_only = lat.beta_wavefront(lpb_m, lpy_m, accept)
+    torch.cuda.synchronize()
+    _assert_lattice_close(alpha, want_a)
+    _assert_lattice_close(beta, want_b)
+    for got, want in ((gb, want_gb), (gy, want_gy)):
+        assert float((got - want).abs().max()) <= 1e-5
+    assert torch.equal(beta_only, beta)
+    assert not gb[1].any() and not gy[1].any()  # the zero-frame row
+    assert (lat.LAUNCHES_ALPHA, lat.LAUNCHES_BETA) == (before[0] + 1,
+                                                      before[1] + 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B, T, U1, V", [(2, 5, 4, 130), (3, 7, 6, 64),
+                                         (32, 200, 81, 1024)])
+def test_cuda_loss_rows_match_reference(cuda_device, dtype, B, T, U1, V):
+    """V = 130 takes the element-wise path in both dtypes, V = 64 the
+    vector path in both; the last shape is the two-pass training step's.
+    Labels include blank, where assemble_grad subtracts both terms."""
+    from rnn_transducer_tpu_torch.ops import rnnt_loss_cuda as lc
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    x = torch.randn(B, T, U1, V, generator=g, device=cuda_device).to(dtype)
+    labels = torch.randint(0, V, (B, U1 - 1), generator=g,
+                           device=cuda_device, dtype=torch.int32)
+    gb = torch.rand(B, T, U1, generator=g, device=cuda_device)
+    gy = torch.rand(B, T, U1, generator=g, device=cuda_device)
+    before = (lc.LAUNCHES_EXTRACT, lc.LAUNCHES_GRAD)
+    got = lc.extract_lp(x, labels)
+    want = lc.extract_lp_reference(x, labels)
+    grad = lc.assemble_grad(x, labels, gb + gy, gb, gy)
+    want_g = lc.assemble_grad_reference(x, labels, gb + gy, gb, gy)
+    torch.cuda.synchronize()
+    for a, e in zip(got, want):
+        live = e > -1e29
+        assert float((a[live] - e[live]).abs().max()) <= 1e-4
+        assert torch.equal(a[~live], e[~live])
+    assert grad.dtype == dtype
+    assert _rel_err(grad.float(), want_g.float()) <= REL_TOL[dtype]
+    assert (lc.LAUNCHES_EXTRACT, lc.LAUNCHES_GRAD) == (before[0] + 1,
+                                                      before[1] + 1)
+
+
+@pytest.mark.cuda
+def test_cuda_two_pass_loss_matches_the_cpu(cuda_device):
+    """rnnt_loss_twopass through K5 and K3 on the card against its plain
+    versions on the CPU: loss and gradient, FastEmit on, a zero-frame
+    row. The two devices round log Z differently in its last bits, and
+    every gradient element carries that error times its occupancy, so the
+    lattice is kept small enough (|log Z| < ~40) for an atol of 1e-5."""
+    from rnn_transducer_tpu_torch.ops import rnnt_loss_cuda as lc
+    g = torch.Generator().manual_seed(4)
+    B, T, U, V = 4, 6, 3, 96
+    logits = torch.randn(B, T, U + 1, V, generator=g)
+    labels = torch.randint(1, V, (B, U), generator=g, dtype=torch.int32)
+    fl = torch.tensor([T, 0, 5, 3], dtype=torch.int32)
+    ll = torch.tensor([U, 2, 0, 2], dtype=torch.int32)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        x = logits.detach().to(dev).requires_grad_(True)
+        loss = lc.rnnt_loss_twopass(x, labels.to(dev), fl.to(dev),
+                                    ll.to(dev), 0, 0.5)
+        loss.sum().backward()
+        out[str(dev)] = (loss.detach().cpu(), x.grad.cpu())
+    (lk, gk), (lp, gp) = out[str(cuda_device)], out["cpu"]
+    torch.testing.assert_close(lk, lp, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(gk, gp, rtol=1e-5, atol=1e-5)
+    assert lk[1] == 0.0 and not gk[1].any()

@@ -1,7 +1,9 @@
 """The port's training step, schedules, checkpoints and CLI against the JAX
 package's train/loop.py: a 2-step loss and parameter trajectory at a tiny
-f32 config, through the port's `fused` (plain K1 / K2 on the CPU) and
-`xla` losses, against JAX's `make_train_step` with loss_impl="xla"."""
+f32 config, through the port's `fused` (plain K1 / K2 on the CPU),
+`pallas` (plain K5) and `xla` losses, against JAX's `make_train_step` with
+loss_impl="xla", and the port's `pallas` against JAX's `pallas` (the
+Pallas kernels in interpret mode)."""
 
 import dataclasses
 import json
@@ -16,6 +18,7 @@ from rnn_transducer_tpu.models import config as jax_config
 from rnn_transducer_tpu.train import loop as jloop
 from rnn_transducer_tpu_torch.data.synthetic import random_batch
 from rnn_transducer_tpu_torch.models import config as port_config
+from rnn_transducer_tpu_torch.ops.rnnt_joint_fused import MAX_J
 from rnn_transducer_tpu_torch.train import checkpoint as ckpt
 from rnn_transducer_tpu_torch.train import loop as tloop
 from rnn_transducer_tpu_torch.train.__main__ import main as train_main
@@ -100,10 +103,9 @@ def jax_trajectory(request):
     return request.param, kw, n, _jax_run({**kw, "loss_impl": "xla"}, n)
 
 
-@pytest.mark.parametrize("loss_impl", ["fused", "xla"])
-def test_trajectory_matches_jax(jax_trajectory, loss_impl):
-    name, kw, n, (params0, want_losses, want_params, want_mu, want_nu,
-                  want_count) = jax_trajectory
+def _assert_trajectory(name, kw, n, jax_result, loss_impl):
+    (params0, want_losses, want_params, want_mu, want_nu,
+     want_count) = jax_result
     losses, state, adam = _port_run(params0, kw, n, loss_impl)
     np.testing.assert_allclose(losses, want_losses, **LOSS_TOL)
     assert state.step == n and adam["count"] == want_count
@@ -117,6 +119,36 @@ def test_trajectory_matches_jax(jax_trajectory, loss_impl):
         jax.tree.leaves(params_to_numpy(state.params)),
         jax.tree.leaves(params0)))
     assert moved > 1e-4, f"{name}: the params did not move"
+
+
+@pytest.mark.parametrize("loss_impl", ["fused", "pallas", "xla"])
+def test_trajectory_matches_jax(jax_trajectory, loss_impl):
+    name, kw, n, jax_result = jax_trajectory
+    _assert_trajectory(name, kw, n, jax_result, loss_impl)
+
+
+def test_pallas_trajectory_matches_jax_pallas():
+    """The port's two-pass loss against JAX's make_train_step with
+    loss_impl="pallas": extract_lp and assemble_grad in interpret mode."""
+    kw, n = TRAJECTORIES["warmup_cosine"]
+    _assert_trajectory("warmup_cosine", kw, n,
+                       _jax_run({**kw, "loss_impl": "pallas"}, n), "pallas")
+
+
+@pytest.mark.parametrize("device, joint_dim, want", [
+    ("cuda", 512, "fused"), ("cuda", MAX_J + 1, "pallas"),
+    ("cpu", 512, "xla"), ("cpu", MAX_J + 1, "xla")])
+def test_auto_loss_impl_follows_device_and_joint_width(device, joint_dim,
+                                                       want):
+    """auto: fused on the card where the fused kernels take J (libri100's
+    512), the two-pass loss above MAX_J, xla on the CPU; an explicit
+    choice stays."""
+    cfg = dataclasses.replace(port_config.config_libri100(),
+                              joint_dim=joint_dim)
+    dev = torch.device(device)
+    assert tloop._resolve_loss_impl("auto", dev, cfg) == want
+    for impl in ("fused", "pallas", "xla"):
+        assert tloop._resolve_loss_impl(impl, dev, cfg) == impl
 
 
 @pytest.mark.parametrize("schedule", ["warmup_cosine", "noam", "step_decay",
@@ -169,8 +201,7 @@ def test_nonfinite_step_is_skipped():
 @pytest.mark.parametrize("tcfg_kw, item", [
     (dict(dropout=0.1), "item 13"), (dict(ema_decay=0.9), "item 13"),
     (dict(weight_noise_std=0.1), "item 13"), (dict(ctc_weight=0.3), "item 8"),
-    (dict(loss_impl="pruned"), "item 10"), (dict(loss_impl="pallas"),
-                                             "item 7"),
+    (dict(loss_impl="pruned"), "item 10"),
 ])
 def test_unported_options_raise(tcfg_kw, item):
     cfg = port_config.TransducerConfig(**TINY)
@@ -200,6 +231,16 @@ def test_cli_trains_checkpoints_and_resumes(tmp_path, capsys):
     assert out["steps"] == 5 and ckpt.latest_step(str(tmp_path)) == 5
     resumed, _ = ckpt.restore_checkpoint(str(tmp_path))
     assert resumed.opt_state["count"] == 5
+
+
+def test_cli_trains_with_the_two_pass_loss(capsys):
+    state = train_main(["--device", "cpu", "--config", "smoke",
+                        "--batch-size", "2", "--max-frames", "24",
+                        "--max-labels", "4", "--warmup-steps", "1",
+                        "--steps", "2", "--loss-impl", "pallas"])
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["steps"] == 2 and np.isfinite(out["final_loss"])
+    assert state.opt_state["count"] == 2
 
 
 def test_cli_refuses_cuda_without_a_card(monkeypatch):
