@@ -10,7 +10,8 @@ user calls: serving (BatchingEngine behind http_server, with serve.py's
 CLI defaults) and training (init_train_state + make_train_step at
 bench.py's headline shape, B=32, T=400, U=40, through the default fused
 loss, and at U=80 through the two-pass loss, loss_impl="pallas"; and the
-training CLI). Phases, in order:
+training CLI); int8 serving (serve.py --quantize int8) and the greedy
+decode in one program (recognize_greedy_fused). Phases, in order:
 
   1. card   require CUDA; print the card's name and power limit
   2. build  build the kernel library from csrc/ with nvcc
@@ -19,10 +20,19 @@ training CLI). Phases, in order:
             and plain ms from CUDA events, in turns plain, kernel, kernel,
             plain); joint_bwd run twice must give identical bits; the
             lattice (alpha, beta and the occupancies) at U+1 = 41 and 81
-            with ragged lengths and a zero-frame row
+            with ragged lengths and a zero-frame row; the W8A8 recurrence
+            (lstm_int8) at the serving shapes and at batch tiles of 16
+            and 32 rows; the fused greedy decode (greedy_fused) on one
+            served batch against its plain version and the lock-step loop
   4. e2e    concurrent HTTP /recognize requests; every serving kernel
             must have launched while they were served; the f32 tokens of
             the kernel path and the plain path must be identical
+  4b. e2e_int8  the same requests to an engine holding quantize_params:
+            the W8A8 kernel launched and lstm_fwd did not; the f32 tokens
+            of the kernel path and the plain path identical
+  4c. fused recognize_greedy_fused on that batch with float and int8
+            params: greedy_fused launched; the f32 tokens equal to
+            recognize_greedy's
   5. train  training steps: finite loss and grad norm on every step, no
             skipped update, the params move, every training kernel
             launched; ms/step by the slope of bench.py and utt/s; one
@@ -33,7 +43,11 @@ training CLI). Phases, in order:
             assemble_grad and the lattice kernels launched), the same
             batch through the fused route for comparison, and the CLI
             with --loss-impl pallas
-  6. the kernels' JSON line, the card line, then {"ok": true, ...} last
+  6. the kernels' JSON line (each kernel with its bound, the least time
+     the card could take: bytes over 3.35 TB/s or operations over the
+     peak for the operands' type, whichever is larger; and the time of one
+     PyTorch call computing the same function where there is one), the
+     card line, then {"ok": true, ...} last
 
 TF32 is off for matmuls and cuDNN: every float32 product runs in float32.
 Any failed check exits non-zero; with no CUDA device it exits before any
@@ -61,15 +75,20 @@ from unittest import mock
 import numpy as np
 import torch
 
-from rnn_transducer_tpu_torch.decode.greedy import recognize_greedy
+from rnn_transducer_tpu_torch.decode import greedy_fused as gf
+from rnn_transducer_tpu_torch.decode.greedy import greedy_decode, recognize_greedy
 from rnn_transducer_tpu_torch.models import transducer as m
 from rnn_transducer_tpu_torch.models.config import TrainConfig, config_libri100
 from rnn_transducer_tpu_torch.ops import lstm_cuda
+from rnn_transducer_tpu_torch.ops import lstm_int8_cuda as q8
 from rnn_transducer_tpu_torch.ops import rnnt_joint_fused as jf
 from rnn_transducer_tpu_torch.ops import rnnt_lattice_cuda as lat
 from rnn_transducer_tpu_torch.ops import rnnt_loss as rl
 from rnn_transducer_tpu_torch.ops import rnnt_loss_cuda as lc
 from rnn_transducer_tpu_torch.ops.lstm import _dot
+from rnn_transducer_tpu_torch.ops.quant import (quantize_params,
+                                                quantize_tensor,
+                                                quantized_bytes)
 from rnn_transducer_tpu_torch.serve import BatchingEngine, http_server
 from rnn_transducer_tpu_torch.train import checkpoint as ckpt
 from rnn_transducer_tpu_torch.train import loop as tl
@@ -111,6 +130,20 @@ PALLAS_U = 80
 # order on both sides), the occupancies within 1e-5 absolute.
 LATTICE_RTOL, OCC_ATOL = 1e-5, 1e-5
 SLOPE_STEPS, SLOPE_REPEATS = (3, 8), 2  # bench.py's slope method, shorter
+# The W8A8 recurrence against its plain version: (name, B, T, I, nonzero
+# h0/c0). libri100 serving at the 800-frame bucket (B = 8: one 8-row batch
+# tile, as every served batch), and batch tiles of 32 and 16 rows.
+INT8_CASES = (("l0_b800", 8, 800, 80, False), ("l1_b800", 8, 400, 1024, False),
+              ("b32_l1", 32, 200, 1024, True),
+              ("b16_l1", 16, 200, 1024, True))
+INT8_MAIN = ("l0_b800", torch.bfloat16)
+# Published peaks of one H100 SXM (NVIDIA's data sheet, dense): device
+# memory bytes/s and operations/s by operand type. A bound is the larger of
+# the bytes a function must move (inputs read once, outputs written once)
+# over the first and its operations over the second.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12,
+                  torch.float16: 989e12, torch.int8: 1979e12}
 
 
 def fail(msg: str):
@@ -159,12 +192,71 @@ def timed_pair(kernel_fn, plain_fn) -> tuple[float, float]:
     return statistics.mean(times["kernel"]), statistics.mean(times["plain"])
 
 
+def nbytes(*tensors) -> int:
+    """Bytes of the tensors, nested in tuples and lists; None counts 0."""
+    total = 0
+    for a in tensors:
+        if isinstance(a, (tuple, list)):
+            total += nbytes(*a)
+        elif isinstance(a, torch.Tensor):
+            total += a.numel() * a.element_size()
+    return total
+
+
+def bound(n_bytes: int, ops: float, dtype) -> dict:
+    """The least time the card could take for work that moves n_bytes and
+    does `ops` operations on operands of `dtype`, and which of the two
+    bounds it."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_bytes": n_bytes, "bound_ops": ops}
+
+
+def cudnn_lstm_ms(x, w_ih, w_hh, b, h0, c0) -> dict:
+    """torch.nn.LSTM (cuDNN) on the layer's shape, one call each: the
+    inference forward, the training forward and its backward (dx, dh0,
+    dc0 and the weight gradients). cuDNN's RNN takes float16 but not
+    bfloat16 in PyTorch, so it runs in float16: the same bytes per value
+    and the same tensor-core rate as the kernels' bf16. Its forward
+    includes the input projection that the kernel leaves to a matmul."""
+    dt = torch.float16
+    B, _, I = x.shape
+    H = w_hh.shape[0]
+    lstm = torch.nn.LSTM(I, H, batch_first=True).to(x.device, dt)
+    with torch.no_grad():
+        lstm.weight_ih_l0.copy_(w_ih.t())
+        lstm.weight_hh_l0.copy_(w_hh.t())
+        lstm.bias_ih_l0.copy_(b)
+        lstm.bias_hh_l0.zero_()
+    xs = x.to(dt).requires_grad_(True)
+    state = (h0[None].to(dt), c0[None].to(dt))
+    with torch.no_grad():
+        lstm(xs, state)  # warm: cuDNN's plan
+        infer = statistics.mean(cuda_ms(lambda: lstm(xs, state))
+                                for _ in range(2))
+    for _ in range(2):  # warm: the training plan and its reserve space
+        out = lstm(xs, state)[0]
+    train = statistics.mean(cuda_ms(lambda: lstm(xs, state)) for _ in range(3))
+    grad = torch.randn_like(out)
+    out.backward(grad, retain_graph=True)
+    bwd = statistics.mean(cuda_ms(lambda: out.backward(grad, retain_graph=True))
+                          for _ in range(2))
+    return {"library_dtype": "float16",
+            "bf16_acceptable_to_cudnn": torch.backends.cudnn.is_acceptable(
+                x.to(torch.bfloat16)),
+            "cudnn_fwd_ms": infer, "cudnn_train_fwd_ms": train,
+            "cudnn_bwd_ms": bwd}
+
+
 def reset_counts() -> None:
     lstm_cuda.LAUNCHES = lstm_cuda.LAUNCHES_WITH_ACTS = 0
     lstm_cuda.LAUNCHES_BWD = 0
     jf.LAUNCHES_FWD = jf.LAUNCHES_BWD = 0
     lat.LAUNCHES_ALPHA = lat.LAUNCHES_BETA = 0
     lc.LAUNCHES_EXTRACT = lc.LAUNCHES_GRAD = 0
+    q8.LAUNCHES = gf.LAUNCHES = 0
 
 
 def read_counts() -> dict:
@@ -175,7 +267,8 @@ def read_counts() -> dict:
             "lattice_alpha": lat.LAUNCHES_ALPHA,
             "lattice_beta": lat.LAUNCHES_BETA,
             "extract_lp": lc.LAUNCHES_EXTRACT,
-            "assemble_grad": lc.LAUNCHES_GRAD}
+            "assemble_grad": lc.LAUNCHES_GRAD,
+            "lstm_fwd_int8": q8.LAUNCHES, "greedy_fused": gf.LAUNCHES}
 
 
 @contextlib.contextmanager
@@ -188,7 +281,8 @@ def plain_kernels():
                           (jf, "joint_lp_fwd"), (jf, "joint_lp_bwd"),
                           (lat, "alpha_wavefront"), (lat, "beta_wavefront"),
                           (lat, "beta_occupancies"), (lc, "extract_lp"),
-                          (lc, "assemble_grad")):
+                          (lc, "assemble_grad"), (q8, "lstm_recurrence_int8"),
+                          (gf, "greedy_fused_tokens")):
             stack.enter_context(mock.patch.object(
                 mod, name, getattr(mod, name + "_reference")))
         yield
@@ -230,7 +324,19 @@ def kernel_vs_plain(rng: np.random.Generator, dev) -> dict:
                    "dtype": str(cd).replace("torch.", ""),
                    "max_abs_err": err, "atol": ATOL[cd],
                    "kernel_ms": statistics.mean(times["kernel"]),
-                   "plain_ms": statistics.mean(times["plain"])}
+                   "plain_ms": statistics.mean(times["plain"]),
+                   **bound(nbytes(args, got[0], got[1][1]),
+                           2 * B * T * H * 4 * H, cd)}
+            if (name, cd) == MAIN_CASE:
+                # the layer as lstm_layer runs it, the input projection
+                # included, beside cuDNN's LSTM, which includes it too
+                def layer():
+                    lstm_cuda.lstm_recurrence(
+                        (_dot(x, w_ih, cd) + b).contiguous(), w, h0, c0)
+                row["proj_plus_kernel_ms"] = statistics.mean(
+                    cuda_ms(layer) for _ in range(2))
+                row.update(cudnn_lstm_ms(x, w_ih, w_hh, b, h0, c0))
+                row["library_ms"] = row["cudnn_fwd_ms"]
             print("kernel lstm_fwd " + json.dumps(row))
             check(ok, f"lstm_fwd {name} {cd}: max abs err {err} > "
                       f"{ATOL[cd]} or non-finite output")
@@ -283,13 +389,18 @@ def lstm_train_vs_plain(rng: np.random.Generator, dev) -> dict:
             kb, pb = timed_pair(
                 lambda: lstm_cuda.lstm_recurrence_bwd(*bwd_args),
                 lambda: lstm_cuda.lstm_recurrence_bwd_reference(*bwd_args))
+            ops = 2 * B * T * H * 4 * H
             row = {"case": name, "B": B, "T": T, "I": I, "H": H,
                    "dtype": str(cd).replace("torch.", ""),
                    "fwd_max_abs_err": err_f, "fwd_atol": ATOL[cd],
                    "bwd_max_abs_err": err_b, "bwd_rel_err": rel_b,
                    "bwd_rtol": REL_TOL[cd], "fwd_kernel_ms": kf,
                    "fwd_plain_ms": pf, "bwd_kernel_ms": kb,
-                   "bwd_plain_ms": pb}
+                   "bwd_plain_ms": pb,
+                   "fwd_bound": bound(nbytes(fwd_args, got), ops, cd),
+                   "bwd_bound": bound(nbytes(bwd_args, got_b), ops, cd)}
+            if (name, cd) == TRAIN_MAIN:
+                row.update(cudnn_lstm_ms(x, w_ih, w_hh, b, h0, c0))
             print("kernel lstm_fwd_with_acts+lstm_bwd " + json.dumps(row))
             check(ok, f"lstm training kernels {name} {cd}: fwd err {err_f}, "
                       f"bwd rel err {rel_b}, or non-finite output")
@@ -346,7 +457,12 @@ def joint_vs_plain(rng: np.random.Generator, dev) -> dict:
                "bwd_max_abs_err": err_b, "bwd_rel_err": rel_b,
                "bwd_rtol": REL_TOL[cd], "bwd_bitwise_repeat": same_bits,
                "fwd_kernel_ms": kf, "fwd_plain_ms": pf,
-               "bwd_kernel_ms": kb, "bwd_plain_ms": pb}
+               "bwd_kernel_ms": kb, "bwd_plain_ms": pb,
+               # forward: the logits product; backward: it again, dz and dW
+               "fwd_bound": bound(nbytes(fwd_args, got),
+                                  2 * B * T * (U + 1) * J * V, cd),
+               "bwd_bound": bound(nbytes(bwd_args, got_b),
+                                  6 * B * T * (U + 1) * J * V, cd)}
         print("kernel joint_fwd+joint_bwd " + json.dumps(row))
         check(all(bool(torch.isfinite(x).all()) for x in got_b)
               and err_f <= ATOL[cd] and max(rel_b.values()) <= REL_TOL[cd],
@@ -426,7 +542,13 @@ def lattice_vs_plain(rng: np.random.Generator, dev) -> dict:
                "occ_atol": OCC_ATOL, "loss_rel_err": loss_rel,
                "loss_rtol": LOSS_RTOL, "alpha_kernel_ms": ka,
                "alpha_plain_ms": pa, "beta_kernel_ms": kb,
-               "beta_plain_ms": pb}
+               "beta_plain_ms": pb,
+               # a log-add-exp of two terms per cell: ~8 operations; beta
+               # adds the two occupancies
+               "alpha_bound": bound(nbytes(a_args, got_a),
+                                    8 * B * T * (U + 1), torch.float32),
+               "beta_bound": bound(nbytes(b_args, got_b),
+                                   16 * B * T * (U + 1), torch.float32)}
         print("kernel lattice " + json.dumps(row))
         check(rel_a <= LATTICE_RTOL and rel_b <= LATTICE_RTOL,
               f"lattice U+1={U + 1}: alpha rel err {rel_a}, beta {rel_b}")
@@ -474,6 +596,11 @@ def loss_rows_vs_plain(rng: np.random.Generator, dev) -> dict:
         rel_g = rel_err(got_g.float(), want_g.float())
         err_g = max_abs(got_g.float(), want_g.float())
         finite = bool(torch.isfinite(got_g).all())
+        # max, exp and sum per logit; the gradient one exp, two products
+        bounds = {"extract_bound": bound(nbytes(x, labels, got),
+                                         4 * x.numel(), torch.float32),
+                  "grad_bound": bound(nbytes(g_args, got_g), 5 * x.numel(),
+                                      torch.float32)}
         del want_g, got_g
         kx, px = timed_pair(lambda: lc.extract_lp(x, labels),
                             lambda: lc.extract_lp_reference(x, labels))
@@ -485,7 +612,7 @@ def loss_rows_vs_plain(rng: np.random.Generator, dev) -> dict:
                "grad_max_abs_err": err_g, "grad_rel_err": rel_g,
                "rtol": REL_TOL[cd], "extract_kernel_ms": kx,
                "extract_plain_ms": px, "grad_kernel_ms": kg,
-               "grad_plain_ms": pg}
+               "grad_plain_ms": pg, **bounds}
         print("kernel loss_rows " + json.dumps(row))
         check(rel_x <= REL_TOL[cd] and rel_g <= REL_TOL[cd] and finite,
               f"loss rows {cd}: extract rel err {rel_x}, grad rel err "
@@ -497,6 +624,103 @@ def loss_rows_vs_plain(rng: np.random.Generator, dev) -> dict:
             "worst_extract": max(r["extract_max_abs_err"]
                                  for r in out.values()),
             "worst_grad": max(r["grad_max_abs_err"] for r in out.values())}
+
+
+def lstm_int8_vs_plain(rng: np.random.Generator, dev) -> dict:
+    """lstm_fwd_q (K7) against its plain version: the libri100 serving
+    layers at the 800-frame bucket and batch tiles of 32 and 16 rows, in
+    f32 and bf16, on int8 weights from quantize_tensor."""
+    H = 512
+    rows, worst, main = [], 0.0, None
+    for name, B, T, I, with_state in INT8_CASES:
+        k = 1.0 / np.sqrt(H)
+        w_ih = torch.from_numpy(rng.uniform(-k, k, (I, 4 * H))).float().to(dev)
+        qw = quantize_tensor(torch.from_numpy(
+            rng.uniform(-k, k, (H, 4 * H))).float().to(dev))
+        b = torch.from_numpy(rng.uniform(-2 * k, 2 * k, 4 * H)).float().to(dev)
+        x = torch.from_numpy(rng.normal(size=(B, T, I))).float().to(dev)
+        h0 = torch.zeros(B, H, device=dev)
+        c0 = torch.zeros(B, H, device=dev)
+        if with_state:
+            h0 = torch.from_numpy(0.5 * rng.normal(size=(B, H))).float().to(dev)
+            c0 = torch.from_numpy(rng.normal(size=(B, H))).float().to(dev)
+        for cd in (torch.float32, torch.bfloat16):
+            x_proj = (_dot(x, w_ih, cd) + b).to(cd).contiguous()
+            args = (x_proj, qw.q, qw.scale, h0, c0)
+            want = q8.lstm_recurrence_int8_reference(*args)
+            got = q8.lstm_recurrence_int8(*args)
+            torch.cuda.synchronize()
+            err = max(max_abs(got[0], want[0]), max_abs(got[1][1], want[1][1]))
+            kt, pt = timed_pair(lambda: q8.lstm_recurrence_int8(*args),
+                                lambda: q8.lstm_recurrence_int8_reference(
+                                    *args))
+            row = {"case": name, "B": B, "T": T, "I": I, "H": H,
+                   "batch_tile": q8.batch_tile(B, H),
+                   "dtype": str(cd).replace("torch.", ""),
+                   "max_abs_err": err, "atol": ATOL[cd], "kernel_ms": kt,
+                   "plain_ms": pt,
+                   **bound(nbytes(args, got[0], got[1][1]),
+                           2 * B * T * H * 4 * H, torch.int8)}
+            print("kernel lstm_int8 " + json.dumps(row))
+            check(bool(torch.isfinite(got[0]).all()) and err <= ATOL[cd],
+                  f"lstm_int8 {name} {cd}: max abs err {err} > {ATOL[cd]} "
+                  "or non-finite output")
+            rows.append(row)
+            worst = max(worst, err)
+            if (name, cd) == INT8_MAIN:
+                main = row
+    return {"rows": rows, "max_abs_err": worst, "main": main}
+
+
+def greedy_fused_vs_plain(serving: dict, dev) -> dict:
+    """greedy_fused (K9) against its plain version on one served batch (the
+    first max_batch utterances at the 800-frame bucket, max_symbols 100),
+    in f32 (identical tokens and steps) and bf16 (agreement reported), and
+    the lock-step greedy_decode on the same encoder output."""
+    cfg, params = serving["cfg"], serving["params"]
+    feats, lens = served_batch(serving, dev)
+    rows = {}
+    for cd in ("float32", "bfloat16"):
+        c = dataclasses.replace(cfg, compute_dtype=cd)
+        with torch.inference_mode():
+            enc, enc_lens = m.encode(params, c, feats, lens)
+            f, flens, weights = gf.fused_inputs(params, c, enc, enc_lens)
+            args = (f, flens, weights, MAX_SYMBOLS, cfg.blank, c.cdtype)
+            got = gf.greedy_fused_tokens(*args)
+            want = gf.greedy_fused_tokens_reference(*args)
+            torch.cuda.synchronize()
+            kt, pt = timed_pair(lambda: gf.greedy_fused_tokens(*args),
+                                lambda: gf.greedy_fused_tokens_reference(
+                                    *args))
+            lockstep = statistics.mean(
+                cuda_ms(lambda: greedy_decode(params, c, enc, enc_lens,
+                                              MAX_SYMBOLS)) for _ in range(2))
+        E, H = weights[0].shape[1], weights[2].shape[0]
+        J, V = f.shape[2], weights[0].shape[0]
+        n_tok = int((got[0] != cfg.blank).sum())
+        n_steps = int(got[1].sum())
+        # each step the joint's output product; each emission (and the
+        # start symbol) the predictor cell and its projection
+        ops = (2 * n_steps * J * V
+               + 2 * (n_tok + f.shape[0]) * ((E + H) * 4 * H + H * J))
+        row = {"dtype": cd, "B": f.shape[0], "T": f.shape[1], "J": J,
+               "V": V, "max_symbols": MAX_SYMBOLS,
+               "tokens_identical": torch.equal(got[0], want[0]),
+               "steps_identical": torch.equal(got[1], want[1]),
+               "row_agreement": float((got[0] == want[0]).all(1).float()
+                                      .mean()),
+               "max_abs_err": float((got[0] - want[0]).abs().max()),
+               "tokens": n_tok, "steps": n_steps, "kernel_ms": kt,
+               "plain_ms": pt, "lockstep_ms": lockstep,
+               **bound(nbytes(args[:3], got), ops, torch.float32)}
+        print("kernel greedy_fused " + json.dumps(row))
+        if cd == "float32":
+            check(row["tokens_identical"] and row["steps_identical"],
+                  "greedy_fused f32: tokens or steps differ from the plain "
+                  "version")
+        rows[cd] = row
+    return {"rows": rows, "main": rows["bfloat16"],
+            "max_abs_err": rows["float32"]["max_abs_err"]}
 
 
 # ------------------------------ phase 4 ----------------------------------
@@ -559,7 +783,9 @@ def decode_batch(params, cfg, feats, lens, plain: bool):
     return enc, [tok[b, :n[b]].tolist() for b in range(len(n))]
 
 
-def end_to_end(seed: int, n_requests: int, dev) -> dict:
+def serving_setup(seed: int, n_requests: int, dev) -> dict:
+    """The served model (libri100, random weights from the seed, the blank
+    offset of `blank_offset`) and the requests' utterances."""
     rng = np.random.default_rng(seed)
     cfg = config_libri100()
     params = m.init_params(cfg, rng, dev)
@@ -569,7 +795,27 @@ def end_to_end(seed: int, n_requests: int, dev) -> dict:
     lengths[:2] = (150, 800)
     utts = [rng.normal(size=(int(T), cfg.input_dim)).astype(np.float32)
             for T in lengths]
+    return {"cfg": cfg, "params": params, "offset": offset,
+            "lengths": lengths, "utts": utts}
 
+
+def served_batch(serving: dict, dev):
+    """The first max_batch utterances padded to the largest bucket, as the
+    engine pads a batch of them: feats (8, 800, 80) and lengths."""
+    B, tb = min(MAX_BATCH, len(serving["utts"])), BUCKETS[-1]
+    feats = np.zeros((B, tb, serving["cfg"].input_dim), np.float32)
+    lens = np.zeros((B,), np.int32)
+    for i in range(B):
+        feats[i, :serving["lengths"][i]] = serving["utts"][i]
+        lens[i] = serving["lengths"][i]
+    return torch.from_numpy(feats).to(dev), torch.from_numpy(lens).to(dev)
+
+
+def serve_all(serving: dict, params, dev) -> tuple[list, dict, dict]:
+    """Every request through a BatchingEngine holding `params`, behind
+    http_server: the answers, the engine's stats and the launch counts of
+    the served requests alone (the warm-up excluded)."""
+    cfg = serving["cfg"]
     engine = BatchingEngine(params, cfg, max_symbols=MAX_SYMBOLS,
                             frame_buckets=BUCKETS, max_batch=MAX_BATCH,
                             window_ms=WINDOW_MS, device=dev)
@@ -577,18 +823,18 @@ def end_to_end(seed: int, n_requests: int, dev) -> dict:
         t0 = time.perf_counter()
         engine.warmup()
         warmup_s = time.perf_counter() - t0
-        lstm_cuda.LAUNCHES = 0  # count only the served requests' launches
+        reset_counts()
         t0 = time.perf_counter()
-        answers = serve_requests(engine, utts)
+        answers = serve_requests(engine, serving["utts"])
         wall_s = time.perf_counter() - t0
-        launches = lstm_cuda.LAUNCHES
+        counts = read_counts()
         stats = engine.stats.summary()
     finally:
         engine.close()
 
     codes = [a[0] for a in answers]
     check(all(c == 200 for c in codes), f"HTTP codes {codes}")
-    for (_, out, _), T in zip(answers, lengths):
+    for (_, out, _), T in zip(answers, serving["lengths"]):
         n = len(out["tokens"])
         check(n == len(out["confidence"]) == len(out["frames"]) <= MAX_SYMBOLS,
               "result fields disagree in length")
@@ -599,7 +845,6 @@ def end_to_end(seed: int, n_requests: int, dev) -> dict:
         check(all(0 <= f < T for f in out["frames"])
               and out["frames"] == sorted(out["frames"]),
               "frames out of order or past the utterance")
-    check(launches > 0, "the served path never launched lstm_fwd")
     lat = sorted(a[2] * 1e3 for a in answers)
     tokens = [len(a[1]["tokens"]) for a in answers]
     result = {"requests": len(answers), "warmup_s": warmup_s,
@@ -609,33 +854,47 @@ def end_to_end(seed: int, n_requests: int, dev) -> dict:
               "p50_ms": lat[len(lat) // 2],
               "p95_ms": lat[min(len(lat) - 1, int(0.95 * len(lat)))],
               "mean_tokens": statistics.mean(tokens),
-              "blank_offset": offset, "launches": launches}
-    print("e2e " + json.dumps(result))
+              "blank_offset": serving["offset"]}
+    return answers, result, counts
 
-    # One batch of the served utterances: kernel path vs plain path.
-    B, tb = MAX_BATCH, BUCKETS[-1]
-    feats = np.zeros((B, tb, cfg.input_dim), np.float32)
-    lens = np.zeros((B,), np.int32)
-    for i in range(B):
-        feats[i, :lengths[i]] = utts[i]
-        lens[i] = lengths[i]
-    feats_d = torch.from_numpy(feats).to(dev)
-    lens_d = torch.from_numpy(lens).to(dev)
+
+def kernel_vs_plain_tokens(params, cfg, feats, lens, what: str) -> dict:
+    """recognize_greedy on one batch through the kernels and through the
+    plain versions, in f32 (identical tokens required) and bf16."""
+    B = feats.shape[0]
+    out = {}
     for cd in ("float32", "bfloat16"):
         c = dataclasses.replace(cfg, compute_dtype=cd)
-        enc_k, tok_k = decode_batch(params, c, feats_d, lens_d, plain=False)
-        enc_p, tok_p = decode_batch(params, c, feats_d, lens_d, plain=True)
+        enc_k, tok_k = decode_batch(params, c, feats, lens, plain=False)
+        enc_p, tok_p = decode_batch(params, c, feats, lens, plain=True)
         agree = sum(a == b for a, b in zip(tok_k, tok_p)) / B
-        row = {"dtype": cd, "enc_max_abs_err": float(
+        row = {"params": what, "dtype": cd, "enc_max_abs_err": float(
             (enc_k - enc_p).abs().max()), "token_agreement": agree,
             "tokens_per_utt": [len(t) for t in tok_k]}
         print("kernel_vs_plain_decode " + json.dumps(row))
         if cd == "float32":
-            check(tok_k == tok_p, "f32 tokens differ between the kernel "
-                                  "path and the plain path")
+            check(tok_k == tok_p, f"f32 tokens ({what} params) differ "
+                                  "between the kernel path and the plain path")
             check(row["enc_max_abs_err"] <= ATOL[torch.float32],
-                  "f32 encoder output differs between kernel and plain")
-            enc_f32 = enc_k
+                  f"f32 encoder output ({what} params) differs between "
+                  "kernel and plain")
+            out["enc_f32"] = enc_k
+        out[cd] = row
+    return out
+
+
+def end_to_end(serving: dict, dev) -> dict:
+    cfg, params = serving["cfg"], serving["params"]
+    answers, result, counts = serve_all(serving, params, dev)
+    launches = counts["lstm_fwd"]
+    result["launches"] = launches
+    check(launches > 0, "the served path never launched lstm_fwd")
+    print("e2e " + json.dumps(result))
+
+    # One batch of the served utterances: kernel path vs plain path.
+    feats_d, lens_d = served_batch(serving, dev)
+    enc_f32 = kernel_vs_plain_tokens(params, cfg, feats_d, lens_d,
+                                     "float")["enc_f32"]
 
     # The kernel path on the card against the port on the CPU (plain
     # recurrence, another matmul library), two utterances, f32.
@@ -646,6 +905,91 @@ def end_to_end(seed: int, n_requests: int, dev) -> dict:
     print(f"cpu_reference enc_max_abs_err {err}")
     check(err <= ATOL[torch.float32], f"card vs CPU encoder output {err}")
     return result
+
+
+def int8_serving(serving: dict, dev) -> dict:
+    """Phase 4b: the same requests to an engine holding quantize_params
+    (serve.py --quantize int8). At max_batch 8 every encoder layer takes
+    the W8A8 route: lstm_fwd_q launches and lstm_fwd does not."""
+    cfg = serving["cfg"]
+    qparams = quantize_params(serving["params"])
+    qb, fb = quantized_bytes(qparams)
+    answers, result, counts = serve_all(serving, qparams, dev)
+    result.update({"int8_mb": qb / 1e6, "fp32_mb": fb / 1e6,
+                   "launches": counts["lstm_fwd_int8"],
+                   "lstm_fwd_launches": counts["lstm_fwd"]})
+    print("e2e_int8 " + json.dumps(result))
+    check(counts["lstm_fwd_int8"] > 0,
+          "the int8 engine never launched lstm_fwd_q")
+    check(counts["lstm_fwd"] == 0,
+          "the int8 engine launched lstm_fwd: an encoder layer took the "
+          "dequantized route")
+    feats_d, lens_d = served_batch(serving, dev)
+    kernel_vs_plain_tokens(qparams, cfg, feats_d, lens_d, "int8")
+    result["qparams"] = qparams
+    return result
+
+
+def host_ms(fn, repeats: int = 2) -> float:
+    """Mean wall time of fn() ending in a synchronize."""
+    times = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.mean(times)
+
+
+def fused_greedy(serving: dict, qparams, dev) -> dict:
+    """Phase 4c: recognize_greedy_fused on the served batch with float and
+    int8 params, against recognize_greedy on the same params: greedy_fused
+    launched; f32 tokens identical; at bf16 (the served dtype) the two
+    entry points timed, encoder included."""
+    cfg = serving["cfg"]
+    feats, lens = served_batch(serving, dev)
+    rows, launches = [], 0
+    for what, params in (("float", serving["params"]), ("int8", qparams)):
+        for cd in ("float32", "bfloat16"):
+            c = dataclasses.replace(cfg, compute_dtype=cd)
+            with torch.inference_mode():
+                reset_counts()
+                tok_f, n_f = gf.recognize_greedy_fused(params, c, feats, lens,
+                                                       MAX_SYMBOLS)
+                torch.cuda.synchronize()
+                counts = read_counts()
+                tok_g, n_g = recognize_greedy(params, c, feats, lens,
+                                              MAX_SYMBOLS)
+                row = {"params": what, "dtype": cd,
+                       "greedy_fused_launches": counts["greedy_fused"],
+                       "lstm_fwd_int8_launches": counts["lstm_fwd_int8"],
+                       "lstm_fwd_launches": counts["lstm_fwd"],
+                       "tokens_identical": torch.equal(tok_f, tok_g)
+                       and torch.equal(n_f, n_g),
+                       "row_agreement": float((tok_f == tok_g).all(1).float()
+                                              .mean()),
+                       "tokens_per_utt": n_f.tolist()}
+                if cd == "bfloat16":
+                    row["fused_ms"] = host_ms(lambda: gf.recognize_greedy_fused(
+                        params, c, feats, lens, MAX_SYMBOLS))
+                    row["lockstep_ms"] = host_ms(lambda: recognize_greedy(
+                        params, c, feats, lens, MAX_SYMBOLS))
+            print("fused_greedy " + json.dumps(row))
+            check(counts["greedy_fused"] > 0,
+                  f"recognize_greedy_fused ({what}, {cd}) never launched "
+                  "greedy_fused")
+            if what == "int8":
+                check(counts["lstm_fwd_int8"] > 0 and counts["lstm_fwd"] == 0,
+                      f"recognize_greedy_fused (int8, {cd}): the encoder did "
+                      "not take the W8A8 route")
+            if cd == "float32":
+                check(row["tokens_identical"],
+                      f"recognize_greedy_fused ({what}, f32): tokens differ "
+                      "from recognize_greedy")
+            launches += counts["greedy_fused"]
+            rows.append(row)
+    return {"rows": rows, "launches": launches}
 
 
 # ------------------------------ phase 5 ----------------------------------
@@ -934,12 +1278,13 @@ def train_pallas_phase(seed: int, dev, profile_dir) -> dict:
     return result
 
 
-def kernel_entry(name, source, replaces, launches, err, row, ms_key,
-                 plain_key) -> dict:
+def kernel_entry(name, source, replaces, launches, err, ms, plain_ms,
+                 bnd: dict, library_ms=None) -> dict:
     return {"name": name, "route": "cuda",
             "source": f"rnn_transducer_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": launches, "max_abs_err": err,
-            "ms": row[ms_key], "plain_ms": row[plain_key]}
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd["bound_ms"],
+            "bound_by": bnd["bound_by"], "library_ms": library_ms}
 
 
 def main(argv=None):
@@ -980,12 +1325,23 @@ def main(argv=None):
     kj = joint_vs_plain(np.random.default_rng(args.seed + 4), dev)
     kl = lattice_vs_plain(np.random.default_rng(args.seed + 5), dev)
     kr = loss_rows_vs_plain(np.random.default_rng(args.seed + 6), dev)
+    kq = lstm_int8_vs_plain(np.random.default_rng(args.seed + 7), dev)
+    serving = serving_setup(args.seed, args.requests, dev)
+    kg = greedy_fused_vs_plain(serving, dev)
     print(f"phase kernel: {time.perf_counter() - t0:.1f} s")
 
-    # phase 4: serving end to end
+    # phase 4: serving end to end, float and int8, and the fused decoder
     t0 = time.perf_counter()
-    e2e = end_to_end(args.seed, args.requests, dev)
+    e2e = end_to_end(serving, dev)
     print(f"phase e2e: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    e2e_q = int8_serving(serving, dev)
+    print(f"phase e2e_int8: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    fused = fused_greedy(serving, e2e_q.pop("qparams"), dev)
+    print(f"phase fused: {time.perf_counter() - t0:.1f} s")
+    del serving
+    torch.cuda.empty_cache()
 
     # phase 5: training
     t0 = time.perf_counter()
@@ -1000,35 +1356,55 @@ def main(argv=None):
     jp = "rnn_transducer_tpu/ops/rnnt_joint_fused.py"
     wp = "rnn_transducer_tpu/ops/rnnt_lattice_pallas.py"
     rp = "rnn_transducer_tpu/ops/rnnt_loss_pallas.py"
+    gp = "rnn_transducer_tpu/decode/greedy_pallas.py"
     counts = train["launches"]
     two_pass = pallas["launches"]
+    km, tm_, jm_, lm, rm = (k["main"], kt["main"], kj["main"], kl["main"],
+                            kr["main"])
     print(json.dumps({"kernels": [
         kernel_entry("lstm_fwd", "lstm_fwd.cu", f"{lp}:119", e2e["launches"],
-                     k["max_abs_err"], k["main"], "kernel_ms", "plain_ms"),
+                     k["max_abs_err"], km["kernel_ms"], km["plain_ms"], km,
+                     km["library_ms"]),
         kernel_entry("lstm_fwd_with_acts", "lstm_fwd.cu", f"{lp}:119",
                      counts["lstm_fwd_with_acts"], kt["worst"]["fwd"],
-                     kt["main"], "fwd_kernel_ms", "fwd_plain_ms"),
+                     tm_["fwd_kernel_ms"], tm_["fwd_plain_ms"],
+                     tm_["fwd_bound"], tm_["cudnn_train_fwd_ms"]),
         kernel_entry("lstm_bwd", "lstm_bwd.cu", f"{lp}:222",
-                     counts["lstm_bwd"], kt["worst"]["bwd"], kt["main"],
-                     "bwd_kernel_ms", "bwd_plain_ms"),
+                     counts["lstm_bwd"], kt["worst"]["bwd"],
+                     tm_["bwd_kernel_ms"], tm_["bwd_plain_ms"],
+                     tm_["bwd_bound"], tm_["cudnn_bwd_ms"]),
         kernel_entry("joint_fwd", "joint_fwd.cu", f"{jp}:132",
-                     counts["joint_fwd"], kj["worst_fwd"], kj["main"],
-                     "fwd_kernel_ms", "fwd_plain_ms"),
+                     counts["joint_fwd"], kj["worst_fwd"],
+                     jm_["fwd_kernel_ms"], jm_["fwd_plain_ms"],
+                     jm_["fwd_bound"]),
         kernel_entry("joint_bwd", "joint_bwd.cu", f"{jp}:374",
-                     counts["joint_bwd"], kj["worst_bwd"], kj["main"],
-                     "bwd_kernel_ms", "bwd_plain_ms"),
+                     counts["joint_bwd"], kj["worst_bwd"],
+                     jm_["bwd_kernel_ms"], jm_["bwd_plain_ms"],
+                     jm_["bwd_bound"]),
         kernel_entry("lattice_alpha", "lattice.cu", f"{wp}:65",
-                     counts["lattice_alpha"], kl["worst_alpha"], kl["main"],
-                     "alpha_kernel_ms", "alpha_plain_ms"),
+                     counts["lattice_alpha"], kl["worst_alpha"],
+                     lm["alpha_kernel_ms"], lm["alpha_plain_ms"],
+                     lm["alpha_bound"]),
         kernel_entry("lattice_beta", "lattice.cu", f"{wp}:65",
-                     counts["lattice_beta"], kl["worst_beta"], kl["main"],
-                     "beta_kernel_ms", "beta_plain_ms"),
+                     counts["lattice_beta"], kl["worst_beta"],
+                     lm["beta_kernel_ms"], lm["beta_plain_ms"],
+                     lm["beta_bound"]),
         kernel_entry("extract_lp", "loss_rows.cu", f"{rp}:82",
-                     two_pass["extract_lp"], kr["worst_extract"], kr["main"],
-                     "extract_kernel_ms", "extract_plain_ms"),
+                     two_pass["extract_lp"], kr["worst_extract"],
+                     rm["extract_kernel_ms"], rm["extract_plain_ms"],
+                     rm["extract_bound"]),
         kernel_entry("assemble_grad", "loss_rows.cu", f"{rp}:126",
-                     two_pass["assemble_grad"], kr["worst_grad"], kr["main"],
-                     "grad_kernel_ms", "grad_plain_ms"),
+                     two_pass["assemble_grad"], kr["worst_grad"],
+                     rm["grad_kernel_ms"], rm["grad_plain_ms"],
+                     rm["grad_bound"]),
+        kernel_entry("lstm_fwd_int8", "lstm_fwd_q.cu", f"{lp}:532",
+                     e2e_q["launches"], kq["max_abs_err"],
+                     kq["main"]["kernel_ms"], kq["main"]["plain_ms"],
+                     kq["main"]),
+        kernel_entry("greedy_fused", "greedy_fused.cu", f"{gp}:107",
+                     fused["launches"], kg["max_abs_err"],
+                     kg["main"]["kernel_ms"], kg["main"]["plain_ms"],
+                     kg["main"]),
     ]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

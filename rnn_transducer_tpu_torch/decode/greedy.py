@@ -17,6 +17,7 @@ import torch
 
 from rnn_transducer_tpu_torch.models import transducer as m
 from rnn_transducer_tpu_torch.models.config import TransducerConfig
+from rnn_transducer_tpu_torch.ops.quant import maybe_dequant_tree
 
 
 def greedy_decode(params, cfg: TransducerConfig, enc_out, enc_lens,
@@ -40,6 +41,9 @@ def greedy_decode(params, cfg: TransducerConfig, enc_out, enc_lens,
         raise NotImplementedError(
             "carried decode_state (streaming) is not ported yet (ROADMAP "
             "queue 1, item 4: streaming)")
+    # int8 params dequantized once here, not in every step's predict_step
+    # and joint_step (the JAX package's jit hoists them out of its loop)
+    params = maybe_dequant_tree(params)
     B = enc_out.shape[0]
     dev = enc_out.device
     enc_lens = enc_lens.to(device=dev, dtype=torch.int32)

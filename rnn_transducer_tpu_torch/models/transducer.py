@@ -7,7 +7,9 @@ Plain functions on tensors over a parameter dict in the JAX layout:
 It covers greedy serving (`encode`, `predict_step`, `joint_step`) and
 the training forward (`predict`, `joint`, `joint_activations`,
 `forward`). Configurations outside it raise NotImplementedError naming
-their ROADMAP item.
+their ROADMAP item. Every entry point takes int8 serving params
+(`ops/quant.py`) and dequantizes them as the JAX package does; `encode`
+keeps `w_hh` int8 for the W8A8 recurrence.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from rnn_transducer_tpu_torch.ops.lstm import (
     lstm_layer,
     mask_padding,
 )
+from rnn_transducer_tpu_torch.ops.quant import maybe_dequant_tree
 
 Params = dict[str, Any]
 
@@ -129,6 +132,7 @@ def encode(params: Params, cfg: TransducerConfig, feats, feat_lens):
     the pad region; the input to frame stacking and the output are masked.
     """
     check_supported(cfg)
+    params = maybe_dequant_tree(params, keep=("w_hh",))
     x = mask_padding(feats.float(), feat_lens)
     lens = feat_lens.to(torch.int32)
     cd = cfg.cdtype
@@ -147,6 +151,7 @@ def predict_step(params: Params, cfg: TransducerConfig, label, states):
     states: list per layer of (h, c) each (B, H). Returns (out (B, H), states').
     """
     check_supported(cfg)
+    params = maybe_dequant_tree(params)
     x = params["embed"][label]  # (B, E)
     new_states = []
     for layer, (h, c) in zip(params["predictor"], states):
@@ -171,6 +176,7 @@ def init_pred_state(cfg: TransducerConfig, batch: int,
 
 def joint_step(params: Params, cfg: TransducerConfig, enc_t, pred_u):
     """Joint for single (t, u) positions: enc_t (B, De), pred_u (B, Dp) -> (B, V) fp32."""
+    params = maybe_dequant_tree(params)
     jp = params["joint"]
     cd = cfg.cdtype
     f = _dot(enc_t, jp["enc_proj"]["w"], cd) + jp["enc_proj"]["b"].float()
@@ -187,6 +193,7 @@ def predict(params: Params, cfg: TransducerConfig, labels):
     embedding. The final states are a list of (h, c) per layer.
     """
     check_supported(cfg)
+    params = maybe_dequant_tree(params)
     B = labels.shape[0]
     labels = labels.to(torch.int64)
     bos = torch.full((B, 1), cfg.blank, dtype=torch.int64,
@@ -204,6 +211,7 @@ def joint_activations(params: Params, cfg: TransducerConfig, enc_out,
     """Per-side joint activations for the fused joint + loss op:
     f = enc_proj(enc_out) (B, T, J), g = pred_proj(pred_out) (B, U+1, J),
     both fp32, and the output layer's w (J, V) and b (V,)."""
+    params = maybe_dequant_tree(params)
     jp = params["joint"]
     cd = cfg.cdtype
     f = _dot(enc_out, jp["enc_proj"]["w"], cd) + jp["enc_proj"]["b"].float()

@@ -8,11 +8,18 @@ CUDA tensor, their plain PyTorch step loops for a CPU tensor. The cell
 state is fp32; matmul operands are rounded to the compute dtype (`_dot`).
 `LSTMCore` is the recurrence's autograd op, the counterpart of the JAX
 package's `_lstm_core` custom VJP.
+
+A layer whose `w_hh` is an int8 `QTensor` (serving params, `ops/quant.py`)
+takes one of the two routes of the JAX package's TPU dispatch, which
+compute different functions: the W8A8 recurrence (`_lstm_layer_int8`) or
+the float recurrence on the dequantized weights.
 """
 
 from __future__ import annotations
 
 import torch
+
+from rnn_transducer_tpu_torch.ops.quant import QTensor, dequantize_tensor
 
 
 def _dot(x: torch.Tensor, w: torch.Tensor,
@@ -30,9 +37,23 @@ def _dot(x: torch.Tensor, w: torch.Tensor,
     return torch.matmul(x.to(cdtype).float(), w.to(cdtype).float())
 
 
+def _whh(params, compute_dtype):
+    """Recurrent weights in the compute dtype, an int8 QTensor dequantized
+    (`_whh` of the JAX package)."""
+    w = params["w_hh"]
+    if isinstance(w, QTensor):
+        return dequantize_tensor(w, compute_dtype)
+    return w.to(compute_dtype)
+
+
+def hidden_dim(params) -> int:
+    w = params["w_hh"]
+    return (w.q if isinstance(w, QTensor) else w).shape[0]
+
+
 def lstm_cell(params, x_proj, h, c, compute_dtype=torch.bfloat16):
     """One LSTM step. x_proj = x @ w_ih + b precomputed. h:(B,H) c:(B,H) fp32."""
-    gates = x_proj + _dot(h, params["w_hh"], compute_dtype)
+    gates = x_proj + _dot(h, _whh(params, compute_dtype), compute_dtype)
     i, f, g, o = gates.chunk(4, dim=-1)  # torch gate order: i, f, g, o
     c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
     h_new = torch.sigmoid(o) * torch.tanh(c_new)
@@ -45,19 +66,21 @@ def lstm_layer(params, x, h0=None, c0=None, *, compute_dtype=torch.bfloat16):
     Returns (outputs, (h_T, c_T)), all fp32. x_proj stays fp32, as on the
     JAX scan path (the JAX Pallas path rounds it to the compute dtype,
     `lstm_pallas._proj`; at bf16 the two differ by that rounding).
+    An int8 `w_hh` takes `_lstm_layer_int8`.
     """
     from rnn_transducer_tpu_torch.ops import lstm_cuda
 
     B = x.shape[0]
-    H = params["w_hh"].shape[0]
-    x_proj = (_dot(x, params["w_ih"], compute_dtype)
-              + params["b"].float())  # (B, T, 4H) fp32
+    H = hidden_dim(params)
     if h0 is None:
         h0 = torch.zeros((B, H), dtype=torch.float32, device=x.device)
     if c0 is None:
         c0 = torch.zeros((B, H), dtype=torch.float32, device=x.device)
-    x_proj, h0, c0 = (x_proj.contiguous(), h0.float().contiguous(),
-                      c0.float().contiguous())
+    h0, c0 = h0.float().contiguous(), c0.float().contiguous()
+    if isinstance(params["w_hh"], QTensor):
+        return _lstm_layer_int8(params, x, h0, c0, compute_dtype)
+    x_proj = (_dot(x, params["w_ih"], compute_dtype)
+              + params["b"].float()).contiguous()  # (B, T, 4H) fp32
     if torch.is_grad_enabled() and any(
             a.requires_grad for a in (x_proj, params["w_hh"], h0, c0)):
         hs, hT, cT = LSTMCore.apply(x_proj, params["w_hh"], h0, c0,
@@ -65,6 +88,40 @@ def lstm_layer(params, x, h0=None, c0=None, *, compute_dtype=torch.bfloat16):
         return hs, (hT, cT)
     return lstm_cuda.lstm_recurrence(
         x_proj, params["w_hh"].to(compute_dtype).contiguous(), h0, c0)
+
+
+def w8a8_supported(B: int, H: int) -> bool:
+    """Where the JAX package's TPU dispatch runs the W8A8 kernel
+    (`lstm_pallas.supported`); every other shape dequantizes w_hh."""
+    return H % 128 == 0 and H <= 2048 and B % 8 == 0
+
+
+def _lstm_layer_int8(params, x, h0, c0, compute_dtype):
+    """`lstm_layer` for an int8 QTensor w_hh: inference only.
+
+    W8A8 route, on `w8a8_supported` shapes (`lstm_layer_pallas`): x_proj is
+    rounded to the compute dtype after the bias, as `lstm_pallas._proj`
+    does, and the recurrence requantizes h every step
+    (`lstm_int8_cuda.lstm_recurrence_int8`, the CUDA kernel K7 on a card).
+    Dequantized route, everywhere else (the JAX scan path): w_hh in the
+    compute dtype through the float recurrence. The JAX package's 12 MB
+    VMEM gate on the W8A8 route is a TPU concern and is left out. Both
+    recurrences raise when an input requires grad.
+    """
+    from rnn_transducer_tpu_torch.ops import lstm_cuda, lstm_int8_cuda
+
+    w_hh, w_ih, b = params["w_hh"], params["w_ih"], params["b"]
+    if isinstance(w_ih, QTensor):
+        w_ih = dequantize_tensor(w_ih)
+    B, H = x.shape[0], w_hh.q.shape[0]
+    x_proj = _dot(x, w_ih, compute_dtype) + b.float()
+    if w8a8_supported(B, H):
+        return lstm_int8_cuda.lstm_recurrence_int8(
+            x_proj.to(compute_dtype).contiguous(), w_hh.q.contiguous(),
+            w_hh.scale.float().contiguous(), h0, c0)
+    return lstm_cuda.lstm_recurrence(x_proj.contiguous(),
+                                     _whh(params, compute_dtype).contiguous(),
+                                     h0, c0)
 
 
 class LSTMCore(torch.autograd.Function):

@@ -7,12 +7,18 @@ fixed (max_batch, bucket_frames) shape and runs one greedy decode for the
 whole group on the engine's device. `http_server` exposes it over stdlib
 HTTP with JSON bodies.
 
+`--quantize int8` serves post-training int8 weights (`ops/quant.py`): the
+encoder's LSTM layers run the W8A8 recurrence (CUDA kernel
+`csrc/lstm_fwd_q.cu`) at batch sizes that are a multiple of 8, such as the
+default `--max-batch 8`, and the dequantized weights elsewhere.
+
 Not ported yet, each with its ROADMAP item (queue 1): beam mode (item 3),
 streaming sessions (item 4: the session routes answer 404, as the JAX
 server does with streaming off), raw-audio bodies (item 5: the FBANK
-frontend), LM / n-gram / context fusion (item 14) and int8 (item 15).
+frontend) and LM / n-gram / context fusion (item 14).
 
     python -m rnn_transducer_tpu_torch.serve --config libri100 --port 8000
+    python -m rnn_transducer_tpu_torch.serve --config libri100 --quantize int8
     curl -XPOST localhost:8000/recognize -d '{"feats": [[...80 floats...]]}'
     curl localhost:8000/stats
 """
@@ -351,6 +357,10 @@ def parse_args(argv=None):
     p.add_argument("--window-ms", type=float, default=5.0)
     p.add_argument("--frame-buckets", type=int, nargs="+",
                    default=[200, 400, 800])
+    p.add_argument("--quantize", default=None, choices=["int8"],
+                   help="post-training weight quantization: symmetric "
+                        "per-channel int8 on every 2-D weight "
+                        "(ops/quant.py)")
     return p.parse_args(argv)
 
 
@@ -365,6 +375,13 @@ def main(argv=None):
         params = load_state_dict(args.state_dict, cfg, "cuda")
     else:
         params = m.init_params(cfg, np.random.default_rng(args.seed), "cuda")
+    if args.quantize == "int8":
+        from rnn_transducer_tpu_torch.ops.quant import (quantize_params,
+                                                        quantized_bytes)
+        params = quantize_params(params)
+        qb, fb = quantized_bytes(params)
+        print(f"int8 weights: {qb / 1e6:.1f} MB (fp32 {fb / 1e6:.1f} MB)",
+              file=sys.stderr)
     engine = BatchingEngine(params, cfg, max_symbols=args.max_symbols,
                             frame_buckets=args.frame_buckets,
                             max_batch=args.max_batch,

@@ -5,7 +5,10 @@ bridge is leaf by leaf:
 
   * `params_from_numpy(tree, device)` takes the JAX params pytree with numpy
     leaves (`jax.tree.map(np.asarray, params)`) and returns the same tree of
-    torch tensors on `device`; `params_to_numpy` is its inverse.
+    torch tensors on `device`; `params_to_numpy` is its inverse. An int8
+    leaf of a quantized tree (the JAX package's `QTensor`, a NamedTuple
+    with fields `q` and `scale`) becomes the port's `ops.quant.QTensor`
+    and back, bit for bit.
   * `load_state_dict(path, cfg, device)` reads the torch-layout `.pt` file
     that `tools/export_torch_ckpt.py` writes (nn.LSTM / nn.Linear naming)
     and undoes its transposes, so the port serves a trained model without
@@ -19,16 +22,20 @@ import torch
 
 from rnn_transducer_tpu_torch.models.config import TransducerConfig
 from rnn_transducer_tpu_torch.models.transducer import check_supported
+from rnn_transducer_tpu_torch.ops.quant import QTensor
+
+
+def _is_qtensor(tree) -> bool:
+    """A QTensor of either package: a NamedTuple with fields q, scale."""
+    return getattr(tree, "_fields", None) == QTensor._fields
 
 
 def params_from_numpy(tree, device: str | torch.device = "cpu"):
     """JAX params pytree with numpy leaves -> the same tree of tensors."""
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
-    if type(tree).__name__ == "QTensor":
-        raise NotImplementedError(
-            "int8 params are not ported yet (ROADMAP queue 1, item 15: "
-            "int8 serving)")
+    if _is_qtensor(tree):
+        return QTensor(*(params_from_numpy(v, device) for v in tree))
     if isinstance(tree, (list, tuple)):
         return type(tree)(params_from_numpy(v, device) for v in tree)
     if isinstance(tree, (np.ndarray, np.generic)):
@@ -41,6 +48,8 @@ def params_to_numpy(tree):
     """Inverse of `params_from_numpy`."""
     if isinstance(tree, dict):
         return {k: params_to_numpy(v) for k, v in tree.items()}
+    if _is_qtensor(tree):
+        return QTensor(*(params_to_numpy(v) for v in tree))
     if isinstance(tree, (list, tuple)):
         return type(tree)(params_to_numpy(v) for v in tree)
     if isinstance(tree, torch.Tensor):

@@ -278,3 +278,72 @@ def test_cuda_two_pass_loss_matches_the_cpu(cuda_device):
     torch.testing.assert_close(lk, lp, rtol=1e-5, atol=1e-4)
     torch.testing.assert_close(gk, gp, rtol=1e-5, atol=1e-5)
     assert lk[1] == 0.0 and not gk[1].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, atol", [(torch.float32, 1e-4),
+                                         (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("B", [8, 16, 32])
+def test_cuda_lstm_int8_matches_reference(cuda_device, dtype, atol, B):
+    """K7 at batch tiles of 8, 16 and 32 rows (each its own amax), ragged
+    T, nonzero h0/c0. Both sides take the same rounded operations, so
+    they differ only where CUDA's and PyTorch's expf / tanhf do, and a
+    last-bit difference of h flips one requantized int8 value only at a
+    .5 boundary."""
+    from rnn_transducer_tpu_torch.ops import lstm_int8_cuda as q8
+    from rnn_transducer_tpu_torch.ops.quant import quantize_tensor
+    H, T = 512, 37
+    g = torch.Generator().manual_seed(B)
+    qw = quantize_tensor(torch.rand(H, 4 * H, generator=g) * 0.088 - 0.044)
+    x = torch.randn(B, T, 4 * H, generator=g).to(dtype)
+    h0 = 0.5 * torch.randn(B, H, generator=g)
+    c0 = torch.randn(B, H, generator=g)
+    args = [a.contiguous().to(cuda_device)
+            for a in (x, qw.q, qw.scale, h0, c0)]
+    assert q8.batch_tile(B, H) == B
+    before = q8.LAUNCHES
+    hs, (hT, cT) = q8.lstm_recurrence_int8(*args)
+    torch.cuda.synchronize()
+    assert q8.LAUNCHES == before + 1
+    hs_r, (hT_r, cT_r) = q8.lstm_recurrence_int8_reference(*args)
+    for got, want in ((hs, hs_r), (hT, hT_r), (cT, cT_r)):
+        torch.testing.assert_close(got, want, rtol=0, atol=atol)
+
+
+def _greedy_inputs(B, T, E, H, J, V, device, seed=0):
+    """f, lens (ragged, one zero-length row) and the f32 weights of a
+    random one-layer predictor and joint, blank near the top."""
+    g = torch.Generator().manual_seed(seed)
+    u = lambda *s, k: (torch.rand(*s, generator=g) * 2 - 1) * k  # noqa: E731
+    f = 0.5 * torch.randn(B, T, J, generator=g)
+    lens = torch.randint(T // 2, T + 1, (B,), generator=g, dtype=torch.int32)
+    lens[1] = 0
+    bo = u(V, k=J ** -0.5)
+    bo[0] += 1.0  # some rows walk frames on blank, some hit the cap
+    weights = (torch.randn(V, E, generator=g), u(E, 4 * H, k=H ** -0.5),
+               u(H, 4 * H, k=H ** -0.5), u(4 * H, k=H ** -0.5),
+               u(H, J, k=H ** -0.5), u(J, k=H ** -0.5), u(J, V, k=J ** -0.5),
+               bo)
+    return (f.to(device), lens.to(device),
+            tuple(w.contiguous().to(device) for w in weights))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B, T, E, H, J, V", [(3, 60, 512, 512, 512, 1024),
+                                              (5, 23, 128, 256, 128, 11)])
+def test_cuda_greedy_fused_matches_reference(cuda_device, B, T, E, H, J, V):
+    """K9 at libri100 width (B = 3) and at a narrow ragged shape, f32:
+    identical tokens and step counts."""
+    from rnn_transducer_tpu_torch.decode import greedy_fused as gf
+    torch.backends.cuda.matmul.allow_tf32 = False
+    f, lens, weights = _greedy_inputs(B, T, E, H, J, V, cuda_device)
+    before = gf.LAUNCHES
+    toks, steps = gf.greedy_fused_tokens(f, lens, weights, 20, 0,
+                                         torch.float32)
+    torch.cuda.synchronize()
+    assert gf.LAUNCHES == before + 1
+    want_t, want_s = gf.greedy_fused_tokens_reference(f, lens, weights, 20, 0,
+                                                      torch.float32)
+    assert torch.equal(toks, want_t)
+    assert torch.equal(steps, want_s)
+    assert steps[1] == 0 and (toks[1] == 0).all()

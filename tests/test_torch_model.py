@@ -173,13 +173,25 @@ def test_numpy_round_trip_is_exact(params_np):
         np.testing.assert_array_equal(a, b)
 
 
-def test_int8_params_raise():
+def test_int8_params_round_trip_is_exact():
+    """A JAX quantized tree crosses to the port (QTensor leaves of int8 q
+    and f32 scale) and back to numpy bit for bit."""
     from rnn_transducer_tpu.ops.quant import quantize_params
+    from rnn_transducer_tpu_torch.ops.quant import QTensor
 
     q = jax.tree.map(np.asarray, quantize_params(
         jm.init_params(jax.random.PRNGKey(0), JCFG)))
-    with pytest.raises(NotImplementedError, match="int8"):
-        params_from_numpy(q)
+    port = params_from_numpy(q)
+    w_hh = port["encoder"][0]["w_hh"]
+    assert isinstance(w_hh, QTensor) and w_hh.q.dtype == torch.int8
+    back = params_to_numpy(port)
+    assert isinstance(back["embed"], QTensor)
+    want = jax.tree.leaves(q)
+    got = jax.tree.leaves(back)
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
 
 
 def _logits(params, cfg, feats, lens):
