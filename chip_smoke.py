@@ -3,15 +3,19 @@
 
     python3 chip_smoke.py [--seed 0] [--requests 24] [--profile-dir DIR]
 
-Drives the port's two main paths at the full width and depth of the
-libri100 config (4x512 LSTM encoder, 1x512 predictor, joint 512, vocab
-1024, bf16) with random weights from --seed, through the entry points a
-user calls: serving (BatchingEngine behind http_server, with serve.py's
-CLI defaults) and training (init_train_state + make_train_step at
-bench.py's headline shape, B=32, T=400, U=40, through the default fused
-loss, and at U=80 through the two-pass loss, loss_impl="pallas"; and the
-training CLI); int8 serving (serve.py --quantize int8) and the greedy
-decode in one program (recognize_greedy_fused). Phases, in order:
+Drives the port's main paths at the full width and depth of the libri100
+config (4x512 LSTM encoder, 1x512 predictor, joint 512, vocab 1024, bf16)
+and of libri100_conformer (8 conformer blocks of d=512, 8 heads, FFN x4,
+conv kernel 15, 4x input stacking, the same predictor and joint) with
+random weights from --seed, through the entry points a user calls:
+serving (BatchingEngine behind http_server, with serve.py's CLI
+defaults, and serve.py's CLI itself for the conformer) and training
+(init_train_state + make_train_step at bench.py's headline shape, B=32,
+T=400, U=40, through the default fused loss, and at U=80 through the
+two-pass loss, loss_impl="pallas"; the conformer at bench.py's B=64,
+T=400, U=40; and the training CLI); int8 serving (serve.py --quantize
+int8) and the greedy decode in one program (recognize_greedy_fused).
+Phases, in order:
 
   1. card   require CUDA; print the card's name and power limit
   2. build  build the kernel library from csrc/ with nvcc
@@ -23,7 +27,11 @@ decode in one program (recognize_greedy_fused). Phases, in order:
             with ragged lengths and a zero-frame row; the W8A8 recurrence
             (lstm_int8) at the serving shapes and at batch tiles of 16
             and 32 rows; the fused greedy decode (greedy_fused) on one
-            served batch against its plain version and the lock-step loop
+            served batch against its plain version and the lock-step loop;
+            the fused LayerNorm (fused_ln fwd and bwd, act none and silu)
+            at the conformer's serving and training rows, N = 1600 and
+            6400, D = 512, against the plain LayerNorm and its autograd,
+            dg / db identical over two runs
   4. e2e    concurrent HTTP /recognize requests; every serving kernel
             must have launched while they were served; the f32 tokens of
             the kernel path and the plain path must be identical
@@ -33,6 +41,13 @@ decode in one program (recognize_greedy_fused). Phases, in order:
   4c. fused recognize_greedy_fused on that batch with float and int8
             params: greedy_fused launched; the f32 tokens equal to
             recognize_greedy's
+  4d. e2e_conformer  the same requests to an engine on libri100_conformer:
+            fused_ln_fwd launched 48 times a batch (6 LNs x 8 blocks),
+            lstm_fwd never; the f32 tokens of the kernel path and the
+            plain path identical, and recognize_greedy_fused's equal to
+            recognize_greedy's; then serve.py's CLI with --config
+            libri100_conformer, float and --quantize int8, answering a
+            request each
   5. train  training steps: finite loss and grad norm on every step, no
             skipped update, the params move, every training kernel
             launched; ms/step by the slope of bench.py and utt/s; one
@@ -43,6 +58,10 @@ decode in one program (recognize_greedy_fused). Phases, in order:
             assemble_grad and the lattice kernels launched), the same
             batch through the fused route for comparison, and the CLI
             with --loss-impl pallas
+  5c. train_conformer  libri100_conformer at B=64, T=400, U=40 through the
+            default (fused) loss: 48 fused_ln_bwd launches a step, ms/step
+            and utt/s, peak memory, a profiled step, the f32 check of the
+            kernels against the plain versions, the CLI for 3 steps
   6. the kernels' JSON line (each kernel with its bound, the least time
      the card could take: bytes over 3.35 TB/s or operations over the
      peak for the operands' type, whichever is larger; and the time of one
@@ -61,8 +80,10 @@ import concurrent.futures
 import contextlib
 import dataclasses
 import io
+import itertools
 import json
 import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -78,7 +99,10 @@ import torch
 from rnn_transducer_tpu_torch.decode import greedy_fused as gf
 from rnn_transducer_tpu_torch.decode.greedy import greedy_decode, recognize_greedy
 from rnn_transducer_tpu_torch.models import transducer as m
-from rnn_transducer_tpu_torch.models.config import TrainConfig, config_libri100
+from rnn_transducer_tpu_torch.models.config import (TrainConfig,
+                                                    config_libri100,
+                                                    config_libri100_conformer)
+from rnn_transducer_tpu_torch.ops import fused_ln as fl
 from rnn_transducer_tpu_torch.ops import lstm_cuda
 from rnn_transducer_tpu_torch.ops import lstm_int8_cuda as q8
 from rnn_transducer_tpu_torch.ops import rnnt_joint_fused as jf
@@ -137,11 +161,24 @@ INT8_CASES = (("l0_b800", 8, 800, 80, False), ("l1_b800", 8, 400, 1024, False),
               ("b32_l1", 32, 200, 1024, True),
               ("b16_l1", 16, 200, 1024, True))
 INT8_MAIN = ("l0_b800", torch.bfloat16)
+# The conformer's training shape: bench.py's B=64, T=400 (T'=100 after 4x
+# stacking), U=40. The fused LayerNorm's rows: a served batch of 8 at the
+# 800-frame bucket (T'=200) and that training batch, D = 512; 6 LNs in
+# each of the 8 blocks.
+CONF_B, CONF_T, CONF_U = 64, 400, 40
+LN_CASES = (("serve", 8 * 200), ("train", CONF_B * CONF_T // 4))
+LN_D, LN_PER_ENCODE = 512, 6 * 8
+LN_MAIN = ("train", "none")  # the kernels line's ms / plain_ms / bound
+# K8 against the plain LayerNorm and its autograd: y within 1e-5 absolute;
+# dx within 1e-5 of its largest value; dg and db, sums over every row in
+# another order, within 1e-4 of theirs.
+LN_Y_ATOL, LN_DX_RTOL, LN_DGB_RTOL = 1e-5, 1e-5, 1e-4
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense): device
 # memory bytes/s and operations/s by operand type. A bound is the larger of
 # the bytes a function must move (inputs read once, outputs written once)
 # over the first and its operations over the second.
 HBM_BYTES_PER_S = 3.35e12
+L2_BYTES = 50_000_000
 PEAK_OPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12,
                   torch.float16: 989e12, torch.int8: 1979e12}
 
@@ -257,6 +294,7 @@ def reset_counts() -> None:
     lat.LAUNCHES_ALPHA = lat.LAUNCHES_BETA = 0
     lc.LAUNCHES_EXTRACT = lc.LAUNCHES_GRAD = 0
     q8.LAUNCHES = gf.LAUNCHES = 0
+    fl.LAUNCHES_FWD = fl.LAUNCHES_BWD = 0
 
 
 def read_counts() -> dict:
@@ -268,7 +306,8 @@ def read_counts() -> dict:
             "lattice_beta": lat.LAUNCHES_BETA,
             "extract_lp": lc.LAUNCHES_EXTRACT,
             "assemble_grad": lc.LAUNCHES_GRAD,
-            "lstm_fwd_int8": q8.LAUNCHES, "greedy_fused": gf.LAUNCHES}
+            "lstm_fwd_int8": q8.LAUNCHES, "greedy_fused": gf.LAUNCHES,
+            "fused_ln_fwd": fl.LAUNCHES_FWD, "fused_ln_bwd": fl.LAUNCHES_BWD}
 
 
 @contextlib.contextmanager
@@ -282,7 +321,8 @@ def plain_kernels():
                           (lat, "alpha_wavefront"), (lat, "beta_wavefront"),
                           (lat, "beta_occupancies"), (lc, "extract_lp"),
                           (lc, "assemble_grad"), (q8, "lstm_recurrence_int8"),
-                          (gf, "greedy_fused_tokens")):
+                          (gf, "greedy_fused_tokens"), (fl, "fln_fwd"),
+                          (fl, "fln_bwd")):
             stack.enter_context(mock.patch.object(
                 mod, name, getattr(mod, name + "_reference")))
         yield
@@ -723,6 +763,151 @@ def greedy_fused_vs_plain(serving: dict, dev) -> dict:
             "max_abs_err": rows["float32"]["max_abs_err"]}
 
 
+def cycled(fn, n: int):
+    """A call of fn(i) for i = 0, 1, ..., n-1, 0, 1, ... in turn."""
+    count = itertools.count()
+    return lambda: fn(next(count) % n)
+
+
+def mean_ms(fn, reps: int = 20) -> float:
+    """CUDA-event ms of one call, over `reps` calls back to back: the
+    host's enqueue included where it is slower than the device."""
+    return cuda_ms(lambda: [fn() for _ in range(reps)]) / reps
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """Device ms of one call: the `reps` calls are queued behind a spin
+    kernel of ~0.1 s (longer than their enqueue), so the events bracket
+    the device's work alone."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def fused_ln_vs_plain(rng: np.random.Generator, dev) -> dict:
+    """fused_ln_fwd and fused_ln_bwd (K8) against the plain LayerNorm
+    (`layer_norm_reference`) and its autograd at the conformer's rows, act
+    none and silu; dg and db identical over two runs. Times: the device's
+    ms per call (`device_ms`) and the ms per call with the host's enqueue
+    (`mean_ms`, "call"), 20 calls each, in turns plain, kernel, kernel,
+    plain. Library:
+    F.layer_norm and its backward (one native_layer_norm_backward gives
+    dx, dg and db); silu has no single PyTorch call."""
+    D = LN_D
+    rows, main = [], None
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    for case, N in LN_CASES:
+        x = torch.from_numpy(3 * rng.normal(size=(N, D)) + 1).float().to(dev)
+        g = torch.from_numpy(1 + 0.5 * rng.normal(size=D)).float().to(dev)
+        b = torch.from_numpy(0.5 * rng.normal(size=D)).float().to(dev)
+        dy = torch.from_numpy(rng.normal(size=(N, D))).float().to(dev)
+        for act in fl.ACTS:
+            y, mu, rstd = fl.fln_fwd(x, g, b, act)
+            bwd_args = (x, g, b, mu, rstd, dy, act)
+            got = fl.fln_bwd(*bwd_args)
+            again = fl.fln_bwd(*bwd_args)
+            leaves_ = [a.clone().requires_grad_(True) for a in (x, g, b)]
+            ref = fl.layer_norm_reference(*leaves_, act)
+            want = torch.autograd.grad(ref, leaves_, dy)
+            torch.cuda.synchronize()
+            err_y = max_abs(y, ref.detach())
+            err_b = max(max_abs(a, e) for a, e in zip(got, want))
+            rel = {n: rel_err(a, e) for n, a, e in zip(("dx", "dg", "db"),
+                                                       got, want)}
+            same_bits = all(torch.equal(a, e) for a, e in zip(again, got))
+            finite = all(bool(torch.isfinite(a).all()) for a in (y, *got))
+
+            # Device times read their inputs from device memory, not L2:
+            # the calls cycle through copies of x and dy (with a graph
+            # each for the autograd backwards) three times the L2's size.
+            n_cp = max(2, -(-3 * L2_BYTES // nbytes(x)))
+            xs = [x.clone() for _ in range(n_cp)]
+            dys = [dy.clone() for _ in range(n_cp)]
+
+            def graphs(fn):
+                out = []
+                for xc in xs:
+                    lv = [a.clone().requires_grad_(True) for a in (xc, g, b)]
+                    out.append((fn(*lv), lv))
+                return out
+
+            def autograd_bwd(gr):
+                return lambda i: torch.autograd.grad(gr[i][0], gr[i][1],
+                                                     dys[i],
+                                                     retain_graph=True)
+
+            ref_graphs = graphs(lambda *a: fl.layer_norm_reference(*a, act))
+            fns = {"kernel": (
+                       lambda i: fl.fln_fwd(xs[i], g, b, act),
+                       lambda i: fl.fln_bwd(xs[i], g, b, mu, rstd, dys[i],
+                                            act)),
+                   "plain": (
+                       lambda i: fl.layer_norm_reference(xs[i], g, b, act),
+                       autograd_bwd(ref_graphs))}
+            times = {}
+            for which in ("plain", "kernel", "kernel", "plain"):
+                fwd, bwd = fns[which]
+                times.setdefault(which, []).append(
+                    (device_ms(cycled(fwd, n_cp)),
+                     device_ms(cycled(bwd, n_cp))))
+            k_f, k_b = (statistics.mean(t[i] for t in times["kernel"])
+                        for i in (0, 1))
+            p_f, p_b = (statistics.mean(t[i] for t in times["plain"])
+                        for i in (0, 1))
+            # with the host's enqueue, back to back on one input
+            kc_f, kc_b, pc_f, pc_b = (mean_ms(cycled(fn, 1)) for fn in
+                                      (*fns["kernel"], *fns["plain"]))
+            lib_f = lib_b = None
+            if act == "none":
+                lib_graphs = graphs(lambda *a: torch.nn.functional.layer_norm(
+                    a[0], (D,), a[1], a[2], fl.EPS))
+                lib_f = device_ms(cycled(
+                    lambda i: torch.nn.functional.layer_norm(
+                        xs[i], (D,), g, b, fl.EPS), n_cp))
+                lib_b = device_ms(cycled(autograd_bwd(lib_graphs), n_cp))
+                del lib_graphs
+            del xs, dys, ref_graphs
+            silu = act == "silu"
+            row = {"case": case, "N": N, "D": D, "act": act,
+                   "y_max_abs_err": err_y, "y_atol": LN_Y_ATOL,
+                   "bwd_max_abs_err": err_b, "bwd_rel_err": rel,
+                   "dx_rtol": LN_DX_RTOL, "dg_db_rtol": LN_DGB_RTOL,
+                   "bwd_bitwise_repeat": same_bits,
+                   "fwd_kernel_ms": k_f, "fwd_plain_ms": p_f,
+                   "fwd_library_ms": lib_f, "bwd_kernel_ms": k_b,
+                   "bwd_plain_ms": p_b, "bwd_library_ms": lib_b,
+                   "fwd_kernel_call_ms": kc_f, "fwd_plain_call_ms": pc_f,
+                   "bwd_kernel_call_ms": kc_b, "bwd_plain_call_ms": pc_b,
+                   # per element: centre, square, sum, scale, g, b (+ the
+                   # sigmoid and product of silu); the backward twice that
+                   "fwd_bound": bound(nbytes(x, g, b, y, mu, rstd),
+                                      (12 if silu else 8) * N * D,
+                                      torch.float32),
+                   "bwd_bound": bound(nbytes(bwd_args[:6], got),
+                                      (22 if silu else 14) * N * D,
+                                      torch.float32)}
+            print("kernel fused_ln " + json.dumps(row))
+            check(finite and err_y <= LN_Y_ATOL
+                  and rel["dx"] <= LN_DX_RTOL
+                  and max(rel["dg"], rel["db"]) <= LN_DGB_RTOL,
+                  f"fused_ln {case} {act}: y err {err_y}, bwd rel err {rel} "
+                  "or a non-finite output")
+            check(same_bits, f"fused_ln_bwd {case} {act}: two runs gave "
+                             "different bits")
+            rows.append(row)
+            worst["fwd"] = max(worst["fwd"], err_y)
+            worst["bwd"] = max(worst["bwd"], err_b)
+            if (case, act) == LN_MAIN:
+                main = row
+    return {"rows": rows, "main": main, "worst": worst}
+
+
 # ------------------------------ phase 4 ----------------------------------
 
 def blank_offset(params, cfg, dev, rng) -> float:
@@ -847,7 +1032,9 @@ def serve_all(serving: dict, params, dev) -> tuple[list, dict, dict]:
               "frames out of order or past the utterance")
     lat = sorted(a[2] * 1e3 for a in answers)
     tokens = [len(a[1]["tokens"]) for a in answers]
-    result = {"requests": len(answers), "warmup_s": warmup_s,
+    result = {"requests": len(answers),
+              "http_codes": {str(c): codes.count(c) for c in set(codes)},
+              "warmup_s": warmup_s,
               "wall_s": wall_s, "req_per_s": len(answers) / wall_s,
               "mean_batch": stats["mean_batch"],
               "batches": stats["batches"],
@@ -992,13 +1179,146 @@ def fused_greedy(serving: dict, qparams, dev) -> dict:
     return {"rows": rows, "launches": launches}
 
 
+def walking_offset(params, cfg, dev, rng, blank_share: float = 0.7) -> float:
+    """Blank-bias offset for the random conformer: blank wins on
+    `blank_share` of the (frame, predictor state) pairs, the state being
+    the start symbol's or the one after emitting the frame's best token;
+    the 0.01 keeps the pair at the quantile off a tie. The median rule of
+    `blank_offset` does not fit it: its joint logits vary with the frame
+    far more than the LSTM's (every block ends in a LayerNorm)."""
+    feats = torch.from_numpy(rng.normal(size=(4, BUCKETS[-1], cfg.input_dim))
+                             ).float().to(dev)
+    lens = torch.full((4,), BUCKETS[-1], dtype=torch.int32, device=dev)
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    with torch.inference_mode():
+        enc, _ = m.encode(params, f32, feats, lens)
+        enc = enc.reshape(-1, enc.shape[-1])
+        n = enc.shape[0]
+        pred, state = m.predict_step(
+            params, f32, torch.full((n,), cfg.blank, device=dev),
+            m.init_pred_state(f32, n, dev))
+        logits = [m.joint_step(params, f32, enc, pred)]
+        best = logits[0].clone()
+        best[:, cfg.blank] = float("-inf")
+        pred, _ = m.predict_step(params, f32, best.argmax(dim=1), state)
+        logits.append(m.joint_step(params, f32, enc, pred))
+    gaps = []
+    for lg in logits:
+        others = torch.cat([lg[:, :cfg.blank], lg[:, cfg.blank + 1:]], 1)
+        gaps.append(lg[:, cfg.blank] - others.max(dim=1).values)
+    return float(-torch.quantile(torch.cat(gaps), 1.0 - blank_share)) + 0.01
+
+
+def conformer_serving_setup(serving: dict, seed: int, dev) -> dict:
+    """libri100_conformer with random weights from the seed, serving the
+    libri100 engine's utterances. The predictor's side of the joint is
+    scaled up 8x: at its random scale an emission barely moves the
+    logits, so a frame that emits once emits up to max_symbols; scaled,
+    an utterance emits a few tokens on some frames and walks all of them
+    (with the blank offset of `walking_offset`)."""
+    rng = np.random.default_rng(seed + 10)
+    cfg = config_libri100_conformer()
+    params = m.init_params(cfg, rng, dev)
+    params["joint"]["pred_proj"]["w"] *= 8.0
+    offset = walking_offset(params, cfg, dev, rng)
+    params["joint"]["out"]["b"][cfg.blank] += offset
+    return {**serving, "cfg": cfg, "params": params, "offset": offset}
+
+
+def conformer_end_to_end(conf: dict, dev) -> dict:
+    """Phase 4d: the requests to an engine on libri100_conformer. Every
+    encode runs K8-fwd at each of its 48 LayerNorms and no LSTM kernel;
+    the f32 tokens of one served batch are the same through the kernels
+    and through the plain versions, and through recognize_greedy_fused
+    (K9, which looks only at the predictor) and recognize_greedy."""
+    cfg, params = conf["cfg"], conf["params"]
+    _, result, counts = serve_all(conf, params, dev)
+    result.update({"launches": counts["fused_ln_fwd"],
+                   "fused_ln_fwd_per_batch": counts["fused_ln_fwd"]
+                   / result["batches"],
+                   "lstm_fwd_launches": counts["lstm_fwd"]})
+    print("e2e_conformer " + json.dumps(result))
+    check(counts["fused_ln_fwd"] == LN_PER_ENCODE * result["batches"],
+          f"the conformer engine launched fused_ln_fwd "
+          f"{counts['fused_ln_fwd']} times in {result['batches']} batches, "
+          f"not {LN_PER_ENCODE} a batch")
+    check(counts["lstm_fwd"] == 0, "the conformer engine launched lstm_fwd")
+    feats, lens = served_batch(conf, dev)
+    kernel_vs_plain_tokens(params, cfg, feats, lens, "conformer")
+    c = dataclasses.replace(cfg, compute_dtype="float32")
+    with torch.inference_mode():
+        reset_counts()
+        tok_f, n_f = gf.recognize_greedy_fused(params, c, feats, lens,
+                                               MAX_SYMBOLS)
+        torch.cuda.synchronize()
+        fused_launches = read_counts()["greedy_fused"]
+        tok_g, n_g = recognize_greedy(params, c, feats, lens, MAX_SYMBOLS)
+    row = {"params": "conformer", "dtype": "float32",
+           "greedy_fused_launches": fused_launches,
+           "tokens_identical": torch.equal(tok_f, tok_g)
+           and torch.equal(n_f, n_g), "tokens_per_utt": n_f.tolist()}
+    print("fused_greedy_conformer " + json.dumps(row))
+    check(fused_launches > 0, "recognize_greedy_fused on the conformer "
+                              "never launched greedy_fused")
+    check(row["tokens_identical"], "recognize_greedy_fused (conformer, f32): "
+                                   "tokens differ from recognize_greedy")
+    result["fused_greedy"] = row
+    return result
+
+
+def serve_cli(extra: list, utt: np.ndarray) -> dict:
+    """serve.py's CLI, --config libri100_conformer plus `extra`, in a
+    process of its own: it warms up, answers one /recognize and /stats,
+    and drains and exits 0 on SIGTERM."""
+    cmd = [sys.executable, "-m", "rnn_transducer_tpu_torch.serve",
+           "--config", "libri100_conformer", "--port", "0", *extra]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(
+        __file__)), stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+        text=True)
+    lines, started = [], threading.Event()
+
+    def read():
+        for line in proc.stderr:
+            lines.append(line.rstrip())
+            if "serving on " in line:
+                started.set()
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    try:
+        check(started.wait(timeout=300),
+              f"serve CLI {extra} did not start: {lines[-5:]}")
+        start_s = time.perf_counter() - t0
+        url = next(ln for ln in lines if "serving on " in ln).split(
+            "serving on ")[1].split()[0]
+        code, out, lat = post(url + "/recognize", {"feats": utt.tolist()})
+        with urllib.request.urlopen(url + "/stats", timeout=60) as r:
+            stats = json.loads(r.read())
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+        reader.join(timeout=30)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    row = {"argv": cmd[3:], "start_s": start_s, "code": code,
+           "tokens": len(out["tokens"]), "latency_ms": lat * 1e3,
+           "stats": stats, "rc": rc,
+           "drained": any("drained and closed" in ln for ln in lines)}
+    print("serve_cli " + json.dumps(row))
+    check(code == 200 and rc == 0 and row["drained"],
+          f"serve CLI {extra}: code {code}, exit {rc}, log {lines[-5:]}")
+    return row
+
+
 # ------------------------------ phase 5 ----------------------------------
 
-def bench_batch(cfg, seed: int, dev, U: int = TRAIN_U):
-    """bench.py's headline batch: noise features, full frame and label
-    lengths, U random labels, from the seed."""
+def bench_batch(cfg, seed: int, dev, U: int = TRAIN_U, B: int = TRAIN_B):
+    """bench.py's batch: B utterances of noise features, full frame and
+    label lengths, U random labels, from the seed."""
     rng = np.random.default_rng(seed)
-    B, T = TRAIN_B, TRAIN_T
+    T = TRAIN_T
     feats = rng.normal(size=(B, T, cfg.input_dim)).astype(np.float32)
     labels = rng.integers(1, cfg.vocab_size, size=(B, U)).astype(np.int32)
     return (torch.from_numpy(feats).to(dev),
@@ -1032,10 +1352,14 @@ def profile_step(step, state, batch, profile_dir, name="train_step"):
                 "joint_bwd_sums": ("reduce_parts_kernel",),
                 "lattice": ("lattice_alpha_kernel", "lattice_beta_kernel"),
                 "loss_rows": ("extract_lp_kernel", "assemble_grad_kernel"),
-                "gemm": ("gemm", "Gemm", "cutlass", "sm90_xmma")}
+                "fused_ln": ("ln_fwd_", "ln_bwd_"),
+                "gemm": ("gemm", "Gemm", "cutlass", "sm90_xmma"),
+                "softmax": ("softmax",),
+                "elementwise": ("elementwise_kernel",),
+                "reduce": ("reduce_kernel",)}
     device = {k: 0.0 for k in (*families, "other")}
     launches = {k: 0 for k in device}
-    host, span = {}, {}
+    host, span, ops = {}, {}, []
     for evt in prof.key_averages():
         if evt.key in tl.SPANS:  # a span: host time, and its device range
             if evt.device_type == DeviceType.CUDA:
@@ -1047,13 +1371,18 @@ def profile_step(step, state, batch, profile_dir, name="train_step"):
             continue
         fam = next((k for k, names in families.items()
                     if any(n in evt.key for n in names)), "other")
-        device[fam] += getattr(evt, "self_device_time_total",
-                               getattr(evt, "self_cuda_time_total", 0)) / 1e3
+        ms = getattr(evt, "self_device_time_total",
+                     getattr(evt, "self_cuda_time_total", 0)) / 1e3
+        device[fam] += ms
         launches[fam] += evt.count
+        ops.append((ms, evt.count, evt.key))
     busy = sum(device.values())
+    top = [{"op": k[:120], "ms": ms, "launches": n}
+           for ms, n, k in sorted(ops, reverse=True)[:10]]
     out = {"wall_ms": wall_ms, "device_ms": device, "device_launches":
            launches, "device_busy_share": busy / wall_ms,
-           "host_span_ms": host, "device_span_ms": span}
+           "host_span_ms": host, "device_span_ms": span,
+           "top_device_ops": top}
     if profile_dir:
         os.makedirs(profile_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(profile_dir, f"{name}.json"))
@@ -1092,14 +1421,39 @@ def lattice_ms(dev, seed: int) -> dict:
             "beta_occupancies_plain_ms": pb}
 
 
+def leaf_paths(tree, path: str = ""):
+    """'/'-joined dict keys and list indices of every leaf, in the order
+    of torch's pytree flatten (dicts in insertion order)."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from leaf_paths(v, f"{path}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from leaf_paths(v, f"{path}/{i}")
+    else:
+        yield path
+
+
 def f32_kernels_vs_plain(seed: int, dev, loss_impl: str = "fused",
-                         U: int = TRAIN_U) -> dict:
-    """One f32 loss and gradient of the libri100 model, B=32, T=400, U
-    labels, through the kernels and through the plain versions."""
-    cfg = dataclasses.replace(config_libri100(), compute_dtype="float32")
+                         U: int = TRAIN_U, cfg=None,
+                         B: int = TRAIN_B) -> dict:
+    """One f32 loss and gradient of the model (libri100 unless `cfg` is
+    given), B utterances, T=400, U labels, through the kernels and through
+    the plain versions.
+
+    The conformer's attention key bias gets no gradient in exact
+    arithmetic (each query's softmax is invariant to the shift q . b_k of
+    all its logits): both sides give f32 rounding noise there, so those
+    leaves are held to 1e-4 of the largest gradient instead of to each
+    other."""
+    cfg = dataclasses.replace(cfg or config_libri100(),
+                              compute_dtype="float32")
     params = m.init_params(cfg, np.random.default_rng(seed + 2), dev)
-    batch = bench_batch(cfg, seed + 2, dev, U)
+    batch = bench_batch(cfg, seed + 2, dev, U, B)
     flat, spec = torch.utils._pytree.tree_flatten(params)
+    names = list(leaf_paths(params))
+    check(len(names) == len(flat), "leaf_paths disagrees with the pytree")
+    noise = [n.endswith("/att/k/b") for n in names]
 
     def loss_and_grads(plain: bool):
         ctx = plain_kernels() if plain else contextlib.nullcontext()
@@ -1113,16 +1467,25 @@ def f32_kernels_vs_plain(seed: int, dev, loss_impl: str = "fused",
     lk, gk = loss_and_grads(plain=False)
     lp, gp = loss_and_grads(plain=True)
     loss_rel = abs(lk - lp) / abs(lp)
-    worst = max(rel_err(a, b) for a, b in zip(gk, gp))
-    row = {"loss_impl": loss_impl, "U": U, "loss_kernels": lk,
+    worst = max(rel_err(a, b) for a, b, z in zip(gk, gp, noise) if not z)
+    top = max(float(a.abs().max()) for a in gp)
+    noise_max = max([float(a.abs().max()) for a, z in zip(gk + gp,
+                                                          noise + noise)
+                     if z] or [0.0])
+    row = {"model": "conformer" if cfg.enc_type == "conformer" else "lstm",
+           "B": B, "loss_impl": loss_impl, "U": U, "loss_kernels": lk,
            "loss_plain": lp, "loss_rel_err": loss_rel,
            "loss_rtol": LOSS_RTOL, "grad_worst_rel_err": worst,
-           "grad_rtol": GRAD_RTOL, "leaves": len(gk)}
+           "grad_rtol": GRAD_RTOL, "leaves": len(gk),
+           "key_bias_leaves": sum(noise), "key_bias_max_abs": noise_max,
+           "max_abs_grad": top}
     print("train_f32_kernels_vs_plain " + json.dumps(row))
     check(loss_rel <= LOSS_RTOL,
           f"f32 loss ({loss_impl}): kernels {lk} vs plain {lp}")
     check(worst <= GRAD_RTOL,
           f"f32 gradients ({loss_impl}): worst rel err {worst}")
+    check(noise_max <= 1e-4 * top,
+          f"f32 key-bias gradients {noise_max} above noise level")
     return row
 
 
@@ -1158,7 +1521,7 @@ def cli_round_trip(dev) -> dict:
     return row
 
 
-def timed_steps(step, state, batch):
+def timed_steps(step, state, batch, B: int = TRAIN_B):
     """One step, then bench.py's slope runs (SLOPE_STEPS steps, best of
     SLOPE_REPEATS), with the launch counts of exactly these steps."""
     infos = []
@@ -1186,7 +1549,7 @@ def timed_steps(step, state, batch):
     gnorms = [float(i["grad_norm"]) for i in infos]
     skipped = sum(int(i["skipped_nonfinite"]) for i in infos)
     result = {"steps": len(infos), "first_step_s": first_s,
-              "ms_per_step": dt * 1e3, "utt_per_s": TRAIN_B / dt,
+              "ms_per_step": dt * 1e3, "utt_per_s": B / dt,
               "slope_times_s": times, "loss_first": losses[0],
               "loss_last": losses[-1], "grad_norm_last": gnorms[-1],
               "skipped_nonfinite": skipped,
@@ -1198,22 +1561,24 @@ def timed_steps(step, state, batch):
     return state, result
 
 
-def train_run(seed: int, dev, loss_impl: str, U: int):
-    """A fresh libri100 state trained on bench.py's batch with U labels:
-    the step, its state after the timed steps, the batch and the result."""
-    cfg = config_libri100()
-    tcfg = TrainConfig(batch_size=TRAIN_B, warmup_steps=100,
+def train_run(seed: int, dev, loss_impl: str, U: int, cfg=None,
+              B: int = TRAIN_B):
+    """A fresh state (libri100 unless `cfg` is given) trained on bench.py's
+    batch of B utterances with U labels: the step, its state after the
+    timed steps, the batch and the result."""
+    cfg = cfg or config_libri100()
+    tcfg = TrainConfig(batch_size=B, warmup_steps=100,
                        total_steps=10000,  # bench.py's TrainConfig
                        loss_impl=loss_impl)
     state = tl.init_train_state(np.random.default_rng(seed), cfg, tcfg, dev)
     step = tl.make_train_step(cfg, tcfg)
-    batch = bench_batch(cfg, seed, dev, U)
+    batch = bench_batch(cfg, seed, dev, U, B)
     p0 = [p.clone() for p in leaves(state.params)]
     torch.cuda.reset_peak_memory_stats()
-    state, result = timed_steps(step, state, batch)
+    state, result = timed_steps(step, state, batch, B)
     moved = max(float((a - b).abs().max())
                 for a, b in zip(leaves(state.params), p0))
-    result = {"B": TRAIN_B, "T": TRAIN_T, "U": U, "dtype": "bfloat16",
+    result = {"B": B, "T": TRAIN_T, "U": U, "dtype": "bfloat16",
               "loss_impl": loss_impl, **result, "param_max_change": moved}
     check(moved > 0.0, "the params did not change over the training steps")
     return step, state, batch, result
@@ -1278,6 +1643,48 @@ def train_pallas_phase(seed: int, dev, profile_dir) -> dict:
     return result
 
 
+def train_conformer_phase(seed: int, dev, profile_dir) -> dict:
+    """libri100_conformer at bench.py's B=64, T=400, U=40 through the
+    default loss (fused on the card): K8-bwd at each of the 48 LayerNorms
+    of every step, with K4 (the predictor), K1, K2 and K3; a profiled
+    step; the f32 check; the CLI for 3 steps."""
+    cfg = config_libri100_conformer()
+    step, state, batch, result = train_run(seed, dev, "auto", CONF_U, cfg,
+                                           CONF_B)
+    counts, steps = result["launches"], result["steps"]
+    result["fused_ln_bwd_per_step"] = counts["fused_ln_bwd"] / steps
+    print("train_conformer " + json.dumps(result))
+    for name in ("fused_ln_fwd", "fused_ln_bwd"):
+        check(counts[name] == LN_PER_ENCODE * steps,
+              f"the conformer step launched {name} {counts[name]} times in "
+              f"{steps} steps, not {LN_PER_ENCODE} a step")
+    for name in ("lstm_fwd_with_acts", "lstm_bwd", "joint_fwd", "joint_bwd",
+                 "lattice_alpha", "lattice_beta"):
+        check(counts[name] > 0, f"the conformer step never launched {name}")
+    state, prof = profile_step(step, state, batch, profile_dir,
+                               "train_conformer_step")
+    print("train_conformer_profile " + json.dumps(prof))
+    result["profile"] = prof
+    del step, state, batch
+    torch.cuda.empty_cache()
+    result["f32"] = f32_kernels_vs_plain(seed, dev, "fused", CONF_U, cfg,
+                                         CONF_B)
+    torch.cuda.empty_cache()
+    argv = ["--config", "libri100_conformer", "--data", "synthetic",
+            "--steps", "3", "--batch-size", "8", "--max-frames", "400",
+            "--max-labels", "20", "--warmup-steps", "1", "--log-every", "1",
+            "--device", dev.type]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        train_cli(argv)
+    last = json.loads(out.getvalue().strip().splitlines()[-1])
+    print("train_cli_conformer " + json.dumps(last))
+    check(last.get("steps") == 3 and np.isfinite(last.get("final_loss")),
+          f"training CLI with --config libri100_conformer: final line {last}")
+    result["cli"] = last
+    return result
+
+
 def kernel_entry(name, source, replaces, launches, err, ms, plain_ms,
                  bnd: dict, library_ms=None) -> dict:
     return {"name": name, "route": "cuda",
@@ -1328,6 +1735,7 @@ def main(argv=None):
     kq = lstm_int8_vs_plain(np.random.default_rng(args.seed + 7), dev)
     serving = serving_setup(args.seed, args.requests, dev)
     kg = greedy_fused_vs_plain(serving, dev)
+    kln = fused_ln_vs_plain(np.random.default_rng(args.seed + 8), dev)
     print(f"phase kernel: {time.perf_counter() - t0:.1f} s")
 
     # phase 4: serving end to end, float and int8, and the fused decoder
@@ -1340,7 +1748,16 @@ def main(argv=None):
     t0 = time.perf_counter()
     fused = fused_greedy(serving, e2e_q.pop("qparams"), dev)
     print(f"phase fused: {time.perf_counter() - t0:.1f} s")
-    del serving
+    t0 = time.perf_counter()
+    conf = conformer_serving_setup(serving, args.seed, dev)
+    e2e_c = conformer_end_to_end(conf, dev)
+    print(f"phase e2e_conformer: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    utt = serving["utts"][0]
+    for extra in ([], ["--quantize", "int8"]):
+        serve_cli(extra, utt)
+    print(f"phase serve_cli: {time.perf_counter() - t0:.1f} s")
+    del serving, conf
     torch.cuda.empty_cache()
 
     # phase 5: training
@@ -1350,6 +1767,10 @@ def main(argv=None):
     t0 = time.perf_counter()
     pallas = train_pallas_phase(args.seed, dev, args.profile_dir)
     print(f"phase train_pallas: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    conf_train = train_conformer_phase(args.seed, dev, args.profile_dir)
+    print(f"phase train_conformer: {time.perf_counter() - t0:.1f} s")
 
     # phase 6: results
     lp = "rnn_transducer_tpu/ops/lstm_pallas.py"
@@ -1357,10 +1778,11 @@ def main(argv=None):
     wp = "rnn_transducer_tpu/ops/rnnt_lattice_pallas.py"
     rp = "rnn_transducer_tpu/ops/rnnt_loss_pallas.py"
     gp = "rnn_transducer_tpu/decode/greedy_pallas.py"
+    fp = "rnn_transducer_tpu/ops/fused_ln.py"
     counts = train["launches"]
     two_pass = pallas["launches"]
-    km, tm_, jm_, lm, rm = (k["main"], kt["main"], kj["main"], kl["main"],
-                            kr["main"])
+    km, tm_, jm_, lm, rm, lnm = (k["main"], kt["main"], kj["main"],
+                                 kl["main"], kr["main"], kln["main"])
     print(json.dumps({"kernels": [
         kernel_entry("lstm_fwd", "lstm_fwd.cu", f"{lp}:119", e2e["launches"],
                      k["max_abs_err"], km["kernel_ms"], km["plain_ms"], km,
@@ -1405,6 +1827,15 @@ def main(argv=None):
                      fused["launches"], kg["max_abs_err"],
                      kg["main"]["kernel_ms"], kg["main"]["plain_ms"],
                      kg["main"]),
+        kernel_entry("fused_ln_fwd", "fused_ln.cu", f"{fp}:118",
+                     e2e_c["launches"], kln["worst"]["fwd"],
+                     lnm["fwd_kernel_ms"], lnm["fwd_plain_ms"],
+                     lnm["fwd_bound"], lnm["fwd_library_ms"]),
+        kernel_entry("fused_ln_bwd", "fused_ln.cu", f"{fp}:152",
+                     conf_train["launches"]["fused_ln_bwd"],
+                     kln["worst"]["bwd"], lnm["bwd_kernel_ms"],
+                     lnm["bwd_plain_ms"], lnm["bwd_bound"],
+                     lnm["bwd_library_ms"]),
     ]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

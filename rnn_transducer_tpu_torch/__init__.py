@@ -2,12 +2,17 @@
 
 The JAX package beside it is the reference this port is held against. The
 port mirrors its layout and names and imports neither jax nor the JAX
-package. Two slices are ported, both for the LSTM family: greedy offline
-serving, and the training step.
+package. Its slices: greedy offline serving and the training step of the
+LSTM family, the loss lattice and the two-pass loss on the card, int8
+serving and greedy decode in one launch, and the offline conformer
+encoder, served and trained. Entry points run on the card unless the
+caller asks for the CPU.
 
     models/config.py      TransducerConfig, TrainConfig, NAMED_CONFIGS
     models/transducer.py  init_params, encode, predict_step, joint_step,
                           predict, joint, joint_activations, forward
+    ops/conformer.py      init_conformer_block, conformer_block
+    ops/fused_ln.py       fused LayerNorm (± silu): kernels + plain versions
     ops/lstm.py           lstm_cell, lstm_layer, LSTMCore, mask_padding
     ops/lstm_cuda.py      LSTM recurrence fwd / bwd: kernels + plain versions
     ops/rnnt_loss.py      RNN-T loss, alpha / beta, occupancies

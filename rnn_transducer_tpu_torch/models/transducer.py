@@ -1,9 +1,11 @@
-"""The Transducer model, LSTM family (PyTorch port of
-`rnn_transducer_tpu/models/transducer.py`).
+"""The Transducer model (PyTorch port of
+`rnn_transducer_tpu/models/transducer.py`): the LSTM encoder and the
+offline conformer encoder, the LSTM predictor and the joint.
 
 Plain functions on tensors over a parameter dict in the JAX layout:
-{"encoder": [lstm layer, ...], "embed": (V, E), "predictor": [lstm layer,
-...], "joint": {"enc_proj", "pred_proj", "out": {"w": (in, out), "b"}}}.
+{"encoder": [lstm layer, ...] or [{"in_proj"}, conformer block, ...],
+"embed": (V, E), "predictor": [lstm layer, ...], "joint": {"enc_proj",
+"pred_proj", "out": {"w": (in, out), "b"}}}.
 It covers greedy serving (`encode`, `predict_step`, `joint_step`) and
 the training forward (`predict`, `joint`, `joint_activations`,
 `forward`). Configurations outside it raise NotImplementedError naming
@@ -21,6 +23,8 @@ import numpy as np
 import torch
 
 from rnn_transducer_tpu_torch.models.config import TransducerConfig
+from rnn_transducer_tpu_torch.ops.conformer import (conformer_block,
+                                                    init_conformer_block)
 from rnn_transducer_tpu_torch.ops.lstm import (
     _dot,
     lstm_cell,
@@ -34,10 +38,12 @@ Params = dict[str, Any]
 
 def check_supported(cfg: TransducerConfig) -> None:
     """Raise NotImplementedError for a config this port cannot run yet."""
+    if cfg.enc_type not in ("lstm", "conformer"):
+        raise ValueError(f"unknown enc_type {cfg.enc_type!r}")
     todo = []
-    if cfg.enc_type != "lstm":
-        todo.append(f"enc_type={cfg.enc_type!r} (ROADMAP queue 1, item 9: "
-                    "conformer)")
+    if cfg.enc_type == "conformer" and cfg.remat_encoder:
+        todo.append("remat_encoder for the conformer (ROADMAP queue 1, item "
+                    "9: conformer, activation checkpointing)")
     if cfg.bidirectional:
         todo.append("bidirectional (ROADMAP queue 1, item 6: BiLSTM)")
     if cfg.pred_type != "lstm":
@@ -75,8 +81,8 @@ def _init_linear(rng, in_dim: int, out_dim: int) -> dict[str, np.ndarray]:
 
 
 def init_params(cfg: TransducerConfig, rng: np.random.Generator,
-                device: str | torch.device = "cpu") -> Params:
-    """Fresh params with the JAX `init_params` distributions (LSTM family).
+                device: str | torch.device = "cuda") -> Params:
+    """Fresh params with the JAX `init_params` distributions, on `device`.
 
     The draws come from a numpy Generator, so they are not the JAX
     package's values for the same seed, only the same distributions.
@@ -85,12 +91,21 @@ def init_params(cfg: TransducerConfig, rng: np.random.Generator,
 
     check_supported(cfg)
     enc = []
-    in_dim = cfg.input_dim
-    for i in range(cfg.enc_layers):
-        enc.append(_init_lstm(rng, in_dim, cfg.enc_hidden))
-        in_dim = cfg.enc_hidden
-        if i == 0 and cfg.time_reduction > 1:
-            in_dim *= cfg.time_reduction
+    if cfg.enc_type == "conformer":
+        # frame-stacked input projection + enc_layers conformer blocks
+        enc.append({"in_proj": _init_linear(
+            rng, cfg.input_dim * max(cfg.time_reduction, 1), cfg.enc_hidden)})
+        for _ in range(cfg.enc_layers):
+            enc.append(init_conformer_block(rng, cfg.enc_hidden,
+                                            cfg.enc_heads, cfg.enc_ff_mult,
+                                            cfg.enc_conv_kernel))
+    else:
+        in_dim = cfg.input_dim
+        for i in range(cfg.enc_layers):
+            enc.append(_init_lstm(rng, in_dim, cfg.enc_hidden))
+            in_dim = cfg.enc_hidden
+            if i == 0 and cfg.time_reduction > 1:
+                in_dim *= cfg.time_reduction
     embed = rng.standard_normal((cfg.vocab_size, cfg.embed_dim),
                                 dtype=np.float32)
     pred = []
@@ -136,6 +151,17 @@ def encode(params: Params, cfg: TransducerConfig, feats, feat_lens):
     x = mask_padding(feats.float(), feat_lens)
     lens = feat_lens.to(torch.int32)
     cd = cfg.cdtype
+    if cfg.enc_type == "conformer":
+        # frame stacking at the input, one projection to d_model, blocks
+        if cfg.time_reduction > 1:
+            x, lens = _time_reduce(x, lens, cfg.time_reduction)
+        proj = params["encoder"][0]["in_proj"]
+        x = _dot(x, proj["w"], cd) + proj["b"].float()
+        for block in params["encoder"][1:]:
+            x = conformer_block(block, x, lens, cfg.enc_heads, cd,
+                                att_left=cfg.enc_att_left,
+                                chunk_att=cfg.enc_chunk_att)
+        return mask_padding(x, lens), lens
     for i, layer in enumerate(params["encoder"]):
         x = lstm_layer(layer, x, compute_dtype=cd)[0]
         if i == 0 and cfg.time_reduction > 1:
@@ -163,7 +189,7 @@ def predict_step(params: Params, cfg: TransducerConfig, label, states):
 
 
 def init_pred_state(cfg: TransducerConfig, batch: int,
-                    device: str | torch.device = "cpu"):
+                    device: str | torch.device = "cuda"):
     check_supported(cfg)
     return [
         (torch.zeros((batch, cfg.pred_hidden), dtype=torch.float32,

@@ -7,10 +7,13 @@ fixed (max_batch, bucket_frames) shape and runs one greedy decode for the
 whole group on the engine's device. `http_server` exposes it over stdlib
 HTTP with JSON bodies.
 
-`--quantize int8` serves post-training int8 weights (`ops/quant.py`): the
-encoder's LSTM layers run the W8A8 recurrence (CUDA kernel
-`csrc/lstm_fwd_q.cu`) at batch sizes that are a multiple of 8, such as the
-default `--max-batch 8`, and the dequantized weights elsewhere.
+`--config libri100_conformer` serves the conformer encoder (every
+LayerNorm in the K8 kernel, `csrc/fused_ln.cu`). `--quantize int8` serves
+post-training int8 weights (`ops/quant.py`): the encoder's LSTM layers run
+the W8A8 recurrence (CUDA kernel `csrc/lstm_fwd_q.cu`) at batch sizes that
+are a multiple of 8, such as the default `--max-batch 8`, and the
+dequantized weights elsewhere; a conformer dequantizes every weight, as in
+the JAX package.
 
 Not ported yet, each with its ROADMAP item (queue 1): beam mode (item 3),
 streaming sessions (item 4: the session routes answer 404, as the JAX
@@ -19,6 +22,7 @@ frontend) and LM / n-gram / context fusion (item 14).
 
     python -m rnn_transducer_tpu_torch.serve --config libri100 --port 8000
     python -m rnn_transducer_tpu_torch.serve --config libri100 --quantize int8
+    python -m rnn_transducer_tpu_torch.serve --config libri100_conformer
     curl -XPOST localhost:8000/recognize -d '{"feats": [[...80 floats...]]}'
     curl localhost:8000/stats
 """
@@ -82,7 +86,7 @@ class BatchingEngine:
     def __init__(self, params, cfg, *, mode: str = "greedy",
                  max_symbols: int = 100, frame_buckets=(200, 400, 800),
                  max_batch: int = 8, window_ms: float = 5.0,
-                 device: str | torch.device = "cpu"):
+                 device: str | torch.device = "cuda"):
         if mode != "greedy":
             raise NotImplementedError(
                 f"mode={mode!r} is not ported yet (ROADMAP queue 1, item 3: "

@@ -2,6 +2,8 @@
 
     python -m rnn_transducer_tpu_torch.train --config libri100 \\
         --data synthetic --steps 100 --batch-size 32 --ckpt-dir ckpt
+    python -m rnn_transducer_tpu_torch.train --config libri100_conformer \\
+        --data synthetic --steps 100 --batch-size 64 --max-frames 400
 
 Runs the standard training step (`train/loop.py`) on the `learnable_batch`
 stream of train.py (features that encode their labels, drawn from

@@ -171,7 +171,7 @@ def _adamw(p_leaves, g_leaves, adam, tcfg: TrainConfig, schedule):
 
 
 def init_train_state(rng, cfg: TransducerConfig, tcfg: TrainConfig,
-                     device: str | torch.device = "cpu",
+                     device: str | torch.device = "cuda",
                      params=None) -> TrainState:
     """Fresh TrainState: params from `m.init_params` with the numpy
     Generator `rng` (or the given tree of tensors), zero Adam moments."""

@@ -76,6 +76,14 @@ SIGNATURES = {
     # H, J, V, U_max, blank, cd_is_bf16, device, stream
     "greedy_fused": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                           _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+    # x, g, b, y, mu, rstd, N, D, silu, device, stream
+    "fused_ln_fwd": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    # N, D, rows_per_block -> rows of the backward's partial sums
+    "fused_ln_bwd_parts": (_I, [_I, _I, _I]),
+    # x, g, b, mu, rstd, dy, dx, dg, db, dg_part, db_part, N, D,
+    # rows_per_block, silu, device, stream
+    "fused_ln_bwd": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                          _I, _I, _I, _I, _P]),
     "kernel_error_string": (ctypes.c_char_p, [_I]),
 }
 

@@ -82,10 +82,15 @@ def _linear_from_torch(sd, prefix: str, in_dim: int, out_dim: int) -> dict:
 
 
 def load_state_dict(path: str, cfg: TransducerConfig,
-                    device: str | torch.device = "cpu"):
-    """Read a `tools/export_torch_ckpt.py` state dict into port params,
-    checking every tensor's shape against `cfg`."""
+                    device: str | torch.device = "cuda"):
+    """Read a `tools/export_torch_ckpt.py` state dict into port params on
+    `device`, checking every tensor's shape against `cfg`."""
     check_supported(cfg)
+    if cfg.enc_type != "lstm":
+        raise NotImplementedError(
+            f"enc_type={cfg.enc_type!r}: tools/export_torch_ckpt.py writes "
+            "only LSTM encoders, so there is no torch-layout state dict of "
+            "one to read; carry JAX params over with params_from_numpy")
     sd = torch.load(path, map_location="cpu", weights_only=True)
     enc = []
     in_dim = cfg.input_dim

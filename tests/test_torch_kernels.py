@@ -347,3 +347,67 @@ def test_cuda_greedy_fused_matches_reference(cuda_device, B, T, E, H, J, V):
     assert torch.equal(toks, want_t)
     assert torch.equal(steps, want_s)
     assert steps[1] == 0 and (toks[1] == 0).all()
+
+
+# K8: y within 1e-5 absolute (rows normalised to O(1)); dx within 1e-5 of
+# its largest value; dg and db within 1e-4 of theirs (sums over every row
+# in another order).
+LN_Y_ATOL, LN_DX_RTOL, LN_DGB_RTOL = 1e-5, 1e-5, 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", ["none", "silu"])
+@pytest.mark.parametrize("N, D", [(6400, 512), (1603, 512), (37, 64),
+                                  (45, 1028)])
+def test_cuda_fused_ln_matches_reference(cuda_device, act, N, D):
+    from rnn_transducer_tpu_torch.ops import fused_ln as fl
+
+    g = torch.Generator().manual_seed(N)
+    x = (3 * torch.randn(N, D, generator=g) + 1).to(cuda_device)
+    w = (1 + 0.5 * torch.randn(D, generator=g)).to(cuda_device)
+    b = (0.5 * torch.randn(D, generator=g)).to(cuda_device)
+    dy = torch.randn(N, D, generator=g).to(cuda_device)
+    before = (fl.LAUNCHES_FWD, fl.LAUNCHES_BWD)
+    y, mu, rstd = fl.fln_fwd(x, w, b, act)
+    dx, dg, db = fl.fln_bwd(x, w, b, mu, rstd, dy, act)
+    again = fl.fln_bwd(x, w, b, mu, rstd, dy, act)
+    torch.cuda.synchronize()
+    assert (fl.LAUNCHES_FWD, fl.LAUNCHES_BWD) == (before[0] + 1,
+                                                  before[1] + 2)
+    xs, ws, bs = (a.clone().requires_grad_(True) for a in (x, w, b))
+    ref = fl.layer_norm_reference(xs, ws, bs, act)
+    want = torch.autograd.grad(ref, (xs, ws, bs), dy)
+    torch.testing.assert_close(y, ref.detach(), rtol=0, atol=LN_Y_ATOL)
+    assert _rel_err(dx, want[0]) <= LN_DX_RTOL
+    assert _rel_err(dg, want[1]) <= LN_DGB_RTOL
+    assert _rel_err(db, want[2]) <= LN_DGB_RTOL
+    for a, e in zip(again, (dx, dg, db)):
+        assert torch.equal(a, e)  # no float atomics: the same bits
+
+
+@pytest.mark.cuda
+def test_cuda_conformer_encode_matches_the_plain_path(cuda_device):
+    """Conformer `encode` through K8 on the card against the same encode
+    with the plain LayerNorm on the card, at f32."""
+    import dataclasses
+    from unittest import mock
+
+    import numpy as np
+
+    from rnn_transducer_tpu_torch.models import transducer as tm
+    from rnn_transducer_tpu_torch.models.config import config_conformer_smoke
+    from rnn_transducer_tpu_torch.ops import fused_ln as fl
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(config_conformer_smoke(),
+                              compute_dtype="float32")
+    params = tm.init_params(cfg, np.random.default_rng(0), cuda_device)
+    g = torch.Generator().manual_seed(0)
+    feats = torch.randn(3, 64, cfg.input_dim, generator=g).to(cuda_device)
+    lens = torch.tensor([64, 41, 0], dtype=torch.int32, device=cuda_device)
+    before = fl.LAUNCHES_FWD
+    got, _ = tm.encode(params, cfg, feats, lens)
+    assert fl.LAUNCHES_FWD - before == 6 * cfg.enc_layers
+    with mock.patch.object(fl, "fln_fwd", fl.fln_fwd_reference):
+        want, _ = tm.encode(params, cfg, feats, lens)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)

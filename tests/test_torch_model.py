@@ -146,21 +146,38 @@ def test_init_params_has_the_jax_tree_shapes(params_np):
     want = jax.tree.map(np.shape, jax.tree.map(
         np.asarray, jm.init_params(jax.random.PRNGKey(0), jcfg)))
     got = jax.tree.map(np.shape, params_to_numpy(
-        tm.init_params(cfg, np.random.default_rng(0))))
+        tm.init_params(cfg, np.random.default_rng(0), device="cpu")))
     assert got == want
 
 
 @pytest.mark.parametrize("field, value", [
-    ("enc_type", "conformer"), ("bidirectional", True),
+    ("bidirectional", True),
     ("pred_type", "stateless"), ("big_blank_durations", (2, 4)),
     ("tdt_durations", (0, 1, 2)), ("joint_experts", 2),
 ])
 def test_unported_configs_raise(field, value):
     cfg = dataclasses.replace(TCFG, **{field: value})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.init_params(cfg, np.random.default_rng(0))
+        tm.init_params(cfg, np.random.default_rng(0), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tm.encode({}, cfg, torch.zeros(1, 4, 8), torch.ones(1))
+
+
+@pytest.mark.parametrize("fn", ["models.transducer.init_params",
+                                "models.transducer.init_pred_state",
+                                "weights.load_state_dict",
+                                "train.loop.init_train_state",
+                                "serve.BatchingEngine"])
+def test_entry_points_default_to_the_card(fn):
+    """An entry point runs on the card unless the caller asks for the CPU;
+    read from the signature, nothing is run."""
+    import importlib
+    import inspect
+
+    mod, name = fn.rsplit(".", 1)
+    obj = getattr(importlib.import_module(f"rnn_transducer_tpu_torch.{mod}"),
+                  name)
+    assert inspect.signature(obj).parameters["device"].default == "cuda"
 
 
 # ---------------------------- weight bridge -----------------------------
@@ -200,7 +217,7 @@ def _logits(params, cfg, feats, lens):
     B, T, _ = enc.shape
     pred, _ = tm.predict_step(params, cfg,
                               torch.zeros(B, dtype=torch.long),
-                              tm.init_pred_state(cfg, B))
+                              tm.init_pred_state(cfg, B, device="cpu"))
     return torch.stack([tm.joint_step(params, cfg, enc[:, t], pred)
                         for t in range(T)], dim=1)
 
@@ -216,7 +233,8 @@ def test_load_state_dict_of_exported_checkpoint(params_np, tmp_path):
     feats, lens = _feats(seed=3)
     feats, lens = torch.from_numpy(feats), torch.from_numpy(lens)
     want = _logits(params_from_numpy(params_np), TCFG, feats, lens)
-    got = _logits(load_state_dict(str(path), TCFG), TCFG, feats, lens)
+    got = _logits(load_state_dict(str(path), TCFG, device="cpu"), TCFG,
+                  feats, lens)
     # the export splits b into bias_ih = b, bias_hh = 0: exact sum back
     torch.testing.assert_close(got, want, rtol=0, atol=0)
     with pytest.raises(ValueError, match="shape"):

@@ -316,7 +316,8 @@ def test_engine_serves_int8_params(params_np):
     want = recognize_greedy(tqp, TCFG, torch.from_numpy(feats),
                             torch.from_numpy(lens), max_symbols=MAX_SYMBOLS)
     eng = BatchingEngine(tqp, TCFG, max_symbols=MAX_SYMBOLS,
-                         frame_buckets=(30,), max_batch=8, window_ms=1.0)
+                         frame_buckets=(30,), max_batch=8, window_ms=1.0,
+                         device="cpu")
     try:
         for b in (0, 3, 4):
             got = eng.submit(feats[b, :lens[b]])

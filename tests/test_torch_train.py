@@ -186,7 +186,7 @@ def test_nonfinite_step_is_skipped():
     Adam's count stay."""
     cfg = port_config.TransducerConfig(**TINY)
     tcfg = port_config.TrainConfig(learning_rate=1e-2, warmup_steps=1)
-    state = tloop.init_train_state(0, cfg, tcfg)
+    state = tloop.init_train_state(0, cfg, tcfg, device="cpu")
     step = tloop.make_train_step(cfg, tcfg)
     feats, fl, labels, ll = (torch.from_numpy(a) for a in _batches(1)[0])
     feats[0, 0, 0] = float("nan")
