@@ -13,8 +13,10 @@ defaults, and serve.py's CLI itself for the conformer) and training
 (init_train_state + make_train_step at bench.py's headline shape, B=32,
 T=400, U=40, through the default fused loss, and at U=80 through the
 two-pass loss, loss_impl="pallas"; the conformer at bench.py's B=64,
-T=400, U=40; and the training CLI); int8 serving (serve.py --quantize
-int8) and the greedy decode in one program (recognize_greedy_fused).
+T=400, U=40; the pruned two-pass loss at libri100 with a vocabulary of
+8192, U=100, and the alignment-restricted band at U=40; and the training
+CLI); int8 serving (serve.py --quantize int8) and the greedy decode in one
+program (recognize_greedy_fused).
 Phases, in order:
 
   1. card   require CUDA; print the card's name and power limit
@@ -31,7 +33,10 @@ Phases, in order:
             the fused LayerNorm (fused_ln fwd and bwd, act none and silu)
             at the conformer's serving and training rows, N = 1600 and
             6400, D = 512, against the plain LayerNorm and its autograd,
-            dg / db identical over two runs
+            dg / db identical over two runs; the band joint (band_fused:
+            band_fwd, band_bwd_a, band_bwd_b) at the pruned step's band,
+            B=32, T'=200, S=8, J=512, V=8192, dW / db identical over two
+            runs
   4. e2e    concurrent HTTP /recognize requests; every serving kernel
             must have launched while they were served; the f32 tokens of
             the kernel path and the plain path must be identical
@@ -62,7 +67,15 @@ Phases, in order:
             default (fused) loss: 48 fused_ln_bwd launches a step, ms/step
             and utt/s, peak memory, a profiled step, the f32 check of the
             kernels against the plain versions, the CLI for 3 steps
-  6. the kernels' JSON line (each kernel with its bound, the least time
+  5d. train_pruned  loss_impl="pruned" at libri100 with V=8192, S=8, B=32,
+            T=400, U=100: each K6 kernel once a step, K3 three times, no
+            K1 / K2; ms/step, a profiled step, the full lattice's fused
+            step on the same batch for context, the f32 check, the CLI
+            with --pruned-range 8 on a JSON config
+  5e. train_ar  ar_range 8 (self-aligned) at libri100, B=32, T=400, U=40:
+            each K6 kernel once a step, K3 once; ms/step, a profiled step,
+            the f32 check, the CLI with --ar-range 8
+  6. the kernels' JSON line (sixteen kernels) (each kernel with its bound, the least time
      the card could take: bytes over 3.35 TB/s or operations over the
      peak for the operands' type, whichever is larger; and the time of one
      PyTorch call computing the same function where there is one), the
@@ -105,6 +118,7 @@ from rnn_transducer_tpu_torch.models.config import (TrainConfig,
 from rnn_transducer_tpu_torch.ops import fused_ln as fl
 from rnn_transducer_tpu_torch.ops import lstm_cuda
 from rnn_transducer_tpu_torch.ops import lstm_int8_cuda as q8
+from rnn_transducer_tpu_torch.ops import rnnt_band_fused as bf
 from rnn_transducer_tpu_torch.ops import rnnt_joint_fused as jf
 from rnn_transducer_tpu_torch.ops import rnnt_lattice_cuda as lat
 from rnn_transducer_tpu_torch.ops import rnnt_loss as rl
@@ -173,6 +187,11 @@ LN_MAIN = ("train", "none")  # the kernels line's ms / plain_ms / bound
 # dx within 1e-5 of its largest value; dg and db, sums over every row in
 # another order, within 1e-4 of theirs.
 LN_Y_ATOL, LN_DX_RTOL, LN_DGB_RTOL = 1e-5, 1e-5, 1e-4
+# The pruned loss's card shape (docs/PERFORMANCE.md:294-298): libri100 with
+# a vocabulary of 8192 and a band of S=8 at bench.py's B=32, T=400, U=100;
+# and the AR band, libri100 (V=1024) at B=32, T=400, U=40, S=8, centred.
+PRUNED_V, PRUNED_S, PRUNED_U = 8192, 8, 100
+AR_S = 8
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense): device
 # memory bytes/s and operations/s by operand type. A bound is the larger of
 # the bytes a function must move (inputs read once, outputs written once)
@@ -295,6 +314,7 @@ def reset_counts() -> None:
     lc.LAUNCHES_EXTRACT = lc.LAUNCHES_GRAD = 0
     q8.LAUNCHES = gf.LAUNCHES = 0
     fl.LAUNCHES_FWD = fl.LAUNCHES_BWD = 0
+    bf.LAUNCHES_FWD = bf.LAUNCHES_BWD_A = bf.LAUNCHES_BWD_B = 0
 
 
 def read_counts() -> dict:
@@ -307,7 +327,20 @@ def read_counts() -> dict:
             "extract_lp": lc.LAUNCHES_EXTRACT,
             "assemble_grad": lc.LAUNCHES_GRAD,
             "lstm_fwd_int8": q8.LAUNCHES, "greedy_fused": gf.LAUNCHES,
-            "fused_ln_fwd": fl.LAUNCHES_FWD, "fused_ln_bwd": fl.LAUNCHES_BWD}
+            "fused_ln_fwd": fl.LAUNCHES_FWD, "fused_ln_bwd": fl.LAUNCHES_BWD,
+            "band_lp_fwd": bf.LAUNCHES_FWD,
+            "band_lp_bwd_a": bf.LAUNCHES_BWD_A,
+            "band_lp_bwd_b": bf.LAUNCHES_BWD_B}
+
+
+BAND_KERNELS = ("band_lp_fwd", "band_lp_bwd_a", "band_lp_bwd_b")
+
+
+def check_no_band(counts: dict, where: str) -> None:
+    """K6 belongs to the pruned and AR losses alone."""
+    check(all(counts[k] == 0 for k in BAND_KERNELS),
+          f"{where} launched a K6 band kernel: "
+          f"{ {k: counts[k] for k in BAND_KERNELS} }")
 
 
 @contextlib.contextmanager
@@ -322,7 +355,8 @@ def plain_kernels():
                           (lat, "beta_occupancies"), (lc, "extract_lp"),
                           (lc, "assemble_grad"), (q8, "lstm_recurrence_int8"),
                           (gf, "greedy_fused_tokens"), (fl, "fln_fwd"),
-                          (fl, "fln_bwd")):
+                          (fl, "fln_bwd"), (bf, "band_lp_fwd"),
+                          (bf, "band_lp_bwd_a"), (bf, "band_lp_bwd_b")):
             stack.enter_context(mock.patch.object(
                 mod, name, getattr(mod, name + "_reference")))
         yield
@@ -908,6 +942,106 @@ def fused_ln_vs_plain(rng: np.random.Generator, dev) -> dict:
     return {"rows": rows, "main": main, "worst": worst}
 
 
+def band_fused_vs_plain(rng: np.random.Generator, dev) -> dict:
+    """band_fwd, band_bwd_a and band_bwd_b (K6) against their plain versions
+    at the pruned step's band, B=32, T'=200, S=8, J=512, V=8192, in f32 and
+    bf16; dW and db identical over two runs. Times as fused_ln_vs_plain:
+    device ms per call behind a spin kernel, the calls cycling through
+    copies of g_w (105 MB, twice the L2 alone) three times the L2's size,
+    in turns plain, kernel, kernel, plain. No single PyTorch call computes
+    the band joint with its log-softmax picks: library_ms is null, and the
+    full lattice's K1 / K2 at the same batch (the train_pruned phase) is
+    the comparison."""
+    B, T, S, J, V = TRAIN_B, TRAIN_T // 2, PRUNED_S, 512, PRUNED_V
+    k = 1.0 / np.sqrt(J)
+    f = torch.from_numpy(0.5 * rng.normal(size=(B, T, J))).float().to(dev)
+    g_w = torch.from_numpy(0.5 * rng.normal(size=(B, T, S, J))).float().to(
+        dev)
+    w32 = torch.from_numpy(rng.uniform(-k, k, (J, V))).float().to(dev)
+    b = torch.from_numpy(rng.uniform(-k, k, V)).float().to(dev)
+    lab_w = torch.from_numpy(rng.integers(1, V, (B, T, S))).int().to(dev)
+    lab_w[:, :, -1] = 0  # the last row of a band at u = U: the blank id
+    # the loss's cotangents: minus the batch mean's share of occupancies
+    cb = torch.from_numpy(-rng.uniform(0, 1, (B, T, S)) / B).float().to(dev)
+    cy = torch.from_numpy(-rng.uniform(0, 1, (B, T, S)) / B).float().to(dev)
+    n_cp = max(2, -(-3 * L2_BYTES // nbytes(g_w)))
+    gws = [g_w.clone() for _ in range(n_cp)]
+    N = B * T * S
+    out = {}
+    for cd in (torch.float32, torch.bfloat16):
+        w = w32.to(cd).contiguous()
+        fwd_args = (f, g_w, lab_w, w, b)
+        want = bf.band_lp_fwd_reference(*fwd_args)
+        got = bf.band_lp_fwd(*fwd_args)
+        bwd_args = (f, g_w, lab_w, w, b, want[2], cb, cy)
+        got_a = bf.band_lp_bwd_a(*bwd_args)
+        got_b = bf.band_lp_bwd_b(*bwd_args)
+        again = bf.band_lp_bwd_b(*bwd_args)
+        want_a = bf.band_lp_bwd_a_reference(*bwd_args)
+        want_b = bf.band_lp_bwd_b_reference(*bwd_args)
+        torch.cuda.synchronize()
+        err_f = max(max_abs(x, y) for x, y in zip(got, want))
+        err_a = max(max_abs(x, y) for x, y in zip(got_a, want_a))
+        err_b = max(max_abs(x, y) for x, y in zip(got_b, want_b))
+        rel = {n: rel_err(x, y) for n, x, y in
+               zip(("df", "dg_w", "dw", "db"), got_a + got_b,
+                   want_a + want_b)}
+        same_bits = all(torch.equal(x, y) for x, y in zip(got_b, again))
+        finite = all(bool(torch.isfinite(x).all())
+                     for x in (*got, *got_a, *got_b))
+        del want_a, want_b
+        base = want[2]
+
+        def call_args(kind, i):
+            """The arguments of a forward or backward call on copy i."""
+            a = (f, gws[i], lab_w, w, b)
+            return a if kind == "fwd" else a + (base, cb, cy)
+
+        calls = {"kernel": (bf.band_lp_fwd, bf.band_lp_bwd_a,
+                            bf.band_lp_bwd_b),
+                 "plain": (bf.band_lp_fwd_reference,
+                           bf.band_lp_bwd_a_reference,
+                           bf.band_lp_bwd_b_reference)}
+        times = {}
+        for which in ("plain", "kernel", "kernel", "plain"):
+            fw, ba, bb = calls[which]
+            times.setdefault(which, []).append(tuple(
+                device_ms(cycled(lambda i, c=c, kind=kind: c(
+                    *call_args(kind, i)), n_cp), reps=5)
+                for c, kind in ((fw, "fwd"), (ba, "bwd"), (bb, "bwd"))))
+        kt = [statistics.mean(t[i] for t in times["kernel"]) for i in range(3)]
+        pt = [statistics.mean(t[i] for t in times["plain"]) for i in range(3)]
+        ops = 2 * N * J * V  # one product over the band
+        row = {"B": B, "T": T, "S": S, "J": J, "V": V, "rows": N,
+               "dtype": str(cd).replace("torch.", ""),
+               "fwd_max_abs_err": err_f, "fwd_atol": ATOL[cd],
+               "bwd_a_max_abs_err": err_a, "bwd_b_max_abs_err": err_b,
+               "bwd_rel_err": rel, "bwd_rtol": REL_TOL[cd],
+               "bwd_b_bitwise_repeat": same_bits,
+               "fwd_kernel_ms": kt[0], "fwd_plain_ms": pt[0],
+               "bwd_a_kernel_ms": kt[1], "bwd_a_plain_ms": pt[1],
+               "bwd_b_kernel_ms": kt[2], "bwd_b_plain_ms": pt[2],
+               "row_splits": bf.row_splits(V),
+               # forward: the logits product; A: it again and dz; B: it
+               # again and dW
+               "fwd_bound": bound(nbytes(fwd_args, got), ops, cd),
+               "bwd_a_bound": bound(nbytes(bwd_args, got_a), 2 * ops, cd),
+               "bwd_b_bound": bound(nbytes(bwd_args, got_b), 2 * ops, cd)}
+        print("kernel band_fused " + json.dumps(row))
+        check(finite and err_f <= ATOL[cd] and max(rel.values()) <= REL_TOL[cd],
+              f"band kernels {cd}: fwd err {err_f}, bwd rel err {rel}, or a "
+              "non-finite output")
+        check(same_bits, f"band_bwd_b {cd}: two runs gave different bits")
+        out[cd] = row
+        del got, got_a, got_b, again, want, base
+        torch.cuda.empty_cache()
+    del gws
+    torch.cuda.empty_cache()
+    return {"rows": out, "main": out[torch.bfloat16],
+            "worst": {k: max(r[f"{k}_max_abs_err"] for r in out.values())
+                      for k in ("fwd", "bwd_a", "bwd_b")}}
+
+
 # ------------------------------ phase 4 ----------------------------------
 
 def blank_offset(params, cfg, dev, rng) -> float:
@@ -1076,6 +1210,7 @@ def end_to_end(serving: dict, dev) -> dict:
     launches = counts["lstm_fwd"]
     result["launches"] = launches
     check(launches > 0, "the served path never launched lstm_fwd")
+    check_no_band(counts, "serving")
     print("e2e " + json.dumps(result))
 
     # One batch of the served utterances: kernel path vs plain path.
@@ -1111,6 +1246,7 @@ def int8_serving(serving: dict, dev) -> dict:
     check(counts["lstm_fwd"] == 0,
           "the int8 engine launched lstm_fwd: an encoder layer took the "
           "dequantized route")
+    check_no_band(counts, "int8 serving")
     feats_d, lens_d = served_batch(serving, dev)
     kernel_vs_plain_tokens(qparams, cfg, feats_d, lens_d, "int8")
     result["qparams"] = qparams
@@ -1243,6 +1379,7 @@ def conformer_end_to_end(conf: dict, dev) -> dict:
           f"{counts['fused_ln_fwd']} times in {result['batches']} batches, "
           f"not {LN_PER_ENCODE} a batch")
     check(counts["lstm_fwd"] == 0, "the conformer engine launched lstm_fwd")
+    check_no_band(counts, "conformer serving")
     feats, lens = served_batch(conf, dev)
     kernel_vs_plain_tokens(params, cfg, feats, lens, "conformer")
     c = dataclasses.replace(cfg, compute_dtype="float32")
@@ -1353,6 +1490,12 @@ def profile_step(step, state, batch, profile_dir, name="train_step"):
                 "lattice": ("lattice_alpha_kernel", "lattice_beta_kernel"),
                 "loss_rows": ("extract_lp_kernel", "assemble_grad_kernel"),
                 "fused_ln": ("ln_fwd_", "ln_bwd_"),
+                # K6: the backward kernels' names first (every kernel of
+                # band_fused.cu may carry its file's tag in its name)
+                "band_bwd_a": ("band_bwd_a_",),
+                "band_bwd_b": ("band_bwd_b_",),
+                "band_sums": ("band_sum_parts",),
+                "band_fwd": ("band_fwd_kernel", "band_fwd_mma_kernel"),
                 "gemm": ("gemm", "Gemm", "cutlass", "sm90_xmma"),
                 "softmax": ("softmax",),
                 "elementwise": ("elementwise_kernel",),
@@ -1436,7 +1579,7 @@ def leaf_paths(tree, path: str = ""):
 
 def f32_kernels_vs_plain(seed: int, dev, loss_impl: str = "fused",
                          U: int = TRAIN_U, cfg=None,
-                         B: int = TRAIN_B) -> dict:
+                         B: int = TRAIN_B, **loss_kw) -> dict:
     """One f32 loss and gradient of the model (libri100 unless `cfg` is
     given), B utterances, T=400, U labels, through the kernels and through
     the plain versions.
@@ -1460,7 +1603,7 @@ def f32_kernels_vs_plain(seed: int, dev, loss_impl: str = "fused",
         with ctx:
             xs = [p.detach().requires_grad_(True) for p in flat]
             loss, _ = tl.loss_fn(torch.utils._pytree.tree_unflatten(xs, spec),
-                                 cfg, *batch, loss_impl=loss_impl)
+                                 cfg, *batch, loss_impl=loss_impl, **loss_kw)
             grads = torch.autograd.grad(loss, xs)
         return float(loss.detach()), grads
 
@@ -1521,6 +1664,18 @@ def cli_round_trip(dev) -> dict:
     return row
 
 
+def cli_json(argv: list, steps: int, what: str) -> dict:
+    """The training CLI in this process; its last stdout line."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        train_cli(argv)
+    last = json.loads(out.getvalue().strip().splitlines()[-1])
+    print(f"train_cli_{what} " + json.dumps(last))
+    check(last.get("steps") == steps and np.isfinite(last.get("final_loss")),
+          f"training CLI ({what}): final line {last}")
+    return last
+
+
 def timed_steps(step, state, batch, B: int = TRAIN_B):
     """One step, then bench.py's slope runs (SLOPE_STEPS steps, best of
     SLOPE_REPEATS), with the launch counts of exactly these steps."""
@@ -1562,14 +1717,14 @@ def timed_steps(step, state, batch, B: int = TRAIN_B):
 
 
 def train_run(seed: int, dev, loss_impl: str, U: int, cfg=None,
-              B: int = TRAIN_B):
+              B: int = TRAIN_B, **tcfg_kw):
     """A fresh state (libri100 unless `cfg` is given) trained on bench.py's
     batch of B utterances with U labels: the step, its state after the
     timed steps, the batch and the result."""
     cfg = cfg or config_libri100()
     tcfg = TrainConfig(batch_size=B, warmup_steps=100,
                        total_steps=10000,  # bench.py's TrainConfig
-                       loss_impl=loss_impl)
+                       loss_impl=loss_impl, **tcfg_kw)
     state = tl.init_train_state(np.random.default_rng(seed), cfg, tcfg, dev)
     step = tl.make_train_step(cfg, tcfg)
     batch = bench_batch(cfg, seed, dev, U, B)
@@ -1591,6 +1746,7 @@ def train_phase(seed: int, dev, profile_dir) -> dict:
     for name in ("lstm_fwd_with_acts", "lstm_bwd", "joint_fwd", "joint_bwd",
                  "lattice_alpha", "lattice_beta"):
         check(counts[name] > 0, f"the training step never launched {name}")
+    check_no_band(counts, "the fused training step")
 
     state, prof = profile_step(step, state, batch, profile_dir)
     print("train_profile " + json.dumps(prof))
@@ -1615,6 +1771,7 @@ def train_pallas_phase(seed: int, dev, profile_dir) -> dict:
               f"the two-pass training step never launched {name}")
     check(counts["joint_fwd"] == counts["joint_bwd"] == 0,
           "the two-pass training step launched the fused joint kernels")
+    check_no_band(counts, "the two-pass training step")
     state, prof = profile_step(step, state, batch, profile_dir,
                                "train_pallas_step")
     print("train_pallas_profile " + json.dumps(prof))
@@ -1624,22 +1781,16 @@ def train_pallas_phase(seed: int, dev, profile_dir) -> dict:
 
     fused = train_run(seed, dev, "fused", PALLAS_U)[3]
     print("train_fused_U80 " + json.dumps(fused))
+    check_no_band(fused["launches"], "the fused step at U=80")
     result["fused_same_batch"] = fused
     torch.cuda.empty_cache()
     result["f32"] = f32_kernels_vs_plain(seed, dev, "pallas", PALLAS_U)
 
-    argv = ["--config", "libri100", "--data", "synthetic", "--steps", "2",
-            "--batch-size", "8", "--max-frames", "200", "--max-labels", "20",
-            "--warmup-steps", "1", "--log-every", "1", "--loss-impl",
-            "pallas", "--device", dev.type]
-    out = io.StringIO()
-    with contextlib.redirect_stdout(out):
-        train_cli(argv)
-    last = json.loads(out.getvalue().strip().splitlines()[-1])
-    print("train_cli_pallas " + json.dumps(last))
-    check(last.get("steps") == 2 and np.isfinite(last.get("final_loss")),
-          f"training CLI with --loss-impl pallas: final line {last}")
-    result["cli"] = last
+    result["cli"] = cli_json(
+        ["--config", "libri100", "--data", "synthetic", "--steps", "2",
+         "--batch-size", "8", "--max-frames", "200", "--max-labels", "20",
+         "--warmup-steps", "1", "--log-every", "1", "--loss-impl", "pallas",
+         "--device", dev.type], 2, "pallas")
     return result
 
 
@@ -1661,6 +1812,7 @@ def train_conformer_phase(seed: int, dev, profile_dir) -> dict:
     for name in ("lstm_fwd_with_acts", "lstm_bwd", "joint_fwd", "joint_bwd",
                  "lattice_alpha", "lattice_beta"):
         check(counts[name] > 0, f"the conformer step never launched {name}")
+    check_no_band(counts, "the conformer step")
     state, prof = profile_step(step, state, batch, profile_dir,
                                "train_conformer_step")
     print("train_conformer_profile " + json.dumps(prof))
@@ -1670,18 +1822,126 @@ def train_conformer_phase(seed: int, dev, profile_dir) -> dict:
     result["f32"] = f32_kernels_vs_plain(seed, dev, "fused", CONF_U, cfg,
                                          CONF_B)
     torch.cuda.empty_cache()
-    argv = ["--config", "libri100_conformer", "--data", "synthetic",
-            "--steps", "3", "--batch-size", "8", "--max-frames", "400",
-            "--max-labels", "20", "--warmup-steps", "1", "--log-every", "1",
-            "--device", dev.type]
-    out = io.StringIO()
-    with contextlib.redirect_stdout(out):
-        train_cli(argv)
-    last = json.loads(out.getvalue().strip().splitlines()[-1])
-    print("train_cli_conformer " + json.dumps(last))
-    check(last.get("steps") == 3 and np.isfinite(last.get("final_loss")),
-          f"training CLI with --config libri100_conformer: final line {last}")
-    result["cli"] = last
+    result["cli"] = cli_json(
+        ["--config", "libri100_conformer", "--data", "synthetic", "--steps",
+         "3", "--batch-size", "8", "--max-frames", "400", "--max-labels",
+         "20", "--warmup-steps", "1", "--log-every", "1", "--device",
+         dev.type], 3, "conformer")
+    return result
+
+
+def short_run(seed: int, dev, loss_impl: str, U: int, cfg,
+              B: int = TRAIN_B, n: int = 2) -> dict:
+    """A fresh state, one warm step, then n steps timed by the host clock
+    ending in a synchronise: a context number for a route too slow for the
+    slope runs, not a slope."""
+    tcfg = TrainConfig(batch_size=B, warmup_steps=100, total_steps=10000,
+                       loss_impl=loss_impl)
+    state = tl.init_train_state(np.random.default_rng(seed), cfg, tcfg, dev)
+    step = tl.make_train_step(cfg, tcfg)
+    batch = bench_batch(cfg, seed, dev, U, B)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    state, info = step(state, *batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        state, info = step(state, *batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / n * 1e3
+    return {"B": B, "T": TRAIN_T, "U": U, "V": cfg.vocab_size,
+            "loss_impl": loss_impl, "timed_steps": n, "ms_per_step": ms,
+            "utt_per_s": B / ms * 1e3, "loss_last": float(info["loss"]),
+            "skipped_nonfinite": int(info["skipped_nonfinite"]),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": read_counts()}
+
+
+def check_band_step(result: dict, what: str, per_step_k3: int) -> None:
+    """One launch of each K6 kernel a step, `per_step_k3` of each K3 kernel,
+    the LSTM kernels, and not the full lattice's joint kernels."""
+    counts, steps = result["launches"], result["steps"]
+    for name in BAND_KERNELS:
+        check(counts[name] == steps,
+              f"the {what} step launched {name} {counts[name]} times in "
+              f"{steps} steps, not once a step")
+    for name in ("lattice_alpha", "lattice_beta"):
+        check(counts[name] == per_step_k3 * steps,
+              f"the {what} step launched {name} {counts[name]} times in "
+              f"{steps} steps, not {per_step_k3} a step")
+    for name in ("lstm_fwd_with_acts", "lstm_bwd"):
+        check(counts[name] > 0, f"the {what} step never launched {name}")
+    check(counts["joint_fwd"] == counts["joint_bwd"] == 0,
+          f"the {what} step launched the full lattice's joint kernels")
+
+
+def train_pruned_phase(seed: int, dev, profile_dir) -> dict:
+    """The pruned two-pass loss at its card shape: libri100 with V=8192,
+    S=8, B=32, T=400, U=100, bf16, simple_loss_scale 0.5. K6 once each a
+    step; K3 three times each (the simple pass's alpha and beta, the
+    bounds' occupancies, the band's alpha and beta); a profiled step; the
+    full lattice's K1 / K2 on the same batch for context; the f32 check;
+    the CLI with --pruned-range 8 on a JSON config."""
+    cfg = dataclasses.replace(config_libri100(), vocab_size=PRUNED_V,
+                              pruned_range=PRUNED_S)
+    step, state, batch, result = train_run(seed, dev, "pruned", PRUNED_U,
+                                           cfg)
+    result.update(V=PRUNED_V, S=PRUNED_S)
+    print("train_pruned " + json.dumps(result))
+    check_band_step(result, "pruned", 3)
+    state, prof = profile_step(step, state, batch, profile_dir,
+                               "train_pruned_step")
+    print("train_pruned_profile " + json.dumps(prof))
+    result["profile"] = prof
+    del step, state, batch
+    torch.cuda.empty_cache()
+    fused = short_run(seed, dev, "fused", PRUNED_U, cfg)
+    print("train_fused_V8192 " + json.dumps(fused))
+    check_no_band(fused["launches"], "the fused step")
+    result["fused_same_batch"] = fused
+    torch.cuda.empty_cache()
+    result["f32"] = f32_kernels_vs_plain(seed, dev, "pruned", PRUNED_U, cfg)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "libri100_v8192.json")
+        with open(path, "w") as fh:
+            json.dump({k: v for k, v in dataclasses.asdict(
+                dataclasses.replace(cfg, pruned_range=0)).items()
+                if not isinstance(v, tuple)}, fh)
+        result["cli"] = cli_json(
+            ["--config", path, "--pruned-range", str(PRUNED_S), "--data",
+             "synthetic", "--steps", "3", "--batch-size", "8",
+             "--max-frames", "200", "--max-labels", "20", "--warmup-steps",
+             "1", "--log-every", "1", "--device", dev.type], 3, "pruned")
+    return result
+
+
+def train_ar_phase(seed: int, dev, profile_dir) -> dict:
+    """The alignment-restricted band at libri100's B=32, T=400, U=40,
+    ar_range 8 (centred), self-aligned: the live model's Viterbi path under
+    no_grad, then the banded loss through K6 once each a step and K3 once
+    each (the band's alpha and beta); a profiled step; the f32 check; the
+    CLI with --ar-range 8."""
+    cfg = config_libri100()
+    step, state, batch, result = train_run(seed, dev, "auto", TRAIN_U, cfg,
+                                           ar_range=AR_S)
+    result.update(ar_range=AR_S, ar_left=-1)
+    print("train_ar " + json.dumps(result))
+    check_band_step(result, "AR", 1)
+    state, prof = profile_step(step, state, batch, profile_dir,
+                               "train_ar_step")
+    print("train_ar_profile " + json.dumps(prof))
+    result["profile"] = prof
+    del step, state, batch
+    torch.cuda.empty_cache()
+    result["f32"] = f32_kernels_vs_plain(seed, dev, "ar", TRAIN_U, cfg,
+                                         ar_range=AR_S)
+    torch.cuda.empty_cache()
+    result["cli"] = cli_json(
+        ["--config", "libri100", "--ar-range", str(AR_S), "--data",
+         "synthetic", "--steps", "3", "--batch-size", "8", "--max-frames",
+         "200", "--max-labels", "20", "--warmup-steps", "1", "--log-every",
+         "1", "--device", dev.type], 3, "ar")
     return result
 
 
@@ -1736,6 +1996,7 @@ def main(argv=None):
     serving = serving_setup(args.seed, args.requests, dev)
     kg = greedy_fused_vs_plain(serving, dev)
     kln = fused_ln_vs_plain(np.random.default_rng(args.seed + 8), dev)
+    kb = band_fused_vs_plain(np.random.default_rng(args.seed + 9), dev)
     print(f"phase kernel: {time.perf_counter() - t0:.1f} s")
 
     # phase 4: serving end to end, float and int8, and the fused decoder
@@ -1771,6 +2032,14 @@ def main(argv=None):
     t0 = time.perf_counter()
     conf_train = train_conformer_phase(args.seed, dev, args.profile_dir)
     print(f"phase train_conformer: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    pruned = train_pruned_phase(args.seed, dev, args.profile_dir)
+    print(f"phase train_pruned: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    train_ar_phase(args.seed, dev, args.profile_dir)
+    print(f"phase train_ar: {time.perf_counter() - t0:.1f} s")
 
     # phase 6: results
     lp = "rnn_transducer_tpu/ops/lstm_pallas.py"
@@ -1779,10 +2048,13 @@ def main(argv=None):
     rp = "rnn_transducer_tpu/ops/rnnt_loss_pallas.py"
     gp = "rnn_transducer_tpu/decode/greedy_pallas.py"
     fp = "rnn_transducer_tpu/ops/fused_ln.py"
+    bp = "rnn_transducer_tpu/ops/rnnt_band_fused.py"
     counts = train["launches"]
     two_pass = pallas["launches"]
-    km, tm_, jm_, lm, rm, lnm = (k["main"], kt["main"], kj["main"],
-                                 kl["main"], kr["main"], kln["main"])
+    km, tm_, jm_, lm, rm, lnm, bm = (k["main"], kt["main"], kj["main"],
+                                     kl["main"], kr["main"], kln["main"],
+                                     kb["main"])
+    band_counts = pruned["launches"]
     print(json.dumps({"kernels": [
         kernel_entry("lstm_fwd", "lstm_fwd.cu", f"{lp}:119", e2e["launches"],
                      k["max_abs_err"], km["kernel_ms"], km["plain_ms"], km,
@@ -1836,6 +2108,18 @@ def main(argv=None):
                      kln["worst"]["bwd"], lnm["bwd_kernel_ms"],
                      lnm["bwd_plain_ms"], lnm["bwd_bound"],
                      lnm["bwd_library_ms"]),
+        kernel_entry("band_lp_fwd", "band_fused.cu", f"{bp}:95",
+                     band_counts["band_lp_fwd"], kb["worst"]["fwd"],
+                     bm["fwd_kernel_ms"], bm["fwd_plain_ms"],
+                     bm["fwd_bound"]),
+        kernel_entry("band_lp_bwd_a", "band_fused.cu", f"{bp}:157",
+                     band_counts["band_lp_bwd_a"], kb["worst"]["bwd_a"],
+                     bm["bwd_a_kernel_ms"], bm["bwd_a_plain_ms"],
+                     bm["bwd_a_bound"]),
+        kernel_entry("band_lp_bwd_b", "band_fused.cu", f"{bp}:238",
+                     band_counts["band_lp_bwd_b"], kb["worst"]["bwd_b"],
+                     bm["bwd_b_kernel_ms"], bm["bwd_b_plain_ms"],
+                     bm["bwd_b_bound"]),
     ]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

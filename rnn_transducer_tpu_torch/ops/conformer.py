@@ -85,9 +85,20 @@ def _ln_silu(p, x):
     return fused_layer_norm(x, p["g"], p["b"], "silu")
 
 
+def _sigmoid(x):
+    """jax.nn.sigmoid as XLA computes it. At bf16 it lowers to 1 / (1 +
+    exp(-x)) with each of the three ops rounding to bf16; torch.sigmoid
+    rounds once, and differs from it on a third of bf16 inputs by up to an
+    ulp, enough to flip a random model's near-tie greedy decisions. At f32
+    torch.sigmoid is within an ulp of XLA's."""
+    if x.dtype == torch.float32:
+        return torch.sigmoid(x)
+    return 1.0 / (1.0 + torch.exp(-x))
+
+
 def _silu(x):
     """jax.nn.silu: x * sigmoid(x), each op in x's dtype."""
-    return x * torch.sigmoid(x)
+    return x * _sigmoid(x)
 
 
 def _dense(p, x, cd, out_dtype=None):
@@ -152,7 +163,7 @@ def _conv_module(p, x, lens, cd, causal: bool = False):
     window crosses frames (the pointwise bias makes pad rows nonzero)."""
     D = x.shape[-1]
     h = _dense(p["pw1"], x, cd, out_dtype=cd)  # (B, T, 2D)
-    h = h[..., :D] * torch.sigmoid(h[..., D:])  # GLU, in cd
+    h = h[..., :D] * _sigmoid(h[..., D:])  # GLU, in cd
     h = mask_padding(h, lens)
     return _dw_and_out(p, h, cd, causal=causal)
 

@@ -137,6 +137,42 @@ class _RNNTLoss(torch.autograd.Function):
         return grad.to(ctx.logits_dtype), None, None, None, None, None
 
 
+class _RNNTLossFromLp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, lp_blank, lp_y, frame_lens, label_lens,
+                fastemit_lambda):
+        lpb, lpy = lp_blank.float().contiguous(), lp_y.float().contiguous()
+        loss, alpha = forward_from_lp_with_alpha(lpb, lpy, frame_lens,
+                                                 label_lens)
+        ctx.save_for_backward(lpb, lpy, frame_lens, label_lens, alpha)
+        ctx.fastemit = fastemit_lambda
+        ctx.dtypes = (lp_blank.dtype, lp_y.dtype)
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        lpb, lpy, frame_lens, label_lens, alpha = ctx.saved_tensors
+        g_blank, g_y = occupancies_from_lp(lpb, lpy, frame_lens, label_lens,
+                                           alpha=alpha)
+        if ctx.fastemit:
+            g_y = g_y * (1.0 + ctx.fastemit)
+        scale = g.float()[:, None, None]
+        return ((-g_blank * scale).to(ctx.dtypes[0]),
+                (-g_y * scale).to(ctx.dtypes[1]), None, None, None)
+
+
+def rnnt_loss_from_lp(lp_blank, lp_y, frame_lens, label_lens,
+                      fastemit_lambda: float = 0.0):
+    """Per-utterance RNN-T loss (B,) from the blank and label log-probs
+    (B, T, U+1) a caller built itself (JAX `rnnt_loss_from_lp`,
+    rnnt_loss.py:353; the pruned loss's simple pass). The backward is the
+    occupancy gradient, d(-log Z)/d lp_blank = -g_blank and d/d lp_y =
+    -g_y, with no differentiation through the lattice; fastemit_lambda
+    scales g_y by (1 + lambda) and leaves the loss value as it is."""
+    return _RNNTLossFromLp.apply(lp_blank, lp_y, frame_lens, label_lens,
+                                 fastemit_lambda)
+
+
 def rnnt_loss(logits, labels, frame_lens, label_lens, blank: int = 0,
               fastemit_lambda: float = 0.0):
     """Per-utterance RNN-T negative log-likelihood (B,) over materialised

@@ -4,6 +4,10 @@
         --data synthetic --steps 100 --batch-size 32 --ckpt-dir ckpt
     python -m rnn_transducer_tpu_torch.train --config libri100_conformer \\
         --data synthetic --steps 100 --batch-size 64 --max-frames 400
+    python -m rnn_transducer_tpu_torch.train --config libri100 \\
+        --pruned-range 8 --steps 100        # the pruned two-pass loss
+    python -m rnn_transducer_tpu_torch.train --config libri100 \\
+        --ar-range 8 [--ar-left N] [--ar-align-from CKPT_DIR]  # AR band
 
 Runs the standard training step (`train/loop.py`) on the `learnable_batch`
 stream of train.py (features that encode their labels, drawn from
@@ -11,7 +15,12 @@ stream of train.py (features that encode their labels, drawn from
 every --ckpt-every steps and at the end, and prints
 {"final_loss": ..., "steps": ...} as the last line of stdout. --resume
 continues from the latest checkpoint in --ckpt-dir; the synthetic stream
-restarts from the seed, as in train.py. --device defaults to cuda, and a
+restarts from the seed, as in train.py. --pruned-range S sets the config's
+pruned_range and trains the pruned two-pass loss (--simple-loss-scale
+weighs its first pass); --ar-range S trains the alignment-restricted band
+around the live model's Viterbi path, or around that of the checkpoint
+--ar-align-from names (a port checkpoint with its meta.json). --device
+defaults to cuda, and a
 run asked for cuda on a machine without a card fails rather than fall
 back to the CPU.
 """
@@ -58,7 +67,23 @@ def parse_args(argv=None):
     p.add_argument("--loss-impl", default="auto", choices=LOSS_IMPLS,
                    help="auto: fused on cuda where the joint width allows, "
                         "else pallas (two passes over materialised "
-                        "logits); xla on cpu")
+                        "logits); xla on cpu; pruned needs --pruned-range")
+    p.add_argument("--pruned-range", type=int, default=0,
+                   help="band width S of the pruned two-pass loss; implies "
+                        "--loss-impl pruned when > 0")
+    p.add_argument("--simple-loss-scale", type=float, default=0.5,
+                   help="weight of the simple first pass in the pruned "
+                        "objective")
+    p.add_argument("--ar-range", type=int, default=0,
+                   help="alignment-restricted RNN-T: train on an N-wide "
+                        "band around a Viterbi alignment (0 = off)")
+    p.add_argument("--ar-left", type=int, default=-1,
+                   help="band positions behind the aligned path; -1 = "
+                        "centred")
+    p.add_argument("--ar-align-from", default=None,
+                   help="checkpoint dir of the aligner for --ar-range (same "
+                        "vocab, blank and time_reduction); omit to "
+                        "self-align")
     p.add_argument("--fastemit-lambda", type=float, default=0.0)
     p.add_argument("--ckpt-dir", default=None)
     p.add_argument("--ckpt-every", type=int, default=500)
@@ -103,12 +128,32 @@ def main(argv=None):
         raise SystemExit("--device cuda: no CUDA device available "
                          "(pass --device cpu to train on the CPU)")
     cfg = get_model_config(args.config)
+    if args.pruned_range > 0:
+        cfg = dataclasses.replace(cfg, pruned_range=args.pruned_range)
+        args.loss_impl = "pruned"
+    elif args.loss_impl == "pruned" and cfg.pruned_range <= 0:
+        raise SystemExit("--loss-impl pruned requires --pruned-range N")
     tcfg = TrainConfig(batch_size=args.batch_size, learning_rate=args.lr,
                        warmup_steps=args.warmup_steps,
                        total_steps=max(args.steps, args.warmup_steps + 1),
                        grad_clip_norm=args.grad_clip, seed=args.seed,
                        loss_impl=args.loss_impl, lr_schedule=args.lr_schedule,
-                       fastemit_lambda=args.fastemit_lambda)
+                       fastemit_lambda=args.fastemit_lambda,
+                       simple_loss_scale=args.simple_loss_scale,
+                       ar_range=args.ar_range, ar_left=args.ar_left)
+    teacher_params = teacher_cfg = None
+    if args.ar_align_from:
+        if args.ar_range <= 0:
+            raise SystemExit("--ar-align-from needs --ar-range N")
+        teacher_cfg = ckpt.load_model_config(args.ar_align_from)
+        if teacher_cfg is None:
+            raise SystemExit(f"--ar-align-from: {args.ar_align_from} has no "
+                             "meta.json with its model config")
+        aligner, a_step = ckpt.restore_checkpoint(args.ar_align_from,
+                                                  device=device)
+        teacher_params = aligner.params
+        print(f"ar band from {args.ar_align_from} (step {a_step}, range "
+              f"{args.ar_range}, left {args.ar_left})", file=sys.stderr)
 
     state = init_train_state(np.random.default_rng(args.seed), cfg, tcfg,
                              device)
@@ -124,7 +169,8 @@ def main(argv=None):
         state, start_step = ckpt.restore_checkpoint(args.ckpt_dir,
                                                     device=device)
         print(f"resumed from step {start_step}", file=sys.stderr)
-    step_fn = make_train_step(cfg, tcfg)
+    step_fn = make_train_step(cfg, tcfg, teacher_cfg=teacher_cfg)
+    extra = () if teacher_params is None else (teacher_params,)
 
     def save(step_no, st):
         ckpt.save_checkpoint(args.ckpt_dir, step_no, st, model_cfg=cfg,
@@ -140,7 +186,7 @@ def main(argv=None):
             break
         feats, fl, labels, ll = (torch.from_numpy(x).to(device)
                                  for x in batch)
-        state, info = step_fn(state, feats, fl, labels, ll)
+        state, info = step_fn(state, feats, fl, labels, ll, *extra)
         utts += feats.shape[0]
         step_no = start_step + i + 1
         if step_no % args.log_every == 0:

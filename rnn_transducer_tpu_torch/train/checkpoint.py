@@ -19,6 +19,7 @@ import re
 
 import torch
 
+from rnn_transducer_tpu_torch.models.config import TransducerConfig
 from rnn_transducer_tpu_torch.train.loop import TrainState
 
 META_FILE = "meta.json"
@@ -41,6 +42,20 @@ def load_meta(ckpt_dir: str) -> dict | None:
         return None
     with open(path) as f:
         return json.load(f)
+
+
+def load_model_config(ckpt_dir: str) -> TransducerConfig | None:
+    """The TransducerConfig saved in meta.json, or None (JAX
+    `load_model_config`): JSON gives lists back for the tuple fields, which
+    become tuples again so that the config compares equal to a fresh one."""
+    meta = load_meta(ckpt_dir)
+    if not meta or "model_config" not in meta:
+        return None
+    d = dict(meta["model_config"])
+    for k in ("big_blank_durations", "tdt_durations"):
+        if k in d:
+            d[k] = tuple(d[k])
+    return TransducerConfig(**d)
 
 
 def step_path(ckpt_dir: str, step: int) -> str:

@@ -1,10 +1,11 @@
 """Training step (PyTorch port of `rnn_transducer_tpu/train/loop.py`).
 
-The standard branch of the JAX package's training step: forward, RNN-T
-loss (`fused`, `pallas` or `xla`), backward, the non-finite guard, the
-clip by the guard's global norm and AdamW as `optax.adamw` with the repo's
-learning rate schedules, with optional gradient accumulation as
-`optax.MultiSteps`.
+The JAX package's training step: forward, RNN-T loss (`fused`, `pallas`
+or `xla` over the full lattice; `pruned`, the k2 two-pass objective; and
+`ar`, the alignment-restricted band, routed by `TrainConfig.ar_range`),
+backward, the non-finite guard, the clip by the guard's global norm and
+AdamW as `optax.adamw` with the repo's learning rate schedules, with
+optional gradient accumulation as `optax.MultiSteps`.
 
 The optimizer is written out here rather than taken from `torch.optim`,
 so that it follows optax step for step: the schedule is evaluated at the
@@ -12,9 +13,10 @@ count before the update (the first update under warmup_cosine has
 learning rate schedule(0) = 0), and a skipped non-finite update advances
 `TrainState.step` but neither Adam's count nor the schedule's.
 
-Everything outside the standard branch raises NotImplementedError naming
-its ROADMAP item. The step is functional: it returns a new TrainState and
-leaves the one it was given as it was.
+The options not ported yet (CTC multitask, the regularizers, data
+parallelism) raise NotImplementedError naming their ROADMAP item. The
+step is functional: it returns a new TrainState and leaves the one it was
+given as it was.
 
 The step's phases run under `torch.profiler.record_function` spans
 (SPANS), which cost nothing measurable outside a profiler; a profile of a
@@ -33,15 +35,22 @@ from torch.utils import _pytree as pytree
 
 from rnn_transducer_tpu_torch.models import transducer as m
 from rnn_transducer_tpu_torch.models.config import TrainConfig, TransducerConfig
+from rnn_transducer_tpu_torch.ops.rnnt_align import (emit_frames_device,
+                                                     rnnt_viterbi)
 from rnn_transducer_tpu_torch.ops.rnnt_joint_fused import (fused_supported,
                                                           rnnt_loss_fused)
-from rnn_transducer_tpu_torch.ops.rnnt_loss import rnnt_loss
+from rnn_transducer_tpu_torch.ops.rnnt_loss import (_gather_label_logprobs,
+                                                   rnnt_loss)
 from rnn_transducer_tpu_torch.ops.rnnt_loss_cuda import rnnt_loss_twopass
+from rnn_transducer_tpu_torch.ops.rnnt_pruned import (alignment_bounds,
+                                                      pruned_two_pass_loss,
+                                                      rnnt_loss_pruned)
 
 # optax.adamw's defaults
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
-SPANS = ("encode", "predict", "joint_loss", "backward", "optimizer")
-LOSS_IMPLS = ("auto", "fused", "pallas", "xla")
+SPANS = ("encode", "predict", "align", "joint_loss", "backward", "optimizer")
+# the CLI's choices, train.py's; "ar" is set by TrainConfig.ar_range
+LOSS_IMPLS = ("auto", "fused", "pallas", "xla", "pruned")
 _span = torch.profiler.record_function
 
 
@@ -64,17 +73,13 @@ def check_train_supported(tcfg: TrainConfig) -> None:
                         ("embed_dropout", "dropout"),
                         ("ema_decay", "EMA"),
                         ("weight_noise_std", "weight noise"),
-                        ("distill_weight", "distillation"),
-                        ("ar_range", "alignment-restricted loss")):
+                        ("distill_weight", "distillation")):
         if getattr(tcfg, field):
             todo.append(f"{field} (ROADMAP queue 1, item 13: training "
                         f"regularizers, {item})")
     if tcfg.ctc_weight:
         todo.append("ctc_weight (ROADMAP queue 1, item 8: CTC multitask)")
-    if tcfg.loss_impl in ("pruned", "ar"):
-        todo.append(f"loss_impl={tcfg.loss_impl!r} (ROADMAP queue 1, item "
-                    "10: pruned and AR losses)")
-    elif tcfg.loss_impl not in LOSS_IMPLS:
+    if tcfg.loss_impl not in LOSS_IMPLS + ("ar",):
         raise ValueError(f"unknown loss_impl {tcfg.loss_impl!r}")
     if tcfg.data_parallel > 1:
         todo.append("data_parallel > 1 (ROADMAP queue 1, item 6: "
@@ -199,30 +204,63 @@ def _resolve_loss_impl(loss_impl: str, device: torch.device,
 
 
 def loss_fn(params, cfg: TransducerConfig, feats, feat_lens, labels,
-            label_lens, loss_impl: str = "auto", fastemit: float = 0.0):
+            label_lens, loss_impl: str = "auto", fastemit: float = 0.0,
+            simple_loss_scale: float = 0.5, ar_range: int = 0,
+            ar_left: int = -1, align_cfg=None, teacher_params=None):
     """Batch-mean RNN-T loss and the per-utterance losses (B,).
 
     "fused" never materialises the (B, T, U+1, V) logits (joint + loss in
     the K1 / K2 kernels, `ops/rnnt_joint_fused.py`); "pallas" materialises
     them and makes two streaming passes over them (the K5 kernels,
     `ops/rnnt_loss_cuda.py`); "xla" materialises them and their log-softmax
-    (`ops/rnnt_loss.rnnt_loss`). Every route runs its alpha / beta through
-    the K3 lattice kernel on the card.
+    (`ops/rnnt_loss.rnnt_loss`). "pruned" is the k2 objective, mean(pruned)
+    + simple_loss_scale * mean(simple), with the joint on the band only
+    (K6, `ops/rnnt_pruned.py`); the per-utterance losses are the pruned
+    ones. "ar" is the banded loss around a Viterbi alignment of the
+    aligner: `teacher_params` (of `align_cfg`) or, when None, the live
+    model without gradient; the band keeps `ar_left` positions behind the
+    aligned path (-1: centred) and spans ar_range. Every route runs its
+    alpha / beta through the K3 lattice kernel on the card.
     """
     m.check_supported(cfg)
     impl = _resolve_loss_impl(loss_impl, feats.device, cfg)
-    if impl not in ("fused", "pallas", "xla"):
+    if impl not in ("fused", "pallas", "xla", "pruned", "ar"):
         raise ValueError(f"unknown loss_impl {loss_impl!r}")
+    if impl == "ar" and ar_range <= 0:
+        raise ValueError("loss_impl='ar' requires TrainConfig.ar_range > 0")
+    if impl == "pruned" and cfg.pruned_range <= 0:
+        raise ValueError("loss_impl='pruned' requires "
+                         "TransducerConfig.pruned_range > 0")
     with _span("encode"):
         enc_out, enc_lens = m.encode(params, cfg, feats, feat_lens)
     with _span("predict"):
         pred_out, _ = m.predict(params, cfg, labels)
+    if impl == "ar":
+        with _span("align"), torch.no_grad():
+            sb = _alignment_band(params if teacher_params is None
+                                 else teacher_params,
+                                 cfg if teacher_params is None else align_cfg,
+                                 feats, feat_lens, labels, label_lens,
+                                 enc_out.shape[1], enc_lens, ar_range,
+                                 ar_left)
     with _span("joint_loss"):
-        if impl == "fused":
+        if impl in ("fused", "pruned", "ar"):
             f, g, w, b = m.joint_activations(params, cfg, enc_out, pred_out)
+        if impl == "fused":
             per_utt = rnnt_loss_fused(f, g, w, b, labels, enc_lens,
                                       label_lens, cfg.blank, cfg.cdtype,
                                       fastemit)
+        elif impl == "ar":
+            per_utt = rnnt_loss_pruned(f, g, w, b, labels, enc_lens,
+                                       label_lens, sb, ar_range, cfg.blank,
+                                       cfg.cdtype, fastemit)
+        elif impl == "pruned":
+            simple_pu, per_utt, _ = pruned_two_pass_loss(
+                params["simple"], f, g, w, b, enc_out, pred_out, labels,
+                enc_lens, label_lens, cfg.pruned_range, cfg.blank,
+                cfg.cdtype, fastemit)
+            return (per_utt.mean() + simple_loss_scale * simple_pu.mean(),
+                    per_utt)
         else:
             logits = m.joint(params, cfg, enc_out, pred_out)
             loss_op = rnnt_loss_twopass if impl == "pallas" else rnnt_loss
@@ -231,26 +269,84 @@ def loss_fn(params, cfg: TransducerConfig, feats, feat_lens, labels,
     return per_utt.mean(), per_utt
 
 
+def _alignment_band(a_params, a_cfg, feats, feat_lens, labels, label_lens,
+                    T: int, enc_lens, ar_range: int, ar_left: int):
+    """The AR band's window starts (B, T) from the aligner's Viterbi path
+    over its materialised lattice (JAX loss_fn :233-249); the aligner runs
+    without dropout, so the band does not jitter."""
+    a_logits, a_lens = m.forward(a_params, a_cfg, feats, feat_lens, labels)
+    lp = torch.log_softmax(a_logits.float(), dim=-1)
+    _, K = rnnt_viterbi(lp[..., a_cfg.blank],
+                        _gather_label_logprobs(lp, labels), a_lens,
+                        label_lens)
+    emit = emit_frames_device(K, a_lens, label_lens)
+    return alignment_bounds(emit, T, ar_range, enc_lens, label_lens,
+                            labels.shape[1] + 1,
+                            left_labels=None if ar_left < 0 else ar_left)
+
+
+def check_ar_compat(cfg: TransducerConfig, align_cfg: TransducerConfig):
+    """Raise unless the aligner's lattice grid matches the student's: its
+    Viterbi emit frames index the student's encoder frames directly (JAX
+    `check_ar_compat` :390)."""
+    for field in ("vocab_size", "blank", "time_reduction"):
+        a, b = getattr(cfg, field), getattr(align_cfg, field)
+        if a != b:
+            raise ValueError(f"ar alignment needs aligner {field} == "
+                             f"student {field} (aligner {b}, student {a})")
+    if cfg.tdt_durations or cfg.big_blank_durations or \
+            align_cfg.tdt_durations or align_cfg.big_blank_durations:
+        raise ValueError("alignment-restricted training supports standard "
+                         "transducers (no TDT / multi-blank joint grids)")
+
+
 # -------------------------------- steps ----------------------------------
 
-def make_train_step(cfg: TransducerConfig, tcfg: TrainConfig, mesh=None):
+def make_train_step(cfg: TransducerConfig, tcfg: TrainConfig, mesh=None,
+                    teacher_cfg=None):
     """Build the training step:
     step(state, feats, feat_lens, labels, label_lens) -> (state', metrics)
-    with metrics {"loss", "grad_norm", "skipped_nonfinite"} as tensors."""
+    with metrics {"loss", "grad_norm", "skipped_nonfinite"} as tensors.
+
+    With ar_range > 0 the loss is the alignment-restricted band (JAX
+    make_train_step :441-456); given `teacher_cfg`, the aligner is a
+    checkpoint of that config and the step takes its params as a sixth
+    argument, `teacher_params`, else the live model aligns itself."""
     if mesh is not None:
         raise NotImplementedError("not ported yet: mesh (ROADMAP queue 1, "
                                   "item 6: data-parallel training)")
+    ar = tcfg.ar_range > 0
+    if ar:
+        if tcfg.distill_weight > 0.0:
+            raise ValueError("ar_range and distill_weight are mutually "
+                             "exclusive (one teacher slot)")
+        if tcfg.loss_impl not in ("auto", "ar"):
+            raise ValueError("ar_range > 0 trains with loss_impl='auto'|"
+                             f"'ar' (got {tcfg.loss_impl!r})")
+        if teacher_cfg is not None:
+            check_ar_compat(cfg, teacher_cfg)
     check_train_supported(tcfg)
     m.check_supported(cfg)
     schedule = make_lr_schedule(tcfg)
     k = tcfg.grad_accum
+    loss_kw = dict(loss_impl=tcfg.loss_impl, fastemit=tcfg.fastemit_lambda,
+                   simple_loss_scale=tcfg.simple_loss_scale)
+    if ar:
+        loss_kw.update(loss_impl="ar", ar_range=tcfg.ar_range,
+                       ar_left=tcfg.ar_left, align_cfg=teacher_cfg)
+    uses_teacher = ar and teacher_cfg is not None
 
-    def step_fn(state: TrainState, feats, feat_lens, labels, label_lens):
+    def step_fn(state: TrainState, feats, feat_lens, labels, label_lens,
+                teacher_params=None):
+        if uses_teacher and teacher_params is None:
+            raise ValueError("this step aligns with a checkpoint: pass its "
+                             "params as teacher_params")
         p_leaves, spec = pytree.tree_flatten(state.params)
         leaves = [p.detach().requires_grad_(True) for p in p_leaves]
         loss, _ = loss_fn(pytree.tree_unflatten(leaves, spec), cfg, feats,
-                          feat_lens, labels, label_lens, tcfg.loss_impl,
-                          tcfg.fastemit_lambda)
+                          feat_lens, labels, label_lens,
+                          teacher_params=(teacher_params if uses_teacher
+                                          else None), **loss_kw)
         with _span("backward"):
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if gr is None else gr

@@ -84,6 +84,18 @@ SIGNATURES = {
     # rows_per_block, silu, device, stream
     "fused_ln_bwd": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                           _I, _I, _I, _I, _P]),
+    # f, g_w, lab_w, w, w_is_bf16, b, lp_blank, lp_y, base, B, T, S, J, V,
+    # blank, device, stream
+    "band_fwd": (_I, [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I,
+                      _I, _I, _I, _P]),
+    # f, g_w, lab_w, w, w_is_bf16, b, base, cb, cy, df, dg_w, B, T, S, J,
+    # V, blank, device, stream
+    "band_bwd_a": (_I, [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I,
+                        _I, _I, _I, _I, _I, _P]),
+    # f, g_w, lab_w, w, w_is_bf16, b, base, cb, cy, dw, db, dw_part,
+    # db_part, B, T, S, J, V, blank, n_split, device, stream
+    "band_bwd_b": (_I, [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                        _I, _I, _I, _I, _I, _I, _I, _I, _P]),
     "kernel_error_string": (ctypes.c_char_p, [_I]),
 }
 

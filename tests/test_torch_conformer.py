@@ -15,6 +15,7 @@ within 1e-4 absolute over two blocks. bf16: see
 `test_encode_bf16_within_bound`.
 """
 
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -299,6 +300,81 @@ def test_tokens_do_not_depend_on_the_bucket():
     finally:
         eng.close()
     assert emitted > 0
+
+
+def _sigmoid_cases():
+    rng = np.random.default_rng(11)
+    return [(3 * rng.normal(size=4096)).astype(np.float32) for _ in range(2)]
+
+
+def test_bf16_silu_and_glu_round_as_jax():
+    """At bf16 jax.nn.sigmoid lowers to 1 / (1 + exp(-x)), each op rounding
+    to bf16; the port's silu and GLU give those bits (torch.sigmoid, which
+    rounds once, differs on about a third of the inputs)."""
+    a, b = _sigmoid_cases()
+    ja, jb_ = (jnp.asarray(v).astype(jnp.bfloat16) for v in (a, b))
+    ta, tb = (torch.from_numpy(v).to(torch.bfloat16) for v in (a, b))
+    for got, want in ((tcf._silu(ta), jax.nn.silu(ja)),
+                      (ta * tcf._sigmoid(tb), ja * jax.nn.sigmoid(jb_))):
+        np.testing.assert_array_equal(
+            got.float().numpy(), np.asarray(want.astype(jnp.float32)))
+
+
+SERVED_SYMBOLS = 100  # serve.py's max_symbols
+# A bf16 greedy decision may go either way where the top two logits are
+# closer than the encoder's bf16 noise (f32 sums in another order flip a
+# bf16 rounding now and then): about one bf16 ulp at |logit| ~ 1.
+NEAR_TIE = 1e-2
+
+
+def test_bf16_greedy_tokens_match_jax_at_the_served_width():
+    """recognize_greedy at bf16 on libri100_conformer's width (d 512, 8
+    heads, FFN x4, conv 15, 4x stacking, V 1024), two blocks instead of
+    eight, the same weights on both sides, four utterances padded to the
+    800-frame bucket. Every row's tokens and frames equal JAX's up to the
+    first decision whose top two JAX logits are a near-tie; at least half
+    the rows equal throughout."""
+    fields = {k: (tuple(v) if isinstance(v, list) else v) for k, v in
+              dataclasses.asdict(port_config.config_libri100_conformer())
+              .items()}
+    fields["enc_layers"] = 2
+    jcfg = jax_config.TransducerConfig(**fields)
+    tcfg = port_config.TransducerConfig(**fields)
+    assert tcfg.compute_dtype == "bfloat16"
+    p = jax.tree.map(np.copy, _jax_params(jcfg, seed=0))
+    # the random model walks: its predictor moves the joint and blank wins
+    # on some frames (as chip_smoke.py's conformer_serving_setup)
+    p["joint"]["pred_proj"]["w"] *= 8.0
+    p["joint"]["out"]["b"][jcfg.blank] += 1.2
+    rng = np.random.default_rng(0)
+    feats = rng.normal(size=(4, 800, jcfg.input_dim)).astype(np.float32)
+    lens = np.array([800, 600, 400, 150], np.int32)
+    jp = jax.tree.map(jnp.asarray, p)
+    want = [np.asarray(a) for a in jax_recognize(
+        jp, jcfg, jnp.asarray(feats), jnp.asarray(lens),
+        max_symbols=SERVED_SYMBOLS, with_timestamps=True)[:3]]
+    got = [a.numpy() for a in recognize_greedy(
+        params_from_numpy(p), tcfg, torch.from_numpy(feats),
+        torch.from_numpy(lens), max_symbols=SERVED_SYMBOLS,
+        with_timestamps=True)[:3]]
+    enc, _ = jm.encode(jp, jcfg, jnp.asarray(feats), jnp.asarray(lens))
+    same = 0
+    for b in range(4):
+        w_seq = list(zip(want[0][b, :want[1][b]], want[2][b, :want[1][b]]))
+        g_seq = list(zip(got[0][b, :got[1][b]], got[2][b, :got[1][b]]))
+        if w_seq == g_seq:
+            same += 1
+            continue
+        i = next((i for i, (x, y) in enumerate(zip(w_seq, g_seq)) if x != y),
+                 min(len(w_seq), len(g_seq)))
+        frame = min(s[i][1] for s in (w_seq, g_seq) if i < len(s))
+        prefix = np.asarray([[int(t) for t, _ in w_seq[:i]]], np.int32)
+        pred, _ = jm.predict(jp, jcfg, jnp.asarray(prefix.reshape(1, -1)))
+        logits = np.asarray(jm.joint_step(jp, jcfg, enc[b:b + 1, frame],
+                                          pred[:, -1]), np.float32)[0]
+        top = np.sort(logits)[-2:]
+        assert top[1] - top[0] < NEAR_TIE, (b, i, frame, top)
+    assert same >= 2, same
 
 
 def test_fused_greedy_decodes_the_conformer_output():

@@ -411,3 +411,119 @@ def test_cuda_conformer_encode_matches_the_plain_path(cuda_device):
     with mock.patch.object(fl, "fln_fwd", fl.fln_fwd_reference):
         want, _ = tm.encode(params, cfg, feats, lens)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+def _band_args(B, T, S, J, V, dtype, device):
+    g = torch.Generator().manual_seed(4)
+    f = torch.randn(B, T, J, generator=g) * 0.5
+    g_w = torch.randn(B, T, S, J, generator=g) * 0.5
+    lab_w = torch.randint(0, V, (B, T, S), generator=g, dtype=torch.int32)
+    lab_w[:, ::2, 0] = 0  # cells whose label is the blank id
+    w = (torch.randn(J, V, generator=g) / J ** 0.5).to(dtype)
+    b = torch.randn(V, generator=g) * 0.1
+    cb = -torch.rand(B, T, S, generator=g) / B
+    cy = -torch.rand(B, T, S, generator=g) / B
+    return [a.to(device) for a in (f, g_w, lab_w, w, b)], [
+        a.to(device) for a in (cb, cy)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B, T, S, J, V", [(2, 7, 3, 64, 37),
+                                           (3, 9, 8, 512, 1024),
+                                           (1, 5, 13, 96, 130),
+                                           (2, 4, 5, 24, 40)])
+def test_cuda_band_kernels_match_reference(cuda_device, dtype, B, T, S, J,
+                                           V):
+    """K6 (band_fwd, band_bwd_a, band_bwd_b) against the plain versions:
+    S not a multiple of 8, rows past one 64-row block, V odd (the CUDA-core
+    form at bf16) and not a multiple of the column chunk, J % 16 != 0."""
+    from rnn_transducer_tpu_torch.ops import rnnt_band_fused as bf
+    (f, g_w, lab_w, w, b), (cb, cy) = _band_args(B, T, S, J, V, dtype,
+                                                 cuda_device)
+    before = (bf.LAUNCHES_FWD, bf.LAUNCHES_BWD_A, bf.LAUNCHES_BWD_B)
+    got = bf.band_lp_fwd(f, g_w, lab_w, w, b)
+    want = bf.band_lp_fwd_reference(f, g_w, lab_w, w, b)
+    for a, e in zip(got, want):
+        assert float((a - e).abs().max()) <= LP_ATOL[dtype]
+    args = (f, g_w, lab_w, w, b, want[2], cb, cy)
+    got_a = bf.band_lp_bwd_a(*args)
+    got_b = bf.band_lp_bwd_b(*args)
+    again = bf.band_lp_bwd_b(*args)
+    want_a = bf.band_lp_bwd_a_reference(*args)
+    want_b = bf.band_lp_bwd_b_reference(*args)
+    torch.cuda.synchronize()
+    for name, a, e in zip(("df", "dg_w", "dw", "db"), got_a + got_b,
+                          want_a + want_b):
+        assert _rel_err(a, e) <= REL_TOL[dtype], name
+    for a, e in zip(again, got_b):
+        assert torch.equal(a, e)  # ordered partials: the same bits
+    assert (bf.LAUNCHES_FWD, bf.LAUNCHES_BWD_A, bf.LAUNCHES_BWD_B) == (
+        before[0] + 1, before[1] + 1, before[2] + 2)
+
+
+@pytest.mark.cuda
+def test_cuda_band_kernel_raises_when_the_library_fails(cuda_device,
+                                                        monkeypatch):
+    """A CUDA tensor launches K6 or raises: no fallback to the plain
+    version when the library cannot be built or loaded."""
+    from rnn_transducer_tpu_torch.ops import rnnt_band_fused as bf
+    from rnn_transducer_tpu_torch.utils import build
+
+    def broken():
+        raise RuntimeError("nvcc failed")
+
+    monkeypatch.setattr(build, "load_library", broken)
+    (f, g_w, lab_w, w, b), _ = _band_args(1, 3, 4, 16, 20, torch.float32,
+                                          cuda_device)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        bf.band_lp_fwd(f, g_w, lab_w, w, b)
+
+
+@pytest.mark.cuda
+def test_cuda_pruned_loss_matches_the_plain_path(cuda_device):
+    """rnnt_loss_pruned through K6 and K3 on the card against the same loss
+    through the plain versions on the card, at f32."""
+    from unittest import mock
+
+    from rnn_transducer_tpu_torch.ops import rnnt_band_fused as bf
+    from rnn_transducer_tpu_torch.ops import rnnt_lattice_cuda as lat
+    from rnn_transducer_tpu_torch.ops import rnnt_pruned as pr
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(6)
+    B, T, U, J, V, S = 3, 11, 6, 32, 50, 3
+    f = (torch.randn(B, T, J, generator=g) * 0.5).to(cuda_device)
+    gg = (torch.randn(B, U + 1, J, generator=g) * 0.5).to(cuda_device)
+    w = (torch.randn(J, V, generator=g) / J ** 0.5).to(cuda_device)
+    b = (torch.randn(V, generator=g) * 0.1).to(cuda_device)
+    labels = torch.randint(1, V, (B, U), generator=g,
+                           dtype=torch.int32).to(cuda_device)
+    fl = torch.tensor([T, 7, 0], dtype=torch.int32, device=cuda_device)
+    ll = torch.tensor([U, 4, 2], dtype=torch.int32, device=cuda_device)
+    occ = torch.rand(B, T, U + 1, generator=g).to(cuda_device)
+    sb = pr.prune_bounds(occ, S, fl, ll)
+
+    def run():
+        leaves = [a.clone().requires_grad_(True) for a in (f, gg, w, b)]
+        loss = pr.rnnt_loss_pruned(*leaves, labels, fl, ll, sb, S, 0,
+                                   torch.float32)
+        return loss.detach(), torch.autograd.grad(loss.sum(), leaves)
+
+    before = bf.LAUNCHES_FWD
+    loss_k, grads_k = run()
+    assert bf.LAUNCHES_FWD == before + 1
+    plain = [mock.patch.object(mod, name, getattr(mod, name + "_reference"))
+             for mod, name in ((bf, "band_lp_fwd"), (bf, "band_lp_bwd_a"),
+                               (bf, "band_lp_bwd_b"), (lat, "alpha_wavefront"),
+                               (lat, "beta_occupancies"))]
+    for p in plain:
+        p.start()
+    try:
+        loss_p, grads_p = run()
+    finally:
+        for p in plain:
+            p.stop()
+    torch.testing.assert_close(loss_k, loss_p, rtol=1e-5, atol=1e-5)
+    for a, e in zip(grads_k, grads_p):
+        assert _rel_err(a, e) <= 1e-4

@@ -201,12 +201,23 @@ def test_nonfinite_step_is_skipped():
 @pytest.mark.parametrize("tcfg_kw, item", [
     (dict(dropout=0.1), "item 13"), (dict(ema_decay=0.9), "item 13"),
     (dict(weight_noise_std=0.1), "item 13"), (dict(ctc_weight=0.3), "item 8"),
-    (dict(loss_impl="pruned"), "item 10"),
+    (dict(data_parallel=2), "item 6"),
 ])
 def test_unported_options_raise(tcfg_kw, item):
     cfg = port_config.TransducerConfig(**TINY)
     with pytest.raises(NotImplementedError, match=item):
         tloop.make_train_step(cfg, port_config.TrainConfig(**tcfg_kw))
+
+
+def test_pruned_without_a_pruned_range_raises():
+    """loss_impl="pruned" is ported; with pruned_range 0 the step raises the
+    JAX package's ValueError (train/loop.py:260-262)."""
+    cfg = port_config.TransducerConfig(**TINY)
+    tcfg = port_config.TrainConfig(loss_impl="pruned")
+    state = tloop.init_train_state(0, cfg, tcfg, device="cpu")
+    step = tloop.make_train_step(cfg, tcfg)
+    with pytest.raises(ValueError, match="pruned_range > 0"):
+        step(state, *(torch.from_numpy(a) for a in _batches(1)[0]))
 
 
 def test_cli_trains_checkpoints_and_resumes(tmp_path, capsys):
