@@ -24,7 +24,10 @@ Phases, in order:
   3. kernel each kernel against its plain PyTorch version on the card, at
             the main paths' shapes, in f32 and bf16 (max error, kernel ms
             and plain ms from CUDA events, in turns plain, kernel, kernel,
-            plain); joint_bwd run twice must give identical bits; the
+            plain); lstm_bwd (one persistent launch a layer, at the
+            encoder's and the predictor's training shapes, with its tile,
+            its barrier count and cuDNN's backward beside it) and
+            joint_bwd run twice must give identical bits; the
             lattice (alpha, beta and the occupancies) at U+1 = 41 and 81
             with ragged lengths and a zero-frame row; the W8A8 recurrence
             (lstm_int8) at the serving shapes and at batch tiles of 16
@@ -56,7 +59,9 @@ Phases, in order:
   5. train  training steps: finite loss and grad norm on every step, no
             skipped update, the params move, every training kernel
             launched; ms/step by the slope of bench.py and utt/s; one
-            torch.profiler step split by layer; an f32 loss and gradient
+            torch.profiler step split by layer, with one lstm_bwd kernel
+            per LSTM layer call (every training phase); an f32 loss and
+            gradient
             through the kernels against the plain versions; the CLI for
             a few steps with a checkpoint round trip
   5b. train_pallas  the same for loss_impl="pallas" at U=80 (extract_lp,
@@ -146,10 +151,13 @@ CASES = (("l0_b800", 8, 800, 80, False), ("l0_b400", 8, 400, 80, False),
 MAIN_CASE = ("l0_b800", torch.bfloat16)  # the kernel line's ms / plain_ms
 # The training path's shapes: bench.py's headline batch, B=32, T=400
 # frames (layer 0), T'=200 after 2x stacking (layers 1-3 and the joint),
-# U+1=41, J=512, V=1024.
+# U+1=41, J=512, V=1024; the predictor (E=512) sees U+1=41 steps at the
+# libri100 batch and at the conformer's B=64.
 TRAIN_B, TRAIN_T, TRAIN_U = 32, 400, 40
 TRAIN_LSTM_CASES = (("l0_train", 32, 400, 80, False),
                     ("l1_train", 32, 200, 1024, False),
+                    ("pred_b32", 32, 41, 512, False),
+                    ("pred_b64", 64, 41, 512, False),
                     ("ragged_b3", 3, 37, 80, True))
 TRAIN_MAIN = ("l0_train", torch.bfloat16)
 # Backward outputs and gradients: max |kernel - plain| over max |plain|.
@@ -273,7 +281,9 @@ def bound(n_bytes: int, ops: float, dtype) -> dict:
 def cudnn_lstm_ms(x, w_ih, w_hh, b, h0, c0) -> dict:
     """torch.nn.LSTM (cuDNN) on the layer's shape, one call each: the
     inference forward, the training forward and its backward (dx, dh0,
-    dc0 and the weight gradients). cuDNN's RNN takes float16 but not
+    dc0 and the weight gradients; the median of 5 calls after 2 warm-ups,
+    with their min and max, since it spreads from call to call). cuDNN's
+    RNN takes float16 but not
     bfloat16 in PyTorch, so it runs in float16: the same bytes per value
     and the same tensor-core rate as the kernels' bf16. Its forward
     includes the input projection that the kernel leaves to a matmul."""
@@ -296,14 +306,16 @@ def cudnn_lstm_ms(x, w_ih, w_hh, b, h0, c0) -> dict:
         out = lstm(xs, state)[0]
     train = statistics.mean(cuda_ms(lambda: lstm(xs, state)) for _ in range(3))
     grad = torch.randn_like(out)
-    out.backward(grad, retain_graph=True)
-    bwd = statistics.mean(cuda_ms(lambda: out.backward(grad, retain_graph=True))
-                          for _ in range(2))
+    for _ in range(2):  # warm: the backward's plan
+        out.backward(grad, retain_graph=True)
+    bwd = [cuda_ms(lambda: out.backward(grad, retain_graph=True))
+           for _ in range(5)]
     return {"library_dtype": "float16",
             "bf16_acceptable_to_cudnn": torch.backends.cudnn.is_acceptable(
                 x.to(torch.bfloat16)),
             "cudnn_fwd_ms": infer, "cudnn_train_fwd_ms": train,
-            "cudnn_bwd_ms": bwd}
+            "cudnn_bwd_ms": statistics.median(bwd),
+            "cudnn_bwd_min_ms": min(bwd), "cudnn_bwd_max_ms": max(bwd)}
 
 
 def reset_counts() -> None:
@@ -423,7 +435,11 @@ def kernel_vs_plain(rng: np.random.Generator, dev) -> dict:
 
 def lstm_train_vs_plain(rng: np.random.Generator, dev) -> dict:
     """lstm_fwd with activations and lstm_bwd against their plain loops at
-    the training path's shapes."""
+    the training path's shapes; lstm_bwd run twice must give identical
+    bits. Beside the kernel's time: the kernel with the dW_hh product, as
+    LSTMCore.backward runs them (`bwd_with_dw_ms`), and with the input
+    projection's gradients too (`bwd_layer_ms`: dx, dW_ih, db), the work
+    of cuDNN's backward; the kernel's tile (bwd_plan) and grid barriers."""
     H = 512
     rows, worst, main = [], {"fwd": 0.0, "bwd": 0.0}, None
     for name, B, T, I, with_state in TRAIN_LSTM_CASES:
@@ -450,10 +466,12 @@ def lstm_train_vs_plain(rng: np.random.Generator, dev) -> dict:
             bwd_args = (want[2], cs_prev, dhs, dcT, w)
             want_b = lstm_cuda.lstm_recurrence_bwd_reference(*bwd_args)
             got_b = lstm_cuda.lstm_recurrence_bwd(*bwd_args)
+            again = lstm_cuda.lstm_recurrence_bwd(*bwd_args)
             torch.cuda.synchronize()
             err_f = max(max_abs(g, r) for g, r in zip(got, want))
             err_b = max(max_abs(g, r) for g, r in zip(got_b, want_b))
             rel_b = max(rel_err(g, r) for g, r in zip(got_b, want_b))
+            same_bits = all(torch.equal(g, a) for g, a in zip(got_b, again))
             ok = (all(bool(torch.isfinite(g).all()) for g in got + got_b)
                   and err_f <= ATOL[cd] and rel_b <= REL_TOL[cd])
             kf, pf = timed_pair(
@@ -463,14 +481,36 @@ def lstm_train_vs_plain(rng: np.random.Generator, dev) -> dict:
             kb, pb = timed_pair(
                 lambda: lstm_cuda.lstm_recurrence_bwd(*bwd_args),
                 lambda: lstm_cuda.lstm_recurrence_bwd_reference(*bwd_args))
+            hs_prev = torch.cat([h0[:, None], want[0][:, :-1]], 1).reshape(
+                B * T, H)
+            x2 = x.reshape(B * T, I)
+
+            def bwd_with_dw(layer: bool):
+                dg = lstm_cuda.lstm_recurrence_bwd(*bwd_args)[0].reshape(
+                    B * T, 4 * H)
+                _dot(hs_prev.t(), dg, cd)
+                if layer:
+                    _dot(dg, w_ih.t(), cd)
+                    _dot(x2.t(), dg, cd)
+                    dg.sum(0)
+
+            with_dw = {k: statistics.median(
+                cuda_ms(lambda: bwd_with_dw(k == "layer")) for _ in range(5))
+                for k in ("dw", "layer")}
+            plan = lstm_cuda.device_bwd_plan(B, H, cd, dev)
             ops = 2 * B * T * H * 4 * H
             row = {"case": name, "B": B, "T": T, "I": I, "H": H,
                    "dtype": str(cd).replace("torch.", ""),
                    "fwd_max_abs_err": err_f, "fwd_atol": ATOL[cd],
                    "bwd_max_abs_err": err_b, "bwd_rel_err": rel_b,
-                   "bwd_rtol": REL_TOL[cd], "fwd_kernel_ms": kf,
-                   "fwd_plain_ms": pf, "bwd_kernel_ms": kb,
-                   "bwd_plain_ms": pb,
+                   "bwd_rtol": REL_TOL[cd], "bwd_bitwise_repeat": same_bits,
+                   "fwd_kernel_ms": kf, "fwd_plain_ms": pf,
+                   "bwd_kernel_ms": kb, "bwd_plain_ms": pb,
+                   "bwd_with_dw_ms": with_dw["dw"],
+                   "bwd_layer_ms": with_dw["layer"],
+                   "bwd_plan": {**dataclasses.asdict(plan),
+                                "passes": plan.passes},
+                   "bwd_barriers": T,
                    "fwd_bound": bound(nbytes(fwd_args, got), ops, cd),
                    "bwd_bound": bound(nbytes(bwd_args, got_b), ops, cd)}
             if (name, cd) == TRAIN_MAIN:
@@ -478,6 +518,8 @@ def lstm_train_vs_plain(rng: np.random.Generator, dev) -> dict:
             print("kernel lstm_fwd_with_acts+lstm_bwd " + json.dumps(row))
             check(ok, f"lstm training kernels {name} {cd}: fwd err {err_f}, "
                       f"bwd rel err {rel_b}, or non-finite output")
+            check(same_bits, f"lstm_bwd {name} {cd}: two runs gave "
+                             "different bits")
             rows.append(row)
             worst["fwd"] = max(worst["fwd"], err_f)
             worst["bwd"] = max(worst["bwd"], err_b)
@@ -1482,7 +1524,7 @@ def profile_step(step, state, batch, profile_dir, name="train_step"):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     families = {"lstm_fwd": ("lstm_step_kernel",),
-                "lstm_bwd": ("lstm_bwd_step_kernel",),
+                "lstm_bwd": ("lstm_bwd_persistent_kernel",),
                 "joint_fwd": ("joint_fwd",),
                 "joint_bwd_a": ("joint_bwd_a",),
                 "joint_bwd_b": ("joint_bwd_b",),
@@ -1533,6 +1575,17 @@ def profile_step(step, state, batch, profile_dir, name="train_step"):
             f.write(prof.key_averages().table(sort_by="self_cuda_time_total",
                                               row_limit=60))
     return state, out
+
+
+def check_bwd_launches(prof: dict, result: dict, what: str) -> None:
+    """K4-bwd is one launch per LSTM layer call: the profiled step's
+    lstm_bwd kernels number the wrapper's launches a step (5 at libri100:
+    4 encoder layers and the predictor), not one per time step."""
+    per_step = result["launches"]["lstm_bwd"] / result["steps"]
+    seen = prof["device_launches"]["lstm_bwd"]
+    check(per_step > 0 and seen == per_step,
+          f"the profiled {what} step ran {seen} lstm_bwd kernels, not the "
+          f"{per_step} layer calls a step")
 
 
 def lattice_ms(dev, seed: int) -> dict:
@@ -1750,6 +1803,7 @@ def train_phase(seed: int, dev, profile_dir) -> dict:
 
     state, prof = profile_step(step, state, batch, profile_dir)
     print("train_profile " + json.dumps(prof))
+    check_bwd_launches(prof, result, "libri100")
     lat_ms = lattice_ms(dev, seed)
     print("train_lattice " + json.dumps(lat_ms))
     result["profile"], result["lattice"] = prof, lat_ms
@@ -1775,6 +1829,7 @@ def train_pallas_phase(seed: int, dev, profile_dir) -> dict:
     state, prof = profile_step(step, state, batch, profile_dir,
                                "train_pallas_step")
     print("train_pallas_profile " + json.dumps(prof))
+    check_bwd_launches(prof, result, "two-pass")
     result["profile"] = prof
     del step, state, batch
     torch.cuda.empty_cache()
@@ -1816,6 +1871,7 @@ def train_conformer_phase(seed: int, dev, profile_dir) -> dict:
     state, prof = profile_step(step, state, batch, profile_dir,
                                "train_conformer_step")
     print("train_conformer_profile " + json.dumps(prof))
+    check_bwd_launches(prof, result, "conformer")
     result["profile"] = prof
     del step, state, batch
     torch.cuda.empty_cache()
@@ -1892,6 +1948,7 @@ def train_pruned_phase(seed: int, dev, profile_dir) -> dict:
     state, prof = profile_step(step, state, batch, profile_dir,
                                "train_pruned_step")
     print("train_pruned_profile " + json.dumps(prof))
+    check_bwd_launches(prof, result, "pruned")
     result["profile"] = prof
     del step, state, batch
     torch.cuda.empty_cache()
@@ -1931,6 +1988,7 @@ def train_ar_phase(seed: int, dev, profile_dir) -> dict:
     state, prof = profile_step(step, state, batch, profile_dir,
                                "train_ar_step")
     print("train_ar_profile " + json.dumps(prof))
+    check_bwd_launches(prof, result, "AR")
     result["profile"] = prof
     del step, state, batch
     torch.cuda.empty_cache()

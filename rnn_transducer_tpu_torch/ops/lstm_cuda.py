@@ -7,7 +7,14 @@
     `lstm_recurrence_with_acts` also writes the gate activations and the
     cell states that the backward reads, as `_core_fwd` does.
   * `csrc/lstm_bwd.cu` (K4-bwd) replaces `_lstm_core_bwd` and
-    `_lstm_core_bwd_v2`: `lstm_recurrence_bwd`.
+    `_lstm_core_bwd_v2`: `lstm_recurrence_bwd`, one persistent cooperative
+    launch per layer call. Each block keeps its slice of W_hh in shared
+    memory for the whole launch, as the TPU kernels keep W_hh in VMEM, and
+    the blocks hand each step's rounded dgates to one another through an
+    exchange buffer in device memory, one grid barrier a step. `bwd_plan`,
+    plain Python, places the tile: units and batch rows a block, the grid
+    (one wave on the card) and the shared memory; a shape it cannot place
+    raises ValueError, and there is no other route on the card.
 
 The TPU's dispatch gates (`supported`, `_w_hh_fits_vmem`, the batch and
 time tiles) are VMEM concerns and have no counterpart: every shape goes
@@ -23,6 +30,9 @@ while grad mode is on, rather than return outputs cut from the graph.
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
+import functools
 import threading
 
 import torch
@@ -197,6 +207,144 @@ def _check_bwd(acts, cs_prev, dhs, dcT, w_hh):
          ("w_hh", w_hh)))
 
 
+# The backward kernel's fixed shape (csrc/lstm_bwd.cu): 8 warps a block,
+# each thread owning at most 2 (row, unit) pairs; warp tiles of 32 or 16
+# units (bf16: one or two of the mma's M = 16) or 16 or 8 units (f32) by 8
+# rows; the 4H reduction padded to 128 columns, 16 for each warp; 16 bytes
+# of padding on every shared-memory row; 16 static bytes (the mbarrier).
+BWD_THREADS = 256
+_BWD_WARPS = BWD_THREADS // 32
+_BWD_PAIRS = 2
+_BWD_TILE_N = 8
+_BWD_K_ALIGN = 128
+_BWD_PAD_BYTES = 16
+_BWD_STATIC_SMEM = 16
+_BWD_UNITS = {torch.bfloat16: (32, 16), torch.float32: (16, 8)}
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """The tile of one `lstm_bwd` launch. Block (x, y) of the grid owns the
+    hidden units x*units .. and the batch rows y*rows .. (`owned`); it keeps
+    W_hh[units, :] in shared memory and stages round(dgates) of its rows
+    `stage_rows` by `stage_cols` at a time."""
+
+    B: int
+    H: int
+    units: int        # UB
+    rows: int         # RB
+    stage_rows: int   # SR, a multiple of 8 dividing rows
+    stage_cols: int   # KC, a multiple of 128 dividing k_pad
+    k_pad: int        # 4H rounded up to 128: the exchange buffer's row
+    grid: tuple[int, int]
+    smem_bytes: int
+    threads: int = BWD_THREADS
+
+    @property
+    def passes(self) -> int:
+        """Stage-and-product passes a step."""
+        return (self.rows // self.stage_rows) * (self.k_pad // self.stage_cols)
+
+    def owned(self, x: int, y: int) -> tuple[range, range]:
+        """(hidden units, batch rows) of block (x, y), as the kernel maps
+        them; rows and units past B and H are not owned."""
+        return (range(x * self.units, min((x + 1) * self.units, self.H)),
+                range(y * self.rows, min((y + 1) * self.rows, self.B)))
+
+
+def _bwd_smem(units, rows, stage_rows, stage_cols, k_pad, w_bytes) -> int:
+    """Shared bytes of a block: the W_hh slice, the dg stage and the warps'
+    partial sums, as the kernel lays them out, and its mbarrier."""
+    pad = _BWD_PAD_BYTES // w_bytes
+    return ((units * (k_pad + pad) + stage_rows * (stage_cols + pad))
+            * w_bytes + _BWD_WARPS * rows * units * 4 + _BWD_STATIC_SMEM)
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_plan(B: int, H: int, w_dtype: torch.dtype, n_sm: int,
+             smem_per_block: int) -> BwdPlan:
+    """Place the backward kernel's tile for B rows, H hidden units and
+    W_hh in `w_dtype` on a card of `n_sm` SMs with `smem_per_block` bytes
+    of shared memory a block.
+
+    Every block must be resident at once (one block per SM: grid <=
+    n_sm), own at most 2 pairs a thread and fit its W slice, one stage and
+    its partial sums in shared memory. Among the tiles that fit, the one
+    with the fewest rows a block wins: each step a block fetches all 4H
+    columns of its rows from L2 before its product can start, so fewer
+    rows make a shorter step (bench_lstm_bwd.py). Then the least work a
+    block (units x rows), then the fewest stage passes. Raises ValueError
+    when none fits.
+    """
+    if w_dtype not in _BWD_UNITS:
+        raise TypeError(f"w_hh must be float32 or bfloat16; got {w_dtype}")
+    if B < 1 or H < 1:
+        raise ValueError(f"lstm_bwd: empty shape B={B}, H={H}")
+    w_bytes = 2 if w_dtype == torch.bfloat16 else 4
+    k_pad = -(-4 * H // _BWD_K_ALIGN) * _BWD_K_ALIGN
+    best, best_key = None, None
+    for units in _BWD_UNITS[w_dtype]:
+        rows = _BWD_TILE_N
+        while True:
+            grid = (-(-H // units), -(-B // rows))
+            if (grid[0] * grid[1] <= n_sm
+                    and rows * units <= _BWD_PAIRS * BWD_THREADS):
+                for sr, kc in _bwd_stages(rows, k_pad):
+                    smem = _bwd_smem(units, rows, sr, kc, k_pad, w_bytes)
+                    if smem > smem_per_block:
+                        continue
+                    plan = BwdPlan(B, H, units, rows, sr, kc, k_pad, grid,
+                                   smem)
+                    key = (rows, units * rows, plan.passes)
+                    if best_key is None or key < best_key:
+                        best, best_key = plan, key
+                    break  # _bwd_stages lists the fewest passes first
+            if rows >= B:
+                break
+            rows *= 2
+    if best is None:
+        raise ValueError(
+            f"lstm_bwd cannot place B={B}, H={H} in {w_dtype} on {n_sm} SMs "
+            f"with {smem_per_block} bytes of shared memory a block")
+    return best
+
+
+def _bwd_stages(rows: int, k_pad: int) -> list[tuple[int, int]]:
+    """(stage rows, stage columns) that tile rows x k_pad, fewest passes
+    first, whole rows before split ones."""
+    srs = [sr for sr in range(_BWD_TILE_N, rows + 1, _BWD_TILE_N)
+           if rows % sr == 0]
+    kcs = [kc for kc in range(_BWD_K_ALIGN, k_pad + 1, _BWD_K_ALIGN)
+           if k_pad % kc == 0]
+    return sorted(((sr, kc) for sr in srs for kc in kcs),
+                  key=lambda s: ((rows // s[0]) * (k_pad // s[1]), -s[1]))
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_limits(index: int) -> tuple[int, int]:
+    """SMs and opt-in shared bytes a block of card `index`; raises if the
+    card takes no cooperative launch."""
+    fn = build.load_library()
+    n_sm, smem, coop = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    build.check_launch(fn, fn.lstm_bwd_limits(index, ctypes.byref(n_sm),
+                                              ctypes.byref(smem),
+                                              ctypes.byref(coop)),
+                       "lstm_bwd_limits")
+    if not coop.value:
+        raise RuntimeError(f"card {index} takes no cooperative launch, "
+                           "which lstm_bwd needs")
+    return n_sm.value, smem.value
+
+
+def device_bwd_plan(B: int, H: int, w_dtype: torch.dtype,
+                    device) -> BwdPlan:
+    """`bwd_plan` on the limits of the CUDA card `device`."""
+    device = torch.device(device)
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    return bwd_plan(B, H, w_dtype, *_bwd_limits(index))
+
+
 def lstm_recurrence_bwd(acts, cs_prev, dhs, dcT, w_hh):
     """Time-reversed BPTT from the saved activations (no recompute).
 
@@ -219,13 +367,21 @@ def lstm_recurrence_bwd(acts, cs_prev, dhs, dcT, w_hh):
                 torch.zeros((B, H), dtype=torch.float32, device=dev),
                 dcT.clone())
     fn = build.load_library()
+    plan = device_bwd_plan(B, H, w_hh.dtype, dev)
     dgates = torch.empty((B, T, H4), dtype=torch.float32, device=dev)
     dh0 = torch.empty((B, H), dtype=torch.float32, device=dev)
     dc0 = torch.empty((B, H), dtype=torch.float32, device=dev)
+    # the exchange buffer, round(dgates) of the last two steps (rows past B
+    # and columns past 4H stay zero), then 16 bytes for the grid barrier's
+    # counter
+    xbuf = torch.zeros(2 * plan.grid[1] * plan.rows * plan.k_pad
+                       + 16 // w_hh.element_size(), dtype=w_hh.dtype,
+                       device=dev)
     err = fn.lstm_bwd(
         acts.data_ptr(), cs_prev.data_ptr(), dhs.data_ptr(), dcT.data_ptr(),
         w_hh.data_ptr(), int(w_hh.dtype == torch.bfloat16),
-        dgates.data_ptr(), dh0.data_ptr(), dc0.data_ptr(), B, T, H,
+        dgates.data_ptr(), dh0.data_ptr(), dc0.data_ptr(), xbuf.data_ptr(),
+        B, T, H, plan.units, plan.rows, plan.stage_rows, plan.stage_cols,
         *build.stream_args(dev))
     build.check_launch(fn, err, "lstm_bwd")
     _count("LAUNCHES_BWD")

@@ -36,15 +36,18 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # Python int as a 32-bit C int and cut the address.
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_IP = ctypes.POINTER(ctypes.c_int)
 SIGNATURES = {
     # x_proj, w_hh, w_is_bf16, h0, c0, hs, c, acts, cs, B, T, H, device,
     # stream
     "lstm_fwd": (_I, [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                       _P]),
-    # acts, cs_prev, dhs, dcT, w_hh, w_is_bf16, dgates, dh0, dc0, B, T, H,
-    # device, stream
-    "lstm_bwd": (_I, [_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I,
-                      _P]),
+    # acts, cs_prev, dhs, dcT, w_hh, w_is_bf16, dgates, dh0, dc0, xbuf, B,
+    # T, H, units, rows, stage_rows, stage_cols, device, stream
+    "lstm_bwd": (_I, [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I,
+                      _I, _I, _I, _I, _I, _P]),
+    # device -> SMs, opt-in shared bytes a block, cooperative launch
+    "lstm_bwd_limits": (_I, [_I, _IP, _IP, _IP]),
     # f, g, labels, w, w_is_bf16, b, lp_blank, lp_y, base, B, T, U1, J, V,
     # blank, device, stream
     "joint_fwd": (_I, [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I,

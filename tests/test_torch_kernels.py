@@ -62,9 +62,16 @@ REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 LP_ATOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
+# The backward's card shapes: the small ragged ones, libri100's layer 0
+# (B=32, T=400) and its predictor at B=32 and at the conformer's B=64
+# (T=U+1=41), each a different tile of lstm_cuda.bwd_plan.
+BWD_SHAPES = [(8, 37, 512), (3, 37, 512), (1, 5, 64), (32, 400, 512),
+              (32, 41, 512), (64, 41, 512)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B, T, H", [(8, 37, 512), (3, 37, 512), (1, 5, 64)])
+@pytest.mark.parametrize("B, T, H", BWD_SHAPES)
 def test_cuda_lstm_with_acts_and_bwd_match_reference(cuda_device, dtype, B,
                                                      T, H):
     x, w, h0, c0 = [a.to(cuda_device)
@@ -86,6 +93,43 @@ def test_cuda_lstm_with_acts_and_bwd_match_reference(cuda_device, dtype, B,
         assert _rel_err(a, e) <= REL_TOL[dtype]
     assert (lstm_cuda.LAUNCHES_WITH_ACTS, lstm_cuda.LAUNCHES_BWD) == (
         before[0] + 1, before[1] + 1)
+
+
+def _bwd_args(B, T, H, dtype, device):
+    """Backward inputs from the plain forward: acts, cs_prev, dhs, dcT, w."""
+    x, w, h0, c0 = [a.to(device) for a in _recurrence_args(B, T, H, dtype)]
+    _, cs, acts = lstm_cuda.lstm_recurrence_with_acts_reference(x, w, h0, c0)
+    g = torch.Generator(device=device).manual_seed(1)
+    dhs = torch.randn(B, T, H, generator=g, device=device)
+    dcT = torch.randn(B, H, generator=g, device=device)
+    cs_prev = torch.cat([c0[:, None], cs[:, :-1]], dim=1)
+    return acts, cs_prev, dhs, dcT, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B, T, H", [(32, 400, 512), (64, 41, 512),
+                                     (3, 37, 512)])
+def test_cuda_lstm_bwd_repeats_bit_for_bit(cuda_device, dtype, B, T, H):
+    """One writer per output and sums in a fixed order: two launches give
+    the same bits."""
+    args = _bwd_args(B, T, H, dtype, cuda_device)
+    got = lstm_cuda.lstm_recurrence_bwd(*args)
+    again = lstm_cuda.lstm_recurrence_bwd(*args)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dgates", "dh0", "dc0"), got, again):
+        assert torch.equal(a, b), f"{name} differs between two runs"
+
+
+@pytest.mark.cuda
+def test_cuda_lstm_bwd_refuses_a_shape_it_cannot_place(cuda_device):
+    """No tile of B=4096 rows is one wave at H=1024: the wrapper raises,
+    with no other route on the card, and launches nothing."""
+    args = _bwd_args(4096, 1, 1024, torch.bfloat16, cuda_device)
+    before = lstm_cuda.LAUNCHES_BWD
+    with pytest.raises(ValueError, match="B=4096, H=1024"):
+        lstm_cuda.lstm_recurrence_bwd(*args)
+    assert lstm_cuda.LAUNCHES_BWD == before
 
 
 def _joint_args(B, T, U1, J, V, dtype, device, seed=0):

@@ -1,0 +1,83 @@
+"""The host plan of the LSTM backward kernel (`lstm_cuda.bwd_plan`).
+
+The plan is plain Python, so the CPU holds it: every (row, unit) pair has
+one owner, the grid is one wave of an H100 (132 SMs, 227 KB of shared
+memory a block), the block's shared memory fits, and a shape that cannot
+be placed raises. The kernel itself runs on the card
+(tests/test_torch_kernels.py).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from rnn_transducer_tpu_torch.ops import lstm_cuda
+
+pytestmark = pytest.mark.quick
+
+N_SM, SMEM = 132, 232_448  # H100 SXM: SMs, opt-in shared bytes a block
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H", [64, 320, 512, 1024])
+@pytest.mark.parametrize("B", [1, 3, 8, 32, 64])
+def test_bwd_plan_places_every_pair_once_in_one_wave(B, H, dtype):
+    plan = lstm_cuda.bwd_plan(B, H, dtype, N_SM, SMEM)
+    gx, gy = plan.grid
+    assert gx * gy <= N_SM  # one block per SM, all resident at once
+    assert plan.smem_bytes <= SMEM
+    owners = np.zeros((B, H), dtype=np.int64)
+    for x in range(gx):
+        for y in range(gy):
+            units, rows = plan.owned(x, y)
+            assert len(units) > 0 and len(rows) > 0, "an idle block"
+            owners[rows.start:rows.stop, units.start:units.stop] += 1
+    assert (owners == 1).all()
+    # the kernel's constraints: pairs a thread, mma / fragment tiles, passes
+    assert plan.units * plan.rows <= 2 * plan.threads
+    assert plan.units in ((32, 16) if dtype == torch.bfloat16 else (16, 8))
+    assert plan.rows % plan.stage_rows == 0 and plan.stage_rows % 8 == 0
+    assert plan.k_pad >= 4 * H and plan.k_pad % 128 == 0
+    assert plan.k_pad % plan.stage_cols == 0 and plan.stage_cols % 128 == 0
+    w_bytes = 2 if dtype == torch.bfloat16 else 4
+    assert plan.smem_bytes >= (plan.units * plan.k_pad
+                               + plan.stage_rows * plan.stage_cols) * w_bytes
+
+
+def test_bwd_plan_libri100_tile():
+    """libri100's layer at B=32, H=512: 16 units by 8 rows, 128 blocks, a
+    64 KB W slice and a 32 KB stage in bf16 (128 KB and 64 KB in f32)."""
+    for dtype, w_bytes in ((torch.bfloat16, 2), (torch.float32, 4)):
+        plan = lstm_cuda.bwd_plan(32, 512, dtype, N_SM, SMEM)
+        assert (plan.units, plan.rows, plan.grid) == (16, 8, (32, 4))
+        assert (plan.stage_rows, plan.stage_cols, plan.passes) == (8, 2048, 1)
+        slice_and_stage = (16 + 8) * 2048 * w_bytes
+        assert slice_and_stage <= plan.smem_bytes <= slice_and_stage + 9000
+
+
+def test_bwd_plan_conformer_predictor_tile():
+    """The conformer step's predictor, B=64, H=512: in bf16, 32 units by 8
+    rows keeps each block's fetch at 8 rows with 128 blocks; f32's 32-unit
+    slice does not fit, so 16 units by 16 rows, staged 8 rows a pass."""
+    plan = lstm_cuda.bwd_plan(64, 512, torch.bfloat16, N_SM, SMEM)
+    assert (plan.units, plan.rows, plan.grid, plan.passes) == (
+        32, 8, (16, 8), 1)
+    plan = lstm_cuda.bwd_plan(64, 512, torch.float32, N_SM, SMEM)
+    assert (plan.units, plan.rows, plan.grid, plan.passes) == (
+        16, 16, (32, 4), 2)
+
+
+@pytest.mark.parametrize("B, H, dtype, n_sm, smem", [
+    (4096, 1024, torch.bfloat16, N_SM, SMEM),  # more pairs than threads
+    (64, 4096, torch.float32, N_SM, SMEM),     # the W slice does not fit
+    (32, 512, torch.bfloat16, 16, SMEM),       # too few SMs for one wave
+    (32, 512, torch.float32, N_SM, 48 * 1024),  # too little shared memory
+])
+def test_bwd_plan_refuses_what_it_cannot_place(B, H, dtype, n_sm, smem):
+    with pytest.raises(ValueError, match=f"B={B}, H={H}"):
+        lstm_cuda.bwd_plan(B, H, dtype, n_sm, smem)
+
+
+def test_bwd_plan_refuses_other_dtypes():
+    with pytest.raises(TypeError):
+        lstm_cuda.bwd_plan(8, 64, torch.float16, N_SM, SMEM)

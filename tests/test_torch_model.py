@@ -253,7 +253,8 @@ def _imported_modules(path: pathlib.Path):
 
 
 @pytest.mark.parametrize("path", sorted(
-    (REPO / "rnn_transducer_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"],
+    (REPO / "rnn_transducer_tpu_torch").rglob("*.py")) + [
+        REPO / "chip_smoke.py", REPO / "bench_lstm_bwd.py"],
     ids=lambda p: str(p.relative_to(REPO)))
 def test_port_imports_no_jax(path):
     for mod in _imported_modules(path):
