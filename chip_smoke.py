@@ -39,7 +39,8 @@ Phases, in order:
             dg / db identical over two runs; the band joint (band_fused:
             band_fwd, band_bwd_a, band_bwd_b) at the pruned step's band,
             B=32, T'=200, S=8, J=512, V=8192, dW / db identical over two
-            runs
+            runs, with kernel B's plan and its zb pass and main launch
+            timed apart
   4. e2e    concurrent HTTP /recognize requests; every serving kernel
             must have launched while they were served; the f32 tokens of
             the kernel path and the plain path must be identical
@@ -199,6 +200,9 @@ LN_Y_ATOL, LN_DX_RTOL, LN_DGB_RTOL = 1e-5, 1e-5, 1e-4
 # a vocabulary of 8192 and a band of S=8 at bench.py's B=32, T=400, U=100;
 # and the AR band, libri100 (V=1024) at B=32, T=400, U=40, S=8, centred.
 PRUNED_V, PRUNED_S, PRUNED_U = 8192, 8, 100
+# band_bwd_b's bf16 time at the pruned band with the 32-column design that
+# rebuilt z per tile (H100 80GB HBM3, 700 W): context for the ring design
+BWD_B_PREV_MS = 65.826
 AR_S = 8
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense): device
 # memory bytes/s and operations/s by operand type. A bound is the larger of
@@ -279,10 +283,10 @@ def bound(n_bytes: int, ops: float, dtype) -> dict:
 
 
 def cudnn_lstm_ms(x, w_ih, w_hh, b, h0, c0) -> dict:
-    """torch.nn.LSTM (cuDNN) on the layer's shape, one call each: the
-    inference forward, the training forward and its backward (dx, dh0,
-    dc0 and the weight gradients; the median of 5 calls after 2 warm-ups,
-    with their min and max, since it spreads from call to call). cuDNN's
+    """torch.nn.LSTM (cuDNN) on the layer's shape: the inference forward
+    and the backward (dx, dh0, dc0 and the weight gradients), each the
+    median of 5 calls after 2 warm-ups with their min and max, since they
+    spread from call to call; the training forward, the mean of 3. cuDNN's
     RNN takes float16 but not
     bfloat16 in PyTorch, so it runs in float16: the same bytes per value
     and the same tensor-core rate as the kernels' bf16. Its forward
@@ -299,9 +303,9 @@ def cudnn_lstm_ms(x, w_ih, w_hh, b, h0, c0) -> dict:
     xs = x.to(dt).requires_grad_(True)
     state = (h0[None].to(dt), c0[None].to(dt))
     with torch.no_grad():
-        lstm(xs, state)  # warm: cuDNN's plan
-        infer = statistics.mean(cuda_ms(lambda: lstm(xs, state))
-                                for _ in range(2))
+        for _ in range(2):  # warm: cuDNN's plan
+            lstm(xs, state)
+        infer = [cuda_ms(lambda: lstm(xs, state)) for _ in range(5)]
     for _ in range(2):  # warm: the training plan and its reserve space
         out = lstm(xs, state)[0]
     train = statistics.mean(cuda_ms(lambda: lstm(xs, state)) for _ in range(3))
@@ -313,7 +317,9 @@ def cudnn_lstm_ms(x, w_ih, w_hh, b, h0, c0) -> dict:
     return {"library_dtype": "float16",
             "bf16_acceptable_to_cudnn": torch.backends.cudnn.is_acceptable(
                 x.to(torch.bfloat16)),
-            "cudnn_fwd_ms": infer, "cudnn_train_fwd_ms": train,
+            "cudnn_fwd_ms": statistics.median(infer),
+            "cudnn_fwd_min_ms": min(infer), "cudnn_fwd_max_ms": max(infer),
+            "cudnn_train_fwd_ms": train,
             "cudnn_bwd_ms": statistics.median(bwd),
             "cudnn_bwd_min_ms": min(bwd), "cudnn_bwd_max_ms": max(bwd)}
 
@@ -984,6 +990,21 @@ def fused_ln_vs_plain(rng: np.random.Generator, dev) -> dict:
     return {"rows": rows, "main": main, "worst": worst}
 
 
+def bwd_b_split_ms(call, n: int, reps: int = 5) -> tuple[float, float]:
+    """Device ms of band_lp_bwd_b's zb pass and of its main launch (with
+    the ordered sums), each call(i, events) on copy i % n recording three
+    CUDA events around its two launches, the calls queued behind a spin
+    kernel as in device_ms."""
+    evs = [[torch.cuda.Event(enable_timing=True) for _ in range(3)]
+           for _ in range(reps)]
+    torch.cuda._sleep(200_000_000)
+    for i, ev in enumerate(evs):
+        call(i % n, ev)
+    torch.cuda.synchronize()
+    return (statistics.mean(e[0].elapsed_time(e[1]) for e in evs),
+            statistics.mean(e[1].elapsed_time(e[2]) for e in evs))
+
+
 def band_fused_vs_plain(rng: np.random.Generator, dev) -> dict:
     """band_fwd, band_bwd_a and band_bwd_b (K6) against their plain versions
     at the pruned step's band, B=32, T'=200, S=8, J=512, V=8192, in f32 and
@@ -1053,6 +1074,11 @@ def band_fused_vs_plain(rng: np.random.Generator, dev) -> dict:
                 for c, kind in ((fw, "fwd"), (ba, "bwd"), (bb, "bwd"))))
         kt = [statistics.mean(t[i] for t in times["kernel"]) for i in range(3)]
         pt = [statistics.mean(t[i] for t in times["plain"]) for i in range(3)]
+        zb_ms, main_ms = bwd_b_split_ms(
+            lambda i, ev: bf.band_lp_bwd_b(*call_args("bwd", i), events=ev),
+            n_cp)
+        plan = (bf.device_bwd_b_plan(N, J, V, dev)
+                if cd == torch.bfloat16 and bf.mma_shapes_ok(J, V) else None)
         ops = 2 * N * J * V  # one product over the band
         row = {"B": B, "T": T, "S": S, "J": J, "V": V, "rows": N,
                "dtype": str(cd).replace("torch.", ""),
@@ -1063,7 +1089,15 @@ def band_fused_vs_plain(rng: np.random.Generator, dev) -> dict:
                "fwd_kernel_ms": kt[0], "fwd_plain_ms": pt[0],
                "bwd_a_kernel_ms": kt[1], "bwd_a_plain_ms": pt[1],
                "bwd_b_kernel_ms": kt[2], "bwd_b_plain_ms": pt[2],
-               "row_splits": bf.row_splits(V),
+               # kernel B: the tensor-core form's plan (the CUDA-core
+               # form's splits for f32), its zb pass and main launch apart
+               "bwd_b_v_tile": plan.v_tile if plan else bf.V_TILE_B,
+               "bwd_b_splits": plan.splits if plan else bf.row_splits(V),
+               "bwd_b_grid": list(plan.grid) if plan else None,
+               "bwd_b_smem_bytes": plan.smem_bytes if plan else None,
+               "bwd_b_zb_ms": zb_ms, "bwd_b_main_ms": main_ms,
+               "bwd_b_prev_ms": (BWD_B_PREV_MS if cd == torch.bfloat16
+                                 else None),
                # forward: the logits product; A: it again and dz; B: it
                # again and dW
                "fwd_bound": bound(nbytes(fwd_args, got), ops, cd),

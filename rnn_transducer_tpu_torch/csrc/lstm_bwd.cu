@@ -74,8 +74,12 @@
 #include <cstdint>
 
 #include "mma_bf16.cuh"
+#include "tma_bulk.cuh"
 
 namespace {
+
+using tma_bulk::mbar_wait;
+using tma_bulk::tma_rows;
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
@@ -242,52 +246,6 @@ __device__ __forceinline__ void warp_tile(float (&dm)[m_tiles<UB>()][4],
   }
 }
 
-// Thread 0: copy `rows` rows of `row_bytes` from global memory (`src_pitch`
-// elements apart) to shared memory (`dst_pitch` apart) with the TMA's bulk
-// copies, which complete on the mbarrier `mbar`. The TMA reads through L2,
-// never L1. The proxy fences order the copies after the generic-proxy
-// accesses before them: the other blocks' exchange writes, acquired by
-// this thread at the grid barrier, and the warps' reads of the last stage.
-template <typename W>
-__device__ __forceinline__ void tma_rows(W* dst, int dst_pitch, const W* src,
-                                         size_t src_pitch, int rows,
-                                         unsigned int row_bytes,
-                                         unsigned int mbar) {
-  asm volatile("fence.proxy.async.global;\n" ::: "memory");
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :
-               : "r"(mbar), "r"(row_bytes * rows)
-               : "memory");
-  for (int r = 0; r < rows; ++r) {
-    const unsigned int d = static_cast<unsigned int>(
-        __cvta_generic_to_shared(dst + (size_t)r * dst_pitch));
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-        "[%0], [%1], %2, [%3];\n"
-        :
-        : "r"(d), "l"(src + (size_t)r * src_pitch), "r"(row_bytes),
-          "r"(mbar)
-        : "memory");
-  }
-}
-
-// Every thread: wait for the mbarrier's current phase to complete.
-__device__ __forceinline__ void mbar_wait(unsigned int mbar,
-                                          unsigned int& phase) {
-  unsigned int done = 0;
-  do {
-    asm volatile(
-        "{\n .reg .pred q;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 q, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, q;\n}\n"
-        : "=r"(done)
-        : "r"(mbar), "r"(phase)
-        : "memory");
-  } while (!done);
-  phase ^= 1u;
-}
-
 // red_s[w][r][u] = warp w's share of sum_k round(dg[b0 + r][k]) W[j0 + u][k]
 // for the block's RB rows, from the exchange buffer's half `src`: a pass
 // stages SR rows by KC columns through the TMA, then each warp takes its
@@ -373,10 +331,7 @@ lstm_bwd_persistent_kernel(BwdArgs p) {
   const unsigned int mbar =
       static_cast<unsigned int>(__cvta_generic_to_shared(&mbar_s));
   unsigned int phase = 0;
-  if (tid == 0) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(mbar));
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
+  if (tid == 0) tma_bulk::mbar_init(mbar);
 
   // W_hh[j0 .. j0 + UB, :] for the whole launch; zero past H and past 4H.
   // 16-byte loads where every row of W_hh starts on 16 bytes.

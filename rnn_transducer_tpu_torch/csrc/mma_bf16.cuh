@@ -56,6 +56,31 @@ __device__ __forceinline__ void frag_a(uint32_t (&a)[4],
   a[3] = ld32(p + 8 * pitch + 8);
 }
 
+// A fragment of rows m0..m0+15, cols k0..k0+15 of A = T^T, where T is a
+// row-major bf16 tile with `pitch` elements per row (element (m, k) of A
+// at base[k * pitch + m]), by one `ldmatrix.x4.trans`: matrix i (lanes
+// 8i .. 8i+7 give its row addresses) is T's rows k0 + 8 (i / 2) + 0..7 at
+// columns m0 + 8 (i % 2), which .trans hands out as a[i]. Rows of T start
+// on 16 bytes (pitch and m0 multiples of 8); a pitch of 4 (mod 32) words
+// puts the 8 rows of a matrix on distinct banks.
+__device__ __forceinline__ void frag_a_trans(uint32_t (&a)[4],
+                                             const __nv_bfloat16* base,
+                                             int pitch, int m0, int k0,
+                                             int lane) {
+  const __nv_bfloat16* p = base
+                           + (size_t)(k0 + ((lane >> 4) << 3) + (lane & 7))
+                                 * pitch
+                           + m0 + (((lane >> 3) & 1) << 3);
+  const unsigned int addr =
+      static_cast<unsigned int>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+      : "r"(addr)
+      : "memory");
+}
+
 // B fragment of k0..k0+15 x n0..n0+7 from a tile stored n-major: element
 // (k, n) at base[n * pitch + k].
 __device__ __forceinline__ void frag_b(uint32_t (&b)[2],

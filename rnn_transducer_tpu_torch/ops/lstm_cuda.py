@@ -321,19 +321,26 @@ def _bwd_stages(rows: int, k_pad: int) -> list[tuple[int, int]]:
 
 
 @functools.lru_cache(maxsize=None)
-def _bwd_limits(index: int) -> tuple[int, int]:
-    """SMs and opt-in shared bytes a block of card `index`; raises if the
-    card takes no cooperative launch."""
+def card_limits(index: int) -> tuple[int, int, bool]:
+    """SMs, opt-in shared bytes a block, and whether card `index` takes a
+    cooperative launch."""
     fn = build.load_library()
     n_sm, smem, coop = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     build.check_launch(fn, fn.lstm_bwd_limits(index, ctypes.byref(n_sm),
                                               ctypes.byref(smem),
                                               ctypes.byref(coop)),
                        "lstm_bwd_limits")
-    if not coop.value:
+    return n_sm.value, smem.value, bool(coop.value)
+
+
+def _bwd_limits(index: int) -> tuple[int, int]:
+    """SMs and opt-in shared bytes a block of card `index`; raises if the
+    card takes no cooperative launch."""
+    n_sm, smem, coop = card_limits(index)
+    if not coop:
         raise RuntimeError(f"card {index} takes no cooperative launch, "
                            "which lstm_bwd needs")
-    return n_sm.value, smem.value
+    return n_sm, smem
 
 
 def device_bwd_plan(B: int, H: int, w_dtype: torch.dtype,

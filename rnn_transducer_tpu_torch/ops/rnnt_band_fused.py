@@ -13,7 +13,10 @@ is built on chip and reduced at once by K6 (`csrc/band_fused.cu`):
     and base, the log-sum-exp the backward reuses, each (B, T, S);
   * `band_lp_bwd_a` (`band_bwd_a`, JAX `band_lp_bwd_a` :157) from the loss
     cotangents cb, cy of lp_blank and lp_y to dg_w = dz and df = sum_s dz;
-  * `band_lp_bwd_b` (`band_bwd_b`, JAX `band_lp_bwd_b` :238) to dW and db.
+  * `band_lp_bwd_b` (JAX `band_lp_bwd_b` :238) to dW and db: with bf16 W,
+    round(z) once into a scratch (`band_bwd_b_zb`), then `band_bwd_b_ring`
+    on the tiles of `bwd_b_plan`; with f32 W or other shapes, the
+    CUDA-core `band_bwd_b`.
 
 round() is the cast to the compute dtype of W (bf16 or f32) and the
 products accumulate in fp32, the JAX package's `preferred_element_type`
@@ -32,10 +35,12 @@ of S to a multiple of 8 and of V to 128 lanes, and the T padding.
 
 from __future__ import annotations
 
+import dataclasses
 import threading
 
 import torch
 
+from rnn_transducer_tpu_torch.ops import lstm_cuda
 from rnn_transducer_tpu_torch.ops.lstm import _dot
 from rnn_transducer_tpu_torch.ops.rnnt_joint_fused import _check_sidecars
 from rnn_transducer_tpu_torch.utils import build
@@ -46,13 +51,21 @@ LAUNCHES_BWD_B = 0  # band_lp_bwd_b calls that launched band_bwd_b
 _launches_lock = threading.Lock()
 
 MAX_J = 512  # the kernels keep (64, J) tiles of z and dz in shared memory
-# Kernel B's grid is (V / V_TILE_B column tiles, row splits); the rows are
-# split so that about TARGET_BLOCKS_B blocks (four per SM of the H100's
-# 132) run, and each split's dW and db partials are summed in order by a
-# second pass. The split depends on the shapes alone, so the bits do too.
+# Kernel B's CUDA-core form (f32 W, or J % 16 != 0, or V odd): grid (V /
+# V_TILE_B column tiles, row splits); the rows are split so that about
+# TARGET_BLOCKS_B blocks (four per SM of the H100's 132) run, and each
+# split's dW and db partials are summed in order by a second pass. The
+# split depends on the shapes alone, so the bits do too.
 V_TILE_B = 32
 TARGET_BLOCKS_B = 528
 MAX_SPLITS_B = 16
+# Its tensor-core form (bf16 W, csrc/band_fused.cu band_bwd_b_zb and
+# band_bwd_b_ring): a block owns BWD_B_V_TILE columns, walks the rows in
+# chunks of BWD_B_CHUNK through a two-slot ring of round(z), and keeps
+# W[:, tile]^T, dlogits^T (pitch chunk + 8 bf16) and the f32 dlogits
+# (pitch tile + 4) in shared memory, with the ring's two mbarriers.
+BWD_B_V_TILE = 64
+BWD_B_CHUNK = 64
 
 _W_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -63,9 +76,106 @@ def _count(name: str) -> None:
 
 
 def row_splits(V: int) -> int:
-    """Kernel B's number of row splits for a vocabulary of V columns."""
+    """The CUDA-core kernel B's number of row splits for V columns."""
     tiles = -(-V // V_TILE_B)
     return max(1, min(MAX_SPLITS_B, -(-TARGET_BLOCKS_B // tiles)))
+
+
+def mma_shapes_ok(J: int, V: int) -> bool:
+    """Whether bf16 W of (J, V) takes the tensor-core forms."""
+    return J % 16 == 0 and V % 2 == 0
+
+
+def zb_pitch(J: int) -> int:
+    """bf16 row pitch of round(z) in shared memory and in zb: J rounded up
+    to 64, plus 8 (4 mod 32 words, so fragment rows miss each other's
+    banks)."""
+    return -(-J // 64) * 64 + 8
+
+
+def ring_b_bytes(J: int) -> int:
+    """Shared bytes of a band_bwd_b_ring block, as the kernel lays them
+    out: ring, W tile, dlogits^T, f32 dlogits, two mbarriers."""
+    jp = zb_pitch(J)
+    return (2 * BWD_B_CHUNK * jp * 2 + BWD_B_V_TILE * jp * 2
+            + BWD_B_V_TILE * (BWD_B_CHUNK + 8) * 2
+            + BWD_B_CHUNK * (BWD_B_V_TILE + 4) * 4 + 16)
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdBPlan:
+    """The tiles of one band_bwd_b_ring launch. Block (x, y) owns the
+    column tiles x, x + grid[0], .. of v_tile columns and split y's rows
+    (`owned`); every block walks its rows in the same chunks in the same
+    order, so the chunks that the resident blocks read at one time sit in
+    L2."""
+
+    rows: int         # N = B * T * S
+    J: int
+    V: int
+    v_tile: int
+    splits: int
+    split_rows: int   # a multiple of the chunk; every split has rows
+    grid: tuple[int, int]
+    smem_bytes: int
+
+    @property
+    def zb_shape(self) -> tuple[int, int]:
+        """(rows padded to a whole chunk, pitch) of the round(z) scratch."""
+        return (-(-self.rows // BWD_B_CHUNK) * BWD_B_CHUNK, zb_pitch(self.J))
+
+    def owned(self, x: int, y: int) -> tuple[list[range], range]:
+        """(column ranges, rows) of block (x, y), as the kernel maps them;
+        columns past V and rows past N are not owned."""
+        cols = [range(v0, min(v0 + self.v_tile, self.V)) for v0 in range(
+            x * self.v_tile, self.V, self.grid[0] * self.v_tile)]
+        return cols, range(y * self.split_rows,
+                           min((y + 1) * self.split_rows, self.rows))
+
+
+def bwd_b_plan(J: int, V: int, n_sm: int, smem_per_block: int,
+               rows: int) -> BwdBPlan:
+    """Place the tensor-core kernel B for bf16 W of (J, V) and `rows` band
+    rows on a card of `n_sm` SMs with `smem_per_block` bytes of shared
+    memory a block.
+
+    The grid is one wave, one block per SM (a block takes 226,320 bytes
+    of shared memory at J = 512): min(column tiles, n_sm) blocks across,
+    and as many row splits as the SMs left over allow (at most
+    MAX_SPLITS_B, at most one a chunk), so that V = 8192 takes 128 tiles
+    and 1 split and V = 1024 16 tiles and 8 splits. More tiles than SMs
+    are walked in turn by each block. Raises ValueError for a shape the
+    kernel does not take (J > MAX_J, J % 16 != 0, V odd, no rows) or
+    shared memory that does not hold its block; the wrapper sends f32 W
+    and those shapes to the CUDA-core form before it asks for a plan.
+    """
+    where = (f"band_bwd_b cannot place J={J}, V={V}, rows={rows} on {n_sm} "
+             f"SMs with {smem_per_block} bytes of shared memory a block")
+    if not (16 <= J <= MAX_J) or not mma_shapes_ok(J, V) or V < 2:
+        raise ValueError(f"{where}: the tensor-core form needs 16 <= J <= "
+                         f"{MAX_J}, J % 16 == 0 and V even")
+    if rows < 1 or n_sm < 1:
+        raise ValueError(f"{where}: no rows or no SMs")
+    smem = ring_b_bytes(J)
+    if smem > smem_per_block:
+        raise ValueError(f"{where}: a block needs {smem} bytes")
+    tiles = -(-V // BWD_B_V_TILE)
+    chunks = -(-rows // BWD_B_CHUNK)
+    grid_x = min(tiles, n_sm)
+    splits = max(1, min(MAX_SPLITS_B, n_sm // grid_x, chunks))
+    per = -(-chunks // splits)  # chunks a split
+    splits = -(-chunks // per)  # so that no split is empty
+    return BwdBPlan(rows, J, V, BWD_B_V_TILE, splits, per * BWD_B_CHUNK,
+                    (grid_x, splits), smem)
+
+
+def device_bwd_b_plan(rows: int, J: int, V: int, device) -> BwdBPlan:
+    """`bwd_b_plan` on the limits of the CUDA card `device`."""
+    device = torch.device(device)
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    n_sm, smem, _ = lstm_cuda.card_limits(index)
+    return bwd_b_plan(J, V, n_sm, smem, rows)
 
 
 def _check(f, g_w, lab_w, w, b):
@@ -227,14 +337,21 @@ def band_lp_bwd_a_reference(f, g_w, lab_w, w, b, base, cb, cy,
     return dz.sum(dim=2), dz
 
 
-def band_lp_bwd_b(f, g_w, lab_w, w, b, base, cb, cy, blank: int = 0):
+def band_lp_bwd_b(f, g_w, lab_w, w, b, base, cb, cy, blank: int = 0, *,
+                  events=None):
     """-> (dw (J, V), db (V,)), both f32:
 
         dw = sum_rows round(z)^T round(dlogits),   db = sum_rows dlogits
 
-    over every (b, t, s), with dlogits as in `band_lp_bwd_a`. The sums
-    across blocks go through partial buffers and an ordered second pass,
-    so two runs give identical bits.
+    over every (b, t, s), with dlogits as in `band_lp_bwd_a`. bf16 W with
+    J % 16 == 0 and V even takes the tensor-core form: round(z) into a
+    scratch zb once (band_bwd_b_zb), then band_bwd_b_ring on the tiles of
+    `device_bwd_b_plan`; other W and shapes the CUDA-core form
+    (band_bwd_b). The sums across blocks go through partial buffers and an
+    ordered second pass, so two runs give identical bits. `events`, three
+    CUDA events, are recorded before the zb pass, between it and the main
+    launch, and after it (the CUDA-core form has no zb pass: the first two
+    are recorded together).
     """
     _check_bwd(f, g_w, lab_w, w, b, base, cb, cy)
     if f.device.type == "cpu":
@@ -248,19 +365,52 @@ def band_lp_bwd_b(f, g_w, lab_w, w, b, base, cb, cy, blank: int = 0):
     db = torch.empty((V,), dtype=torch.float32, device=dev)
     if B * T == 0:
         return dw.zero_(), db.zero_()
-    n_split = row_splits(V)
-    dw_part = torch.empty((n_split, J, V), dtype=torch.float32, device=dev)
-    db_part = torch.empty((n_split, V), dtype=torch.float32, device=dev)
     fn = build.load_library()
-    err = fn.band_bwd_b(f.data_ptr(), g_w.data_ptr(), lab_w.data_ptr(),
-                        w.data_ptr(), int(w.dtype == torch.bfloat16),
-                        b.data_ptr(), base.data_ptr(), cb.data_ptr(),
-                        cy.data_ptr(), dw.data_ptr(), db.data_ptr(),
-                        dw_part.data_ptr(), db_part.data_ptr(), B, T, S, J, V,
-                        blank, n_split, *build.stream_args(dev))
-    build.check_launch(fn, err, "band_bwd_b")
+    ev = events if events is not None else (None, None, None)
+    if w.dtype == torch.bfloat16 and mma_shapes_ok(J, V):
+        plan = device_bwd_b_plan(B * T * S, J, V, dev)
+        zb = torch.empty(plan.zb_shape, dtype=torch.bfloat16, device=dev)
+        parts = (None, None)
+        if plan.splits > 1:
+            parts = (torch.empty((plan.splits, J, V), dtype=torch.float32,
+                                 device=dev),
+                     torch.empty((plan.splits, V), dtype=torch.float32,
+                                 device=dev))
+        _record(ev[0])
+        err = fn.band_bwd_b_zb(f.data_ptr(), g_w.data_ptr(), zb.data_ptr(),
+                               B, T, S, J, *build.stream_args(dev))
+        build.check_launch(fn, err, "band_bwd_b_zb")
+        _record(ev[1])
+        err = fn.band_bwd_b_ring(
+            zb.data_ptr(), lab_w.data_ptr(), w.data_ptr(), b.data_ptr(),
+            base.data_ptr(), cb.data_ptr(), cy.data_ptr(), dw.data_ptr(),
+            db.data_ptr(), *(None if p is None else p.data_ptr()
+                             for p in parts), B, T, S, J, V, blank,
+            plan.grid[0], plan.splits, plan.split_rows, plan.smem_bytes,
+            *build.stream_args(dev))
+        build.check_launch(fn, err, "band_bwd_b_ring")
+    else:
+        n_split = row_splits(V)
+        dw_part = torch.empty((n_split, J, V), dtype=torch.float32,
+                              device=dev)
+        db_part = torch.empty((n_split, V), dtype=torch.float32, device=dev)
+        _record(ev[0])
+        _record(ev[1])
+        err = fn.band_bwd_b(f.data_ptr(), g_w.data_ptr(), lab_w.data_ptr(),
+                            w.data_ptr(), int(w.dtype == torch.bfloat16),
+                            b.data_ptr(), base.data_ptr(), cb.data_ptr(),
+                            cy.data_ptr(), dw.data_ptr(), db.data_ptr(),
+                            dw_part.data_ptr(), db_part.data_ptr(), B, T, S,
+                            J, V, blank, n_split, *build.stream_args(dev))
+        build.check_launch(fn, err, "band_bwd_b")
+    _record(ev[2])
     _count("LAUNCHES_BWD_B")
     return dw, db
+
+
+def _record(event) -> None:
+    if event is not None:
+        event.record()
 
 
 def band_lp_bwd_b_reference(f, g_w, lab_w, w, b, base, cb, cy,

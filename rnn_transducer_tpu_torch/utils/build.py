@@ -37,6 +37,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _IP = ctypes.POINTER(ctypes.c_int)
+_LL = ctypes.c_longlong
 SIGNATURES = {
     # x_proj, w_hh, w_is_bf16, h0, c0, hs, c, acts, cs, B, T, H, device,
     # stream
@@ -99,6 +100,13 @@ SIGNATURES = {
     # db_part, B, T, S, J, V, blank, n_split, device, stream
     "band_bwd_b": (_I, [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+    # f, g_w, zb, B, T, S, J, device, stream
+    "band_bwd_b_zb": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    # zb, lab_w, w, b, base, cb, cy, dw, db, dw_part, db_part, B, T, S, J,
+    # V, blank, grid_x, n_split, split_rows, smem_bytes, device, stream
+    "band_bwd_b_ring": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                             _I, _I, _I, _I, _I, _I, _I, _I, _LL, _LL, _I,
+                             _P]),
     "kernel_error_string": (ctypes.c_char_p, [_I]),
 }
 

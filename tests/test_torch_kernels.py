@@ -476,12 +476,20 @@ def _band_args(B, T, S, J, V, dtype, device):
 @pytest.mark.parametrize("B, T, S, J, V", [(2, 7, 3, 64, 37),
                                            (3, 9, 8, 512, 1024),
                                            (1, 5, 13, 96, 130),
-                                           (2, 4, 5, 24, 40)])
+                                           (2, 4, 5, 24, 40),
+                                           (1, 7, 9, 128, 1000),
+                                           (2, 50, 8, 512, 1024),
+                                           (1, 3, 8, 512, 8192),
+                                           (1, 2, 4, 64, 8704)])
 def test_cuda_band_kernels_match_reference(cuda_device, dtype, B, T, S, J,
                                            V):
     """K6 (band_fwd, band_bwd_a, band_bwd_b) against the plain versions:
     S not a multiple of 8, rows past one 64-row block, V odd (the CUDA-core
-    form at bf16) and not a multiple of the column chunk, J % 16 != 0."""
+    form at bf16) and not a multiple of the column chunk, J % 16 != 0. For
+    kernel B's tensor-core form: V not a multiple of its 64-column tile
+    (1000), N not a multiple of 64 rows (63, 24), more than one row split
+    (800 rows at V=1024: 8), the pruned band's V=8192, and more column
+    tiles than SMs (8704: 136 tiles, walked in turn)."""
     from rnn_transducer_tpu_torch.ops import rnnt_band_fused as bf
     (f, g_w, lab_w, w, b), (cb, cy) = _band_args(B, T, S, J, V, dtype,
                                                  cuda_device)
@@ -504,6 +512,43 @@ def test_cuda_band_kernels_match_reference(cuda_device, dtype, B, T, S, J,
         assert torch.equal(a, e)  # ordered partials: the same bits
     assert (bf.LAUNCHES_FWD, bf.LAUNCHES_BWD_A, bf.LAUNCHES_BWD_B) == (
         before[0] + 1, before[1] + 1, before[2] + 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", [{"split_rows": 32},
+                                 {"smem_bytes": 48 * 1024},
+                                 {"grid": (0, 1)}])
+def test_cuda_band_bwd_b_refuses_a_bad_plan(cuda_device, monkeypatch, bad):
+    """band_bwd_b_ring checks the plan it is handed and the wrapper raises:
+    split rows that are not whole chunks, shared bytes that are not the
+    kernel's, an empty grid."""
+    import dataclasses
+
+    from rnn_transducer_tpu_torch.ops import rnnt_band_fused as bf
+
+    (f, g_w, lab_w, w, b), (cb, cy) = _band_args(2, 6, 8, 64, 128,
+                                                 torch.bfloat16, cuda_device)
+    base = bf.band_lp_fwd(f, g_w, lab_w, w, b)[2]
+    good = bf.device_bwd_b_plan(2 * 6 * 8, 64, 128, cuda_device)
+    monkeypatch.setattr(bf, "device_bwd_b_plan",
+                        lambda *a: dataclasses.replace(good, **bad))
+    with pytest.raises(RuntimeError, match="band_bwd_b_ring"):
+        bf.band_lp_bwd_b(f, g_w, lab_w, w, b, base, cb, cy)
+
+
+@pytest.mark.cuda
+def test_cuda_band_bwd_b_times_its_two_launches(cuda_device):
+    """The events of a tensor-core call bracket the zb pass and the main
+    launch, in order."""
+    from rnn_transducer_tpu_torch.ops import rnnt_band_fused as bf
+
+    (f, g_w, lab_w, w, b), (cb, cy) = _band_args(2, 6, 8, 64, 128,
+                                                 torch.bfloat16, cuda_device)
+    base = bf.band_lp_fwd(f, g_w, lab_w, w, b)[2]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    bf.band_lp_bwd_b(f, g_w, lab_w, w, b, base, cb, cy, events=ev)
+    torch.cuda.synchronize()
+    assert ev[0].elapsed_time(ev[1]) > 0 and ev[1].elapsed_time(ev[2]) > 0
 
 
 @pytest.mark.cuda
