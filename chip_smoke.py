@@ -27,7 +27,9 @@ Phases, in order:
             plain); lstm_bwd (one persistent launch a layer, at the
             encoder's and the predictor's training shapes, with its tile,
             its barrier count and cuDNN's backward beside it) and
-            joint_bwd run twice must give identical bits; the
+            joint_bwd run twice must give identical bits, joint_bwd with
+            kernel A, kernel B's zb pass and ring kernel and the ordered
+            sums timed apart and kernel B's ring plan; the
             lattice (alpha, beta and the occupancies) at U+1 = 41 and 81
             with ragged lengths and a zero-frame row; the W8A8 recurrence
             (lstm_int8) at the serving shapes and at batch tiles of 16
@@ -61,8 +63,9 @@ Phases, in order:
             skipped update, the params move, every training kernel
             launched; ms/step by the slope of bench.py and utt/s; one
             torch.profiler step split by layer, with one lstm_bwd kernel
-            per LSTM layer call (every training phase); an f32 loss and
-            gradient
+            per LSTM layer call (every training phase) and, in the fused
+            steps (this one and the conformer's), K2's kernel B as its
+            two ring kernels and no K6 kernel; an f32 loss and gradient
             through the kernels against the plain versions; the CLI for
             a few steps with a checkpoint round trip
   5b. train_pallas  the same for loss_impl="pallas" at U=80 (extract_lp,
@@ -573,6 +576,14 @@ def joint_vs_plain(rng: np.random.Generator, dev) -> dict:
                             lambda: jf.joint_lp_fwd_reference(*fwd_args))
         kb, pb = timed_pair(lambda: jf.joint_lp_bwd(*bwd_args),
                             lambda: jf.joint_lp_bwd_reference(*bwd_args))
+        # kernel A, kernel B's zb pass (0 in the CUDA-core form) and main
+        # launch, the ordered sums
+        a_ms, zb_ms, main_ms, sums_ms = event_split_ms(
+            lambda i, ev: jf.joint_lp_bwd(*bwd_args, events=ev), 5)
+        ring = cd == torch.bfloat16 and bf.mma_shapes_ok(J, V)
+        plan = jf.device_bwd_b_plan(B * T * (U + 1), J, V, dev) if ring \
+            else None
+        ops = 2 * B * T * (U + 1) * J * V  # one product over the cells
         row = {"B": B, "T": T, "U1": U + 1, "J": J, "V": V,
                "dtype": str(cd).replace("torch.", ""),
                "fwd_max_abs_err": err_f, "fwd_atol": ATOL[cd],
@@ -580,11 +591,20 @@ def joint_vs_plain(rng: np.random.Generator, dev) -> dict:
                "bwd_rtol": REL_TOL[cd], "bwd_bitwise_repeat": same_bits,
                "fwd_kernel_ms": kf, "fwd_plain_ms": pf,
                "bwd_kernel_ms": kb, "bwd_plain_ms": pb,
-               # forward: the logits product; backward: it again, dz and dW
-               "fwd_bound": bound(nbytes(fwd_args, got),
-                                  2 * B * T * (U + 1) * J * V, cd),
-               "bwd_bound": bound(nbytes(bwd_args, got_b),
-                                  6 * B * T * (U + 1) * J * V, cd)}
+               "bwd_a_ms": a_ms, "bwd_b_zb_ms": zb_ms,
+               "bwd_b_main_ms": main_ms, "bwd_sums_ms": sums_ms,
+               # kernel B: the ring's plan (None: the CUDA-core form,
+               # ROW_SPLITS splits of 32 columns)
+               "bwd_b_plan": dataclasses.asdict(plan) if plan else None,
+               # forward: the logits product; backward: it again, dz and
+               # dW; kernel A: the logits again and dz; kernel B: the
+               # logits again and dW
+               "fwd_bound": bound(nbytes(fwd_args, got), ops, cd),
+               "bwd_bound": bound(nbytes(bwd_args, got_b), 3 * ops, cd),
+               "bwd_a_bound": bound(nbytes(bwd_args, got_b[:2]), 2 * ops,
+                                    cd),
+               "bwd_b_bound": bound(nbytes(bwd_args, got_b[2:]), 2 * ops,
+                                    cd)}
         print("kernel joint_fwd+joint_bwd " + json.dumps(row))
         check(all(bool(torch.isfinite(x).all()) for x in got_b)
               and err_f <= ATOL[cd] and max(rel_b.values()) <= REL_TOL[cd],
@@ -990,19 +1010,26 @@ def fused_ln_vs_plain(rng: np.random.Generator, dev) -> dict:
     return {"rows": rows, "main": main, "worst": worst}
 
 
-def bwd_b_split_ms(call, n: int, reps: int = 5) -> tuple[float, float]:
-    """Device ms of band_lp_bwd_b's zb pass and of its main launch (with
-    the ordered sums), each call(i, events) on copy i % n recording three
-    CUDA events around its two launches, the calls queued behind a spin
-    kernel as in device_ms."""
-    evs = [[torch.cuda.Event(enable_timing=True) for _ in range(3)]
+def event_split_ms(call, n_events: int, reps: int = 5) -> list[float]:
+    """Mean device ms between consecutive events of call(i, events), each
+    call recording `n_events` CUDA events between its launches, the `reps`
+    calls queued behind a spin kernel as in device_ms."""
+    evs = [[torch.cuda.Event(enable_timing=True) for _ in range(n_events)]
            for _ in range(reps)]
     torch.cuda._sleep(200_000_000)
     for i, ev in enumerate(evs):
-        call(i % n, ev)
+        call(i, ev)
     torch.cuda.synchronize()
-    return (statistics.mean(e[0].elapsed_time(e[1]) for e in evs),
-            statistics.mean(e[1].elapsed_time(e[2]) for e in evs))
+    return [statistics.mean(e[k].elapsed_time(e[k + 1]) for e in evs)
+            for k in range(n_events - 1)]
+
+
+def bwd_b_split_ms(call, n: int, reps: int = 5) -> tuple[float, float]:
+    """Device ms of band_lp_bwd_b's zb pass and of its main launch (with
+    the ordered sums), each call(i, events) on copy i % n recording three
+    CUDA events around its two launches."""
+    zb_ms, main_ms = event_split_ms(lambda i, ev: call(i % n, ev), 3, reps)
+    return zb_ms, main_ms
 
 
 def band_fused_vs_plain(rng: np.random.Generator, dev) -> dict:
@@ -1560,8 +1587,12 @@ def profile_step(step, state, batch, profile_dir, name="train_step"):
     families = {"lstm_fwd": ("lstm_step_kernel",),
                 "lstm_bwd": ("lstm_bwd_persistent_kernel",),
                 "joint_fwd": ("joint_fwd",),
-                "joint_bwd_a": ("joint_bwd_a",),
-                "joint_bwd_b": ("joint_bwd_b",),
+                "joint_bwd_a": ("joint_bwd_a_",),
+                # K2's kernel B: the ring's two kernels, or its CUDA-core
+                # form (never a K6 kernel)
+                "joint_bwd_b": ("joint_bwd_b_zb_kernel",
+                                "joint_bwd_b_ring_kernel",
+                                "joint_bwd_b_kernel"),
                 "joint_bwd_sums": ("reduce_parts_kernel",),
                 "lattice": ("lattice_alpha_kernel", "lattice_beta_kernel"),
                 "loss_rows": ("extract_lp_kernel", "assemble_grad_kernel"),
@@ -1609,6 +1640,20 @@ def profile_step(step, state, batch, profile_dir, name="train_step"):
             f.write(prof.key_averages().table(sort_by="self_cuda_time_total",
                                               row_limit=60))
     return state, out
+
+
+def check_fused_joint_profile(prof: dict, result: dict, what: str) -> None:
+    """A profiled fused-loss step runs K2's kernel B on the ring, its zb
+    pass and ring kernel once each a joint_bwd call, and no K6 kernel."""
+    per_step = result["launches"]["joint_bwd"] / result["steps"]
+    seen = prof["device_launches"]
+    check(per_step > 0 and seen["joint_bwd_b"] == 2 * per_step,
+          f"the profiled {what} step ran {seen['joint_bwd_b']} joint_bwd_b "
+          f"kernels, not 2 for each of its {per_step} joint_bwd calls")
+    band = {k: seen[k] for k in ("band_fwd", "band_bwd_a", "band_bwd_b",
+                                 "band_sums")}
+    check(not any(band.values()),
+          f"the profiled {what} step launched band kernels: {band}")
 
 
 def check_bwd_launches(prof: dict, result: dict, what: str) -> None:
@@ -1838,6 +1883,7 @@ def train_phase(seed: int, dev, profile_dir) -> dict:
     state, prof = profile_step(step, state, batch, profile_dir)
     print("train_profile " + json.dumps(prof))
     check_bwd_launches(prof, result, "libri100")
+    check_fused_joint_profile(prof, result, "libri100")
     lat_ms = lattice_ms(dev, seed)
     print("train_lattice " + json.dumps(lat_ms))
     result["profile"], result["lattice"] = prof, lat_ms
@@ -1906,6 +1952,7 @@ def train_conformer_phase(seed: int, dev, profile_dir) -> dict:
                                "train_conformer_step")
     print("train_conformer_profile " + json.dumps(prof))
     check_bwd_launches(prof, result, "conformer")
+    check_fused_joint_profile(prof, result, "conformer")
     result["profile"] = prof
     del step, state, batch
     torch.cuda.empty_cache()

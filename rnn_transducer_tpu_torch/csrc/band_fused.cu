@@ -40,15 +40,20 @@
 //        W[:, chunk]^T on the tensor cores with W's fragments read from
 //        L2; dz (64, J) f32 stays in shared memory across the chunks. The
 //        epilogue writes dg_w; df = sum_s dg_w is a second, ordered pass.
-//   B    two launches. The first writes zb = round(z) (N, J) bf16 once
-//        a call. The second owns kVT = 64 V columns a block and walks
+//   B    two launches on the ring of zb_ring.cuh, which the fused
+//        joint's kernel B (joint_bwd.cu) shares, with the band's row
+//        policy (lab_w, base, cb, cy and `dlogit` below). The first
+//        writes zb = round(z) (N, J) bf16 once a call. The second owns
+//        kVT = 64 V columns a block and walks
 //        the rows in chunks of 64, which thread 0 stages from zb into a
 //        two-slot ring in shared memory with TMA bulk copies, the next
 //        chunk's copy in flight under this chunk's products. W[:, tile]^T
 //        stays in shared memory and dW[:, tile] (J, 64) f32 in registers;
 //        per chunk the logits of the tile and dW += round(z)^T
 //        round(dlogits) on the tensor cores, z^T read from the ring by
-//        ldmatrix.trans, db summed in row order. The grid is one wave
+//        ldmatrix.trans, db summed in row order; each chunk's sidecars
+//        come through shared memory, loaded under the last chunk's
+//        products. The grid is one wave
 //        (ops/rnnt_band_fused.bwd_b_plan: 128 tiles x 1 split at V =
 //        8192, 16 x 8 at V = 1024) whose blocks walk the same chunks in
 //        the same order, so the chunks come from L2 and zb crosses HBM
@@ -65,9 +70,11 @@
 // that is 0.43 ms for the forward and 0.87 ms for each backward kernel
 // at 989 TFLOP/s. The forward and A sit far from it: one block per SM, W
 // re-read from L2 by every block (64 rows per read), single-buffered
-// staging. B's zb pass moves ~0.16 GB (0.06 ms on an H100 80GB HBM3 by
-// bench_band_bwd_b.py, 0.05 at 3.35 TB/s). Its main kernel took 3.91 ms
-// there: 4.9 us, ~9,700 cycles, a chunk, against ~4,100 cycles of
+// staging. B's zb pass moves ~0.16 GB (0.06 ms on an NVIDIA H100 80GB
+// HBM3, 700.00 W, by bench_band_bwd_b.py; 0.05 at 3.35 TB/s). Its main
+// kernel took 3.88-3.89 ms there (3.91 with the sidecars in registers,
+// in turns on the same card; 0.53 ms at V = 1024): 4.9 us, ~9,700
+// cycles, a chunk, against ~4,100 cycles of
 // shared-memory fragment reads (512 KB a chunk at 128 B a cycle; the
 // logits' 8 warp tiles of 16 x 32 each read J-deep panels) and ~2,000 of
 // mma.sync, were they to overlap; but the logits, the epilogue and the
@@ -87,14 +94,13 @@
 #include <type_traits>
 
 #include "mma_bf16.cuh"
-#include "tma_bulk.cuh"
+#include "zb_ring.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 using joint_mma::build_z_rows;
 using joint_mma::frag_a;
-using joint_mma::frag_a_trans;
 using joint_mma::frag_b;
 using joint_mma::kMR;
 using joint_mma::kMV;
@@ -813,77 +819,42 @@ band_bwd_b_kernel(const float* __restrict__ f, const float* __restrict__ gw,
   if (tid < kBNB && v0 + tid < V) db_part[(size_t)split * V + v0 + tid] = db_acc;
 }
 
-// Tensor-core form of kernel B, in two launches.
-//
-// band_bwd_b_zb_kernel writes zb = round(z), (ceil(N / kMR) kMR, pitch_j(J))
-// bf16, with the same tanhf and __float2bfloat16_rn as every other kernel
-// here, zero past N rows and past J columns: z is rounded once a call.
-//
-// band_bwd_b_ring_kernel: block (x, y) owns the column tiles x, x +
-// gridDim.x, .. of kVT columns and the rows y * split_rows .. of split y;
-// every block of a grid row walks the same chunks of kMR rows in the same
-// order, so the chunks the resident blocks read at one time sit in L2 and
-// zb crosses HBM about once. Per column tile it keeps W[:, tile]^T in
-// shared memory and dW[:, tile] (J, kVT) f32 in registers: warp w owns j =
-// 64 w .. 64 w + 63, 4 m-tiles by 8 n-tiles. Per chunk:
-//   thread 0 has already issued the chunk's rows of zb into one of two
-//   ring slots (one TMA bulk copy, mbarrier) during the last chunk, and
-//   now issues the next chunk's;
-//   logits (kMR, kVT) = z . W[:, tile] on mma.sync, warp w rows 16 (w % 4)
-//   .., columns 32 (w / 4) ..; the dlogits epilogue in registers into dlf
-//   (f32, for db) and dlT (round(dlogits)^T, bf16);
-//   db += the chunk's dlogits in row order (threads 0 .. kVT-1), while
-//   dW += z^T . round(dlogits) on mma.sync, z^T's A fragments straight
-//   from the ring slot by ldmatrix.trans.
-constexpr int kVT = 64;          // V columns a block tile
-constexpr int kDLTP = kMR + 8;   // pitch of dlT (36 words: 4 mod 32)
-constexpr int kDLFP = kVT + 4;   // pitch of the f32 dlogits chunk
-constexpr int kZbVec = 8;        // zb elements a thread writes at a time
+// Tensor-core form of kernel B, in two launches, on the ring of
+// zb_ring.cuh (shared with the fused joint's kernel B, joint_bwd.cu):
+// band_bwd_b_zb_kernel writes zb = round(z), row r's z from f[r / S] and
+// g_w[r]; band_bwd_b_ring_kernel runs the ring with the band's row policy.
 
-size_t ring_b_bytes(int J) {
-  return (size_t)2 * kMR * pitch_j(J) * 2  // ring [2][kMR][JP]
-         + (size_t)kVT * pitch_j(J) * 2    // wT   [kVT][JP]
-         + (size_t)kVT * kDLTP * 2         // dlT  [kVT][kDLTP]
-         + (size_t)kMR * kDLFP * 4         // dlf  [kMR][kDLFP]
-         + 2 * sizeof(unsigned long long); // the ring's mbarriers
-}
+// Row r of the band: z from f row r / S and g_w row r.
+struct BandMap {
+  int S;
+  __device__ long long f_row(long long r) const { return r / S; }
+  __device__ long long g_row(long long r) const { return r; }
+};
+
+// The band's sidecars: lab_w, base, cb, cy; dlogits as `dlogit` above.
+struct BandRows {
+  const int* __restrict__ lab_w;
+  const float* __restrict__ base;
+  const float* __restrict__ cb;
+  const float* __restrict__ cy;
+  __device__ void load(long long row, float (&s)[zb_ring::kSideWords]) const {
+    s[0] = __int_as_float(lab_w[row]);
+    s[1] = base[row];
+    s[2] = cb[row];
+    s[3] = cy[row];
+    s[4] = 0.0f;
+  }
+  __device__ float dlogit(const float (&s)[zb_ring::kSideWords], float x,
+                          int v, int blank) const {
+    return ::dlogit(x, v, blank, __float_as_int(s[0]), s[1], s[2], s[3]);
+  }
+};
 
 __global__ void __launch_bounds__(kThreads)
 band_bwd_b_zb_kernel(const float* __restrict__ f,
                      const float* __restrict__ gw, bf16* __restrict__ zb,
                      long long N, long long n_rows, int S, int J, int JP) {
-  const int groups = JP / kZbVec;
-  const long long n = n_rows * groups;
-  for (long long idx = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       idx < n; idx += (long long)gridDim.x * blockDim.x) {
-    const long long r = idx / groups;
-    const int j = (int)(idx - r * groups) * kZbVec;
-    float z[kZbVec];
-    if (r < N && j < J) {  // J % 16 == 0: a group is all in or all out
-      float a[4], b[4];
-      const float* fr = f + (r / S) * J + j;
-      const float* gr = gw + r * J + j;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        load4(fr + 4 * h, a);
-        load4(gr + 4 * h, b);
-#pragma unroll
-        for (int c = 0; c < 4; ++c) z[4 * h + c] = tanhf(a[c] + b[c]);
-      }
-    } else {
-#pragma unroll
-      for (int c = 0; c < kZbVec; ++c) z[c] = 0.0f;
-    }
-    uint4 out;
-    uint32_t* o = reinterpret_cast<uint32_t*>(&out);
-#pragma unroll
-    for (int c = 0; c < kZbVec / 2; ++c) {
-      const __nv_bfloat162 p = __halves2bfloat162(
-          __float2bfloat16_rn(z[2 * c]), __float2bfloat16_rn(z[2 * c + 1]));
-      o[c] = *reinterpret_cast<const uint32_t*>(&p);
-    }
-    *reinterpret_cast<uint4*>(zb + r * JP + j) = out;
-  }
+  zb_ring::build_zb(f, gw, zb, N, n_rows, J, JP, BandMap{S});
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
@@ -898,177 +869,8 @@ band_bwd_b_ring_kernel(const bf16* __restrict__ zb,
                        long long N, int J, int V, int blank,
                        long long split_rows) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int JP = pitch_j(J);
-  const int Jr = round_up(J, 64);
-  bf16* ring = reinterpret_cast<bf16*>(smem_raw);
-  bf16* wT = ring + (size_t)2 * kMR * JP;
-  bf16* dlT = wT + (size_t)kVT * JP;
-  float* dlf = reinterpret_cast<float*>(dlT + kVT * kDLTP);
-  unsigned long long* mbar_s =
-      reinterpret_cast<unsigned long long*>(dlf + kMR * kDLFP);
-  // slot s completes on the mbarrier at mbar0 + 8 s
-  const unsigned int mbar0 =
-      static_cast<unsigned int>(__cvta_generic_to_shared(mbar_s));
-
-  const int tid = threadIdx.x;
-  const int lane = tid % 32;
-  const int warp = tid / 32;
-  const int gq = lane >> 2;
-  const int q = lane & 3;
-  const int mt = warp % 4;       // logits: rows 16 mt ..
-  const int nh = warp / 4;       // logits: columns 32 nh ..
-  const int j0w = warp * 64;     // dW: rows j0w .. j0w + 63
-  const int r_lo = mt * 16 + gq;  // the thread's logits rows r_lo, r_lo + 8
-
-  const long long r_begin = blockIdx.y * split_rows;
-  const long long r_end = min(N, r_begin + split_rows);
-  const int n_ch = (int)((r_end - r_begin + kMR - 1) / kMR);
-  const int n_tiles = (V + kVT - 1) / kVT;
-  const int my_tiles =
-      ((int)blockIdx.x < n_tiles)
-          ? (n_tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x
-          : 0;
-  const int total = n_ch > 0 ? my_tiles * n_ch : 0;
-  const unsigned int slot_bytes = (unsigned int)(kMR * JP * sizeof(bf16));
-  const size_t split = blockIdx.y;
-
-  // iteration i stages chunk i % n_ch of the split into slot i & 1
-  auto issue = [&](int i) {
-    const long long row = r_begin + (long long)(i % n_ch) * kMR;
-    tma_bulk::tma_rows(ring + (size_t)(i & 1) * kMR * JP, 0,
-                       zb + row * JP, 0, 1, slot_bytes, mbar0 + 8 * (i & 1));
-  };
-  if (tid == 0) {
-    tma_bulk::mbar_init(mbar0);
-    tma_bulk::mbar_init(mbar0 + 8);
-    if (total > 0) issue(0);
-  }
-
-  float acc3[4][8][4];
-  float db_acc = 0.0f;
-  float bias_r[4][2];
-  int v0 = 0;
-  for (int i = 0; i < total; ++i) {
-    const int c = i % n_ch;
-    const long long c0 = r_begin + (long long)c * kMR;
-    const int rows = (int)min((long long)kMR, r_end - c0);
-    const bf16* zs = ring + (size_t)(i & 1) * kMR * JP;
-    __syncthreads();  // chunk i-1 is consumed: its slot, wT, dlT and dlf
-    if (tid == 0 && i + 1 < total) issue(i + 1);
-    if (c == 0) {  // a new column tile
-      v0 = (blockIdx.x + (i / n_ch) * gridDim.x) * kVT;
-      for (int idx = tid; idx < Jr * kVT; idx += kThreads) {
-        const int n = idx % kVT;
-        const int j = idx / kVT;
-        wT[n * JP + j] = (j < J && v0 + n < V) ? w[(size_t)j * V + v0 + n]
-                                                : __float2bfloat16_rn(0.0f);
-      }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-#pragma unroll
-        for (int ni = 0; ni < 8; ++ni) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc3[mi][ni][e] = 0.0f;
-        }
-      }
-      db_acc = 0.0f;
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int v = v0 + nh * 32 + ni * 8 + 2 * q + e;
-          bias_r[ni][e] = (v < V) ? bias[v] : 0.0f;
-        }
-      }
-      __syncthreads();
-    }
-    // the thread's two rows: label and sidecars, loaded under the product
-    int lab[2];
-    float bs[2], cbr[2], cyr[2];
-    bool ok[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const long long row = c0 + r_lo + 8 * h;
-      ok[h] = r_lo + 8 * h < rows;
-      lab[h] = ok[h] ? lab_w[row] : -1;
-      bs[h] = ok[h] ? base[row] : 0.0f;
-      cbr[h] = ok[h] ? cb[row] : 0.0f;
-      cyr[h] = ok[h] ? cy[row] : 0.0f;
-    }
-    unsigned int phase = (unsigned int)(i >> 1) & 1u;
-    tma_bulk::mbar_wait(mbar0 + 8 * (i & 1), phase);
-
-    // logits of rows 16 mt .., columns 32 nh .. of the tile
-    float acc[4][4];
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[ni][e] = 0.0f;
-    }
-    for (int k0 = 0; k0 < J; k0 += 16) {
-      uint32_t a[4];
-      frag_a(a, zs, JP, mt * 16, k0, lane);
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        uint32_t bb[2];
-        frag_b(bb, wT, JP, nh * 32 + ni * 8, k0, lane);
-        mma_16816(acc[ni], a, bb);
-      }
-    }
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int h = e >> 1;
-        const int r = r_lo + 8 * h;
-        const int col = nh * 32 + ni * 8 + 2 * q + (e & 1);
-        const int v = v0 + col;
-        float d = 0.0f;
-        if (ok[h] && v < V) {
-          d = dlogit(acc[ni][e] + bias_r[ni][e & 1], v, blank, lab[h], bs[h],
-                     cbr[h], cyr[h]);
-        }
-        dlf[r * kDLFP + col] = d;
-        dlT[col * kDLTP + r] = __float2bfloat16_rn(d);
-      }
-    }
-    __syncthreads();
-    if (tid < kVT) {
-      for (int r = 0; r < rows; ++r) db_acc += dlf[r * kDLFP + tid];
-    }
-    // dW[:, tile] += z^T . round(dlogits), K = the chunk's rows
-    if (j0w < Jr) {
-#pragma unroll
-      for (int k0 = 0; k0 < kMR; k0 += 16) {
-        uint32_t bb[8][2];
-#pragma unroll
-        for (int ni = 0; ni < 8; ++ni) frag_b(bb[ni], dlT, kDLTP, ni * 8, k0, lane);
-#pragma unroll
-        for (int mi = 0; mi < 4; ++mi) {
-          uint32_t a[4];
-          frag_a_trans(a, zs, JP, j0w + mi * 16, k0, lane);
-#pragma unroll
-          for (int ni = 0; ni < 8; ++ni) mma_16816(acc3[mi][ni], a, bb[ni]);
-        }
-      }
-    }
-    if (c == n_ch - 1) {  // the tile's last chunk: its dW and db out
-      float* dwo = dw_out + split * J * V;
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-#pragma unroll
-        for (int ni = 0; ni < 8; ++ni) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int j = j0w + mi * 16 + gq + ((e >= 2) ? 8 : 0);
-            const int v = v0 + ni * 8 + 2 * q + (e & 1);
-            if (j < J && v < V) dwo[(size_t)j * V + v] = acc3[mi][ni][e];
-          }
-        }
-      }
-      if (tid < kVT && v0 + tid < V) db_out[split * V + v0 + tid] = db_acc;
-    }
-  }
+  zb_ring::ring_body(smem_raw, zb, BandRows{lab_w, base, cb, cy}, w, bias,
+                     dw_out, db_out, N, J, V, blank, split_rows);
 }
 
 // out[o, x] = sum_p part[o, p, x], p in order.
@@ -1296,7 +1098,7 @@ extern "C" int band_bwd_b_zb(const void* f, const void* gw, void* zb, int B,
   const long long N = (long long)B * T * S;
   const long long n_rows = (N + kMR - 1) / kMR * kMR;
   const int JP = pitch_j(J);
-  const long long n = n_rows * (JP / kZbVec);
+  const long long n = n_rows * (JP / zb_ring::kZbVec);
   const int blocks = (int)std::min((n + kThreads - 1) / kThreads, 8192LL);
   band_bwd_b_zb_kernel<<<blocks, kThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
@@ -1308,7 +1110,7 @@ extern "C" int band_bwd_b_zb(const void* f, const void* gw, void* zb, int B,
 // The main launch on the plan of ops/rnnt_band_fused.bwd_b_plan: grid
 // (grid_x, n_split), split y owning rows y * split_rows .. (a multiple of
 // 64, every split non-empty), smem_bytes the block's shared memory
-// (ring_b_bytes(J)). With n_split == 1 it writes dw (J, V) and db
+// (zb_ring::ring_bytes(J)). With n_split == 1 it writes dw (J, V) and db
 // (V) itself; otherwise it writes the partials dw_part (n_split, J, V) and
 // db_part (n_split, V), and two more launches sum them in split order.
 // Returns cudaErrorInvalidValue for a plan the kernel cannot run.
@@ -1322,18 +1124,13 @@ extern "C" int band_bwd_b_ring(const void* zb, const void* lab_w,
                                long long smem_bytes, int device,
                                void* stream) {
   const long long N = (long long)B * T * S;
-  const int n_tiles = (V + kVT - 1) / kVT;
-  if (J > kMaxJ || !mma_shapes_ok(J, V) || J < 16 || N < 1 || grid_x < 1 ||
-      grid_x > n_tiles || n_split < 1 || split_rows < kMR ||
-      split_rows % kMR != 0 || split_rows * (n_split - 1) >= N ||
-      split_rows * n_split < N ||
-      smem_bytes != (long long)ring_b_bytes(J)) {
+  if (!zb_ring::plan_ok(N, J, V, grid_x, n_split, split_rows, smem_bytes)) {
     return (int)cudaErrorInvalidValue;
   }
   const cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = ring_b_bytes(J);
+  const size_t smem = zb_ring::ring_bytes(J);
   const cudaError_t e1 = set_smem(band_bwd_b_ring_kernel, smem);
   if (e1 != cudaSuccess) return (int)e1;
   const bool direct = n_split == 1;

@@ -21,41 +21,55 @@
 // f32; labels (B, U) int32; W (J, V) bf16 or f32; bias (V) f32 ->
 // df (B, T, J), dg (B, U+1, J), dW (J, V), db (V), all f32.
 //
-// Design, three launches on the caller's stream:
+// Design, on the caller's stream (an entry point for each step, so that
+// a caller can time them apart):
 //   A  grid (frame tiles, B): df, and the tile's dg partial. dlogits never
 //      leaves the chip.
-//   B  grid (V tiles of kBNB columns, row splits): dW and db partials,
-//      recomputing the logits of its V tile from base; W[:, tile] stays in
-//      shared memory, dW[:, tile] in registers, db summed in order.
+//   B  dW and db, recomputing the logits. With W in bf16, J % 16 == 0 and
+//      V even, two launches on the ring of zb_ring.cuh, which the band
+//      joint's kernel B (band_fused.cu) shares: joint_bwd_b_zb_kernel
+//      writes zb = round(z) of the N = B T (U+1) cells once a call, (N
+//      padded to 64, J + 8) bf16; joint_bwd_b_ring_kernel gives a block 64
+//      V columns (W[:, tile]^T in shared memory, dW[:, tile] f32 in
+//      registers) and walks 64-cell chunks of zb through a two-slot TMA
+//      ring, on the one-wave grid of ops/rnnt_band_fused.bwd_b_plan (16
+//      tiles x 8 row splits at libri100), its row policy reading each
+//      cell's label (-1 at u = U), base and occupancies. With W in f32, or
+//      other shapes: grid (V tiles of kBNB columns, ROW_SPLITS row splits)
+//      on the CUDA cores, z built per chunk of kBMB cells.
 //   C  ordered sums of the partials: dg over frame tiles, dW and db over
-//      row splits. No float atomics anywhere: two runs give identical bits.
-// A and B each come in two forms:
+//      row splits (none for dW and db when the ring's plan has one split).
+//      No float atomics anywhere: two runs give identical bits.
+// A comes in two forms:
 //   * W in bf16 (the training path): on the tensor cores (mma_bf16.cuh).
-//     A takes the cells of its frame tile flattened, kMR at a time: the
+//     It takes the cells of its frame tile flattened, kMR at a time: the
 //     logits kMV columns at a time, round(dlogits) for all of V in shared
 //     memory, then dz = round(dlogits) . W^T in passes of 256 columns with
 //     W's B fragments read straight from L2, dz *= 1 - z^2, and an ordered
-//     per-column walk over the rows into df and dg. B keeps round(z) both
-//     row-major (for the logits) and transposed (for dW). Needs J % 16 ==
-//     0, V even and the tiles in shared memory (227 KB for A at libri100).
-//   * W in f32 (the parity runs), or other shapes: CUDA-core FMAs. A walks
-//     each frame's label positions in row blocks of up to kBM, for each V
-//     chunk of kBN columns staging W[:, chunk], rebuilding z kBK columns
-//     at a time and adding dlogits . W^T into a (kBM, J) dz tile in shared
-//     memory; B builds z per chunk of kBMB cells.
+//     per-column walk over the rows into df and dg. Needs J % 16 == 0, V
+//     even and its tiles in shared memory (227 KB at libri100).
+//   * W in f32 (the parity runs), or other shapes: CUDA-core FMAs, each
+//     frame's label positions in row blocks of up to kBM, for each V chunk
+//     of kBN columns staging W[:, chunk], rebuilding z kBK columns at a
+//     time and adding dlogits . W^T into a (kBM, J) dz tile in shared
+//     memory.
 //
-// Partial memory (the wrapper allocates it): B * ceil(T / frames_per_tile)
-// * (U+1) * J floats for dg and row_splits * (J * V + V) floats for dW and
-// db: 67 MB and 33.6 MB at libri100 (B=32, T'=200, U+1=41, J=512, V=1024,
-// 8 frames per tile, 16 splits).
+// Scratch memory (the wrapper allocates it): B * ceil(T / frames_per_tile)
+// * (U+1) * J floats for dg's partials, splits * (J * V + V) floats for
+// dW's and db's, and zb: 67 MB, 16.8 MB (8 splits) and 273 MB at libri100
+// (B=32, T'=200, U+1=41, J=512, V=1024, 8 frames per tile).
 //
 // What bounds it on the H100: four products of 2 * cells * J * V flops
 // (A and B each recompute the logits; 1.1 TFLOP at libri100, 1.1 ms at the
-// bf16 dense peak), but the mma.sync kernels sit far from that: they
-// rebuild z = tanh(f + g) per V tile (B) and per row chunk (A), stage W
-// through shared memory with single buffering, and run one block per SM.
-// The next steps are wgmma with TMA rings and z built once per cell
-// (ROADMAP K2).
+// bf16 dense peak, 0.56 ms each for A and B). Measured at libri100 in bf16
+// on an NVIDIA H100 80GB HBM3, 700.00 W (bench_band_bwd_b.py, by
+// torch.profiler's kernel times): A 17.3 ms, 31x its share, far from it:
+// it rebuilds z per chunk and stages W through shared memory with single
+// buffering, one block an SM (ROADMAP queue 2 pairs it with K6-A); B's
+// zb pass 0.17 ms (273 MB written) and its ring kernel 2.79 ms (20.9 with
+// z rebuilt per 32-column tile), 5.0x its share: a block walks 513
+// chunks at 5.4 us, each chunk's logits, epilogue and dW product one
+// after another between block barriers, as in K6-B.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -64,7 +78,7 @@
 #include <cstddef>
 #include <type_traits>
 
-#include "mma_bf16.cuh"
+#include "zb_ring.cuh"
 
 namespace {
 
@@ -467,15 +481,13 @@ joint_bwd_b_kernel(const float* __restrict__ f, const float* __restrict__ g,
 // With W in bf16 the three products run on the tensor cores
 // (mma_bf16.cuh: mma.sync m16n8k16, fp32 accumulate), which is the JAX
 // semantics exactly: z, dlogits and W rounded to bf16, products summed in
-// fp32. They need J % 16 == 0 and V even, and their tiles in shared memory
-// (mma_a_fits); other shapes, and f32, take the kernels above.
+// fp32. They need J % 16 == 0 and V even, and A its tiles in shared
+// memory (mma_a_layout); other shapes, and f32, take the kernels above.
 
 using bf16 = __nv_bfloat16;
 using joint_mma::frag_a;
-using joint_mma::frag_b;
 using joint_mma::mma_16816;
 
-using joint_mma::kMK;
 using joint_mma::kMR;
 using joint_mma::kMV;
 using joint_mma::kWTP;
@@ -695,198 +707,77 @@ joint_bwd_a_mma_kernel(const float* __restrict__ f,
   }
 }
 
-// Kernel B on the tensor cores: W[:, tile]^T stays in shared memory; per
-// chunk of kMR cells, logits (kMR, 32) = round(z) . W[:, tile] and
-// dW[:, tile] (J, 32) += round(z)^T . round(dlogits), with z kept both
-// row-major and transposed. Warp w owns rows 64 w .. 64 w + 63 of dW.
-constexpr int kZTP = kMR + 8;  // pitch of z^T and dlogits^T (36 words)
+// Kernel B on the tensor cores, two launches on the ring of zb_ring.cuh
+// (shared with the band joint's kernel B, band_fused.cu):
+// joint_bwd_b_zb_kernel writes zb = round(z) once a call, row r = (b T +
+// t) (U+1) + u from f[b, t] and g[b, u]; joint_bwd_b_ring_kernel runs the
+// ring with the cells' row policy.
 
-size_t mma_b_bytes(int J) {
-  return (size_t)kBNB * pitch_j(J) * 2      // wT  [32][JP]
-         + (size_t)kMR * pitch_j(J) * 2     // zA  [kMR][JP]
-         + (size_t)round_up(J, 64) * kZTP * 2  // zT [J][kZTP]
-         + (size_t)kBNB * kZTP * 2          // dlT [32][kZTP]
-         + (size_t)kMR * kBNB * 4           // dlf [kMR][32]
-         + (size_t)7 * kMR * 4;             // sidecars
-}
+// Cell r = (b T + t) U1 + u: f row b T + t = r / U1, g row b U1 + u.
+struct JointMap {
+  long long TU;  // T * U1
+  int U1;
+  __device__ long long f_row(long long r) const { return r / U1; }
+  __device__ long long g_row(long long r) const {
+    return (r / TU) * U1 + r % U1;
+  }
+};
+
+// The cells' sidecars: the label (-1 at u = U), base, and the occupancies
+// scaled by s = gbar[b] as kernel A scales them; dlogits as `dlogit` above.
+struct JointRows {
+  const int* __restrict__ labels;
+  const float* __restrict__ gb;
+  const float* __restrict__ gy;
+  const float* __restrict__ base;
+  const float* __restrict__ gbar;
+  long long TU;  // T * U1
+  int U1;
+  __device__ void load(long long row, float (&s)[zb_ring::kSideWords]) const {
+    const long long b = row / TU;
+    const int u = (int)(row % U1);
+    const float sc = gbar[b];
+    const float gbv = gb[row];
+    const float gyv = gy[row];
+    s[0] = __int_as_float(u < U1 - 1 ? labels[b * (U1 - 1) + u] : -1);
+    s[1] = base[row];
+    s[2] = (gbv + gyv) * sc;
+    s[3] = gbv * sc;
+    s[4] = gyv * sc;
+  }
+  __device__ float dlogit(const float (&s)[zb_ring::kSideWords], float x,
+                          int v, int blank) const {
+    return ::dlogit(x, v, blank, __float_as_int(s[0]), s[1], s[2], s[3],
+                    s[4]);
+  }
+};
 
 __global__ void __launch_bounds__(kThreads)
-joint_bwd_b_mma_kernel(const float* __restrict__ f,
-                       const float* __restrict__ g,
-                       const int* __restrict__ labels,
-                       const bf16* __restrict__ w,
-                       const float* __restrict__ bias,
-                       const float* __restrict__ gb,
-                       const float* __restrict__ gy,
-                       const float* __restrict__ base,
-                       const float* __restrict__ gbar,
-                       float* __restrict__ dw_part,
-                       float* __restrict__ db_part, int B, int T, int U1,
-                       int J, int V, int blank, int n_split) {
+joint_bwd_b_zb_kernel(const float* __restrict__ f, const float* __restrict__ g,
+                      bf16* __restrict__ zb, long long N, long long n_rows,
+                      int T, int U1, int J, int JP) {
+  zb_ring::build_zb(f, g, zb, N, n_rows, J, JP,
+                    JointMap{(long long)T * U1, U1});
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+joint_bwd_b_ring_kernel(const bf16* __restrict__ zb,
+                        const int* __restrict__ labels,
+                        const bf16* __restrict__ w,
+                        const float* __restrict__ bias,
+                        const float* __restrict__ gb,
+                        const float* __restrict__ gy,
+                        const float* __restrict__ base,
+                        const float* __restrict__ gbar,
+                        float* __restrict__ dw_out,
+                        float* __restrict__ db_out, long long N, int T,
+                        int U1, int J, int V, int blank,
+                        long long split_rows) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int JP = pitch_j(J);
-  const int Jr = round_up(J, 64);
-  bf16* wT = reinterpret_cast<bf16*>(smem_raw);
-  bf16* zA = wT + (size_t)kBNB * JP;
-  bf16* zT = zA + (size_t)kMR * JP;
-  bf16* dlT = zT + (size_t)Jr * kZTP;
-  float* dlf = reinterpret_cast<float*>(dlT + kBNB * kZTP);
-  float* occ_s = dlf + kMR * kBNB;
-  float* gb_s = occ_s + kMR;
-  float* gy_s = gb_s + kMR;
-  float* base_s = gy_s + kMR;
-  int* lab_s = reinterpret_cast<int*>(base_s + kMR);
-  int* fo_s = lab_s + kMR;
-  int* go_s = fo_s + kMR;
-
-  const int v0 = blockIdx.x * kBNB;
-  const int split = blockIdx.y;
-  const int TU = T * U1;
-  const int U = U1 - 1;
-  const long long R = (long long)B * TU;
-  const long long per = (R + n_split - 1) / n_split;
-  const long long r_begin = split * per;
-  const long long r_end = min(R, r_begin + per);
-  const int tid = threadIdx.x;
-  const int lane = tid % 32;
-  const int warp = tid / 32;
-  const int gq = lane >> 2;
-  const int q = lane & 3;
-
-  for (int idx = tid; idx < Jr * kBNB; idx += kThreads) {
-    const int n = idx % kBNB;
-    const int j = idx / kBNB;
-    wT[n * JP + j] = (j < J && v0 + n < V) ? w[(size_t)j * V + v0 + n]
-                                            : __float2bfloat16_rn(0.0f);
-  }
-  float acc3[4][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi) {
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc3[mi][ni][e] = 0.0f;
-    }
-  }
-  float db_acc = 0.0f;
-
-  for (long long c0 = r_begin; c0 < r_end; c0 += kMR) {
-    const int rows = (int)min((long long)kMR, r_end - c0);
-    __syncthreads();  // the previous chunk is consumed
-    for (int r = tid; r < kMR; r += kThreads) {
-      if (r < rows) {
-        const long long cell = c0 + r;
-        const int bb = (int)(cell / TU);
-        const int rem = (int)(cell - (long long)bb * TU);
-        const int t = rem / U1;
-        const int u = rem - t * U1;
-        const float s = gbar[bb];
-        const float gbv = gb[cell];
-        const float gyv = gy[cell];
-        occ_s[r] = (gbv + gyv) * s;
-        gb_s[r] = gbv * s;
-        gy_s[r] = gyv * s;
-        base_s[r] = base[cell];
-        lab_s[r] = (u < U) ? labels[(size_t)bb * U + u] : -1;
-        fo_s[r] = bb * T + t;
-        go_s[r] = bb * U1 + u;
-      } else {
-        occ_s[r] = gb_s[r] = gy_s[r] = base_s[r] = 0.0f;
-        lab_s[r] = -1;
-        fo_s[r] = go_s[r] = -1;
-      }
-    }
-    __syncthreads();
-    for (int r = warp; r < kMR; r += kThreads / 32) {
-      const int fo = fo_s[r];
-      const int go = go_s[r];
-      for (int j = lane; j < Jr; j += 32) {
-        float z = 0.0f;
-        if (fo >= 0 && j < J) {
-          z = tanhf(f[(size_t)fo * J + j] + g[(size_t)go * J + j]);
-        }
-        const bf16 zb = __float2bfloat16_rn(z);
-        zA[(size_t)r * JP + j] = zb;
-        zT[(size_t)j * kZTP + r] = zb;
-      }
-    }
-    __syncthreads();
-    // logits (kMR, 32): 4 m-tiles x 4 n-tiles, two per warp
-    {
-      const int mt = warp / 2;
-      const int n0 = (warp % 2) * 2;
-      float acc[2][4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][e] = 0.0f;
-      }
-      for (int k0 = 0; k0 < J; k0 += 16) {
-        uint32_t a[4];
-        frag_a(a, zA, JP, mt * 16, k0, lane);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          uint32_t bb[2];
-          frag_b(bb, wT, JP, (n0 + i) * 8, k0, lane);
-          mma_16816(acc[i], a, bb);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = mt * 16 + gq + ((e >= 2) ? 8 : 0);
-          const int col = (n0 + i) * 8 + 2 * q + (e & 1);
-          const int v = v0 + col;
-          float d = 0.0f;
-          if (r < rows && v < V) {
-            d = dlogit(acc[i][e] + bias[v], v, blank, lab_s[r], base_s[r],
-                       occ_s[r], gb_s[r], gy_s[r]);
-          }
-          dlf[r * kBNB + col] = d;
-          dlT[col * kZTP + r] = __float2bfloat16_rn(d);
-        }
-      }
-    }
-    __syncthreads();
-    if (tid < kBNB) {
-      for (int r = 0; r < rows; ++r) db_acc += dlf[r * kBNB + tid];
-    }
-    // dW[:, tile] += round(z)^T . round(dlogits), K = the chunk's rows
-#pragma unroll
-    for (int k0 = 0; k0 < kMR; k0 += 16) {
-      uint32_t bb[4][2];
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) frag_b(bb[ni], dlT, kZTP, ni * 8, k0,
-                                            lane);
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        const int j0 = warp * 64 + mi * 16;
-        if (j0 >= Jr) break;
-        uint32_t a[4];
-        frag_a(a, zT, kZTP, j0, k0, lane);
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma_16816(acc3[mi][ni], a, bb[ni]);
-      }
-    }
-  }
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi) {
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int j = warp * 64 + mi * 16 + gq + ((e >= 2) ? 8 : 0);
-        const int v = v0 + ni * 8 + 2 * q + (e & 1);
-        if (j < J && v < V) {
-          dw_part[((size_t)split * J + j) * V + v] = acc3[mi][ni][e];
-        }
-      }
-    }
-  }
-  if (tid < kBNB && v0 + tid < V) {
-    db_part[(size_t)split * V + v0 + tid] = db_acc;
-  }
+  zb_ring::ring_body(smem_raw, zb,
+                     JointRows{labels, gb, gy, base, gbar, (long long)T * U1,
+                               U1},
+                     w, bias, dw_out, db_out, N, J, V, blank, split_rows);
 }
 
 // out[o, x] = sum_p part[o, p, x], p in order.
@@ -913,120 +804,206 @@ int reduce_parts(const float* part, float* out, int n_outer, int n_parts,
   return (int)cudaGetLastError();
 }
 
+template <typename K>
+cudaError_t set_smem(K kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
+
+// Kernel A: the tensor-core form where W is bf16, the shape takes it and
+// its tiles fit; the CUDA-core form otherwise.
 template <typename W>
-int run_bwd(const void* f, const void* g, const void* labels, const void* w,
-            const void* bias, const void* gb, const void* gy, const void* base,
-            const void* gbar, void* df, void* dg, void* dw, void* db,
-            void* dg_part, void* dw_part, void* db_part, int B, int T, int U1,
-            int J, int V, int blank, int frames_per_tile, int n_split,
-            cudaStream_t stream) {
-  if (J > kMaxJ) return (int)cudaErrorInvalidValue;
+int run_a(const float* f, const float* g, const int* labels, const W* w,
+          const float* bias, const float* gb, const float* gy,
+          const float* base, const float* gbar, float* df, float* dg_part,
+          int B, int T, int U1, int J, int V, int blank, int frames_per_tile,
+          cudaStream_t stream) {
   const int n_tiles = (T + frames_per_tile - 1) / frames_per_tile;
+  const dim3 grid(n_tiles, B);
+  if constexpr (std::is_same_v<W, bf16>) {
+    const size_t sa = mma_a_layout(J, V, frames_per_tile).total;
+    if (mma_shapes_ok(J, V) && sa <= kMaxSmem) {
+      const cudaError_t e = set_smem(joint_bwd_a_mma_kernel, sa);
+      if (e != cudaSuccess) return (int)e;
+      joint_bwd_a_mma_kernel<<<grid, kThreads, sa, stream>>>(
+          f, g, labels, w, bias, gb, gy, base, gbar, df, dg_part, T, U1, J,
+          V, blank, frames_per_tile, n_tiles);
+      return (int)cudaGetLastError();
+    }
+  }
+  const size_t sa = smem_a<W>(J);
+  const cudaError_t e = set_smem(joint_bwd_a_kernel<W>, sa);
+  if (e != cudaSuccess) return (int)e;
+  joint_bwd_a_kernel<W><<<grid, kThreads, sa, stream>>>(
+      f, g, labels, w, bias, gb, gy, base, gbar, df, dg_part, T, U1, J, V,
+      blank, frames_per_tile, n_tiles);
+  return (int)cudaGetLastError();
+}
+
+template <typename W>
+int run_b(const float* f, const float* g, const int* labels, const W* w,
+          const float* bias, const float* gb, const float* gy,
+          const float* base, const float* gbar, float* dw_part,
+          float* db_part, int B, int T, int U1, int J, int V, int blank,
+          int n_split, cudaStream_t stream) {
+  const size_t sb = smem_b<W>(J);
+  const cudaError_t e = set_smem(joint_bwd_b_kernel<W>, sb);
+  if (e != cudaSuccess) return (int)e;
+  joint_bwd_b_kernel<W><<<dim3((V + kBNB - 1) / kBNB, n_split), kThreads, sb,
+                          stream>>>(f, g, labels, w, bias, gb, gy, base, gbar,
+                                    dw_part, db_part, B, T, U1, J, V, blank,
+                                    n_split);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// The entry points launch on `stream` and return 0, or the first
+// cudaError_t a launch reported. J <= 512. A call of the backward is
+// kernel A, then kernel B (the ring's two launches for bf16 W where
+// ops/rnnt_band_fused.bwd_b_plan places it, else the CUDA-core form),
+// then the ordered sums; the partial buffers are scratch of the sizes
+// given in the header.
+
+// Kernel A: df (B, T, J) and dg_part (B, n_tiles, U1, J), n_tiles =
+// ceil(T / frames_per_tile).
+extern "C" int joint_bwd_a(const void* f, const void* g, const void* labels,
+                           const void* w, int w_is_bf16, const void* bias,
+                           const void* gb, const void* gy, const void* base,
+                           const void* gbar, void* df, void* dg_part, int B,
+                           int T, int U1, int J, int V, int blank,
+                           int frames_per_tile, int device, void* stream) {
+  if (J > kMaxJ || frames_per_tile < 1) return (int)cudaErrorInvalidValue;
+  const cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
   const float* f_ = static_cast<const float*>(f);
   const float* g_ = static_cast<const float*>(g);
   const int* lab_ = static_cast<const int*>(labels);
-  const W* w_ = static_cast<const W*>(w);
   const float* bias_ = static_cast<const float*>(bias);
   const float* gb_ = static_cast<const float*>(gb);
   const float* gy_ = static_cast<const float*>(gy);
   const float* base_ = static_cast<const float*>(base);
   const float* gbar_ = static_cast<const float*>(gbar);
-  const dim3 grid_a(n_tiles, B);
-  const dim3 grid_b((V + kBNB - 1) / kBNB, n_split);
-  bool a_done = false, b_done = false;
-  if constexpr (std::is_same_v<W, bf16>) {
-    if (mma_shapes_ok(J, V)) {
-      const size_t sa = mma_a_layout(J, V, frames_per_tile).total;
-      if (sa <= kMaxSmem) {
-        cudaError_t e = cudaFuncSetAttribute(
-            joint_bwd_a_mma_kernel,
-            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sa);
-        if (e != cudaSuccess) return (int)e;
-        joint_bwd_a_mma_kernel<<<grid_a, kThreads, sa, stream>>>(
-            f_, g_, lab_, w_, bias_, gb_, gy_, base_, gbar_,
-            static_cast<float*>(df), static_cast<float*>(dg_part), T, U1, J,
-            V, blank, frames_per_tile, n_tiles);
-        e = cudaGetLastError();
-        if (e != cudaSuccess) return (int)e;
-        a_done = true;
-      }
-      const size_t sb = mma_b_bytes(J);
-      if (sb <= kMaxSmem) {
-        cudaError_t e = cudaFuncSetAttribute(
-            joint_bwd_b_mma_kernel,
-            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sb);
-        if (e != cudaSuccess) return (int)e;
-        joint_bwd_b_mma_kernel<<<grid_b, kThreads, sb, stream>>>(
-            f_, g_, lab_, w_, bias_, gb_, gy_, base_, gbar_,
-            static_cast<float*>(dw_part), static_cast<float*>(db_part), B, T,
-            U1, J, V, blank, n_split);
-        e = cudaGetLastError();
-        if (e != cudaSuccess) return (int)e;
-        b_done = true;
-      }
-    }
+  float* df_ = static_cast<float*>(df);
+  float* dgp = static_cast<float*>(dg_part);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (w_is_bf16) {
+    return run_a<bf16>(f_, g_, lab_, static_cast<const bf16*>(w), bias_, gb_,
+                       gy_, base_, gbar_, df_, dgp, B, T, U1, J, V, blank,
+                       frames_per_tile, s);
   }
-  if (!a_done) {
-    const size_t sa = smem_a<W>(J);
-    cudaError_t e = cudaFuncSetAttribute(
-        joint_bwd_a_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)sa);
-    if (e != cudaSuccess) return (int)e;
-    joint_bwd_a_kernel<W><<<grid_a, kThreads, sa, stream>>>(
-        f_, g_, lab_, w_, bias_, gb_, gy_, base_, gbar_,
-        static_cast<float*>(df), static_cast<float*>(dg_part), T, U1, J, V,
-        blank, frames_per_tile, n_tiles);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-  }
-  if (!b_done) {
-    const size_t sb = smem_b<W>(J);
-    cudaError_t e = cudaFuncSetAttribute(
-        joint_bwd_b_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)sb);
-    if (e != cudaSuccess) return (int)e;
-    joint_bwd_b_kernel<W><<<grid_b, kThreads, sb, stream>>>(
-        f_, g_, lab_, w_, bias_, gb_, gy_, base_, gbar_,
-        static_cast<float*>(dw_part), static_cast<float*>(db_part), B, T, U1,
-        J, V, blank, n_split);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-  }
-  int err = reduce_parts(static_cast<const float*>(dg_part),
-                         static_cast<float*>(dg), B, n_tiles,
-                         (long long)U1 * J, stream);
-  if (err) return err;
-  err = reduce_parts(static_cast<const float*>(dw_part),
-                     static_cast<float*>(dw), 1, n_split, (long long)J * V,
-                     stream);
-  if (err) return err;
-  return reduce_parts(static_cast<const float*>(db_part),
-                      static_cast<float*>(db), 1, n_split, V, stream);
+  return run_a<float>(f_, g_, lab_, static_cast<const float*>(w), bias_, gb_,
+                      gy_, base_, gbar_, df_, dgp, B, T, U1, J, V, blank,
+                      frames_per_tile, s);
 }
 
-}  // namespace
+// Kernel B's CUDA-core form (f32 W, or bf16 W of a shape the ring does not
+// take): grid (V / 32 column tiles, n_split row splits) into dw_part
+// (n_split, J, V) and db_part (n_split, V).
+extern "C" int joint_bwd_b(const void* f, const void* g, const void* labels,
+                           const void* w, int w_is_bf16, const void* bias,
+                           const void* gb, const void* gy, const void* base,
+                           const void* gbar, void* dw_part, void* db_part,
+                           int B, int T, int U1, int J, int V, int blank,
+                           int n_split, int device, void* stream) {
+  if (J > kMaxJ || n_split < 1) return (int)cudaErrorInvalidValue;
+  const cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  const float* f_ = static_cast<const float*>(f);
+  const float* g_ = static_cast<const float*>(g);
+  const int* lab_ = static_cast<const int*>(labels);
+  const float* bias_ = static_cast<const float*>(bias);
+  const float* gb_ = static_cast<const float*>(gb);
+  const float* gy_ = static_cast<const float*>(gy);
+  const float* base_ = static_cast<const float*>(base);
+  const float* gbar_ = static_cast<const float*>(gbar);
+  float* dwp = static_cast<float*>(dw_part);
+  float* dbp = static_cast<float*>(db_part);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (w_is_bf16) {
+    return run_b<bf16>(f_, g_, lab_, static_cast<const bf16*>(w), bias_, gb_,
+                       gy_, base_, gbar_, dwp, dbp, B, T, U1, J, V, blank,
+                       n_split, s);
+  }
+  return run_b<float>(f_, g_, lab_, static_cast<const float*>(w), bias_, gb_,
+                      gy_, base_, gbar_, dwp, dbp, B, T, U1, J, V, blank,
+                      n_split, s);
+}
 
-// Five launches on `stream` (A, B, three ordered sums). Returns 0, or the
-// first cudaError_t a launch reported. The partial buffers are scratch of
-// the sizes given in the header.
-extern "C" int joint_bwd(const void* f, const void* g, const void* labels,
-                         const void* w, int w_is_bf16, const void* bias,
-                         const void* gb, const void* gy, const void* base,
-                         const void* gbar, void* df, void* dg, void* dw,
-                         void* db, void* dg_part, void* dw_part,
-                         void* db_part, int B, int T, int U1, int J, int V,
-                         int blank, int frames_per_tile, int n_split,
-                         int device, void* stream) {
+// Kernel B on the ring, first launch: zb (ceil(N / 64) * 64, pitch_j(J))
+// bf16 = round(z) of the N = B T U1 cells, zero past N rows and J columns.
+extern "C" int joint_bwd_b_zb(const void* f, const void* g, void* zb, int B,
+                              int T, int U1, int J, int device,
+                              void* stream) {
+  if (J > kMaxJ || J % 16 != 0 || J < 16) return (int)cudaErrorInvalidValue;
+  const cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  const long long N = (long long)B * T * U1;
+  const long long n_rows = (N + kMR - 1) / kMR * kMR;
+  const int JP = pitch_j(J);
+  const long long n = n_rows * (JP / zb_ring::kZbVec);
+  const int blocks = (int)std::min((n + kThreads - 1) / kThreads, 8192LL);
+  joint_bwd_b_zb_kernel<<<blocks, kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(f), static_cast<const float*>(g),
+      static_cast<bf16*>(zb), N, n_rows, T, U1, J, JP);
+  return (int)cudaGetLastError();
+}
+
+// Kernel B on the ring, the main launch on the plan of
+// ops/rnnt_band_fused.bwd_b_plan: grid (grid_x, n_split), split y owning
+// cells y * split_rows .. (a multiple of 64, every split non-empty),
+// smem_bytes the block's shared memory (zb_ring::ring_bytes(J)). Writes
+// dw_out (n_split, J, V) and db_out (n_split, V): dW and db themselves
+// when n_split == 1, else the partials that joint_bwd_sums adds up.
+// Returns cudaErrorInvalidValue for a plan the kernel cannot run.
+extern "C" int joint_bwd_b_ring(const void* zb, const void* labels,
+                                const void* w, const void* bias,
+                                const void* gb, const void* gy,
+                                const void* base, const void* gbar,
+                                void* dw_out, void* db_out, int B, int T,
+                                int U1, int J, int V, int blank, int grid_x,
+                                int n_split, long long split_rows,
+                                long long smem_bytes, int device,
+                                void* stream) {
+  const long long N = (long long)B * T * U1;
+  if (!zb_ring::plan_ok(N, J, V, grid_x, n_split, split_rows, smem_bytes)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  const size_t smem = zb_ring::ring_bytes(J);
+  const cudaError_t e1 = set_smem(joint_bwd_b_ring_kernel, smem);
+  if (e1 != cudaSuccess) return (int)e1;
+  joint_bwd_b_ring_kernel<<<dim3(grid_x, n_split), kThreads, smem,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(zb), static_cast<const int*>(labels),
+      static_cast<const bf16*>(w), static_cast<const float*>(bias),
+      static_cast<const float*>(gb), static_cast<const float*>(gy),
+      static_cast<const float*>(base), static_cast<const float*>(gbar),
+      static_cast<float*>(dw_out), static_cast<float*>(db_out), N, T, U1, J,
+      V, blank, split_rows);
+  return (int)cudaGetLastError();
+}
+
+// The ordered sums: dg (B, U1, J) over kernel A's n_tiles frame tiles; dw
+// (J, V) and db (V) over kernel B's n_split splits, or nothing for them
+// when n_split == 0 (the ring wrote them itself).
+extern "C" int joint_bwd_sums(const void* dg_part, void* dg,
+                              const void* dw_part, void* dw,
+                              const void* db_part, void* db, int B,
+                              int n_tiles, int U1, int J, int V, int n_split,
+                              int device, void* stream) {
   const cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (w_is_bf16) {
-    return run_bwd<__nv_bfloat16>(f, g, labels, w, bias, gb, gy, base, gbar,
-                                  df, dg, dw, db, dg_part, dw_part, db_part,
-                                  B, T, U1, J, V, blank, frames_per_tile,
-                                  n_split, s);
-  }
-  return run_bwd<float>(f, g, labels, w, bias, gb, gy, base, gbar, df, dg, dw,
-                        db, dg_part, dw_part, db_part, B, T, U1, J, V, blank,
-                        frames_per_tile, n_split, s);
+  int err = reduce_parts(static_cast<const float*>(dg_part),
+                         static_cast<float*>(dg), B, n_tiles,
+                         (long long)U1 * J, s);
+  if (err || n_split == 0) return err;
+  err = reduce_parts(static_cast<const float*>(dw_part),
+                     static_cast<float*>(dw), 1, n_split, (long long)J * V, s);
+  if (err) return err;
+  return reduce_parts(static_cast<const float*>(db_part),
+                      static_cast<float*>(db), 1, n_split, V, s);
 }

@@ -1,7 +1,7 @@
 // The TMA's bulk copies from global to shared memory, completing on an
 // mbarrier (sm_90), shared by the kernels that stage rows this way: the
-// LSTM backward (lstm_bwd.cu) and the band joint's kernel B
-// (band_fused.cu).
+// LSTM backward (lstm_bwd.cu) and the joints' kernel B (zb_ring.cuh, for
+// band_fused.cu and joint_bwd.cu).
 //
 // A copy is issued by one thread after `mbar_init`; every thread that
 // reads the copied rows waits with `mbar_wait` on the barrier's phase.

@@ -42,7 +42,6 @@ import torch
 
 from rnn_transducer_tpu_torch.ops import lstm_cuda
 from rnn_transducer_tpu_torch.ops.lstm import _dot
-from rnn_transducer_tpu_torch.ops.rnnt_joint_fused import _check_sidecars
 from rnn_transducer_tpu_torch.utils import build
 
 LAUNCHES_FWD = 0    # band_lp_fwd calls that launched band_fwd
@@ -60,12 +59,15 @@ V_TILE_B = 32
 TARGET_BLOCKS_B = 528
 MAX_SPLITS_B = 16
 # Its tensor-core form (bf16 W, csrc/band_fused.cu band_bwd_b_zb and
-# band_bwd_b_ring): a block owns BWD_B_V_TILE columns, walks the rows in
-# chunks of BWD_B_CHUNK through a two-slot ring of round(z), and keeps
-# W[:, tile]^T, dlogits^T (pitch chunk + 8 bf16) and the f32 dlogits
-# (pitch tile + 4) in shared memory, with the ring's two mbarriers.
+# band_bwd_b_ring, on the ring of csrc/zb_ring.cuh that the fused joint's
+# kernel B, csrc/joint_bwd.cu, shares): a block owns BWD_B_V_TILE columns,
+# walks the rows in chunks of BWD_B_CHUNK through a two-slot ring of
+# round(z), and keeps W[:, tile]^T, dlogits^T (pitch chunk + 8 bf16), the
+# f32 dlogits (pitch tile + 4) and two chunks' row sidecars (BWD_B_SIDE
+# words a row) in shared memory, with the ring's two mbarriers.
 BWD_B_V_TILE = 64
 BWD_B_CHUNK = 64
+BWD_B_SIDE = 5
 
 _W_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -94,23 +96,26 @@ def zb_pitch(J: int) -> int:
 
 
 def ring_b_bytes(J: int) -> int:
-    """Shared bytes of a band_bwd_b_ring block, as the kernel lays them
-    out: ring, W tile, dlogits^T, f32 dlogits, two mbarriers."""
+    """Shared bytes of a ring block (band_bwd_b_ring, joint_bwd_b_ring), as
+    the kernel lays them out: ring, W tile, dlogits^T, f32 dlogits, the
+    sidecars, two mbarriers."""
     jp = zb_pitch(J)
     return (2 * BWD_B_CHUNK * jp * 2 + BWD_B_V_TILE * jp * 2
             + BWD_B_V_TILE * (BWD_B_CHUNK + 8) * 2
-            + BWD_B_CHUNK * (BWD_B_V_TILE + 4) * 4 + 16)
+            + BWD_B_CHUNK * (BWD_B_V_TILE + 4) * 4
+            + 2 * BWD_B_SIDE * BWD_B_CHUNK * 4 + 16)
 
 
 @dataclasses.dataclass(frozen=True)
 class BwdBPlan:
-    """The tiles of one band_bwd_b_ring launch. Block (x, y) owns the
+    """The tiles of one ring launch (band_bwd_b_ring over the band's rows,
+    joint_bwd_b_ring over the fused joint's cells). Block (x, y) owns the
     column tiles x, x + grid[0], .. of v_tile columns and split y's rows
     (`owned`); every block walks its rows in the same chunks in the same
     order, so the chunks that the resident blocks read at one time sit in
     L2."""
 
-    rows: int         # N = B * T * S
+    rows: int         # N = B * T * S (band), B * T * (U+1) (fused joint)
     J: int
     V: int
     v_tile: int
@@ -135,22 +140,23 @@ class BwdBPlan:
 
 def bwd_b_plan(J: int, V: int, n_sm: int, smem_per_block: int,
                rows: int) -> BwdBPlan:
-    """Place the tensor-core kernel B for bf16 W of (J, V) and `rows` band
-    rows on a card of `n_sm` SMs with `smem_per_block` bytes of shared
-    memory a block.
+    """Place the ring's kernel B for bf16 W of (J, V) and `rows` rows (the
+    band's rows, or the fused joint's cells) on a card of `n_sm` SMs with
+    `smem_per_block` bytes of shared memory a block.
 
-    The grid is one wave, one block per SM (a block takes 226,320 bytes
+    The grid is one wave, one block per SM (a block takes 228,880 bytes
     of shared memory at J = 512): min(column tiles, n_sm) blocks across,
     and as many row splits as the SMs left over allow (at most
     MAX_SPLITS_B, at most one a chunk), so that V = 8192 takes 128 tiles
     and 1 split and V = 1024 16 tiles and 8 splits. More tiles than SMs
     are walked in turn by each block. Raises ValueError for a shape the
     kernel does not take (J > MAX_J, J % 16 != 0, V odd, no rows) or
-    shared memory that does not hold its block; the wrapper sends f32 W
-    and those shapes to the CUDA-core form before it asks for a plan.
+    shared memory that does not hold its block; the wrappers send f32 W
+    and those shapes to the CUDA-core forms before they ask for a plan.
     """
-    where = (f"band_bwd_b cannot place J={J}, V={V}, rows={rows} on {n_sm} "
-             f"SMs with {smem_per_block} bytes of shared memory a block")
+    where = (f"kernel B's ring cannot place J={J}, V={V}, rows={rows} on "
+             f"{n_sm} SMs with {smem_per_block} bytes of shared memory a "
+             "block")
     if not (16 <= J <= MAX_J) or not mma_shapes_ok(J, V) or V < 2:
         raise ValueError(f"{where}: the tensor-core form needs 16 <= J <= "
                          f"{MAX_J}, J % 16 == 0 and V even")
@@ -176,6 +182,18 @@ def device_bwd_b_plan(rows: int, J: int, V: int, device) -> BwdBPlan:
              else torch.cuda.current_device())
     n_sm, smem, _ = lstm_cuda.card_limits(index)
     return bwd_b_plan(J, V, n_sm, smem, rows)
+
+
+def _check_sidecars(shape, device, **named):
+    for name, a in named.items():
+        if tuple(a.shape) != shape:
+            raise ValueError(f"{name} must be {shape}; got {tuple(a.shape)}")
+        if a.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32; got {a.dtype}")
+        if a.device != device:
+            raise ValueError(f"{name} is on {a.device}, not {device}")
+        if not a.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
 
 
 def _check(f, g_w, lab_w, w, b):

@@ -13,7 +13,11 @@ on chip and reduces it at once:
     arrays the lattice needs: lp_blank, lp_y and base, the log-sum-exp
     that the backward reuses;
   * `joint_lp_bwd` (K2, `csrc/joint_bwd.cu`) from the occupancies to
-    df, dg, dW and db.
+    df, dg, dW and db: kernel A (df and dg), kernel B (dW and db: with
+    bf16 W, round(z) once into a scratch and the ring of
+    `csrc/zb_ring.cuh` on the tiles of `rnnt_band_fused.bwd_b_plan`,
+    which K6's kernel B shares; with f32 W or other shapes, a CUDA-core
+    form), then the ordered sums.
 
 round() is the cast to the compute dtype of W (bf16 or f32) and the
 products accumulate in fp32, the JAX package's `preferred_element_type`
@@ -36,6 +40,10 @@ import threading
 import torch
 
 from rnn_transducer_tpu_torch.ops.lstm import _dot
+from rnn_transducer_tpu_torch.ops.rnnt_band_fused import (_check_sidecars,
+                                                          _record,
+                                                          device_bwd_b_plan,
+                                                          mma_shapes_ok)
 from rnn_transducer_tpu_torch.ops.rnnt_loss import (
     NEG_INF,
     forward_from_lp_with_alpha,
@@ -49,10 +57,12 @@ _launches_lock = threading.Lock()
 
 # Cross-block partial sums of the backward (summed by a second, ordered
 # pass, so two runs give identical bits): dg over frame tiles of
-# FRAMES_PER_TILE frames, dW and db over ROW_SPLITS slices of the cells.
-# At libri100 (B=32, T'=200, U+1=41, J=512, V=1024) that is
-# 32 * 25 * 41 * 512 * 4 B = 67 MB for dg and 16 * 512 * 1024 * 4 B =
-# 33.6 MB for dW.
+# FRAMES_PER_TILE frames; dW and db over the ring plan's row splits (8 at
+# libri100) or, in kernel B's CUDA-core form, over ROW_SPLITS slices of
+# the cells. At libri100 (B=32, T'=200, U+1=41, J=512, V=1024) that is
+# 32 * 25 * 41 * 512 * 4 B = 67 MB for dg and 8 * 512 * 1024 * 4 B =
+# 16.8 MB for dW, beside the ring's round(z) scratch zb, (N, J + 8) bf16
+# for N = B * T * (U+1) cells: 273 MB.
 FRAMES_PER_TILE = 8
 ROW_SPLITS = 16
 MAX_J = 512  # the kernels keep (64, J) tiles of z and dz in shared memory
@@ -99,18 +109,6 @@ def _check(f, g, labels, w, b):
     if len({a.device for _, a in named}) != 1:
         raise ValueError("inputs on different devices")
     for name, a in named:
-        if not a.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-
-
-def _check_sidecars(shape, device, **named):
-    for name, a in named.items():
-        if tuple(a.shape) != shape:
-            raise ValueError(f"{name} must be {shape}; got {tuple(a.shape)}")
-        if a.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32; got {a.dtype}")
-        if a.device != device:
-            raise ValueError(f"{name} is on {a.device}, not {device}")
         if not a.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
 
@@ -171,7 +169,8 @@ def joint_lp_fwd_reference(f, g, labels, w, b, blank: int = 0):
 
 # ------------------------------ backward ---------------------------------
 
-def joint_lp_bwd(f, g, labels, w, b, gb, gy, base, gbar, blank: int = 0):
+def joint_lp_bwd(f, g, labels, w, b, gb, gy, base, gbar, blank: int = 0,
+                 *, events=None):
     """-> (df (B, T, J), dg (B, U+1, J), dw (J, V), db (V,)), all f32.
 
     gb, gy (B, T, U+1): the blank and emit occupancies (gy already scaled
@@ -181,9 +180,17 @@ def joint_lp_bwd(f, g, labels, w, b, gb, gy, base, gbar, blank: int = 0):
         dlogits = s (gb + gy) p - s gb [v = blank] - s gy [v = label]
         dz      = round(dlogits) . W^T * (1 - z^2)
 
-    with p = exp(logits - base) and s = gbar[b]. Sums across blocks go
-    through partial buffers and an ordered second pass, so two runs give
-    identical bits.
+    with p = exp(logits - base) and s = gbar[b]. Kernel A gives df and
+    dg's partials; kernel B dW and db: for bf16 W with J % 16 == 0 and V
+    even, round(z) into a scratch zb once (joint_bwd_b_zb), then
+    joint_bwd_b_ring on the tiles of `rnnt_band_fused.device_bwd_b_plan`
+    over the B * T * (U+1) cells (ValueError for a shape it cannot place);
+    for other W and shapes, the CUDA-core form (joint_bwd_b). Sums across
+    blocks go through partial buffers and an ordered second pass, so two
+    runs give identical bits. `events`, five CUDA events, are recorded
+    before kernel A, after it, after kernel B's zb pass, after its main
+    launch and after the ordered sums (the CUDA-core form has no zb pass:
+    the second and third are recorded together).
     """
     _check(f, g, labels, w, b)
     B, T, J = f.shape
@@ -206,21 +213,56 @@ def joint_lp_bwd(f, g, labels, w, b, gb, gy, base, gbar, blank: int = 0):
         for a in (df, dg, dw, db):
             a.zero_()
         return df, dg, dw, db
+    ring = w.dtype == torch.bfloat16 and mma_shapes_ok(J, V)
+    plan = device_bwd_b_plan(B * T * U1, J, V, dev) if ring else None
+    splits = plan.splits if ring else ROW_SPLITS
     n_tiles = -(-T // FRAMES_PER_TILE)
     dg_part = torch.empty((B, n_tiles, U1, J), dtype=torch.float32,
                           device=dev)
-    dw_part = torch.empty((ROW_SPLITS, J, V), dtype=torch.float32, device=dev)
-    db_part = torch.empty((ROW_SPLITS, V), dtype=torch.float32, device=dev)
+    dw_part = db_part = None
+    if splits > 1:
+        dw_part = torch.empty((splits, J, V), dtype=torch.float32, device=dev)
+        db_part = torch.empty((splits, V), dtype=torch.float32, device=dev)
+    is_bf16 = int(w.dtype == torch.bfloat16)
+    side = (gb.data_ptr(), gy.data_ptr(), base.data_ptr(), gbar.data_ptr())
+    stream = build.stream_args(dev)
+    ev = events if events is not None else (None,) * 5
     fn = build.load_library()
-    err = fn.joint_bwd(
-        f.data_ptr(), g.data_ptr(), labels.data_ptr(), w.data_ptr(),
-        int(w.dtype == torch.bfloat16), b.data_ptr(), gb.data_ptr(),
-        gy.data_ptr(), base.data_ptr(), gbar.data_ptr(),
-        df.data_ptr(), dg.data_ptr(), dw.data_ptr(), db.data_ptr(),
-        dg_part.data_ptr(), dw_part.data_ptr(), db_part.data_ptr(),
-        B, T, U1, J, V, blank, FRAMES_PER_TILE, ROW_SPLITS,
-        *build.stream_args(dev))
-    build.check_launch(fn, err, "joint_bwd")
+    _record(ev[0])
+    err = fn.joint_bwd_a(f.data_ptr(), g.data_ptr(), labels.data_ptr(),
+                         w.data_ptr(), is_bf16, b.data_ptr(), *side,
+                         df.data_ptr(), dg_part.data_ptr(), B, T, U1, J, V,
+                         blank, FRAMES_PER_TILE, *stream)
+    build.check_launch(fn, err, "joint_bwd_a")
+    _record(ev[1])
+    if ring:
+        zb = torch.empty(plan.zb_shape, dtype=torch.bfloat16, device=dev)
+        err = fn.joint_bwd_b_zb(f.data_ptr(), g.data_ptr(), zb.data_ptr(), B,
+                                T, U1, J, *stream)
+        build.check_launch(fn, err, "joint_bwd_b_zb")
+        _record(ev[2])
+        dwo, dbo = (dw, db) if splits == 1 else (dw_part, db_part)
+        err = fn.joint_bwd_b_ring(
+            zb.data_ptr(), labels.data_ptr(), w.data_ptr(), b.data_ptr(),
+            *side, dwo.data_ptr(), dbo.data_ptr(), B, T, U1, J, V, blank,
+            plan.grid[0], splits, plan.split_rows, plan.smem_bytes, *stream)
+        build.check_launch(fn, err, "joint_bwd_b_ring")
+    else:
+        _record(ev[2])
+        err = fn.joint_bwd_b(f.data_ptr(), g.data_ptr(), labels.data_ptr(),
+                             w.data_ptr(), is_bf16, b.data_ptr(), *side,
+                             dw_part.data_ptr(), db_part.data_ptr(), B, T,
+                             U1, J, V, blank, splits, *stream)
+        build.check_launch(fn, err, "joint_bwd_b")
+    _record(ev[3])
+    parts = (None, None) if splits == 1 else (dw_part.data_ptr(),
+                                              db_part.data_ptr())
+    err = fn.joint_bwd_sums(dg_part.data_ptr(), dg.data_ptr(), parts[0],
+                            dw.data_ptr(), parts[1], db.data_ptr(), B,
+                            n_tiles, U1, J, V, 0 if splits == 1 else splits,
+                            *stream)
+    build.check_launch(fn, err, "joint_bwd_sums")
+    _record(ev[4])
     _count("LAUNCHES_BWD")
     return df, dg, dw, db
 

@@ -53,12 +53,25 @@ SIGNATURES = {
     # blank, device, stream
     "joint_fwd": (_I, [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I,
                        _I, _I, _I, _P]),
-    # f, g, labels, w, w_is_bf16, b, gb, gy, base, gbar, df, dg, dw, db,
-    # dg_part, dw_part, db_part, B, T, U1, J, V, blank, frames_per_tile,
-    # row_splits, device, stream
-    "joint_bwd": (_I, [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-                       _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                       _P]),
+    # f, g, labels, w, w_is_bf16, b, gb, gy, base, gbar, df, dg_part, B, T,
+    # U1, J, V, blank, frames_per_tile, device, stream
+    "joint_bwd_a": (_I, [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I,
+                         _I, _I, _I, _I, _I, _I, _I, _P]),
+    # f, g, labels, w, w_is_bf16, b, gb, gy, base, gbar, dw_part, db_part,
+    # B, T, U1, J, V, blank, n_split, device, stream
+    "joint_bwd_b": (_I, [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I,
+                         _I, _I, _I, _I, _I, _I, _I, _P]),
+    # f, g, zb, B, T, U1, J, device, stream
+    "joint_bwd_b_zb": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    # zb, labels, w, b, gb, gy, base, gbar, dw_out, db_out, B, T, U1, J, V,
+    # blank, grid_x, n_split, split_rows, smem_bytes, device, stream
+    "joint_bwd_b_ring": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                              _I, _I, _I, _I, _I, _I, _I, _LL, _LL, _I,
+                              _P]),
+    # dg_part, dg, dw_part, dw, db_part, db, B, n_tiles, U1, J, V, n_split,
+    # device, stream
+    "joint_bwd_sums": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                            _I, _P]),
     # lp_blank_m, lp_y_m, alpha, B, T, U1, device, stream
     "lattice_alpha": (_I, [_P, _P, _P, _I, _I, _I, _I, _P]),
     # lp_blank_m, lp_y_m, accept, alpha, frame_lens, beta, g_blank, g_y,

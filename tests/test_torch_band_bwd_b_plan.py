@@ -63,10 +63,12 @@ def test_bwd_b_plan_libri100_tiles():
 
 def test_bwd_b_plan_shared_memory_at_full_width():
     """At J=512 the ring (2 x 64 rows), the W tile, dlogits^T, the f32
-    dlogits and two mbarriers: 226,320 bytes, under the H100's 232,448."""
+    dlogits, two chunks' sidecars (5 words a row) and two mbarriers:
+    228,880 bytes, under the H100's 232,448."""
     assert bf.ring_b_bytes(512) == (2 * 64 * 520 * 2 + 64 * 520 * 2
-                                    + 64 * 72 * 2 + 64 * 68 * 4 + 16)
-    assert bf.ring_b_bytes(512) == 226_320
+                                    + 64 * 72 * 2 + 64 * 68 * 4
+                                    + 2 * 5 * 64 * 4 + 16)
+    assert bf.ring_b_bytes(512) == 228_880
 
 
 def test_bwd_b_plan_never_splits_rows_past_a_chunk():
@@ -90,6 +92,8 @@ def test_bwd_b_plan_refuses_what_it_cannot_place(J, V, n_sm, smem, rows):
 
 
 @pytest.mark.parametrize("J, V, ok", [(512, 8192, True), (96, 130, True),
-                                      (24, 40, False), (64, 37, False)])
+                                      (24, 40, False), (64, 37, False),
+                                      (512, 1024, True), (64, 38, True),
+                                      (72, 1024, False), (512, 1023, False)])
 def test_mma_shapes_ok_routes_the_odd_shapes_to_the_cuda_cores(J, V, ok):
     assert bf.mma_shapes_ok(J, V) is ok

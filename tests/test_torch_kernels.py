@@ -174,6 +174,105 @@ def test_cuda_joint_fwd_bwd_match_reference(cuda_device, dtype, B, T, U1, J,
                                                   before[1] + 2)
 
 
+def _lattice_bwd_args(B, T, U, J, V, dtype, device):
+    """joint_lp_bwd's arguments with the real lattice's occupancies at
+    ragged lengths: row 0 full, row 1 zero frames, row 2 no labels."""
+    from rnn_transducer_tpu_torch.ops import rnnt_joint_fused as tf
+    from rnn_transducer_tpu_torch.ops import rnnt_loss as rl
+
+    f, g, labels, w, b = _joint_args(B, T, U + 1, J, V, dtype, device,
+                                     seed=3)
+    f, g = 0.5 * f, 0.5 * g
+    gen = torch.Generator().manual_seed(4)
+    fl = torch.randint(T // 2, T + 1, (B,), generator=gen, dtype=torch.int32)
+    ll = torch.randint(U // 2, U + 1, (B,), generator=gen, dtype=torch.int32)
+    fl[0], ll[0], fl[1], ll[2] = T, U, 0, 0
+    lpb, lpy, base = tf.joint_lp_fwd_reference(f, g, labels, w, b)
+    gb, gy = rl.occupancies_from_lp(lpb, lpy, fl.to(device), ll.to(device))
+    gbar = torch.full((B,), 1.0 / B, device=device)
+    return (f, g, labels, w, b, gb.contiguous(), gy.contiguous(), base, gbar)
+
+
+# K2's kernel B: (B, T, U, J, V, splits of the ring's plan, or None for the
+# CUDA-core form). libri100's cells (262,400 at V=1024: 16 tiles x 8
+# splits), 6150 cells at V=8192 (one split, N not a multiple of 64), V odd.
+K2_RING_CASES = [(32, 200, 40, 512, 1024, 8), (3, 50, 40, 512, 8192, 1),
+                 (3, 17, 9, 64, 37, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B, T, U, J, V, splits", K2_RING_CASES)
+def test_cuda_joint_bwd_b_on_the_ring_matches_reference(cuda_device, dtype, B,
+                                                        T, U, J, V, splits):
+    """joint_lp_bwd against its plain version with the lattice's
+    occupancies, a zero-frame row and a row without labels; bf16 W of an
+    even V runs kernel B on the ring (zb pass and ring kernel, the plan's
+    splits), f32 W and odd V the CUDA-core form; two runs give the same
+    bits."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rnn_transducer_tpu_torch.ops import rnnt_band_fused as bf
+    from rnn_transducer_tpu_torch.ops import rnnt_joint_fused as tf
+
+    args = _lattice_bwd_args(B, T, U, J, V, dtype, cuda_device)
+    ring = dtype == torch.bfloat16 and splits is not None
+    if ring:
+        plan = bf.device_bwd_b_plan(B * T * (U + 1), J, V, cuda_device)
+        assert plan.splits == splits
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        got = tf.joint_lp_bwd(*args)
+        torch.cuda.synchronize()
+    again = tf.joint_lp_bwd(*args)
+    want = tf.joint_lp_bwd_reference(*args)
+    torch.cuda.synchronize()
+    for name, a, a2, e in zip(("df", "dg", "dw", "db"), got, again, want):
+        assert bool(torch.isfinite(a).all()), name
+        assert _rel_err(a, e) <= REL_TOL[dtype], name
+        assert torch.equal(a, a2), f"{name} differs between two runs"
+    assert float(got[0][1].abs().max()) == 0.0  # the zero-frame row
+    names = {e.key for e in prof.key_averages()}
+    ran = {k: any(k + "_kernel" in n for n in names)
+           for k in ("joint_bwd_b_zb", "joint_bwd_b_ring", "joint_bwd_b")}
+    assert ran == {"joint_bwd_b_zb": ring, "joint_bwd_b_ring": ring,
+                   "joint_bwd_b": not ring}, ran
+    assert not any("band_bwd" in n for n in names)
+
+
+@pytest.mark.cuda
+def test_cuda_joint_bwd_times_its_launches(cuda_device):
+    """The five events of a bf16 call bracket kernel A, the zb pass, the
+    ring kernel and the ordered sums, in order."""
+    from rnn_transducer_tpu_torch.ops import rnnt_joint_fused as tf
+
+    args = _lattice_bwd_args(3, 9, 8, 64, 130, torch.bfloat16, cuda_device)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    tf.joint_lp_bwd(*args, events=ev)
+    torch.cuda.synchronize()
+    spans = [ev[i].elapsed_time(ev[i + 1]) for i in range(4)]
+    assert all(t > 0 for t in spans), spans
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", [{"split_rows": 32},
+                                 {"smem_bytes": 48 * 1024},
+                                 {"grid": (0, 1)}])
+def test_cuda_joint_bwd_b_refuses_a_bad_plan(cuda_device, monkeypatch, bad):
+    """joint_bwd_b_ring checks the plan it is handed and the wrapper
+    raises; no other kernel B runs in its place."""
+    import dataclasses
+
+    from rnn_transducer_tpu_torch.ops import rnnt_joint_fused as tf
+
+    args = _lattice_bwd_args(3, 9, 8, 64, 130, torch.bfloat16, cuda_device)
+    good = tf.device_bwd_b_plan(3 * 9 * 9, 64, 130, cuda_device)
+    monkeypatch.setattr(tf, "device_bwd_b_plan",
+                        lambda *a: dataclasses.replace(good, **bad))
+    with pytest.raises(RuntimeError, match="joint_bwd_b_ring"):
+        tf.joint_lp_bwd(*args)
+
+
 @pytest.mark.cuda
 def test_cuda_encoder_and_predictor_weights_get_gradients(cuda_device):
     """Through encode / predict on the card every LSTM weight gets a
