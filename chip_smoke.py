@@ -40,9 +40,10 @@ Phases, in order:
             6400, D = 512, against the plain LayerNorm and its autograd,
             dg / db identical over two runs; the band joint (band_fused:
             band_fwd, band_bwd_a, band_bwd_b) at the pruned step's band,
-            B=32, T'=200, S=8, J=512, V=8192, dW / db identical over two
-            runs, with kernel B's plan and its zb pass and main launch
-            timed apart
+            B=32, T'=200, S=8, J=512, V=8192, df / dg_w and dW / db
+            identical over two runs, with kernel A's W^T pass and main
+            launch and kernel B's plan, zb pass and main launch timed
+            apart
   4. e2e    concurrent HTTP /recognize requests; every serving kernel
             must have launched while they were served; the f32 tokens of
             the kernel path and the plain path must be identical
@@ -78,12 +79,14 @@ Phases, in order:
             kernels against the plain versions, the CLI for 3 steps
   5d. train_pruned  loss_impl="pruned" at libri100 with V=8192, S=8, B=32,
             T=400, U=100: each K6 kernel once a step, K3 three times, no
-            K1 / K2; ms/step, a profiled step, the full lattice's fused
+            K1 / K2; ms/step, a profiled step (K6-A and K6-B two kernels
+            a call each, their tensor-core forms), the full lattice's fused
             step on the same batch for context, the f32 check, the CLI
             with --pruned-range 8 on a JSON config
   5e. train_ar  ar_range 8 (self-aligned) at libri100, B=32, T=400, U=40:
-            each K6 kernel once a step, K3 once; ms/step, a profiled step,
-            the f32 check, the CLI with --ar-range 8
+            each K6 kernel once a step, K3 once; ms/step, a profiled step
+            (K6-A and K6-B two kernels a call each), the f32 check, the
+            CLI with --ar-range 8
   6. the kernels' JSON line (sixteen kernels) (each kernel with its bound, the least time
      the card could take: bytes over 3.35 TB/s or operations over the
      peak for the operands' type, whichever is larger; and the time of one
@@ -206,6 +209,10 @@ PRUNED_V, PRUNED_S, PRUNED_U = 8192, 8, 100
 # band_bwd_b's bf16 time at the pruned band with the 32-column design that
 # rebuilt z per tile (H100 80GB HBM3, 700 W): context for the ring design
 BWD_B_PREV_MS = 65.826
+# band_bwd_a's bf16 time at the pruned band with the design that kept dz in
+# shared memory and read W from L2 per 64 rows (H100 80GB HBM3, 700 W):
+# context for the W^T ring design
+BWD_A_PREV_MS = 27.478
 AR_S = 8
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense): device
 # memory bytes/s and operations/s by operand type. A bound is the larger of
@@ -1024,18 +1031,21 @@ def event_split_ms(call, n_events: int, reps: int = 5) -> list[float]:
             for k in range(n_events - 1)]
 
 
-def bwd_b_split_ms(call, n: int, reps: int = 5) -> tuple[float, float]:
-    """Device ms of band_lp_bwd_b's zb pass and of its main launch (with
-    the ordered sums), each call(i, events) on copy i % n recording three
-    CUDA events around its two launches."""
-    zb_ms, main_ms = event_split_ms(lambda i, ev: call(i % n, ev), 3, reps)
-    return zb_ms, main_ms
+def bwd_split_ms(call, n: int, reps: int = 5) -> tuple[float, float]:
+    """Device ms of a band backward call's first pass (band_lp_bwd_a's W^T
+    pass, band_lp_bwd_b's zb pass) and of its main launch (with the
+    ordered sums), each call(i, events) on copy i % n recording three CUDA
+    events around its two launches."""
+    first_ms, main_ms = event_split_ms(lambda i, ev: call(i % n, ev), 3,
+                                       reps)
+    return first_ms, main_ms
 
 
 def band_fused_vs_plain(rng: np.random.Generator, dev) -> dict:
     """band_fwd, band_bwd_a and band_bwd_b (K6) against their plain versions
     at the pruned step's band, B=32, T'=200, S=8, J=512, V=8192, in f32 and
-    bf16; dW and db identical over two runs. Times as fused_ln_vs_plain:
+    bf16; df, dg_w, dW and db identical over two runs. Times as
+    fused_ln_vs_plain:
     device ms per call behind a spin kernel, the calls cycling through
     copies of g_w (105 MB, twice the L2 alone) three times the L2's size,
     in turns plain, kernel, kernel, plain. No single PyTorch call computes
@@ -1065,6 +1075,7 @@ def band_fused_vs_plain(rng: np.random.Generator, dev) -> dict:
         got = bf.band_lp_fwd(*fwd_args)
         bwd_args = (f, g_w, lab_w, w, b, want[2], cb, cy)
         got_a = bf.band_lp_bwd_a(*bwd_args)
+        again_a = bf.band_lp_bwd_a(*bwd_args)
         got_b = bf.band_lp_bwd_b(*bwd_args)
         again = bf.band_lp_bwd_b(*bwd_args)
         want_a = bf.band_lp_bwd_a_reference(*bwd_args)
@@ -1077,6 +1088,7 @@ def band_fused_vs_plain(rng: np.random.Generator, dev) -> dict:
                zip(("df", "dg_w", "dw", "db"), got_a + got_b,
                    want_a + want_b)}
         same_bits = all(torch.equal(x, y) for x, y in zip(got_b, again))
+        same_bits_a = all(torch.equal(x, y) for x, y in zip(got_a, again_a))
         finite = all(bool(torch.isfinite(x).all())
                      for x in (*got, *got_a, *got_b))
         del want_a, want_b
@@ -1101,21 +1113,33 @@ def band_fused_vs_plain(rng: np.random.Generator, dev) -> dict:
                 for c, kind in ((fw, "fwd"), (ba, "bwd"), (bb, "bwd"))))
         kt = [statistics.mean(t[i] for t in times["kernel"]) for i in range(3)]
         pt = [statistics.mean(t[i] for t in times["plain"]) for i in range(3)]
-        zb_ms, main_ms = bwd_b_split_ms(
+        wt_ms, a_main_ms = bwd_split_ms(
+            lambda i, ev: bf.band_lp_bwd_a(*call_args("bwd", i), events=ev),
+            n_cp)
+        zb_ms, main_ms = bwd_split_ms(
             lambda i, ev: bf.band_lp_bwd_b(*call_args("bwd", i), events=ev),
             n_cp)
-        plan = (bf.device_bwd_b_plan(N, J, V, dev)
-                if cd == torch.bfloat16 and bf.mma_shapes_ok(J, V) else None)
+        ring = bf.tensor_core_form(cd, J, V)
+        plan = bf.device_bwd_b_plan(N, J, V, dev) if ring else None
+        layout = bf.device_bwd_a_layout(J, V, dev) if ring else None
         ops = 2 * N * J * V  # one product over the band
         row = {"B": B, "T": T, "S": S, "J": J, "V": V, "rows": N,
                "dtype": str(cd).replace("torch.", ""),
                "fwd_max_abs_err": err_f, "fwd_atol": ATOL[cd],
                "bwd_a_max_abs_err": err_a, "bwd_b_max_abs_err": err_b,
                "bwd_rel_err": rel, "bwd_rtol": REL_TOL[cd],
+               "bwd_a_bitwise_repeat": same_bits_a,
                "bwd_b_bitwise_repeat": same_bits,
                "fwd_kernel_ms": kt[0], "fwd_plain_ms": pt[0],
                "bwd_a_kernel_ms": kt[1], "bwd_a_plain_ms": pt[1],
                "bwd_b_kernel_ms": kt[2], "bwd_b_plain_ms": pt[2],
+               # kernel A: its W^T pass and main launch (with the df sum)
+               # apart, the tensor-core form's scratch and shared bytes
+               "bwd_a_wt_ms": wt_ms, "bwd_a_main_ms": a_main_ms,
+               "bwd_a_prev_ms": (BWD_A_PREV_MS if cd == torch.bfloat16
+                                 else None),
+               "bwd_a_wt_shape": list(layout.wt_shape) if layout else None,
+               "bwd_a_smem_bytes": layout.smem_bytes if layout else None,
                # kernel B: the tensor-core form's plan (the CUDA-core
                # form's splits for f32), its zb pass and main launch apart
                "bwd_b_v_tile": plan.v_tile if plan else bf.V_TILE_B,
@@ -1134,9 +1158,10 @@ def band_fused_vs_plain(rng: np.random.Generator, dev) -> dict:
         check(finite and err_f <= ATOL[cd] and max(rel.values()) <= REL_TOL[cd],
               f"band kernels {cd}: fwd err {err_f}, bwd rel err {rel}, or a "
               "non-finite output")
+        check(same_bits_a, f"band_bwd_a {cd}: two runs gave different bits")
         check(same_bits, f"band_bwd_b {cd}: two runs gave different bits")
         out[cd] = row
-        del got, got_a, got_b, again, want, base
+        del got, got_a, again_a, got_b, again, want, base
         torch.cuda.empty_cache()
     del gws
     torch.cuda.empty_cache()
@@ -1656,6 +1681,20 @@ def check_fused_joint_profile(prof: dict, result: dict, what: str) -> None:
           f"the profiled {what} step launched band kernels: {band}")
 
 
+def check_band_profile(prof: dict, result: dict, what: str) -> None:
+    """A profiled band step (bf16 W, J % 16 == 0, V even) runs each K6
+    backward kernel in its tensor-core form, two launches a call: K6-A's
+    W^T pass and ring kernel (the family `band_bwd_a_`), K6-B's zb pass and
+    ring kernel (`band_bwd_b_`)."""
+    seen = prof["device_launches"]
+    for fam, name in (("band_bwd_a", "band_lp_bwd_a"),
+                      ("band_bwd_b", "band_lp_bwd_b")):
+        per_step = result["launches"][name] / result["steps"]
+        check(per_step > 0 and seen[fam] == 2 * per_step,
+              f"the profiled {what} step ran {seen[fam]} {fam} kernels, not "
+              f"2 for each of its {per_step} {name} calls")
+
+
 def check_bwd_launches(prof: dict, result: dict, what: str) -> None:
     """K4-bwd is one launch per LSTM layer call: the profiled step's
     lstm_bwd kernels number the wrapper's launches a step (5 at libri100:
@@ -2030,6 +2069,7 @@ def train_pruned_phase(seed: int, dev, profile_dir) -> dict:
                                "train_pruned_step")
     print("train_pruned_profile " + json.dumps(prof))
     check_bwd_launches(prof, result, "pruned")
+    check_band_profile(prof, result, "pruned")
     result["profile"] = prof
     del step, state, batch
     torch.cuda.empty_cache()
@@ -2070,6 +2110,7 @@ def train_ar_phase(seed: int, dev, profile_dir) -> dict:
                                "train_ar_step")
     print("train_ar_profile " + json.dumps(prof))
     check_bwd_launches(prof, result, "AR")
+    check_band_profile(prof, result, "AR")
     result["profile"] = prof
     del step, state, batch
     torch.cuda.empty_cache()

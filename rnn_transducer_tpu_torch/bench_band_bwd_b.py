@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""The joint's dW / db kernels (K6-B, the band joint's; K2-B, the fused
-joint's) and the training steps that run them, timed on one CUDA card for
-one or more checkouts of this repository, in turns.
+"""The joint's backward kernels (K6-A and K6-B, the band joint's dz and
+dW / db; K2, the fused joint's) and the training steps that run them,
+timed on one CUDA card for one or more checkouts of this repository, in
+turns.
 
     python3 -m rnn_transducer_tpu_torch.bench_band_bwd_b \
         [--trees DIR [DIR ...]] [--parts PART [PART ...]] [--out RESULTS.json]
@@ -11,15 +12,20 @@ in the order given (default: this checkout), so that two versions of the
 kernels are compared on one card: pass `--trees OLD NEW NEW OLD`. A
 process puts the tree's root first on the import path (its package and
 its chip_smoke.py), builds that tree's kernels, then runs the parts
-(default: all four, in this order):
+(default: all five, in this order):
 
-  band_bwd_b   holds `band_lp_bwd_b` against its plain version at the
-               pruned step's band (B=32, T'=200, S=8, J=512, bf16) with
-               V=8192 and at the AR step's V=1024 (max |err| over the
-               largest |value|, two runs bit for bit), and times it: device
-               ms a call behind a spin kernel, g_w cycled through copies
-               three times the L2's size; where the tree's wrapper takes
-               `events`, its zb pass and main launch apart;
+  band_bwd_a   holds `band_lp_bwd_a` (df, dg_w) against its plain version
+               at the pruned step's band (B=32, T'=200, S=8, J=512, bf16)
+               with V=8192, at the AR step's V=1024, and at V=256 and 64
+               (max |err| over the largest |value|, two runs bit for
+               bit), and times it: device ms a call behind a spin kernel,
+               g_w cycled through copies three times the L2's size; where
+               the tree's wrapper takes `events`, its W^T pass and main
+               launch apart; then a line through its time against its
+               chunks of 64 columns (`chunk_fit`: µs a chunk and outside
+               the loop over chunks, a block);
+  band_bwd_b   the same for `band_lp_bwd_b` (dW, db); with `events`, its
+               zb pass and main launch apart;
   pruned_step  trains libri100 with V=8192, S=8, U=100 at B=32, T=400
                (chip_smoke.train_run: ms/step by the slope of two runs),
                then profiles one step (device ms by kernel family);
@@ -42,6 +48,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import inspect
 import json
 import os
@@ -49,7 +56,8 @@ import subprocess
 import sys
 
 
-PARTS = ("band_bwd_b", "pruned_step", "joint_bwd", "train_step")
+PARTS = ("band_bwd_a", "band_bwd_b", "pruned_step", "joint_bwd",
+         "train_step")
 
 
 def one(root: str, parts) -> dict:
@@ -74,17 +82,23 @@ def one(root: str, parts) -> dict:
     return out
 
 
-def band_bwd_b(cs, dev) -> list:
+def band_bwd(cs, dev, which: str) -> list:
+    """The rows of the band_bwd_a (which "a") or band_bwd_b ("b") part."""
     import numpy as np
     import torch
 
     from rnn_transducer_tpu_torch.ops import rnnt_band_fused as bf
 
     rows = []
-    with_events = "events" in inspect.signature(bf.band_lp_bwd_b).parameters
+    fn = getattr(bf, f"band_lp_bwd_{which}")
+    ref = getattr(bf, f"band_lp_bwd_{which}_reference")
+    names = ("df", "dg_w") if which == "a" else ("dw", "db")
+    with_events = "events" in inspect.signature(fn).parameters
     rng = np.random.default_rng(9)
     B, T, S, J = cs.TRAIN_B, cs.TRAIN_T // 2, cs.PRUNED_S, 512
-    for V in (cs.PRUNED_V, 1024):
+    # A also at one and four chunks of 64 columns: the intercept of its
+    # time against V is a block's cost outside its chunk loop
+    for V in (cs.PRUNED_V, 1024) + ((256, 64) if which == "a" else ()):
         k = 1.0 / np.sqrt(J)
         f = torch.from_numpy(0.5 * rng.normal(size=(B, T, J))).float().to(dev)
         g_w = torch.from_numpy(0.5 * rng.normal(size=(B, T, S, J))).float(
@@ -100,37 +114,66 @@ def band_bwd_b(cs, dev) -> list:
             dev)
         base = bf.band_lp_fwd_reference(f, g_w, lab_w, w, b)[2]
         args = (f, g_w, lab_w, w, b, base, cb, cy)
-        got = bf.band_lp_bwd_b(*args)
-        again = bf.band_lp_bwd_b(*args)
-        want = bf.band_lp_bwd_b_reference(*args)
+        got = fn(*args)
+        again = fn(*args)
+        want = ref(*args)
         torch.cuda.synchronize()
-        rel = {n: cs.rel_err(x, y) for n, x, y in zip(("dw", "db"), got,
-                                                       want)}
+        rel = {n: cs.rel_err(x, y) for n, x, y in zip(names, got, want)}
         same = all(torch.equal(x, y) for x, y in zip(got, again))
+        finite = all(bool(torch.isfinite(x).all()) for x in got)
         del got, again, want
         n_cp = max(2, -(-3 * cs.L2_BYTES // cs.nbytes(g_w)))
         gws = [g_w.clone() for _ in range(n_cp)]
 
         def call(i, **kw):
-            return bf.band_lp_bwd_b(f, gws[i], lab_w, w, b, base, cb, cy,
-                                    **kw)
+            return fn(f, gws[i], lab_w, w, b, base, cb, cy, **kw)
 
         row = {"B": B, "T": T, "S": S, "J": J, "V": V, "dtype": "bfloat16",
-               "rel_err": rel, "bitwise_repeat": same,
-               "plain_ms": cs.device_ms(lambda: bf.band_lp_bwd_b_reference(
-                   *args), reps=2),
+               "rel_err": rel, "bitwise_repeat": same, "finite": finite,
+               "plain_ms": cs.device_ms(lambda: ref(*args), reps=2),
                "kernel_ms": [cs.device_ms(cs.cycled(call, n_cp), reps=5)
                              for _ in range(2)]}
         if with_events:
-            row["zb_ms"], row["main_ms"] = cs.bwd_b_split_ms(
-                lambda i, ev: call(i, events=ev), n_cp)
-            row["plan"] = dataclasses.asdict(bf.device_bwd_b_plan(
-                B * T * S, J, V, dev))
-        print("band_bwd_b " + json.dumps(row), flush=True)
+            # the first pass (A: W^T, B: zb), the main launch with its sums
+            first, main = cs.event_split_ms(
+                lambda i, ev: call(i % n_cp, events=ev), 3)
+            row["wt_ms" if which == "a" else "zb_ms"] = first
+            row["main_ms"] = main
+            if which == "a":
+                row["layout"] = dataclasses.asdict(bf.device_bwd_a_layout(
+                    J, V, dev))
+            else:
+                row["plan"] = dataclasses.asdict(bf.device_bwd_b_plan(
+                    B * T * S, J, V, dev))
+        print(f"band_bwd_{which} " + json.dumps(row), flush=True)
         rows.append(row)
         del gws, args, f, g_w, w, base
         torch.cuda.empty_cache()
-    return rows
+    if which == "b":
+        return {"rows": rows}
+    return {"rows": rows, "fit": chunk_fit(rows, B * T * S, dev)}
+
+
+def chunk_fit(rows, n_rows: int, dev) -> dict:
+    """Kernel A's time against its chunks of 64 columns: a least-squares
+    line through each row's ms (the main launch's where events split it,
+    else the call's), per block of 64 rows by the waves of blocks the card
+    runs (one block an SM): the µs a block spends a chunk and outside its
+    loop over the chunks (sidecars, z, epilogue, launch, the df sum)."""
+    import statistics
+
+    import torch
+
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    waves = -(-(-(-n_rows // 64)) // n_sm)
+    xs = [-(-r["V"] // 64) for r in rows]
+    ys = [r.get("main_ms", statistics.mean(r["kernel_ms"])) for r in rows]
+    mx, my = statistics.mean(xs), statistics.mean(ys)
+    slope = (sum((x - mx) * (y - my) for x, y in zip(xs, ys))
+             / sum((x - mx) ** 2 for x in xs))
+    return {"waves": waves, "chunks": xs, "ms": ys,
+            "us_a_chunk_a_block": slope / waves * 1e3,
+            "us_outside_the_loop_a_block": (my - slope * mx) / waves * 1e3}
 
 
 def pruned_step(cs, dev) -> dict:
@@ -144,6 +187,7 @@ def pruned_step(cs, dev) -> dict:
     return {"ms_per_step": result["ms_per_step"],
             "utt_per_s": result["utt_per_s"],
             "peak_mem_gb": result["peak_mem_gb"],
+            "launches_band_lp_bwd_a": result["launches"]["band_lp_bwd_a"],
             "launches_band_lp_bwd_b": result["launches"]["band_lp_bwd_b"],
             "steps": result["steps"], "profile_wall_ms": prof["wall_ms"],
             "device_busy_share": prof["device_busy_share"],
@@ -255,7 +299,9 @@ def train_step(cs, dev) -> dict:
             "device_launches": prof["device_launches"]}
 
 
-MEASURE = {"band_bwd_b": band_bwd_b, "pruned_step": pruned_step,
+MEASURE = {"band_bwd_a": functools.partial(band_bwd, which="a"),
+           "band_bwd_b": functools.partial(band_bwd, which="b"),
+           "pruned_step": pruned_step,
            "joint_bwd": joint_bwd, "train_step": train_step}
 
 

@@ -35,11 +35,21 @@
 //        shared memory, then V in chunks of kMV = 128 columns through the
 //        tensor cores (mma.sync m16n8k16, mma_bf16.cuh, W staged through
 //        shared memory) with an online max / sum of exp, as K1.
-//   A    the same 64 rows; per V chunk, the logits, round(dlogits) into a
-//        (64, 128) tile in shared memory, and dz += round(dlogits) .
-//        W[:, chunk]^T on the tensor cores with W's fragments read from
-//        L2; dz (64, J) f32 stays in shared memory across the chunks. The
-//        epilogue writes dg_w; df = sum_s dg_w is a second, ordered pass.
+//   A    two launches on the ring of wt_ring.cuh, with the band's row
+//        policy (BandRowsA below: BandRows' sidecars and dlogit, and an
+//        epilogue that writes dg_w = dz (1 - z^2)). The first writes
+//        wt = W^T (V rounded up to 64, pitch_j(J)) bf16 once a call, so
+//        that 64 columns of W are one contiguous run. The second owns 64
+//        rows a block: round(z) built once into shared memory, the rows'
+//        sidecars loaded once, then V in chunks of 64 columns, which
+//        thread 0 stages from wt into a two-slot ring with TMA bulk
+//        copies (the next chunk's in flight under this chunk's products).
+//        Per chunk the logits on the tensor cores (B fragments straight
+//        from the slot), round(dlogits) into a (64, 64) bf16 tile, and
+//        dz += round(dlogits) . W[:, chunk]^T with W's fragments from the
+//        same slot by ldmatrix.trans; dz (64, J) f32 stays in registers
+//        (warp w: j = 64 w ..). The epilogue writes dg_w from them;
+//        df = sum_s dg_w is a third, ordered pass.
 //   B    two launches on the ring of zb_ring.cuh, which the fused
 //        joint's kernel B (joint_bwd.cu) shares, with the band's row
 //        policy (lab_w, base, cb, cy and `dlogit` below). The first
@@ -59,30 +69,36 @@
 //        the same order, so the chunks come from L2 and zb crosses HBM
 //        about once. Row splits leave ordered partials, summed in split
 //        order. No float atomics: two runs give the same bits.
-// The tensor-core forms need W in bf16, J % 16 == 0 and V even (and A its
-// tiles in shared memory); W in f32 (the parity runs) and other shapes
-// take CUDA-core forms of the same three kernels (B's with 32 columns a
-// block and row_splits(V) splits).
+// The tensor-core forms need W in bf16, J % 16 == 0 and V even; W in f32
+// (the parity runs) and other shapes take CUDA-core forms of the same
+// three kernels (B's with 32 columns a block and row_splits(V) splits).
 //
 // What bounds it on the H100: its products, 2 N J V flops each; the
 // forward has one, A and B two each (the logits again, and dz or dW).
 // At the pruned training shape (B=32, T'=200, S=8, J=512, V=8192, bf16)
 // that is 0.43 ms for the forward and 0.87 ms for each backward kernel
-// at 989 TFLOP/s. The forward and A sit far from it: one block per SM, W
-// re-read from L2 by every block (64 rows per read), single-buffered
-// staging. B's zb pass moves ~0.16 GB (0.06 ms on an NVIDIA H100 80GB
-// HBM3, 700.00 W, by bench_band_bwd_b.py; 0.05 at 3.35 TB/s). Its main
-// kernel took 3.88-3.89 ms there (3.91 with the sidecars in registers,
-// in turns on the same card; 0.53 ms at V = 1024): 4.9 us, ~9,700
-// cycles, a chunk, against ~4,100 cycles of
-// shared-memory fragment reads (512 KB a chunk at 128 B a cycle; the
-// logits' 8 warp tiles of 16 x 32 each read J-deep panels) and ~2,000 of
-// mma.sync, were they to overlap; but the logits, the epilogue and the
-// dW product run one after another between block barriers, with one
-// block of 8 warps an SM (the split by phase is not measured). The next
-// steps are wgmma with W and z as
-// shared-memory descriptors (each operand read once) and warps that
-// overlap one chunk's dW with the next chunk's logits.
+// at 989 TFLOP/s. Measured on an NVIDIA H100 80GB HBM3, 700.00 W, by
+// bench_band_bwd_b.py and chip_smoke.py, in turns with the earlier
+// designs:
+//   fwd  12.0 ms: one block per SM, W re-read from L2 by every block (64
+//        rows per read), single-buffered staging.
+//   A    4.10 ms (27.6-27.9 with dz in shared memory and W read from L2
+//        per 64 rows; 0.68 at V = 1024, 3.95-3.97 before): the W^T pass
+//        0.02 ms, the ring kernel and df's sum 4.09. A line through its
+//        time at V = 64, 256, 1024 and 8192 gives 4.35 us a chunk a block
+//        and 27 us a block outside the chunk loop (sidecars, round(z),
+//        the epilogue, df's sum: each block's share of reading g_w twice
+//        and writing dg_w, ~0.3 GB in all); 800 blocks run in 7 waves of
+//        132, the last of 8. The logits, the dlogits and the dz product
+//        run one after another between two block barriers a chunk, one
+//        block of 8 warps an SM (not split by phase).
+//   B    3.76 ms main kernel + 0.06 zb pass (0.51 + 0.06 at V = 1024):
+//        4.7 us a chunk, with the same three phases between barriers.
+// The next steps, for A and B alike, are wgmma with the stationary
+// operand and the ring slot as shared-memory descriptors (each read
+// once), warps that overlap one chunk's second product with the next
+// chunk's logits, and for A a persistent grid that overlaps a block's
+// epilogue with its next rows' z.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -94,25 +110,22 @@
 #include <type_traits>
 
 #include "mma_bf16.cuh"
+#include "wt_ring.cuh"
 #include "zb_ring.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 using joint_mma::build_z_rows;
-using joint_mma::frag_a;
-using joint_mma::frag_b;
 using joint_mma::kMR;
 using joint_mma::kMV;
 using joint_mma::kWTP;
 using joint_mma::logits_chunk;
-using joint_mma::mma_16816;
 using joint_mma::pitch_j;
 using joint_mma::round_up;
 
 constexpr int kThreads = 256;
 constexpr int kMaxJ = 512;
-constexpr size_t kMaxSmem = 232448;  // shared memory a block may use
 static_assert(kThreads == joint_mma::kMmaThreads, "one block shape");
 
 __device__ __forceinline__ float to_float(float v) { return v; }
@@ -514,146 +527,6 @@ band_bwd_a_kernel(const float* __restrict__ f, const float* __restrict__ gw,
   }
 }
 
-// Tensor-core form: kMR rows per block; per V chunk of kMV columns the
-// logits (logits_chunk), round(dlogits) into dlA, and dz += dlA . W^T in
-// passes of 256 columns (warp w: columns jp + 32 w .. + 31, all kMR rows),
-// W's B fragments straight from L2 (W[j][v], W[j][v+1] is one 32-bit load).
-constexpr int kDLP = kMV + 8;  // bf16 pitch of dlA (68 words: 4 mod 32)
-
-__host__ __device__ inline int pitch_dz(int J) { return round_up(J, 32) + 4; }
-
-size_t mma_a_bytes(int J) {
-  return (size_t)kMR * pitch_j(J) * 2       // zA
-         + (size_t)kMV * kWTP * 2           // wt
-         + (size_t)kMR * kDLP * 2           // dlA
-         + (size_t)kMR * pitch_dz(J) * 4    // dz
-         + (size_t)6 * kMR * 4;             // sidecars
-}
-
-__global__ void __launch_bounds__(kThreads)
-band_bwd_a_mma_kernel(const float* __restrict__ f,
-                      const float* __restrict__ gw,
-                      const int* __restrict__ lab_w,
-                      const bf16* __restrict__ w,
-                      const float* __restrict__ bias,
-                      const float* __restrict__ base,
-                      const float* __restrict__ cb,
-                      const float* __restrict__ cy, float* __restrict__ dgw,
-                      long long N, int S, int J, int V, int blank) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int JP = pitch_j(J);
-  const int DZP = pitch_dz(J);
-  bf16* zA = reinterpret_cast<bf16*>(smem_raw);
-  bf16* wt = zA + (size_t)kMR * JP;
-  bf16* dlA = wt + kMV * kWTP;
-  float* dz = reinterpret_cast<float*>(dlA + kMR * kDLP);
-  float* base_s = dz + (size_t)kMR * DZP;
-  float* cb_s = base_s + kMR;
-  float* cy_s = cb_s + kMR;
-  int* lab_s = reinterpret_cast<int*>(cy_s + kMR);
-  int* fo_s = lab_s + kMR;
-  int* go_s = fo_s + kMR;
-
-  const long long r0 = (long long)blockIdx.x * kMR;
-  const int tid = threadIdx.x;
-  const int lane = tid % 32;
-  const int warp = tid / 32;
-  const int gq = lane >> 2;
-  const int q = lane & 3;
-
-  load_rows(r0, N, S, lab_w, lab_s, fo_s, go_s);
-  for (int r = tid; r < kMR; r += kThreads) {
-    const long long row = r0 + r;
-    const bool ok = row < N;
-    base_s[r] = ok ? base[row] : 0.0f;
-    cb_s[r] = ok ? cb[row] : 0.0f;
-    cy_s[r] = ok ? cy[row] : 0.0f;
-  }
-  for (int idx = tid; idx < kMR * DZP; idx += kThreads) dz[idx] = 0.0f;
-  __syncthreads();
-  build_z_rows(zA, JP, f, gw, fo_s, go_s, J, round_up(J, 16));
-
-  const int wm = warp / 4;
-  const int wn = warp % 4;
-  for (int v0 = 0; v0 < V; v0 += kMV) {
-    // logits_chunk opens with a barrier: every warp is done with dlA
-    float acc[2][4][4];
-    logits_chunk(acc, zA, JP, wt, w, v0, J, V);
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = wm * 32 + mi * 16 + gq + ((e >= 2) ? 8 : 0);
-          const int col = wn * 32 + ni * 8 + 2 * q + (e & 1);
-          const int v = v0 + col;
-          float d = 0.0f;
-          if (fo_s[r] >= 0 && v < V) {
-            d = dlogit(acc[mi][ni][e] + bias[v], v, blank, lab_s[r],
-                       base_s[r], cb_s[r], cy_s[r]);
-          }
-          dlA[r * kDLP + col] = __float2bfloat16_rn(d);
-        }
-      }
-    }
-    __syncthreads();
-    const int kmax = min(kMV, round_up(V - v0, 16));
-    for (int jp = 0; jp < J; jp += 256) {
-      const int jw = jp + warp * 32;
-      if (jw >= J) continue;
-      float acc2[4][4][4];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc2[mi][ni][e] = 0.0f;
-        }
-      }
-      for (int k0 = 0; k0 < kmax; k0 += 16) {
-        uint32_t a[4][4];
-#pragma unroll
-        for (int mi = 0; mi < 4; ++mi) frag_a(a[mi], dlA, kDLP, mi * 16, k0, lane);
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) {
-          const int j = jw + ni * 8 + gq;
-          const int v = v0 + k0 + 2 * q;
-          uint32_t bb[2] = {0u, 0u};
-          if (j < J) {
-            const bf16* wr = w + (size_t)j * V;
-            if (v < V) bb[0] = __ldg(reinterpret_cast<const unsigned int*>(wr + v));
-            if (v + 8 < V) bb[1] = __ldg(reinterpret_cast<const unsigned int*>(wr + v + 8));
-          }
-#pragma unroll
-          for (int mi = 0; mi < 4; ++mi) mma_16816(acc2[mi][ni], a[mi], bb);
-        }
-      }
-      // each (row, column) of dz belongs to one thread: no race, fixed order
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int r = mi * 16 + gq + ((e >= 2) ? 8 : 0);
-            const int j = jw + ni * 8 + 2 * q + (e & 1);
-            if (j < J) dz[r * DZP + j] += acc2[mi][ni][e];
-          }
-        }
-      }
-    }
-  }
-  __syncthreads();
-  for (int idx = tid; idx < kMR * J; idx += kThreads) {
-    const int r = idx / J;
-    const int j = idx - r * J;
-    if (fo_s[r] < 0) continue;
-    const float z = tanhf(f[(size_t)fo_s[r] * J + j] + gw[(size_t)go_s[r] * J + j]);
-    dgw[(size_t)go_s[r] * J + j] = dz[r * DZP + j] * (1.0f - z * z);
-  }
-}
-
 // ------------------------- backward B: dW, db ----------------------------
 
 constexpr int kBMB = 64;  // rows per chunk
@@ -873,6 +746,68 @@ band_bwd_b_ring_kernel(const bf16* __restrict__ zb,
                      dw_out, db_out, N, J, V, blank, split_rows);
 }
 
+// Tensor-core form of kernel A, in two launches, on wt_ring.cuh:
+// band_bwd_a_wt_kernel writes wt = W^T once a call; band_bwd_a_ring_kernel
+// runs the ring with the band's rows, whose epilogue writes
+// dg_w = dz (1 - z^2), z recomputed in f32 from f and g_w.
+
+// Kernel A's rows of the band: BandRows' sidecars and dlogit, z from f
+// row r / S and g_w row r, and dg_w's epilogue.
+struct BandRowsA : BandRows {
+  const float* __restrict__ f;
+  const float* __restrict__ gw;
+  float* __restrict__ dgw;
+  int S;
+  int J;
+  __device__ long long f_row(long long r) const { return r / S; }
+  __device__ long long g_row(long long r) const { return r; }
+  // dz[n][e] at column j0 + 8 n + e; every load before the first store
+  __device__ void store_dz(long long row, int j0,
+                           const float (&dz)[8][2]) const {
+    const float* fr = f + f_row(row) * J + j0;
+    const float* gr = gw + row * J + j0;
+    float2 x[8];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      if (j0 + 8 * n < J) {
+        const float2 a = __ldg(reinterpret_cast<const float2*>(fr + 8 * n));
+        const float2 b = __ldg(reinterpret_cast<const float2*>(gr + 8 * n));
+        x[n] = make_float2(a.x + b.x, a.y + b.y);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      if (j0 + 8 * n < J) {
+        const float z0 = tanhf(x[n].x);
+        const float z1 = tanhf(x[n].y);
+        *reinterpret_cast<float2*>(dgw + row * J + j0 + 8 * n) = make_float2(
+            dz[n][0] * (1.0f - z0 * z0), dz[n][1] * (1.0f - z1 * z1));
+      }
+    }
+  }
+};
+
+__global__ void __launch_bounds__(kThreads)
+band_bwd_a_wt_kernel(const bf16* __restrict__ w, bf16* __restrict__ wt,
+                     int J, int V, int JP) {
+  wt_ring::build_wt(w, wt, J, V, JP);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+band_bwd_a_ring_kernel(const float* __restrict__ f,
+                       const float* __restrict__ gw,
+                       const int* __restrict__ lab_w,
+                       const bf16* __restrict__ wt,
+                       const float* __restrict__ bias,
+                       const float* __restrict__ base,
+                       const float* __restrict__ cb,
+                       const float* __restrict__ cy, float* __restrict__ dgw,
+                       long long N, int S, int J, int V, int blank) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const BandRowsA rows{{lab_w, base, cb, cy}, f, gw, dgw, S, J};
+  wt_ring::ring_body(smem_raw, f, gw, rows, wt, bias, N, J, V, blank);
+}
+
 // out[o, x] = sum_p part[o, p, x], p in order.
 __global__ void band_sum_parts_kernel(const float* __restrict__ part,
                                       float* __restrict__ out, long long n_outer,
@@ -930,37 +865,23 @@ int run_fwd(const float* f, const float* gw, const int* lab_w, const W* w,
   return (int)cudaGetLastError();
 }
 
+// The CUDA-core form of kernel A (f32 W, or shapes outside
+// mma_shapes_ok), then df[b, t] = sum over the frame's S rows of dg_w, in
+// s order.
 template <typename W>
 int run_bwd_a(const float* f, const float* gw, const int* lab_w, const W* w,
               const float* bias, const float* base, const float* cb,
               const float* cy, float* df, float* dgw, int B, int T,
               long long N, int S, int J, int V, int blank,
               cudaStream_t stream) {
-  bool done = false;
-  if constexpr (std::is_same_v<W, bf16>) {
-    const size_t smem = mma_a_bytes(J);
-    if (mma_shapes_ok(J, V) && smem <= kMaxSmem) {
-      const dim3 grid((unsigned)((N + kMR - 1) / kMR));
-      const cudaError_t e = set_smem(band_bwd_a_mma_kernel, smem);
-      if (e != cudaSuccess) return (int)e;
-      band_bwd_a_mma_kernel<<<grid, kThreads, smem, stream>>>(
-          f, gw, lab_w, w, bias, base, cb, cy, dgw, N, S, J, V, blank);
-      const cudaError_t e2 = cudaGetLastError();
-      if (e2 != cudaSuccess) return (int)e2;
-      done = true;
-    }
-  }
-  if (!done) {
-    const size_t smem = smem_a(J);
-    const dim3 grid((unsigned)((N + kRA - 1) / kRA));
-    const cudaError_t e = set_smem(band_bwd_a_kernel<W>, smem);
-    if (e != cudaSuccess) return (int)e;
-    band_bwd_a_kernel<W><<<grid, kThreads, smem, stream>>>(
-        f, gw, lab_w, w, bias, base, cb, cy, dgw, N, S, J, V, blank);
-    const cudaError_t e2 = cudaGetLastError();
-    if (e2 != cudaSuccess) return (int)e2;
-  }
-  // df[b, t] = sum over the frame's S rows of dg_w, in s order
+  const size_t smem = smem_a(J);
+  const dim3 grid((unsigned)((N + kRA - 1) / kRA));
+  const cudaError_t e = set_smem(band_bwd_a_kernel<W>, smem);
+  if (e != cudaSuccess) return (int)e;
+  band_bwd_a_kernel<W><<<grid, kThreads, smem, stream>>>(
+      f, gw, lab_w, w, bias, base, cb, cy, dgw, N, S, J, V, blank);
+  const cudaError_t e2 = cudaGetLastError();
+  if (e2 != cudaSuccess) return (int)e2;
   return sum_parts(dgw, df, (long long)B * T, S, J, stream);
 }
 
@@ -1017,8 +938,10 @@ extern "C" int band_fwd(const void* f, const void* gw, const void* lab_w,
                         lpy, bse, N, S, J, V, blank, s);
 }
 
-// Two launches: kernel A (dg_w (B, T, S, J)) and the ordered sum df
-// (B, T, J).
+// The CUDA-core form of kernel A, two launches: dg_w (B, T, S, J) and the
+// ordered sum df (B, T, J). W in bf16 or f32, any J <= 512 and V;
+// ops/rnnt_band_fused.py sends bf16 W with J % 16 == 0 and V even to the
+// tensor-core form below instead.
 extern "C" int band_bwd_a(const void* f, const void* gw, const void* lab_w,
                           const void* w, int w_is_bf16, const void* bias,
                           const void* base, const void* cb, const void* cy,
@@ -1149,4 +1072,62 @@ extern "C" int band_bwd_b_ring(const void* zb, const void* lab_w,
   if (err) return err;
   return sum_parts(static_cast<const float*>(db_part),
                    static_cast<float*>(db), 1, n_split, V, s);
+}
+
+// The tensor-core form of kernel A (W bf16, J % 16 == 0, V even), as two
+// entry points so that a caller can time them apart. Both take the layout
+// of ops/rnnt_band_fused.bwd_a_layout (wt's rows; the ring block's shared
+// bytes) and return cudaErrorInvalidValue for one that is not the
+// kernel's.
+//
+// One launch: wt (wt_rows, pitch_j(J)) bf16 = W^T, wt_rows = V rounded up
+// to 64, zero past V rows and J columns.
+extern "C" int band_bwd_a_wt(const void* w, void* wt, int J, int V,
+                             long long wt_rows, int device, void* stream) {
+  if (!wt_ring::shapes_ok(J, V) || wt_rows != wt_ring::wt_rows(V)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  const int JP = pitch_j(J);
+  const dim3 grid((unsigned)(wt_rows / wt_ring::kWtTile),
+                  (unsigned)((JP + wt_ring::kWtTile - 1) / wt_ring::kWtTile));
+  band_bwd_a_wt_kernel<<<grid, kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(w), static_cast<bf16*>(wt), J, V, JP);
+  return (int)cudaGetLastError();
+}
+
+// Two launches: the ring kernel, one block a chunk of 64 rows with
+// smem_bytes (wt_ring::ring_bytes(J)) of shared memory, writes dg_w
+// (B, T, S, J) from wt; then the ordered sum df (B, T, J).
+extern "C" int band_bwd_a_ring(const void* f, const void* gw,
+                               const void* lab_w, const void* wt,
+                               const void* bias, const void* base,
+                               const void* cb, const void* cy, void* df,
+                               void* dgw, int B, int T, int S, int J, int V,
+                               int blank, long long wt_rows,
+                               long long smem_bytes, int device,
+                               void* stream) {
+  const long long N = (long long)B * T * S;
+  if (N < 1 || !wt_ring::layout_ok(J, V, wt_rows, smem_bytes)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t smem = wt_ring::ring_bytes(J);
+  const cudaError_t e1 = set_smem(band_bwd_a_ring_kernel, smem);
+  if (e1 != cudaSuccess) return (int)e1;
+  band_bwd_a_ring_kernel<<<(unsigned)((N + kMR - 1) / kMR), kThreads, smem,
+                           s>>>(
+      static_cast<const float*>(f), static_cast<const float*>(gw),
+      static_cast<const int*>(lab_w), static_cast<const bf16*>(wt),
+      static_cast<const float*>(bias), static_cast<const float*>(base),
+      static_cast<const float*>(cb), static_cast<const float*>(cy),
+      static_cast<float*>(dgw), N, S, J, V, blank);
+  const cudaError_t e2 = cudaGetLastError();
+  if (e2 != cudaSuccess) return (int)e2;
+  return sum_parts(static_cast<const float*>(dgw), static_cast<float*>(df),
+                   (long long)B * T, S, J, s);
 }

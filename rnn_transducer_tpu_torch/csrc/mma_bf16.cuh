@@ -81,6 +81,32 @@ __device__ __forceinline__ void frag_a_trans(uint32_t (&a)[4],
       : "memory");
 }
 
+// B fragments of two n-tiles, k0..k0+15 x n0..n0+7 into b[0] and
+// k0..k0+15 x n0+8..n0+15 into b[1], from a tile stored k-major (element
+// (k, n) at base[k * pitch + n]), by one `ldmatrix.x4.trans`: matrix i
+// (lanes 8i .. 8i+7 give its row addresses) is the tile's rows
+// k0 + 8 (i % 2) + 0..7 at columns n0 + 8 (i / 2), which .trans hands out
+// as b[i / 2][i % 2]. Rows start on 16 bytes (pitch and n0 multiples of
+// 8); a pitch of 4 (mod 32) words puts the 8 rows of a matrix on distinct
+// banks.
+__device__ __forceinline__ void frag_b_trans(uint32_t (&b)[2][2],
+                                             const __nv_bfloat16* base,
+                                             int pitch, int n0, int k0,
+                                             int lane) {
+  const __nv_bfloat16* p = base
+                           + (size_t)(k0 + (((lane >> 3) & 1) << 3)
+                                      + (lane & 7)) * pitch
+                           + n0 + ((lane >> 4) << 3);
+  const unsigned int addr =
+      static_cast<unsigned int>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(b[0][0]), "=r"(b[0][1]), "=r"(b[1][0]), "=r"(b[1][1])
+      : "r"(addr)
+      : "memory");
+}
+
 // B fragment of k0..k0+15 x n0..n0+7 from a tile stored n-major: element
 // (k, n) at base[n * pitch + k].
 __device__ __forceinline__ void frag_b(uint32_t (&b)[2],

@@ -1,7 +1,9 @@
 // The TMA's bulk copies from global to shared memory, completing on an
 // mbarrier (sm_90), shared by the kernels that stage rows this way: the
-// LSTM backward (lstm_bwd.cu) and the joints' kernel B (zb_ring.cuh, for
-// band_fused.cu and joint_bwd.cu).
+// LSTM backward (lstm_bwd.cu), the joints' kernel B (zb_ring.cuh, for
+// band_fused.cu and joint_bwd.cu) and the band joint's kernel A
+// (wt_ring.cuh, for band_fused.cu). The last two stream their chunks
+// through `Ring2`, a two-slot ring.
 //
 // A copy is issued by one thread after `mbar_init`; every thread that
 // reads the copied rows waits with `mbar_wait` on the barrier's phase.
@@ -68,5 +70,37 @@ __device__ __forceinline__ void mbar_wait(unsigned int mbar,
   } while (!done);
   phase ^= 1u;
 }
+
+// A ring of two equal slots in shared memory, each filled by one bulk copy
+// that completes on the slot's own mbarrier (the two 8 bytes apart from
+// `mbar0`). Iteration i fills and reads slot i & 1, on the (i / 2)-th
+// phase of its barrier. Thread 0 calls `init` (before a block barrier) and
+// `issue`; every thread that reads slot i calls `wait(i)` first. A block
+// barrier between the warps' last reads of a slot and the `issue` that
+// refills it orders the two (tma_rows' proxy fences do the rest).
+struct Ring2 {
+  unsigned char* base;  // slot 0; slot 1 follows at base + bytes
+  unsigned int bytes;   // of a slot: a multiple of 16, as base
+  unsigned int mbar0;   // shared address of slot 0's mbarrier
+
+  __device__ __forceinline__ void init() const {
+    mbar_init(mbar0);
+    mbar_init(mbar0 + 8);
+  }
+  template <typename T>
+  __device__ __forceinline__ T* slot(int i) const {
+    return reinterpret_cast<T*>(base + (size_t)(i & 1) * bytes);
+  }
+  // copy `bytes` contiguous bytes from `src` into slot i & 1
+  __device__ __forceinline__ void issue(int i, const void* src) const {
+    tma_rows(slot<unsigned char>(i), 0,
+             static_cast<const unsigned char*>(src), 0, 1, bytes,
+             mbar0 + 8 * (i & 1));
+  }
+  __device__ __forceinline__ void wait(int i) const {
+    unsigned int phase = (unsigned int)(i >> 1) & 1u;
+    mbar_wait(mbar0 + 8 * (i & 1), phase);
+  }
+};
 
 }  // namespace tma_bulk

@@ -23,7 +23,8 @@
 // in shared memory and dW[:, tile] (J, kVT) f32 in registers: warp w owns
 // j = 64 w .. 64 w + 63, 4 m-tiles by 8 n-tiles. Per chunk:
 //   thread 0 has already issued the chunk's rows of zb into one of two
-//   ring slots (one TMA bulk copy, mbarrier) during the last chunk, and
+//   ring slots (one TMA bulk copy, mbarrier: tma_bulk::Ring2, which the
+//   band joint's kernel A, wt_ring.cuh, shares) during the last chunk, and
 //   now issues the next chunk's; threads 0 .. kMR-1 load the next chunk's
 //   sidecars into registers (into shared memory after this chunk's
 //   epilogue: two slots);
@@ -148,16 +149,14 @@ __device__ __forceinline__ void ring_body(
     int J, int V, int blank, long long split_rows) {
   const int JP = pitch_j(J);
   const int Jr = round_up(J, 64);
-  bf16* ring = reinterpret_cast<bf16*>(smem);
-  bf16* wT = ring + (size_t)2 * kMR * JP;
+  bf16* wT = reinterpret_cast<bf16*>(smem) + (size_t)2 * kMR * JP;
   bf16* dlT = wT + (size_t)kVT * JP;
   float* dlf = reinterpret_cast<float*>(dlT + kVT * kDLTP);
   float* side = dlf + kMR * kDLFP;  // [2][kSideWords][kMR]
-  unsigned long long* mbar_s =
-      reinterpret_cast<unsigned long long*>(side + 2 * kSideWords * kMR);
-  // slot s completes on the mbarrier at mbar0 + 8 s
-  const unsigned int mbar0 =
-      static_cast<unsigned int>(__cvta_generic_to_shared(mbar_s));
+  const tma_bulk::Ring2 ring{
+      smem, (unsigned int)(kMR * JP * sizeof(bf16)),
+      static_cast<unsigned int>(
+          __cvta_generic_to_shared(side + 2 * kSideWords * kMR))};
 
   const int tid = threadIdx.x;
   const int lane = tid % 32;
@@ -178,14 +177,11 @@ __device__ __forceinline__ void ring_body(
           ? (n_tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x
           : 0;
   const int total = n_ch > 0 ? my_tiles * n_ch : 0;
-  const unsigned int slot_bytes = (unsigned int)(kMR * JP * sizeof(bf16));
   const size_t split = blockIdx.y;
 
   // iteration i stages chunk i % n_ch of the split into slot i & 1
   auto issue = [&](int i) {
-    const long long row = r_begin + (long long)(i % n_ch) * kMR;
-    tma_bulk::tma_rows(ring + (size_t)(i & 1) * kMR * JP, 0,
-                       zb + row * JP, 0, 1, slot_bytes, mbar0 + 8 * (i & 1));
+    ring.issue(i, zb + (r_begin + (long long)(i % n_ch) * kMR) * JP);
   };
   // iteration i's sidecars: thread r < kMR loads row r's into sw, then
   // stores them into slot i & 1
@@ -208,8 +204,7 @@ __device__ __forceinline__ void ring_body(
     }
   };
   if (tid == 0) {
-    tma_bulk::mbar_init(mbar0);
-    tma_bulk::mbar_init(mbar0 + 8);
+    ring.init();
     if (total > 0) issue(0);
   }
   if (total > 0) {
@@ -225,7 +220,7 @@ __device__ __forceinline__ void ring_body(
     const int c = i % n_ch;
     const long long c0 = r_begin + (long long)c * kMR;
     const int rows = (int)min((long long)kMR, r_end - c0);
-    const bf16* zs = ring + (size_t)(i & 1) * kMR * JP;
+    const bf16* zs = ring.slot<const bf16>(i);
     __syncthreads();  // chunk i-1 is consumed: its slot, wT, dlT and dlf
     if (tid == 0 && i + 1 < total) issue(i + 1);
     if (c == 0) {  // a new column tile
@@ -257,8 +252,7 @@ __device__ __forceinline__ void ring_body(
     }
     // the next chunk's sidecars, in flight under this chunk's products
     if (i + 1 < total) load_side(i + 1);
-    unsigned int phase = (unsigned int)(i >> 1) & 1u;
-    tma_bulk::mbar_wait(mbar0 + 8 * (i & 1), phase);
+    ring.wait(i);
 
     // logits of rows 16 mt .., columns 32 nh .. of the tile
     float acc[4][4];

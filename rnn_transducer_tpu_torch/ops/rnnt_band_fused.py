@@ -11,8 +11,11 @@ is built on chip and reduced at once by K6 (`csrc/band_fused.cu`):
 
   * `band_lp_fwd` (`band_fwd`, JAX `band_lp_fwd` :95) to lp_blank, lp_y
     and base, the log-sum-exp the backward reuses, each (B, T, S);
-  * `band_lp_bwd_a` (`band_bwd_a`, JAX `band_lp_bwd_a` :157) from the loss
-    cotangents cb, cy of lp_blank and lp_y to dg_w = dz and df = sum_s dz;
+  * `band_lp_bwd_a` (JAX `band_lp_bwd_a` :157) from the loss cotangents
+    cb, cy of lp_blank and lp_y to dg_w = dz and df = sum_s dz: with bf16
+    W, W^T once into a scratch (`band_bwd_a_wt`), then `band_bwd_a_ring`
+    in the layout of `bwd_a_layout`; with f32 W or other shapes, the
+    CUDA-core `band_bwd_a`;
   * `band_lp_bwd_b` (JAX `band_lp_bwd_b` :238) to dW and db: with bf16 W,
     round(z) once into a scratch (`band_bwd_b_zb`), then `band_bwd_b_ring`
     on the tiles of `bwd_b_plan`; with f32 W or other shapes, the
@@ -45,11 +48,11 @@ from rnn_transducer_tpu_torch.ops.lstm import _dot
 from rnn_transducer_tpu_torch.utils import build
 
 LAUNCHES_FWD = 0    # band_lp_fwd calls that launched band_fwd
-LAUNCHES_BWD_A = 0  # band_lp_bwd_a calls that launched band_bwd_a
+LAUNCHES_BWD_A = 0  # band_lp_bwd_a calls that launched kernel A
 LAUNCHES_BWD_B = 0  # band_lp_bwd_b calls that launched band_bwd_b
 _launches_lock = threading.Lock()
 
-MAX_J = 512  # the kernels keep (64, J) tiles of z and dz in shared memory
+MAX_J = 512  # the kernels keep (64, J) tiles of z in shared memory
 # Kernel B's CUDA-core form (f32 W, or J % 16 != 0, or V odd): grid (V /
 # V_TILE_B column tiles, row splits); the rows are split so that about
 # TARGET_BLOCKS_B blocks (four per SM of the H100's 132) run, and each
@@ -68,6 +71,16 @@ MAX_SPLITS_B = 16
 BWD_B_V_TILE = 64
 BWD_B_CHUNK = 64
 BWD_B_SIDE = 5
+# Kernel A's tensor-core form (bf16 W, csrc/band_fused.cu band_bwd_a_wt and
+# band_bwd_a_ring, on the ring of csrc/wt_ring.cuh): W^T once into a
+# scratch wt of whole BWD_A_V_CHUNK-row chunks at zb_pitch(J); a block owns
+# BWD_A_ROWS rows, walks V in chunks through a two-slot ring of wt, and
+# keeps round(z) of its rows, round(dlogits) (pitch chunk + 8 bf16), the
+# rows' sidecars (BWD_A_SIDE words a row) and their f and g rows in shared
+# memory, with the ring's two mbarriers; dz stays in registers.
+BWD_A_V_CHUNK = 64
+BWD_A_ROWS = 64
+BWD_A_SIDE = 5
 
 _W_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -88,6 +101,12 @@ def mma_shapes_ok(J: int, V: int) -> bool:
     return J % 16 == 0 and V % 2 == 0
 
 
+def tensor_core_form(dtype, J: int, V: int) -> bool:
+    """Whether the backward kernels take their tensor-core forms (the
+    rings) for W of `dtype` and (J, V); otherwise their CUDA-core forms."""
+    return dtype == torch.bfloat16 and mma_shapes_ok(J, V)
+
+
 def zb_pitch(J: int) -> int:
     """bf16 row pitch of round(z) in shared memory and in zb: J rounded up
     to 64, plus 8 (4 mod 32 words, so fragment rows miss each other's
@@ -104,6 +123,56 @@ def ring_b_bytes(J: int) -> int:
             + BWD_B_V_TILE * (BWD_B_CHUNK + 8) * 2
             + BWD_B_CHUNK * (BWD_B_V_TILE + 4) * 4
             + 2 * BWD_B_SIDE * BWD_B_CHUNK * 4 + 16)
+
+
+def ring_a_bytes(J: int) -> int:
+    """Shared bytes of kernel A's ring block (band_bwd_a_ring), as the
+    kernel lays them out: two wt chunks, round(z), round(dlogits), the
+    sidecars, the f and g rows, two mbarriers."""
+    jp = zb_pitch(J)
+    return (2 * BWD_A_V_CHUNK * jp * 2 + BWD_A_ROWS * jp * 2
+            + BWD_A_ROWS * (BWD_A_V_CHUNK + 8) * 2
+            + BWD_A_SIDE * BWD_A_ROWS * 4 + 2 * BWD_A_ROWS * 4 + 16)
+
+
+def wt_shape(J: int, V: int) -> tuple[int, int]:
+    """(rows, pitch) of kernel A's scratch wt = W^T: V rounded up to whole
+    chunks, zb_pitch(J); row v holds W[:, v], zero past V and past J."""
+    return (-(-V // BWD_A_V_CHUNK) * BWD_A_V_CHUNK, zb_pitch(J))
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdALayout:
+    """The scratch and shared memory of kernel A's tensor-core form, which
+    band_bwd_a_wt and band_bwd_a_ring check against their own."""
+
+    J: int
+    V: int
+    wt_shape: tuple[int, int]
+    smem_bytes: int
+
+
+def bwd_a_layout(J: int, V: int, smem_per_block: int) -> BwdALayout:
+    """Kernel A's tensor-core layout for bf16 W of (J, V) on a card with
+    `smem_per_block` bytes of shared memory a block (one block an SM:
+    210,704 bytes at J = 512). Raises ValueError for a shape the kernel
+    does not take (J > MAX_J, J % 16 != 0, V odd) or shared memory that
+    does not hold its block; the wrapper sends f32 W and those shapes to
+    the CUDA-core form before it asks."""
+    where = (f"kernel A's ring cannot take J={J}, V={V} with "
+             f"{smem_per_block} bytes of shared memory a block")
+    if not (16 <= J <= MAX_J) or not mma_shapes_ok(J, V) or V < 2:
+        raise ValueError(f"{where}: the tensor-core form needs 16 <= J <= "
+                         f"{MAX_J}, J % 16 == 0 and V even")
+    smem = ring_a_bytes(J)
+    if smem > smem_per_block:
+        raise ValueError(f"{where}: a block needs {smem} bytes")
+    return BwdALayout(J, V, wt_shape(J, V), smem)
+
+
+def device_bwd_a_layout(J: int, V: int, device) -> BwdALayout:
+    """`bwd_a_layout` on the limits of the CUDA card `device`."""
+    return bwd_a_layout(J, V, _card_limits(device)[1])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -175,12 +244,18 @@ def bwd_b_plan(J: int, V: int, n_sm: int, smem_per_block: int,
                     (grid_x, splits), smem)
 
 
-def device_bwd_b_plan(rows: int, J: int, V: int, device) -> BwdBPlan:
-    """`bwd_b_plan` on the limits of the CUDA card `device`."""
+def _card_limits(device):
+    """(SMs, opt-in shared bytes a block, cooperative launch) of the CUDA
+    card `device`."""
     device = torch.device(device)
     index = (device.index if device.index is not None
              else torch.cuda.current_device())
-    n_sm, smem, _ = lstm_cuda.card_limits(index)
+    return lstm_cuda.card_limits(index)
+
+
+def device_bwd_b_plan(rows: int, J: int, V: int, device) -> BwdBPlan:
+    """`bwd_b_plan` on the limits of the CUDA card `device`."""
+    n_sm, smem, _ = _card_limits(device)
     return bwd_b_plan(J, V, n_sm, smem, rows)
 
 
@@ -297,7 +372,8 @@ def _check_bwd(f, g_w, lab_w, w, b, base, cb, cy):
     _check_sidecars(tuple(lab_w.shape), f.device, base=base, cb=cb, cy=cy)
 
 
-def band_lp_bwd_a(f, g_w, lab_w, w, b, base, cb, cy, blank: int = 0):
+def band_lp_bwd_a(f, g_w, lab_w, w, b, base, cb, cy, blank: int = 0, *,
+                  events=None):
     """-> (df (B, T, J), dg_w (B, T, S, J)), both f32.
 
     base (B, T, S) from the forward; cb, cy (B, T, S) the loss cotangents
@@ -306,7 +382,15 @@ def band_lp_bwd_a(f, g_w, lab_w, w, b, base, cb, cy, blank: int = 0):
         dlogits = cb ([v = blank] - p) + cy ([v = lab_w] - p)
         dg_w    = round(dlogits) . W^T * (1 - z^2),   df = sum_s dg_w
 
-    with p = exp(logits - base); df is summed in s order by a second pass.
+    with p = exp(logits - base); df is summed in s order by a last pass.
+    bf16 W with J % 16 == 0 and V even takes the tensor-core form: W^T
+    into a scratch wt once (band_bwd_a_wt), then band_bwd_a_ring in the
+    layout of `device_bwd_a_layout`; other W and shapes the CUDA-core
+    form (band_bwd_a). Each dz element is summed by one thread in a fixed
+    order, so two runs give identical bits. `events`, three CUDA events,
+    are recorded before the W^T pass, between it and the main launch, and
+    after it (the CUDA-core form has no W^T pass: the first two are
+    recorded together).
     """
     _check_bwd(f, g_w, lab_w, w, b, base, cb, cy)
     if f.device.type == "cpu":
@@ -321,12 +405,31 @@ def band_lp_bwd_a(f, g_w, lab_w, w, b, base, cb, cy, blank: int = 0):
     if B * T == 0:
         return df, dgw
     fn = build.load_library()
-    err = fn.band_bwd_a(f.data_ptr(), g_w.data_ptr(), lab_w.data_ptr(),
-                        w.data_ptr(), int(w.dtype == torch.bfloat16),
-                        b.data_ptr(), base.data_ptr(), cb.data_ptr(),
-                        cy.data_ptr(), df.data_ptr(), dgw.data_ptr(), B, T, S,
-                        J, V, blank, *build.stream_args(dev))
-    build.check_launch(fn, err, "band_bwd_a")
+    ev = events if events is not None else (None, None, None)
+    if tensor_core_form(w.dtype, J, V):
+        layout = device_bwd_a_layout(J, V, dev)
+        wt = torch.empty(layout.wt_shape, dtype=torch.bfloat16, device=dev)
+        _record(ev[0])
+        err = fn.band_bwd_a_wt(w.data_ptr(), wt.data_ptr(), J, V,
+                               layout.wt_shape[0], *build.stream_args(dev))
+        build.check_launch(fn, err, "band_bwd_a_wt")
+        _record(ev[1])
+        err = fn.band_bwd_a_ring(
+            f.data_ptr(), g_w.data_ptr(), lab_w.data_ptr(), wt.data_ptr(),
+            b.data_ptr(), base.data_ptr(), cb.data_ptr(), cy.data_ptr(),
+            df.data_ptr(), dgw.data_ptr(), B, T, S, J, V, blank,
+            layout.wt_shape[0], layout.smem_bytes, *build.stream_args(dev))
+        build.check_launch(fn, err, "band_bwd_a_ring")
+    else:
+        _record(ev[0])
+        _record(ev[1])
+        err = fn.band_bwd_a(f.data_ptr(), g_w.data_ptr(), lab_w.data_ptr(),
+                            w.data_ptr(), int(w.dtype == torch.bfloat16),
+                            b.data_ptr(), base.data_ptr(), cb.data_ptr(),
+                            cy.data_ptr(), df.data_ptr(), dgw.data_ptr(), B,
+                            T, S, J, V, blank, *build.stream_args(dev))
+        build.check_launch(fn, err, "band_bwd_a")
+    _record(ev[2])
     _count("LAUNCHES_BWD_A")
     return df, dgw
 
@@ -385,7 +488,7 @@ def band_lp_bwd_b(f, g_w, lab_w, w, b, base, cb, cy, blank: int = 0, *,
         return dw.zero_(), db.zero_()
     fn = build.load_library()
     ev = events if events is not None else (None, None, None)
-    if w.dtype == torch.bfloat16 and mma_shapes_ok(J, V):
+    if tensor_core_form(w.dtype, J, V):
         plan = device_bwd_b_plan(B * T * S, J, V, dev)
         zb = torch.empty(plan.zb_shape, dtype=torch.bfloat16, device=dev)
         parts = (None, None)

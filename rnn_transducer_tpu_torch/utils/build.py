@@ -109,6 +109,12 @@ SIGNATURES = {
     # V, blank, device, stream
     "band_bwd_a": (_I, [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I,
                         _I, _I, _I, _I, _I, _P]),
+    # w, wt, J, V, wt_rows, device, stream
+    "band_bwd_a_wt": (_I, [_P, _P, _I, _I, _LL, _I, _P]),
+    # f, g_w, lab_w, wt, b, base, cb, cy, df, dg_w, B, T, S, J, V, blank,
+    # wt_rows, smem_bytes, device, stream
+    "band_bwd_a_ring": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                             _I, _I, _I, _I, _LL, _LL, _I, _P]),
     # f, g_w, lab_w, w, w_is_bf16, b, base, cb, cy, dw, db, dw_part,
     # db_part, B, T, S, J, V, blank, n_split, device, stream
     "band_bwd_b": (_I, [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,

@@ -585,10 +585,16 @@ def test_cuda_band_kernels_match_reference(cuda_device, dtype, B, T, S, J,
     """K6 (band_fwd, band_bwd_a, band_bwd_b) against the plain versions:
     S not a multiple of 8, rows past one 64-row block, V odd (the CUDA-core
     form at bf16) and not a multiple of the column chunk, J % 16 != 0. For
-    kernel B's tensor-core form: V not a multiple of its 64-column tile
-    (1000), N not a multiple of 64 rows (63, 24), more than one row split
-    (800 rows at V=1024: 8), the pruned band's V=8192, and more column
-    tiles than SMs (8704: 136 tiles, walked in turn)."""
+    the tensor-core forms of kernels A and B (bf16, J % 16 == 0, V even):
+    V not a multiple of 64 columns (1000, 130, 8704), J below 512 and not
+    a multiple of 64 (96), N not a multiple of 64 rows (65, 63, 24, 8);
+    for B's, more than one row split (800 rows at V=1024: 8), the pruned
+    band's V=8192, and more column tiles than SMs (8704: 136 tiles, walked
+    in turn). Kernel A runs its W^T pass and ring kernel where it takes
+    the tensor-core form and its CUDA-core kernel elsewhere; both
+    backward kernels give the same bits twice."""
+    from torch.profiler import ProfilerActivity, profile
+
     from rnn_transducer_tpu_torch.ops import rnnt_band_fused as bf
     (f, g_w, lab_w, w, b), (cb, cy) = _band_args(B, T, S, J, V, dtype,
                                                  cuda_device)
@@ -598,7 +604,11 @@ def test_cuda_band_kernels_match_reference(cuda_device, dtype, B, T, S, J,
     for a, e in zip(got, want):
         assert float((a - e).abs().max()) <= LP_ATOL[dtype]
     args = (f, g_w, lab_w, w, b, want[2], cb, cy)
-    got_a = bf.band_lp_bwd_a(*args)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        got_a = bf.band_lp_bwd_a(*args)
+        torch.cuda.synchronize()
+    again_a = bf.band_lp_bwd_a(*args)
     got_b = bf.band_lp_bwd_b(*args)
     again = bf.band_lp_bwd_b(*args)
     want_a = bf.band_lp_bwd_a_reference(*args)
@@ -606,11 +616,20 @@ def test_cuda_band_kernels_match_reference(cuda_device, dtype, B, T, S, J,
     torch.cuda.synchronize()
     for name, a, e in zip(("df", "dg_w", "dw", "db"), got_a + got_b,
                           want_a + want_b):
+        assert bool(torch.isfinite(a).all()), name
         assert _rel_err(a, e) <= REL_TOL[dtype], name
+    for name, a, e in zip(("df", "dg_w"), again_a, got_a):
+        assert torch.equal(a, e), f"{name} differs between two runs"
     for a, e in zip(again, got_b):
         assert torch.equal(a, e)  # ordered partials: the same bits
+    ring = bf.tensor_core_form(dtype, J, V)
+    names = {e.key for e in prof.key_averages()}
+    ran = {k: any(k + "_kernel" in n for n in names)
+           for k in ("band_bwd_a_wt", "band_bwd_a_ring", "band_bwd_a")}
+    assert ran == {"band_bwd_a_wt": ring, "band_bwd_a_ring": ring,
+                   "band_bwd_a": not ring}, ran
     assert (bf.LAUNCHES_FWD, bf.LAUNCHES_BWD_A, bf.LAUNCHES_BWD_B) == (
-        before[0] + 1, before[1] + 1, before[2] + 2)
+        before[0] + 1, before[1] + 2, before[2] + 2)
 
 
 @pytest.mark.cuda
@@ -648,6 +667,44 @@ def test_cuda_band_bwd_b_times_its_two_launches(cuda_device):
     bf.band_lp_bwd_b(f, g_w, lab_w, w, b, base, cb, cy, events=ev)
     torch.cuda.synchronize()
     assert ev[0].elapsed_time(ev[1]) > 0 and ev[1].elapsed_time(ev[2]) > 0
+
+
+@pytest.mark.cuda
+def test_cuda_band_bwd_a_times_its_two_launches(cuda_device):
+    """The events of a tensor-core call of kernel A bracket the W^T pass
+    and the main launch (the ring kernel and the ordered df sum), in
+    order."""
+    from rnn_transducer_tpu_torch.ops import rnnt_band_fused as bf
+
+    (f, g_w, lab_w, w, b), (cb, cy) = _band_args(2, 6, 8, 64, 130,
+                                                 torch.bfloat16, cuda_device)
+    base = bf.band_lp_fwd(f, g_w, lab_w, w, b)[2]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    bf.band_lp_bwd_a(f, g_w, lab_w, w, b, base, cb, cy, events=ev)
+    torch.cuda.synchronize()
+    assert ev[0].elapsed_time(ev[1]) > 0 and ev[1].elapsed_time(ev[2]) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", [{"wt_shape": (64, 72)},
+                                 {"wt_shape": (128, 72)},
+                                 {"smem_bytes": 48 * 1024}])
+def test_cuda_band_bwd_a_refuses_a_bad_layout(cuda_device, monkeypatch, bad):
+    """band_bwd_a_wt and band_bwd_a_ring check the layout they are handed
+    and the wrapper raises: wt's rows not V's whole chunks (V = 130 takes
+    192), shared bytes that are not the kernel's."""
+    import dataclasses
+
+    from rnn_transducer_tpu_torch.ops import rnnt_band_fused as bf
+
+    (f, g_w, lab_w, w, b), (cb, cy) = _band_args(2, 6, 8, 64, 130,
+                                                 torch.bfloat16, cuda_device)
+    base = bf.band_lp_fwd(f, g_w, lab_w, w, b)[2]
+    good = bf.device_bwd_a_layout(64, 130, cuda_device)
+    monkeypatch.setattr(bf, "device_bwd_a_layout",
+                        lambda *a: dataclasses.replace(good, **bad))
+    with pytest.raises(RuntimeError, match="band_bwd_a_"):
+        bf.band_lp_bwd_a(f, g_w, lab_w, w, b, base, cb, cy)
 
 
 @pytest.mark.cuda
