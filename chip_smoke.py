@@ -24,7 +24,11 @@ Phases, in order:
   3. kernel each kernel against its plain PyTorch version on the card, at
             the main paths' shapes, in f32 and bf16 (max error, kernel ms
             and plain ms from CUDA events, in turns plain, kernel, kernel,
-            plain); lstm_bwd (one persistent launch a layer, at the
+            plain); lstm_fwd (one persistent launch a layer, with and
+            without activations, with its tile, two runs giving identical
+            bits, and a line through its time against T: µs a step and
+            the fixed cost of a launch) and lstm_bwd (one persistent
+            launch a layer, at the
             encoder's and the predictor's training shapes, with its tile,
             its barrier count and cuDNN's backward beside it) and
             joint_bwd run twice must give identical bits, joint_bwd with
@@ -63,8 +67,9 @@ Phases, in order:
   5. train  training steps: finite loss and grad norm on every step, no
             skipped update, the params move, every training kernel
             launched; ms/step by the slope of bench.py and utt/s; one
-            torch.profiler step split by layer, with one lstm_bwd kernel
-            per LSTM layer call (every training phase) and, in the fused
+            torch.profiler step split by layer, with one lstm_fwd and one
+            lstm_bwd kernel per LSTM layer call (every training phase:
+            5 of each at libri100) and, in the fused
             steps (this one and the conformer's), K2's kernel B as its
             two ring kernels and no K6 kernel; an f32 loss and gradient
             through the kernels against the plain versions; the CLI for
@@ -121,6 +126,7 @@ from unittest import mock
 import numpy as np
 import torch
 
+from rnn_transducer_tpu_torch.bench_band_bwd_b import step_fit
 from rnn_transducer_tpu_torch.decode import greedy_fused as gf
 from rnn_transducer_tpu_torch.decode.greedy import greedy_decode, recognize_greedy
 from rnn_transducer_tpu_torch.models import transducer as m
@@ -412,11 +418,19 @@ def kernel_vs_plain(rng: np.random.Generator, dev) -> dict:
             args = (x_proj, w, h0, c0)
             want = lstm_cuda.lstm_recurrence_reference(*args)
             got = lstm_cuda.lstm_recurrence(*args)  # warm: build, caches
+            again = lstm_cuda.lstm_recurrence(*args)
             torch.cuda.synchronize()
             err = max(float((g - r).abs().max()) for g, r in (
                 (got[0], want[0]), (got[1][0], want[1][0]),
                 (got[1][1], want[1][1])))
-            ok = bool(torch.isfinite(got[0]).all()) and err <= ATOL[cd]
+            same_bits = (torch.equal(got[0], again[0])
+                         and torch.equal(got[1][1], again[1][1]))
+            # the same inputs with activations, as a training step runs them
+            err_acts = max(max_abs(g, r) for g, r in zip(
+                lstm_cuda.lstm_recurrence_with_acts(*args),
+                lstm_cuda.lstm_recurrence_with_acts_reference(*args)))
+            ok = (bool(torch.isfinite(got[0]).all())
+                  and max(err, err_acts) <= ATOL[cd])
             times = {"plain": [], "kernel": []}
             for which in ("plain", "kernel", "kernel", "plain"):
                 fn = (lstm_cuda.lstm_recurrence if which == "kernel"
@@ -425,8 +439,11 @@ def kernel_vs_plain(rng: np.random.Generator, dev) -> dict:
             row = {"case": name, "B": B, "T": T, "I": I, "H": H,
                    "dtype": str(cd).replace("torch.", ""),
                    "max_abs_err": err, "atol": ATOL[cd],
+                   "with_acts_max_abs_err": err_acts,
                    "kernel_ms": statistics.mean(times["kernel"]),
                    "plain_ms": statistics.mean(times["plain"]),
+                   "bitwise_repeat": same_bits,
+                   "plan": fwd_plan_row(B, H, cd, dev),
                    **bound(nbytes(args, got[0], got[1][1]),
                            2 * B * T * H * 4 * H, cd)}
             if (name, cd) == MAIN_CASE:
@@ -439,14 +456,27 @@ def kernel_vs_plain(rng: np.random.Generator, dev) -> dict:
                     cuda_ms(layer) for _ in range(2))
                 row.update(cudnn_lstm_ms(x, w_ih, w_hh, b, h0, c0))
                 row["library_ms"] = row["cudnn_fwd_ms"]
+            if name == MAIN_CASE[0]:
+                row["step_fit"] = step_fit(device_ms, dev, cd, B, H)
             print("kernel lstm_fwd " + json.dumps(row))
-            check(ok, f"lstm_fwd {name} {cd}: max abs err {err} > "
-                      f"{ATOL[cd]} or non-finite output")
+            check(ok, f"lstm_fwd {name} {cd}: max abs err {err} (with "
+                      f"activations {err_acts}) > {ATOL[cd]} or non-finite "
+                      "output")
+            check(same_bits, f"lstm_fwd {name} {cd}: two runs gave "
+                             "different bits")
             rows.append(row)
             worst = max(worst, err)
             if (name, cd) == MAIN_CASE:
                 main = row
     return {"rows": rows, "max_abs_err": worst, "main": main}
+
+
+def fwd_plan_row(B: int, H: int, cd, dev) -> dict:
+    """K4-fwd's tile on this card: grid, units and rows a block, shared
+    bytes, stage passes a step."""
+    plan = lstm_cuda.device_fwd_plan(B, H, cd, dev)
+    return {"grid": plan.grid, "units": plan.units, "rows": plan.rows,
+            "smem_bytes": plan.smem_bytes, "passes": plan.passes}
 
 
 def lstm_train_vs_plain(rng: np.random.Generator, dev) -> dict:
@@ -478,6 +508,7 @@ def lstm_train_vs_plain(rng: np.random.Generator, dev) -> dict:
             fwd_args = (x_proj, w, h0, c0)
             want = lstm_cuda.lstm_recurrence_with_acts_reference(*fwd_args)
             got = lstm_cuda.lstm_recurrence_with_acts(*fwd_args)
+            fwd_again = lstm_cuda.lstm_recurrence_with_acts(*fwd_args)
             cs_prev = torch.cat([c0[:, None], want[1][:, :-1]], 1)
             bwd_args = (want[2], cs_prev, dhs, dcT, w)
             want_b = lstm_cuda.lstm_recurrence_bwd_reference(*bwd_args)
@@ -488,8 +519,15 @@ def lstm_train_vs_plain(rng: np.random.Generator, dev) -> dict:
             err_b = max(max_abs(g, r) for g, r in zip(got_b, want_b))
             rel_b = max(rel_err(g, r) for g, r in zip(got_b, want_b))
             same_bits = all(torch.equal(g, a) for g, a in zip(got_b, again))
+            fwd_same_bits = all(torch.equal(g, a)
+                                for g, a in zip(got, fwd_again))
+            # the same inputs without activations, as serving runs them
+            err_n = max(max_abs(g, r) for g, r in zip(
+                leaves(lstm_cuda.lstm_recurrence(*fwd_args)),
+                leaves(lstm_cuda.lstm_recurrence_reference(*fwd_args))))
             ok = (all(bool(torch.isfinite(g).all()) for g in got + got_b)
-                  and err_f <= ATOL[cd] and rel_b <= REL_TOL[cd])
+                  and max(err_f, err_n) <= ATOL[cd]
+                  and rel_b <= REL_TOL[cd])
             kf, pf = timed_pair(
                 lambda: lstm_cuda.lstm_recurrence_with_acts(*fwd_args),
                 lambda: lstm_cuda.lstm_recurrence_with_acts_reference(
@@ -518,10 +556,13 @@ def lstm_train_vs_plain(rng: np.random.Generator, dev) -> dict:
             row = {"case": name, "B": B, "T": T, "I": I, "H": H,
                    "dtype": str(cd).replace("torch.", ""),
                    "fwd_max_abs_err": err_f, "fwd_atol": ATOL[cd],
+                   "fwd_no_acts_max_abs_err": err_n,
                    "bwd_max_abs_err": err_b, "bwd_rel_err": rel_b,
                    "bwd_rtol": REL_TOL[cd], "bwd_bitwise_repeat": same_bits,
+                   "fwd_bitwise_repeat": fwd_same_bits,
                    "fwd_kernel_ms": kf, "fwd_plain_ms": pf,
                    "bwd_kernel_ms": kb, "bwd_plain_ms": pb,
+                   "fwd_plan": fwd_plan_row(B, H, cd, dev),
                    "bwd_with_dw_ms": with_dw["dw"],
                    "bwd_layer_ms": with_dw["layer"],
                    "bwd_plan": {**dataclasses.asdict(plan),
@@ -532,10 +573,13 @@ def lstm_train_vs_plain(rng: np.random.Generator, dev) -> dict:
             if (name, cd) == TRAIN_MAIN:
                 row.update(cudnn_lstm_ms(x, w_ih, w_hh, b, h0, c0))
             print("kernel lstm_fwd_with_acts+lstm_bwd " + json.dumps(row))
-            check(ok, f"lstm training kernels {name} {cd}: fwd err {err_f}, "
-                      f"bwd rel err {rel_b}, or non-finite output")
+            check(ok, f"lstm training kernels {name} {cd}: fwd err {err_f} "
+                      f"(without activations {err_n}), bwd rel err {rel_b}, "
+                      "or non-finite output")
             check(same_bits, f"lstm_bwd {name} {cd}: two runs gave "
                              "different bits")
+            check(fwd_same_bits, f"lstm_fwd with activations {name} {cd}: "
+                                 "two runs gave different bits")
             rows.append(row)
             worst["fwd"] = max(worst["fwd"], err_f)
             worst["bwd"] = max(worst["bwd"], err_b)
@@ -1596,6 +1640,18 @@ def leaves(tree):
     return torch.utils._pytree.tree_leaves(tree)
 
 
+def pad_profiler_window() -> None:
+    """A spin kernel of ~20 ms, then a synchronise. torch.profiler drops a
+    kernel whose start or end, mapped from the card's clock onto the
+    host's, falls outside its window, and the mapping can be off by
+    milliseconds: one AR step's trace on the H100 placed kernels up to 3.9
+    ms before their own launch, and lost the step's first LSTM kernel. A
+    pad at each end of the window keeps the profiled work inside it; the
+    spin kernels themselves are left out of every count."""
+    torch.cuda._sleep(40_000_000)
+    torch.cuda.synchronize()
+
+
 def profile_step(step, state, batch, profile_dir, name="train_step"):
     """One training step under torch.profiler: device time by kernel
     family, host time by the step's spans, the device's busy share."""
@@ -1605,11 +1661,13 @@ def profile_step(step, state, batch, profile_dir, name="train_step"):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        pad_profiler_window()
         t0 = time.perf_counter()
         state, _ = step(state, *batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    families = {"lstm_fwd": ("lstm_step_kernel",),
+        pad_profiler_window()
+    families = {"lstm_fwd": ("lstm_fwd_persistent_kernel",),
                 "lstm_bwd": ("lstm_bwd_persistent_kernel",),
                 "joint_fwd": ("joint_fwd",),
                 "joint_bwd_a": ("joint_bwd_a_",),
@@ -1642,7 +1700,7 @@ def profile_step(step, state, batch, profile_dir, name="train_step"):
             else:
                 host[evt.key] = evt.cpu_time_total / 1e3
             continue
-        if evt.device_type != DeviceType.CUDA:
+        if evt.device_type != DeviceType.CUDA or "spin_kernel" in evt.key:
             continue
         fam = next((k for k, names in families.items()
                     if any(n in evt.key for n in names)), "other")
@@ -1695,15 +1753,20 @@ def check_band_profile(prof: dict, result: dict, what: str) -> None:
               f"2 for each of its {per_step} {name} calls")
 
 
-def check_bwd_launches(prof: dict, result: dict, what: str) -> None:
-    """K4-bwd is one launch per LSTM layer call: the profiled step's
-    lstm_bwd kernels number the wrapper's launches a step (5 at libri100:
-    4 encoder layers and the predictor), not one per time step."""
-    per_step = result["launches"]["lstm_bwd"] / result["steps"]
-    seen = prof["device_launches"]["lstm_bwd"]
-    check(per_step > 0 and seen == per_step,
-          f"the profiled {what} step ran {seen} lstm_bwd kernels, not the "
-          f"{per_step} layer calls a step")
+def check_lstm_launches(prof: dict, result: dict, what: str) -> None:
+    """K4-fwd and K4-bwd are one launch per LSTM layer call: the profiled
+    step's lstm_fwd and lstm_bwd kernels number their wrappers' calls a
+    step (5 each at libri100: 4 encoder layers and the predictor; the AR
+    aligner's forward adds its own), not one per time step."""
+    counts, steps = result["launches"], result["steps"]
+    for fam, calls in (("lstm_fwd", counts["lstm_fwd"]
+                        + counts["lstm_fwd_with_acts"]),
+                       ("lstm_bwd", counts["lstm_bwd"])):
+        per_step = calls / steps
+        seen = prof["device_launches"][fam]
+        check(per_step > 0 and seen == per_step,
+              f"the profiled {what} step ran {seen} {fam} kernels, not the "
+              f"{per_step} layer calls a step")
 
 
 def lattice_ms(dev, seed: int) -> dict:
@@ -1921,7 +1984,7 @@ def train_phase(seed: int, dev, profile_dir) -> dict:
 
     state, prof = profile_step(step, state, batch, profile_dir)
     print("train_profile " + json.dumps(prof))
-    check_bwd_launches(prof, result, "libri100")
+    check_lstm_launches(prof, result, "libri100")
     check_fused_joint_profile(prof, result, "libri100")
     lat_ms = lattice_ms(dev, seed)
     print("train_lattice " + json.dumps(lat_ms))
@@ -1948,7 +2011,7 @@ def train_pallas_phase(seed: int, dev, profile_dir) -> dict:
     state, prof = profile_step(step, state, batch, profile_dir,
                                "train_pallas_step")
     print("train_pallas_profile " + json.dumps(prof))
-    check_bwd_launches(prof, result, "two-pass")
+    check_lstm_launches(prof, result, "two-pass")
     result["profile"] = prof
     del step, state, batch
     torch.cuda.empty_cache()
@@ -1990,7 +2053,7 @@ def train_conformer_phase(seed: int, dev, profile_dir) -> dict:
     state, prof = profile_step(step, state, batch, profile_dir,
                                "train_conformer_step")
     print("train_conformer_profile " + json.dumps(prof))
-    check_bwd_launches(prof, result, "conformer")
+    check_lstm_launches(prof, result, "conformer")
     check_fused_joint_profile(prof, result, "conformer")
     result["profile"] = prof
     del step, state, batch
@@ -2068,7 +2131,7 @@ def train_pruned_phase(seed: int, dev, profile_dir) -> dict:
     state, prof = profile_step(step, state, batch, profile_dir,
                                "train_pruned_step")
     print("train_pruned_profile " + json.dumps(prof))
-    check_bwd_launches(prof, result, "pruned")
+    check_lstm_launches(prof, result, "pruned")
     check_band_profile(prof, result, "pruned")
     result["profile"] = prof
     del step, state, batch
@@ -2109,7 +2172,7 @@ def train_ar_phase(seed: int, dev, profile_dir) -> dict:
     state, prof = profile_step(step, state, batch, profile_dir,
                                "train_ar_step")
     print("train_ar_profile " + json.dumps(prof))
-    check_bwd_launches(prof, result, "AR")
+    check_lstm_launches(prof, result, "AR")
     check_band_profile(prof, result, "AR")
     result["profile"] = prof
     del step, state, batch

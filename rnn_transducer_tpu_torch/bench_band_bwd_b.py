@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """The joint's backward kernels (K6-A and K6-B, the band joint's dz and
-dW / db; K2, the fused joint's) and the training steps that run them,
-timed on one CUDA card for one or more checkouts of this repository, in
-turns.
+dW / db; K2, the fused joint's), the LSTM forward (K4-fwd) and the
+training steps and served requests that run them, timed on one CUDA card
+for one or more checkouts of this repository, in turns.
 
     python3 -m rnn_transducer_tpu_torch.bench_band_bwd_b \
         [--trees DIR [DIR ...]] [--parts PART [PART ...]] [--out RESULTS.json]
@@ -12,7 +12,7 @@ in the order given (default: this checkout), so that two versions of the
 kernels are compared on one card: pass `--trees OLD NEW NEW OLD`. A
 process puts the tree's root first on the import path (its package and
 its chip_smoke.py), builds that tree's kernels, then runs the parts
-(default: all five, in this order):
+(default: all eight, in this order):
 
   band_bwd_a   holds `band_lp_bwd_a` (df, dg_w) against its plain version
                at the pruned step's band (B=32, T'=200, S=8, J=512, bf16)
@@ -38,7 +38,22 @@ its chip_smoke.py), builds that tree's kernels, then runs the parts
                sums); where the tree's wrapper takes `events`, the same
                split by CUDA events;
   train_step   trains libri100 at B=32, T=400, U=40 through the default
-               (fused) loss, then profiles one step.
+               (fused) loss, then profiles one step;
+  lstm_fwd     holds `lstm_recurrence` (serving, without activations) at
+               libri100's 800- and 400-frame buckets (l0_b800, l1_b800,
+               l0_b400) and `lstm_recurrence_with_acts` (training) at
+               l0_train, l1_train, pred_b32 and pred_b64 (chip_smoke's
+               shapes), bf16 and f32, against their plain versions (max
+               |err|, two runs bit for bit), and times them: device ms a
+               call behind a spin kernel, twice; where the tree has
+               `fwd_plan`, the tile; then a line through the serving
+               call's time at B=8 against T = 100, 200, 400, 800
+               (`step_fit`: µs a step and the fixed cost of a call);
+  ar_step      trains the alignment-restricted band (ar_range 8) at
+               libri100's B=32, T=400, U=40, then profiles one step;
+  serve        serves chip_smoke's 24 requests at libri100 width to a
+               BatchingEngine behind http_server: p50 and p95 latency and
+               the LSTM forward's calls.
 
 Prints one JSON line per tree and writes them all to --out if given.
 Needs a CUDA card and nvcc.
@@ -57,7 +72,7 @@ import sys
 
 
 PARTS = ("band_bwd_a", "band_bwd_b", "pruned_step", "joint_bwd",
-         "train_step")
+         "train_step", "lstm_fwd", "ar_step", "serve")
 
 
 def one(root: str, parts) -> dict:
@@ -299,10 +314,123 @@ def train_step(cs, dev) -> dict:
             "device_launches": prof["device_launches"]}
 
 
+def lstm_fwd(cs, dev) -> dict:
+    """The rows and the step fit of the lstm_fwd part."""
+    import numpy as np
+    import torch
+
+    from rnn_transducer_tpu_torch.ops import lstm_cuda
+    from rnn_transducer_tpu_torch.ops.lstm import _dot
+
+    H = 512
+    cases = ([(*c[:4], False) for c in cs.CASES
+              if c[0] in ("l0_b800", "l1_b800", "l0_b400")]
+             + [(*c[:4], True) for c in cs.TRAIN_LSTM_CASES
+                if c[0] in ("l0_train", "l1_train", "pred_b32", "pred_b64")])
+    rng = np.random.default_rng(12)
+    rows = []
+    for name, B, T, I, with_acts in cases:
+        k = 1.0 / np.sqrt(H)
+        w_ih = torch.from_numpy(rng.uniform(-k, k, (I, 4 * H))).float().to(dev)
+        w_hh = torch.from_numpy(rng.uniform(-k, k, (H, 4 * H))).float().to(dev)
+        b = torch.from_numpy(rng.uniform(-2 * k, 2 * k, 4 * H)).float().to(dev)
+        x = torch.from_numpy(rng.normal(size=(B, T, I))).float().to(dev)
+        h0 = torch.zeros(B, H, device=dev)
+        fn, ref = ((lstm_cuda.lstm_recurrence_with_acts,
+                    lstm_cuda.lstm_recurrence_with_acts_reference)
+                   if with_acts else (lstm_cuda.lstm_recurrence,
+                                      lstm_cuda.lstm_recurrence_reference))
+        for cd in (torch.bfloat16, torch.float32):
+            args = ((_dot(x, w_ih, cd) + b).contiguous(),
+                    w_hh.to(cd).contiguous(), h0, h0)
+            got = torch.utils._pytree.tree_leaves(fn(*args))
+            again = torch.utils._pytree.tree_leaves(fn(*args))
+            want = torch.utils._pytree.tree_leaves(ref(*args))
+            torch.cuda.synchronize()
+            row = {"case": name, "B": B, "T": T, "H": H,
+                   "with_acts": with_acts,
+                   "dtype": str(cd).replace("torch.", ""),
+                   "max_abs_err": max(cs.max_abs(g, r)
+                                      for g, r in zip(got, want)),
+                   "bitwise_repeat": all(torch.equal(g, a)
+                                         for g, a in zip(got, again)),
+                   "finite": all(bool(torch.isfinite(g).all()) for g in got),
+                   "kernel_ms": [cs.device_ms(lambda: fn(*args), reps=5)
+                                 for _ in range(2)],
+                   **cs.bound(cs.nbytes(args, got), 2 * B * T * H * 4 * H,
+                              cd)}
+            if hasattr(lstm_cuda, "device_fwd_plan"):
+                row["plan"] = dataclasses.asdict(lstm_cuda.device_fwd_plan(
+                    B, H, cd, dev))
+            print("lstm_fwd " + json.dumps(row), flush=True)
+            rows.append(row)
+            del got, again, want, args
+        torch.cuda.empty_cache()
+    return {"rows": rows, "step_fit": {
+        str(cd).replace("torch.", ""): step_fit(cs.device_ms, dev, cd)
+        for cd in (torch.bfloat16, torch.float32)}}
+
+
+def step_fit(device_ms, dev, cd, B: int = 8, H: int = 512) -> dict:
+    """lstm_recurrence's device ms (by `device_ms`, chip_smoke's) at B, H
+    against T = 100 .. 800 (x_proj random, zero state) and the
+    least-squares line through them: µs a step and the fixed cost of a
+    call (its intercept). chip_smoke.py prints it for its serving shape
+    too."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from rnn_transducer_tpu_torch.ops import lstm_cuda
+
+    rng = np.random.default_rng(13)
+    k = 1.0 / np.sqrt(H)
+    w = torch.from_numpy(rng.uniform(-k, k, (H, 4 * H))).to(dev, cd)
+    h0 = torch.zeros(B, H, device=dev)
+    ts, ms = (100, 200, 400, 800), []
+    for T in ts:
+        x_proj = torch.from_numpy(rng.normal(size=(B, T, 4 * H))).float().to(
+            dev)
+        lstm_cuda.lstm_recurrence(x_proj, w, h0, h0)
+        ms.append(device_ms(
+            lambda: lstm_cuda.lstm_recurrence(x_proj, w, h0, h0), reps=5))
+    mt, mm = statistics.mean(ts), statistics.mean(ms)
+    slope = (sum((t - mt) * (m - mm) for t, m in zip(ts, ms))
+             / sum((t - mt) ** 2 for t in ts))
+    return {"B": B, "H": H, "T": ts, "ms": ms, "us_a_step": slope * 1e3,
+            "fixed_us": (mm - slope * mt) * 1e3}
+
+
+def ar_step(cs, dev) -> dict:
+    from rnn_transducer_tpu_torch.models.config import config_libri100
+
+    step, state, batch, result = cs.train_run(
+        0, dev, "auto", cs.TRAIN_U, config_libri100(), ar_range=cs.AR_S)
+    _, prof = cs.profile_step(step, state, batch, None, "train_ar_step")
+    return {"ms_per_step": result["ms_per_step"],
+            "utt_per_s": result["utt_per_s"],
+            "peak_mem_gb": result["peak_mem_gb"],
+            "steps": result["steps"], "profile_wall_ms": prof["wall_ms"],
+            "device_busy_share": prof["device_busy_share"],
+            "device_ms": prof["device_ms"],
+            "device_launches": prof["device_launches"]}
+
+
+def serve(cs, dev) -> dict:
+    serving = cs.serving_setup(0, 24, dev)
+    _, result, counts = cs.serve_all(serving, serving["params"], dev)
+    return {**{k: result[k] for k in ("requests", "p50_ms", "p95_ms",
+                                      "wall_s", "req_per_s", "mean_batch",
+                                      "batches")},
+            "launches_lstm_fwd": counts["lstm_fwd"]}
+
+
 MEASURE = {"band_bwd_a": functools.partial(band_bwd, which="a"),
            "band_bwd_b": functools.partial(band_bwd, which="b"),
            "pruned_step": pruned_step,
-           "joint_bwd": joint_bwd, "train_step": train_step}
+           "joint_bwd": joint_bwd, "train_step": train_step,
+           "lstm_fwd": lstm_fwd, "ar_step": ar_step, "serve": serve}
 
 
 def main(argv=None):

@@ -51,10 +51,11 @@
 //   (c) the gate epilogue of the thread's (row, unit) pairs: dgates_t in
 //       f32 to the output, round(dgates_t) to the buffer's half t & 1;
 //   (d) dc stays in a register of the pair's thread for the whole launch;
-//   (e) the grid barrier: the block arrives (publishing its exchange
-//       writes), loads the next step's acts, cs_prev and dhs, which do not
-//       depend on the recurrence, and waits for the others, so the loads'
-//       latency overlaps the wait.
+//   (e) the grid barrier (grid_barrier.cuh, shared with the forward): the
+//       block arrives (publishing its exchange writes), loads the next
+//       step's acts, cs_prev and dhs, which do not depend on the
+//       recurrence, and waits for the others, so the loads' latency
+//       overlaps the wait.
 // The ping-pong buffer needs one barrier a step: the half written at step
 // t was last read at step t+1, before the barrier that ended it. T
 // barriers a launch. No float atomics: every output has one writer and
@@ -73,11 +74,14 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "grid_barrier.cuh"
 #include "mma_bf16.cuh"
 #include "tma_bulk.cuh"
 
 namespace {
 
+using grid_barrier::barrier_arrive;
+using grid_barrier::barrier_wait;
 using tma_bulk::mbar_wait;
 using tma_bulk::tma_rows;
 
@@ -112,38 +116,6 @@ __device__ __forceinline__ float from_float<float>(float v) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
-}
-
-// The grid barrier in two halves (the release / acquire pattern of
-// CUTLASS's barrier.h), for a launch whose blocks are all resident, which
-// the cooperative launch guarantees. arrive() publishes the block's writes
-// of the step; wait() returns once every block has arrived `target` /
-// grid-size times. The next step's input loads go between the two: a
-// fence before the arrival would wait for them (cooperative_groups'
-// grid.sync() fences in the arriving thread), so here the arrival comes
-// first and the loads overlap the wait.
-__device__ __forceinline__ void barrier_arrive(unsigned int* arrived) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    asm volatile("red.release.gpu.global.add.u32 [%0], 1;"
-                 :
-                 : "l"(arrived)
-                 : "memory");
-  }
-}
-
-__device__ __forceinline__ void barrier_wait(unsigned int* arrived,
-                                             unsigned int target) {
-  if (threadIdx.x == 0) {
-    unsigned int seen;
-    do {
-      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
-                   : "=r"(seen)
-                   : "l"(arrived)
-                   : "memory");
-    } while (seen < target);
-  }
-  __syncthreads();
 }
 
 // Elements of padding that give a row of W a pitch of 4 (mod 32) words.

@@ -7,14 +7,19 @@
     `lstm_recurrence_with_acts` also writes the gate activations and the
     cell states that the backward reads, as `_core_fwd` does.
   * `csrc/lstm_bwd.cu` (K4-bwd) replaces `_lstm_core_bwd` and
-    `_lstm_core_bwd_v2`: `lstm_recurrence_bwd`, one persistent cooperative
-    launch per layer call. Each block keeps its slice of W_hh in shared
-    memory for the whole launch, as the TPU kernels keep W_hh in VMEM, and
-    the blocks hand each step's rounded dgates to one another through an
-    exchange buffer in device memory, one grid barrier a step. `bwd_plan`,
-    plain Python, places the tile: units and batch rows a block, the grid
-    (one wave on the card) and the shared memory; a shape it cannot place
-    raises ValueError, and there is no other route on the card.
+    `_lstm_core_bwd_v2`: `lstm_recurrence_bwd`.
+
+Both kernels are one persistent cooperative launch per layer call. Each
+block keeps its slice of W_hh in shared memory for the whole launch, as
+the TPU kernels keep W_hh in VMEM (the forward the 4 gate columns of its
+hidden units, the backward the rows of its units), and the blocks hand
+each step's rounded values to one another (round(h) forward, round(dgates)
+backward) through an exchange buffer in device memory, one grid barrier a
+step (`csrc/grid_barrier.cuh`). One planner, `lstm_plan`, plain Python,
+places either direction's tile (`fwd_plan`, `bwd_plan`): units and batch
+rows a block, the grid (one wave on the card) and the shared memory of
+that direction's layout; a shape it cannot place raises ValueError, and
+there is no other route on the card.
 
 The TPU's dispatch gates (`supported`, `_w_hh_fits_vmem`, the batch and
 time tiles) are VMEM concerns and have no counterpart: every shape goes
@@ -89,11 +94,13 @@ def _check(x_proj, w_hh, h0, c0):
 
 
 def _launch_fwd(x_proj, w_hh, h0, c0, with_acts: bool):
-    """lstm_fwd on the card -> hs, c_T, and (cs, acts) or (None, None)."""
+    """lstm_fwd on the card, one cooperative launch on `fwd_plan`'s tile ->
+    hs, c_T, and (cs, acts) or (None, None)."""
     dev = x_proj.device
     B, T, H4 = x_proj.shape
     H = H4 // 4
     fn = build.load_library()
+    plan = device_fwd_plan(B, H, w_hh.dtype, dev)
     hs = torch.empty((B, T, H), dtype=torch.float32, device=dev)
     c = torch.empty((B, H), dtype=torch.float32, device=dev)
     cs = acts = None
@@ -105,7 +112,9 @@ def _launch_fwd(x_proj, w_hh, h0, c0, with_acts: bool):
         h0.data_ptr(), c0.data_ptr(), hs.data_ptr(), c.data_ptr(),
         acts.data_ptr() if with_acts else None,
         cs.data_ptr() if with_acts else None,
-        B, T, H, *build.stream_args(dev))
+        _exchange_buffer(plan, w_hh.dtype, dev).data_ptr(), B, T, H,
+        plan.units, plan.rows, plan.stage_rows, plan.stage_cols,
+        *build.stream_args(dev))
     build.check_launch(fn, err, "lstm_fwd")
     return hs, c, cs, acts
 
@@ -207,38 +216,50 @@ def _check_bwd(acts, cs_prev, dhs, dcT, w_hh):
          ("w_hh", w_hh)))
 
 
-# The backward kernel's fixed shape (csrc/lstm_bwd.cu): 8 warps a block,
-# each thread owning at most 2 (row, unit) pairs; warp tiles of 32 or 16
-# units (bf16: one or two of the mma's M = 16) or 16 or 8 units (f32) by 8
-# rows; the 4H reduction padded to 128 columns, 16 for each warp; 16 bytes
-# of padding on every shared-memory row; 16 static bytes (the mbarrier).
-BWD_THREADS = 256
-_BWD_WARPS = BWD_THREADS // 32
-_BWD_PAIRS = 2
-_BWD_TILE_N = 8
-_BWD_K_ALIGN = 128
-_BWD_PAD_BYTES = 16
-_BWD_STATIC_SMEM = 16
-_BWD_UNITS = {torch.bfloat16: (32, 16), torch.float32: (16, 8)}
+# The persistent kernels' fixed shape (csrc/lstm_fwd.cu, csrc/lstm_bwd.cu):
+# 8 warps a block, each thread owning at most 2 (row, unit) pairs; warp
+# tiles of 8 rows by the block's W slice in 16-row mma M-tiles (one of 8
+# rows for the backward's 8 units in f32; bf16: mma.sync; f32: the CUDA
+# cores in the same fragment layout); 32 or 16 units a block in bf16, 16
+# or 8 in f32; the reduction padded to 128 columns, 16 for each warp; 16
+# bytes of padding on every shared-memory row; 16 static bytes (the
+# mbarrier).
+LSTM_THREADS = 256
+_WARPS = LSTM_THREADS // 32
+_PAIRS = 2
+_TILE_N = 8
+_K_ALIGN = 128
+_PAD_BYTES = 16
+_STATIC_SMEM = 16
+_UNITS = {torch.bfloat16: (32, 16), torch.float32: (16, 8)}
+# Each direction's product, as (W slice rows a unit, reduction columns an
+# H): the forward's gates = round(h) . W_hh takes the 4 gate columns of
+# each unit over H; the backward's dh = round(dgates) . W_hh^T takes the
+# unit's row of W_hh over 4H. The warps' partial sums have a column for
+# each W slice row.
+_SLICES = {"fwd": (4, 1), "bwd": (1, 4)}
 
 
 @dataclasses.dataclass(frozen=True)
-class BwdPlan:
-    """The tile of one `lstm_bwd` launch. Block (x, y) of the grid owns the
-    hidden units x*units .. and the batch rows y*rows .. (`owned`); it keeps
-    W_hh[units, :] in shared memory and stages round(dgates) of its rows
-    `stage_rows` by `stage_cols` at a time."""
+class LstmPlan:
+    """The tile of one `lstm_fwd` or `lstm_bwd` launch (`direction`).
+    Block (x, y) of the grid owns the hidden units x*units .. and the batch
+    rows y*rows .. (`owned`); it keeps its W_hh slice in shared memory and
+    stages the exchanged values of its rows (round(h) forward,
+    round(dgates) backward) `stage_rows` by `stage_cols` at a time."""
 
+    direction: str    # "fwd" or "bwd"
     B: int
     H: int
     units: int        # UB
     rows: int         # RB
     stage_rows: int   # SR, a multiple of 8 dividing rows
     stage_cols: int   # KC, a multiple of 128 dividing k_pad
-    k_pad: int        # 4H rounded up to 128: the exchange buffer's row
+    k_pad: int        # the reduction (H or 4H) rounded up to 128: the
+                      # exchange buffer's row
     grid: tuple[int, int]
     smem_bytes: int
-    threads: int = BWD_THREADS
+    threads: int = LSTM_THREADS
 
     @property
     def passes(self) -> int:
@@ -252,69 +273,85 @@ class BwdPlan:
                 range(y * self.rows, min((y + 1) * self.rows, self.B)))
 
 
-def _bwd_smem(units, rows, stage_rows, stage_cols, k_pad, w_bytes) -> int:
-    """Shared bytes of a block: the W_hh slice, the dg stage and the warps'
-    partial sums, as the kernel lays them out, and its mbarrier."""
-    pad = _BWD_PAD_BYTES // w_bytes
-    return ((units * (k_pad + pad) + stage_rows * (stage_cols + pad))
-            * w_bytes + _BWD_WARPS * rows * units * 4 + _BWD_STATIC_SMEM)
+def _smem(direction, units, rows, stage_rows, stage_cols, k_pad,
+          w_bytes) -> int:
+    """Shared bytes of a block: the W_hh slice, the stage and the warps'
+    partial sums, as the kernel of `direction` lays them out, and its
+    mbarrier."""
+    slice_rows = _SLICES[direction][0] * units
+    pad = _PAD_BYTES // w_bytes
+    return ((slice_rows * (k_pad + pad) + stage_rows * (stage_cols + pad))
+            * w_bytes + _WARPS * rows * slice_rows * 4 + _STATIC_SMEM)
 
 
 @functools.lru_cache(maxsize=None)
-def bwd_plan(B: int, H: int, w_dtype: torch.dtype, n_sm: int,
-             smem_per_block: int) -> BwdPlan:
-    """Place the backward kernel's tile for B rows, H hidden units and
-    W_hh in `w_dtype` on a card of `n_sm` SMs with `smem_per_block` bytes
-    of shared memory a block.
+def lstm_plan(direction: str, B: int, H: int, w_dtype: torch.dtype,
+              n_sm: int, smem_per_block: int) -> LstmPlan:
+    """Place the tile of the `direction` ("fwd" or "bwd") kernel for B
+    rows, H hidden units and W_hh in `w_dtype` on a card of `n_sm` SMs
+    with `smem_per_block` bytes of shared memory a block.
 
     Every block must be resident at once (one block per SM: grid <=
     n_sm), own at most 2 pairs a thread and fit its W slice, one stage and
     its partial sums in shared memory. Among the tiles that fit, the one
-    with the fewest rows a block wins: each step a block fetches all 4H
-    columns of its rows from L2 before its product can start, so fewer
-    rows make a shorter step (bench_lstm_bwd.py). Then the least work a
-    block (units x rows), then the fewest stage passes. Raises ValueError
-    when none fits.
+    with the fewest rows a block wins: each step a block fetches its rows'
+    exchanged values from L2 before its product can start, so fewer rows
+    make a shorter step (bench_lstm_bwd.py). Then the least work a block
+    (units x rows), then the fewest stage passes. Raises ValueError when
+    none fits.
     """
-    if w_dtype not in _BWD_UNITS:
+    if w_dtype not in _UNITS:
         raise TypeError(f"w_hh must be float32 or bfloat16; got {w_dtype}")
     if B < 1 or H < 1:
-        raise ValueError(f"lstm_bwd: empty shape B={B}, H={H}")
+        raise ValueError(f"lstm_{direction}: empty shape B={B}, H={H}")
     w_bytes = 2 if w_dtype == torch.bfloat16 else 4
-    k_pad = -(-4 * H // _BWD_K_ALIGN) * _BWD_K_ALIGN
+    k_pad = -(-_SLICES[direction][1] * H // _K_ALIGN) * _K_ALIGN
     best, best_key = None, None
-    for units in _BWD_UNITS[w_dtype]:
-        rows = _BWD_TILE_N
+    for units in _UNITS[w_dtype]:
+        rows = _TILE_N
         while True:
             grid = (-(-H // units), -(-B // rows))
             if (grid[0] * grid[1] <= n_sm
-                    and rows * units <= _BWD_PAIRS * BWD_THREADS):
-                for sr, kc in _bwd_stages(rows, k_pad):
-                    smem = _bwd_smem(units, rows, sr, kc, k_pad, w_bytes)
+                    and rows * units <= _PAIRS * LSTM_THREADS):
+                for sr, kc in _stages(rows, k_pad):
+                    smem = _smem(direction, units, rows, sr, kc, k_pad,
+                                 w_bytes)
                     if smem > smem_per_block:
                         continue
-                    plan = BwdPlan(B, H, units, rows, sr, kc, k_pad, grid,
-                                   smem)
+                    plan = LstmPlan(direction, B, H, units, rows, sr, kc,
+                                    k_pad, grid, smem)
                     key = (rows, units * rows, plan.passes)
                     if best_key is None or key < best_key:
                         best, best_key = plan, key
-                    break  # _bwd_stages lists the fewest passes first
+                    break  # _stages lists the fewest passes first
             if rows >= B:
                 break
             rows *= 2
     if best is None:
         raise ValueError(
-            f"lstm_bwd cannot place B={B}, H={H} in {w_dtype} on {n_sm} SMs "
-            f"with {smem_per_block} bytes of shared memory a block")
+            f"lstm_{direction} cannot place B={B}, H={H} in {w_dtype} on "
+            f"{n_sm} SMs with {smem_per_block} bytes of shared memory a "
+            "block")
     return best
 
 
-def _bwd_stages(rows: int, k_pad: int) -> list[tuple[int, int]]:
+def fwd_plan(B: int, H: int, w_dtype: torch.dtype, n_sm: int,
+             smem_per_block: int) -> LstmPlan:
+    """The forward kernel's tile (`lstm_plan`)."""
+    return lstm_plan("fwd", B, H, w_dtype, n_sm, smem_per_block)
+
+
+def bwd_plan(B: int, H: int, w_dtype: torch.dtype, n_sm: int,
+             smem_per_block: int) -> LstmPlan:
+    """The backward kernel's tile (`lstm_plan`)."""
+    return lstm_plan("bwd", B, H, w_dtype, n_sm, smem_per_block)
+
+
+def _stages(rows: int, k_pad: int) -> list[tuple[int, int]]:
     """(stage rows, stage columns) that tile rows x k_pad, fewest passes
     first, whole rows before split ones."""
-    srs = [sr for sr in range(_BWD_TILE_N, rows + 1, _BWD_TILE_N)
-           if rows % sr == 0]
-    kcs = [kc for kc in range(_BWD_K_ALIGN, k_pad + 1, _BWD_K_ALIGN)
+    srs = [sr for sr in range(_TILE_N, rows + 1, _TILE_N) if rows % sr == 0]
+    kcs = [kc for kc in range(_K_ALIGN, k_pad + 1, _K_ALIGN)
            if k_pad % kc == 0]
     return sorted(((sr, kc) for sr in srs for kc in kcs),
                   key=lambda s: ((rows // s[0]) * (k_pad // s[1]), -s[1]))
@@ -333,23 +370,40 @@ def card_limits(index: int) -> tuple[int, int, bool]:
     return n_sm.value, smem.value, bool(coop.value)
 
 
-def _bwd_limits(index: int) -> tuple[int, int]:
-    """SMs and opt-in shared bytes a block of card `index`; raises if the
+def device_plan(direction: str, B: int, H: int, w_dtype: torch.dtype,
+                device) -> LstmPlan:
+    """`lstm_plan` on the limits of the CUDA card `device`; raises if the
     card takes no cooperative launch."""
-    n_sm, smem, coop = card_limits(index)
-    if not coop:
-        raise RuntimeError(f"card {index} takes no cooperative launch, "
-                           "which lstm_bwd needs")
-    return n_sm, smem
-
-
-def device_bwd_plan(B: int, H: int, w_dtype: torch.dtype,
-                    device) -> BwdPlan:
-    """`bwd_plan` on the limits of the CUDA card `device`."""
     device = torch.device(device)
     index = (device.index if device.index is not None
              else torch.cuda.current_device())
-    return bwd_plan(B, H, w_dtype, *_bwd_limits(index))
+    n_sm, smem, coop = card_limits(index)
+    if not coop:
+        raise RuntimeError(f"card {index} takes no cooperative launch, "
+                           f"which lstm_{direction} needs")
+    return lstm_plan(direction, B, H, w_dtype, n_sm, smem)
+
+
+def device_fwd_plan(B: int, H: int, w_dtype: torch.dtype,
+                    device) -> LstmPlan:
+    """`fwd_plan` on the limits of the CUDA card `device`."""
+    return device_plan("fwd", B, H, w_dtype, device)
+
+
+def device_bwd_plan(B: int, H: int, w_dtype: torch.dtype,
+                    device) -> LstmPlan:
+    """`bwd_plan` on the limits of the CUDA card `device`."""
+    return device_plan("bwd", B, H, w_dtype, device)
+
+
+def _exchange_buffer(plan: LstmPlan, w_dtype: torch.dtype, dev):
+    """The zeroed exchange buffer of a launch on `plan`: the rounded values
+    of the last two steps, (2, grid.y * rows, k_pad) in the compute dtype
+    (rows past B and columns past the reduction stay zero), then 16 bytes
+    for the grid barrier's counter."""
+    elem = torch.empty((), dtype=w_dtype).element_size()
+    return torch.zeros(2 * plan.grid[1] * plan.rows * plan.k_pad + 16 // elem,
+                       dtype=w_dtype, device=dev)
 
 
 def lstm_recurrence_bwd(acts, cs_prev, dhs, dcT, w_hh):
@@ -378,16 +432,11 @@ def lstm_recurrence_bwd(acts, cs_prev, dhs, dcT, w_hh):
     dgates = torch.empty((B, T, H4), dtype=torch.float32, device=dev)
     dh0 = torch.empty((B, H), dtype=torch.float32, device=dev)
     dc0 = torch.empty((B, H), dtype=torch.float32, device=dev)
-    # the exchange buffer, round(dgates) of the last two steps (rows past B
-    # and columns past 4H stay zero), then 16 bytes for the grid barrier's
-    # counter
-    xbuf = torch.zeros(2 * plan.grid[1] * plan.rows * plan.k_pad
-                       + 16 // w_hh.element_size(), dtype=w_hh.dtype,
-                       device=dev)
     err = fn.lstm_bwd(
         acts.data_ptr(), cs_prev.data_ptr(), dhs.data_ptr(), dcT.data_ptr(),
         w_hh.data_ptr(), int(w_hh.dtype == torch.bfloat16),
-        dgates.data_ptr(), dh0.data_ptr(), dc0.data_ptr(), xbuf.data_ptr(),
+        dgates.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
+        _exchange_buffer(plan, w_hh.dtype, dev).data_ptr(),
         B, T, H, plan.units, plan.rows, plan.stage_rows, plan.stage_cols,
         *build.stream_args(dev))
     build.check_launch(fn, err, "lstm_bwd")

@@ -39,10 +39,10 @@ _I = ctypes.c_int
 _IP = ctypes.POINTER(ctypes.c_int)
 _LL = ctypes.c_longlong
 SIGNATURES = {
-    # x_proj, w_hh, w_is_bf16, h0, c0, hs, c, acts, cs, B, T, H, device,
-    # stream
-    "lstm_fwd": (_I, [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                      _P]),
+    # x_proj, w_hh, w_is_bf16, h0, c0, hs, c, acts, cs, xbuf, B, T, H,
+    # units, rows, stage_rows, stage_cols, device, stream
+    "lstm_fwd": (_I, [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                      _I, _I, _I, _I, _I, _P]),
     # acts, cs_prev, dhs, dcT, w_hh, w_is_bf16, dgates, dh0, dc0, xbuf, B,
     # T, H, units, rows, stage_rows, stage_cols, device, stream
     "lstm_bwd": (_I, [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I,

@@ -23,6 +23,17 @@ def _recurrence_args(B, T, H, dtype):
             torch.randn(B, H, generator=g), torch.randn(B, H, generator=g))
 
 
+def _pad_profiler_window():
+    """A spin kernel of ~20 ms, then a synchronise, at each end of a
+    torch.profiler window: the profiler drops a kernel whose time, mapped
+    from the card's clock onto the host's, falls outside the window, and
+    on the H100 that mapping was seen off by up to 3.9 ms, which lost the
+    first kernels of a window. The checks below read only the kernels
+    between the pads."""
+    torch.cuda._sleep(40_000_000)
+    torch.cuda.synchronize()
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -132,6 +143,109 @@ def test_cuda_lstm_bwd_refuses_a_shape_it_cannot_place(cuda_device):
     assert lstm_cuda.LAUNCHES_BWD == before
 
 
+# The forward's further card shapes: libri100's layer 0 in training (B=32,
+# T=400), the conformer's predictor (B=64, T=41), H=1024 and H=320 (its
+# reduction padded to 384 columns), each a different tile of
+# lstm_cuda.fwd_plan.
+FWD_SHAPES = [(32, 400, 512), (64, 41, 512), (4, 9, 1024), (3, 7, 320)]
+FWD_ATOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _fwd_outputs(args, with_acts: bool):
+    """The forward's outputs as one tuple: hs, cs, acts with activations;
+    hs, h_T, c_T without."""
+    if with_acts:
+        return lstm_cuda.lstm_recurrence_with_acts(*args)
+    hs, (hT, cT) = lstm_cuda.lstm_recurrence(*args)
+    return hs, hT, cT
+
+
+def _fwd_reference(args, with_acts: bool):
+    if with_acts:
+        return lstm_cuda.lstm_recurrence_with_acts_reference(*args)
+    hs, (hT, cT) = lstm_cuda.lstm_recurrence_reference(*args)
+    return hs, hT, cT
+
+
+def _fwd_launches():
+    return lstm_cuda.LAUNCHES + lstm_cuda.LAUNCHES_WITH_ACTS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_acts", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B, T, H", FWD_SHAPES)
+def test_cuda_lstm_fwd_persistent_matches_reference(cuda_device, dtype,
+                                                    with_acts, B, T, H):
+    args = [a.to(cuda_device) for a in _recurrence_args(B, T, H, dtype)]
+    before = _fwd_launches()
+    got = _fwd_outputs(args, with_acts)
+    want = _fwd_reference(args, with_acts)
+    torch.cuda.synchronize()
+    assert _fwd_launches() == before + 1
+    for name, a, e in zip(("hs", "cs" if with_acts else "h_T",
+                           "acts" if with_acts else "c_T"), got, want):
+        assert bool(torch.isfinite(a).all()), name
+        torch.testing.assert_close(a, e, rtol=0, atol=FWD_ATOL[dtype],
+                                   msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_acts", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B, T, H", [(32, 400, 512), (64, 41, 512)])
+def test_cuda_lstm_fwd_repeats_bit_for_bit(cuda_device, dtype, with_acts, B,
+                                           T, H):
+    """One writer per output and sums in a fixed order: two launches give
+    the same bits."""
+    args = [a.to(cuda_device) for a in _recurrence_args(B, T, H, dtype)]
+    got = _fwd_outputs(args, with_acts)
+    again = _fwd_outputs(args, with_acts)
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(got, again)):
+        assert torch.equal(a, b), f"output {i} differs between two runs"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_acts", [False, True])
+def test_cuda_lstm_fwd_is_one_launch_a_call(cuda_device, with_acts):
+    """A layer call is one persistent kernel, whatever T: the profiler sees
+    one lstm_fwd_persistent_kernel a call and no kernel of a step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    args = [a.to(cuda_device)
+            for a in _recurrence_args(8, 37, 512, torch.bfloat16)]
+    _fwd_outputs(args, with_acts)  # warm: build, plan, caches
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _pad_profiler_window()
+        for _ in range(2):
+            _fwd_outputs(args, with_acts)
+        torch.cuda.synchronize()
+        _pad_profiler_window()
+    counts = {}
+    for e in prof.key_averages():
+        if "lstm_" in e.key and "_kernel" in e.key:
+            counts[e.key] = counts.get(e.key, 0) + e.count
+    assert sum(n for k, n in counts.items()
+               if "lstm_fwd_persistent_kernel" in k) == 2, counts
+    assert not any("step" in k for k in counts), counts
+
+
+@pytest.mark.cuda
+def test_cuda_lstm_fwd_refuses_a_shape_it_cannot_place(cuda_device):
+    """No tile of B=4096 rows is one wave at H=1024: the wrapper raises,
+    with no other route on the card, and launches nothing."""
+    args = [a.to(cuda_device)
+            for a in _recurrence_args(4096, 1, 1024, torch.bfloat16)]
+    before = _fwd_launches()
+    for with_acts in (False, True):
+        with pytest.raises(ValueError, match="lstm_fwd.*B=4096, H=1024"):
+            _fwd_outputs(args, with_acts)
+    assert _fwd_launches() == before
+
+
 def _joint_args(B, T, U1, J, V, dtype, device, seed=0):
     g = torch.Generator().manual_seed(seed)
     f = torch.randn(B, T, J, generator=g)
@@ -222,8 +336,10 @@ def test_cuda_joint_bwd_b_on_the_ring_matches_reference(cuda_device, dtype, B,
         assert plan.splits == splits
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        _pad_profiler_window()
         got = tf.joint_lp_bwd(*args)
         torch.cuda.synchronize()
+        _pad_profiler_window()
     again = tf.joint_lp_bwd(*args)
     want = tf.joint_lp_bwd_reference(*args)
     torch.cuda.synchronize()
@@ -606,8 +722,10 @@ def test_cuda_band_kernels_match_reference(cuda_device, dtype, B, T, S, J,
     args = (f, g_w, lab_w, w, b, want[2], cb, cy)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        _pad_profiler_window()
         got_a = bf.band_lp_bwd_a(*args)
         torch.cuda.synchronize()
+        _pad_profiler_window()
     again_a = bf.band_lp_bwd_a(*args)
     got_b = bf.band_lp_bwd_b(*args)
     again = bf.band_lp_bwd_b(*args)
