@@ -33,7 +33,8 @@ Phases, in order:
             its barrier count and cuDNN's backward beside it) and
             joint_bwd run twice must give identical bits, joint_bwd with
             kernel A, kernel B's zb pass and ring kernel and the ordered
-            sums timed apart and kernel B's ring plan; the
+            sums timed apart, kernel A's W^T pass and ring kernel apart
+            by torch.profiler, and kernel B's ring plan; the
             lattice (alpha, beta and the occupancies) at U+1 = 41 and 81
             with ragged lengths and a zero-frame row; the W8A8 recurrence
             (lstm_int8) at the serving shapes and at batch tiles of 16
@@ -70,8 +71,9 @@ Phases, in order:
             torch.profiler step split by layer, with one lstm_fwd and one
             lstm_bwd kernel per LSTM layer call (every training phase:
             5 of each at libri100) and, in the fused
-            steps (this one and the conformer's), K2's kernel B as its
-            two ring kernels and no K6 kernel; an f32 loss and gradient
+            steps (this one and the conformer's), K2's kernels A and B
+            as their two ring kernels each and no K6 kernel; an f32 loss
+            and gradient
             through the kernels against the plain versions; the CLI for
             a few steps with a checkpoint round trip
   5b. train_pallas  the same for loss_impl="pallas" at U=80 (extract_lp,
@@ -219,6 +221,10 @@ BWD_B_PREV_MS = 65.826
 # shared memory and read W from L2 per 64 rows (H100 80GB HBM3, 700 W):
 # context for the W^T ring design
 BWD_A_PREV_MS = 27.478
+# joint_bwd's kernel A's bf16 time at libri100's joint with the design that
+# took a frame tile a block and read W's fragments from L2 (H100 80GB
+# HBM3, 700 W): context for its W^T ring design
+JOINT_A_PREV_MS = 17.213
 AR_S = 8
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense): device
 # memory bytes/s and operations/s by operand type. A bound is the larger of
@@ -631,7 +637,13 @@ def joint_vs_plain(rng: np.random.Generator, dev) -> dict:
         # launch, the ordered sums
         a_ms, zb_ms, main_ms, sums_ms = event_split_ms(
             lambda i, ev: jf.joint_lp_bwd(*bwd_args, events=ev), 5)
-        ring = cd == torch.bfloat16 and bf.mma_shapes_ok(J, V)
+        # kernel A's launches apart: the ring's W^T pass and ring kernel,
+        # or the CUDA-core kernel
+        a_split = kernel_ms_by_name(
+            lambda: jf.joint_lp_bwd(*bwd_args),
+            ("joint_bwd_a_wt_kernel", "joint_bwd_a_ring_kernel",
+             "joint_bwd_a_kernel"))
+        ring = bf.tensor_core_form(cd, J, V)
         plan = jf.device_bwd_b_plan(B * T * (U + 1), J, V, dev) if ring \
             else None
         ops = 2 * B * T * (U + 1) * J * V  # one product over the cells
@@ -644,6 +656,11 @@ def joint_vs_plain(rng: np.random.Generator, dev) -> dict:
                "bwd_kernel_ms": kb, "bwd_plain_ms": pb,
                "bwd_a_ms": a_ms, "bwd_b_zb_ms": zb_ms,
                "bwd_b_main_ms": main_ms, "bwd_sums_ms": sums_ms,
+               "bwd_a_wt_ms": a_split["joint_bwd_a_wt_kernel"],
+               "bwd_a_ring_ms": a_split["joint_bwd_a_ring_kernel"],
+               "bwd_a_cuda_core_ms": a_split["joint_bwd_a_kernel"],
+               "bwd_a_prev_ms": (JOINT_A_PREV_MS if cd == torch.bfloat16
+                                 else None),
                # kernel B: the ring's plan (None: the CUDA-core form,
                # ROW_SPLITS splits of 32 columns)
                "bwd_b_plan": dataclasses.asdict(plan) if plan else None,
@@ -1073,6 +1090,33 @@ def event_split_ms(call, n_events: int, reps: int = 5) -> list[float]:
     torch.cuda.synchronize()
     return [statistics.mean(e[k].elapsed_time(e[k + 1]) for e in evs)
             for k in range(n_events - 1)]
+
+
+def kernel_ms_by_name(call, names, reps: int = 3) -> dict:
+    """Device ms a call of the kernels whose names hold each of `names`,
+    by torch.profiler over `reps` calls after a warm one, the window
+    padded at both ends (pad_profiler_window)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        pad_profiler_window()
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+        pad_profiler_window()
+    ms = {n: 0.0 for n in names}
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        for n in names:
+            if n in evt.key:
+                ms[n] += getattr(evt, "self_device_time_total", getattr(
+                    evt, "self_cuda_time_total", 0)) / 1e3 / reps
+    return ms
 
 
 def bwd_split_ms(call, n: int, reps: int = 5) -> tuple[float, float]:
@@ -1726,10 +1770,14 @@ def profile_step(step, state, batch, profile_dir, name="train_step"):
 
 
 def check_fused_joint_profile(prof: dict, result: dict, what: str) -> None:
-    """A profiled fused-loss step runs K2's kernel B on the ring, its zb
-    pass and ring kernel once each a joint_bwd call, and no K6 kernel."""
+    """A profiled fused-loss step runs K2's kernels A and B on their rings,
+    A's W^T pass and ring kernel and B's zb pass and ring kernel once each
+    a joint_bwd call, and no K6 kernel."""
     per_step = result["launches"]["joint_bwd"] / result["steps"]
     seen = prof["device_launches"]
+    check(per_step > 0 and seen["joint_bwd_a"] == 2 * per_step,
+          f"the profiled {what} step ran {seen['joint_bwd_a']} joint_bwd_a "
+          f"kernels, not 2 for each of its {per_step} joint_bwd calls")
     check(per_step > 0 and seen["joint_bwd_b"] == 2 * per_step,
           f"the profiled {what} step ran {seen['joint_bwd_b']} joint_bwd_b "
           f"kernels, not 2 for each of its {per_step} joint_bwd calls")

@@ -12,7 +12,7 @@ in the order given (default: this checkout), so that two versions of the
 kernels are compared on one card: pass `--trees OLD NEW NEW OLD`. A
 process puts the tree's root first on the import path (its package and
 its chip_smoke.py), builds that tree's kernels, then runs the parts
-(default: all eight, in this order):
+(default: all nine, in this order):
 
   band_bwd_a   holds `band_lp_bwd_a` (df, dg_w) against its plain version
                at the pruned step's band (B=32, T'=200, S=8, J=512, bf16)
@@ -34,11 +34,13 @@ its chip_smoke.py), builds that tree's kernels, then runs the parts
                and f32, with ragged lengths and the real lattice's
                occupancies, and times it: device ms a call behind a spin
                kernel, and by torch.profiler its kernels by name (kernel
-               A, kernel B, B's zb pass where it has one, the ordered
-               sums); where the tree's wrapper takes `events`, the same
-               split by CUDA events;
+               A, its W^T pass and ring kernel where it has them, kernel
+               B, B's zb pass where it has one, the ordered sums); where
+               the tree's wrapper takes `events`, kernel A, B's zb pass
+               and main launch and the sums by CUDA events;
   train_step   trains libri100 at B=32, T=400, U=40 through the default
                (fused) loss, then profiles one step;
+  conformer_step  the same for libri100_conformer at B=64, T=400, U=40;
   lstm_fwd     holds `lstm_recurrence` (serving, without activations) at
                libri100's 800- and 400-frame buckets (l0_b800, l1_b800,
                l0_b400) and `lstm_recurrence_with_acts` (training) at
@@ -64,6 +66,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import functools
+import hashlib
 import inspect
 import json
 import os
@@ -72,7 +75,7 @@ import sys
 
 
 PARTS = ("band_bwd_a", "band_bwd_b", "pruned_step", "joint_bwd",
-         "train_step", "lstm_fwd", "ar_step", "serve")
+         "train_step", "conformer_step", "lstm_fwd", "ar_step", "serve")
 
 
 def one(root: str, parts) -> dict:
@@ -210,8 +213,10 @@ def pruned_step(cs, dev) -> dict:
 
 
 # joint_lp_bwd's kernels by name, as torch.profiler reports them: the first
-# family whose fragment the name holds (B's zb pass before B itself).
-K2_KERNELS = (("a", "joint_bwd_a"), ("b_zb", "joint_bwd_b_zb"),
+# family whose fragment the name holds (A's W^T pass and ring kernel before
+# A itself, whose other kernels land in `a`; B's zb pass before B).
+K2_KERNELS = (("a_wt", "joint_bwd_a_wt"), ("a_ring", "joint_bwd_a_ring"),
+              ("a", "joint_bwd_a"), ("b_zb", "joint_bwd_b_zb"),
               ("b_main", "joint_bwd_b"), ("sums", "reduce_parts"))
 
 
@@ -277,10 +282,13 @@ def joint_bwd(cs, dev) -> list:
         rel = {n: cs.rel_err(x, y) for n, x, y in
                zip(("df", "dg", "dw", "db"), got, want)}
         same = all(torch.equal(x, y) for x, y in zip(got, again))
+        # the outputs' bits, to compare trees run on the same inputs
+        digest = {n: hashlib.sha256(x.cpu().numpy().tobytes()).hexdigest()[
+            :16] for n, x in zip(("df", "dg", "dw", "db"), got)}
         del got, again, want
         row = {"B": B, "T": T, "U1": U + 1, "J": J, "V": V,
                "dtype": str(cd).replace("torch.", ""), "rel_err": rel,
-               "bitwise_repeat": same,
+               "bitwise_repeat": same, "digest": digest,
                "plain_ms": cs.device_ms(
                    lambda: jf.joint_lp_bwd_reference(*args), reps=2),
                "kernel_ms": [cs.device_ms(lambda: jf.joint_lp_bwd(*args),
@@ -308,6 +316,23 @@ def train_step(cs, dev) -> dict:
             "utt_per_s": result["utt_per_s"],
             "peak_mem_gb": result["peak_mem_gb"],
             "launches_joint_bwd": result["launches"]["joint_bwd"],
+            "steps": result["steps"], "profile_wall_ms": prof["wall_ms"],
+            "device_busy_share": prof["device_busy_share"],
+            "device_ms": prof["device_ms"],
+            "device_launches": prof["device_launches"]}
+
+
+def conformer_step(cs, dev) -> dict:
+    from rnn_transducer_tpu_torch.models.config import (
+        config_libri100_conformer)
+
+    step, state, batch, result = cs.train_run(
+        0, dev, "auto", cs.CONF_U, config_libri100_conformer(), cs.CONF_B)
+    _, prof = cs.profile_step(step, state, batch, None,
+                              "train_conformer_step")
+    return {"ms_per_step": result["ms_per_step"],
+            "utt_per_s": result["utt_per_s"],
+            "peak_mem_gb": result["peak_mem_gb"],
             "steps": result["steps"], "profile_wall_ms": prof["wall_ms"],
             "device_busy_share": prof["device_busy_share"],
             "device_ms": prof["device_ms"],
@@ -430,6 +455,7 @@ MEASURE = {"band_bwd_a": functools.partial(band_bwd, which="a"),
            "band_bwd_b": functools.partial(band_bwd, which="b"),
            "pruned_step": pruned_step,
            "joint_bwd": joint_bwd, "train_step": train_step,
+           "conformer_step": conformer_step,
            "lstm_fwd": lstm_fwd, "ar_step": ar_step, "serve": serve}
 
 

@@ -1084,18 +1084,10 @@ extern "C" int band_bwd_b_ring(const void* zb, const void* lab_w,
 // to 64, zero past V rows and J columns.
 extern "C" int band_bwd_a_wt(const void* w, void* wt, int J, int V,
                              long long wt_rows, int device, void* stream) {
-  if (!wt_ring::shapes_ok(J, V) || wt_rows != wt_ring::wt_rows(V)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return (int)e;
-  const int JP = pitch_j(J);
-  const dim3 grid((unsigned)(wt_rows / wt_ring::kWtTile),
-                  (unsigned)((JP + wt_ring::kWtTile - 1) / wt_ring::kWtTile));
-  band_bwd_a_wt_kernel<<<grid, kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(w), static_cast<bf16*>(wt), J, V, JP);
-  return (int)cudaGetLastError();
+  return wt_ring::launch_wt(band_bwd_a_wt_kernel,
+                            static_cast<const bf16*>(w),
+                            static_cast<bf16*>(wt), J, V, wt_rows, device,
+                            static_cast<cudaStream_t>(stream));
 }
 
 // Two launches: the ring kernel, one block a chunk of 64 rows with

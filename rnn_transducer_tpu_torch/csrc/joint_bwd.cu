@@ -21,10 +21,23 @@
 // f32; labels (B, U) int32; W (J, V) bf16 or f32; bias (V) f32 ->
 // df (B, T, J), dg (B, U+1, J), dW (J, V), db (V), all f32.
 //
-// Design, on the caller's stream (an entry point for each step, so that
+// Design, on the caller's stream (an entry point for each launch, so that
 // a caller can time them apart):
-//   A  grid (frame tiles, B): df, and the tile's dg partial. dlogits never
-//      leaves the chip.
+//   A  df and dg; dlogits never leave the chip. With W in bf16, J % 16 ==
+//      0 and V even, two launches on the ring of wt_ring.cuh, which the
+//      band joint's kernel A (band_fused.cu) shares: joint_bwd_a_wt_kernel
+//      writes wt = W^T once a call (whole 64-column chunks at z's pitch);
+//      joint_bwd_a_ring_kernel gives a block 64 consecutive cells, t-major,
+//      builds their round(z) once into shared memory, streams wt's chunks
+//      through a two-slot TMA ring into the logits and the dz = round(
+//      dlogits) . W^T products with dz in registers, and its row policy
+//      (JointRowsA) writes each cell's dz (1 - z^2) into a scratch (N, J)
+//      f32 for the sums. With W in f32, or other shapes: grid (frame
+//      tiles, B) on the CUDA cores, each frame's label positions in row
+//      blocks of up to kBM, for each V chunk of kBN columns staging W[:,
+//      chunk], rebuilding z kBK columns at a time and adding dlogits . W^T
+//      into a (kBM, J) dz tile in shared memory; df directly, dg as a
+//      partial per frame tile.
 //   B  dW and db, recomputing the logits. With W in bf16, J % 16 == 0 and
 //      V even, two launches on the ring of zb_ring.cuh, which the band
 //      joint's kernel B (band_fused.cu) shares: joint_bwd_b_zb_kernel
@@ -37,54 +50,47 @@
 //      cell's label (-1 at u = U), base and occupancies. With W in f32, or
 //      other shapes: grid (V tiles of kBNB columns, ROW_SPLITS row splits)
 //      on the CUDA cores, z built per chunk of kBMB cells.
-//   C  ordered sums of the partials: dg over frame tiles, dW and db over
-//      row splits (none for dW and db when the ring's plan has one split).
-//      No float atomics anywhere: two runs give identical bits.
-// A comes in two forms:
-//   * W in bf16 (the training path): on the tensor cores (mma_bf16.cuh).
-//     It takes the cells of its frame tile flattened, kMR at a time: the
-//     logits kMV columns at a time, round(dlogits) for all of V in shared
-//     memory, then dz = round(dlogits) . W^T in passes of 256 columns with
-//     W's B fragments read straight from L2, dz *= 1 - z^2, and an ordered
-//     per-column walk over the rows into df and dg. Needs J % 16 == 0, V
-//     even and its tiles in shared memory (227 KB at libri100).
-//   * W in f32 (the parity runs), or other shapes: CUDA-core FMAs, each
-//     frame's label positions in row blocks of up to kBM, for each V chunk
-//     of kBN columns staging W[:, chunk], rebuilding z kBK columns at a
-//     time and adding dlogits . W^T into a (kBM, J) dz tile in shared
-//     memory.
+//   C  ordered sums: df over u and dg over t of A's dz scratch (dg over
+//      the frame tiles in A's CUDA-core form), dW and db over row splits
+//      (none for dW and db when the ring's plan has one split). No float
+//      atomics anywhere: two runs give identical bits.
 //
-// Scratch memory (the wrapper allocates it): B * ceil(T / frames_per_tile)
-// * (U+1) * J floats for dg's partials, splits * (J * V + V) floats for
-// dW's and db's, and zb: 67 MB, 16.8 MB (8 splits) and 273 MB at libri100
-// (B=32, T'=200, U+1=41, J=512, V=1024, 8 frames per tile).
+// Scratch memory (the wrapper allocates it) at libri100 (B=32, T'=200,
+// U+1=41, J=512, V=1024: N = 262,400 cells). With W in bf16: wt (1024,
+// 520) bf16, 1.1 MB; dz N * J floats, 537 MB; zb (N, J + 8) bf16, 273 MB;
+// dW's and db's partials 8 splits * (J * V + V) floats, 16.8 MB. With W in
+// f32: dg's partials B * ceil(T / frames_per_tile) * (U+1) * J floats, 67
+// MB at 8 frames per tile, and ROW_SPLITS splits of dW's and db's.
 //
 // What bounds it on the H100: four products of 2 * cells * J * V flops
 // (A and B each recompute the logits; 1.1 TFLOP at libri100, 1.1 ms at the
-// bf16 dense peak, 0.56 ms each for A and B). Measured at libri100 in bf16
-// on an NVIDIA H100 80GB HBM3, 700.00 W (bench_band_bwd_b.py, by
-// torch.profiler's kernel times): A 17.3 ms, 31x its share, far from it:
-// it rebuilds z per chunk and stages W through shared memory with single
-// buffering, one block an SM (ROADMAP queue 2 pairs it with K6-A); B's
-// zb pass 0.17 ms (273 MB written) and its ring kernel 2.79 ms (20.9 with
-// z rebuilt per 32-column tile), 5.0x its share: a block walks 513
-// chunks at 5.4 us, each chunk's logits, epilogue and dW product one
-// after another between block barriers, as in K6-B.
+// bf16 dense peak, 0.56 ms each for A and B); A's dz scratch adds 537 MB
+// written once and read twice by the sums, ~0.5 ms at 3.35 TB/s. Measured
+// at libri100 in bf16 on an NVIDIA H100 80GB HBM3, 700.00 W
+// (bench_band_bwd_b.py, torch.profiler's kernel times): A's W^T pass 0.01
+// ms and ring kernel 2.83 ms (17.3 when each block took a frame tile,
+// rebuilt z per chunk and read W's fragments straight from L2), 5.1x its
+// share: 4,100 blocks in 32 waves of ~88 us, a block's 16 chunks each
+// running the logits, the dlogits epilogue and the dz product one after
+// another between block barriers, as in K6-A; the df / dg sums 0.34 ms.
+// B's zb pass 0.17 ms (273 MB written) and its ring kernel 2.73 ms (20.9
+// with z rebuilt per 32-column tile), 4.9x its share: a block walks 513
+// chunks at 5.3 us, each chunk's logits, epilogue and dW product one after
+// another between block barriers, as in K6-B.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
 #include <cstddef>
-#include <type_traits>
 
+#include "wt_ring.cuh"
 #include "zb_ring.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxJ = 512;
-constexpr size_t kMaxSmem = 232448;  // shared memory a block may use
 // kernel A
 constexpr int kBM = 64;   // label positions per row block
 constexpr int kBN = 32;   // V columns per chunk
@@ -478,234 +484,15 @@ joint_bwd_b_kernel(const float* __restrict__ f, const float* __restrict__ g,
 
 // ---------------------- bf16: the tensor-core kernels ----------------------
 //
-// With W in bf16 the three products run on the tensor cores
-// (mma_bf16.cuh: mma.sync m16n8k16, fp32 accumulate), which is the JAX
-// semantics exactly: z, dlogits and W rounded to bf16, products summed in
-// fp32. They need J % 16 == 0 and V even, and A its tiles in shared
-// memory (mma_a_layout); other shapes, and f32, take the kernels above.
+// With W in bf16 the products run on the tensor cores (mma_bf16.cuh:
+// mma.sync m16n8k16, fp32 accumulate), which is the JAX semantics exactly:
+// z, dlogits and W rounded to bf16, products summed in fp32. They need
+// J % 16 == 0 and V even; other shapes, and f32, take the kernels above.
 
 using bf16 = __nv_bfloat16;
-using joint_mma::frag_a;
-using joint_mma::mma_16816;
-
 using joint_mma::kMR;
-using joint_mma::kMV;
-using joint_mma::kWTP;
-using joint_mma::logits_chunk;
-constexpr int kDZP = 260;  // pitch of the f32 dz buffer (256 columns)
-static_assert(kThreads == joint_mma::kMmaThreads, "one block shape");
-
-using joint_mma::build_z_rows;
 using joint_mma::pitch_j;
-using joint_mma::round_up;
-__host__ __device__ constexpr int pitch_v(int V) {
-  return round_up(V, kMV) + 8;
-}
-
-struct MmaALayout {
-  size_t dl, z, wt, df, side, total;
-};
-
-__host__ __device__ inline MmaALayout mma_a_layout(int J, int V, int ft) {
-  MmaALayout l;
-  l.dl = 0;                                          // bf16 [kMR][pitch_v]
-  l.z = l.dl + (size_t)kMR * pitch_v(V) * 2;         // bf16 [kMR][pitch_j]
-  size_t zbytes = (size_t)kMR * pitch_j(J) * 2;      // or f32 [kMR][kDZP]
-  if (zbytes < (size_t)kMR * kDZP * 4) zbytes = (size_t)kMR * kDZP * 4;
-  l.wt = l.z + zbytes;                               // bf16 [kMV][kWTP]
-  l.df = l.wt + (size_t)kMV * kWTP * 2;              // f32 [ft][J]
-  l.side = l.df + (size_t)ft * J * 4;                // 7 x [kMR] words
-  l.total = l.side + (size_t)7 * kMR * 4;
-  return l;
-}
-
-bool mma_shapes_ok(int J, int V) { return J % 16 == 0 && V % 2 == 0; }
-
-// Kernel A on the tensor cores. The rows of a block are the cells of its
-// frame tile, flattened t-major, in chunks of kMR. For each chunk: the
-// logits chunk by chunk of V and round(dlogits) for all of V into shared
-// memory, then dz = round(dlogits) . W^T in two passes of 256 columns
-// (W read as B fragments straight from L2: W[j][v], W[j][v+1] is one
-// 32-bit load), dz *= 1 - z^2, and an ordered per-column walk over the
-// rows that adds into df (per frame, in shared memory) and the tile's dg
-// partial.
-__global__ void __launch_bounds__(kThreads)
-joint_bwd_a_mma_kernel(const float* __restrict__ f,
-                       const float* __restrict__ g,
-                       const int* __restrict__ labels,
-                       const bf16* __restrict__ w,
-                       const float* __restrict__ bias,
-                       const float* __restrict__ gb,
-                       const float* __restrict__ gy,
-                       const float* __restrict__ base,
-                       const float* __restrict__ gbar, float* __restrict__ df,
-                       float* __restrict__ dg_part, int T, int U1, int J,
-                       int V, int blank, int frames_per_tile, int n_tiles) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const MmaALayout lay = mma_a_layout(J, V, frames_per_tile);
-  const int VP = pitch_v(V);
-  const int JP = pitch_j(J);
-  bf16* dlA = reinterpret_cast<bf16*>(smem_raw + lay.dl);
-  bf16* zA = reinterpret_cast<bf16*>(smem_raw + lay.z);
-  float* dzbuf = reinterpret_cast<float*>(smem_raw + lay.z);
-  bf16* wt = reinterpret_cast<bf16*>(smem_raw + lay.wt);
-  float* df_s = reinterpret_cast<float*>(smem_raw + lay.df);
-  float* occ_s = reinterpret_cast<float*>(smem_raw + lay.side);
-  float* gb_s = occ_s + kMR;
-  float* gy_s = gb_s + kMR;
-  float* base_s = gy_s + kMR;
-  int* lab_s = reinterpret_cast<int*>(base_s + kMR);
-  int* fo_s = lab_s + kMR;   // row of f, -1 past the chunk
-  int* go_s = fo_s + kMR;    // row of g; the frame within the tile is
-                             // fo - (b T + t_begin)
-
-  const int b = blockIdx.y;
-  const int tile = blockIdx.x;
-  const int t_begin = tile * frames_per_tile;
-  const int nf = min(T, t_begin + frames_per_tile) - t_begin;
-  const int R = nf * U1;
-  const int U = U1 - 1;
-  const int tid = threadIdx.x;
-  const int lane = tid % 32;
-  const int warp = tid / 32;
-  const int gq = lane >> 2;
-  const int q = lane & 3;
-  const float s = gbar[b];
-  const int Vr = round_up(V, 16);
-
-  for (int idx = tid; idx < frames_per_tile * J; idx += kThreads) {
-    df_s[idx] = 0.0f;
-  }
-  for (int c0 = 0; c0 < R; c0 += kMR) {
-    const int rows = min(kMR, R - c0);
-    __syncthreads();  // the previous chunk is done with every buffer
-    for (int r = tid; r < kMR; r += kThreads) {
-      if (r < rows) {
-        const int t = t_begin + (c0 + r) / U1;
-        const int u = (c0 + r) % U1;
-        const size_t cell = ((size_t)b * T + t) * U1 + u;
-        const float gbv = gb[cell];
-        const float gyv = gy[cell];
-        occ_s[r] = (gbv + gyv) * s;
-        gb_s[r] = gbv * s;
-        gy_s[r] = gyv * s;
-        base_s[r] = base[cell];
-        lab_s[r] = (u < U) ? labels[(size_t)b * U + u] : -1;
-        fo_s[r] = b * T + t;
-        go_s[r] = b * U1 + u;
-      } else {
-        occ_s[r] = gb_s[r] = gy_s[r] = base_s[r] = 0.0f;
-        lab_s[r] = -1;
-        fo_s[r] = go_s[r] = -1;
-      }
-    }
-    __syncthreads();
-    build_z_rows(zA, JP, f, g, fo_s, go_s, J, round_up(J, 16));
-
-    // round(dlogits) for the whole chunk into dlA
-    const int wm = warp / 4;
-    const int wn = warp % 4;
-    for (int v0 = 0; v0 < V; v0 += kMV) {
-      float acc[2][4][4];
-      logits_chunk(acc, zA, JP, wt, w, v0, J, V);
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int r = wm * 32 + mi * 16 + gq + ((e >= 2) ? 8 : 0);
-            const int v = v0 + wn * 32 + ni * 8 + 2 * q + (e & 1);
-            float d = 0.0f;
-            if (r < rows && v < V) {
-              d = dlogit(acc[mi][ni][e] + bias[v], v, blank, lab_s[r],
-                         base_s[r], occ_s[r], gb_s[r], gy_s[r]);
-            }
-            dlA[(size_t)r * VP + v] = __float2bfloat16_rn(d);
-          }
-        }
-      }
-    }
-
-    // dz = round(dlogits) . W^T, 256 columns per pass: warp w owns
-    // columns jp + 32 w .. jp + 32 w + 31, all kMR rows.
-    for (int jp = 0; jp < J; jp += 256) {
-      float acc[4][4][4];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.0f;
-        }
-      }
-      __syncthreads();  // dlA complete; the last pass's dzbuf is consumed
-      const int jw = jp + warp * 32;
-      if (jw < J) {
-        for (int k0 = 0; k0 < Vr; k0 += 16) {
-          uint32_t a[4][4];
-#pragma unroll
-          for (int mi = 0; mi < 4; ++mi) frag_a(a[mi], dlA, VP, mi * 16, k0,
-                                                lane);
-#pragma unroll
-          for (int ni = 0; ni < 4; ++ni) {
-            const int j = jw + ni * 8 + gq;
-            const int v = k0 + 2 * q;
-            uint32_t bb[2] = {0u, 0u};
-            if (j < J) {
-              const bf16* wr = w + (size_t)j * V;
-              if (v < V) bb[0] = __ldg(reinterpret_cast<const unsigned int*>(wr + v));
-              if (v + 8 < V) bb[1] = __ldg(reinterpret_cast<const unsigned int*>(wr + v + 8));
-            }
-#pragma unroll
-            for (int mi = 0; mi < 4; ++mi) mma_16816(acc[mi][ni], a[mi], bb);
-          }
-        }
-      }
-      __syncthreads();  // every warp is done with zA (now dzbuf)
-      if (jw < J) {
-#pragma unroll
-        for (int mi = 0; mi < 4; ++mi) {
-#pragma unroll
-          for (int ni = 0; ni < 4; ++ni) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const int r = mi * 16 + gq + ((e >= 2) ? 8 : 0);
-              const int jj = warp * 32 + ni * 8 + 2 * q + (e & 1);
-              const int j = jp + jj;
-              float dz = 0.0f;
-              if (r < rows && j < J) {
-                const float z = tanhf(f[(size_t)fo_s[r] * J + j]
-                                      + g[(size_t)go_s[r] * J + j]);
-                dz = acc[mi][ni][e] * (1.0f - z * z);
-              }
-              dzbuf[r * kDZP + jj] = dz;
-            }
-          }
-        }
-      }
-      __syncthreads();
-      // Ordered walk over the rows: thread tid owns column jp + tid.
-      const int j = jp + tid;
-      if (j < J) {
-        for (int r = 0; r < rows; ++r) {
-          const float dz = dzbuf[r * kDZP + tid];
-          const int tl = fo_s[r] - (b * T + t_begin);
-          const int u = go_s[r] - b * U1;
-          df_s[tl * J + j] += dz;
-          float* p = dg_part + (((size_t)b * n_tiles + tile) * U1 + u) * J + j;
-          *p = (tl == 0) ? dz : *p + dz;
-        }
-      }
-    }
-  }
-  __syncthreads();
-  for (int idx = tid; idx < nf * J; idx += kThreads) {
-    const int tl = idx / J;
-    const int j = idx - tl * J;
-    df[((size_t)b * T + t_begin + tl) * J + j] = df_s[idx];
-  }
-}
+static_assert(kThreads == joint_mma::kMmaThreads, "one block shape");
 
 // Kernel B on the tensor cores, two launches on the ring of zb_ring.cuh
 // (shared with the band joint's kernel B, band_fused.cu):
@@ -780,6 +567,75 @@ joint_bwd_b_ring_kernel(const bf16* __restrict__ zb,
                      w, bias, dw_out, db_out, N, J, V, blank, split_rows);
 }
 
+// Kernel A on the tensor cores, two launches on the ring of wt_ring.cuh
+// (shared with the band joint's kernel A, band_fused.cu):
+// joint_bwd_a_wt_kernel writes wt = W^T once a call; joint_bwd_a_ring_kernel
+// runs the ring over the cells, 64 consecutive cells (row r = (b T + t)
+// U1 + u) a block, with JointRowsA's epilogue.
+
+// Kernel A's cells: JointRows' sidecars and dlogit, z's rows as JointMap
+// maps them, and the epilogue dz[r] = dz (1 - z^2), z recomputed in f32.
+struct JointRowsA : JointRows {
+  const float* __restrict__ f;
+  const float* __restrict__ g;
+  float* __restrict__ dz;
+  int J;
+  __device__ long long f_row(long long r) const {
+    return JointMap{TU, U1}.f_row(r);
+  }
+  __device__ long long g_row(long long r) const {
+    return JointMap{TU, U1}.g_row(r);
+  }
+  // d[n][e] at column j0 + 8 n + e; every load before the first store
+  __device__ void store_dz(long long row, int j0,
+                           const float (&d)[8][2]) const {
+    const float* fr = f + f_row(row) * J + j0;
+    const float* gr = g + g_row(row) * J + j0;
+    float2 x[8];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      if (j0 + 8 * n < J) {
+        const float2 a = __ldg(reinterpret_cast<const float2*>(fr + 8 * n));
+        const float2 b = __ldg(reinterpret_cast<const float2*>(gr + 8 * n));
+        x[n] = make_float2(a.x + b.x, a.y + b.y);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      if (j0 + 8 * n < J) {
+        const float z0 = tanhf(x[n].x);
+        const float z1 = tanhf(x[n].y);
+        *reinterpret_cast<float2*>(dz + row * J + j0 + 8 * n) = make_float2(
+            d[n][0] * (1.0f - z0 * z0), d[n][1] * (1.0f - z1 * z1));
+      }
+    }
+  }
+};
+
+__global__ void __launch_bounds__(kThreads)
+joint_bwd_a_wt_kernel(const bf16* __restrict__ w, bf16* __restrict__ wt,
+                      int J, int V, int JP) {
+  wt_ring::build_wt(w, wt, J, V, JP);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+joint_bwd_a_ring_kernel(const float* __restrict__ f,
+                        const float* __restrict__ g,
+                        const int* __restrict__ labels,
+                        const bf16* __restrict__ wt,
+                        const float* __restrict__ bias,
+                        const float* __restrict__ gb,
+                        const float* __restrict__ gy,
+                        const float* __restrict__ base,
+                        const float* __restrict__ gbar,
+                        float* __restrict__ dz, long long N, int T, int U1,
+                        int J, int V, int blank) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const JointRowsA rows{
+      {labels, gb, gy, base, gbar, (long long)T * U1, U1}, f, g, dz, J};
+  wt_ring::ring_body(smem_raw, f, g, rows, wt, bias, N, J, V, blank);
+}
+
 // out[o, x] = sum_p part[o, p, x], p in order.
 __global__ void reduce_parts_kernel(const float* __restrict__ part,
                                     float* __restrict__ out, int n_outer,
@@ -810,8 +666,7 @@ cudaError_t set_smem(K kernel, size_t bytes) {
                               (int)bytes);
 }
 
-// Kernel A: the tensor-core form where W is bf16, the shape takes it and
-// its tiles fit; the CUDA-core form otherwise.
+// Kernel A's CUDA-core form.
 template <typename W>
 int run_a(const float* f, const float* g, const int* labels, const W* w,
           const float* bias, const float* gb, const float* gy,
@@ -819,22 +674,10 @@ int run_a(const float* f, const float* g, const int* labels, const W* w,
           int B, int T, int U1, int J, int V, int blank, int frames_per_tile,
           cudaStream_t stream) {
   const int n_tiles = (T + frames_per_tile - 1) / frames_per_tile;
-  const dim3 grid(n_tiles, B);
-  if constexpr (std::is_same_v<W, bf16>) {
-    const size_t sa = mma_a_layout(J, V, frames_per_tile).total;
-    if (mma_shapes_ok(J, V) && sa <= kMaxSmem) {
-      const cudaError_t e = set_smem(joint_bwd_a_mma_kernel, sa);
-      if (e != cudaSuccess) return (int)e;
-      joint_bwd_a_mma_kernel<<<grid, kThreads, sa, stream>>>(
-          f, g, labels, w, bias, gb, gy, base, gbar, df, dg_part, T, U1, J,
-          V, blank, frames_per_tile, n_tiles);
-      return (int)cudaGetLastError();
-    }
-  }
   const size_t sa = smem_a<W>(J);
   const cudaError_t e = set_smem(joint_bwd_a_kernel<W>, sa);
   if (e != cudaSuccess) return (int)e;
-  joint_bwd_a_kernel<W><<<grid, kThreads, sa, stream>>>(
+  joint_bwd_a_kernel<W><<<dim3(n_tiles, B), kThreads, sa, stream>>>(
       f, g, labels, w, bias, gb, gy, base, gbar, df, dg_part, T, U1, J, V,
       blank, frames_per_tile, n_tiles);
   return (int)cudaGetLastError();
@@ -860,12 +703,15 @@ int run_b(const float* f, const float* g, const int* labels, const W* w,
 
 // The entry points launch on `stream` and return 0, or the first
 // cudaError_t a launch reported. J <= 512. A call of the backward is
-// kernel A, then kernel B (the ring's two launches for bf16 W where
+// kernel A (the W^T pass and the ring kernel for bf16 W where
+// ops/rnnt_band_fused.bwd_a_layout places it, else the CUDA-core form),
+// then kernel B (the ring's two launches for bf16 W where
 // ops/rnnt_band_fused.bwd_b_plan places it, else the CUDA-core form),
 // then the ordered sums; the partial buffers are scratch of the sizes
 // given in the header.
 
-// Kernel A: df (B, T, J) and dg_part (B, n_tiles, U1, J), n_tiles =
+// Kernel A's CUDA-core form (f32 W, or bf16 W of a shape the ring does not
+// take): df (B, T, J) and dg_part (B, n_tiles, U1, J), n_tiles =
 // ceil(T / frames_per_tile).
 extern "C" int joint_bwd_a(const void* f, const void* g, const void* labels,
                            const void* w, int w_is_bf16, const void* bias,
@@ -895,6 +741,53 @@ extern "C" int joint_bwd_a(const void* f, const void* g, const void* labels,
   return run_a<float>(f_, g_, lab_, static_cast<const float*>(w), bias_, gb_,
                       gy_, base_, gbar_, df_, dgp, B, T, U1, J, V, blank,
                       frames_per_tile, s);
+}
+
+// Kernel A on the ring, as two entry points. Both take the layout of
+// ops/rnnt_band_fused.bwd_a_layout (wt's rows; the ring block's shared
+// bytes) and return cudaErrorInvalidValue for one that is not the
+// kernel's.
+//
+// First launch: wt (wt_rows, pitch_j(J)) bf16 = W^T, wt_rows = V rounded
+// up to 64, zero past V rows and J columns.
+extern "C" int joint_bwd_a_wt(const void* w, void* wt, int J, int V,
+                              long long wt_rows, int device, void* stream) {
+  return wt_ring::launch_wt(joint_bwd_a_wt_kernel,
+                            static_cast<const bf16*>(w),
+                            static_cast<bf16*>(wt), J, V, wt_rows, device,
+                            static_cast<cudaStream_t>(stream));
+}
+
+// The main launch: one block a run of 64 cells with smem_bytes
+// (wt_ring::ring_bytes(J)) of shared memory writes dz (B, T, U1, J) f32,
+// each cell's round(dlogits) . W^T (1 - z^2), from wt; joint_bwd_sums
+// reduces it to df and dg.
+extern "C" int joint_bwd_a_ring(const void* f, const void* g,
+                                const void* labels, const void* wt,
+                                const void* bias, const void* gb,
+                                const void* gy, const void* base,
+                                const void* gbar, void* dz, int B, int T,
+                                int U1, int J, int V, int blank,
+                                long long wt_rows, long long smem_bytes,
+                                int device, void* stream) {
+  const long long N = (long long)B * T * U1;
+  if (N < 1 || !wt_ring::layout_ok(J, V, wt_rows, smem_bytes)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  const size_t smem = wt_ring::ring_bytes(J);
+  const cudaError_t e1 = set_smem(joint_bwd_a_ring_kernel, smem);
+  if (e1 != cudaSuccess) return (int)e1;
+  joint_bwd_a_ring_kernel<<<(unsigned)((N + kMR - 1) / kMR), kThreads, smem,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(f), static_cast<const float*>(g),
+      static_cast<const int*>(labels), static_cast<const bf16*>(wt),
+      static_cast<const float*>(bias), static_cast<const float*>(gb),
+      static_cast<const float*>(gy), static_cast<const float*>(base),
+      static_cast<const float*>(gbar), static_cast<float*>(dz), N, T, U1, J,
+      V, blank);
+  return (int)cudaGetLastError();
 }
 
 // Kernel B's CUDA-core form (f32 W, or bf16 W of a shape the ring does not
@@ -986,20 +879,29 @@ extern "C" int joint_bwd_b_ring(const void* zb, const void* labels,
   return (int)cudaGetLastError();
 }
 
-// The ordered sums: dg (B, U1, J) over kernel A's n_tiles frame tiles; dw
-// (J, V) and db (V) over kernel B's n_split splits, or nothing for them
-// when n_split == 0 (the ring wrote them itself).
-extern "C" int joint_bwd_sums(const void* dg_part, void* dg,
+// The ordered sums. Kernel A's: with n_tiles == 0, a_part is the ring's
+// dz (B, T, U1, J), df (B, T, J) its sum over u and dg (B, U1, J) its sum
+// over t, each in order; with n_tiles > 0, a_part is the CUDA-core form's
+// dg partials (B, n_tiles, U1, J) and dg their sum over the frame tiles
+// (that form wrote df). Kernel B's: dw (J, V) and db (V) over its n_split
+// splits, or nothing for them when n_split == 0 (the ring wrote them).
+extern "C" int joint_bwd_sums(const void* a_part, void* df, void* dg,
                               const void* dw_part, void* dw,
-                              const void* db_part, void* db, int B,
-                              int n_tiles, int U1, int J, int V, int n_split,
+                              const void* db_part, void* db, int B, int T,
+                              int U1, int J, int V, int n_tiles, int n_split,
                               int device, void* stream) {
   const cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int err = reduce_parts(static_cast<const float*>(dg_part),
-                         static_cast<float*>(dg), B, n_tiles,
-                         (long long)U1 * J, s);
+  const float* ap = static_cast<const float*>(a_part);
+  float* dg_ = static_cast<float*>(dg);
+  int err = 0;
+  if (n_tiles == 0) {
+    err = reduce_parts(ap, static_cast<float*>(df), B * T, U1, J, s);
+    if (!err) err = reduce_parts(ap, dg_, B, T, (long long)U1 * J, s);
+  } else {
+    err = reduce_parts(ap, dg_, B, n_tiles, (long long)U1 * J, s);
+  }
   if (err || n_split == 0) return err;
   err = reduce_parts(static_cast<const float*>(dw_part),
                      static_cast<float*>(dw), 1, n_split, (long long)J * V, s);

@@ -1,8 +1,9 @@
-// The dz backward of a joint on the tensor cores (sm_90), for the band
-// joint's kernel A (band_fused.cu, K6-A), its one user so far; the fused
-// joint's kernel A (joint_bwd.cu, K2-A) computes the same products over
-// its cells and is to be the second, with its own row policy. Over N
-// rows of z = tanh(f[f row] + g[g row]) and W (J, V) bf16:
+// The dz backward of a joint on the tensor cores (sm_90), for its two
+// users, each with its own row policy: the band joint's kernel A
+// (band_fused.cu, K6-A: the band's rows, dg_w) and the fused joint's
+// kernel A (joint_bwd.cu, K2-A: the B T (U+1) cells, a dz scratch that
+// ordered sums reduce to df and dg). Over N rows of z = tanh(f[f row] +
+// g[g row]) and W (J, V) bf16:
 //   logits = round(z) . W + bias                    (recomputed, fp32 acc.)
 //   dz     = round(dlogits) . W^T                   (fp32 acc.)
 // The users differ in each row's sidecars (label, log-sum-exp, loss
@@ -18,10 +19,11 @@
 // (`s` holds the row's sidecars, an int as its bits; x is the logit with
 // the bias added, v its column; store_dz receives a thread's 16 values of
 // a row, dz[n][e] at column j0 + 8 n + e, and stores those below J).
-// K6-A's policy multiplies by (1 - z^2) with z recomputed in f32 and
-// writes dg_w; it issues all its loads before its first store, so that
-// they overlap (the compiler cannot move a load past a store it does not
-// know to be elsewhere).
+// Both policies multiply by (1 - z^2) with z recomputed in f32 and write
+// the row's dz (K6-A into dg_w, K2-A into its scratch); they issue all
+// their loads before their first store, so that they overlap (the
+// compiler cannot move a load past a store it does not know to be
+// elsewhere).
 //
 // Two launches. `build_wt` writes wt = W^T, (ceil(V / kVC) kVC, pitch_j(J))
 // bf16, once a call: row v holds W[:, v], zero past V rows and past J
@@ -131,6 +133,25 @@ __device__ __forceinline__ void build_wt(const bf16* __restrict__ w,
     const int jj = idx - vv * kWtTile;
     if (j0 + jj < JP) dst[(size_t)(v0 + vv) * JP + j0 + jj] = t[jj][vv];
   }
+}
+
+// Launches `kernel`, a __global__ (w, wt, J, V, JP) around build_wt, on
+// its grid for W (J, V) into wt of n_wt_rows rows (which must be
+// wt_rows(V)); returns cudaErrorInvalidValue for a shape or layout that is
+// not the kernel's, else the launch's error.
+template <class Kernel>
+inline int launch_wt(Kernel kernel, const bf16* w, bf16* wt, int J, int V,
+                     long long n_wt_rows, int device, cudaStream_t stream) {
+  if (!shapes_ok(J, V) || n_wt_rows != wt_rows(V)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  const int JP = pitch_j(J);
+  const dim3 grid((unsigned)(n_wt_rows / kWtTile),
+                  (unsigned)((JP + kWtTile - 1) / kWtTile));
+  kernel<<<grid, kThreads, 0, stream>>>(w, wt, J, V, JP);
+  return (int)cudaGetLastError();
 }
 
 // round(z) of a block's kMR rows into zA (row-major, pitch JP), zero past

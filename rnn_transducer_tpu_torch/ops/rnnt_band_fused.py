@@ -72,7 +72,8 @@ BWD_B_V_TILE = 64
 BWD_B_CHUNK = 64
 BWD_B_SIDE = 5
 # Kernel A's tensor-core form (bf16 W, csrc/band_fused.cu band_bwd_a_wt and
-# band_bwd_a_ring, on the ring of csrc/wt_ring.cuh): W^T once into a
+# band_bwd_a_ring, on the ring of csrc/wt_ring.cuh that the fused joint's
+# kernel A, csrc/joint_bwd.cu, shares): W^T once into a
 # scratch wt of whole BWD_A_V_CHUNK-row chunks at zb_pitch(J); a block owns
 # BWD_A_ROWS rows, walks V in chunks through a two-slot ring of wt, and
 # keeps round(z) of its rows, round(dlogits) (pitch chunk + 8 bf16), the
@@ -126,9 +127,10 @@ def ring_b_bytes(J: int) -> int:
 
 
 def ring_a_bytes(J: int) -> int:
-    """Shared bytes of kernel A's ring block (band_bwd_a_ring), as the
-    kernel lays them out: two wt chunks, round(z), round(dlogits), the
-    sidecars, the f and g rows, two mbarriers."""
+    """Shared bytes of kernel A's ring block (band_bwd_a_ring,
+    joint_bwd_a_ring), as the kernel lays them out: two wt chunks,
+    round(z), round(dlogits), the sidecars, the f and g rows, two
+    mbarriers."""
     jp = zb_pitch(J)
     return (2 * BWD_A_V_CHUNK * jp * 2 + BWD_A_ROWS * jp * 2
             + BWD_A_ROWS * (BWD_A_V_CHUNK + 8) * 2
@@ -144,7 +146,9 @@ def wt_shape(J: int, V: int) -> tuple[int, int]:
 @dataclasses.dataclass(frozen=True)
 class BwdALayout:
     """The scratch and shared memory of kernel A's tensor-core form, which
-    band_bwd_a_wt and band_bwd_a_ring check against their own."""
+    band_bwd_a_wt and band_bwd_a_ring (the band's rows), joint_bwd_a_wt
+    and joint_bwd_a_ring (the fused joint's cells) check against their
+    own."""
 
     J: int
     V: int
@@ -157,8 +161,8 @@ def bwd_a_layout(J: int, V: int, smem_per_block: int) -> BwdALayout:
     `smem_per_block` bytes of shared memory a block (one block an SM:
     210,704 bytes at J = 512). Raises ValueError for a shape the kernel
     does not take (J > MAX_J, J % 16 != 0, V odd) or shared memory that
-    does not hold its block; the wrapper sends f32 W and those shapes to
-    the CUDA-core form before it asks."""
+    does not hold its block; the wrappers send f32 W and those shapes to
+    the CUDA-core forms before they ask."""
     where = (f"kernel A's ring cannot take J={J}, V={V} with "
              f"{smem_per_block} bytes of shared memory a block")
     if not (16 <= J <= MAX_J) or not mma_shapes_ok(J, V) or V < 2:

@@ -13,11 +13,13 @@ on chip and reduces it at once:
     arrays the lattice needs: lp_blank, lp_y and base, the log-sum-exp
     that the backward reuses;
   * `joint_lp_bwd` (K2, `csrc/joint_bwd.cu`) from the occupancies to
-    df, dg, dW and db: kernel A (df and dg), kernel B (dW and db: with
-    bf16 W, round(z) once into a scratch and the ring of
-    `csrc/zb_ring.cuh` on the tiles of `rnnt_band_fused.bwd_b_plan`,
-    which K6's kernel B shares; with f32 W or other shapes, a CUDA-core
-    form), then the ordered sums.
+    df, dg, dW and db: kernel A (each cell's dz for df and dg: with bf16
+    W, W^T once into a scratch and the ring of `csrc/wt_ring.cuh` in the
+    layout of `rnnt_band_fused.bwd_a_layout`, which K6's kernel A
+    shares), kernel B (dW and db: with bf16 W, round(z) once into a
+    scratch and the ring of `csrc/zb_ring.cuh` on the tiles of
+    `rnnt_band_fused.bwd_b_plan`, which K6's kernel B shares), each with
+    a CUDA-core form for f32 W and other shapes, then the ordered sums.
 
 round() is the cast to the compute dtype of W (bf16 or f32) and the
 products accumulate in fp32, the JAX package's `preferred_element_type`
@@ -40,10 +42,13 @@ import threading
 import torch
 
 from rnn_transducer_tpu_torch.ops.lstm import _dot
-from rnn_transducer_tpu_torch.ops.rnnt_band_fused import (_check_sidecars,
-                                                          _record,
-                                                          device_bwd_b_plan,
-                                                          mma_shapes_ok)
+from rnn_transducer_tpu_torch.ops.rnnt_band_fused import (
+    _check_sidecars,
+    _record,
+    device_bwd_a_layout,
+    device_bwd_b_plan,
+    tensor_core_form,
+)
 from rnn_transducer_tpu_torch.ops.rnnt_loss import (
     NEG_INF,
     forward_from_lp_with_alpha,
@@ -55,14 +60,16 @@ LAUNCHES_FWD = 0  # joint_lp_fwd calls that launched joint_fwd
 LAUNCHES_BWD = 0  # joint_lp_bwd calls that launched joint_bwd
 _launches_lock = threading.Lock()
 
-# Cross-block partial sums of the backward (summed by a second, ordered
-# pass, so two runs give identical bits): dg over frame tiles of
-# FRAMES_PER_TILE frames; dW and db over the ring plan's row splits (8 at
-# libri100) or, in kernel B's CUDA-core form, over ROW_SPLITS slices of
-# the cells. At libri100 (B=32, T'=200, U+1=41, J=512, V=1024) that is
-# 32 * 25 * 41 * 512 * 4 B = 67 MB for dg and 8 * 512 * 1024 * 4 B =
-# 16.8 MB for dW, beside the ring's round(z) scratch zb, (N, J + 8) bf16
-# for N = B * T * (U+1) cells: 273 MB.
+# Cross-block sums of the backward go through scratch that a second pass
+# sums in a fixed order, so two runs give identical bits: with bf16 W, df
+# and dg from kernel A's per-cell dz (B, T, U+1, J) f32, over u and over
+# t; in A's CUDA-core form, dg over frame tiles of FRAMES_PER_TILE frames;
+# dW and db over the ring plan's row splits (8 at libri100) or, in kernel
+# B's CUDA-core form, over ROW_SPLITS slices of the cells. At libri100
+# (B=32, T'=200, U+1=41, J=512, V=1024; N = B * T * (U+1) = 262,400
+# cells) with bf16 W that is 537 MB of dz, 8 * 512 * 1024 * 4 B = 16.8 MB
+# for dW, W^T (1024, 520) bf16 and the ring's round(z) zb, (N, J + 8)
+# bf16: 273 MB.
 FRAMES_PER_TILE = 8
 ROW_SPLITS = 16
 MAX_J = 512  # the kernels keep (64, J) tiles of z and dz in shared memory
@@ -180,17 +187,21 @@ def joint_lp_bwd(f, g, labels, w, b, gb, gy, base, gbar, blank: int = 0,
         dlogits = s (gb + gy) p - s gb [v = blank] - s gy [v = label]
         dz      = round(dlogits) . W^T * (1 - z^2)
 
-    with p = exp(logits - base) and s = gbar[b]. Kernel A gives df and
-    dg's partials; kernel B dW and db: for bf16 W with J % 16 == 0 and V
-    even, round(z) into a scratch zb once (joint_bwd_b_zb), then
+    with p = exp(logits - base) and s = gbar[b]. For bf16 W with J % 16 ==
+    0 and V even (`tensor_core_form`) each kernel takes its ring: kernel A
+    writes W^T into a scratch wt once (joint_bwd_a_wt), then
+    joint_bwd_a_ring in the layout of `rnnt_band_fused.device_bwd_a_layout`
+    writes every cell's dz into a scratch (B, T, U+1, J) f32; kernel B
+    writes round(z) into a scratch zb once (joint_bwd_b_zb), then
     joint_bwd_b_ring on the tiles of `rnnt_band_fused.device_bwd_b_plan`
-    over the B * T * (U+1) cells (ValueError for a shape it cannot place);
-    for other W and shapes, the CUDA-core form (joint_bwd_b). Sums across
-    blocks go through partial buffers and an ordered second pass, so two
+    (ValueError for a shape either cannot place). For other W and shapes,
+    the CUDA-core forms (joint_bwd_a: df and dg's partials over frame
+    tiles; joint_bwd_b). Sums across blocks go through scratch and an
+    ordered last pass (df over u and dg over t of the ring's dz), so two
     runs give identical bits. `events`, five CUDA events, are recorded
     before kernel A, after it, after kernel B's zb pass, after its main
-    launch and after the ordered sums (the CUDA-core form has no zb pass:
-    the second and third are recorded together).
+    launch and after the ordered sums (the CUDA-core form of B has no zb
+    pass: the second and third are recorded together).
     """
     _check(f, g, labels, w, b)
     B, T, J = f.shape
@@ -213,12 +224,10 @@ def joint_lp_bwd(f, g, labels, w, b, gb, gy, base, gbar, blank: int = 0,
         for a in (df, dg, dw, db):
             a.zero_()
         return df, dg, dw, db
-    ring = w.dtype == torch.bfloat16 and mma_shapes_ok(J, V)
+    ring = tensor_core_form(w.dtype, J, V)
+    layout = device_bwd_a_layout(J, V, dev) if ring else None
     plan = device_bwd_b_plan(B * T * U1, J, V, dev) if ring else None
     splits = plan.splits if ring else ROW_SPLITS
-    n_tiles = -(-T // FRAMES_PER_TILE)
-    dg_part = torch.empty((B, n_tiles, U1, J), dtype=torch.float32,
-                          device=dev)
     dw_part = db_part = None
     if splits > 1:
         dw_part = torch.empty((splits, J, V), dtype=torch.float32, device=dev)
@@ -229,11 +238,27 @@ def joint_lp_bwd(f, g, labels, w, b, gb, gy, base, gbar, blank: int = 0,
     ev = events if events is not None else (None,) * 5
     fn = build.load_library()
     _record(ev[0])
-    err = fn.joint_bwd_a(f.data_ptr(), g.data_ptr(), labels.data_ptr(),
-                         w.data_ptr(), is_bf16, b.data_ptr(), *side,
-                         df.data_ptr(), dg_part.data_ptr(), B, T, U1, J, V,
-                         blank, FRAMES_PER_TILE, *stream)
-    build.check_launch(fn, err, "joint_bwd_a")
+    if ring:
+        n_tiles = 0  # the sums take df and dg from the per-cell dz
+        wt = torch.empty(layout.wt_shape, dtype=torch.bfloat16, device=dev)
+        a_part = torch.empty((B, T, U1, J), dtype=torch.float32, device=dev)
+        err = fn.joint_bwd_a_wt(w.data_ptr(), wt.data_ptr(), J, V,
+                                layout.wt_shape[0], *stream)
+        build.check_launch(fn, err, "joint_bwd_a_wt")
+        err = fn.joint_bwd_a_ring(
+            f.data_ptr(), g.data_ptr(), labels.data_ptr(), wt.data_ptr(),
+            b.data_ptr(), *side, a_part.data_ptr(), B, T, U1, J, V, blank,
+            layout.wt_shape[0], layout.smem_bytes, *stream)
+        build.check_launch(fn, err, "joint_bwd_a_ring")
+    else:
+        n_tiles = -(-T // FRAMES_PER_TILE)
+        a_part = torch.empty((B, n_tiles, U1, J), dtype=torch.float32,
+                             device=dev)
+        err = fn.joint_bwd_a(f.data_ptr(), g.data_ptr(), labels.data_ptr(),
+                             w.data_ptr(), is_bf16, b.data_ptr(), *side,
+                             df.data_ptr(), a_part.data_ptr(), B, T, U1, J,
+                             V, blank, FRAMES_PER_TILE, *stream)
+        build.check_launch(fn, err, "joint_bwd_a")
     _record(ev[1])
     if ring:
         zb = torch.empty(plan.zb_shape, dtype=torch.bfloat16, device=dev)
@@ -257,10 +282,10 @@ def joint_lp_bwd(f, g, labels, w, b, gb, gy, base, gbar, blank: int = 0,
     _record(ev[3])
     parts = (None, None) if splits == 1 else (dw_part.data_ptr(),
                                               db_part.data_ptr())
-    err = fn.joint_bwd_sums(dg_part.data_ptr(), dg.data_ptr(), parts[0],
-                            dw.data_ptr(), parts[1], db.data_ptr(), B,
-                            n_tiles, U1, J, V, 0 if splits == 1 else splits,
-                            *stream)
+    err = fn.joint_bwd_sums(a_part.data_ptr(), df.data_ptr(), dg.data_ptr(),
+                            parts[0], dw.data_ptr(), parts[1], db.data_ptr(),
+                            B, T, U1, J, V, n_tiles,
+                            0 if splits == 1 else splits, *stream)
     build.check_launch(fn, err, "joint_bwd_sums")
     _record(ev[4])
     _count("LAUNCHES_BWD")
@@ -271,6 +296,16 @@ def joint_lp_bwd_reference(f, g, labels, w, b, gb, gy, base, gbar,
                            blank: int = 0):
     """Plain version of `joint_lp_bwd`: logits and dlogits materialised."""
     _check(f, g, labels, w, b)
+    z, dlogits, dz = _cells_bwd(f, g, labels, w, b, gb, gy, base, gbar,
+                                blank)
+    J, V = w.shape
+    dw = _dot(z.reshape(-1, J).t(), dlogits.reshape(-1, V), w.dtype)
+    return dz.sum(dim=2), dz.sum(dim=1), dw, dlogits.sum(dim=(0, 1, 2))
+
+
+def _cells_bwd(f, g, labels, w, b, gb, gy, base, gbar, blank):
+    """z (B, T, U+1, J), dlogits (B, T, U+1, V) and dz (B, T, U+1, J) of
+    every cell, f32: dz is what kernel A's ring writes to its scratch."""
     z, logits = _joint_logits(f, g, w, b)
     probs = torch.exp(logits - base[..., None])
     s = gbar.float()[:, None, None]
@@ -286,11 +321,7 @@ def joint_lp_bwd_reference(f, g, labels, w, b, gb, gy, base, gbar,
     dlogits = probs * occ_s
     dlogits = dlogits - torch.where(col == blank, gb_s, zero)
     dlogits = dlogits - torch.where(col == lab[:, None, :, None], gy_s, zero)
-    cd = w.dtype
-    dz = _dot(dlogits, w.t(), cd) * (1.0 - z * z)
-    J = z.shape[-1]
-    dw = _dot(z.reshape(-1, J).t(), dlogits.reshape(-1, V), cd)
-    return dz.sum(dim=2), dz.sum(dim=1), dw, dlogits.sum(dim=(0, 1, 2))
+    return z, dlogits, _dot(dlogits, w.t(), w.dtype) * (1.0 - z * z)
 
 
 # ------------------------------ the op -----------------------------------

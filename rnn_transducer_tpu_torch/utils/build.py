@@ -57,6 +57,12 @@ SIGNATURES = {
     # U1, J, V, blank, frames_per_tile, device, stream
     "joint_bwd_a": (_I, [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I,
                          _I, _I, _I, _I, _I, _I, _I, _P]),
+    # w, wt, J, V, wt_rows, device, stream
+    "joint_bwd_a_wt": (_I, [_P, _P, _I, _I, _LL, _I, _P]),
+    # f, g, labels, wt, b, gb, gy, base, gbar, dz, B, T, U1, J, V, blank,
+    # wt_rows, smem_bytes, device, stream
+    "joint_bwd_a_ring": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                              _I, _I, _I, _I, _I, _LL, _LL, _I, _P]),
     # f, g, labels, w, w_is_bf16, b, gb, gy, base, gbar, dw_part, db_part,
     # B, T, U1, J, V, blank, n_split, device, stream
     "joint_bwd_b": (_I, [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I,
@@ -68,10 +74,10 @@ SIGNATURES = {
     "joint_bwd_b_ring": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                               _I, _I, _I, _I, _I, _I, _I, _LL, _LL, _I,
                               _P]),
-    # dg_part, dg, dw_part, dw, db_part, db, B, n_tiles, U1, J, V, n_split,
-    # device, stream
-    "joint_bwd_sums": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                            _I, _P]),
+    # a_part, df, dg, dw_part, dw, db_part, db, B, T, U1, J, V, n_tiles,
+    # n_split, device, stream
+    "joint_bwd_sums": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                            _I, _I, _I, _P]),
     # lp_blank_m, lp_y_m, alpha, B, T, U1, device, stream
     "lattice_alpha": (_I, [_P, _P, _P, _I, _I, _I, _I, _P]),
     # lp_blank_m, lp_y_m, accept, alpha, frame_lens, beta, g_blank, g_y,

@@ -356,10 +356,80 @@ def test_cuda_joint_bwd_b_on_the_ring_matches_reference(cuda_device, dtype, B,
     assert not any("band_bwd" in n for n in names)
 
 
+# K2's kernel A: (B, T, U, J, V). K2_RING_CASES' shapes, then shapes that
+# stress A's ring: 6150 cells (not a multiple of 64 rows) at V=1024, a
+# last chunk of 2 columns (V=130) and of 40 (V=1000), J=96 and J=16. bf16
+# W of an even V takes the ring; odd V and f32 W the CUDA-core form.
+K2_A_CASES = [c[:5] for c in K2_RING_CASES] + [
+    (3, 50, 40, 512, 1024), (3, 9, 8, 64, 130), (3, 7, 5, 96, 1000),
+    (3, 6, 4, 16, 40)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B, T, U, J, V", K2_A_CASES)
+def test_cuda_joint_bwd_a_on_the_ring_matches_reference(cuda_device, dtype, B,
+                                                        T, U, J, V):
+    """joint_lp_bwd's df and dg against the plain version with the
+    lattice's occupancies, a zero-frame row and a row without labels; a
+    bf16 call of a shape the ring takes launches the W^T pass and the ring
+    kernel once each, any other call the CUDA-core kernel A once; two runs
+    give the same bits."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rnn_transducer_tpu_torch.ops import rnnt_band_fused as bf
+    from rnn_transducer_tpu_torch.ops import rnnt_joint_fused as tf
+
+    args = _lattice_bwd_args(B, T, U, J, V, dtype, cuda_device)
+    ring = bf.tensor_core_form(dtype, J, V)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _pad_profiler_window()
+        got = tf.joint_lp_bwd(*args)
+        torch.cuda.synchronize()
+        _pad_profiler_window()
+    again = tf.joint_lp_bwd(*args)
+    want = tf.joint_lp_bwd_reference(*args)
+    torch.cuda.synchronize()
+    for name, a, a2, e in zip(("df", "dg"), got, again, want):
+        assert bool(torch.isfinite(a).all()), name
+        assert _rel_err(a, e) <= REL_TOL[dtype], name
+        assert torch.equal(a, a2), f"{name} differs between two runs"
+    assert float(got[0][1].abs().max()) == 0.0  # the zero-frame row
+    events = prof.key_averages()
+    launched = {k: sum(e.count for e in events if k in e.key)
+                for k in ("joint_bwd_a_wt_kernel", "joint_bwd_a_ring_kernel",
+                          "joint_bwd_a_kernel")}
+    assert launched == {"joint_bwd_a_wt_kernel": int(ring),
+                        "joint_bwd_a_ring_kernel": int(ring),
+                        "joint_bwd_a_kernel": int(not ring)}, launched
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", [{"wt_shape": (128, 72)},
+                                 {"wt_shape": (256, 72)},
+                                 {"smem_bytes": 48 * 1024}])
+def test_cuda_joint_bwd_a_refuses_a_bad_layout(cuda_device, monkeypatch, bad):
+    """joint_bwd_a_wt and joint_bwd_a_ring check the layout they are
+    handed and the wrapper raises: wt's rows not V's whole chunks (V = 130
+    takes 192), shared bytes that are not the kernel's."""
+    import dataclasses
+
+    from rnn_transducer_tpu_torch.ops import rnnt_joint_fused as tf
+
+    args = _lattice_bwd_args(3, 9, 8, 64, 130, torch.bfloat16, cuda_device)
+    good = tf.device_bwd_a_layout(64, 130, cuda_device)
+    monkeypatch.setattr(tf, "device_bwd_a_layout",
+                        lambda *a: dataclasses.replace(good, **bad))
+    with pytest.raises(RuntimeError, match="joint_bwd_a_"):
+        tf.joint_lp_bwd(*args)
+
+
 @pytest.mark.cuda
 def test_cuda_joint_bwd_times_its_launches(cuda_device):
-    """The five events of a bf16 call bracket kernel A, the zb pass, the
-    ring kernel and the ordered sums, in order."""
+    """The five events of a bf16 call bracket kernel A (its W^T pass and
+    ring kernel), the zb pass, the ring kernel of B and the ordered sums,
+    in order."""
     from rnn_transducer_tpu_torch.ops import rnnt_joint_fused as tf
 
     args = _lattice_bwd_args(3, 9, 8, 64, 130, torch.bfloat16, cuda_device)
