@@ -45,10 +45,10 @@ Phases, in order:
             6400, D = 512, against the plain LayerNorm and its autograd,
             dg / db identical over two runs; the band joint (band_fused:
             band_fwd, band_bwd_a, band_bwd_b) at the pruned step's band,
-            B=32, T'=200, S=8, J=512, V=8192, df / dg_w and dW / db
-            identical over two runs, with kernel A's W^T pass and main
-            launch and kernel B's plan, zb pass and main launch timed
-            apart
+            B=32, T'=200, S=8, J=512, V=8192, lp_blank / lp_y / base,
+            df / dg_w and dW / db identical over two runs, with the
+            forward's and kernel A's W^T pass and main launch and kernel
+            B's plan, zb pass and main launch timed apart
   4. e2e    concurrent HTTP /recognize requests; every serving kernel
             must have launched while they were served; the f32 tokens of
             the kernel path and the plain path must be identical
@@ -217,6 +217,10 @@ PRUNED_V, PRUNED_S, PRUNED_U = 8192, 8, 100
 # band_bwd_b's bf16 time at the pruned band with the 32-column design that
 # rebuilt z per tile (H100 80GB HBM3, 700 W): context for the ring design
 BWD_B_PREV_MS = 65.826
+# band_fwd's bf16 time at the pruned band with the design that staged W by
+# thread loads, 32 rows of J a step, and parked the logits in shared memory
+# (H100 80GB HBM3, 700 W): context for the W^T ring design
+FWD_PREV_MS = 12.072
 # band_bwd_a's bf16 time at the pruned band with the design that kept dz in
 # shared memory and read W from L2 per 64 rows (H100 80GB HBM3, 700 W):
 # context for the W^T ring design
@@ -1119,11 +1123,11 @@ def kernel_ms_by_name(call, names, reps: int = 3) -> dict:
     return ms
 
 
-def bwd_split_ms(call, n: int, reps: int = 5) -> tuple[float, float]:
-    """Device ms of a band backward call's first pass (band_lp_bwd_a's W^T
-    pass, band_lp_bwd_b's zb pass) and of its main launch (with the
-    ordered sums), each call(i, events) on copy i % n recording three CUDA
-    events around its two launches."""
+def band_split_ms(call, n: int, reps: int = 5) -> tuple[float, float]:
+    """Device ms of a band call's first pass (band_lp_fwd's and
+    band_lp_bwd_a's W^T pass, band_lp_bwd_b's zb pass) and of its main
+    launch (with the ordered sums), each call(i, events) on copy i % n
+    recording three CUDA events around its two launches."""
     first_ms, main_ms = event_split_ms(lambda i, ev: call(i % n, ev), 3,
                                        reps)
     return first_ms, main_ms
@@ -1132,7 +1136,8 @@ def bwd_split_ms(call, n: int, reps: int = 5) -> tuple[float, float]:
 def band_fused_vs_plain(rng: np.random.Generator, dev) -> dict:
     """band_fwd, band_bwd_a and band_bwd_b (K6) against their plain versions
     at the pruned step's band, B=32, T'=200, S=8, J=512, V=8192, in f32 and
-    bf16; df, dg_w, dW and db identical over two runs. Times as
+    bf16; lp_blank, lp_y, base, df, dg_w, dW and db identical over two
+    runs. Times as
     fused_ln_vs_plain:
     device ms per call behind a spin kernel, the calls cycling through
     copies of g_w (105 MB, twice the L2 alone) three times the L2's size,
@@ -1161,6 +1166,7 @@ def band_fused_vs_plain(rng: np.random.Generator, dev) -> dict:
         fwd_args = (f, g_w, lab_w, w, b)
         want = bf.band_lp_fwd_reference(*fwd_args)
         got = bf.band_lp_fwd(*fwd_args)
+        again_f = bf.band_lp_fwd(*fwd_args)
         bwd_args = (f, g_w, lab_w, w, b, want[2], cb, cy)
         got_a = bf.band_lp_bwd_a(*bwd_args)
         again_a = bf.band_lp_bwd_a(*bwd_args)
@@ -1177,9 +1183,10 @@ def band_fused_vs_plain(rng: np.random.Generator, dev) -> dict:
                    want_a + want_b)}
         same_bits = all(torch.equal(x, y) for x, y in zip(got_b, again))
         same_bits_a = all(torch.equal(x, y) for x, y in zip(got_a, again_a))
+        same_bits_f = all(torch.equal(x, y) for x, y in zip(got, again_f))
         finite = all(bool(torch.isfinite(x).all())
                      for x in (*got, *got_a, *got_b))
-        del want_a, want_b
+        del want_a, want_b, again_f
         base = want[2]
 
         def call_args(kind, i):
@@ -1201,26 +1208,40 @@ def band_fused_vs_plain(rng: np.random.Generator, dev) -> dict:
                 for c, kind in ((fw, "fwd"), (ba, "bwd"), (bb, "bwd"))))
         kt = [statistics.mean(t[i] for t in times["kernel"]) for i in range(3)]
         pt = [statistics.mean(t[i] for t in times["plain"]) for i in range(3)]
-        wt_ms, a_main_ms = bwd_split_ms(
+        fwd_wt_ms, fwd_main_ms = band_split_ms(
+            lambda i, ev: bf.band_lp_fwd(*call_args("fwd", i), events=ev),
+            n_cp)
+        wt_ms, a_main_ms = band_split_ms(
             lambda i, ev: bf.band_lp_bwd_a(*call_args("bwd", i), events=ev),
             n_cp)
-        zb_ms, main_ms = bwd_split_ms(
+        zb_ms, main_ms = band_split_ms(
             lambda i, ev: bf.band_lp_bwd_b(*call_args("bwd", i), events=ev),
             n_cp)
         ring = bf.tensor_core_form(cd, J, V)
         plan = bf.device_bwd_b_plan(N, J, V, dev) if ring else None
         layout = bf.device_bwd_a_layout(J, V, dev) if ring else None
+        fwd_layout = bf.device_fwd_layout(J, V, dev) if ring else None
         ops = 2 * N * J * V  # one product over the band
         row = {"B": B, "T": T, "S": S, "J": J, "V": V, "rows": N,
                "dtype": str(cd).replace("torch.", ""),
                "fwd_max_abs_err": err_f, "fwd_atol": ATOL[cd],
                "bwd_a_max_abs_err": err_a, "bwd_b_max_abs_err": err_b,
                "bwd_rel_err": rel, "bwd_rtol": REL_TOL[cd],
+               "fwd_bitwise_repeat": same_bits_f,
                "bwd_a_bitwise_repeat": same_bits_a,
                "bwd_b_bitwise_repeat": same_bits,
                "fwd_kernel_ms": kt[0], "fwd_plain_ms": pt[0],
                "bwd_a_kernel_ms": kt[1], "bwd_a_plain_ms": pt[1],
                "bwd_b_kernel_ms": kt[2], "bwd_b_plain_ms": pt[2],
+               # the forward: its W^T pass and ring kernel apart (the
+               # CUDA-core form: 0 and the kernel), its layout
+               "fwd_wt_ms": fwd_wt_ms, "fwd_main_ms": fwd_main_ms,
+               "fwd_prev_ms": (FWD_PREV_MS if cd == torch.bfloat16
+                               else None),
+               "fwd_wt_shape": (list(fwd_layout.wt_shape) if fwd_layout
+                                else None),
+               "fwd_smem_bytes": (fwd_layout.smem_bytes if fwd_layout
+                                  else None),
                # kernel A: its W^T pass and main launch (with the df sum)
                # apart, the tensor-core form's scratch and shared bytes
                "bwd_a_wt_ms": wt_ms, "bwd_a_main_ms": a_main_ms,
@@ -1246,6 +1267,7 @@ def band_fused_vs_plain(rng: np.random.Generator, dev) -> dict:
         check(finite and err_f <= ATOL[cd] and max(rel.values()) <= REL_TOL[cd],
               f"band kernels {cd}: fwd err {err_f}, bwd rel err {rel}, or a "
               "non-finite output")
+        check(same_bits_f, f"band_fwd {cd}: two runs gave different bits")
         check(same_bits_a, f"band_bwd_a {cd}: two runs gave different bits")
         check(same_bits, f"band_bwd_b {cd}: two runs gave different bits")
         out[cd] = row
@@ -1729,7 +1751,8 @@ def profile_step(step, state, batch, profile_dir, name="train_step"):
                 "band_bwd_a": ("band_bwd_a_",),
                 "band_bwd_b": ("band_bwd_b_",),
                 "band_sums": ("band_sum_parts",),
-                "band_fwd": ("band_fwd_kernel", "band_fwd_mma_kernel"),
+                "band_fwd": ("band_fwd_wt_kernel", "band_fwd_ring_kernel",
+                             "band_fwd_kernel"),
                 "gemm": ("gemm", "Gemm", "cutlass", "sm90_xmma"),
                 "softmax": ("softmax",),
                 "elementwise": ("elementwise_kernel",),
@@ -1789,11 +1812,13 @@ def check_fused_joint_profile(prof: dict, result: dict, what: str) -> None:
 
 def check_band_profile(prof: dict, result: dict, what: str) -> None:
     """A profiled band step (bf16 W, J % 16 == 0, V even) runs each K6
-    backward kernel in its tensor-core form, two launches a call: K6-A's
-    W^T pass and ring kernel (the family `band_bwd_a_`), K6-B's zb pass and
-    ring kernel (`band_bwd_b_`)."""
+    kernel in its tensor-core form, two launches a call: K6-fwd's W^T pass
+    and ring kernel (the family `band_fwd`), K6-A's W^T pass and ring
+    kernel (`band_bwd_a_`), K6-B's zb pass and ring kernel
+    (`band_bwd_b_`)."""
     seen = prof["device_launches"]
-    for fam, name in (("band_bwd_a", "band_lp_bwd_a"),
+    for fam, name in (("band_fwd", "band_lp_fwd"),
+                      ("band_bwd_a", "band_lp_bwd_a"),
                       ("band_bwd_b", "band_lp_bwd_b")):
         per_step = result["launches"][name] / result["steps"]
         check(per_step > 0 and seen[fam] == 2 * per_step,

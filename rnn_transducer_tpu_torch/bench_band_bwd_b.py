@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""The joint's backward kernels (K6-A and K6-B, the band joint's dz and
-dW / db; K2, the fused joint's), the LSTM forward (K4-fwd) and the
-training steps and served requests that run them, timed on one CUDA card
-for one or more checkouts of this repository, in turns.
+"""The band joint's kernels (K6-fwd, its log-probs; K6-A and K6-B, its dz
+and dW / db), the fused joint's backward (K2), the LSTM forward (K4-fwd)
+and the training steps and served requests that run them, timed on one
+CUDA card for one or more checkouts of this repository, in turns.
 
     python3 -m rnn_transducer_tpu_torch.bench_band_bwd_b \
         [--trees DIR [DIR ...]] [--parts PART [PART ...]] [--out RESULTS.json]
@@ -12,20 +12,22 @@ in the order given (default: this checkout), so that two versions of the
 kernels are compared on one card: pass `--trees OLD NEW NEW OLD`. A
 process puts the tree's root first on the import path (its package and
 its chip_smoke.py), builds that tree's kernels, then runs the parts
-(default: all nine, in this order):
+(default: all ten, in this order):
 
-  band_bwd_a   holds `band_lp_bwd_a` (df, dg_w) against its plain version
-               at the pruned step's band (B=32, T'=200, S=8, J=512, bf16)
-               with V=8192, at the AR step's V=1024, and at V=256 and 64
-               (max |err| over the largest |value|, two runs bit for
-               bit), and times it: device ms a call behind a spin kernel,
-               g_w cycled through copies three times the L2's size; where
-               the tree's wrapper takes `events`, its W^T pass and main
-               launch apart; then a line through its time against its
-               chunks of 64 columns (`chunk_fit`: µs a chunk and outside
-               the loop over chunks, a block);
-  band_bwd_b   the same for `band_lp_bwd_b` (dW, db); with `events`, its
-               zb pass and main launch apart;
+  band_fwd     holds `band_lp_fwd` (lp_blank, lp_y, base) against its
+               plain version at the pruned step's band (B=32, T'=200, S=8,
+               J=512, bf16) with V=8192, at the AR step's V=1024, and at
+               V=256 and 64 (max |err|, two runs bit for bit, the
+               outputs' sha256 digests), and times it: device ms a call
+               behind a spin kernel, g_w cycled through copies three times
+               the L2's size; where the tree's wrapper takes `events`, its
+               W^T pass and ring kernel apart; then a line through its
+               time against its chunks of 64 columns (`chunk_fit`: µs a
+               chunk and outside the loop over chunks, a block);
+  band_bwd_a   the same for `band_lp_bwd_a` (df, dg_w; max |err| over the
+               largest |value|), its W^T pass and main launch apart;
+  band_bwd_b   the same for `band_lp_bwd_b` (dW, db) at V=8192 and 1024,
+               with `events` its zb pass and main launch apart;
   pruned_step  trains libri100 with V=8192, S=8, U=100 at B=32, T=400
                (chip_smoke.train_run: ms/step by the slope of two runs),
                then profiles one step (device ms by kernel family);
@@ -74,7 +76,7 @@ import subprocess
 import sys
 
 
-PARTS = ("band_bwd_a", "band_bwd_b", "pruned_step", "joint_bwd",
+PARTS = ("band_fwd", "band_bwd_a", "band_bwd_b", "pruned_step", "joint_bwd",
          "train_step", "conformer_step", "lstm_fwd", "ar_step", "serve")
 
 
@@ -100,23 +102,32 @@ def one(root: str, parts) -> dict:
     return out
 
 
-def band_bwd(cs, dev, which: str) -> list:
-    """The rows of the band_bwd_a (which "a") or band_bwd_b ("b") part."""
+# The band parts: the wrapper's name, its outputs, the name of its first
+# pass's time where `events` splits it.
+BAND_PARTS = {"fwd": ("band_lp_fwd", ("lp_blank", "lp_y", "base"), "wt_ms"),
+              "a": ("band_lp_bwd_a", ("df", "dg_w"), "wt_ms"),
+              "b": ("band_lp_bwd_b", ("dw", "db"), "zb_ms")}
+
+
+def band(cs, dev, which: str) -> dict:
+    """The rows of the band_fwd (which "fwd"), band_bwd_a ("a") or
+    band_bwd_b ("b") part, with the chunk fit of the first two."""
     import numpy as np
     import torch
 
     from rnn_transducer_tpu_torch.ops import rnnt_band_fused as bf
 
     rows = []
-    fn = getattr(bf, f"band_lp_bwd_{which}")
-    ref = getattr(bf, f"band_lp_bwd_{which}_reference")
-    names = ("df", "dg_w") if which == "a" else ("dw", "db")
+    name, names, first = BAND_PARTS[which]
+    fn = getattr(bf, name)
+    ref = getattr(bf, f"{name}_reference")
     with_events = "events" in inspect.signature(fn).parameters
     rng = np.random.default_rng(9)
     B, T, S, J = cs.TRAIN_B, cs.TRAIN_T // 2, cs.PRUNED_S, 512
-    # A also at one and four chunks of 64 columns: the intercept of its
-    # time against V is a block's cost outside its chunk loop
-    for V in (cs.PRUNED_V, 1024) + ((256, 64) if which == "a" else ()):
+    # the forward and A also at one and four chunks of 64 columns: the
+    # intercept of their time against V is a block's cost outside its
+    # chunk loop
+    for V in (cs.PRUNED_V, 1024) + ((256, 64) if which != "b" else ()):
         k = 1.0 / np.sqrt(J)
         f = torch.from_numpy(0.5 * rng.normal(size=(B, T, J))).float().to(dev)
         g_w = torch.from_numpy(0.5 * rng.normal(size=(B, T, S, J))).float(
@@ -130,42 +141,49 @@ def band_bwd(cs, dev, which: str) -> list:
             dev)
         cy = torch.from_numpy(-rng.uniform(0, 1, (B, T, S)) / B).float().to(
             dev)
-        base = bf.band_lp_fwd_reference(f, g_w, lab_w, w, b)[2]
-        args = (f, g_w, lab_w, w, b, base, cb, cy)
+        rest = ()
+        if which != "fwd":
+            rest = (bf.band_lp_fwd_reference(f, g_w, lab_w, w, b)[2], cb, cy)
+        args = (f, g_w, lab_w, w, b, *rest)
         got = fn(*args)
         again = fn(*args)
         want = ref(*args)
         torch.cuda.synchronize()
-        rel = {n: cs.rel_err(x, y) for n, x, y in zip(names, got, want)}
+        err = {n: (cs.max_abs(x, y) if which == "fwd" else cs.rel_err(x, y))
+               for n, x, y in zip(names, got, want)}
         same = all(torch.equal(x, y) for x, y in zip(got, again))
         finite = all(bool(torch.isfinite(x).all()) for x in got)
+        # the outputs' bits, to compare trees run on the same inputs
+        digest = {n: hashlib.sha256(x.cpu().numpy().tobytes()).hexdigest()[
+            :16] for n, x in zip(names, got)}
         del got, again, want
         n_cp = max(2, -(-3 * cs.L2_BYTES // cs.nbytes(g_w)))
         gws = [g_w.clone() for _ in range(n_cp)]
 
         def call(i, **kw):
-            return fn(f, gws[i], lab_w, w, b, base, cb, cy, **kw)
+            return fn(f, gws[i], lab_w, w, b, *rest, **kw)
 
         row = {"B": B, "T": T, "S": S, "J": J, "V": V, "dtype": "bfloat16",
-               "rel_err": rel, "bitwise_repeat": same, "finite": finite,
+               ("max_abs_err" if which == "fwd" else "rel_err"): err,
+               "bitwise_repeat": same, "finite": finite, "digest": digest,
                "plain_ms": cs.device_ms(lambda: ref(*args), reps=2),
                "kernel_ms": [cs.device_ms(cs.cycled(call, n_cp), reps=5)
                              for _ in range(2)]}
         if with_events:
-            # the first pass (A: W^T, B: zb), the main launch with its sums
-            first, main = cs.event_split_ms(
+            # the first pass (W^T or zb), the main launch with its sums
+            row[first], row["main_ms"] = cs.event_split_ms(
                 lambda i, ev: call(i % n_cp, events=ev), 3)
-            row["wt_ms" if which == "a" else "zb_ms"] = first
-            row["main_ms"] = main
-            if which == "a":
-                row["layout"] = dataclasses.asdict(bf.device_bwd_a_layout(
-                    J, V, dev))
-            else:
+            if which == "b":
                 row["plan"] = dataclasses.asdict(bf.device_bwd_b_plan(
                     B * T * S, J, V, dev))
-        print(f"band_bwd_{which} " + json.dumps(row), flush=True)
+            else:
+                layout = (bf.device_fwd_layout if which == "fwd"
+                          else bf.device_bwd_a_layout)
+                row["layout"] = dataclasses.asdict(layout(J, V, dev))
+        print(("band_fwd " if which == "fwd" else f"band_bwd_{which} ")
+              + json.dumps(row), flush=True)
         rows.append(row)
-        del gws, args, f, g_w, w, base
+        del gws, args, rest, f, g_w, w
         torch.cuda.empty_cache()
     if which == "b":
         return {"rows": rows}
@@ -173,11 +191,12 @@ def band_bwd(cs, dev, which: str) -> list:
 
 
 def chunk_fit(rows, n_rows: int, dev) -> dict:
-    """Kernel A's time against its chunks of 64 columns: a least-squares
-    line through each row's ms (the main launch's where events split it,
-    else the call's), per block of 64 rows by the waves of blocks the card
-    runs (one block an SM): the µs a block spends a chunk and outside its
-    loop over the chunks (sidecars, z, epilogue, launch, the df sum)."""
+    """A ring kernel's time (the forward's or kernel A's) against its
+    chunks of 64 columns: a least-squares line through each row's ms (the
+    main launch's where events split it, else the call's), per block of
+    64 rows by the waves of blocks the card runs (one block an SM): the µs
+    a block spends a chunk and outside its loop over the chunks (labels or
+    sidecars, z, epilogue, launch, A's df sum)."""
     import statistics
 
     import torch
@@ -205,11 +224,13 @@ def pruned_step(cs, dev) -> dict:
     return {"ms_per_step": result["ms_per_step"],
             "utt_per_s": result["utt_per_s"],
             "peak_mem_gb": result["peak_mem_gb"],
+            "launches_band_lp_fwd": result["launches"]["band_lp_fwd"],
             "launches_band_lp_bwd_a": result["launches"]["band_lp_bwd_a"],
             "launches_band_lp_bwd_b": result["launches"]["band_lp_bwd_b"],
             "steps": result["steps"], "profile_wall_ms": prof["wall_ms"],
             "device_busy_share": prof["device_busy_share"],
-            "device_ms": prof["device_ms"]}
+            "device_ms": prof["device_ms"],
+            "device_launches": prof["device_launches"]}
 
 
 # joint_lp_bwd's kernels by name, as torch.profiler reports them: the first
@@ -451,8 +472,9 @@ def serve(cs, dev) -> dict:
             "launches_lstm_fwd": counts["lstm_fwd"]}
 
 
-MEASURE = {"band_bwd_a": functools.partial(band_bwd, which="a"),
-           "band_bwd_b": functools.partial(band_bwd, which="b"),
+MEASURE = {"band_fwd": functools.partial(band, which="fwd"),
+           "band_bwd_a": functools.partial(band, which="a"),
+           "band_bwd_b": functools.partial(band, which="b"),
            "pruned_step": pruned_step,
            "joint_bwd": joint_bwd, "train_step": train_step,
            "conformer_step": conformer_step,

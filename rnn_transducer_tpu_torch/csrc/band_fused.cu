@@ -30,22 +30,25 @@
 //
 // Design. The TPU kernels keep W whole in VMEM (8.4 MB in bf16 at
 // V = 8192) and, in kernel A, the dlogits of a whole tile; a Hopper block
-// has 227 KB of shared memory. So:
-//   fwd  a block owns kMR = 64 consecutive rows: round(z) built once in
-//        shared memory, then V in chunks of kMV = 128 columns through the
-//        tensor cores (mma.sync m16n8k16, mma_bf16.cuh, W staged through
-//        shared memory) with an online max / sum of exp, as K1.
-//   A    two launches on the ring of wt_ring.cuh, with the band's row
-//        policy (BandRowsA below: BandRows' sidecars and dlogit, and an
-//        epilogue that writes dg_w = dz (1 - z^2)). The first writes
-//        wt = W^T (V rounded up to 64, pitch_j(J)) bf16 once a call, so
-//        that 64 columns of W are one contiguous run. The second owns 64
-//        rows a block: round(z) built once into shared memory, the rows'
-//        sidecars loaded once, then V in chunks of 64 columns, which
-//        thread 0 stages from wt into a two-slot ring with TMA bulk
-//        copies (the next chunk's in flight under this chunk's products).
-//        Per chunk the logits on the tensor cores (B fragments straight
-//        from the slot), round(dlogits) into a (64, 64) bf16 tile, and
+// has 227 KB of shared memory. So the forward and kernel A share the ring
+// of wt_ring.cuh: a first launch writes wt = W^T (V rounded up to 64,
+// pitch_j(J)) bf16 once a call, so that 64 columns of W are one
+// contiguous run; the second owns 64 rows a block: round(z) built once
+// into shared memory, the rows' labels (A: sidecars) loaded once, then V
+// in chunks of 64 columns, which thread 0 stages from wt into a two-slot
+// ring with TMA bulk copies (the next chunk's in flight under this
+// chunk's products), and per chunk the logits on the tensor cores (B
+// fragments straight from the slot, `wt_ring::chunk_logits` for both).
+//   fwd  the row policy BandRowsF below (f row r / S, g_w row r, lab_w[r];
+//        lp_blank, lp_y and base stored at row r). Each thread keeps an
+//        online max / sum of exp of its two rows over its 8 columns a
+//        chunk and the blank's and the label's logit where it holds them,
+//        in registers; after the last chunk the lanes of a row combine by
+//        shuffles and the two column halves through shared memory, in a
+//        fixed order. One block barrier a chunk.
+//   A    the row policy BandRowsA below (BandRows' sidecars and dlogit,
+//        and an epilogue that writes dg_w = dz (1 - z^2)). Per chunk,
+//        after the logits, round(dlogits) into a (64, 64) bf16 tile, and
 //        dz += round(dlogits) . W[:, chunk]^T with W's fragments from the
 //        same slot by ldmatrix.trans; dz (64, J) f32 stays in registers
 //        (warp w: j = 64 w ..). The epilogue writes dg_w from them;
@@ -77,11 +80,17 @@
 // forward has one, A and B two each (the logits again, and dz or dW).
 // At the pruned training shape (B=32, T'=200, S=8, J=512, V=8192, bf16)
 // that is 0.43 ms for the forward and 0.87 ms for each backward kernel
-// at 989 TFLOP/s. Measured on an NVIDIA H100 80GB HBM3, 700.00 W, by
-// bench_band_bwd_b.py and chip_smoke.py, in turns with the earlier
+// at 989 TFLOP/s. Each ring block reads all of wt from L2 (800 blocks,
+// 6.8 GB at V = 8192). Measured on an NVIDIA H100 80GB HBM3, 700.00 W,
+// by bench_band_bwd_b.py and chip_smoke.py, in turns with the earlier
 // designs:
-//   fwd  12.0 ms: one block per SM, W re-read from L2 by every block (64
-//        rows per read), single-buffered staging.
+//   fwd  2.56 ms (12.0 with W staged by thread loads, 32 rows of J at a
+//        time between two block barriers, and the logits through shared
+//        memory behind a third; 0.39 at V = 1024, 1.65 before): the W^T
+//        pass 0.02 ms, the ring kernel 2.54-2.57. A line through its time
+//        at V = 64, 256, 1024 and 8192 gives 2.75 us a chunk a block and
+//        ~10 us a block outside the chunk loop; 800 blocks in 7 waves of
+//        132, one block an SM (202,512 bytes of shared memory).
 //   A    4.10 ms (27.6-27.9 with dz in shared memory and W read from L2
 //        per 64 rows; 0.68 at V = 1024, 3.95-3.97 before): the W^T pass
 //        0.02 ms, the ring kernel and df's sum 4.09. A line through its
@@ -107,7 +116,6 @@
 #include <algorithm>
 #include <cstddef>
 #include <cstdint>
-#include <type_traits>
 
 #include "mma_bf16.cuh"
 #include "wt_ring.cuh"
@@ -116,13 +124,8 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
-using joint_mma::build_z_rows;
 using joint_mma::kMR;
-using joint_mma::kMV;
-using joint_mma::kWTP;
-using joint_mma::logits_chunk;
 using joint_mma::pitch_j;
-using joint_mma::round_up;
 
 constexpr int kThreads = 256;
 constexpr int kMaxJ = 512;
@@ -184,7 +187,7 @@ __device__ __forceinline__ void load4(const bf16* p, float (&o)[4]) {
 }
 
 // The online log-sum-exp epilogue of one chunk of logits x[i][c] (rows
-// ty*4 + i, columns v0 + tx*8 + c), shared by both forward kernels.
+// ty*4 + i, columns v0 + tx*8 + c) of the CUDA-core forward.
 __device__ __forceinline__ void lse_chunk(float (&x)[4][8], int v0, int tx,
                                           int ty, int V, int blank,
                                           const int* lab_s, float* sel_b,
@@ -325,104 +328,6 @@ band_fwd_kernel(const float* __restrict__ f, const float* __restrict__ gw,
       for (int c = 0; c < 8; ++c) {
         const int v = v0 + tx * 8 + c;
         x[i][c] = (v < V) ? acc[i][c] + bias[v] : 0.0f;
-      }
-    }
-    lse_chunk(x, v0, tx, ty, V, blank, lab_s, sel_b, sel_y, m_run, s_run);
-  }
-  __syncthreads();
-  write_lp(tx, ty, r0, N, sel_b, sel_y, m_run, s_run, lp_blank, lp_y,
-           base_out);
-}
-
-// The row bookkeeping of a chunk of kMR rows starting at r0 (the forward
-// and kernel A): f row, g_w row (-1 past N) and label.
-__device__ __forceinline__ void load_rows(long long r0, long long N, int S,
-                                          const int* lab_w, int* lab_s,
-                                          int* fo_s, int* go_s) {
-  for (int r = threadIdx.x; r < kMR; r += kThreads) {
-    const long long row = r0 + r;
-    const bool ok = row < N;
-    lab_s[r] = ok ? lab_w[row] : -1;
-    fo_s[r] = ok ? (int)(row / S) : -1;
-    go_s[r] = ok ? (int)row : -1;
-  }
-}
-
-constexpr int kLGP = kMV + 4;  // pitch of the f32 logits chunk
-static_assert(kBM == kMR && kBN == kMV, "the two forwards share tiles");
-
-size_t mma_fwd_bytes(int J) {
-  return (size_t)kMR * pitch_j(J) * 2 + (size_t)kMV * kWTP * 2
-         + (size_t)kMR * kLGP * 4 + 5 * kMR * 4;
-}
-
-__global__ void __launch_bounds__(kThreads)
-band_fwd_mma_kernel(const float* __restrict__ f, const float* __restrict__ gw,
-                    const int* __restrict__ lab_w, const bf16* __restrict__ w,
-                    const float* __restrict__ bias,
-                    float* __restrict__ lp_blank, float* __restrict__ lp_y,
-                    float* __restrict__ base_out, long long N, int S, int J,
-                    int V, int blank) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int JP = pitch_j(J);
-  bf16* zA = reinterpret_cast<bf16*>(smem_raw);
-  bf16* wt = zA + (size_t)kMR * JP;
-  float* lg = reinterpret_cast<float*>(wt + kMV * kWTP);
-  float* sel_b = lg + kMR * kLGP;
-  float* sel_y = sel_b + kMR;
-  int* lab_s = reinterpret_cast<int*>(sel_y + kMR);
-  int* fo_s = lab_s + kMR;
-  int* go_s = fo_s + kMR;
-
-  const long long r0 = (long long)blockIdx.x * kMR;
-  const int tid = threadIdx.x;
-  const int lane = tid % 32;
-  const int warp = tid / 32;
-  const int gq = lane >> 2;
-  const int q = lane & 3;
-  const int tx = tid % 16;  // epilogue: columns tx*8 .. tx*8+7
-  const int ty = tid / 16;  // epilogue: rows ty*4 .. ty*4+3
-
-  load_rows(r0, N, S, lab_w, lab_s, fo_s, go_s);
-  for (int r = tid; r < kMR; r += kThreads) {
-    sel_b[r] = 0.0f;
-    sel_y[r] = 0.0f;
-  }
-  __syncthreads();
-  build_z_rows(zA, JP, f, gw, fo_s, go_s, J, round_up(J, 16));
-
-  float m_run[4], s_run[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m_run[i] = -CUDART_INF_F;
-    s_run[i] = 0.0f;
-  }
-  const int wm = warp / 4;
-  const int wn = warp % 4;
-  for (int v0 = 0; v0 < V; v0 += kMV) {
-    float acc[2][4][4];
-    logits_chunk(acc, zA, JP, wt, w, v0, J, V);
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = wm * 32 + mi * 16 + gq + ((e >= 2) ? 8 : 0);
-          const int col = wn * 32 + ni * 8 + 2 * q + (e & 1);
-          lg[r * kLGP + col] = acc[mi][ni][e];
-        }
-      }
-    }
-    __syncthreads();
-    float x[4][8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty * 4 + i;
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        const int v = v0 + tx * 8 + c;
-        x[i][c] = (v < V) ? lg[r * kLGP + tx * 8 + c] + bias[v] : 0.0f;
       }
     }
     lse_chunk(x, v0, tx, ty, V, blank, lab_s, sel_b, sel_y, m_run, s_run);
@@ -808,6 +713,50 @@ band_bwd_a_ring_kernel(const float* __restrict__ f,
   wt_ring::ring_body(smem_raw, f, gw, rows, wt, bias, N, J, V, blank);
 }
 
+// Tensor-core form of the forward, in two launches, on wt_ring.cuh:
+// band_fwd_wt_kernel writes wt = W^T once a call (kernel A's array, its
+// own launch, so that the profiler counts it with the forward);
+// band_fwd_ring_kernel runs the forward's ring with the band's rows.
+
+// The forward's rows of the band: z from f row r / S and g_w row r, the
+// label lab_w[r]; lp_blank, lp_y and base at row r.
+struct BandRowsF {
+  const int* __restrict__ lab_w;
+  float* __restrict__ lp_blank;
+  float* __restrict__ lp_y;
+  float* __restrict__ base;
+  int S;
+  __device__ long long f_row(long long r) const { return r / S; }
+  __device__ long long g_row(long long r) const { return r; }
+  __device__ int label(long long r) const { return lab_w[r]; }
+  __device__ void store(long long row, float lpb, float lpy,
+                        float bse) const {
+    lp_blank[row] = lpb;
+    lp_y[row] = lpy;
+    base[row] = bse;
+  }
+};
+
+__global__ void __launch_bounds__(kThreads)
+band_fwd_wt_kernel(const bf16* __restrict__ w, bf16* __restrict__ wt, int J,
+                   int V, int JP) {
+  wt_ring::build_wt(w, wt, J, V, JP);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+band_fwd_ring_kernel(const float* __restrict__ f,
+                     const float* __restrict__ gw,
+                     const int* __restrict__ lab_w,
+                     const bf16* __restrict__ wt,
+                     const float* __restrict__ bias,
+                     float* __restrict__ lp_blank, float* __restrict__ lp_y,
+                     float* __restrict__ base, long long N, int S, int J,
+                     int V, int blank) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const BandRowsF rows{lab_w, lp_blank, lp_y, base, S};
+  wt_ring::fwd_body(smem_raw, f, gw, rows, wt, bias, N, J, V, blank);
+}
+
 // out[o, x] = sum_p part[o, p, x], p in order.
 __global__ void band_sum_parts_kernel(const float* __restrict__ part,
                                       float* __restrict__ out, long long n_outer,
@@ -832,29 +781,17 @@ int sum_parts(const float* part, float* out, long long n_outer, int n_parts,
   return (int)cudaGetLastError();
 }
 
-bool mma_shapes_ok(int J, int V) { return J % 16 == 0 && V % 2 == 0; }
-
 template <typename K>
 cudaError_t set_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)bytes);
 }
 
+// The CUDA-core forward (f32 W, or shapes outside the tensor-core form).
 template <typename W>
 int run_fwd(const float* f, const float* gw, const int* lab_w, const W* w,
             const float* bias, float* lp_blank, float* lp_y, float* base,
             long long N, int S, int J, int V, int blank, cudaStream_t stream) {
-  if constexpr (std::is_same_v<W, bf16>) {
-    if (mma_shapes_ok(J, V)) {
-      const size_t smem = mma_fwd_bytes(J);
-      const dim3 grid((unsigned)((N + kMR - 1) / kMR));
-      const cudaError_t e = set_smem(band_fwd_mma_kernel, smem);
-      if (e != cudaSuccess) return (int)e;
-      band_fwd_mma_kernel<<<grid, kThreads, smem, stream>>>(
-          f, gw, lab_w, w, bias, lp_blank, lp_y, base, N, S, J, V, blank);
-      return (int)cudaGetLastError();
-    }
-  }
   const size_t smem = (size_t)J * zs_stride<W>() * sizeof(W)
                       + (size_t)kBK * kBN * sizeof(W) + 3 * kBM * sizeof(float);
   const dim3 grid((unsigned)((N + kBM - 1) / kBM));
@@ -865,8 +802,8 @@ int run_fwd(const float* f, const float* gw, const int* lab_w, const W* w,
   return (int)cudaGetLastError();
 }
 
-// The CUDA-core form of kernel A (f32 W, or shapes outside
-// mma_shapes_ok), then df[b, t] = sum over the frame's S rows of dg_w, in
+// The CUDA-core form of kernel A (f32 W, or shapes outside the
+// tensor-core form), then df[b, t] = sum over the frame's S rows of dg_w, in
 // s order.
 template <typename W>
 int run_bwd_a(const float* f, const float* gw, const int* lab_w, const W* w,
@@ -885,8 +822,8 @@ int run_bwd_a(const float* f, const float* gw, const int* lab_w, const W* w,
   return sum_parts(dgw, df, (long long)B * T, S, J, stream);
 }
 
-// The CUDA-core form of kernel B (f32 W, or shapes outside
-// mma_shapes_ok): grid (V / kBNB column tiles, n_split row splits).
+// The CUDA-core form of kernel B (f32 W, or shapes outside the
+// tensor-core form): grid (V / kBNB column tiles, n_split row splits).
 template <typename W>
 int run_bwd_b(const float* f, const float* gw, const int* lab_w, const W* w,
               const float* bias, const float* base, const float* cb,
@@ -912,7 +849,10 @@ int run_bwd_b(const float* f, const float* gw, const int* lab_w, const W* w,
 // Each entry point launches on `stream` and returns 0, or the first
 // cudaError_t a launch reported. J <= 512; W is bf16 (w_is_bf16) or f32.
 
-// One launch: lp_blank, lp_y and base, each (B, T, S) f32.
+// The CUDA-core forward, one launch: lp_blank, lp_y and base, each
+// (B, T, S) f32. W in bf16 or f32, any J <= 512 and V;
+// ops/rnnt_band_fused.py sends bf16 W with J % 16 == 0 and V even to the
+// tensor-core form (band_fwd_wt, band_fwd_ring) instead.
 extern "C" int band_fwd(const void* f, const void* gw, const void* lab_w,
                         const void* w, int w_is_bf16, const void* bias,
                         void* lp_blank, void* lp_y, void* base, int B, int T,
@@ -1122,4 +1062,52 @@ extern "C" int band_bwd_a_ring(const void* f, const void* gw,
   if (e2 != cudaSuccess) return (int)e2;
   return sum_parts(static_cast<const float*>(dgw), static_cast<float*>(df),
                    (long long)B * T, S, J, s);
+}
+
+// The tensor-core form of the forward (W bf16, J % 16 == 0, V even), as
+// two entry points so that a caller can time them apart. Both take the
+// layout of ops/rnnt_band_fused.fwd_layout (wt's rows; the ring block's
+// shared bytes) and return cudaErrorInvalidValue, launching nothing, for
+// one that is not the kernel's.
+//
+// One launch: wt (wt_rows, pitch_j(J)) bf16 = W^T, wt_rows = V rounded up
+// to 64, zero past V rows and J columns.
+extern "C" int band_fwd_wt(const void* w, void* wt, int J, int V,
+                           long long wt_rows, long long smem_bytes,
+                           int device, void* stream) {
+  if (!wt_ring::fwd_layout_ok(J, V, wt_rows, smem_bytes)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return wt_ring::launch_wt(band_fwd_wt_kernel, static_cast<const bf16*>(w),
+                            static_cast<bf16*>(wt), J, V, wt_rows, device,
+                            static_cast<cudaStream_t>(stream));
+}
+
+// One launch: the ring kernel, one block a chunk of 64 rows with
+// smem_bytes (wt_ring::fwd_ring_bytes(J)) of shared memory, writes
+// lp_blank, lp_y and base, each (B, T, S) f32, from wt.
+extern "C" int band_fwd_ring(const void* f, const void* gw,
+                             const void* lab_w, const void* wt,
+                             const void* bias, void* lp_blank, void* lp_y,
+                             void* base, int B, int T, int S, int J, int V,
+                             int blank, long long wt_rows,
+                             long long smem_bytes, int device,
+                             void* stream) {
+  const long long N = (long long)B * T * S;
+  if (N < 1 || !wt_ring::fwd_layout_ok(J, V, wt_rows, smem_bytes)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  const size_t smem = wt_ring::fwd_ring_bytes(J);
+  const cudaError_t e1 = set_smem(band_fwd_ring_kernel, smem);
+  if (e1 != cudaSuccess) return (int)e1;
+  band_fwd_ring_kernel<<<(unsigned)((N + kMR - 1) / kMR), kThreads, smem,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(f), static_cast<const float*>(gw),
+      static_cast<const int*>(lab_w), static_cast<const bf16*>(wt),
+      static_cast<const float*>(bias), static_cast<float*>(lp_blank),
+      static_cast<float*>(lp_y), static_cast<float*>(base), N, S, J, V,
+      blank);
+  return (int)cudaGetLastError();
 }

@@ -16,9 +16,11 @@
 // `frag_a` and `frag_b` below. A row pitch of 4 (mod 32) words puts the 8
 // rows g of a fragment on distinct banks.
 //
-// Below them, the logits product both joint kernels share: kMR cells by
-// kMV columns of round(z) . W, with z rounded to bf16 in shared memory and
-// W staged transposed kMK rows at a time, for blocks of kMmaThreads.
+// Below them, the fused joint's forward logits product (K1,
+// joint_fwd.cu): kMR cells by kMV columns of round(z) . W, with z rounded
+// to bf16 in shared memory and W staged transposed kMK rows at a time, for
+// blocks of kMmaThreads. The rings of wt_ring.cuh take W^T's chunks by TMA
+// instead.
 
 #pragma once
 

@@ -1,14 +1,19 @@
-// The dz backward of a joint on the tensor cores (sm_90), for its two
-// users, each with its own row policy: the band joint's kernel A
-// (band_fused.cu, K6-A: the band's rows, dg_w) and the fused joint's
-// kernel A (joint_bwd.cu, K2-A: the B T (U+1) cells, a dz scratch that
-// ordered sums reduce to df and dg). Over N rows of z = tanh(f[f row] +
-// g[g row]) and W (J, V) bf16:
-//   logits = round(z) . W + bias                    (recomputed, fp32 acc.)
-//   dz     = round(dlogits) . W^T                   (fp32 acc.)
-// The users differ in each row's sidecars (label, log-sum-exp, loss
-// cotangents), in how dlogits follows from them, and in what becomes of a
-// row's dz: a row policy, a small struct with
+// The joints' products on a ring of W^T chunks, on the tensor cores
+// (sm_90): the dz backward of a joint for its two users, each with its own
+// row policy: the band joint's kernel A (band_fused.cu, K6-A: the band's
+// rows, dg_w) and the fused joint's kernel A (joint_bwd.cu, K2-A: the
+// B T (U+1) cells, a dz scratch that ordered sums reduce to df and dg);
+// and the forward log-probs of the band joint (band_fused.cu, K6-fwd),
+// written against a row policy of its own. Over N rows of
+// z = tanh(f[f row] + g[g row]) and W (J, V) bf16:
+//   logits = round(z) . W + bias                    (fp32 acc.)
+//   dz     = round(dlogits) . W^T                   (fp32 acc., backward)
+//   base   = max + log(sum_v exp(logits[v] - max)),
+//   lp_blank = logits[blank] - base, lp_y = logits[label] - base
+//                                                   (forward)
+// The backward's users differ in each row's sidecars (label, log-sum-exp,
+// loss cotangents), in how dlogits follows from them, and in what becomes
+// of a row's dz: a row policy, a small struct with
 //   __device__ long long f_row(long long r) const;   // z's f row
 //   __device__ long long g_row(long long r) const;   // z's g row
 //   __device__ void load(long long row, float (&s)[kSideWords]) const;
@@ -23,36 +28,51 @@
 // the row's dz (K6-A into dg_w, K2-A into its scratch); they issue all
 // their loads before their first store, so that they overlap (the
 // compiler cannot move a load past a store it does not know to be
-// elsewhere).
+// elsewhere). The forward's row policy has f_row and g_row, and
+//   __device__ int label(long long r) const;         // the row's label
+//   __device__ void store(long long row, float lp_blank, float lp_y,
+//                         float base) const;
+// (a label outside [0, V) picks 0: lp_y = -base).
 //
-// Two launches. `build_wt` writes wt = W^T, (ceil(V / kVC) kVC, pitch_j(J))
-// bf16, once a call: row v holds W[:, v], zero past V rows and past J
-// columns, so a chunk of kVC columns of W is one contiguous run of
-// kVC * pitch_j(J) elements (66,560 bytes at J = 512). `ring_body`, the
-// main kernel: a block owns kMR = 64 rows. It builds round(z) for them
-// once into shared memory (zA, row-major; `build_z`, kZBatch groups of 8
+// Two launches for each. `build_wt` writes wt = W^T, (ceil(V / kVC) kVC,
+// pitch_j(J)) bf16, once a call: row v holds W[:, v], zero past V rows and
+// past J columns, so a chunk of kVC columns of W is one contiguous run of
+// kVC * pitch_j(J) elements (66,560 bytes at J = 512). Then the main
+// kernel: a block owns kMR = 64 rows. It builds round(z) for them once
+// into shared memory (zA, row-major; `build_z`, kZBatch groups of 8
 // values a thread with their loads in flight together) and loads their
-// sidecars once,
-// then walks V in chunks of kVC columns, which thread 0 issues into a
-// two-slot ring (tma_bulk::Ring2: one TMA bulk copy a chunk, the next
-// chunk's in flight under this chunk's products). dz (kMR, J) f32 stays
-// in registers: warp w owns j = 64 w .. 64 w + 63, 4 m-tiles by 8
-// n-tiles, 128 floats a thread. Per chunk:
-//   logits (kMR, kVC) = zA . W[:, chunk] on mma.sync, warp w rows
-//   16 (w % 4) .., columns 32 (w / 4) .., the B fragments straight from
-//   the slot (frag_b: the slot is n-major, j contiguous);
+// sidecars (the forward: their labels) once, then walks V in chunks of
+// kVC columns, which thread 0 issues into a two-slot ring
+// (tma_bulk::Ring2: one TMA bulk copy a chunk, the next chunk's in flight
+// under this chunk's products). Per chunk both bodies take
+//   logits (kMR, kVC) = zA . W[:, chunk] on mma.sync (`chunk_logits`),
+//   warp w rows 16 (w % 4) .., columns 32 (w / 4) .., the B fragments
+//   straight from the slot (frag_b: the slot is n-major, j contiguous), k
+//   from 0 in steps of 16: the forward's logits are the ones kernel A
+//   recomputes, bit for bit.
+// `ring_body`, the backward: dz (kMR, J) f32 stays in registers: warp w
+// owns j = 64 w .. 64 w + 63, 4 m-tiles by 8 n-tiles, 128 floats a
+// thread. Per chunk, after the logits:
 //   the policy's dlogits in registers, zero past V and past N, rounded
 //   into dlA (kMR, kVC) bf16;
 //   dz += dlA . W[:, chunk]^T on mma.sync, W's B fragments (k = v,
 //   n = j) from the same slot by ldmatrix.trans (frag_b_trans).
 // Then the policy's epilogue receives each row's dz from the registers.
-// Each dz element is summed by one thread over V in chunk order: two runs
-// give the same bits. No float atomics.
+// Each dz element is summed by one thread over V in chunk order.
+// `fwd_body`, the forward: each thread keeps, for its two rows, a running
+// max and sum of exp over its 8 columns a chunk (bias added, columns past
+// V at -inf) and the logit of the blank or the row's label column where
+// it holds one, all in registers; one block barrier a chunk (the slot's
+// release). After the last chunk the 4 lanes of a row combine by shuffles
+// and the two column halves through shared memory, in a fixed order, and
+// one thread a row hands base, lp_blank and lp_y to the policy.
+// Both bodies give the same bits on every run. No float atomics.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math_constants.h>
 
 #include <cstddef>
 #include <cstdint>
@@ -78,6 +98,8 @@ constexpr int kDLP = kVC + 8;    // bf16 pitch of dlA (36 words: 4 mod 32)
 constexpr int kSideWords = 5;    // sidecar words a row, as zb_ring's
 constexpr int kWtTile = 64;      // the W^T pass: 64 x 64 tiles
 constexpr int kZBatch = 4;       // groups of 8 z values a thread loads at once
+constexpr int kFwdWords = 4;     // the forward's partial of a row a column
+                                 // half: max, sum of exp, the two picks
 static_assert(kThreads == joint_mma::kMmaThreads, "one block shape");
 
 // Rows of wt: V rounded up to whole chunks.
@@ -105,6 +127,23 @@ inline bool layout_ok(int J, int V, long long n_wt_rows,
                       long long smem_bytes) {
   return shapes_ok(J, V) && n_wt_rows == wt_rows(V) &&
          smem_bytes == (long long)ring_bytes(J);
+}
+
+// Shared bytes of a forward block: ring [2][kVC][JP], zA [kMR][JP], the
+// column halves' partials [2][kFwdWords][kMR] f32, labels, f and g rows
+// [3][kMR] (int), two mbarriers. Every region is a multiple of 16 bytes.
+inline size_t fwd_ring_bytes(int J) {
+  return (size_t)2 * kVC * pitch_j(J) * 2 + (size_t)kMR * pitch_j(J) * 2
+         + (size_t)2 * kFwdWords * kMR * 4 + (size_t)3 * kMR * 4
+         + 2 * sizeof(unsigned long long);
+}
+
+// Whether the caller's layout (ops/rnnt_band_fused.fwd_layout) is the
+// forward's: wt's rows and the block's shared bytes.
+inline bool fwd_layout_ok(int J, int V, long long n_wt_rows,
+                          long long smem_bytes) {
+  return shapes_ok(J, V) && n_wt_rows == wt_rows(V) &&
+         smem_bytes == (long long)fwd_ring_bytes(J);
 }
 
 // wt[v][j] = W[j][v] for v < V, j < J; zero elsewhere in (wt_rows(V), JP).
@@ -211,6 +250,32 @@ __device__ __forceinline__ void build_z(bf16* zA, int JP,
   }
 }
 
+// logits of rows 16 mt .., columns 32 nh .. of a chunk into acc (acc[ni]:
+// the n-tile of columns 32 nh + 8 ni ..): zA . W[:, chunk] over k = 0, 16,
+// .. J - 16 in that order, A's fragments from zA (pitch JP), B's straight
+// from the slot `ws` (n-major, j contiguous). Both bodies call it, so the
+// forward's logits are the ones kernel A recomputes.
+__device__ __forceinline__ void chunk_logits(float (&acc)[4][4],
+                                             const bf16* zA, const bf16* ws,
+                                             int JP, int J, int mt, int nh,
+                                             int lane) {
+#pragma unroll
+  for (int ni = 0; ni < 4; ++ni) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[ni][e] = 0.0f;
+  }
+  for (int k0 = 0; k0 < J; k0 += 16) {
+    uint32_t a[4];
+    frag_a(a, zA, JP, mt * 16, k0, lane);
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) {
+      uint32_t bb[2];
+      frag_b(bb, ws, JP, nh * 32 + ni * 8, k0, lane);
+      mma_16816(acc[ni], a, bb);
+    }
+  }
+}
+
 // The main kernel's body, for a __global__ of kThreads threads and
 // ring_bytes(J) bytes of dynamic shared memory `smem`, one block an SM;
 // block b owns rows b * kMR .. of N. f and g are z's (., J) f32 rows.
@@ -297,23 +362,8 @@ __device__ __forceinline__ void ring_body(
     }
     ring.wait(i);
 
-    // logits of rows 16 mt .., columns 32 nh .. of the chunk
     float acc[4][4];
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[ni][e] = 0.0f;
-    }
-    for (int k0 = 0; k0 < J; k0 += 16) {
-      uint32_t a[4];
-      frag_a(a, zA, JP, mt * 16, k0, lane);
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        uint32_t bb[2];
-        frag_b(bb, ws, JP, nh * 32 + ni * 8, k0, lane);
-        mma_16816(acc[ni], a, bb);
-      }
-    }
+    chunk_logits(acc, zA, ws, JP, J, mt, nh, lane);
     // round(dlogits) into dlA, zero past V and past N
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -377,6 +427,158 @@ __device__ __forceinline__ void ring_body(
       }
       rows_p.store_dz(r0 + r, j0w + 2 * q, d);
     }
+  }
+}
+
+// (m, s) <- the pair of the union of two sets of logits, each given by
+// its max m and its sum of exp(x - m) s (an empty set: m = -inf, s = 0).
+__device__ __forceinline__ void lse_merge(float& m, float& s, float mo,
+                                          float so) {
+  const float mn = fmaxf(m, mo);
+  if (mn == -CUDART_INF_F) return;
+  s = s * expf(m - mn) + so * expf(mo - mn);
+  m = mn;
+}
+
+// The forward's body, for a __global__ of kThreads threads and
+// fwd_ring_bytes(J) bytes of dynamic shared memory `smem`, one block an
+// SM; block b owns rows b * kMR .. of N. f and g are z's (., J) f32 rows.
+template <class Rows>
+__device__ __forceinline__ void fwd_body(
+    unsigned char* smem, const float* __restrict__ f,
+    const float* __restrict__ g, const Rows& rows_p,
+    const bf16* __restrict__ wt, const float* __restrict__ bias, long long N,
+    int J, int V, int blank) {
+  const int JP = pitch_j(J);
+  bf16* zA = reinterpret_cast<bf16*>(smem) + (size_t)2 * kVC * JP;
+  float* part = reinterpret_cast<float*>(zA + (size_t)kMR * JP);
+  int* lab_s = reinterpret_cast<int*>(part + 2 * kFwdWords * kMR);
+  int* fo_s = lab_s + kMR;
+  int* go_s = fo_s + kMR;
+  const tma_bulk::Ring2 ring{
+      smem, (unsigned int)(kVC * JP * sizeof(bf16)),
+      static_cast<unsigned int>(__cvta_generic_to_shared(go_s + kMR))};
+
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int warp = tid / 32;
+  const int gq = lane >> 2;
+  const int q = lane & 3;
+  const int mt = warp % 4;        // rows 16 mt ..
+  const int nh = warp / 4;        // columns 32 nh .. of a chunk
+  const int r_lo = mt * 16 + gq;  // the thread's rows r_lo, r_lo + 8
+
+  const long long r0 = (long long)blockIdx.x * kMR;
+  const int rows = (int)min((long long)kMR, N - r0);
+  const int n_ch = (V + kVC - 1) / kVC;
+
+  if (tid == 0) {
+    ring.init();
+    ring.issue(0, wt);
+  }
+  if (tid < kMR) {
+    const long long row = r0 + tid;
+    const bool ok = tid < rows;
+    lab_s[tid] = ok ? rows_p.label(row) : -1;
+    fo_s[tid] = ok ? (int)rows_p.f_row(row) : -1;
+    go_s[tid] = ok ? (int)rows_p.g_row(row) : -1;
+  }
+  __syncthreads();
+  build_z(zA, JP, f, g, fo_s, go_s, J);
+  const int lab[2] = {lab_s[r_lo], lab_s[r_lo + 8]};
+
+  // per row h: running max, sum of exp(x - max), the blank's and the
+  // label's logit where this thread holds their column (else 0)
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F};
+  float s[2] = {0.0f, 0.0f};
+  float pb[2] = {0.0f, 0.0f};
+  float py[2] = {0.0f, 0.0f};
+  for (int i = 0; i < n_ch; ++i) {
+    const int v0 = i * kVC;
+    const bf16* ws = ring.slot<const bf16>(i);
+    // chunk i-1 is consumed: its slot (at i = 0: zA and the labels are
+    // written, the mbarriers initialised)
+    __syncthreads();
+    if (tid == 0 && i + 1 < n_ch) {
+      ring.issue(i + 1, wt + (size_t)(i + 1) * kVC * JP);
+    }
+    float bias_r[4][2];
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int v = v0 + nh * 32 + ni * 8 + 2 * q + e;
+        bias_r[ni][e] = (v < V) ? bias[v] : 0.0f;
+      }
+    }
+    ring.wait(i);
+
+    float acc[4][4];
+    chunk_logits(acc, zA, ws, JP, J, mt, nh, lane);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float x[4][2];
+      float mloc = -CUDART_INF_F;
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int v = v0 + nh * 32 + ni * 8 + 2 * q + e;
+          x[ni][e] = -CUDART_INF_F;
+          if (v < V) {
+            x[ni][e] = acc[ni][2 * h + e] + bias_r[ni][e];
+            if (v == blank) pb[h] = x[ni][e];
+            if (v == lab[h]) py[h] = x[ni][e];
+          }
+          mloc = fmaxf(mloc, x[ni][e]);
+        }
+      }
+      const float mn = fmaxf(m[h], mloc);
+      if (mn != -CUDART_INF_F) {
+        float sum = 0.0f;
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) sum += expf(x[ni][e] - mn);
+        }
+        s[h] = s[h] * expf(m[h] - mn) + sum;
+        m[h] = mn;
+      }
+    }
+  }
+  // the 4 lanes of a row (xor 1, then 2), then lane q = 0 writes its
+  // half's partial; a pick is held by one lane of one half, 0 elsewhere
+#pragma unroll
+  for (int off = 1; off < 4; off *= 2) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float mo = __shfl_xor_sync(0xffffffffu, m[h], off);
+      const float so = __shfl_xor_sync(0xffffffffu, s[h], off);
+      lse_merge(m[h], s[h], mo, so);
+      pb[h] += __shfl_xor_sync(0xffffffffu, pb[h], off);
+      py[h] += __shfl_xor_sync(0xffffffffu, py[h], off);
+    }
+  }
+  if (q == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float* p = part + nh * kFwdWords * kMR + r_lo + 8 * h;
+      p[0] = m[h];
+      p[kMR] = s[h];
+      p[2 * kMR] = pb[h];
+      p[3 * kMR] = py[h];
+    }
+  }
+  __syncthreads();
+  // one thread a row: half 0, then half 1
+  if (tid < rows) {
+    const float* p0 = part + tid;
+    const float* p1 = p0 + kFwdWords * kMR;
+    float mr = p0[0], sr = p0[kMR];
+    lse_merge(mr, sr, p1[0], p1[kMR]);
+    const float base = mr + logf(sr);
+    rows_p.store(r0 + tid, (p0[2 * kMR] + p1[2 * kMR]) - base,
+                 (p0[3 * kMR] + p1[3 * kMR]) - base, base);
   }
 }
 

@@ -9,8 +9,11 @@ g_w (B, T, S, J) and label lab_w (B, T, S). The band logits (B, T, S, V),
 
 is built on chip and reduced at once by K6 (`csrc/band_fused.cu`):
 
-  * `band_lp_fwd` (`band_fwd`, JAX `band_lp_fwd` :95) to lp_blank, lp_y
-    and base, the log-sum-exp the backward reuses, each (B, T, S);
+  * `band_lp_fwd` (JAX `band_lp_fwd` :95) to lp_blank, lp_y and base,
+    the log-sum-exp the backward reuses, each (B, T, S): with bf16 W,
+    W^T once into a scratch (`band_fwd_wt`), then `band_fwd_ring` in the
+    layout of `fwd_layout`; with f32 W or other shapes, the CUDA-core
+    `band_fwd`;
   * `band_lp_bwd_a` (JAX `band_lp_bwd_a` :157) from the loss cotangents
     cb, cy of lp_blank and lp_y to dg_w = dz and df = sum_s dz: with bf16
     W, W^T once into a scratch (`band_bwd_a_wt`), then `band_bwd_a_ring`
@@ -47,7 +50,7 @@ from rnn_transducer_tpu_torch.ops import lstm_cuda
 from rnn_transducer_tpu_torch.ops.lstm import _dot
 from rnn_transducer_tpu_torch.utils import build
 
-LAUNCHES_FWD = 0    # band_lp_fwd calls that launched band_fwd
+LAUNCHES_FWD = 0    # band_lp_fwd calls that launched the forward
 LAUNCHES_BWD_A = 0  # band_lp_bwd_a calls that launched kernel A
 LAUNCHES_BWD_B = 0  # band_lp_bwd_b calls that launched band_bwd_b
 _launches_lock = threading.Lock()
@@ -82,6 +85,13 @@ BWD_B_SIDE = 5
 BWD_A_V_CHUNK = 64
 BWD_A_ROWS = 64
 BWD_A_SIDE = 5
+# The forward's tensor-core form (bf16 W, band_fwd_wt and band_fwd_ring) is
+# kernel A's ring with the same wt, chunks and rows: a block keeps round(z)
+# of its rows, each column half's partial of a row (FWD_PART words: max,
+# sum of exp, the blank's and the label's logit), the rows' labels and f
+# and g rows in shared memory, with the ring's two mbarriers; the
+# log-sum-exp runs in registers.
+FWD_PART = 4
 
 _W_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -103,8 +113,9 @@ def mma_shapes_ok(J: int, V: int) -> bool:
 
 
 def tensor_core_form(dtype, J: int, V: int) -> bool:
-    """Whether the backward kernels take their tensor-core forms (the
-    rings) for W of `dtype` and (J, V); otherwise their CUDA-core forms."""
+    """Whether K6's kernels (the forward, A and B) take their tensor-core
+    forms (the rings) for W of `dtype` and (J, V); otherwise their
+    CUDA-core forms."""
     return dtype == torch.bfloat16 and mma_shapes_ok(J, V)
 
 
@@ -137,18 +148,29 @@ def ring_a_bytes(J: int) -> int:
             + BWD_A_SIDE * BWD_A_ROWS * 4 + 2 * BWD_A_ROWS * 4 + 16)
 
 
+def ring_fwd_bytes(J: int) -> int:
+    """Shared bytes of the forward's ring block (band_fwd_ring), as the
+    kernel lays them out: two wt chunks, round(z), the two column halves'
+    partials, the labels and the f and g rows, two mbarriers."""
+    jp = zb_pitch(J)
+    return (2 * BWD_A_V_CHUNK * jp * 2 + BWD_A_ROWS * jp * 2
+            + 2 * FWD_PART * BWD_A_ROWS * 4 + 3 * BWD_A_ROWS * 4 + 16)
+
+
 def wt_shape(J: int, V: int) -> tuple[int, int]:
-    """(rows, pitch) of kernel A's scratch wt = W^T: V rounded up to whole
-    chunks, zb_pitch(J); row v holds W[:, v], zero past V and past J."""
+    """(rows, pitch) of the scratch wt = W^T of kernel A and the forward:
+    V rounded up to whole chunks, zb_pitch(J); row v holds W[:, v], zero
+    past V and past J."""
     return (-(-V // BWD_A_V_CHUNK) * BWD_A_V_CHUNK, zb_pitch(J))
 
 
 @dataclasses.dataclass(frozen=True)
-class BwdALayout:
-    """The scratch and shared memory of kernel A's tensor-core form, which
-    band_bwd_a_wt and band_bwd_a_ring (the band's rows), joint_bwd_a_wt
-    and joint_bwd_a_ring (the fused joint's cells) check against their
-    own."""
+class WtRingLayout:
+    """The scratch and shared memory of a kernel on the W^T ring, which
+    its entry points check against their own: kernel A's (band_bwd_a_wt
+    and band_bwd_a_ring over the band's rows, joint_bwd_a_wt and
+    joint_bwd_a_ring over the fused joint's cells) and the forward's
+    (band_fwd_wt and band_fwd_ring)."""
 
     J: int
     V: int
@@ -156,27 +178,45 @@ class BwdALayout:
     smem_bytes: int
 
 
-def bwd_a_layout(J: int, V: int, smem_per_block: int) -> BwdALayout:
+def _wt_ring_layout(what: str, smem: int, J: int, V: int,
+                    smem_per_block: int) -> WtRingLayout:
+    where = (f"{what} cannot take J={J}, V={V} with {smem_per_block} bytes "
+             "of shared memory a block")
+    if not (16 <= J <= MAX_J) or not mma_shapes_ok(J, V) or V < 2:
+        raise ValueError(f"{where}: the tensor-core form needs 16 <= J <= "
+                         f"{MAX_J}, J % 16 == 0 and V even")
+    if smem > smem_per_block:
+        raise ValueError(f"{where}: a block needs {smem} bytes")
+    return WtRingLayout(J, V, wt_shape(J, V), smem)
+
+
+def bwd_a_layout(J: int, V: int, smem_per_block: int) -> WtRingLayout:
     """Kernel A's tensor-core layout for bf16 W of (J, V) on a card with
     `smem_per_block` bytes of shared memory a block (one block an SM:
     210,704 bytes at J = 512). Raises ValueError for a shape the kernel
     does not take (J > MAX_J, J % 16 != 0, V odd) or shared memory that
     does not hold its block; the wrappers send f32 W and those shapes to
     the CUDA-core forms before they ask."""
-    where = (f"kernel A's ring cannot take J={J}, V={V} with "
-             f"{smem_per_block} bytes of shared memory a block")
-    if not (16 <= J <= MAX_J) or not mma_shapes_ok(J, V) or V < 2:
-        raise ValueError(f"{where}: the tensor-core form needs 16 <= J <= "
-                         f"{MAX_J}, J % 16 == 0 and V even")
-    smem = ring_a_bytes(J)
-    if smem > smem_per_block:
-        raise ValueError(f"{where}: a block needs {smem} bytes")
-    return BwdALayout(J, V, wt_shape(J, V), smem)
+    return _wt_ring_layout("kernel A's ring", ring_a_bytes(J), J, V,
+                           smem_per_block)
 
 
-def device_bwd_a_layout(J: int, V: int, device) -> BwdALayout:
+def fwd_layout(J: int, V: int, smem_per_block: int) -> WtRingLayout:
+    """The forward's tensor-core layout for bf16 W of (J, V), as
+    `bwd_a_layout` (the same wt; 202,512 bytes of shared memory a block at
+    J = 512). Raises ValueError as it does."""
+    return _wt_ring_layout("the forward's ring", ring_fwd_bytes(J), J, V,
+                           smem_per_block)
+
+
+def device_bwd_a_layout(J: int, V: int, device) -> WtRingLayout:
     """`bwd_a_layout` on the limits of the CUDA card `device`."""
     return bwd_a_layout(J, V, _card_limits(device)[1])
+
+
+def device_fwd_layout(J: int, V: int, device) -> WtRingLayout:
+    """`fwd_layout` on the limits of the CUDA card `device`."""
+    return fwd_layout(J, V, _card_limits(device)[1])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -317,12 +357,20 @@ def _require_cuda(f, what: str) -> None:
 
 # ------------------------------ forward ----------------------------------
 
-def band_lp_fwd(f, g_w, lab_w, w, b, blank: int = 0):
+def band_lp_fwd(f, g_w, lab_w, w, b, blank: int = 0, *, events=None):
     """-> (lp_blank, lp_y, base), each (B, T, S) f32; logits never stored.
 
     f (B, T, J) f32, g_w (B, T, S, J) f32, lab_w (B, T, S) int32 (any id
     for a row the caller masks: one outside [0, V) gives lp_y = -base), w
-    (J, V) in the compute dtype, b (V,) f32.
+    (J, V) in the compute dtype, b (V,) f32. bf16 W with J % 16 == 0 and
+    V even takes the tensor-core form: W^T into a scratch wt once
+    (band_fwd_wt), then band_fwd_ring in the layout of
+    `device_fwd_layout`; other W and shapes the CUDA-core form
+    (band_fwd). Each row's log-sum-exp is taken in a fixed order, so two
+    runs give identical bits. `events`, three CUDA events, are recorded
+    before the W^T pass, between it and the ring kernel, and after it
+    (the CUDA-core form has no W^T pass: the first two are recorded
+    together).
     """
     _check(f, g_w, lab_w, w, b)
     if f.device.type == "cpu":
@@ -336,11 +384,31 @@ def band_lp_fwd(f, g_w, lab_w, w, b, blank: int = 0):
     if B * T == 0:
         return tuple(outs)
     fn = build.load_library()
-    err = fn.band_fwd(f.data_ptr(), g_w.data_ptr(), lab_w.data_ptr(),
-                      w.data_ptr(), int(w.dtype == torch.bfloat16),
-                      b.data_ptr(), *(o.data_ptr() for o in outs), B, T, S, J,
-                      V, blank, *build.stream_args(dev))
-    build.check_launch(fn, err, "band_fwd")
+    ev = events if events is not None else (None, None, None)
+    if tensor_core_form(w.dtype, J, V):
+        layout = device_fwd_layout(J, V, dev)
+        wt = torch.empty(layout.wt_shape, dtype=torch.bfloat16, device=dev)
+        _record(ev[0])
+        err = fn.band_fwd_wt(w.data_ptr(), wt.data_ptr(), J, V,
+                             layout.wt_shape[0], layout.smem_bytes,
+                             *build.stream_args(dev))
+        build.check_launch(fn, err, "band_fwd_wt")
+        _record(ev[1])
+        err = fn.band_fwd_ring(
+            f.data_ptr(), g_w.data_ptr(), lab_w.data_ptr(), wt.data_ptr(),
+            b.data_ptr(), *(o.data_ptr() for o in outs), B, T, S, J, V,
+            blank, layout.wt_shape[0], layout.smem_bytes,
+            *build.stream_args(dev))
+        build.check_launch(fn, err, "band_fwd_ring")
+    else:
+        _record(ev[0])
+        _record(ev[1])
+        err = fn.band_fwd(f.data_ptr(), g_w.data_ptr(), lab_w.data_ptr(),
+                          w.data_ptr(), int(w.dtype == torch.bfloat16),
+                          b.data_ptr(), *(o.data_ptr() for o in outs), B, T,
+                          S, J, V, blank, *build.stream_args(dev))
+        build.check_launch(fn, err, "band_fwd")
+    _record(ev[2])
     _count("LAUNCHES_FWD")
     return tuple(outs)
 

@@ -111,6 +111,12 @@ SIGNATURES = {
     # blank, device, stream
     "band_fwd": (_I, [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I,
                       _I, _I, _I, _P]),
+    # w, wt, J, V, wt_rows, smem_bytes, device, stream
+    "band_fwd_wt": (_I, [_P, _P, _I, _I, _LL, _LL, _I, _P]),
+    # f, g_w, lab_w, wt, b, lp_blank, lp_y, base, B, T, S, J, V, blank,
+    # wt_rows, smem_bytes, device, stream
+    "band_fwd_ring": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                           _I, _I, _LL, _LL, _I, _P]),
     # f, g_w, lab_w, w, w_is_bf16, b, base, cb, cy, df, dg_w, B, T, S, J,
     # V, blank, device, stream
     "band_bwd_a": (_I, [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I,

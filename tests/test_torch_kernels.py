@@ -756,16 +756,18 @@ def _band_args(B, T, S, J, V, dtype, device):
         a.to(device) for a in (cb, cy)]
 
 
+# K6's card shapes (B, T, S, J, V): S not a multiple of 8, rows past one
+# 64-row block, V odd (the CUDA-core forms at bf16) and not a multiple of
+# the column chunk, J % 16 != 0, the pruned band's V=8192, more column
+# tiles than SMs (8704).
+BAND_SHAPES = [(2, 7, 3, 64, 37), (3, 9, 8, 512, 1024), (1, 5, 13, 96, 130),
+               (2, 4, 5, 24, 40), (1, 7, 9, 128, 1000), (2, 50, 8, 512, 1024),
+               (1, 3, 8, 512, 8192), (1, 2, 4, 64, 8704)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B, T, S, J, V", [(2, 7, 3, 64, 37),
-                                           (3, 9, 8, 512, 1024),
-                                           (1, 5, 13, 96, 130),
-                                           (2, 4, 5, 24, 40),
-                                           (1, 7, 9, 128, 1000),
-                                           (2, 50, 8, 512, 1024),
-                                           (1, 3, 8, 512, 8192),
-                                           (1, 2, 4, 64, 8704)])
+@pytest.mark.parametrize("B, T, S, J, V", BAND_SHAPES)
 def test_cuda_band_kernels_match_reference(cuda_device, dtype, B, T, S, J,
                                            V):
     """K6 (band_fwd, band_bwd_a, band_bwd_b) against the plain versions:
@@ -818,6 +820,125 @@ def test_cuda_band_kernels_match_reference(cuda_device, dtype, B, T, S, J,
                    "band_bwd_a": not ring}, ran
     assert (bf.LAUNCHES_FWD, bf.LAUNCHES_BWD_A, bf.LAUNCHES_BWD_B) == (
         before[0] + 1, before[1] + 2, before[2] + 2)
+
+
+def _band_fwd_kernels(prof) -> dict:
+    """Launches of K6-fwd's kernels in a profiled window, by name."""
+    events = prof.key_averages()
+    return {k: sum(e.count for e in events if k + "_kernel" in e.key)
+            for k in ("band_fwd_wt", "band_fwd_ring", "band_fwd")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B, T, S, J, V", BAND_SHAPES)
+def test_cuda_band_fwd_matches_reference(cuda_device, dtype, B, T, S, J, V):
+    """K6-fwd against its plain version at K6's card shapes (labels equal
+    to the blank id among them), the same bits twice; a bf16 call of a
+    shape the ring takes (J % 16 == 0, V even) launches the W^T pass and
+    the ring kernel once each, any other call the CUDA-core kernel once."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rnn_transducer_tpu_torch.ops import rnnt_band_fused as bf
+
+    (f, g_w, lab_w, w, b), _ = _band_args(B, T, S, J, V, dtype, cuda_device)
+    before = bf.LAUNCHES_FWD
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _pad_profiler_window()
+        got = bf.band_lp_fwd(f, g_w, lab_w, w, b)
+        torch.cuda.synchronize()
+        _pad_profiler_window()
+    again = bf.band_lp_fwd(f, g_w, lab_w, w, b)
+    want = bf.band_lp_fwd_reference(f, g_w, lab_w, w, b)
+    torch.cuda.synchronize()
+    for name, a, a2, e in zip(("lp_blank", "lp_y", "base"), got, again, want):
+        assert bool(torch.isfinite(a).all()), name
+        assert float((a - e).abs().max()) <= LP_ATOL[dtype], name
+        assert torch.equal(a, a2), f"{name} differs between two runs"
+    ring = bf.tensor_core_form(dtype, J, V)
+    assert _band_fwd_kernels(prof) == {
+        "band_fwd_wt": int(ring), "band_fwd_ring": int(ring),
+        "band_fwd": int(not ring)}
+    assert bf.LAUNCHES_FWD == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_band_fwd_picks_edge_labels(cuda_device, dtype):
+    """65 rows (one past a 64-row block), a blank id of 3, and labels equal
+    to it, outside [0, V) (-1, V, V + 7) and at V - 1: each within LP_ATOL
+    of the plain version; a label outside [0, V) picks 0, so lp_y = -base
+    exactly, and a label equal to the blank picks the blank's logit, so
+    lp_y = lp_blank exactly."""
+    from rnn_transducer_tpu_torch.ops import rnnt_band_fused as bf
+
+    B, T, S, J, V, blank = 1, 13, 5, 64, 130, 3
+    (f, g_w, lab_w, w, b), _ = _band_args(B, T, S, J, V, dtype, cuda_device)
+    lab = lab_w.view(-1)
+    lab[0::5] = blank
+    lab[1::10] = -1
+    lab[6::10] = V
+    lab[2::5] = V + 7
+    lab[3::5] = V - 1
+    lpb, lpy, base = bf.band_lp_fwd(f, g_w, lab_w, w, b, blank)
+    want = bf.band_lp_fwd_reference(f, g_w, lab_w, w, b, blank)
+    torch.cuda.synchronize()
+    for name, a, e in zip(("lp_blank", "lp_y", "base"), (lpb, lpy, base),
+                          want):
+        assert float((a - e).abs().max()) <= LP_ATOL[dtype], name
+    out = (lab_w < 0) | (lab_w >= V)
+    assert int(out.sum()) == 26
+    assert torch.equal(lpy[out], -base[out])
+    same = lab_w == blank
+    assert torch.equal(lpy[same], lpb[same])
+
+
+@pytest.mark.cuda
+def test_cuda_band_fwd_times_its_two_launches(cuda_device):
+    """The events of a tensor-core call of the forward bracket the W^T
+    pass and the ring kernel, in order."""
+    from rnn_transducer_tpu_torch.ops import rnnt_band_fused as bf
+
+    (f, g_w, lab_w, w, b), _ = _band_args(2, 6, 8, 64, 130, torch.bfloat16,
+                                          cuda_device)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    bf.band_lp_fwd(f, g_w, lab_w, w, b, events=ev)
+    torch.cuda.synchronize()
+    assert ev[0].elapsed_time(ev[1]) > 0 and ev[1].elapsed_time(ev[2]) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", [{"wt_shape": (64, 72)},
+                                 {"wt_shape": (128, 72)},
+                                 {"smem_bytes": 48 * 1024}])
+def test_cuda_band_fwd_refuses_a_bad_layout(cuda_device, monkeypatch, bad):
+    """band_fwd_wt and band_fwd_ring check the layout they are handed: for
+    wt's rows not V's whole chunks (V = 130 takes 192) or shared bytes
+    that are not the kernel's, the W^T pass refuses before it launches,
+    the wrapper raises and counts nothing, and no K6-fwd kernel runs."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from rnn_transducer_tpu_torch.ops import rnnt_band_fused as bf
+
+    (f, g_w, lab_w, w, b), _ = _band_args(2, 6, 8, 64, 130, torch.bfloat16,
+                                          cuda_device)
+    good = bf.device_fwd_layout(64, 130, cuda_device)
+    monkeypatch.setattr(bf, "device_fwd_layout",
+                        lambda *a: dataclasses.replace(good, **bad))
+    before = bf.LAUNCHES_FWD
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _pad_profiler_window()
+        with pytest.raises(RuntimeError, match="band_fwd_wt"):
+            bf.band_lp_fwd(f, g_w, lab_w, w, b)
+        torch.cuda.synchronize()
+        _pad_profiler_window()
+    assert bf.LAUNCHES_FWD == before
+    assert _band_fwd_kernels(prof) == {"band_fwd_wt": 0, "band_fwd_ring": 0,
+                                       "band_fwd": 0}
 
 
 @pytest.mark.cuda
