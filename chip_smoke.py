@@ -229,6 +229,10 @@ BWD_A_PREV_MS = 27.478
 # took a frame tile a block and read W's fragments from L2 (H100 80GB
 # HBM3, 700 W): context for its W^T ring design
 JOINT_A_PREV_MS = 17.213
+# joint_fwd's bf16 time at libri100's joint with the design that staged W
+# by thread loads, 32 rows of J a step, and parked the logits in shared
+# memory (H100 80GB HBM3, 700 W): context for its W^T ring design
+JOINT_FWD_PREV_MS = 4.942
 AR_S = 8
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense): device
 # memory bytes/s and operations/s by operand type. A bound is the larger of
@@ -601,8 +605,10 @@ def lstm_train_vs_plain(rng: np.random.Generator, dev) -> dict:
 def joint_vs_plain(rng: np.random.Generator, dev) -> dict:
     """joint_fwd and joint_bwd against their plain versions at the training
     path's joint shape, with ragged frame and label lengths, one
-    zero-frame row and the occupancies of the real lattice; joint_bwd run
-    twice must give identical bits."""
+    zero-frame row and the occupancies of the real lattice; each run
+    twice must give identical bits, and lp_y must be -1e30 at u = U. The
+    forward's W^T pass and ring kernel are timed apart by events, and the
+    profiler must see them (bf16) or the CUDA-core kernel (f32) alone."""
     B, T, U, J, V = TRAIN_B, TRAIN_T // 2, TRAIN_U, 512, 1024
     k = 1.0 / np.sqrt(J)
     f = torch.from_numpy(0.5 * rng.normal(size=(B, T, J))).float().to(dev)
@@ -622,6 +628,7 @@ def joint_vs_plain(rng: np.random.Generator, dev) -> dict:
         fwd_args = (f, g, labels, w, b)
         want = jf.joint_lp_fwd_reference(*fwd_args)
         got = jf.joint_lp_fwd(*fwd_args)
+        again_f = jf.joint_lp_fwd(*fwd_args)
         gb, gy = rl.occupancies_from_lp(want[0], want[1], fl, ll)
         bwd_args = (f, g, labels, w, b, gb, gy, want[2], gbar)
         want_b = jf.joint_lp_bwd_reference(*bwd_args)
@@ -633,10 +640,21 @@ def joint_vs_plain(rng: np.random.Generator, dev) -> dict:
         rel_b = {n: rel_err(x, y) for n, x, y in
                  zip(("df", "dg", "dw", "db"), got_b, want_b)}
         same_bits = all(torch.equal(x, y) for x, y in zip(got_b, again))
+        same_bits_f = all(torch.equal(x, y) for x, y in zip(got, again_f))
+        lp_y_last = bool((got[1][:, :, U] == -1e30).all())
+        del again_f
         kf, pf = timed_pair(lambda: jf.joint_lp_fwd(*fwd_args),
                             lambda: jf.joint_lp_fwd_reference(*fwd_args))
         kb, pb = timed_pair(lambda: jf.joint_lp_bwd(*bwd_args),
                             lambda: jf.joint_lp_bwd_reference(*bwd_args))
+        # the forward's W^T pass (0 in the CUDA-core form) and its ring or
+        # CUDA-core kernel by events, and its kernels by name
+        fwd_wt_ms, fwd_main_ms = event_split_ms(
+            lambda i, ev: jf.joint_lp_fwd(*fwd_args, events=ev), 3)
+        f_split = kernel_ms_by_name(
+            lambda: jf.joint_lp_fwd(*fwd_args),
+            ("joint_fwd_wt_kernel", "joint_fwd_ring_kernel",
+             "joint_fwd_kernel"))
         # kernel A, kernel B's zb pass (0 in the CUDA-core form) and main
         # launch, the ordered sums
         a_ms, zb_ms, main_ms, sums_ms = event_split_ms(
@@ -650,13 +668,28 @@ def joint_vs_plain(rng: np.random.Generator, dev) -> dict:
         ring = bf.tensor_core_form(cd, J, V)
         plan = jf.device_bwd_b_plan(B * T * (U + 1), J, V, dev) if ring \
             else None
+        fwd_layout = jf.device_fwd_layout(J, V, dev) if ring else None
         ops = 2 * B * T * (U + 1) * J * V  # one product over the cells
         row = {"B": B, "T": T, "U1": U + 1, "J": J, "V": V,
                "dtype": str(cd).replace("torch.", ""),
                "fwd_max_abs_err": err_f, "fwd_atol": ATOL[cd],
+               "fwd_bitwise_repeat": same_bits_f,
+               "fwd_lp_y_at_U_is_neg_inf": lp_y_last,
                "bwd_max_abs_err": err_b, "bwd_rel_err": rel_b,
                "bwd_rtol": REL_TOL[cd], "bwd_bitwise_repeat": same_bits,
                "fwd_kernel_ms": kf, "fwd_plain_ms": pf,
+               # the forward: its W^T pass and main launch by events, its
+               # kernels by the profiler, its layout (None: CUDA-core)
+               "fwd_wt_ms": fwd_wt_ms, "fwd_main_ms": fwd_main_ms,
+               "fwd_wt_kernel_ms": f_split["joint_fwd_wt_kernel"],
+               "fwd_ring_kernel_ms": f_split["joint_fwd_ring_kernel"],
+               "fwd_cuda_core_ms": f_split["joint_fwd_kernel"],
+               "fwd_prev_ms": (JOINT_FWD_PREV_MS if cd == torch.bfloat16
+                               else None),
+               "fwd_wt_shape": (list(fwd_layout.wt_shape) if fwd_layout
+                                else None),
+               "fwd_smem_bytes": (fwd_layout.smem_bytes if fwd_layout
+                                  else None),
                "bwd_kernel_ms": kb, "bwd_plain_ms": pb,
                "bwd_a_ms": a_ms, "bwd_b_zb_ms": zb_ms,
                "bwd_b_main_ms": main_ms, "bwd_sums_ms": sums_ms,
@@ -682,6 +715,13 @@ def joint_vs_plain(rng: np.random.Generator, dev) -> dict:
               and err_f <= ATOL[cd] and max(rel_b.values()) <= REL_TOL[cd],
               f"joint kernels {cd}: fwd err {err_f}, bwd rel err {rel_b}")
         check(same_bits, f"joint_bwd {cd}: two runs gave different bits")
+        check(same_bits_f, f"joint_fwd {cd}: two runs gave different bits")
+        check(lp_y_last, f"joint_fwd {cd}: lp_y at u = U is not -1e30")
+        ran = {n: f_split[n] > 0 for n in f_split}
+        check(ran == {"joint_fwd_wt_kernel": ring,
+                      "joint_fwd_ring_kernel": ring,
+                      "joint_fwd_kernel": not ring},
+              f"joint_fwd {cd}: the profiler saw {f_split} (ms by kernel)")
         check(float(got_b[0][1].abs().max()) == 0.0,
               "joint_bwd: the zero-frame row has a non-zero gradient")
         out[cd] = row
@@ -1735,7 +1775,10 @@ def profile_step(step, state, batch, profile_dir, name="train_step"):
         pad_profiler_window()
     families = {"lstm_fwd": ("lstm_fwd_persistent_kernel",),
                 "lstm_bwd": ("lstm_bwd_persistent_kernel",),
-                "joint_fwd": ("joint_fwd",),
+                # K1: the ring's W^T pass and ring kernel, or its CUDA-core
+                # form
+                "joint_fwd": ("joint_fwd_wt_kernel", "joint_fwd_ring_kernel",
+                              "joint_fwd_kernel"),
                 "joint_bwd_a": ("joint_bwd_a_",),
                 # K2's kernel B: the ring's two kernels, or its CUDA-core
                 # form (never a K6 kernel)
@@ -1793,11 +1836,16 @@ def profile_step(step, state, batch, profile_dir, name="train_step"):
 
 
 def check_fused_joint_profile(prof: dict, result: dict, what: str) -> None:
-    """A profiled fused-loss step runs K2's kernels A and B on their rings,
-    A's W^T pass and ring kernel and B's zb pass and ring kernel once each
-    a joint_bwd call, and no K6 kernel."""
-    per_step = result["launches"]["joint_bwd"] / result["steps"]
+    """A profiled fused-loss step runs K1 on its ring, the W^T pass and the
+    ring kernel once each a joint_fwd call, K2's kernels A and B on their
+    rings, A's W^T pass and ring kernel and B's zb pass and ring kernel
+    once each a joint_bwd call, and no K6 kernel."""
     seen = prof["device_launches"]
+    per_step = result["launches"]["joint_fwd"] / result["steps"]
+    check(per_step > 0 and seen["joint_fwd"] == 2 * per_step,
+          f"the profiled {what} step ran {seen['joint_fwd']} joint_fwd "
+          f"kernels, not 2 for each of its {per_step} joint_fwd calls")
+    per_step = result["launches"]["joint_bwd"] / result["steps"]
     check(per_step > 0 and seen["joint_bwd_a"] == 2 * per_step,
           f"the profiled {what} step ran {seen['joint_bwd_a']} joint_bwd_a "
           f"kernels, not 2 for each of its {per_step} joint_bwd calls")

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """The band joint's kernels (K6-fwd, its log-probs; K6-A and K6-B, its dz
-and dW / db), the fused joint's backward (K2), the LSTM forward (K4-fwd)
-and the training steps and served requests that run them, timed on one
-CUDA card for one or more checkouts of this repository, in turns.
+and dW / db), the fused joint's forward and backward (K1, K2), the LSTM
+forward (K4-fwd) and the training steps and served requests that run
+them, timed on one CUDA card for one or more checkouts of this
+repository, in turns.
 
     python3 -m rnn_transducer_tpu_torch.bench_band_bwd_b \
         [--trees DIR [DIR ...]] [--parts PART [PART ...]] [--out RESULTS.json]
@@ -12,7 +13,7 @@ in the order given (default: this checkout), so that two versions of the
 kernels are compared on one card: pass `--trees OLD NEW NEW OLD`. A
 process puts the tree's root first on the import path (its package and
 its chip_smoke.py), builds that tree's kernels, then runs the parts
-(default: all ten, in this order):
+(default: all eleven, in this order):
 
   band_fwd     holds `band_lp_fwd` (lp_blank, lp_y, base) against its
                plain version at the pruned step's band (B=32, T'=200, S=8,
@@ -31,6 +32,14 @@ its chip_smoke.py), builds that tree's kernels, then runs the parts
   pruned_step  trains libri100 with V=8192, S=8, U=100 at B=32, T=400
                (chip_smoke.train_run: ms/step by the slope of two runs),
                then profiles one step (device ms by kernel family);
+  joint_fwd    holds `joint_lp_fwd` (K1) against its plain version at the
+               libri100 joint's cells (B=32, T'=200, U+1=41, J=512) with
+               V=1024 in bf16 and f32, and in bf16 at V=512, 256 and 64
+               (max |err|, two runs bit for bit, the outputs' sha256
+               digests), and times it: device ms a call behind a spin
+               kernel, f cycled through copies three times the L2's size;
+               where the tree's wrapper takes `events`, its W^T pass and
+               ring kernel apart; then `chunk_fit` over the bf16 rows;
   joint_bwd    holds `joint_lp_bwd` (K2) against its plain version at the
                libri100 joint (B=32, T'=200, U+1=41, J=512, V=1024), bf16
                and f32, with ragged lengths and the real lattice's
@@ -76,8 +85,9 @@ import subprocess
 import sys
 
 
-PARTS = ("band_fwd", "band_bwd_a", "band_bwd_b", "pruned_step", "joint_bwd",
-         "train_step", "conformer_step", "lstm_fwd", "ar_step", "serve")
+PARTS = ("band_fwd", "band_bwd_a", "band_bwd_b", "pruned_step", "joint_fwd",
+         "joint_bwd", "train_step", "conformer_step", "lstm_fwd", "ar_step",
+         "serve")
 
 
 def one(root: str, parts) -> dict:
@@ -191,7 +201,7 @@ def band(cs, dev, which: str) -> dict:
 
 
 def chunk_fit(rows, n_rows: int, dev) -> dict:
-    """A ring kernel's time (the forward's or kernel A's) against its
+    """A ring kernel's time (a forward's or kernel A's) against its
     chunks of 64 columns: a least-squares line through each row's ms (the
     main launch's where events split it, else the call's), per block of
     64 rows by the waves of blocks the card runs (one block an SM): the µs
@@ -231,6 +241,70 @@ def pruned_step(cs, dev) -> dict:
             "device_busy_share": prof["device_busy_share"],
             "device_ms": prof["device_ms"],
             "device_launches": prof["device_launches"]}
+
+
+def joint_fwd(cs, dev) -> dict:
+    """The rows of the joint_fwd part, with the chunk fit of its bf16
+    rows."""
+    import numpy as np
+    import torch
+
+    from rnn_transducer_tpu_torch.ops import rnnt_band_fused as bf
+    from rnn_transducer_tpu_torch.ops import rnnt_joint_fused as jf
+
+    fn, ref = jf.joint_lp_fwd, jf.joint_lp_fwd_reference
+    with_events = "events" in inspect.signature(fn).parameters
+    names = ("lp_blank", "lp_y", "base")
+    rng = np.random.default_rng(14)
+    B, T, U, J = cs.TRAIN_B, cs.TRAIN_T // 2, cs.TRAIN_U, 512
+    rows = []
+    for V, cd in ((1024, torch.bfloat16), (1024, torch.float32),
+                  (512, torch.bfloat16), (256, torch.bfloat16),
+                  (64, torch.bfloat16)):
+        k = 1.0 / np.sqrt(J)
+        f = torch.from_numpy(0.5 * rng.normal(size=(B, T, J))).float().to(dev)
+        g = torch.from_numpy(0.5 * rng.normal(size=(B, U + 1, J))).float(
+        ).to(dev)
+        w = torch.from_numpy(rng.uniform(-k, k, (J, V))).to(dev, cd)
+        b = torch.from_numpy(rng.uniform(-k, k, V)).float().to(dev)
+        labels = torch.from_numpy(rng.integers(1, V, (B, U))).int().to(dev)
+        args = (f, g, labels, w, b)
+        got = fn(*args)
+        again = fn(*args)
+        want = ref(*args)
+        torch.cuda.synchronize()
+        err = {n: cs.max_abs(x, y) for n, x, y in zip(names, got, want)}
+        same = all(torch.equal(x, y) for x, y in zip(got, again))
+        finite = all(bool(torch.isfinite(x).all()) for x in got)
+        # the outputs' bits, to compare trees run on the same inputs
+        digest = {n: hashlib.sha256(x.cpu().numpy().tobytes()).hexdigest()[
+            :16] for n, x in zip(names, got)}
+        del got, again, want
+        n_cp = max(2, -(-3 * cs.L2_BYTES // cs.nbytes(f)))
+        fs = [f.clone() for _ in range(n_cp)]
+
+        def call(i, **kw):
+            return fn(fs[i], g, labels, w, b, **kw)
+
+        row = {"B": B, "T": T, "U1": U + 1, "J": J, "V": V,
+               "dtype": str(cd).replace("torch.", ""), "max_abs_err": err,
+               "bitwise_repeat": same, "finite": finite, "digest": digest,
+               "plain_ms": cs.device_ms(lambda: ref(*args), reps=2),
+               "kernel_ms": [cs.device_ms(cs.cycled(call, n_cp), reps=5)
+                             for _ in range(2)]}
+        if with_events:
+            # the W^T pass (0 in the CUDA-core form), the main launch
+            row["wt_ms"], row["main_ms"] = cs.event_split_ms(
+                lambda i, ev: call(i % n_cp, events=ev), 3)
+        if bf.tensor_core_form(cd, J, V):
+            row["layout"] = dataclasses.asdict(bf.device_fwd_layout(J, V,
+                                                                    dev))
+        print("joint_fwd " + json.dumps(row), flush=True)
+        rows.append(row)
+        del fs, args, f, g, w
+        torch.cuda.empty_cache()
+    ring = [r for r in rows if r["dtype"] == "bfloat16"]
+    return {"rows": rows, "fit": chunk_fit(ring, B * T * (U + 1), dev)}
 
 
 # joint_lp_bwd's kernels by name, as torch.profiler reports them: the first
@@ -475,7 +549,7 @@ def serve(cs, dev) -> dict:
 MEASURE = {"band_fwd": functools.partial(band, which="fwd"),
            "band_bwd_a": functools.partial(band, which="a"),
            "band_bwd_b": functools.partial(band, which="b"),
-           "pruned_step": pruned_step,
+           "pruned_step": pruned_step, "joint_fwd": joint_fwd,
            "joint_bwd": joint_bwd, "train_step": train_step,
            "conformer_step": conformer_step,
            "lstm_fwd": lstm_fwd, "ar_step": ar_step, "serve": serve}

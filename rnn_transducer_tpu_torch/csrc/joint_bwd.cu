@@ -84,6 +84,7 @@
 #include <algorithm>
 #include <cstddef>
 
+#include "joint_rows.cuh"
 #include "wt_ring.cuh"
 #include "zb_ring.cuh"
 
@@ -498,17 +499,8 @@ static_assert(kThreads == joint_mma::kMmaThreads, "one block shape");
 // (shared with the band joint's kernel B, band_fused.cu):
 // joint_bwd_b_zb_kernel writes zb = round(z) once a call, row r = (b T +
 // t) (U+1) + u from f[b, t] and g[b, u]; joint_bwd_b_ring_kernel runs the
-// ring with the cells' row policy.
-
-// Cell r = (b T + t) U1 + u: f row b T + t = r / U1, g row b U1 + u.
-struct JointMap {
-  long long TU;  // T * U1
-  int U1;
-  __device__ long long f_row(long long r) const { return r / U1; }
-  __device__ long long g_row(long long r) const {
-    return (r / TU) * U1 + r % U1;
-  }
-};
+// ring with the cells' row policy. JointMap (joint_rows.cuh, shared with
+// the forward) maps a cell to its z rows and its label.
 
 // The cells' sidecars: the label (-1 at u = U), base, and the occupancies
 // scaled by s = gbar[b] as kernel A scales them; dlogits as `dlogit` above.
@@ -521,12 +513,10 @@ struct JointRows {
   long long TU;  // T * U1
   int U1;
   __device__ void load(long long row, float (&s)[zb_ring::kSideWords]) const {
-    const long long b = row / TU;
-    const int u = (int)(row % U1);
-    const float sc = gbar[b];
+    const float sc = gbar[row / TU];
     const float gbv = gb[row];
     const float gyv = gy[row];
-    s[0] = __int_as_float(u < U1 - 1 ? labels[b * (U1 - 1) + u] : -1);
+    s[0] = __int_as_float(JointMap{TU, U1}.label(labels, row));
     s[1] = base[row];
     s[2] = (gbv + gyv) * sc;
     s[3] = gbv * sc;

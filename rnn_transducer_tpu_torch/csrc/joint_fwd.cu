@@ -17,28 +17,38 @@
 // Layout: f (B, T, J) f32, g (B, U+1, J) f32, labels (B, U) int32,
 // W (J, V) bf16 or f32, bias (V) f32. No padding of U+1, V or T.
 //
-// Design: a block owns kBM consecutive cells (t, u) of one utterance
-// (the cells of an utterance are flattened t-major, so a block spans
-// parts of a few frames). It builds round(z) for its cells once, in shared
-// memory, then walks V in chunks of kBN columns. An online max /
-// sum-of-exp runs across the chunks (a half-warp shares each row), and the
-// blank and label columns are picked up as their chunk passes. Two ways to
-// take a chunk's logits:
-//   * W in bf16 (the training path): on the tensor cores, mma.sync
-//     m16n8k16 with fp32 accumulate (mma_bf16.cuh), W streamed through
-//     shared memory kMK rows at a time, transposed; the chunk is parked in
-//     shared memory for the epilogue. Needs J % 16 == 0.
-//   * W in f32 (the parity runs), or J % 16 != 0: CUDA-core FMAs, each
-//     thread a 4 x 8 tile, z kept k-major in W's type (rows padded by 16
-//     bytes against bank conflicts), W streamed kBK rows at a time.
+// Design. With W in bf16, J % 16 == 0 and V even (the training path), two
+// launches on the forward's ring of wt_ring.cuh, which the band joint's
+// forward (band_fused.cu, K6-fwd) shares:
+//   joint_fwd_wt_kernel writes wt = W^T once a call, (V rounded up to 64,
+//     pitch_j(J)) bf16, so that 64 columns of W are one contiguous run;
+//   joint_fwd_ring_kernel runs wt_ring::fwd_body over the N = B T (U+1)
+//     cells, flattened t-major (joint_rows.cuh's JointMap, which the
+//     backward shares), with the row policy JointRowsF below: a block owns
+//     64 consecutive cells (a block may span frames and utterances),
+//     builds their round(z) once into shared memory, and walks V in
+//     chunks of 64 columns, which thread 0 issues from wt into a two-slot
+//     ring by TMA bulk copies (the next chunk in flight under this one's
+//     products); per chunk the logits on mma.sync (`chunk_logits`, the
+//     same code as K2-A's ring, so the logits are K2-A's bit for bit) and
+//     an online max / sum of exp and the blank's and the label's logit in
+//     registers; after the last chunk the 4 lanes of a row and the two
+//     column halves combine in a fixed order. One block barrier a chunk.
+// With W in f32 (the parity runs), or other shapes: joint_fwd_kernel on
+// the CUDA cores, grid (cell blocks of kBM, B), each thread a 4 x 8 tile,
+// z kept k-major in W's type (rows padded by 16 bytes against bank
+// conflicts), W staged kBK rows at a time, the log-sum-exp a half-warp a
+// row over chunks of kBN columns.
 //
-// What bounds it on the H100: the output product, 2 * cells * J * V flops
-// (275 GFLOP at libri100's B=32, T'=200, U+1=41, J=512, V=1024; 0.28 ms at
-// the 989 TFLOP/s bf16 dense peak). The mma.sync path issues from shared
-// memory with one W tile in flight and no TMA or wgmma pipeline, and every
-// block rereads W (1 MB in bf16) from L2, 64 cells per read; the f32 path
-// runs on the CUDA cores (67 TFLOP/s f32 peak). The next steps are wgmma
-// with a TMA ring for W and more cells per W read (ROADMAP K1).
+// What bounds it on the H100: the logits product, 2 N J V flops (275
+// GFLOP at libri100's B=32, T'=200, U+1=41, J=512, V=1024; 0.28 ms at the
+// 989 TFLOP/s bf16 dense peak). The ring reads W once a call (the W^T
+// pass) and each block streams its chunks from L2 by TMA, with no barrier
+// between a copy and the products but the slot's; what is left is
+// mma.sync from shared memory, 64 rows a block, one block an SM (4,100
+// blocks, 32 waves at libri100). The f32 form runs on the CUDA cores (67
+// TFLOP/s f32 peak). The next steps, for every user of the ring: A
+// fragments in registers, wgmma.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -46,9 +56,9 @@
 
 #include <cstddef>
 #include <cstdint>
-#include <type_traits>
 
-#include "mma_bf16.cuh"
+#include "joint_rows.cuh"
+#include "wt_ring.cuh"
 
 namespace {
 
@@ -228,157 +238,11 @@ joint_fwd_kernel(const float* __restrict__ f, const float* __restrict__ g,
   }
 }
 
-// With W in bf16 the product runs on the tensor cores (mma_bf16.cuh):
-// the same block of kBM cells builds round(z) once, takes each kBN-column
-// chunk of logits with mma.sync into registers, parks it in shared memory
-// and runs the same online log-sum-exp epilogue. Needs J % 16 == 0.
-static_assert(kBM == joint_mma::kMR && kBN == joint_mma::kMV
-                  && kThreads == joint_mma::kMmaThreads,
-              "the tensor-core path shares the FMA path's tiles");
-constexpr int kLGP = kBN + 4;  // pitch of the f32 logits chunk
-
-size_t mma_fwd_bytes(int J) {
-  return (size_t)kBM * joint_mma::pitch_j(J) * 2
-         + (size_t)kBN * joint_mma::kWTP * 2 + (size_t)kBM * kLGP * 4
-         + 5 * kBM * 4;
-}
-
-__global__ void __launch_bounds__(kThreads)
-joint_fwd_mma_kernel(const float* __restrict__ f, const float* __restrict__ g,
-                     const int* __restrict__ labels,
-                     const __nv_bfloat16* __restrict__ w,
-                     const float* __restrict__ bias,
-                     float* __restrict__ lp_blank, float* __restrict__ lp_y,
-                     float* __restrict__ base_out, int T, int U1, int J,
-                     int V, int blank) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int JP = joint_mma::pitch_j(J);
-  __nv_bfloat16* zA = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* wt = zA + (size_t)kBM * JP;
-  float* lg = reinterpret_cast<float*>(wt + kBN * joint_mma::kWTP);
-  float* sel_b = lg + kBM * kLGP;
-  float* sel_y = sel_b + kBM;
-  int* lab_s = reinterpret_cast<int*>(sel_y + kBM);
-  int* fo_s = lab_s + kBM;
-  int* go_s = fo_s + kBM;
-
-  const int b = blockIdx.y;
-  const int TU = T * U1;
-  const int U = U1 - 1;
-  const int c0 = blockIdx.x * kBM;
-  const int tid = threadIdx.x;
-  const int lane = tid % 32;
-  const int warp = tid / 32;
-  const int gq = lane >> 2;
-  const int q = lane & 3;
-  const int tx = tid % 16;   // epilogue: columns tx*8 .. tx*8+7
-  const int ty = tid / 16;   // epilogue: rows ty*4 .. ty*4+3
-
-  for (int r = tid; r < kBM; r += kThreads) {
-    const int c = c0 + r;
-    const int t = c / U1;
-    const int u = c - t * U1;
-    lab_s[r] = (c < TU && u < U) ? labels[(size_t)b * U + u] : -1;
-    fo_s[r] = (c < TU) ? b * T + t : -1;
-    go_s[r] = (c < TU) ? b * U1 + u : -1;
-    sel_b[r] = 0.0f;
-    sel_y[r] = 0.0f;
-  }
-  __syncthreads();
-  joint_mma::build_z_rows(zA, JP, f, g, fo_s, go_s, J,
-                          joint_mma::round_up(J, 16));
-
-  float m_run[4], s_run[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m_run[i] = -CUDART_INF_F;
-    s_run[i] = 0.0f;
-  }
-  const int wm = warp / 4;
-  const int wn = warp % 4;
-  for (int v0 = 0; v0 < V; v0 += kBN) {
-    float acc[2][4][4];
-    joint_mma::logits_chunk(acc, zA, JP, wt, w, v0, J, V);
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = wm * 32 + mi * 16 + gq + ((e >= 2) ? 8 : 0);
-          const int col = wn * 32 + ni * 8 + 2 * q + (e & 1);
-          lg[r * kLGP + col] = acc[mi][ni][e];
-        }
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty * 4 + i;
-      float x[8];
-      float mloc = -CUDART_INF_F;
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        const int v = v0 + tx * 8 + c;
-        x[c] = (v < V) ? lg[r * kLGP + tx * 8 + c] + bias[v] : -CUDART_INF_F;
-        mloc = fmaxf(mloc, x[c]);
-        if (v == blank) sel_b[r] = x[c];
-        if (v == lab_s[r]) sel_y[r] = x[c];
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off /= 2) {
-        mloc = fmaxf(mloc, __shfl_xor_sync(0xffffffffu, mloc, off));
-      }
-      const float m_new = fmaxf(m_run[i], mloc);
-      float sum = 0.0f;
-#pragma unroll
-      for (int c = 0; c < 8; ++c) sum += expf(x[c] - m_new);
-#pragma unroll
-      for (int off = 8; off > 0; off /= 2) {
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      }
-      s_run[i] = s_run[i] * expf(m_run[i] - m_new) + sum;
-      m_run[i] = m_new;
-    }
-  }
-  __syncthreads();
-  if (tx == 0) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty * 4 + i;
-      const int c = c0 + r;
-      if (c >= TU) continue;
-      const float bse = m_run[i] + logf(s_run[i]);
-      const size_t o = (size_t)b * TU + c;
-      base_out[o] = bse;
-      lp_blank[o] = sel_b[r] - bse;
-      lp_y[o] = (lab_s[r] >= 0) ? sel_y[r] - bse : kNegInf;
-    }
-  }
-}
-
 template <typename W>
 int run_fwd(const void* f, const void* g, const void* labels, const void* w,
             const void* bias, void* lp_blank, void* lp_y, void* base, int B,
             int T, int U1, int J, int V, int blank, cudaStream_t stream) {
   const dim3 grid((T * U1 + kBM - 1) / kBM, B);
-  if constexpr (std::is_same_v<W, __nv_bfloat16>) {
-    if (J % 16 == 0) {
-      const size_t smem = mma_fwd_bytes(J);
-      const cudaError_t e = cudaFuncSetAttribute(
-          joint_fwd_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          (int)smem);
-      if (e != cudaSuccess) return (int)e;
-      joint_fwd_mma_kernel<<<grid, kThreads, smem, stream>>>(
-          static_cast<const float*>(f), static_cast<const float*>(g),
-          static_cast<const int*>(labels),
-          static_cast<const __nv_bfloat16*>(w),
-          static_cast<const float*>(bias), static_cast<float*>(lp_blank),
-          static_cast<float*>(lp_y), static_cast<float*>(base), T, U1, J, V,
-          blank);
-      return (int)cudaGetLastError();
-    }
-  }
   const size_t smem = (size_t)J * zs_stride<W>() * sizeof(W)
                       + (size_t)kBK * kBN * sizeof(W)
                       + 3 * kBM * sizeof(float);
@@ -395,9 +259,58 @@ int run_fwd(const void* f, const void* g, const void* labels, const void* w,
   return (int)cudaGetLastError();
 }
 
+// The tensor-core form: two launches on the forward's ring of wt_ring.cuh.
+
+using bf16 = __nv_bfloat16;
+static_assert(kThreads == wt_ring::kThreads, "one block shape");
+
+// The forward's cells: z from JointMap's f and g rows, the cell's label
+// (-1 at u = U); lp_blank, lp_y and base stored at the cell. fwd_body
+// hands over -base as lp_y for a label outside [0, V); a negative label
+// (every cell at u = U) has no emit arc, and its lp_y is -1e30, as the
+// TPU kernel's `jnp.where(lab >= 0, sel - base, NEG_INF)`.
+struct JointRowsF {
+  const int* __restrict__ labels;
+  float* __restrict__ lp_blank;
+  float* __restrict__ lp_y;
+  float* __restrict__ base;
+  JointMap map;
+  __device__ long long f_row(long long r) const { return map.f_row(r); }
+  __device__ long long g_row(long long r) const { return map.g_row(r); }
+  __device__ int label(long long r) const { return map.label(labels, r); }
+  __device__ void store(long long row, float lpb, float lpy,
+                        float bse) const {
+    lp_blank[row] = lpb;
+    lp_y[row] = label(row) >= 0 ? lpy : kNegInf;
+    base[row] = bse;
+  }
+};
+
+__global__ void __launch_bounds__(kThreads)
+joint_fwd_wt_kernel(const bf16* __restrict__ w, bf16* __restrict__ wt, int J,
+                    int V, int JP) {
+  wt_ring::build_wt(w, wt, J, V, JP);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+joint_fwd_ring_kernel(const float* __restrict__ f,
+                      const float* __restrict__ g,
+                      const int* __restrict__ labels,
+                      const bf16* __restrict__ wt,
+                      const float* __restrict__ bias,
+                      float* __restrict__ lp_blank, float* __restrict__ lp_y,
+                      float* __restrict__ base, long long N, int T, int U1,
+                      int J, int V, int blank) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const JointRowsF rows{labels, lp_blank, lp_y, base,
+                        JointMap{(long long)T * U1, U1}};
+  wt_ring::fwd_body(smem_raw, f, g, rows, wt, bias, N, J, V, blank);
+}
+
 }  // namespace
 
-// One launch on `stream`. Returns 0, or the cudaError_t of the launch.
+// The CUDA-core form (f32 W, or bf16 W of a shape the ring does not take),
+// one launch on `stream`. Returns 0, or the cudaError_t of the launch.
 extern "C" int joint_fwd(const void* f, const void* g, const void* labels,
                          const void* w, int w_is_bf16, const void* bias,
                          void* lp_blank, void* lp_y, void* base, int B, int T,
@@ -412,4 +325,55 @@ extern "C" int joint_fwd(const void* f, const void* g, const void* labels,
   }
   return run_fwd<float>(f, g, labels, w, bias, lp_blank, lp_y, base, B, T, U1,
                         J, V, blank, s);
+}
+
+// The tensor-core form (W bf16, J % 16 == 0, V even), as two entry points
+// so that a caller can time them apart. Both take the layout of
+// ops/rnnt_band_fused.fwd_layout (wt's rows; the ring block's shared
+// bytes) and return cudaErrorInvalidValue, launching nothing, for one that
+// is not the kernel's.
+//
+// One launch: wt (wt_rows, pitch_j(J)) bf16 = W^T, wt_rows = V rounded up
+// to 64, zero past V rows and J columns.
+extern "C" int joint_fwd_wt(const void* w, void* wt, int J, int V,
+                            long long wt_rows, long long smem_bytes,
+                            int device, void* stream) {
+  if (!wt_ring::fwd_layout_ok(J, V, wt_rows, smem_bytes)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return wt_ring::launch_wt(joint_fwd_wt_kernel, static_cast<const bf16*>(w),
+                            static_cast<bf16*>(wt), J, V, wt_rows, device,
+                            static_cast<cudaStream_t>(stream));
+}
+
+// One launch: the ring kernel, one block a run of 64 cells with
+// smem_bytes (wt_ring::fwd_ring_bytes(J)) of shared memory, writes
+// lp_blank, lp_y and base, each (B, T, U1) f32, from wt.
+extern "C" int joint_fwd_ring(const void* f, const void* g,
+                              const void* labels, const void* wt,
+                              const void* bias, void* lp_blank, void* lp_y,
+                              void* base, int B, int T, int U1, int J, int V,
+                              int blank, long long wt_rows,
+                              long long smem_bytes, int device,
+                              void* stream) {
+  const long long N = (long long)B * T * U1;
+  if (N < 1 || !wt_ring::fwd_layout_ok(J, V, wt_rows, smem_bytes)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  const size_t smem = wt_ring::fwd_ring_bytes(J);
+  const cudaError_t e1 = cudaFuncSetAttribute(
+      joint_fwd_ring_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e1 != cudaSuccess) return (int)e1;
+  joint_fwd_ring_kernel<<<(unsigned)((N + wt_ring::kMR - 1) / wt_ring::kMR),
+                          kThreads, smem,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(f), static_cast<const float*>(g),
+      static_cast<const int*>(labels), static_cast<const bf16*>(wt),
+      static_cast<const float*>(bias), static_cast<float*>(lp_blank),
+      static_cast<float*>(lp_y), static_cast<float*>(base), N, T, U1, J, V,
+      blank);
+  return (int)cudaGetLastError();
 }

@@ -16,11 +16,8 @@
 // `frag_a` and `frag_b` below. A row pitch of 4 (mod 32) words puts the 8
 // rows g of a fragment on distinct banks.
 //
-// Below them, the fused joint's forward logits product (K1,
-// joint_fwd.cu): kMR cells by kMV columns of round(z) . W, with z rounded
-// to bf16 in shared memory and W staged transposed kMK rows at a time, for
-// blocks of kMmaThreads. The rings of wt_ring.cuh take W^T's chunks by TMA
-// instead.
+// Below them, the block shape and z's row pitch that the rings
+// (wt_ring.cuh, zb_ring.cuh) share.
 
 #pragma once
 
@@ -122,93 +119,12 @@ __device__ __forceinline__ void frag_b(uint32_t (&b)[2],
 }
 
 constexpr int kMmaThreads = 256;
-constexpr int kMR = 64;        // cells per row chunk
-constexpr int kMV = 128;       // V columns per chunk of the logits product
-constexpr int kMK = 32;        // rows of W staged per step
-constexpr int kWTP = kMK + 8;  // pitch of the staged W^T tile (20 words)
+constexpr int kMR = 64;  // rows (cells) a block
 
 __host__ __device__ constexpr int round_up(int n, int m) {
   return (n + m - 1) / m * m;
 }
 // bf16 row pitch of z: 4 (mod 32) words.
 __host__ __device__ constexpr int pitch_j(int J) { return round_up(J, 64) + 8; }
-
-// z rows of a chunk, rounded to bf16, row-major [kMR][pitch]; zero past
-// `rows` (fo_s[r] < 0) and past J.
-__device__ __forceinline__ void build_z_rows(__nv_bfloat16* zA, int pitch,
-                                             const float* f, const float* g,
-                                             const int* fo_s,
-                                             const int* go_s, int J,
-                                             int Jr) {
-  const int lane = threadIdx.x % 32;
-  const int warp = threadIdx.x / 32;
-  for (int r = warp; r < kMR; r += kMmaThreads / 32) {
-    const int fo = fo_s[r];
-    const int go = go_s[r];
-    for (int j = lane; j < Jr; j += 32) {
-      float z = 0.0f;
-      if (fo >= 0 && j < J) {
-        z = tanhf(f[(size_t)fo * J + j] + g[(size_t)go * J + j]);
-      }
-      zA[(size_t)r * pitch + j] = __float2bfloat16_rn(z);
-    }
-  }
-}
-
-// Stage W[k0 .. k0+kMK, v0 .. v0+kMV] transposed: wt[n][kk] = W[k0+kk][v0+n].
-__device__ __forceinline__ void stage_wt(__nv_bfloat16* wt,
-                                         const __nv_bfloat16* w, int k0,
-                                         int v0, int J, int V) {
-  for (int idx = threadIdx.x; idx < kMK * kMV; idx += kMmaThreads) {
-    const int kk = idx / kMV;
-    const int n = idx - kk * kMV;
-    const int k = k0 + kk;
-    const int v = v0 + n;
-    wt[n * kWTP + kk] = (k < J && v < V) ? w[(size_t)k * V + v]
-                                         : __float2bfloat16_rn(0.0f);
-  }
-}
-
-// logits[kMR][kMV] = zA . W[:, v0 .. v0+kMV] into acc: warp (wm, wn) owns
-// rows 32 wm .. 32 wm + 31 and columns 32 wn .. 32 wn + 31 of the chunk.
-__device__ __forceinline__ void logits_chunk(float (&acc)[2][4][4],
-                                             const __nv_bfloat16* zA,
-                                             int zpitch, __nv_bfloat16* wt,
-                                             const __nv_bfloat16* w, int v0,
-                                             int J, int V) {
-  const int lane = threadIdx.x % 32;
-  const int warp = threadIdx.x / 32;
-  const int wm = warp / 4;
-  const int wn = warp % 4;
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.0f;
-    }
-  }
-  for (int k0 = 0; k0 < J; k0 += kMK) {
-    __syncthreads();  // the previous W tile is consumed
-    stage_wt(wt, w, k0, v0, J, V);
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kMK; kk += 16) {
-      if (k0 + kk >= J) break;
-      uint32_t a[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        frag_a(a[mi], zA, zpitch, wm * 32 + mi * 16, k0 + kk, lane);
-      }
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        uint32_t b[2];
-        frag_b(b, wt, kWTP, wn * 32 + ni * 8, kk, lane);
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) mma_16816(acc[mi][ni], a[mi], b);
-      }
-    }
-  }
-}
 
 }  // namespace joint_mma

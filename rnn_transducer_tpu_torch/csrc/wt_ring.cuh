@@ -3,8 +3,10 @@
 // row policy: the band joint's kernel A (band_fused.cu, K6-A: the band's
 // rows, dg_w) and the fused joint's kernel A (joint_bwd.cu, K2-A: the
 // B T (U+1) cells, a dz scratch that ordered sums reduce to df and dg);
-// and the forward log-probs of the band joint (band_fused.cu, K6-fwd),
-// written against a row policy of its own. Over N rows of
+// and the forward log-probs of both joints, each with a forward row
+// policy of its own: the band joint's (band_fused.cu, K6-fwd: BandRowsF,
+// the band's rows) and the fused joint's (joint_fwd.cu, K1: JointRowsF,
+// the B T (U+1) cells). Over N rows of
 // z = tanh(f[f row] + g[g row]) and W (J, V) bf16:
 //   logits = round(z) . W + bias                    (fp32 acc.)
 //   dz     = round(dlogits) . W^T                   (fp32 acc., backward)
@@ -32,7 +34,8 @@
 //   __device__ int label(long long r) const;         // the row's label
 //   __device__ void store(long long row, float lp_blank, float lp_y,
 //                         float base) const;
-// (a label outside [0, V) picks 0: lp_y = -base).
+// (a label outside [0, V) picks 0: lp_y = -base; K1's policy stores
+// -1e30 for a negative label, the cells at u = U).
 //
 // Two launches for each. `build_wt` writes wt = W^T, (ceil(V / kVC) kVC,
 // pitch_j(J)) bf16, once a call: row v holds W[:, v], zero past V rows and

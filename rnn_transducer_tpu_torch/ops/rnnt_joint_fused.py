@@ -11,7 +11,10 @@ on chip and reduces it at once:
 
   * `joint_lp_fwd` (K1, `csrc/joint_fwd.cu`) to the three (B, T, U+1)
     arrays the lattice needs: lp_blank, lp_y and base, the log-sum-exp
-    that the backward reuses;
+    that the backward reuses (with bf16 W, W^T once into a scratch and
+    the forward's ring of `csrc/wt_ring.cuh` in the layout of
+    `rnnt_band_fused.fwd_layout`, which K6's forward shares; a CUDA-core
+    form for f32 W and other shapes);
   * `joint_lp_bwd` (K2, `csrc/joint_bwd.cu`) from the occupancies to
     df, dg, dW and db: kernel A (each cell's dz for df and dg: with bf16
     W, W^T once into a scratch and the ring of `csrc/wt_ring.cuh` in the
@@ -47,6 +50,7 @@ from rnn_transducer_tpu_torch.ops.rnnt_band_fused import (
     _record,
     device_bwd_a_layout,
     device_bwd_b_plan,
+    device_fwd_layout,
     tensor_core_form,
 )
 from rnn_transducer_tpu_torch.ops.rnnt_loss import (
@@ -56,7 +60,7 @@ from rnn_transducer_tpu_torch.ops.rnnt_loss import (
 )
 from rnn_transducer_tpu_torch.utils import build
 
-LAUNCHES_FWD = 0  # joint_lp_fwd calls that launched joint_fwd
+LAUNCHES_FWD = 0  # joint_lp_fwd calls that launched K1 (ring or CUDA-core)
 LAUNCHES_BWD = 0  # joint_lp_bwd calls that launched joint_bwd
 _launches_lock = threading.Lock()
 
@@ -122,12 +126,20 @@ def _check(f, g, labels, w, b):
 
 # ------------------------------ forward ----------------------------------
 
-def joint_lp_fwd(f, g, labels, w, b, blank: int = 0):
+def joint_lp_fwd(f, g, labels, w, b, blank: int = 0, *, events=None):
     """-> (lp_blank, lp_y, base), each (B, T, U+1) f32; logits never stored.
 
     f (B, T, J) f32, g (B, U+1, J) f32, labels (B, U) int32, w (J, V) in
     the compute dtype, b (V,) f32. base is the log-sum-exp of each cell's
-    logits, saved for the backward; lp_y is NEG_INF at u = U.
+    logits, saved for the backward; lp_y is NEG_INF at u = U. bf16 W with
+    J % 16 == 0 and V even (`tensor_core_form`) takes the ring: W^T into a
+    scratch wt once (joint_fwd_wt), then joint_fwd_ring over the B T (U+1)
+    cells in the layout of `rnnt_band_fused.device_fwd_layout` (ValueError
+    for a shape it cannot place); other W and shapes the CUDA-core form
+    (joint_fwd). Each cell's log-sum-exp is taken in a fixed order, so two
+    runs give identical bits. `events`, three CUDA events, are recorded
+    before the W^T pass, between it and the ring kernel, and after it (the
+    CUDA-core form has no W^T pass: the first two are recorded together).
     """
     _check(f, g, labels, w, b)
     dev = f.device
@@ -144,12 +156,30 @@ def joint_lp_fwd(f, g, labels, w, b, blank: int = 0):
     if B * T == 0:
         return tuple(outs)
     fn = build.load_library()
-    err = fn.joint_fwd(
-        f.data_ptr(), g.data_ptr(), labels.data_ptr(), w.data_ptr(),
-        int(w.dtype == torch.bfloat16), b.data_ptr(),
-        *(o.data_ptr() for o in outs), B, T, U1, J, V, blank,
-        *build.stream_args(dev))
-    build.check_launch(fn, err, "joint_fwd")
+    stream = build.stream_args(dev)
+    ev = events if events is not None else (None, None, None)
+    if tensor_core_form(w.dtype, J, V):
+        layout = device_fwd_layout(J, V, dev)
+        wt = torch.empty(layout.wt_shape, dtype=torch.bfloat16, device=dev)
+        _record(ev[0])
+        err = fn.joint_fwd_wt(w.data_ptr(), wt.data_ptr(), J, V,
+                              layout.wt_shape[0], layout.smem_bytes, *stream)
+        build.check_launch(fn, err, "joint_fwd_wt")
+        _record(ev[1])
+        err = fn.joint_fwd_ring(
+            f.data_ptr(), g.data_ptr(), labels.data_ptr(), wt.data_ptr(),
+            b.data_ptr(), *(o.data_ptr() for o in outs), B, T, U1, J, V,
+            blank, layout.wt_shape[0], layout.smem_bytes, *stream)
+        build.check_launch(fn, err, "joint_fwd_ring")
+    else:
+        _record(ev[0])
+        _record(ev[1])
+        err = fn.joint_fwd(
+            f.data_ptr(), g.data_ptr(), labels.data_ptr(), w.data_ptr(),
+            int(w.dtype == torch.bfloat16), b.data_ptr(),
+            *(o.data_ptr() for o in outs), B, T, U1, J, V, blank, *stream)
+        build.check_launch(fn, err, "joint_fwd")
+    _record(ev[2])
     _count("LAUNCHES_FWD")
     return tuple(outs)
 

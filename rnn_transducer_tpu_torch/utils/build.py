@@ -53,6 +53,12 @@ SIGNATURES = {
     # blank, device, stream
     "joint_fwd": (_I, [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I,
                        _I, _I, _I, _P]),
+    # w, wt, J, V, wt_rows, smem_bytes, device, stream
+    "joint_fwd_wt": (_I, [_P, _P, _I, _I, _LL, _LL, _I, _P]),
+    # f, g, labels, wt, b, lp_blank, lp_y, base, B, T, U1, J, V, blank,
+    # wt_rows, smem_bytes, device, stream
+    "joint_fwd_ring": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                            _I, _I, _LL, _LL, _I, _P]),
     # f, g, labels, w, w_is_bf16, b, gb, gy, base, gbar, df, dg_part, B, T,
     # U1, J, V, blank, frames_per_tile, device, stream
     "joint_bwd_a": (_I, [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I,

@@ -10,6 +10,10 @@ import pytest
 import torch
 
 from rnn_transducer_tpu.ops.rnnt_joint_fused import (
+    _pad_axis, _prep_labels, _prep_wb)
+from rnn_transducer_tpu.ops.rnnt_joint_fused import (
+    joint_lp_fwd as jax_joint_lp_fwd)
+from rnn_transducer_tpu.ops.rnnt_joint_fused import (
     rnnt_loss_fused as jax_fused)
 from rnn_transducer_tpu.ops.rnnt_loss import rnnt_loss as jax_rnnt_loss
 from rnn_transducer_tpu_torch.ops import rnnt_joint_fused as tf
@@ -122,6 +126,33 @@ def test_joint_lp_fwd_reference_matches_log_softmax():
                                 .repeat(lp.shape[1], 1), axis=-1)[..., 0]
     np.testing.assert_allclose(lpy.numpy()[:, :, :U], want_y, atol=1e-5)
     assert (lpy.numpy()[:, :, U] == -1e30).all()
+
+
+@pytest.mark.parametrize("B, T, U, J, V, blank", [(3, 11, 4, 32, 21, 0),
+                                                  (2, 19, 9, 16, 130, 3)])
+def test_joint_lp_fwd_matches_the_jax_kernel(B, T, U, J, V, blank):
+    """K1 on the CPU, all three arrays, against the JAX package's Pallas
+    forward in interpret mode, its inputs padded as its caller
+    `_fused_fwd` pads them (U+1 to a multiple of 8, V to 128 lanes with a
+    -1e30 bias, labels -1 past U) and its outputs cropped to (B, T, U+1):
+    f32 within 1e-5 (the same sums in another order); lp_y is -1e30 at
+    u = U on both sides. T=19 spans two of its 16-frame tiles."""
+    f, g, w, b, labels, _, _ = _setup(B=B, T=T, U=U, J=J, V=V,
+                                      seed=T + V)
+    U1 = U + 1
+    g_p = _pad_axis(jnp.asarray(g), 1, 8)
+    w_p, b_p = _prep_wb(jnp.asarray(w), jnp.asarray(b))
+    want = jax_joint_lp_fwd(jnp.asarray(f), g_p,
+                            _prep_labels(jnp.asarray(labels), g_p.shape[1]),
+                            w_p, b_p, blank, jnp.float32)
+    got = tf.joint_lp_fwd(*(torch.from_numpy(a) for a in
+                            (f, g, labels, w, b)), blank)
+    for name, a, e in zip(("lp_blank", "lp_y", "base"), got, want):
+        e = np.asarray(e)[:, :, :U1]
+        assert a.shape == e.shape == (B, T, U1), name
+        np.testing.assert_allclose(a.numpy(), e, rtol=0, atol=1e-5,
+                                   err_msg=name)
+    assert (got[1].numpy()[:, :, U] == -1e30).all()
 
 
 def test_wrappers_on_cpu_are_the_references_and_count_nothing():

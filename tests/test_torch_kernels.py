@@ -288,6 +288,111 @@ def test_cuda_joint_fwd_bwd_match_reference(cuda_device, dtype, B, T, U1, J,
                                                   before[1] + 2)
 
 
+# K1 on the ring: libri100's cells (4,100 blocks), 6150 cells (not a
+# multiple of 64) at V=8192, and U+1 = 70 > 64 at V=130 (a last chunk of 2
+# columns), where blocks span frames and utterances. bf16 W takes the
+# ring; f32 W the CUDA-core form.
+K1_CASES = [(32, 200, 40, 512, 1024), (3, 50, 40, 512, 8192),
+            (2, 7, 69, 96, 130)]
+
+
+def _joint_fwd_kernels(prof) -> dict:
+    """Launches of K1's kernels in a profiled window, by name, and of any
+    kernel whose name holds `joint_fwd`."""
+    from torch.autograd import DeviceType
+
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    out = {k: sum(e.count for e in events if k + "_kernel" in e.key)
+           for k in ("joint_fwd_wt", "joint_fwd_ring", "joint_fwd")}
+    out["any"] = sum(e.count for e in events if "joint_fwd" in e.key)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B, T, U, J, V", K1_CASES)
+def test_cuda_joint_fwd_on_the_ring_matches_reference(cuda_device, dtype, B,
+                                                      T, U, J, V):
+    """K1 against its plain version within LP_ATOL, the same bits twice,
+    lp_y exactly -1e30 at u = U; a bf16 call launches the W^T pass and the
+    ring kernel once each and no other joint_fwd kernel, an f32 call the
+    CUDA-core kernel once."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rnn_transducer_tpu_torch.ops import rnnt_band_fused as bf
+    from rnn_transducer_tpu_torch.ops import rnnt_joint_fused as tf
+
+    f, g, labels, w, b = _joint_args(B, T, U + 1, J, V, dtype, cuda_device)
+    f, g = 0.5 * f, 0.5 * g
+    before = tf.LAUNCHES_FWD
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _pad_profiler_window()
+        got = tf.joint_lp_fwd(f, g, labels, w, b)
+        torch.cuda.synchronize()
+        _pad_profiler_window()
+    again = tf.joint_lp_fwd(f, g, labels, w, b)
+    want = tf.joint_lp_fwd_reference(f, g, labels, w, b)
+    torch.cuda.synchronize()
+    for name, a, a2, e in zip(("lp_blank", "lp_y", "base"), got, again, want):
+        assert bool(torch.isfinite(a).all()), name
+        assert float((a - e).abs().max()) <= LP_ATOL[dtype], name
+        assert torch.equal(a, a2), f"{name} differs between two runs"
+    assert bool((got[1][:, :, U] == -1e30).all())
+    ring = bf.tensor_core_form(dtype, J, V)
+    assert _joint_fwd_kernels(prof) == {
+        "joint_fwd_wt": int(ring), "joint_fwd_ring": int(ring),
+        "joint_fwd": int(not ring), "any": 2 if ring else 1}
+    assert tf.LAUNCHES_FWD == before + 2
+
+
+@pytest.mark.cuda
+def test_cuda_joint_fwd_times_its_two_launches(cuda_device):
+    """The events of a ring call of K1 bracket the W^T pass and the ring
+    kernel, in order."""
+    from rnn_transducer_tpu_torch.ops import rnnt_joint_fused as tf
+
+    args = _joint_args(3, 9, 8, 64, 130, torch.bfloat16, cuda_device)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    tf.joint_lp_fwd(*args, events=ev)
+    torch.cuda.synchronize()
+    assert ev[0].elapsed_time(ev[1]) > 0 and ev[1].elapsed_time(ev[2]) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", [{"wt_shape": (64, 72)},
+                                 {"wt_shape": (128, 72)},
+                                 {"smem_bytes": 48 * 1024}])
+def test_cuda_joint_fwd_refuses_a_bad_layout(cuda_device, monkeypatch, bad):
+    """joint_fwd_wt and joint_fwd_ring check the layout they are handed:
+    for wt's rows not V's whole chunks (V = 130 takes 192) or shared bytes
+    that are not the kernel's, the W^T pass refuses before it launches,
+    the wrapper raises and counts nothing, and no K1 kernel runs."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from rnn_transducer_tpu_torch.ops import rnnt_joint_fused as tf
+
+    args = _joint_args(3, 9, 8, 64, 130, torch.bfloat16, cuda_device)
+    good = tf.device_fwd_layout(64, 130, cuda_device)
+    monkeypatch.setattr(tf, "device_fwd_layout",
+                        lambda *a: dataclasses.replace(good, **bad))
+    before = tf.LAUNCHES_FWD
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _pad_profiler_window()
+        with pytest.raises(RuntimeError, match="joint_fwd_wt"):
+            tf.joint_lp_fwd(*args)
+        torch.cuda.synchronize()
+        _pad_profiler_window()
+    assert tf.LAUNCHES_FWD == before
+    assert _joint_fwd_kernels(prof) == {"joint_fwd_wt": 0,
+                                        "joint_fwd_ring": 0, "joint_fwd": 0,
+                                        "any": 0}
+
+
 def _lattice_bwd_args(B, T, U, J, V, dtype, device):
     """joint_lp_bwd's arguments with the real lattice's occupancies at
     ragged lengths: row 0 full, row 1 zero frames, row 2 no labels."""
