@@ -37,9 +37,12 @@ Phases, in order:
             by torch.profiler, and kernel B's ring plan; the
             lattice (alpha, beta and the occupancies) at U+1 = 41 and 81
             with ragged lengths and a zero-frame row; the W8A8 recurrence
-            (lstm_int8) at the serving shapes and at batch tiles of 16
-            and 32 rows; the fused greedy decode (greedy_fused) on one
-            served batch against its plain version and the lock-step loop;
+            (lstm_int8: one persistent launch a layer, with its tile,
+            two runs giving identical bits, one lstm_q_persistent_kernel a
+            call by the profiler and its step fit) at the serving shapes
+            and at batch tiles of 16 and 32 rows; the fused greedy decode
+            (greedy_fused) on one served batch against its plain version
+            and the lock-step loop;
             the fused LayerNorm (fused_ln fwd and bwd, act none and silu)
             at the conformer's serving and training rows, N = 1600 and
             6400, D = 512, against the plain LayerNorm and its autograd,
@@ -54,7 +57,9 @@ Phases, in order:
             the kernel path and the plain path must be identical
   4b. e2e_int8  the same requests to an engine holding quantize_params:
             the W8A8 kernel launched and lstm_fwd did not; the f32 tokens
-            of the kernel path and the plain path identical
+            of the kernel path and the plain path identical; a served
+            batch's encode runs one lstm_q_persistent_kernel a layer
+            (their names and device ms by the profiler)
   4c. fused recognize_greedy_fused on that batch with float and int8
             params: greedy_fused launched; the f32 tokens equal to
             recognize_greedy's
@@ -880,10 +885,43 @@ def loss_rows_vs_plain(rng: np.random.Generator, dev) -> dict:
             "worst_grad": max(r["grad_max_abs_err"] for r in out.values())}
 
 
+def int8_plan_row(B: int, H: int, dev) -> list:
+    """K7's launches on this card: each group's rows and tile (grid,
+    units and rows a block, shared bytes, stage passes a step)."""
+    return [{"rows": [b0, b1], "grid": plan.grid, "units": plan.units,
+             "block_rows": plan.rows, "smem_bytes": plan.smem_bytes,
+             "passes": plan.passes}
+            for b0, b1, plan in q8.device_groups(B, H, dev)]
+
+
+def kernel_launches(call, fragment: str) -> dict:
+    """The device kernels of one call(), by torch.profiler: launches by
+    name, of those whose name holds `fragment`."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        pad_profiler_window()
+        call()
+        torch.cuda.synchronize()
+        pad_profiler_window()
+    counts = {}
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA and fragment in evt.key:
+            counts[evt.key] = counts.get(evt.key, 0) + evt.count
+    return counts
+
+
 def lstm_int8_vs_plain(rng: np.random.Generator, dev) -> dict:
     """lstm_fwd_q (K7) against its plain version: the libri100 serving
     layers at the 800-frame bucket and batch tiles of 32 and 16 rows, in
-    f32 and bf16, on int8 weights from quantize_tensor."""
+    f32 and bf16, on int8 weights from quantize_tensor; two runs giving
+    identical bits, one lstm_q_persistent_kernel a call by the profiler
+    and no other kernel of lstm_fwd_q.cu, the tile, and at the serving
+    shape a line through K7's time against T (µs a step, the fixed cost
+    of a call)."""
     H = 512
     rows, worst, main = [], 0.0, None
     for name, B, T, I, with_state in INT8_CASES:
@@ -903,8 +941,14 @@ def lstm_int8_vs_plain(rng: np.random.Generator, dev) -> dict:
             args = (x_proj, qw.q, qw.scale, h0, c0)
             want = q8.lstm_recurrence_int8_reference(*args)
             got = q8.lstm_recurrence_int8(*args)
+            again = q8.lstm_recurrence_int8(*args)
             torch.cuda.synchronize()
             err = max(max_abs(got[0], want[0]), max_abs(got[1][1], want[1][1]))
+            same_bits = (torch.equal(got[0], again[0])
+                         and torch.equal(got[1][1], again[1][1]))
+            kernels = kernel_launches(lambda: q8.lstm_recurrence_int8(*args),
+                                      "lstm_q")
+            plan = int8_plan_row(B, H, dev)
             kt, pt = timed_pair(lambda: q8.lstm_recurrence_int8(*args),
                                 lambda: q8.lstm_recurrence_int8_reference(
                                     *args))
@@ -912,13 +956,25 @@ def lstm_int8_vs_plain(rng: np.random.Generator, dev) -> dict:
                    "batch_tile": q8.batch_tile(B, H),
                    "dtype": str(cd).replace("torch.", ""),
                    "max_abs_err": err, "atol": ATOL[cd], "kernel_ms": kt,
-                   "plain_ms": pt,
+                   "plain_ms": pt, "bitwise_repeat": same_bits,
+                   "kernels": kernels, "plan": plan,
                    **bound(nbytes(args, got[0], got[1][1]),
                            2 * B * T * H * 4 * H, torch.int8)}
+            if name == INT8_MAIN[0]:
+                row["step_fit"] = step_fit(device_ms, dev, cd, B, H,
+                                           int8=True)
             print("kernel lstm_int8 " + json.dumps(row))
             check(bool(torch.isfinite(got[0]).all()) and err <= ATOL[cd],
                   f"lstm_int8 {name} {cd}: max abs err {err} > {ATOL[cd]} "
                   "or non-finite output")
+            check(same_bits, f"lstm_int8 {name} {cd}: two runs gave "
+                             "different bits")
+            check(bool(kernels) and all("lstm_q_persistent_kernel" in k
+                                        for k in kernels)
+                  and sum(kernels.values()) == len(plan),
+                  f"lstm_int8 {name} {cd}: a call ran {kernels}, not one "
+                  f"lstm_q_persistent_kernel for each of its {len(plan)} "
+                  "groups")
             rows.append(row)
             worst = max(worst, err)
             if (name, cd) == INT8_MAIN:
@@ -1527,8 +1583,38 @@ def int8_serving(serving: dict, dev) -> dict:
     check_no_band(counts, "int8 serving")
     feats_d, lens_d = served_batch(serving, dev)
     kernel_vs_plain_tokens(qparams, cfg, feats_d, lens_d, "int8")
+    k7 = k7_calls(qparams, cfg, feats_d, lens_d)
+    print("e2e_int8_k7 " + json.dumps(k7))
+    check(len(k7) == cfg.enc_layers
+          and all("lstm_q_persistent_kernel" in c["name"] for c in k7),
+          f"a served int8 batch's encoder ran {k7}, not one "
+          f"lstm_q_persistent_kernel for each of its {cfg.enc_layers} layers")
     result["qparams"] = qparams
     return result
+
+
+def k7_calls(qparams, cfg, feats, lens) -> list:
+    """The K7 kernels (those of lstm_fwd_q.cu) of one served int8 batch's
+    encode at the served dtype, by torch.profiler, in order: name and
+    device ms each."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode():
+        m.encode(qparams, cfg, feats, lens)  # warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            pad_profiler_window()
+            m.encode(qparams, cfg, feats, lens)
+            torch.cuda.synchronize()
+            pad_profiler_window()
+    evts = sorted((e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and "lstm_q" in e.name),
+                  key=lambda e: e.time_range.start)
+    return [{"name": e.name[:120], "ms": e.time_range.elapsed_us() / 1e3}
+            for e in evts]
 
 
 def host_ms(fn, repeats: int = 2) -> float:
@@ -2310,12 +2396,15 @@ def train_ar_phase(seed: int, dev, profile_dir) -> dict:
 
 
 def kernel_entry(name, source, replaces, launches, err, ms, plain_ms,
-                 bnd: dict, library_ms=None) -> dict:
-    return {"name": name, "route": "cuda",
-            "source": f"rnn_transducer_tpu_torch/csrc/{source}",
-            "replaces": replaces, "launches": launches, "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd["bound_ms"],
-            "bound_by": bnd["bound_by"], "library_ms": library_ms}
+                 bnd: dict, library_ms=None, kernel=None) -> dict:
+    entry = {"name": name, "route": "cuda",
+             "source": f"rnn_transducer_tpu_torch/csrc/{source}",
+             "replaces": replaces, "launches": launches, "max_abs_err": err,
+             "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd["bound_ms"],
+             "bound_by": bnd["bound_by"], "library_ms": library_ms}
+    if kernel:  # the device kernel's name, where it differs from `name`
+        entry["kernel"] = kernel
+    return entry
 
 
 def main(argv=None):
@@ -2458,7 +2547,7 @@ def main(argv=None):
         kernel_entry("lstm_fwd_int8", "lstm_fwd_q.cu", f"{lp}:532",
                      e2e_q["launches"], kq["max_abs_err"],
                      kq["main"]["kernel_ms"], kq["main"]["plain_ms"],
-                     kq["main"]),
+                     kq["main"], kernel="lstm_q_persistent_kernel"),
         kernel_entry("greedy_fused", "greedy_fused.cu", f"{gp}:107",
                      fused["launches"], kg["max_abs_err"],
                      kg["main"]["kernel_ms"], kg["main"]["plain_ms"],

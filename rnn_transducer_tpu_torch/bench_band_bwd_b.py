@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """The band joint's kernels (K6-fwd, its log-probs; K6-A and K6-B, its dz
 and dW / db), the fused joint's forward and backward (K1, K2), the LSTM
-forward (K4-fwd) and the training steps and served requests that run
-them, timed on one CUDA card for one or more checkouts of this
-repository, in turns.
+forward (K4-fwd), the W8A8 LSTM recurrence (K7) and the training steps
+and served requests that run them, timed on one CUDA card for one or more
+checkouts of this repository, in turns.
 
     python3 -m rnn_transducer_tpu_torch.bench_band_bwd_b \
         [--trees DIR [DIR ...]] [--parts PART [PART ...]] [--out RESULTS.json]
@@ -13,7 +13,7 @@ in the order given (default: this checkout), so that two versions of the
 kernels are compared on one card: pass `--trees OLD NEW NEW OLD`. A
 process puts the tree's root first on the import path (its package and
 its chip_smoke.py), builds that tree's kernels, then runs the parts
-(default: all eleven, in this order):
+(default: all twelve, in this order):
 
   band_fwd     holds `band_lp_fwd` (lp_blank, lp_y, base) against its
                plain version at the pruned step's band (B=32, T'=200, S=8,
@@ -57,11 +57,22 @@ its chip_smoke.py), builds that tree's kernels, then runs the parts
                l0_b400) and `lstm_recurrence_with_acts` (training) at
                l0_train, l1_train, pred_b32 and pred_b64 (chip_smoke's
                shapes), bf16 and f32, against their plain versions (max
-               |err|, two runs bit for bit), and times them: device ms a
+               |err|, two runs bit for bit, the outputs' sha256
+               digests), and times them: device ms a
                call behind a spin kernel, twice; where the tree has
                `fwd_plan`, the tile; then a line through the serving
                call's time at B=8 against T = 100, 200, 400, 800
                (`step_fit`: µs a step and the fixed cost of a call);
+  lstm_int8    holds `lstm_recurrence_int8` (K7) at chip_smoke's
+               INT8_CASES (l0_b800, l1_b800, b32_l1, b16_l1), bf16 and
+               f32, against its
+               plain version (max |err|, two runs bit for bit, the sha256
+               digests of hs and c_T, which the parent's must equal),
+               times it (device ms a call behind a spin kernel, twice),
+               with its groups' tiles where the tree has
+               `device_groups`; then `step_fit` of K7 at B=8, H=512 in
+               bf16 and f32, and chip_smoke's 24 requests served to an
+               engine holding quantize_params: p50, p95 and K7's calls;
   ar_step      trains the alignment-restricted band (ar_range 8) at
                libri100's B=32, T=400, U=40, then profiles one step;
   serve        serves chip_smoke's 24 requests at libri100 width to a
@@ -86,8 +97,8 @@ import sys
 
 
 PARTS = ("band_fwd", "band_bwd_a", "band_bwd_b", "pruned_step", "joint_fwd",
-         "joint_bwd", "train_step", "conformer_step", "lstm_fwd", "ar_step",
-         "serve")
+         "joint_bwd", "train_step", "conformer_step", "lstm_fwd",
+         "lstm_int8", "ar_step", "serve")
 
 
 def one(root: str, parts) -> dict:
@@ -475,6 +486,9 @@ def lstm_fwd(cs, dev) -> dict:
                    "bitwise_repeat": all(torch.equal(g, a)
                                          for g, a in zip(got, again)),
                    "finite": all(bool(torch.isfinite(g).all()) for g in got),
+                   # the outputs' bits, to compare trees on the same inputs
+                   "digest": [hashlib.sha256(g.cpu().numpy().tobytes())
+                              .hexdigest()[:16] for g in got],
                    "kernel_ms": [cs.device_ms(lambda: fn(*args), reps=5)
                                  for _ in range(2)],
                    **cs.bound(cs.nbytes(args, got), 2 * B * T * H * 4 * H,
@@ -491,30 +505,117 @@ def lstm_fwd(cs, dev) -> dict:
         for cd in (torch.bfloat16, torch.float32)}}
 
 
-def step_fit(device_ms, dev, cd, B: int = 8, H: int = 512) -> dict:
+def lstm_int8(cs, dev) -> dict:
+    """The rows, the step fits and the int8 serving of the lstm_int8
+    part."""
+    import numpy as np
+    import torch
+
+    from rnn_transducer_tpu_torch.ops import lstm_int8_cuda as q8
+    from rnn_transducer_tpu_torch.ops.lstm import _dot
+    from rnn_transducer_tpu_torch.ops.quant import (quantize_params,
+                                                    quantize_tensor)
+
+    H = 512
+    rng = np.random.default_rng(16)
+    rows = []
+    for name, B, T, I, with_state in cs.INT8_CASES:
+        k = 1.0 / np.sqrt(H)
+        w_ih = torch.from_numpy(rng.uniform(-k, k, (I, 4 * H))).float().to(dev)
+        qw = quantize_tensor(torch.from_numpy(
+            rng.uniform(-k, k, (H, 4 * H))).float().to(dev))
+        b = torch.from_numpy(rng.uniform(-2 * k, 2 * k, 4 * H)).float().to(dev)
+        x = torch.from_numpy(rng.normal(size=(B, T, I))).float().to(dev)
+        h0 = torch.zeros(B, H, device=dev)
+        c0 = torch.zeros(B, H, device=dev)
+        if with_state:
+            h0 = torch.from_numpy(0.5 * rng.normal(size=(B, H))).float().to(dev)
+            c0 = torch.from_numpy(rng.normal(size=(B, H))).float().to(dev)
+        for cd in (torch.bfloat16, torch.float32):
+            args = ((_dot(x, w_ih, cd) + b).to(cd).contiguous(), qw.q,
+                    qw.scale, h0, c0)
+            got = q8.lstm_recurrence_int8(*args)
+            again = q8.lstm_recurrence_int8(*args)
+            want = q8.lstm_recurrence_int8_reference(*args)
+            torch.cuda.synchronize()
+            outs = {"hs": (got[0], again[0], want[0]),
+                    "c": (got[1][1], again[1][1], want[1][1])}
+            row = {"case": name, "B": B, "T": T, "H": H,
+                   "dtype": str(cd).replace("torch.", ""),
+                   "max_abs_err": max(cs.max_abs(g, r)
+                                      for g, _, r in outs.values()),
+                   "bitwise_repeat": all(torch.equal(g, a)
+                                         for g, a, _ in outs.values()),
+                   "finite": bool(torch.isfinite(got[0]).all()),
+                   # the outputs' bits, to compare trees on the same inputs
+                   "digest": {n: hashlib.sha256(
+                       g.cpu().numpy().tobytes()).hexdigest()[:16]
+                       for n, (g, _, _) in outs.items()},
+                   "kernel_ms": [cs.device_ms(
+                       lambda: q8.lstm_recurrence_int8(*args), reps=5)
+                       for _ in range(2)],
+                   **cs.bound(cs.nbytes(args, got[0], got[1][1]),
+                              2 * B * T * H * 4 * H, torch.int8)}
+            if hasattr(q8, "device_groups"):
+                row["groups"] = [
+                    {"rows": [b0, b1], **dataclasses.asdict(plan)}
+                    for b0, b1, plan in q8.device_groups(B, H, dev)]
+            print("lstm_int8 " + json.dumps(row), flush=True)
+            rows.append(row)
+            del got, again, want, outs, args
+        torch.cuda.empty_cache()
+    fits = {str(cd).replace("torch.", ""): step_fit(cs.device_ms, dev, cd,
+                                                    int8=True)
+            for cd in (torch.bfloat16, torch.float32)}
+    serving = cs.serving_setup(0, 24, dev)
+    _, result, counts = cs.serve_all(
+        serving, quantize_params(serving["params"]), dev)
+    return {"rows": rows, "step_fit": fits, "serve": {
+        **{k: result[k] for k in ("requests", "p50_ms", "p95_ms", "wall_s",
+                                  "mean_batch", "batches")},
+        "launches_lstm_fwd_int8": counts["lstm_fwd_int8"],
+        "launches_lstm_fwd": counts["lstm_fwd"]}}
+
+
+def step_fit(device_ms, dev, cd, B: int = 8, H: int = 512,
+             int8: bool = False) -> dict:
     """lstm_recurrence's device ms (by `device_ms`, chip_smoke's) at B, H
     against T = 100 .. 800 (x_proj random, zero state) and the
     least-squares line through them: µs a step and the fixed cost of a
-    call (its intercept). chip_smoke.py prints it for its serving shape
-    too."""
+    call (its intercept). With `int8`, the same for
+    lstm_recurrence_int8 (K7) on quantize_tensor's wq, x_proj in `cd`.
+    chip_smoke.py prints both for its serving shape too."""
     import statistics
 
     import numpy as np
     import torch
 
     from rnn_transducer_tpu_torch.ops import lstm_cuda
+    from rnn_transducer_tpu_torch.ops import lstm_int8_cuda as q8
+    from rnn_transducer_tpu_torch.ops.quant import quantize_tensor
 
     rng = np.random.default_rng(13)
     k = 1.0 / np.sqrt(H)
-    w = torch.from_numpy(rng.uniform(-k, k, (H, 4 * H))).to(dev, cd)
+    w = torch.from_numpy(rng.uniform(-k, k, (H, 4 * H)))
     h0 = torch.zeros(B, H, device=dev)
+    if int8:
+        qw = quantize_tensor(w.float().to(dev))
+
+        def call(x_proj):
+            return q8.lstm_recurrence_int8(x_proj, qw.q, qw.scale, h0, h0)
+    else:
+        w = w.to(dev, cd)
+
+        def call(x_proj):
+            return lstm_cuda.lstm_recurrence(x_proj, w, h0, h0)
     ts, ms = (100, 200, 400, 800), []
     for T in ts:
         x_proj = torch.from_numpy(rng.normal(size=(B, T, 4 * H))).float().to(
             dev)
-        lstm_cuda.lstm_recurrence(x_proj, w, h0, h0)
-        ms.append(device_ms(
-            lambda: lstm_cuda.lstm_recurrence(x_proj, w, h0, h0), reps=5))
+        if int8:
+            x_proj = x_proj.to(cd)
+        call(x_proj)
+        ms.append(device_ms(lambda: call(x_proj), reps=5))
     mt, mm = statistics.mean(ts), statistics.mean(ms)
     slope = (sum((t - mt) * (m - mm) for t, m in zip(ts, ms))
              / sum((t - mt) ** 2 for t in ts))
@@ -552,7 +653,8 @@ MEASURE = {"band_fwd": functools.partial(band, which="fwd"),
            "pruned_step": pruned_step, "joint_fwd": joint_fwd,
            "joint_bwd": joint_bwd, "train_step": train_step,
            "conformer_step": conformer_step,
-           "lstm_fwd": lstm_fwd, "ar_step": ar_step, "serve": serve}
+           "lstm_fwd": lstm_fwd, "lstm_int8": lstm_int8, "ar_step": ar_step,
+           "serve": serve}
 
 
 def main(argv=None):

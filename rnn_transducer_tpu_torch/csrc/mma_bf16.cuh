@@ -1,4 +1,5 @@
-// Warp-level bf16 tensor-core product for the joint kernels (sm_80+).
+// Warp-level bf16 tensor-core product for the joint kernels (sm_80+), and
+// the int8 one of the W8A8 LSTM.
 //
 // mma_16816: D (16 x 8, f32) += A (16 x 16, bf16, row-major) . B (16 x 8,
 // bf16, column-major), one `mma.sync.aligned.m16n8k16` per call, fp32
@@ -116,6 +117,46 @@ __device__ __forceinline__ void frag_b(uint32_t (&b)[2],
   const __nv_bfloat16* p = base + (size_t)(n0 + g) * pitch + k0 + 2 * q;
   b[0] = ld32(p);
   b[1] = ld32(p + 8);
+}
+
+// The int8 product of the W8A8 LSTM (lstm_fwd_q.cu): D (16 x 8, s32) += A
+// (16 x 32, s8, row-major) . B (32 x 8, s8, column-major), one
+// `mma.sync.aligned.m16n8k32`, exact in int32. Its fragments have the byte
+// layout of the bf16 ones above: each 32-bit register holds four int8 of
+// consecutive k (the lowest k in the low byte) where it holds two bf16, so
+// every k index doubles:
+//   A  a[0] = (row g,     cols 4q .. 4q+3)    a[1] = (row g + 8, same)
+//      a[2] = (row g,     cols 4q+16 .. 4q+19) a[3] = (row g + 8, same)
+//   B  b[0] = (rows 4q .. 4q+3, col g)         b[1] = (rows 4q+16 .. 4q+19)
+//   D  as above, in s32.
+// `frag_a` on an int8 tile loads A with the bf16 addressing: row-major, a
+// row pitch of 4 (mod 32) words. (K7 builds its B fragments from an f32
+// stage, quantizing them as it reads.)
+__device__ __forceinline__ void mma_16832_s8(int (&d)[4],
+                                             const uint32_t (&a)[4],
+                                             const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ uint32_t ld32(const int8_t* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// A fragment of rows r0..r0+15, cols k0..k0+31 of a row-major int8 tile
+// with `pitch` bytes per row (pitch and k0 multiples of 4).
+__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const int8_t* base,
+                                       int pitch, int r0, int k0, int lane) {
+  const int g = lane >> 2;
+  const int q = lane & 3;
+  const int8_t* p = base + (size_t)(r0 + g) * pitch + k0 + 4 * q;
+  a[0] = ld32(p);
+  a[1] = ld32(p + 8 * pitch);
+  a[2] = ld32(p + 16);
+  a[3] = ld32(p + 8 * pitch + 16);
 }
 
 constexpr int kMmaThreads = 256;

@@ -9,17 +9,19 @@
   * `csrc/lstm_bwd.cu` (K4-bwd) replaces `_lstm_core_bwd` and
     `_lstm_core_bwd_v2`: `lstm_recurrence_bwd`.
 
-Both kernels are one persistent cooperative launch per layer call. Each
-block keeps its slice of W_hh in shared memory for the whole launch, as
-the TPU kernels keep W_hh in VMEM (the forward the 4 gate columns of its
-hidden units, the backward the rows of its units), and the blocks hand
-each step's rounded values to one another (round(h) forward, round(dgates)
-backward) through an exchange buffer in device memory, one grid barrier a
-step (`csrc/grid_barrier.cuh`). One planner, `lstm_plan`, plain Python,
-places either direction's tile (`fwd_plan`, `bwd_plan`): units and batch
-rows a block, the grid (one wave on the card) and the shared memory of
-that direction's layout; a shape it cannot place raises ValueError, and
-there is no other route on the card.
+Both kernels, and the W8A8 forward of `ops/lstm_int8_cuda.py` (K7,
+`csrc/lstm_fwd_q.cu`), are one persistent cooperative launch per layer
+call. Each block keeps its slice of W_hh in shared memory for the whole
+launch, as the TPU kernels keep W_hh in VMEM (the forward the 4 gate
+columns of its hidden units, the backward the rows of its units), and the
+blocks hand each step's values to one another (round(h) forward,
+round(dgates) backward, h in f32 and each row's max |h| in int8) through
+an exchange buffer in device memory, one grid barrier a step
+(`csrc/grid_barrier.cuh`). One planner, `lstm_plan`, plain Python,
+places each kernel's tile (`fwd_plan`, `bwd_plan`, `fwd_q_plan`): units
+and batch rows a block, the grid (one wave on the card) and the shared
+memory of that kernel's layout; a shape it cannot place raises
+ValueError, and there is no other route on the card.
 
 The TPU's dispatch gates (`supported`, `_w_hh_fits_vmem`, the batch and
 time tiles) are VMEM concerns and have no counterpart: every shape goes
@@ -216,47 +218,57 @@ def _check_bwd(acts, cs_prev, dhs, dcT, w_hh):
          ("w_hh", w_hh)))
 
 
-# The persistent kernels' fixed shape (csrc/lstm_fwd.cu, csrc/lstm_bwd.cu):
-# 8 warps a block, each thread owning at most 2 (row, unit) pairs; warp
-# tiles of 8 rows by the block's W slice in 16-row mma M-tiles (one of 8
-# rows for the backward's 8 units in f32; bf16: mma.sync; f32: the CUDA
-# cores in the same fragment layout); 32 or 16 units a block in bf16, 16
-# or 8 in f32; the reduction padded to 128 columns, 16 for each warp; 16
-# bytes of padding on every shared-memory row; 16 static bytes (the
+# The persistent kernels' fixed shape (csrc/lstm_fwd.cu, csrc/lstm_bwd.cu,
+# csrc/lstm_fwd_q.cu): 8 warps a block, each thread owning at most 2 (row,
+# unit) pairs; warp tiles of 8 rows by the block's W slice in 16-row mma
+# M-tiles (one of 8 rows for the backward's 8 units in f32; bf16:
+# mma.sync m16n8k16; int8: m16n8k32; f32: the CUDA cores in the same
+# fragment layout); 32 or 16 units a block in bf16 and int8, 16 or 8 in
+# f32; the reduction padded to 16 columns a warp (128), int8's to 32 (256);
+# 16 bytes of padding on every shared-memory row; 16 static bytes (the
 # mbarrier).
 LSTM_THREADS = 256
 _WARPS = LSTM_THREADS // 32
 _PAIRS = 2
 _TILE_N = 8
-_K_ALIGN = 128
 _PAD_BYTES = 16
 _STATIC_SMEM = 16
-_UNITS = {torch.bfloat16: (32, 16), torch.float32: (16, 8)}
-# Each direction's product, as (W slice rows a unit, reduction columns an
-# H): the forward's gates = round(h) . W_hh takes the 4 gate columns of
-# each unit over H; the backward's dh = round(dgates) . W_hh^T takes the
-# unit's row of W_hh over 4H. The warps' partial sums have a column for
-# each W slice row.
-_SLICES = {"fwd": (4, 1), "bwd": (1, 4)}
+_UNITS = {torch.bfloat16: (32, 16), torch.float32: (16, 8),
+          torch.int8: (32, 16)}
+# Each kernel's product, as (W slice rows a unit, reduction columns an H,
+# the reduction's alignment): the forward's gates = round(h) . W_hh takes
+# the 4 gate columns of each unit over H; the backward's dh = round(dgates)
+# . W_hh^T takes the unit's row of W_hh over 4H; the int8 forward ("fwd_q")
+# takes the forward's slice of int8 Wq against h quantized per batch tile
+# (32 columns a warp for the int8 mma's k). The warps' partial sums (f32,
+# or int32) have a column for each W slice row.
+_SLICES = {"fwd": (4, 1, 128), "bwd": (1, 4, 128), "fwd_q": (4, 1, 256)}
+# The int8 forward stages h_{t-1} in f32 (16 floats of padding a row) and
+# quantizes it as the warps read their fragments, and keeps each warp's
+# max |h| of each batch tile (at most 4 tiles a block's rows meet).
+_Q_STAGE_PAD = 16
+_Q_TILE_BYTES = _WARPS * 4 * 4
 
 
 @dataclasses.dataclass(frozen=True)
 class LstmPlan:
-    """The tile of one `lstm_fwd` or `lstm_bwd` launch (`direction`).
-    Block (x, y) of the grid owns the hidden units x*units .. and the batch
-    rows y*rows .. (`owned`); it keeps its W_hh slice in shared memory and
-    stages the exchanged values of its rows (round(h) forward,
-    round(dgates) backward) `stage_rows` by `stage_cols` at a time."""
+    """The tile of one `lstm_fwd`, `lstm_bwd` or `lstm_fwd_q` launch
+    (`direction` "fwd", "bwd" or "fwd_q"). Block (x, y) of the grid owns
+    the hidden units x*units .. and the batch rows y*rows .. (`owned`); it
+    keeps its W_hh slice in shared memory and stages the exchanged values
+    of its rows (round(h) forward, round(dgates) backward, h in f32 for
+    the int8 forward, which quantizes it) `stage_rows` by `stage_cols` at
+    a time."""
 
-    direction: str    # "fwd" or "bwd"
+    direction: str    # "fwd", "bwd" or "fwd_q"
     B: int
     H: int
     units: int        # UB
     rows: int         # RB
     stage_rows: int   # SR, a multiple of 8 dividing rows
-    stage_cols: int   # KC, a multiple of 128 dividing k_pad
-    k_pad: int        # the reduction (H or 4H) rounded up to 128: the
-                      # exchange buffer's row
+    stage_cols: int   # KC, a multiple of 128 (int8: 256) dividing k_pad
+    k_pad: int        # the reduction (H or 4H) rounded up to 128 (int8:
+                      # 256): the exchange buffer's row
     grid: tuple[int, int]
     smem_bytes: int
     threads: int = LSTM_THREADS
@@ -277,19 +289,24 @@ def _smem(direction, units, rows, stage_rows, stage_cols, k_pad,
           w_bytes) -> int:
     """Shared bytes of a block: the W_hh slice, the stage and the warps'
     partial sums, as the kernel of `direction` lays them out, and its
-    mbarrier."""
+    mbarrier (the int8 forward: an f32 stage and the tiles' maxima)."""
     slice_rows = _SLICES[direction][0] * units
     pad = _PAD_BYTES // w_bytes
-    return ((slice_rows * (k_pad + pad) + stage_rows * (stage_cols + pad))
-            * w_bytes + _WARPS * rows * slice_rows * 4 + _STATIC_SMEM)
+    if direction == "fwd_q":
+        stage = stage_rows * (stage_cols + _Q_STAGE_PAD) * 4 + _Q_TILE_BYTES
+    else:
+        stage = stage_rows * (stage_cols + pad) * w_bytes
+    return (slice_rows * (k_pad + pad) * w_bytes + stage
+            + _WARPS * rows * slice_rows * 4 + _STATIC_SMEM)
 
 
 @functools.lru_cache(maxsize=None)
 def lstm_plan(direction: str, B: int, H: int, w_dtype: torch.dtype,
               n_sm: int, smem_per_block: int) -> LstmPlan:
-    """Place the tile of the `direction` ("fwd" or "bwd") kernel for B
-    rows, H hidden units and W_hh in `w_dtype` on a card of `n_sm` SMs
-    with `smem_per_block` bytes of shared memory a block.
+    """Place the tile of the `direction` ("fwd", "bwd", or "fwd_q" with
+    int8 W_hh) kernel for B rows, H hidden units and W_hh in `w_dtype` on
+    a card of `n_sm` SMs with `smem_per_block` bytes of shared memory a
+    block.
 
     Every block must be resident at once (one block per SM: grid <=
     n_sm), own at most 2 pairs a thread and fit its W slice, one stage and
@@ -300,12 +317,14 @@ def lstm_plan(direction: str, B: int, H: int, w_dtype: torch.dtype,
     (units x rows), then the fewest stage passes. Raises ValueError when
     none fits.
     """
-    if w_dtype not in _UNITS:
-        raise TypeError(f"w_hh must be float32 or bfloat16; got {w_dtype}")
+    if (direction == "fwd_q") != (w_dtype == torch.int8) or (
+            w_dtype not in _UNITS):
+        raise TypeError(f"lstm_{direction} takes no w_hh in {w_dtype}")
     if B < 1 or H < 1:
         raise ValueError(f"lstm_{direction}: empty shape B={B}, H={H}")
-    w_bytes = 2 if w_dtype == torch.bfloat16 else 4
-    k_pad = -(-_SLICES[direction][1] * H // _K_ALIGN) * _K_ALIGN
+    w_bytes = torch.empty((), dtype=w_dtype).element_size()
+    _, k_per_h, k_align = _SLICES[direction]
+    k_pad = -(-k_per_h * H // k_align) * k_align
     best, best_key = None, None
     for units in _UNITS[w_dtype]:
         rows = _TILE_N
@@ -313,7 +332,7 @@ def lstm_plan(direction: str, B: int, H: int, w_dtype: torch.dtype,
             grid = (-(-H // units), -(-B // rows))
             if (grid[0] * grid[1] <= n_sm
                     and rows * units <= _PAIRS * LSTM_THREADS):
-                for sr, kc in _stages(rows, k_pad):
+                for sr, kc in _stages(rows, k_pad, k_align):
                     smem = _smem(direction, units, rows, sr, kc, k_pad,
                                  w_bytes)
                     if smem > smem_per_block:
@@ -347,11 +366,18 @@ def bwd_plan(B: int, H: int, w_dtype: torch.dtype, n_sm: int,
     return lstm_plan("bwd", B, H, w_dtype, n_sm, smem_per_block)
 
 
-def _stages(rows: int, k_pad: int) -> list[tuple[int, int]]:
+def fwd_q_plan(B: int, H: int, n_sm: int, smem_per_block: int) -> LstmPlan:
+    """The int8 forward kernel's tile (`lstm_plan`), for B rows of whole
+    batch tiles (`lstm_int8_cuda.groups` splits a batch that one wave
+    cannot hold)."""
+    return lstm_plan("fwd_q", B, H, torch.int8, n_sm, smem_per_block)
+
+
+def _stages(rows: int, k_pad: int, k_align: int) -> list[tuple[int, int]]:
     """(stage rows, stage columns) that tile rows x k_pad, fewest passes
     first, whole rows before split ones."""
     srs = [sr for sr in range(_TILE_N, rows + 1, _TILE_N) if rows % sr == 0]
-    kcs = [kc for kc in range(_K_ALIGN, k_pad + 1, _K_ALIGN)
+    kcs = [kc for kc in range(k_align, k_pad + 1, k_align)
            if k_pad % kc == 0]
     return sorted(((sr, kc) for sr in srs for kc in kcs),
                   key=lambda s: ((rows // s[0]) * (k_pad // s[1]), -s[1]))
@@ -370,18 +396,25 @@ def card_limits(index: int) -> tuple[int, int, bool]:
     return n_sm.value, smem.value, bool(coop.value)
 
 
-def device_plan(direction: str, B: int, H: int, w_dtype: torch.dtype,
-                device) -> LstmPlan:
-    """`lstm_plan` on the limits of the CUDA card `device`; raises if the
-    card takes no cooperative launch."""
+def device_limits(device, what: str) -> tuple[int, int]:
+    """SMs and opt-in shared bytes a block of the CUDA card `device`;
+    raises if the card takes no cooperative launch, which `what` needs."""
     device = torch.device(device)
     index = (device.index if device.index is not None
              else torch.cuda.current_device())
     n_sm, smem, coop = card_limits(index)
     if not coop:
         raise RuntimeError(f"card {index} takes no cooperative launch, "
-                           f"which lstm_{direction} needs")
-    return lstm_plan(direction, B, H, w_dtype, n_sm, smem)
+                           f"which {what} needs")
+    return n_sm, smem
+
+
+def device_plan(direction: str, B: int, H: int, w_dtype: torch.dtype,
+                device) -> LstmPlan:
+    """`lstm_plan` on the limits of the CUDA card `device`; raises if the
+    card takes no cooperative launch."""
+    return lstm_plan(direction, B, H, w_dtype,
+                     *device_limits(device, f"lstm_{direction}"))
 
 
 def device_fwd_plan(B: int, H: int, w_dtype: torch.dtype,

@@ -16,6 +16,15 @@ tile share one amax. `batch_tile` copies the JAX package's `_tile_bt_v2`
 rule, so at serving B = 8 the whole padded batch, pad rows included,
 shares one scale, as on the TPU.
 
+The kernel is one persistent cooperative launch a layer on K4-fwd's
+design, its tile from `lstm_cuda.fwd_q_plan`: each block keeps its int8
+slice of wq in shared memory, and each step the blocks exchange h_t in f32
+and each row's max |h_t| over their units, from which every block takes
+its batch tiles' amax after the step's grid barrier. A batch tile cannot
+be split (its rows share the scale), so where one wave cannot hold the
+whole batch, `groups` runs it as the fewest groups of whole batch tiles
+that it can: one launch a group, in order.
+
 `lstm_recurrence_int8` launches the kernel for a CUDA tensor and runs
 `lstm_recurrence_int8_reference` for a CPU tensor; it never falls back
 from one to the other. `LAUNCHES` counts the calls that launched the
@@ -24,10 +33,12 @@ kernel. Inference only: nothing here records an autograd graph.
 
 from __future__ import annotations
 
+import functools
 import threading
 
 import torch
 
+from rnn_transducer_tpu_torch.ops import lstm_cuda
 from rnn_transducer_tpu_torch.utils import build
 
 LAUNCHES = 0  # calls (one per layer) that launched lstm_fwd_q
@@ -45,6 +56,48 @@ def batch_tile(B: int, H: int) -> int:
             if B % bt == 0:
                 return bt
     return min(B, 8)
+
+
+@functools.lru_cache(maxsize=None)
+def groups(B: int, H: int, n_sm: int,
+           smem_per_block: int) -> tuple[tuple[int, int, lstm_cuda.LstmPlan],
+                                         ...]:
+    """The launches of a B-row batch on a card of `n_sm` SMs with
+    `smem_per_block` shared bytes a block: (first row, end row, tile)
+    each, in order, the fewest groups of whole batch tiles that
+    `lstm_cuda.fwd_q_plan` places in one wave (one group where it places
+    the batch). Raises ValueError where it cannot place one batch tile."""
+    bt = batch_tile(B, H)
+    per = B // bt  # batch tiles a group: the most that one wave holds
+    while True:
+        try:
+            lstm_cuda.fwd_q_plan(per * bt, H, n_sm, smem_per_block)
+            break
+        except ValueError:
+            if per <= 1:
+                raise
+            per -= 1
+    rows = per * bt
+    return tuple((b, min(B, b + rows),
+                  lstm_cuda.fwd_q_plan(min(B, b + rows) - b, H, n_sm,
+                                       smem_per_block))
+                 for b in range(0, B, rows))
+
+
+def device_groups(B: int, H: int, device):
+    """`groups` on the limits of the CUDA card `device`."""
+    return groups(B, H, *lstm_cuda.device_limits(device, "lstm_fwd_q"))
+
+
+def _exchange_buffer(plan: lstm_cuda.LstmPlan, dev):
+    """The zeroed exchange buffer of a launch on `plan`: h of the last two
+    steps, (2, grid.y * rows, k_pad) f32 (rows past B and columns past H
+    stay zero), the amax slots (2, grid.y * rows, grid.x) f32 (a block's
+    max |h| of a row over its units), then 16 bytes for the grid
+    barrier's counter."""
+    bp = plan.grid[1] * plan.rows
+    return torch.zeros(2 * bp * plan.k_pad + 2 * bp * plan.grid[0] + 4,
+                       dtype=torch.float32, device=dev)
 
 
 def _check(x_proj, wq, scale, h0, c0):
@@ -98,13 +151,15 @@ def lstm_recurrence_int8(x_proj, wq, scale, h0, c0):
     fn = build.load_library()
     hs = torch.empty((B, T, H), dtype=torch.float32, device=dev)
     c = torch.empty((B, H), dtype=torch.float32, device=dev)
-    w_packed = torch.empty((H // 4, H4), dtype=torch.int32, device=dev)
-    err = fn.lstm_fwd_q(
-        x_proj.data_ptr(), int(x_proj.dtype == torch.bfloat16),
-        wq.data_ptr(), scale.data_ptr(), h0.data_ptr(), c0.data_ptr(),
-        w_packed.data_ptr(), hs.data_ptr(), c.data_ptr(), B, T, H,
-        batch_tile(B, H), *build.stream_args(dev))
-    build.check_launch(fn, err, "lstm_fwd_q")
+    for b0, b1, plan in device_groups(B, H, dev):
+        err = fn.lstm_fwd_q(
+            x_proj[b0:b1].data_ptr(), int(x_proj.dtype == torch.bfloat16),
+            wq.data_ptr(), scale.data_ptr(), h0[b0:b1].data_ptr(),
+            c0[b0:b1].data_ptr(), hs[b0:b1].data_ptr(), c[b0:b1].data_ptr(),
+            _exchange_buffer(plan, dev).data_ptr(), b1 - b0, T, H,
+            batch_tile(B, H), plan.units, plan.rows, plan.stage_rows,
+            plan.stage_cols, *build.stream_args(dev))
+        build.check_launch(fn, err, "lstm_fwd_q")
     with _launches_lock:
         LAUNCHES += 1
     return hs, (hs[:, T - 1], c)
@@ -118,13 +173,14 @@ def lstm_recurrence_int8_reference(x_proj, wq, scale, h0, c0):
     _check(x_proj, wq, scale, h0, c0)
     B, T, H4 = x_proj.shape
     H = H4 // 4
-    nb = B // batch_tile(B, H)
+    bt = batch_tile(B, H)
+    nb = B // bt
     w = wq.double()
     h, c = h0, c0
     hs = torch.empty((B, T, H), dtype=torch.float32, device=x_proj.device)
     for t in range(T):
         ht = h.reshape(nb, -1, H)
-        amax = ht.abs().amax(dim=(1, 2), keepdim=True).clamp_min(1e-6)
+        amax = tile_amax(h, bt)
         # tensor by tensor: PyTorch turns a division by (or of) a Python
         # scalar into a product with a reciprocal, which rounds otherwise
         c127 = torch.full_like(amax, 127.0)
@@ -137,3 +193,11 @@ def lstm_recurrence_int8_reference(x_proj, wq, scale, h0, c0):
         h = torch.sigmoid(o) * torch.tanh(c)
         hs[:, t] = h
     return hs, (h, c)
+
+
+def tile_amax(h, bt: int):
+    """max(max |h| over each batch tile of `bt` rows and all H units,
+    1e-6): (B / bt, 1, 1), the requantization's amax of one step."""
+    B, H = h.shape
+    return h.reshape(B // bt, bt, H).abs().amax(
+        dim=(1, 2), keepdim=True).clamp_min(1e-6)

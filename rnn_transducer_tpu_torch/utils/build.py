@@ -97,10 +97,10 @@ SIGNATURES = {
     # blank, device, stream
     "assemble_grad": (_I, [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                            _I, _P]),
-    # x_proj, x_is_bf16, wq, scale, h0, c0, w_packed, hs, c, B, T, H, BT,
-    # device, stream
+    # x_proj, x_is_bf16, wq, scale, h0, c0, hs, c, xbuf, B, T, H, BT,
+    # units, rows, stage_rows, stage_cols, device, stream
     "lstm_fwd_q": (_I, [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                        _I, _P]),
+                        _I, _I, _I, _I, _I, _P]),
     # f, lens, embed, w_ih, w_hh, b, wp, bp, wo, bo, tokens, steps, B, T, E,
     # H, J, V, U_max, blank, cd_is_bf16, device, stream
     "greedy_fused": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

@@ -714,34 +714,99 @@ def test_cuda_two_pass_loss_matches_the_cpu(cuda_device):
     assert lk[1] == 0.0 and not gk[1].any()
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype, atol", [(torch.float32, 1e-4),
-                                         (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("B", [8, 16, 32])
-def test_cuda_lstm_int8_matches_reference(cuda_device, dtype, atol, B):
-    """K7 at batch tiles of 8, 16 and 32 rows (each its own amax), ragged
-    T, nonzero h0/c0. Both sides take the same rounded operations, so
-    they differ only where CUDA's and PyTorch's expf / tanhf do, and a
-    last-bit difference of h flips one requantized int8 value only at a
-    .5 boundary."""
-    from rnn_transducer_tpu_torch.ops import lstm_int8_cuda as q8
+def _int8_args(B, T, H, dtype, device):
+    """x_proj in `dtype`, wq and its scale from quantize_tensor, nonzero
+    h0 and c0, on `device`."""
     from rnn_transducer_tpu_torch.ops.quant import quantize_tensor
-    H, T = 512, 37
     g = torch.Generator().manual_seed(B)
-    qw = quantize_tensor(torch.rand(H, 4 * H, generator=g) * 0.088 - 0.044)
+    qw = quantize_tensor((torch.rand(H, 4 * H, generator=g) * 2 - 1)
+                         / H ** 0.5)
     x = torch.randn(B, T, 4 * H, generator=g).to(dtype)
     h0 = 0.5 * torch.randn(B, H, generator=g)
     c0 = torch.randn(B, H, generator=g)
-    args = [a.contiguous().to(cuda_device)
-            for a in (x, qw.q, qw.scale, h0, c0)]
-    assert q8.batch_tile(B, H) == B
+    return [a.contiguous().to(device) for a in (x, qw.q, qw.scale, h0, c0)]
+
+
+# (B, T, H, batch tile, groups): batch tiles of 8, 16 and 32 rows; B=24,
+# three 8-row tiles; B=72, two 8-row tiles a block of 16 rows; B=64, one
+# tile across several row blocks, so the amax crosses blocks; H=1024; T=1;
+# B=3 with H % 16 != 0 (one 3-row tile, Wq loaded a byte at a time); and
+# B=256, which one wave does not hold: two groups of two 64-row tiles.
+INT8_SHAPES = [(8, 37, 512, 8, 1), (16, 37, 512, 16, 1),
+               (32, 37, 512, 32, 1), (24, 37, 512, 8, 1),
+               (72, 21, 512, 8, 1), (64, 37, 512, 64, 1),
+               (8, 37, 1024, 8, 1), (8, 1, 512, 8, 1), (3, 9, 100, 3, 1),
+               (256, 5, 512, 64, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, atol", [(torch.float32, 1e-4),
+                                         (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("B, T, H, bt, n_groups", INT8_SHAPES)
+def test_cuda_lstm_int8_matches_reference(cuda_device, dtype, atol, B, T, H,
+                                          bt, n_groups):
+    """K7 at each batch tile (its own amax), ragged T, nonzero h0/c0, run
+    twice for the same bits. Both sides take the same rounded operations,
+    so they differ only where CUDA's and PyTorch's expf / tanhf do, and a
+    last-bit difference of h flips one requantized int8 value only at a
+    .5 boundary."""
+    from rnn_transducer_tpu_torch.ops import lstm_int8_cuda as q8
+    args = _int8_args(B, T, H, dtype, cuda_device)
+    assert q8.batch_tile(B, H) == bt
+    assert len(q8.device_groups(B, H, cuda_device)) == n_groups
     before = q8.LAUNCHES
     hs, (hT, cT) = q8.lstm_recurrence_int8(*args)
+    again, (_, cT_again) = q8.lstm_recurrence_int8(*args)
     torch.cuda.synchronize()
-    assert q8.LAUNCHES == before + 1
+    assert q8.LAUNCHES == before + 2
+    assert torch.equal(hs, again) and torch.equal(cT, cT_again)
     hs_r, (hT_r, cT_r) = q8.lstm_recurrence_int8_reference(*args)
     for got, want in ((hs, hs_r), (hT, hT_r), (cT, cT_r)):
         torch.testing.assert_close(got, want, rtol=0, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B, n_groups", [(8, 1), (256, 2)])
+def test_cuda_lstm_int8_is_one_launch_a_group(cuda_device, B, n_groups):
+    """A layer call is one persistent kernel a group of batch tiles,
+    whatever T: the profiler sees one lstm_q_persistent_kernel a group and
+    no other kernel of lstm_fwd_q.cu."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rnn_transducer_tpu_torch.ops import lstm_int8_cuda as q8
+    args = _int8_args(B, 9, 512, torch.bfloat16, cuda_device)
+    q8.lstm_recurrence_int8(*args)  # warm: build, plan, caches
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _pad_profiler_window()
+        for _ in range(2):
+            q8.lstm_recurrence_int8(*args)
+        torch.cuda.synchronize()
+        _pad_profiler_window()
+    counts = {}
+    for e in prof.key_averages():
+        if "lstm_q" in e.key:
+            counts[e.key] = counts.get(e.key, 0) + e.count
+    assert all("lstm_q_persistent_kernel" in k for k in counts), counts
+    assert sum(counts.values()) == 2 * n_groups, counts
+
+
+@pytest.mark.cuda
+def test_cuda_lstm_int8_refuses_a_tile_it_cannot_place(cuda_device):
+    """At H=4096 one 8-row batch tile needs 256 blocks of 16 units, more
+    than one wave: the wrapper raises and launches nothing."""
+    from rnn_transducer_tpu_torch.ops import lstm_int8_cuda as q8
+    H = 4096
+    args = [torch.zeros(8, 1, 4 * H, device=cuda_device),
+            torch.zeros(H, 4 * H, dtype=torch.int8, device=cuda_device),
+            torch.ones(1, 4 * H, device=cuda_device),
+            torch.zeros(8, H, device=cuda_device),
+            torch.zeros(8, H, device=cuda_device)]
+    before = q8.LAUNCHES
+    with pytest.raises(ValueError, match="lstm_fwd_q.*B=8, H=4096"):
+        q8.lstm_recurrence_int8(*args)
+    assert q8.LAUNCHES == before
 
 
 def _greedy_inputs(B, T, E, H, J, V, device, seed=0):
