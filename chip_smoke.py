@@ -41,8 +41,11 @@ Phases, in order:
             two runs giving identical bits, one lstm_q_persistent_kernel a
             call by the profiler and its step fit) at the serving shapes
             and at batch tiles of 16 and 32 rows; the fused greedy decode
-            (greedy_fused) on one served batch against its plain version
-            and the lock-step loop;
+            (greedy_fused: the weights' pack and one cluster of 16 blocks
+            an utterance, both named by the profiler, with its cluster
+            plan, µs a step of the longest row and the digests of tokens
+            and steps) on one served batch against its plain version and
+            the lock-step loop;
             the fused LayerNorm (fused_ln fwd and bwd, act none and silu)
             at the conformer's serving and training rows, N = 1600 and
             6400, D = 512, against the plain LayerNorm and its autograd,
@@ -116,6 +119,7 @@ import argparse
 import concurrent.futures
 import contextlib
 import dataclasses
+import hashlib
 import io
 import itertools
 import json
@@ -982,11 +986,25 @@ def lstm_int8_vs_plain(rng: np.random.Generator, dev) -> dict:
     return {"rows": rows, "max_abs_err": worst, "main": main}
 
 
+K9_KERNELS = ("greedy_pack_kernel", "greedy_cluster_kernel")
+
+
+def sha(t: torch.Tensor) -> str:
+    """The first 16 hex digits of the sha256 of a tensor's bytes: its bits,
+    to compare checkouts run on the same inputs."""
+    return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
+
+
 def greedy_fused_vs_plain(serving: dict, dev) -> dict:
     """greedy_fused (K9) against its plain version on one served batch (the
     first max_batch utterances at the 800-frame bucket, max_symbols 100),
     in f32 (identical tokens and steps) and bf16 (agreement reported), and
-    the lock-step greedy_decode on the same encoder output."""
+    the lock-step greedy_decode on the same encoder output. A call is two
+    launches, the weights' pack and the cluster kernel, named and timed by
+    torch.profiler; with its cluster plan, the clusters the card holds at
+    once, `max_steps` (the longest row's loop), `us_per_step` (the cluster
+    kernel's device time over it) and the sha256 digests of tokens and
+    steps."""
     cfg, params = serving["cfg"], serving["params"]
     feats, lens = served_batch(serving, dev)
     rows = {}
@@ -1002,32 +1020,50 @@ def greedy_fused_vs_plain(serving: dict, dev) -> dict:
             kt, pt = timed_pair(lambda: gf.greedy_fused_tokens(*args),
                                 lambda: gf.greedy_fused_tokens_reference(
                                     *args))
+            by_name = kernel_ms_by_name(
+                lambda: gf.greedy_fused_tokens(*args), K9_KERNELS)
+            dev_ms = device_ms(lambda: gf.greedy_fused_tokens(*args), reps=5)
             lockstep = statistics.mean(
                 cuda_ms(lambda: greedy_decode(params, c, enc, enc_lens,
                                               MAX_SYMBOLS)) for _ in range(2))
         E, H = weights[0].shape[1], weights[2].shape[0]
         J, V = f.shape[2], weights[0].shape[0]
+        plan = gf.cluster_plan(E, H, J, V)
         n_tok = int((got[0] != cfg.blank).sum())
         n_steps = int(got[1].sum())
+        max_steps = int(got[1].max())
         # each step the joint's output product; each emission (and the
         # start symbol) the predictor cell and its projection
         ops = (2 * n_steps * J * V
                + 2 * (n_tok + f.shape[0]) * ((E + H) * 4 * H + H * J))
         row = {"dtype": cd, "B": f.shape[0], "T": f.shape[1], "J": J,
                "V": V, "max_symbols": MAX_SYMBOLS,
+               "plan": {"C": plan.C, "wo_resident": plan.wo_resident,
+                        "wp_resident": plan.wp_resident,
+                        "ring_slots": plan.slots,
+                        "slot_bytes": plan.slot_bytes,
+                        "smem_bytes": plan.smem_bytes},
+               "clusters_at_once": gf.device_clusters(plan, dev),
                "tokens_identical": torch.equal(got[0], want[0]),
                "steps_identical": torch.equal(got[1], want[1]),
                "row_agreement": float((got[0] == want[0]).all(1).float()
                                       .mean()),
                "max_abs_err": float((got[0] - want[0]).abs().max()),
-               "tokens": n_tok, "steps": n_steps, "kernel_ms": kt,
+               "tokens": n_tok, "steps": n_steps, "max_steps": max_steps,
+               "kernel_ms": kt, "device_ms": dev_ms, "kernels": by_name,
+               "us_per_step": by_name["greedy_cluster_kernel"] * 1e3
+               / max(max_steps, 1),
                "plain_ms": pt, "lockstep_ms": lockstep,
+               "digest": {"tokens": sha(got[0]), "steps": sha(got[1])},
                **bound(nbytes(args[:3], got), ops, torch.float32)}
         print("kernel greedy_fused " + json.dumps(row))
         if cd == "float32":
             check(row["tokens_identical"] and row["steps_identical"],
                   "greedy_fused f32: tokens or steps differ from the plain "
                   "version")
+        check(all(by_name[k] > 0 for k in K9_KERNELS),
+              f"greedy_fused {cd}: the profiler saw {by_name}, not the pack "
+              "and the cluster kernel")
         rows[cd] = row
     return {"rows": rows, "main": rows["bfloat16"],
             "max_abs_err": rows["float32"]["max_abs_err"]}
@@ -2551,7 +2587,7 @@ def main(argv=None):
         kernel_entry("greedy_fused", "greedy_fused.cu", f"{gp}:107",
                      fused["launches"], kg["max_abs_err"],
                      kg["main"]["kernel_ms"], kg["main"]["plain_ms"],
-                     kg["main"]),
+                     kg["main"], kernel=" + ".join(K9_KERNELS)),
         kernel_entry("fused_ln_fwd", "fused_ln.cu", f"{fp}:118",
                      e2e_c["launches"], kln["worst"]["fwd"],
                      lnm["fwd_kernel_ms"], lnm["fwd_plain_ms"],

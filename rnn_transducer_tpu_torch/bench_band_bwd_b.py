@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """The band joint's kernels (K6-fwd, its log-probs; K6-A and K6-B, its dz
 and dW / db), the fused joint's forward and backward (K1, K2), the LSTM
-forward (K4-fwd), the W8A8 LSTM recurrence (K7) and the training steps
-and served requests that run them, timed on one CUDA card for one or more
-checkouts of this repository, in turns.
+forward (K4-fwd), the W8A8 LSTM recurrence (K7), the one-launch greedy
+decode (K9) and the training steps and served requests that run them,
+timed on one CUDA card for one or more checkouts of this repository, in
+turns.
 
     python3 -m rnn_transducer_tpu_torch.bench_band_bwd_b \
         [--trees DIR [DIR ...]] [--parts PART [PART ...]] [--out RESULTS.json]
@@ -13,7 +14,7 @@ in the order given (default: this checkout), so that two versions of the
 kernels are compared on one card: pass `--trees OLD NEW NEW OLD`. A
 process puts the tree's root first on the import path (its package and
 its chip_smoke.py), builds that tree's kernels, then runs the parts
-(default: all twelve, in this order):
+(default: all thirteen, in this order):
 
   band_fwd     holds `band_lp_fwd` (lp_blank, lp_y, base) against its
                plain version at the pruned step's band (B=32, T'=200, S=8,
@@ -73,6 +74,16 @@ its chip_smoke.py), builds that tree's kernels, then runs the parts
                `device_groups`; then `step_fit` of K7 at B=8, H=512 in
                bf16 and f32, and chip_smoke's 24 requests served to an
                engine holding quantize_params: p50, p95 and K7's calls;
+  greedy_fused holds `greedy_fused_tokens` (K9) against its plain version
+               at chip_smoke's served batch (B=8 utterances at the
+               800-frame bucket, max_symbols 100) in bf16 and f32 (tokens
+               and steps equal to the plain version's, two runs bit for
+               bit, the sha256 digests of tokens and steps, which the
+               parent's must equal), and times it at B = 1, 8 and 16 in
+               bf16: device ms a call behind a spin kernel, twice, its
+               kernels by name (torch.profiler), the longest row's steps
+               and µs a step; where the tree has `cluster_plan`, the plan
+               and the clusters the card holds at once;
   ar_step      trains the alignment-restricted band (ar_range 8) at
                libri100's B=32, T=400, U=40, then profiles one step;
   serve        serves chip_smoke's 24 requests at libri100 width to a
@@ -98,7 +109,7 @@ import sys
 
 PARTS = ("band_fwd", "band_bwd_a", "band_bwd_b", "pruned_step", "joint_fwd",
          "joint_bwd", "train_step", "conformer_step", "lstm_fwd",
-         "lstm_int8", "ar_step", "serve")
+         "lstm_int8", "greedy_fused", "ar_step", "serve")
 
 
 def one(root: str, parts) -> dict:
@@ -623,6 +634,90 @@ def step_fit(device_ms, dev, cd, B: int = 8, H: int = 512,
             "fixed_us": (mm - slope * mt) * 1e3}
 
 
+def greedy_batch(cs, serving, n: int, dev):
+    """The first n served utterances padded to the largest bucket, as the
+    engine pads a batch: feats (n, 800, 80) and lengths."""
+    import numpy as np
+    import torch
+
+    feats = np.zeros((n, cs.BUCKETS[-1], serving["cfg"].input_dim),
+                     np.float32)
+    lens = np.zeros((n,), np.int32)
+    for i in range(n):
+        feats[i, :serving["lengths"][i]] = serving["utts"][i]
+        lens[i] = serving["lengths"][i]
+    return torch.from_numpy(feats).to(dev), torch.from_numpy(lens).to(dev)
+
+
+def greedy_fused(cs, dev) -> dict:
+    """The greedy_fused part: K9 on chip_smoke's served batches (B = 1, 8,
+    16 utterances at the 800-frame bucket, max_symbols 100), bf16 and
+    f32."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from rnn_transducer_tpu_torch.decode import greedy_fused as gf
+    from rnn_transducer_tpu_torch.models import transducer as m
+
+    serving = cs.serving_setup(0, 24, dev)
+    cfg, params = serving["cfg"], serving["params"]
+    rows = []
+    for n in (8, 1, 16):
+        feats, lens = greedy_batch(cs, serving, n, dev)
+        for cd in (("bfloat16", "float32") if n == 8 else ("bfloat16",)):
+            c = dataclasses.replace(cfg, compute_dtype=cd)
+            with torch.inference_mode():
+                enc, enc_lens = m.encode(params, c, feats, lens)
+                f, flens, weights = gf.fused_inputs(params, c, enc, enc_lens)
+                args = (f, flens, weights, cs.MAX_SYMBOLS, cfg.blank,
+                        c.cdtype)
+                got = gf.greedy_fused_tokens(*args)
+                again = gf.greedy_fused_tokens(*args)
+                want = gf.greedy_fused_tokens_reference(*args)
+                torch.cuda.synchronize()
+                ms = [cs.device_ms(lambda: gf.greedy_fused_tokens(*args),
+                                   reps=5) for _ in range(2)]
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    cs.pad_profiler_window()
+                    gf.greedy_fused_tokens(*args)
+                    torch.cuda.synchronize()
+                    cs.pad_profiler_window()
+            kernels = {}
+            for evt in prof.key_averages():
+                if evt.device_type == DeviceType.CUDA and "greedy" in evt.key:
+                    kernels[evt.key[:60]] = getattr(
+                        evt, "self_device_time_total",
+                        getattr(evt, "self_cuda_time_total", 0)) / 1e3
+            max_steps = int(got[1].max())
+            row = {"B": n, "dtype": cd, "T": f.shape[1],
+                   "max_symbols": cs.MAX_SYMBOLS,
+                   "tokens_equal_plain": torch.equal(got[0], want[0]),
+                   "steps_equal_plain": torch.equal(got[1], want[1]),
+                   "row_agreement": float((got[0] == want[0]).all(1).float()
+                                          .mean()),
+                   "bitwise_repeat": all(torch.equal(a, b)
+                                         for a, b in zip(got, again)),
+                   # the outputs' bits, to compare trees on the same inputs
+                   "digest": {k: hashlib.sha256(
+                       v.cpu().numpy().tobytes()).hexdigest()[:16]
+                       for k, v in (("tokens", got[0]), ("steps", got[1]))},
+                   "tokens": int((got[0] != cfg.blank).sum()),
+                   "steps": got[1].tolist(), "max_steps": max_steps,
+                   "kernel_ms": ms, "kernels_ms": kernels,
+                   "us_per_step": min(ms) * 1e3 / max(max_steps, 1)}
+            if hasattr(gf, "cluster_plan"):
+                plan = gf.cluster_plan(weights[0].shape[1],
+                                       weights[2].shape[0], f.shape[2],
+                                       weights[0].shape[0])
+                row["plan"] = dataclasses.asdict(plan)
+                row["clusters_at_once"] = gf.device_clusters(plan, dev)
+            print("greedy_fused " + json.dumps(row), flush=True)
+            rows.append(row)
+    return {"rows": rows}
+
+
 def ar_step(cs, dev) -> dict:
     from rnn_transducer_tpu_torch.models.config import config_libri100
 
@@ -653,8 +748,8 @@ MEASURE = {"band_fwd": functools.partial(band, which="fwd"),
            "pruned_step": pruned_step, "joint_fwd": joint_fwd,
            "joint_bwd": joint_bwd, "train_step": train_step,
            "conformer_step": conformer_step,
-           "lstm_fwd": lstm_fwd, "lstm_int8": lstm_int8, "ar_step": ar_step,
-           "serve": serve}
+           "lstm_fwd": lstm_fwd, "lstm_int8": lstm_int8,
+           "greedy_fused": greedy_fused, "ar_step": ar_step, "serve": serve}
 
 
 def main(argv=None):

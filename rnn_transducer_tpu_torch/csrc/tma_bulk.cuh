@@ -2,8 +2,9 @@
 // mbarrier (sm_90), shared by the kernels that stage rows this way: the
 // LSTM forward and backward (lstm_fwd.cu, lstm_bwd.cu), the joints' kernel B (zb_ring.cuh, for
 // band_fused.cu and joint_bwd.cu) and the joints' kernel A and the band
-// joint's forward (wt_ring.cuh, for band_fused.cu and joint_bwd.cu). The
-// last two stream their chunks through `Ring2`, a two-slot ring.
+// joint's forward (wt_ring.cuh, for band_fused.cu and joint_bwd.cu), and
+// the greedy decode (greedy_fused.cu). The joints' kernels stream their
+// chunks through `Ring2`, a two-slot ring.
 //
 // A copy is issued by one thread after `mbar_init`; every thread that
 // reads the copied rows waits with `mbar_wait` on the barrier's phase.

@@ -101,10 +101,16 @@ SIGNATURES = {
     # units, rows, stage_rows, stage_cols, device, stream
     "lstm_fwd_q": (_I, [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                         _I, _I, _I, _I, _I, _P]),
-    # f, lens, embed, w_ih, w_hh, b, wp, bp, wo, bo, tokens, steps, B, T, E,
-    # H, J, V, U_max, blank, cd_is_bf16, device, stream
-    "greedy_fused": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                          _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+    # w_ih, w_hh, wp, wo, packed, E, H, J, V, C, g_chunk, p_chunk, o_chunk,
+    # device, stream
+    "greedy_pack": (_I, [_P] * 5 + [_I] * 9 + [_P]),
+    # f, lens, embed, w_ih, w_hh, b, wp, bp, wo, bo, packed, tokens, steps,
+    # B, T, E, H, J, V, U_max, blank, cd_is_bf16, C, wo_resident,
+    # wp_resident, f_slots, g_chunk, p_chunk, o_chunk, slots, slot_bytes,
+    # smem_bytes, device, stream
+    "greedy_cluster": (_I, [_P] * 13 + [_I] * 18 + [_LL, _I, _P]),
+    # C, smem_bytes, device -> clusters the card holds at once
+    "greedy_cluster_occupancy": (_I, [_I, _I, _I, _IP]),
     # x, g, b, y, mu, rstd, N, D, silu, device, stream
     "fused_ln_fwd": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     # N, D, rows_per_block -> rows of the backward's partial sums

@@ -810,13 +810,15 @@ def test_cuda_lstm_int8_refuses_a_tile_it_cannot_place(cuda_device):
 
 
 def _greedy_inputs(B, T, E, H, J, V, device, seed=0):
-    """f, lens (ragged, one zero-length row) and the f32 weights of a
-    random one-layer predictor and joint, blank near the top."""
+    """f, lens (ragged; row 1, where there is one, of zero length) and the
+    f32 weights of a random one-layer predictor and joint, blank near the
+    top."""
     g = torch.Generator().manual_seed(seed)
     u = lambda *s, k: (torch.rand(*s, generator=g) * 2 - 1) * k  # noqa: E731
     f = 0.5 * torch.randn(B, T, J, generator=g)
     lens = torch.randint(T // 2, T + 1, (B,), generator=g, dtype=torch.int32)
-    lens[1] = 0
+    if B > 1:
+        lens[1] = 0
     bo = u(V, k=J ** -0.5)
     bo[0] += 1.0  # some rows walk frames on blank, some hit the cap
     weights = (torch.randn(V, E, generator=g), u(E, 4 * H, k=H ** -0.5),
@@ -827,25 +829,127 @@ def _greedy_inputs(B, T, E, H, J, V, device, seed=0):
             tuple(w.contiguous().to(device) for w in weights))
 
 
+# K9 at libri100 width (B = 3), at one utterance, at more clusters than
+# one wave holds (B = 17: 16 blocks a cluster, 7 clusters a wave on the
+# H100 by cudaOccupancyMaxActiveClusters), at a ragged vocab (V = 1000:
+# 63 columns a block, 55 in the last), at a narrow shape whose last 5
+# blocks own no vocab column (V = 11), and
+# with W_out's slice too large to stay resident (J = 1024, V = 2048: it
+# streams through the ring every step), with gate chunks of one group of
+# 4 rows (H = 4096), and with no room for f rows in shared memory (J =
+# 16384: f read from global memory, no z a frame ahead). Row 1 has no
+# frames.
+K9_CASES = [(3, 60, 512, 512, 512, 1024), (1, 40, 512, 512, 512, 1024),
+            (17, 30, 512, 512, 512, 1024), (4, 40, 512, 512, 512, 1000),
+            (5, 23, 128, 256, 128, 11), (3, 30, 512, 512, 1024, 2048),
+            (3, 20, 128, 4096, 128, 64), (3, 20, 128, 128, 16384, 64)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B, T, E, H, J, V", [(3, 60, 512, 512, 512, 1024),
-                                              (5, 23, 128, 256, 128, 11)])
-def test_cuda_greedy_fused_matches_reference(cuda_device, B, T, E, H, J, V):
-    """K9 at libri100 width (B = 3) and at a narrow ragged shape, f32:
-    identical tokens and step counts."""
+@pytest.mark.parametrize("max_symbols", [20, 3])
+@pytest.mark.parametrize("B, T, E, H, J, V", K9_CASES)
+def test_cuda_greedy_fused_matches_reference(cuda_device, B, T, E, H, J, V,
+                                             max_symbols):
+    """K9 in f32: tokens and step counts identical to the plain version's,
+    the zero-length row empty; at max_symbols 3 some row stops at the cap.
+    In bf16 two calls give the same bits."""
     from rnn_transducer_tpu_torch.decode import greedy_fused as gf
     torch.backends.cuda.matmul.allow_tf32 = False
     f, lens, weights = _greedy_inputs(B, T, E, H, J, V, cuda_device)
     before = gf.LAUNCHES
-    toks, steps = gf.greedy_fused_tokens(f, lens, weights, 20, 0,
+    toks, steps = gf.greedy_fused_tokens(f, lens, weights, max_symbols, 0,
                                          torch.float32)
     torch.cuda.synchronize()
     assert gf.LAUNCHES == before + 1
-    want_t, want_s = gf.greedy_fused_tokens_reference(f, lens, weights, 20, 0,
+    want_t, want_s = gf.greedy_fused_tokens_reference(f, lens, weights,
+                                                      max_symbols, 0,
                                                       torch.float32)
     assert torch.equal(toks, want_t)
     assert torch.equal(steps, want_s)
-    assert steps[1] == 0 and (toks[1] == 0).all()
+    if B > 1:
+        assert steps[1] == 0 and (toks[1] == 0).all()
+    if max_symbols == 3:
+        assert bool((toks != 0).all(1).any()), "no row reached the cap"
+    got = gf.greedy_fused_tokens(f, lens, weights, max_symbols, 0,
+                                 torch.bfloat16)
+    again = gf.greedy_fused_tokens(f, lens, weights, max_symbols, 0,
+                                   torch.bfloat16)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E, H, J, V", [(512, 512, 512, 1024),
+                                        (128, 256, 128, 11),
+                                        (512, 512, 1024, 2048)])
+def test_cuda_greedy_pack_matches_its_plain_version(cuda_device, E, H, J, V):
+    """greedy_pack_kernel writes the block-major scratch of pack_reference,
+    bit for bit."""
+    from rnn_transducer_tpu_torch.decode import greedy_fused as gf
+    _, _, weights = _greedy_inputs(2, 4, E, H, J, V, cuda_device)
+    plan = gf.cluster_plan(E, H, J, V)
+    got = gf.pack_weights(weights, plan)
+    torch.cuda.synchronize()
+    want = gf.pack_reference(tuple(w.cpu() for w in weights), plan)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_cuda_greedy_fused_is_a_pack_and_one_cluster_launch(cuda_device):
+    """A call is one greedy_pack_kernel and one greedy_cluster_kernel, by
+    the profiler, and one count in LAUNCHES; the card holds at least one
+    cluster of the libri100 plan."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rnn_transducer_tpu_torch.decode import greedy_fused as gf
+    f, lens, weights = _greedy_inputs(8, 40, 512, 512, 512, 1024,
+                                      cuda_device)
+    args = (f, lens, weights, 20, 0, torch.bfloat16)
+    assert gf.device_clusters(gf.cluster_plan(512, 512, 512, 1024),
+                              cuda_device) >= 1
+    gf.greedy_fused_tokens(*args)  # warm: build, plan
+    torch.cuda.synchronize()
+    before = gf.LAUNCHES
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _pad_profiler_window()
+        gf.greedy_fused_tokens(*args)
+        torch.cuda.synchronize()
+        _pad_profiler_window()
+    assert gf.LAUNCHES == before + 1
+    counts = {}
+    for e in prof.key_averages():
+        if "greedy" in e.key:
+            counts[e.key] = counts.get(e.key, 0) + e.count
+    assert sorted(counts.values()) == [1, 1], counts
+    assert any("greedy_pack_kernel" in k for k in counts), counts
+    assert any("greedy_cluster_kernel" in k for k in counts), counts
+
+
+@pytest.mark.cuda
+def test_cuda_greedy_fused_refuses_a_plan_it_does_not_take(cuda_device,
+                                                           monkeypatch):
+    """A plan whose shared bytes disagree with the kernel's layout is
+    refused by the launch (invalid argument), and a shape no block holds
+    by the plan; neither counts a launch."""
+    import dataclasses
+
+    from rnn_transducer_tpu_torch.decode import greedy_fused as gf
+    f, lens, weights = _greedy_inputs(2, 8, 128, 256, 128, 11, cuda_device)
+    plan = gf.cluster_plan(128, 256, 128, 11)
+    before = gf.LAUNCHES
+    monkeypatch.setattr(gf, "cluster_plan", lambda *a: dataclasses.replace(
+        plan, smem_bytes=plan.smem_bytes + 16))
+    with pytest.raises(RuntimeError, match="greedy_cluster launch failed"):
+        gf.greedy_fused_tokens(f, lens, weights, 8, 0, torch.float32)
+    monkeypatch.undo()
+    J = 32768
+    big = [torch.zeros(2, 4, J, device=cuda_device), lens,
+           tuple(torch.zeros(s, device=cuda_device) for s in (
+               (11, 128), (128, 512), (128, 512), (512,), (128, J), (J,),
+               (J, 11), (11,)))]
+    with pytest.raises(ValueError, match="no block holds"):
+        gf.greedy_fused_tokens(*big, 8, 0, torch.float32)
+    assert gf.LAUNCHES == before
 
 
 # K8: y within 1e-5 absolute (rows normalised to O(1)); dx within 1e-5 of
