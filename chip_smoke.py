@@ -35,8 +35,10 @@ Phases, in order:
             kernel A, kernel B's zb pass and ring kernel and the ordered
             sums timed apart, kernel A's W^T pass and ring kernel apart
             by torch.profiler, and kernel B's ring plan; the
-            lattice (alpha, beta and the occupancies) at U+1 = 41 and 81
-            with ragged lengths and a zero-frame row; the W8A8 recurrence
+            lattice (alpha, beta and the occupancies: up to four warps
+            walk an utterance's bands, on its walk plan) at U+1 = 41, 81
+            and 101 with ragged lengths and a zero-frame row, device ms
+            beside the bound; the W8A8 recurrence
             (lstm_int8: one persistent launch a layer, with its tile,
             two runs giving identical bits, one lstm_q_persistent_kernel a
             call by the profiler and its step fit) at the serving shapes
@@ -49,7 +51,9 @@ Phases, in order:
             the fused LayerNorm (fused_ln fwd and bwd, act none and silu)
             at the conformer's serving and training rows, N = 1600 and
             6400, D = 512, against the plain LayerNorm and its autograd,
-            dg / db identical over two runs; the band joint (band_fused:
+            dg / db identical over two runs, the backward's one launch with
+            its blocks and the blocks an SM holds, device ms beside the
+            bound; the band joint (band_fused:
             band_fwd, band_bwd_a, band_bwd_b) at the pruned step's band,
             B=32, T'=200, S=8, J=512, V=8192, lp_blank / lp_y / base,
             df / dg_w and dW / db identical over two runs, with the
@@ -105,8 +109,10 @@ Phases, in order:
   6. the kernels' JSON line (sixteen kernels) (each kernel with its bound, the least time
      the card could take: bytes over 3.35 TB/s or operations over the
      peak for the operands' type, whichever is larger; and the time of one
-     PyTorch call computing the same function where there is one), the
-     card line, then {"ok": true, ...} last
+     PyTorch call computing the same function where there is one; the
+     lattice kernels' `ms` is a call's, with the host's enqueue, and
+     their `device_ms` the device's alone), the card line, then
+     {"ok": true, ...} last
 
 TF32 is off for matmuls and cuDNN: every float32 product runs in float32.
 Any failed check exits non-zero; with no CUDA device it exits before any
@@ -771,11 +777,13 @@ def lattice_err(got, want) -> tuple[float, float, bool]:
 def lattice_vs_plain(rng: np.random.Generator, dev) -> dict:
     """lattice_alpha and lattice_beta (with the occupancies) against their
     plain versions at the training step's lattice, T'=200 and U+1 = 41
-    (the fused route) and 81 (the two-pass route), ragged lengths and a
-    zero-frame row; and the loss through them against the plain path."""
+    (the fused route), 81 (the two-pass route) and 101 (the pruned step),
+    ragged lengths and a zero-frame row; and the loss through them against
+    the plain path. Times: ms of a call with the host's enqueue in turns
+    with the plain version, and the device's ms (`device_ms`)."""
     B, T = TRAIN_B, TRAIN_T // 2
     rows = {}
-    for U in (TRAIN_U, PALLAS_U):
+    for U in (TRAIN_U, PALLAS_U, PRUNED_U):
         lpb, lpy, fl, ll = lattice_scores(rng, dev, B, T, U)
         lpb_m, lpy_m = rl._masked_transitions(lpb, lpy, fl, ll)
         accept = rl._accept_scores(lpb, fl, ll)
@@ -806,6 +814,12 @@ def lattice_vs_plain(rng: np.random.Generator, dev) -> dict:
                "loss_rtol": LOSS_RTOL, "alpha_kernel_ms": ka,
                "alpha_plain_ms": pa, "beta_kernel_ms": kb,
                "beta_plain_ms": pb,
+               "alpha_device_ms": device_ms(
+                   lambda: lat.alpha_wavefront(*a_args)),
+               "beta_device_ms": device_ms(
+                   lambda: lat.beta_occupancies(*b_args)),
+               "plan": {k: dataclasses.asdict(lat.walk_plan(U + 1, beta))
+                        for k, beta in (("alpha", False), ("beta", True))},
                # a log-add-exp of two terms per cell: ~8 operations; beta
                # adds the two occupancies
                "alpha_bound": bound(nbytes(a_args, got_a),
@@ -1190,6 +1204,8 @@ def fused_ln_vs_plain(rng: np.random.Generator, dev) -> dict:
                    "bwd_plain_ms": p_b, "bwd_library_ms": lib_b,
                    "fwd_kernel_call_ms": kc_f, "fwd_plain_call_ms": pc_f,
                    "bwd_kernel_call_ms": kc_b, "bwd_plain_call_ms": pc_b,
+                   "bwd_blocks": fl.bwd_blocks(N),
+                   "bwd_blocks_per_sm": fl.device_bwd_occupancy(D, dev),
                    # per element: centre, square, sum, scale, g, b (+ the
                    # sigmoid and product of silu); the backward twice that
                    "fwd_bound": bound(nbytes(x, g, b, y, mu, rstd),
@@ -2296,6 +2312,11 @@ def train_conformer_phase(seed: int, dev, profile_dir) -> dict:
     state, prof = profile_step(step, state, batch, profile_dir,
                                "train_conformer_step")
     print("train_conformer_profile " + json.dumps(prof))
+    # one K8-fwd and one K8-bwd kernel a LayerNorm: K8-bwd is one launch
+    check(prof["device_launches"]["fused_ln"] == 2 * LN_PER_ENCODE,
+          f"the profiled conformer step ran "
+          f"{prof['device_launches']['fused_ln']} LayerNorm kernels, not "
+          f"{2 * LN_PER_ENCODE}")
     check_lstm_launches(prof, result, "conformer")
     check_fused_joint_profile(prof, result, "conformer")
     result["profile"] = prof
@@ -2432,7 +2453,8 @@ def train_ar_phase(seed: int, dev, profile_dir) -> dict:
 
 
 def kernel_entry(name, source, replaces, launches, err, ms, plain_ms,
-                 bnd: dict, library_ms=None, kernel=None) -> dict:
+                 bnd: dict, library_ms=None, kernel=None,
+                 device_ms=None) -> dict:
     entry = {"name": name, "route": "cuda",
              "source": f"rnn_transducer_tpu_torch/csrc/{source}",
              "replaces": replaces, "launches": launches, "max_abs_err": err,
@@ -2440,6 +2462,8 @@ def kernel_entry(name, source, replaces, launches, err, ms, plain_ms,
              "bound_by": bnd["bound_by"], "library_ms": library_ms}
     if kernel:  # the device kernel's name, where it differs from `name`
         entry["kernel"] = kernel
+    if device_ms is not None:  # the device's ms, where `ms` is a call's
+        entry["device_ms"] = device_ms
     return entry
 
 
@@ -2567,11 +2591,11 @@ def main(argv=None):
         kernel_entry("lattice_alpha", "lattice.cu", f"{wp}:65",
                      counts["lattice_alpha"], kl["worst_alpha"],
                      lm["alpha_kernel_ms"], lm["alpha_plain_ms"],
-                     lm["alpha_bound"]),
+                     lm["alpha_bound"], device_ms=lm["alpha_device_ms"]),
         kernel_entry("lattice_beta", "lattice.cu", f"{wp}:65",
                      counts["lattice_beta"], kl["worst_beta"],
                      lm["beta_kernel_ms"], lm["beta_plain_ms"],
-                     lm["beta_bound"]),
+                     lm["beta_bound"], device_ms=lm["beta_device_ms"]),
         kernel_entry("extract_lp", "loss_rows.cu", f"{rp}:82",
                      two_pass["extract_lp"], kr["worst_extract"],
                      rm["extract_kernel_ms"], rm["extract_plain_ms"],

@@ -14,7 +14,7 @@ in the order given (default: this checkout), so that two versions of the
 kernels are compared on one card: pass `--trees OLD NEW NEW OLD`. A
 process puts the tree's root first on the import path (its package and
 its chip_smoke.py), builds that tree's kernels, then runs the parts
-(default: all thirteen, in this order):
+(default: all fifteen, in this order):
 
   band_fwd     holds `band_lp_fwd` (lp_blank, lp_y, base) against its
                plain version at the pruned step's band (B=32, T'=200, S=8,
@@ -31,8 +31,10 @@ its chip_smoke.py), builds that tree's kernels, then runs the parts
   band_bwd_b   the same for `band_lp_bwd_b` (dW, db) at V=8192 and 1024,
                with `events` its zb pass and main launch apart;
   pruned_step  trains libri100 with V=8192, S=8, U=100 at B=32, T=400
-               (chip_smoke.train_run: ms/step by the slope of two runs),
-               then profiles one step (device ms by kernel family);
+               (chip_smoke.train_run: ms/step by the slope of two runs,
+               and the mean of STEADY_STEPS steps, best of three), then
+               profiles one step (device ms by kernel family, host and
+               device ms by the step's spans);
   joint_fwd    holds `joint_lp_fwd` (K1) against its plain version at the
                libri100 joint's cells (B=32, T'=200, U+1=41, J=512) with
                V=1024 in bf16 and f32, and in bf16 at V=512, 256 and 64
@@ -51,7 +53,7 @@ its chip_smoke.py), builds that tree's kernels, then runs the parts
                the tree's wrapper takes `events`, kernel A, B's zb pass
                and main launch and the sums by CUDA events;
   train_step   trains libri100 at B=32, T=400, U=40 through the default
-               (fused) loss, then profiles one step;
+               (fused) loss, then profiles one step (as pruned_step);
   conformer_step  the same for libri100_conformer at B=64, T=400, U=40;
   lstm_fwd     holds `lstm_recurrence` (serving, without activations) at
                libri100's 800- and 400-frame buckets (l0_b800, l1_b800,
@@ -88,7 +90,27 @@ its chip_smoke.py), builds that tree's kernels, then runs the parts
                libri100's B=32, T=400, U=40, then profiles one step;
   serve        serves chip_smoke's 24 requests at libri100 width to a
                BatchingEngine behind http_server: p50 and p95 latency and
-               the LSTM forward's calls.
+               the LSTM forward's calls;
+  fused_ln     holds `fln_fwd` and `fln_bwd` (K8) against the plain
+               LayerNorm and its autograd at chip_smoke's LN_CASES (N =
+               1600 and 6400 rows, D = 512; `ln_problem`), act none and
+               silu (errors,
+               two backward runs bit for bit, the sha256 digests of y, mu,
+               rstd, dx, dg and db), and times both: device ms a call
+               behind a spin kernel, x and dy cycled through copies three
+               times the L2's size, twice; by torch.profiler the device ms
+               of each LayerNorm kernel by name (a backward of two
+               launches, as before the one-launch kernel, apart);
+  lattice      holds `alpha_wavefront` and `beta_occupancies` (K3) against
+               their plain versions at B=32, T'=200 and U+1 = 41, 81 and
+               101 (the fused, two-pass and pruned steps' lattices), at
+               (8, 100, 200), (4, 60, 513) and (3, 5, 1101), on
+               `lattice_problem`'s exact scores (errors,
+               the sha256 digests of alpha, beta and both occupancies), and
+               times alpha, beta + occupancies and beta alone
+               (`beta_wavefront`): device ms a call behind a spin kernel,
+               twice, and the host's µs a call of alpha and of beta +
+               occupancies (`enqueue_us`).
 
 Prints one JSON line per tree and writes them all to --out if given.
 Needs a CUDA card and nvcc.
@@ -105,11 +127,13 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 
 PARTS = ("band_fwd", "band_bwd_a", "band_bwd_b", "pruned_step", "joint_fwd",
          "joint_bwd", "train_step", "conformer_step", "lstm_fwd",
-         "lstm_int8", "greedy_fused", "ar_step", "serve")
+         "lstm_int8", "greedy_fused", "ar_step", "serve", "fused_ln",
+         "lattice")
 
 
 def one(root: str, parts) -> dict:
@@ -252,17 +276,48 @@ def pruned_step(cs, dev) -> dict:
                               pruned_range=cs.PRUNED_S)
     step, state, batch, result = cs.train_run(0, dev, "pruned", cs.PRUNED_U,
                                               cfg)
+    state, steady = steady_ms(step, state, batch)
     _, prof = cs.profile_step(step, state, batch, None, "train_pruned_step")
     return {"ms_per_step": result["ms_per_step"],
+            "slope_times_s": result["slope_times_s"],
+            "steady_ms_per_step": steady,
             "utt_per_s": result["utt_per_s"],
             "peak_mem_gb": result["peak_mem_gb"],
             "launches_band_lp_fwd": result["launches"]["band_lp_fwd"],
             "launches_band_lp_bwd_a": result["launches"]["band_lp_bwd_a"],
             "launches_band_lp_bwd_b": result["launches"]["band_lp_bwd_b"],
-            "steps": result["steps"], "profile_wall_ms": prof["wall_ms"],
+            "steps": result["steps"], **profiled(prof)}
+
+
+# steps of a steady run: its mean ms a step is read beside the slope's
+STEADY_STEPS, STEADY_REPEATS = 20, 3
+
+
+def steady_ms(step, state, batch) -> tuple:
+    """The state after the runs and the ms a step of STEADY_STEPS steps
+    between two synchronises, best of STEADY_REPEATS."""
+    import torch
+
+    best = float("inf")
+    for _ in range(STEADY_REPEATS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(STEADY_STEPS):
+            state, _ = step(state, *batch)
+        torch.cuda.synchronize()
+        best = min(best, (time.perf_counter() - t0) * 1e3 / STEADY_STEPS)
+    return state, best
+
+
+def profiled(prof: dict) -> dict:
+    """A profiled step's wall ms, busy share, device ms and launches by
+    kernel family, and host and device ms by the step's spans."""
+    return {"profile_wall_ms": prof["wall_ms"],
             "device_busy_share": prof["device_busy_share"],
             "device_ms": prof["device_ms"],
-            "device_launches": prof["device_launches"]}
+            "device_launches": prof["device_launches"],
+            "host_span_ms": prof.get("host_span_ms"),
+            "device_span_ms": prof.get("device_span_ms")}
 
 
 def joint_fwd(cs, dev) -> dict:
@@ -428,15 +483,15 @@ def joint_bwd(cs, dev) -> list:
 
 def train_step(cs, dev) -> dict:
     step, state, batch, result = cs.train_run(0, dev, "auto", cs.TRAIN_U)
+    state, steady = steady_ms(step, state, batch)
     _, prof = cs.profile_step(step, state, batch, None)
     return {"ms_per_step": result["ms_per_step"],
+            "slope_times_s": result["slope_times_s"],
+            "steady_ms_per_step": steady,
             "utt_per_s": result["utt_per_s"],
             "peak_mem_gb": result["peak_mem_gb"],
             "launches_joint_bwd": result["launches"]["joint_bwd"],
-            "steps": result["steps"], "profile_wall_ms": prof["wall_ms"],
-            "device_busy_share": prof["device_busy_share"],
-            "device_ms": prof["device_ms"],
-            "device_launches": prof["device_launches"]}
+            "steps": result["steps"], **profiled(prof)}
 
 
 def conformer_step(cs, dev) -> dict:
@@ -742,6 +797,221 @@ def serve(cs, dev) -> dict:
             "launches_lstm_fwd": counts["lstm_fwd"]}
 
 
+def kernels_by_name(call, fragment: str, reps: int = 5) -> dict:
+    """Device ms a call of each CUDA kernel whose name holds `fragment`,
+    by torch.profiler over `reps` calls after a warm one, the window
+    padded at both ends; keyed by the kernel's name up to its argument
+    list."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke as cs
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        cs.pad_profiler_window()
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+        cs.pad_profiler_window()
+    ms = {}
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA or fragment not in evt.key:
+            continue
+        name = evt.key.replace("void ", "").replace(
+            "(anonymous namespace)::", "").split("(")[0]
+        ms[name] = ms.get(name, 0.0) + getattr(
+            evt, "self_device_time_total",
+            getattr(evt, "self_cuda_time_total", 0)) / 1e3 / reps
+    return ms
+
+
+def sha16(t) -> str:
+    """The first 16 hex digits of the sha256 of a tensor's bytes."""
+    return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+# K8's rows: chip_smoke's LN_CASES (a served batch's and the conformer
+# step's), D = 512
+LN_ROWS, LN_D = (1600, 6400), 512
+
+
+def ln_problem(dev) -> dict:
+    """K8's inputs: N -> x (N, D), g, b (D,), dy (N, D) f32 for each N of
+    LN_ROWS, from one numpy seed in that order. numpy's normals are the
+    same on any machine, so the outputs' digests compare the kernels of
+    two trees (and the card tests' record of the parent's)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(18)
+    out = {}
+    for N in LN_ROWS:
+        out[N] = tuple(torch.from_numpy(a).float().to(dev) for a in (
+            3 * rng.normal(size=(N, LN_D)) + 1,
+            1 + 0.5 * rng.normal(size=LN_D), 0.5 * rng.normal(size=LN_D),
+            rng.normal(size=(N, LN_D))))
+    return out
+
+
+def fused_ln(cs, dev) -> list:
+    import torch
+
+    from rnn_transducer_tpu_torch.ops import fused_ln as fl
+
+    D = LN_D
+    rows = []
+    for N, (x, g, b, dy) in ln_problem(dev).items():
+        n_cp = max(2, -(-3 * cs.L2_BYTES // cs.nbytes(x)))
+        xs = [x.clone() for _ in range(n_cp)]
+        dys = [dy.clone() for _ in range(n_cp)]
+        for act in fl.ACTS:
+            y, mu, rstd = fl.fln_fwd(x, g, b, act)
+            got = fl.fln_bwd(x, g, b, mu, rstd, dy, act)
+            again = fl.fln_bwd(x, g, b, mu, rstd, dy, act)
+            leaves = [a.clone().requires_grad_(True) for a in (x, g, b)]
+            ref = fl.layer_norm_reference(*leaves, act)
+            want = torch.autograd.grad(ref, leaves, dy)
+            torch.cuda.synchronize()
+
+            def fwd(i):
+                return fl.fln_fwd(xs[i], g, b, act)
+
+            def bwd(i):
+                return fl.fln_bwd(xs[i], g, b, mu, rstd, dys[i], act)
+
+            row = {"N": N, "D": D, "act": act,
+                   "y_max_abs_err": cs.max_abs(y, ref.detach()),
+                   "bwd_rel_err": {n: cs.rel_err(a, e) for n, a, e in zip(
+                       ("dx", "dg", "db"), got, want)},
+                   "bwd_bitwise_repeat": all(torch.equal(a, e) for a, e in
+                                             zip(got, again)),
+                   # the outputs' bits, to compare trees on the same inputs
+                   "digest": {n: sha16(t) for n, t in zip(
+                       ("y", "mu", "rstd", "dx", "dg", "db"),
+                       (y, mu, rstd, *got))},
+                   "fwd_ms": [cs.device_ms(cs.cycled(fwd, n_cp))
+                              for _ in range(2)],
+                   "bwd_ms": [cs.device_ms(cs.cycled(bwd, n_cp))
+                              for _ in range(2)],
+                   "fwd_kernels_ms": kernels_by_name(cs.cycled(fwd, n_cp),
+                                                     "ln_"),
+                   "bwd_kernels_ms": kernels_by_name(cs.cycled(bwd, n_cp),
+                                                     "ln_"),
+                   "fwd_bound": cs.bound(cs.nbytes(x, g, b, y, mu, rstd),
+                                         (12 if act == "silu" else 8) * N * D,
+                                         torch.float32),
+                   "bwd_bound": cs.bound(
+                       cs.nbytes(x, g, b, mu, rstd, dy, got),
+                       (22 if act == "silu" else 14) * N * D, torch.float32)}
+            print("fused_ln " + json.dumps(row), flush=True)
+            rows.append(row)
+        del xs, dys
+        torch.cuda.empty_cache()
+    return rows
+
+
+# (B, T, U) of the lattice part: the fused, two-pass and pruned steps'
+# lattices (chip_smoke's TRAIN_U, PALLAS_U, PRUNED_U at B=32, T'=200),
+# U+1 = 200 and 513 (two and five cells a lane of four walkers) and a
+# diagonal longer than a block of 1024 threads
+LATTICE_CASES = ((32, 200, 40), (32, 200, 80), (32, 200, 100), (8, 100, 199),
+                 (4, 60, 512), (3, 5, 1100))
+
+
+def lattice_problem(B: int, T: int, U: int, dev, seed: int = 0):
+    """K3's inputs: masked scores, acceptance scores (B, T, U+1) f32 and
+    frame lengths (B,) int32 of a ragged batch (row 0 full, row 1 without
+    frames, row 2 without labels, the rest from [T/2, T] and [U/2, U]).
+    The scores are -k / 16 for integers k in [1, 48] from a numpy seed:
+    exact in f32 and made without a transcendental function, so they have
+    the same bits on any machine, and the outputs' digests compare the
+    kernels of two trees (and the card tests' record of the parent's)."""
+    import numpy as np
+    import torch
+
+    from rnn_transducer_tpu_torch.ops import rnnt_loss as rl
+
+    rng = np.random.default_rng(seed)
+    lpb, lpy = (torch.from_numpy(-rng.integers(1, 49, (B, T, U + 1)) / 16.0)
+                .float().to(dev) for _ in range(2))
+    fl = rng.integers(T // 2, T + 1, B)
+    ll = rng.integers(U // 2, U + 1, B)
+    fl[0], ll[0] = T, U
+    fl[1:2], ll[2:3] = 0, 0
+    fl = torch.from_numpy(fl).int().to(dev)
+    ll = torch.from_numpy(ll).int().to(dev)
+    lpb_m, lpy_m = rl._masked_transitions(lpb, lpy, fl, ll)
+    accept = rl._accept_scores(lpb, fl, ll)
+    return lpb_m.contiguous(), lpy_m.contiguous(), accept.contiguous(), fl
+
+
+def enqueue_us(fn, reps: int = 50) -> float:
+    """Host µs a call takes to return, its launches queued behind a spin
+    kernel of ~0.1 s, so that the host never waits for the device."""
+    import torch
+
+    torch.cuda._sleep(200_000_000)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) * 1e6 / reps
+    torch.cuda.synchronize()
+    return us
+
+
+def lattice(cs, dev) -> list:
+    import torch
+
+    from rnn_transducer_tpu_torch.ops import rnnt_lattice_cuda as lat
+
+    rows = []
+    for B, T, U in LATTICE_CASES:
+        lpb_m, lpy_m, accept, fl = lattice_problem(B, T, U, dev)
+        alpha = lat.alpha_wavefront(lpb_m, lpy_m)
+        beta, gb, gy = lat.beta_occupancies(lpb_m, lpy_m, accept, alpha, fl)
+        beta_only = lat.beta_wavefront(lpb_m, lpy_m, accept)
+        want_a = lat.alpha_wavefront_reference(lpb_m, lpy_m)
+        want_b = lat.beta_occupancies_reference(lpb_m, lpy_m, accept, want_a,
+                                                fl)
+        torch.cuda.synchronize()
+        err_a, rel_a, unreach_a = cs.lattice_err(alpha, want_a)
+        err_b, rel_b, unreach_b = cs.lattice_err(beta, want_b[0])
+        a_args = (lpb_m, lpy_m)
+        b_args = (lpb_m, lpy_m, accept, alpha, fl)
+        row = {"B": B, "T": T, "U1": U + 1, "diagonals": T + U,
+               "alpha_max_abs_err": err_a, "alpha_rel_err": rel_a,
+               "beta_max_abs_err": err_b, "beta_rel_err": rel_b,
+               "unreachable_ok": unreach_a and unreach_b,
+               "occ_max_abs_err": max(cs.max_abs(gb, want_b[1]),
+                                      cs.max_abs(gy, want_b[2])),
+               "beta_alone_equal": torch.equal(beta_only, beta),
+               # the outputs' bits, to compare trees on the same inputs
+               "digest": {n: sha16(t) for n, t in zip(
+                   ("alpha", "beta", "g_blank", "g_y"),
+                   (alpha, beta, gb, gy))},
+               "alpha_ms": [cs.device_ms(lambda: lat.alpha_wavefront(
+                   *a_args)) for _ in range(2)],
+               "beta_occ_ms": [cs.device_ms(lambda: lat.beta_occupancies(
+                   *b_args)) for _ in range(2)],
+               "beta_walk_ms": [cs.device_ms(lambda: lat.beta_wavefront(
+                   *b_args[:3])) for _ in range(2)],
+               "alpha_enqueue_us": enqueue_us(
+                   lambda: lat.alpha_wavefront(*a_args)),
+               "beta_occ_enqueue_us": enqueue_us(
+                   lambda: lat.beta_occupancies(*b_args)),
+               "alpha_bound": cs.bound(cs.nbytes(a_args, alpha),
+                                       8 * B * T * (U + 1), torch.float32),
+               "beta_bound": cs.bound(cs.nbytes(b_args, beta, gb, gy),
+                                      16 * B * T * (U + 1), torch.float32)}
+        print("lattice " + json.dumps(row), flush=True)
+        rows.append(row)
+    return rows
+
+
 MEASURE = {"band_fwd": functools.partial(band, which="fwd"),
            "band_bwd_a": functools.partial(band, which="a"),
            "band_bwd_b": functools.partial(band, which="b"),
@@ -749,7 +1019,8 @@ MEASURE = {"band_fwd": functools.partial(band, which="fwd"),
            "joint_bwd": joint_bwd, "train_step": train_step,
            "conformer_step": conformer_step,
            "lstm_fwd": lstm_fwd, "lstm_int8": lstm_int8,
-           "greedy_fused": greedy_fused, "ar_step": ar_step, "serve": serve}
+           "greedy_fused": greedy_fused, "ar_step": ar_step, "serve": serve,
+           "fused_ln": fused_ln, "lattice": lattice}
 
 
 def main(argv=None):

@@ -24,6 +24,7 @@ kernel's padding of the rows to a multiple of 256 has no counterpart.
 
 from __future__ import annotations
 
+import ctypes
 import threading
 
 import torch
@@ -35,12 +36,18 @@ ACTS = ("none", "silu")
 LAUNCHES_FWD = 0  # fln_fwd calls that launched fused_ln_fwd
 LAUNCHES_BWD = 0  # fln_bwd calls that launched fused_ln_bwd
 _launches_lock = threading.Lock()
-# The backward's launch A gives each block a fixed range of rows: about
-# two blocks of eight warps on each of the H100's 132 SMs, whole warps'
-# worth of rows each. The range depends on N alone, so the order of the
-# dg / db sums, and their bits, are the same on every run.
+# The backward's one launch gives each of its blocks an equal share of the
+# rows: one wave, two blocks of eight warps on each of the H100's 132 SMs.
+# The blocks add their partial dg / db rows in groups of GROUP, each group
+# in block order, then the groups in order. All of it depends on N alone,
+# so the order of the dg / db sums, and their bits, are the same on every
+# run (and on every card).
 TARGET_BLOCKS = 264
 WARPS = 8
+GROUP = 17  # csrc/fused_ln.cu kGroup
+MAX_REG_D = 512  # wider rows loop over the row, with per-warp partial rows
+TICKETS = 32  # the groups' tickets and the final one: GROUP + 1 at most
+_tickets: dict = {}  # (device index, stream) -> the backward's tickets
 
 
 def _count(name: str) -> None:
@@ -123,10 +130,38 @@ def fln_fwd_reference(x2, g, b, act: str = "none"):
     return y, mu[:, 0], rstd[:, 0]
 
 
-def rows_per_block(n: int) -> int:
-    """Rows of one block of the backward's launch A."""
-    per = -(-n // TARGET_BLOCKS)
-    return max(WARPS, -(-per // WARPS) * WARPS)
+def bwd_blocks(n: int) -> int:
+    """Blocks of the backward's launch for n rows."""
+    return max(1, min(n, TARGET_BLOCKS))
+
+
+def row_ranges(n: int) -> list[tuple[int, int]]:
+    """The rows [start, stop) of each block of the backward's launch: a
+    floor or a ceiling of n / blocks each (csrc/fused_ln.cu first_row)."""
+    blocks = bwd_blocks(n)
+    return [(n * i // blocks, n * (i + 1) // blocks) for i in range(blocks)]
+
+
+def sum_groups(n: int) -> list[list[int]]:
+    """The order of the dg / db sums: the blocks' partial rows in groups of
+    GROUP, each added in block order by the group's last block, then the
+    group rows added in this order by the last group."""
+    blocks = bwd_blocks(n)
+    return [list(range(s, min(s + GROUP, blocks)))
+            for s in range(0, blocks, GROUP)]
+
+
+def _ticket_buffer(dev) -> torch.Tensor:
+    """Zeroed ticket counters of the backward, one array a (device,
+    stream): each launch leaves them zeroed, and launches on one stream
+    run one after another."""
+    key = build.stream_args(dev)
+    with _launches_lock:
+        buf = _tickets.get(key)
+        if buf is None:
+            buf = _tickets[key] = torch.zeros(TICKETS, dtype=torch.int32,
+                                              device=dev)
+    return buf
 
 
 def _bwd_rows(x2, mu, rstd, dy2) -> dict:
@@ -145,21 +180,37 @@ def fln_bwd(x2, g, b, mu, rstd, dy2, act: str = "none"):
     dev = x2.device
     N, D = x2.shape
     lib = build.load_library()
-    rpb = rows_per_block(N)
-    parts = lib.fused_ln_bwd_parts(N, D, rpb)
+    blocks = bwd_blocks(N)
+    groups = len(sum_groups(N))
     dx = torch.empty_like(x2)
     dg = torch.empty((D,), dtype=torch.float32, device=dev)
     db = torch.empty_like(dg)
-    dg_part = torch.empty((max(parts, 1), D), dtype=torch.float32, device=dev)
-    db_part = torch.empty_like(dg_part)
+    parts = torch.empty((blocks + groups, 2 * D), dtype=torch.float32,
+                        device=dev)
+    wpart = (torch.empty((blocks * WARPS, 2 * D), dtype=torch.float32,
+                         device=dev) if D > MAX_REG_D else None)
+    tickets = _ticket_buffer(dev)
     err = lib.fused_ln_bwd(x2.data_ptr(), g.data_ptr(), b.data_ptr(),
                            mu.data_ptr(), rstd.data_ptr(), dy2.data_ptr(),
                            dx.data_ptr(), dg.data_ptr(), db.data_ptr(),
-                           dg_part.data_ptr(), db_part.data_ptr(), N, D, rpb,
+                           parts.data_ptr(),
+                           wpart.data_ptr() if wpart is not None else None,
+                           tickets.data_ptr(), N, D, blocks,
                            int(act == "silu"), *build.stream_args(dev))
     build.check_launch(lib, err, "fused_ln_bwd")
     _count("LAUNCHES_BWD")
     return dx, dg, db
+
+
+def device_bwd_occupancy(D: int, dev) -> int:
+    """Blocks of the backward's kernel one SM of the card holds at rows
+    of D floats (its occupancy, by the CUDA runtime)."""
+    lib = build.load_library()
+    per_sm = ctypes.c_int(0)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    err = lib.fused_ln_bwd_occupancy(D, index, ctypes.byref(per_sm))
+    build.check_launch(lib, err, "fused_ln_bwd_occupancy")
+    return per_sm.value
 
 
 def fln_bwd_reference(x2, g, b, mu, rstd, dy2, act: str = "none"):

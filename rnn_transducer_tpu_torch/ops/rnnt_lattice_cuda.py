@@ -9,6 +9,11 @@ through `alpha_wavefront` and `beta_wavefront`:
     blank and emit occupancies of `occupancies_from_lp` (rnnt_loss.py), both
     from one launch of `lattice_beta`.
 
+Both launches walk each utterance's diagonals with up to four warps, each
+over a band of the lattice's columns, on the plan of `walk_plan`: the
+warps, the cells a lane, and the ring of staged diagonals in shared
+memory.
+
 All take the masked transition scores of `ops/rnnt_loss._masked_transitions`
 (and its `_accept_scores`), (B, T, U+1) f32; the lattice conventions are the
 JAX package's (NEG_INF = -1e30, unreachable cells at or below -1e29, an
@@ -28,6 +33,7 @@ the other. Each counts the calls that launched its kernel.
 
 from __future__ import annotations
 
+import dataclasses
 import threading
 
 import torch
@@ -35,6 +41,19 @@ import torch
 from rnn_transducer_tpu_torch.utils import build
 
 NEG_INF = -1.0e30
+# The walk's plan (csrc/lattice.cu): up to MAX_WALKERS warps walk a
+# lattice, each over a band of 32 k columns; a lane's k cells stay in
+# registers up to MAX_REG_CELLS; the scores are staged CHUNK diagonals (at
+# most a warp's lanes) at a time into a ring of SLOTS chunks, both cut
+# down where a long diagonal leaves the ring no room in a block's
+# SMEM_BYTES (the H100's opt-in limit) beside 3 mbarriers a slot,
+# HAND_BYTES of handoff words and log_z.
+MAX_WALKERS = 4
+MAX_REG_CELLS = 8
+CHUNK = 32
+SLOTS = 4
+SMEM_BYTES = 232_448
+HAND_BYTES = 8 * 4 * 256
 
 LAUNCHES_ALPHA = 0  # alpha_wavefront calls that launched lattice_alpha
 LAUNCHES_BETA = 0   # beta_wavefront / beta_occupancies: lattice_beta
@@ -76,6 +95,53 @@ def _require_cuda(dev: torch.device, what: str) -> None:
         raise ValueError(f"no {what} for device {dev}")
 
 
+@dataclasses.dataclass(frozen=True)
+class WalkPlan:
+    """How the walking warps and the staging warps of one lattice launch
+    lay out a diagonal of U+1 cells."""
+    warps: int        # walker warps: min(4, ceil((U+1) / 32))
+    k: int            # cells a lane: ceil((U+1) / (32 warps))
+    registers: bool   # a lane's cells in registers (else shared memory)
+    chunk: int        # diagonals a staged chunk
+    slots: int        # chunks in the ring
+    window: int       # diagonals staged ahead of the walk at most
+    smem_bytes: int   # dynamic shared memory of a block
+
+
+def walk_plan(U1: int, beta: bool) -> WalkPlan:
+    """The plan of `lattice_alpha` (beta False: lpb and lpy staged) or
+    `lattice_beta` (beta True: accept too) for diagonals of U1 cells: the
+    largest chunk, then the most slots, whose ring fits SMEM_BYTES beside
+    the 3 slots mbarriers, the handoff words, log_z and, for k >
+    MAX_REG_CELLS, the cells. Raises ValueError where not even two slots of
+    one diagonal fit."""
+    if U1 < 1:
+        raise ValueError(f"the lattice needs U+1 >= 1; got {U1}")
+    warps = min(MAX_WALKERS, -(-U1 // 32))
+    k = -(-U1 // (32 * warps))
+    pitch = 32 * k * warps
+    arrays = 3 if beta else 2
+    fixed = HAND_BYTES + 16 + (0 if k <= MAX_REG_CELLS else 4 * pitch)
+    chunk = CHUNK
+    while chunk >= 1:
+        for slots in range(SLOTS, 1, -1):
+            smem = slots * chunk * arrays * pitch * 4 + 24 * slots + fixed
+            if smem <= SMEM_BYTES:
+                return WalkPlan(warps, k, k <= MAX_REG_CELLS, chunk, slots,
+                                chunk * slots, smem)
+        chunk //= 2
+    raise ValueError(
+        f"lattice_{'beta' if beta else 'alpha'}: a diagonal of U+1 = {U1} "
+        f"cells needs {2 * arrays * pitch * 4 + 48 + fixed} bytes of shared "
+        f"memory for two staged diagonals; a block has {SMEM_BYTES}")
+
+
+def plan_args(plan: WalkPlan) -> tuple:
+    """The plan as the C entries take it: warps, k, chunk, slots,
+    smem_bytes."""
+    return plan.warps, plan.k, plan.chunk, plan.slots, plan.smem_bytes
+
+
 # ------------------------------- alpha -----------------------------------
 
 def alpha_wavefront(lp_blank_m, lp_y_m):
@@ -87,12 +153,13 @@ def alpha_wavefront(lp_blank_m, lp_y_m):
         return alpha_wavefront_reference(lp_blank_m, lp_y_m)
     _require_cuda(dev, "lattice_alpha")
     B, T, U1 = lp_blank_m.shape
+    plan = walk_plan(U1, beta=False)
     alpha = torch.empty((B, T, U1), dtype=torch.float32, device=dev)
     if B * T == 0:
         return alpha
     fn = build.load_library()
     err = fn.lattice_alpha(lp_blank_m.data_ptr(), lp_y_m.data_ptr(),
-                           alpha.data_ptr(), B, T, U1,
+                           alpha.data_ptr(), B, T, U1, *plan_args(plan),
                            *build.stream_args(dev))
     build.check_launch(fn, err, "lattice_alpha")
     _count("LAUNCHES_ALPHA")
@@ -156,6 +223,7 @@ def _launch_beta(lp_blank_m, lp_y_m, accept, alpha=None, frame_lens=None):
     None)."""
     dev = lp_blank_m.device
     B, T, U1 = lp_blank_m.shape
+    plan = walk_plan(U1, beta=True)
     beta = torch.empty((B, T, U1), dtype=torch.float32, device=dev)
     occ = alpha is not None
     g_blank = torch.empty_like(beta) if occ else None
@@ -168,7 +236,8 @@ def _launch_beta(lp_blank_m, lp_y_m, accept, alpha=None, frame_lens=None):
         lp_blank_m.data_ptr(), lp_y_m.data_ptr(), accept.data_ptr(),
         alpha.data_ptr() if occ else None, fl.data_ptr() if occ else None,
         beta.data_ptr(), g_blank.data_ptr() if occ else None,
-        g_y.data_ptr() if occ else None, B, T, U1, *build.stream_args(dev))
+        g_y.data_ptr() if occ else None, B, T, U1, *plan_args(plan),
+        *build.stream_args(dev))
     build.check_launch(fn, err, "lattice_beta")
     _count("LAUNCHES_BETA")
     return beta, g_blank, g_y

@@ -84,12 +84,14 @@ SIGNATURES = {
     # n_split, device, stream
     "joint_bwd_sums": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                             _I, _I, _I, _P]),
-    # lp_blank_m, lp_y_m, alpha, B, T, U1, device, stream
-    "lattice_alpha": (_I, [_P, _P, _P, _I, _I, _I, _I, _P]),
+    # lp_blank_m, lp_y_m, alpha, B, T, U1, warps, k, chunk, slots,
+    # smem_bytes, device, stream
+    "lattice_alpha": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _LL, _I,
+                           _P]),
     # lp_blank_m, lp_y_m, accept, alpha, frame_lens, beta, g_blank, g_y,
-    # B, T, U1, device, stream
+    # B, T, U1, warps, k, chunk, slots, smem_bytes, device, stream
     "lattice_beta": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                          _P]),
+                          _I, _I, _I, _LL, _I, _P]),
     # logits, logits_is_bf16, labels, lp_blank, lp_y, B, T, U1, V, blank,
     # device, stream
     "extract_lp": (_I, [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
@@ -113,12 +115,12 @@ SIGNATURES = {
     "greedy_cluster_occupancy": (_I, [_I, _I, _I, _IP]),
     # x, g, b, y, mu, rstd, N, D, silu, device, stream
     "fused_ln_fwd": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
-    # N, D, rows_per_block -> rows of the backward's partial sums
-    "fused_ln_bwd_parts": (_I, [_I, _I, _I]),
-    # x, g, b, mu, rstd, dy, dx, dg, db, dg_part, db_part, N, D,
-    # rows_per_block, silu, device, stream
-    "fused_ln_bwd": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                          _I, _I, _I, _I, _P]),
+    # D, device -> blocks of the backward's kernel an SM holds
+    "fused_ln_bwd_occupancy": (_I, [_I, _I, _IP]),
+    # x, g, b, mu, rstd, dy, dx, dg, db, parts, wpart, tickets, N, D,
+    # blocks, silu, device, stream
+    "fused_ln_bwd": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                          _I, _I, _I, _I, _I, _P]),
     # f, g_w, lab_w, w, w_is_bf16, b, lp_blank, lp_y, base, B, T, S, J, V,
     # blank, device, stream
     "band_fwd": (_I, [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I,

@@ -119,9 +119,21 @@ def test_wrappers_refuse_bad_inputs(bad, err):
 
 @pytest.mark.parametrize("n", [1, 7, 1600, 6400, 100_003])
 def test_backward_row_ranges_cover_the_rows(n):
-    """Launch A's fixed row ranges: whole warps' worth of rows, about
-    TARGET_BLOCKS blocks, every row in exactly one block."""
-    rpb = tfl.rows_per_block(n)
-    blocks = -(-n // rpb)
-    assert rpb % tfl.WARPS == 0
-    assert blocks <= tfl.TARGET_BLOCKS and (blocks - 1) * rpb < n <= blocks * rpb
+    """The backward's one launch: at most TARGET_BLOCKS blocks, every row
+    in exactly one block, block sizes within one row of each other, all of
+    it (and the order of the dg / db sums) a function of N alone; the
+    partial rows added in groups of GROUP, in block order, then the groups
+    in order, within the kernel's ticket array."""
+    ranges = tfl.row_ranges(n)
+    blocks = len(ranges)
+    assert blocks == tfl.bwd_blocks(n) == min(n, tfl.TARGET_BLOCKS)
+    assert ranges[0][0] == 0 and ranges[-1][1] == n
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    sizes = [stop - start for start, stop in ranges]
+    assert min(sizes) >= 1 and max(sizes) - min(sizes) <= 1
+    assert sorted(set(sizes)) == sorted({n // blocks, -(-n // blocks)})
+    groups = tfl.sum_groups(n)
+    assert [p for grp in groups for p in grp] == list(range(blocks))
+    assert all(1 <= len(grp) <= tfl.GROUP for grp in groups)
+    assert len(groups) <= tfl.GROUP and len(groups) + 1 <= tfl.TICKETS
+    assert (tfl.row_ranges(n), tfl.sum_groups(n)) == (ranges, groups)

@@ -632,10 +632,15 @@ def _assert_lattice_close(got, want):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B, T, U", [(3, 7, 4), (32, 200, 40), (32, 200, 80),
-                                     (3, 5, 1100)])
+                                     (32, 200, 100), (8, 100, 199),
+                                     (4, 60, 512), (3, 5, 1100),
+                                     (3, 2, 7935)])
 def test_cuda_lattice_matches_reference(cuda_device, B, T, U):
-    """The training shapes (U+1 = 41 and 81) and U+1 > 1024, where the
-    threads stride over the diagonal."""
+    """The training shapes (U+1 = 41 fused, 81 two-pass, 101 pruned), U+1
+    = 200 and 513 (two and five cells a lane in registers), U+1 = 1101,
+    whose lanes keep their nine cells in shared memory, and U+1 = 7936, the
+    longest diagonal beta's plan takes (one diagonal a chunk, two
+    slots)."""
     from rnn_transducer_tpu_torch.ops import rnnt_lattice_cuda as lat
     lpb_m, lpy_m, accept, fl = _lattice_args(B, T, U, cuda_device)
     before = (lat.LAUNCHES_ALPHA, lat.LAUNCHES_BETA)
@@ -654,6 +659,207 @@ def test_cuda_lattice_matches_reference(cuda_device, B, T, U):
     assert not gb[1].any() and not gy[1].any()  # the zero-frame row
     assert (lat.LAUNCHES_ALPHA, lat.LAUNCHES_BETA) == (before[0] + 1,
                                                       before[1] + 2)
+
+
+# sha256 (first 16 hex digits) of alpha, beta, g_blank and g_y from the
+# kernel before the band walk (PR 17's lattice.cu) on the runner's
+# `lattice_problem` inputs (PERF.md, PR 18): the walk keeps their bits.
+LATTICE_DIGESTS = {
+    (32, 200, 40): {"alpha": "c2c80f5a3abf6b03", "beta": "44f632845500c8f5",
+                    "g_blank": "acb3348f06915f8a", "g_y": "5c2f0f519a318a7a"},
+    (32, 200, 80): {"alpha": "0be2b711d2ddb398", "beta": "c0204463d2bdc7eb",
+                    "g_blank": "b429255563ae80e7", "g_y": "868617e132dbc0eb"},
+    (32, 200, 100): {"alpha": "f6bbeb3de921a0db", "beta": "7b4fc3aefdaf3c50",
+                     "g_blank": "ec934d6d1f462504",
+                     "g_y": "43227e94dbd18cd0"},
+    (8, 100, 199): {"alpha": "f141697f94434c52", "beta": "532c347b57866c82",
+                    "g_blank": "77d9c146942f7117", "g_y": "1eb917ff404dd80c"},
+    (4, 60, 512): {"alpha": "896d8f8981bc39fa", "beta": "ce89c88088d059be",
+                   "g_blank": "a3b428800aa9a257", "g_y": "491fc1b7a6bd72ab"},
+    (3, 5, 1100): {"alpha": "bce0ae938de64e3a", "beta": "4b8bbd02465cd312",
+                   "g_blank": "b7e2ee7b202e7006", "g_y": "563198a4b84f2ff8"}}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B, T, U", [(32, 200, 40), (32, 200, 80),
+                                     (32, 200, 100), (8, 100, 199),
+                                     (4, 60, 512), (3, 5, 1100)])
+def test_cuda_lattice_keeps_the_parents_bits(cuda_device, B, T, U):
+    import hashlib
+
+    from rnn_transducer_tpu_torch.bench_band_bwd_b import lattice_problem
+    from rnn_transducer_tpu_torch.ops import rnnt_lattice_cuda as lat
+
+    lpb_m, lpy_m, accept, fl = lattice_problem(B, T, U, cuda_device)
+    alpha = lat.alpha_wavefront(lpb_m, lpy_m)
+    outs = (alpha, *lat.beta_occupancies(lpb_m, lpy_m, accept, alpha, fl))
+    got = {n: hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
+           for n, t in zip(("alpha", "beta", "g_blank", "g_y"), outs)}
+    assert got == LATTICE_DIGESTS[(B, T, U)]
+
+
+@pytest.mark.cuda
+def test_cuda_lattice_walk_is_one_kernel_a_call(cuda_device):
+    """alpha and beta + occupancies are one launch each, by the profiler,
+    on the plan of walk_plan."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from rnn_transducer_tpu_torch.ops import rnnt_lattice_cuda as lat
+
+    lpb_m, lpy_m, accept, fl = _lattice_args(32, 200, 100, cuda_device)
+
+    def call():
+        alpha = lat.alpha_wavefront(lpb_m, lpy_m)
+        return lat.beta_occupancies(lpb_m, lpy_m, accept, alpha, fl)
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _pad_profiler_window()
+        call()
+        call()
+        torch.cuda.synchronize()
+        _pad_profiler_window()
+    counts = {}
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA and "lattice_" in evt.key:
+            name = "alpha" if "lattice_alpha_kernel" in evt.key else "beta"
+            counts[name] = counts.get(name, 0) + evt.count
+    assert counts == {"alpha": 2, "beta": 2}
+
+
+def _fma(a, b, c):
+    """float32 fma(a, b, c), rounded once: the exact product and sum in
+    float64 (the product is exact there), with the one case where rounding
+    the float64 sum to float32 again differs from rounding the exact sum
+    (a float64 sum exactly halfway between two floats) settled by the sign
+    of the float64 sum's error."""
+    p = a.double() * b.double()
+    c64 = c.double()
+    s = p + c64
+    bp = s - p
+    err = (p - (s - bp)) + (c64 - bp)
+    r = s.float()
+    other = torch.nextafter(r, torch.where(s > r.double(),
+                                           torch.full_like(r, float("inf")),
+                                           torch.full_like(r, -float("inf"))))
+    halfway = (r.double() + other.double()) / 2 == s
+    up = torch.where(other > r, other, r)
+    down = torch.where(other > r, r, other)
+    fix = torch.where(err > 0, up, down)
+    return torch.where(halfway & (err != 0), fix, r)
+
+
+def _ln_dx_mirror(x, g, b, mu, rstd, dy):
+    """dx of K8-bwd (act none), built with the kernel's per-row arithmetic
+    as the compiler lays it out (its SASS; D = 128 NV, NV <= 4): lane l of
+    a row's warp takes the columns 4 (l + 32 k) + i, in k, i order sums
+    a = dy g (one add) and a xhat (one fma), the lanes' sums meet in a xor
+    butterfly, the means are true divisions by D, and dx = rstd fma(-xhat,
+    m2, a - m1). Under silu the compiler folds `1 + expf(-y)` into the
+    last fma of expf's own expansion, which no PyTorch call repeats; the
+    silu dx is held to the parent's digest instead."""
+    N, D = x.shape
+    nv = D // 128
+
+    def lanes(t):  # (N, D) -> (N, 32, nv, 4), [row, lane, k, i]
+        return t.reshape(N, nv, 32, 4).transpose(1, 2)
+
+    m = mu[:, None, None, None]
+    r = rstd[:, None, None, None]
+    xh = (lanes(x) - m) * r
+    a = lanes(dy) * lanes(g.expand(N, D))
+    s1 = torch.zeros(N, 32, dtype=torch.float32, device=x.device)
+    s2 = torch.zeros_like(s1)
+    for k in range(nv):
+        for i in range(4):
+            s1 = s1 + a[:, :, k, i]
+            s2 = _fma(a[:, :, k, i], xh[:, :, k, i], s2)
+    lane = torch.arange(32, device=x.device)
+    for o in (16, 8, 4, 2, 1):
+        s1 = s1 + s1[:, lane ^ o]
+        s2 = s2 + s2[:, lane ^ o]
+    dd = torch.full_like(s1[:, :1], float(D))
+    m1 = (s1[:, :1] / dd)[:, :, None, None]
+    m2 = (s2[:, :1] / dd)[:, :, None, None]
+    dx = r * _fma(-xh, m2.expand_as(xh), a - m1)
+    return dx.transpose(1, 2).reshape(N, D)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", ["none", "silu"])
+def test_cuda_fused_ln_bwd_keeps_dx_and_repeats_its_sums(cuda_device, act):
+    """K8-bwd: dx (act none) bit for bit the per-row arithmetic of the
+    design before the one-launch backward (`_ln_dx_mirror`), dg and db
+    within LN_DGB_RTOL of the plain version, three calls at each of two Ns
+    (interleaved, so the ticket counters are reused) bit for bit, and one
+    kernel a call by the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from rnn_transducer_tpu_torch.ops import fused_ln as fl
+
+    D = 512
+    args, runs = {}, {}
+    for N in (6400, 1600):
+        g = torch.Generator().manual_seed(N + 1)
+        x = (3 * torch.randn(N, D, generator=g) + 1).to(cuda_device)
+        w = (1 + 0.5 * torch.randn(D, generator=g)).to(cuda_device)
+        b = (0.5 * torch.randn(D, generator=g)).to(cuda_device)
+        dy = torch.randn(N, D, generator=g).to(cuda_device)
+        _, mu, rstd = fl.fln_fwd(x, w, b, act)
+        args[N] = (x, w, b, mu, rstd, dy, act)
+    for _ in range(3):
+        for N in (6400, 1600):
+            runs.setdefault(N, []).append(fl.fln_bwd(*args[N]))
+    torch.cuda.synchronize()
+    for N, outs in runs.items():
+        x, w, b, mu, rstd, dy, _ = args[N]
+        for again in outs[1:]:
+            assert all(torch.equal(a, e) for a, e in zip(again, outs[0]))
+        dx, dg, db = outs[0]
+        if act == "none":
+            assert torch.equal(dx, _ln_dx_mirror(x, w, b, mu, rstd, dy))
+        want = fl.fln_bwd_reference(*args[N])
+        assert _rel_err(dx, want[0]) <= LN_DX_RTOL
+        assert _rel_err(dg, want[1]) <= LN_DGB_RTOL
+        assert _rel_err(db, want[2]) <= LN_DGB_RTOL
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _pad_profiler_window()
+        fl.fln_bwd(*args[6400])
+        torch.cuda.synchronize()
+        _pad_profiler_window()
+    names = [evt.key for evt in prof.key_averages()
+             if evt.device_type == DeviceType.CUDA and "ln_" in evt.key]
+    assert len(names) == 1 and "ln_bwd_kernel" in names[0]
+    assert fl.device_bwd_occupancy(D, cuda_device) >= 2
+
+
+# sha256 (first 16 hex digits) of dx from the backward before the one
+# launch (PR 17's fused_ln.cu) on the runner's `ln_problem` inputs
+# (PERF.md, PR 18), by (N, act)
+LN_DX_DIGESTS = {(1600, "none"): "6d2c567448e40555",
+                 (1600, "silu"): "5adc6d142dca4177",
+                 (6400, "none"): "33195860d4e69e9f",
+                 (6400, "silu"): "f8cfd085ea40996f"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", ["none", "silu"])
+def test_cuda_fused_ln_bwd_keeps_the_parents_dx(cuda_device, act):
+    import hashlib
+
+    from rnn_transducer_tpu_torch.bench_band_bwd_b import ln_problem
+    from rnn_transducer_tpu_torch.ops import fused_ln as fl
+
+    for N, (x, g, b, dy) in ln_problem(cuda_device).items():
+        _, mu, rstd = fl.fln_fwd(x, g, b, act)
+        dx = fl.fln_bwd(x, g, b, mu, rstd, dy, act)[0]
+        digest = hashlib.sha256(dx.cpu().numpy().tobytes()).hexdigest()[:16]
+        assert digest == LN_DX_DIGESTS[(N, act)]
 
 
 @pytest.mark.cuda
