@@ -3,12 +3,14 @@
 the occupancies) spends its time.
 
     python3 bench_lattice.py [--src LATTICE_CU] [--out PARTS.json]
+                             [--shapes B,T,U ...]
 
 Builds `rnn_transducer_tpu_torch/csrc/lattice.cu` (or the file given by
 --src, such as an older checkout's) as it is and in variants that each
-drop one part of a diagonal, then times one launch of every build at the
-training step's lattices (B=32, T'=200, U+1 = 41 and 101), in turns, on
-one CUDA card. The ablated variants compute wrong values on purpose and
+drop one part of a diagonal, then times one launch of every build (for
+the walk design, one launch a column tile where the port walks the
+lattice in tiles) at the training step's lattices (B=32, T'=200, U+1 = 41
+and 101) or at --shapes, in turns, on one CUDA card. The ablated variants compute wrong values on purpose and
 serve only as clocks; the port never loads any of them. The variants
 follow the design the source holds:
 
@@ -68,6 +70,7 @@ import tempfile
 
 import torch
 
+from rnn_transducer_tpu_torch.ops import rnnt_lattice_cuda as lat
 from rnn_transducer_tpu_torch.utils import build
 
 SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -128,7 +131,7 @@ W_WRITTEN_WAIT = ("      mbar_wait(written_bar(m, p, slot), "
                   "                true);\n")
 W_WALKED_WAIT = ("    mbar_wait(walked_bar(m, p, slot), "
                  "(unsigned)((c / p.slots) & 1), true);\n")
-W_WRITE = ("        out[(size_t)t * U1 + u] = "
+W_WRITE = ("        out[(size_t)t * a.ld + u] = "
            "base[(size_t)i * A * m.pitch + u];\n")
 W_LOOP = ("  const int chunks = (steps + p.chunk - 1) / p.chunk;\n"
           "  for (int ch = 0; ch < chunks; ++ch) {\n")
@@ -141,17 +144,18 @@ W_CLOCK_OUT = CLOCK_OUT.format(
     arr="out + (kBeta ? (size_t)T * U1 - 2 : 0)")
 # the split variant: the stamps of the walker that reads an edge (alpha's
 # last band, beta's first) over four words of the output
-W_HAND_READ = ("        const float edge = reads ? hand_get(hand_in, d) : "
-               "kNegInf;\n")
-W_ALPHA_STEP = ("        alpha_step<K>(c, cur, edge, kk, band, lane, d + 1, "
-                "T, U1, res);\n")
+W_HAND_READ = "        float edge = reads ? hand_get(hand_in, d) : kNegInf;\n"
+W_ALPHA_STEP = ("        alpha_step<K>(c, cur, edge, col, kk, band, lane, "
+                "d + 1, T, U1, res);\n")
 W_BETA_STEP = (
     "        if (accepts_on<K>(cur, kk, band, lane, d, T, U1)) {\n"
-    "          beta_step<K, true>(c, cur, edge, kk, band, lane, d, T, U1, "
-    "res);\n"
+    "          beta_step<K, true>(c, cur, edge, col, kk, band, lane, d, T, "
+    "U1,\n"
+    "                             res);\n"
     "        } else {\n"
-    "          beta_step<K, false>(c, cur, edge, kk, band, lane, d, T, U1, "
-    "res);\n"
+    "          beta_step<K, false>(c, cur, edge, col, kk, band, lane, d, T, "
+    "U1,\n"
+    "                              res);\n"
     "        }\n")
 SPLIT_START = CLOCK_START + "  long long hand_cycles = 0, step_cycles = 0;\n"
 STEP0 = "        long long s0 = clock64();\n"
@@ -174,7 +178,7 @@ W_SHFL = (("__shfl_sync(kFull, c(n - 1) + s(1, n - 1), down)",
 W_HAND = "  } while (static_cast<int>(w >> 32) != d);\n"
 W_COPY = ('        asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\\n" '
           '::"r"(dst),\n'
-          '                     "l"(src[arr] + (size_t)t * U1 + u)\n'
+          '                     "l"(src[arr] + (size_t)t * a.ld + u)\n'
           '                     : "memory");\n')
 # a micro-kernel: one warp's chain of n dependent walk cells (lae_cell), in
 # mode 0 alone, in mode 1 with a shuffle a step, in mode 2 two cells and two
@@ -232,6 +236,7 @@ WARP_VARIANTS = {
     "chain": ((None, CHAIN),),
 }
 WARP_MARK = "lae_from_masked"
+TILE_MARK = "int edge;"
 
 # (B, T, U): the fused and the pruned step's lattices
 SHAPES = ((32, 200, 40), (32, 200, 100))
@@ -241,8 +246,11 @@ def design(src: str) -> tuple[str, dict]:
     """The design of a lattice.cu source and its variants."""
     if BLOCK_MARK in src:
         return "block", BLOCK_VARIANTS
-    if WARP_MARK in src:
+    if WARP_MARK in src and TILE_MARK in src:
         return "warp", WARP_VARIANTS
+    if WARP_MARK in src:
+        raise SystemExit("bench_lattice: a walk from before column tiles; "
+                         "time it with the bench_lattice.py of its checkout")
     raise SystemExit("bench_lattice: the source holds no design this script "
                      "knows; update its variants")
 
@@ -296,10 +304,14 @@ def build_variants(src_path: str, workdir: str) -> tuple[str, dict]:
     out = {}
     for name, so in libs.items():
         lib = ctypes.CDLL(so)
-        for fn in ("lattice_alpha", "lattice_beta"):
+        for fn in (("lattice_alpha", "lattice_beta")
+                   if name_of_design == "block" else
+                   ("lattice_alpha", "lattice_beta", "lattice_occupancy")):
             getattr(lib, fn).restype, getattr(lib, fn).argtypes = (
                 build.SIGNATURES[fn] if name_of_design != "block"
                 else BLOCK_SIGNATURES[fn])
+        if name_of_design != "block":  # check_launch's message, here
+            lib.kernel_error_string = lambda err: b"a CUDA error"
         if name == "chain":
             lib.lae_chain.restype = _I
             lib.lae_chain.argtypes = [_P, _P, _I, _I, _P]
@@ -325,28 +337,31 @@ def inputs(B: int, T: int, U: int, dev):
 
 
 def launch(lib, which: str, design_name: str, args, dev):
-    """One launch of `which` ("alpha", "beta" or "beta_occ"); its outputs."""
+    """One launch of `which` ("alpha", "beta" or "beta_occ"); its outputs.
+    The walk design launches as the port does: one launch, or one a column
+    tile of `tile_plan` (and the occupancies after the tiles)."""
     lpb, lpy, acc, fl = args
+    alpha = torch.zeros_like(lpb)
+    occ = which == "beta_occ"
+    if design_name != "block":
+        if which == "alpha":
+            return [lat._launch_alpha(lib, lpb, lpy)]
+        return list(lat._launch_beta(lib, lpb, lpy, acc,
+                                     alpha if occ else None,
+                                     fl if occ else None))
     B, T, U1 = lpb.shape
     out = [torch.empty_like(lpb) for _ in range(3)]
-    alpha = torch.zeros_like(lpb)
     stream = build.stream_args(dev)
-    extra = ()
-    if design_name != "block":
-        from rnn_transducer_tpu_torch.ops import rnnt_lattice_cuda as lat
-
-        extra = lat.plan_args(lat.walk_plan(U1, which != "alpha"))
     if which == "alpha":
         err = lib.lattice_alpha(lpb.data_ptr(), lpy.data_ptr(),
-                                out[0].data_ptr(), B, T, U1, *extra, *stream)
+                                out[0].data_ptr(), B, T, U1, *stream)
     else:
-        occ = which == "beta_occ"
         err = lib.lattice_beta(
             lpb.data_ptr(), lpy.data_ptr(), acc.data_ptr(),
             alpha.data_ptr() if occ else None,
             fl.data_ptr() if occ else None, out[0].data_ptr(),
             out[1].data_ptr() if occ else None,
-            out[2].data_ptr() if occ else None, B, T, U1, *extra, *stream)
+            out[2].data_ptr() if occ else None, B, T, U1, *stream)
     if err:
         raise SystemExit(f"lattice_{which} launch failed ({err})")
     return out
@@ -412,6 +427,8 @@ def main(argv=None) -> None:
     p.add_argument("--out", default=None,
                    help="also write the rows to this JSON file")
     p.add_argument("--reps", type=int, default=7)
+    p.add_argument("--shapes", nargs="+", default=None, metavar="B,T,U",
+                   help="lattices to time in place of the training step's")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("bench_lattice: no CUDA device")
@@ -434,22 +451,30 @@ def main(argv=None) -> None:
             print("lattice_chain " + json.dumps(row), flush=True)
             rows.append(row)
         timed = [k for k in libs if k not in ("clock", "split")]
-        for B, T, U in SHAPES:
+        shapes = ([tuple(int(x) for x in sh.split(",")) for sh in args.shapes]
+                  if args.shapes else SHAPES)
+        for B, T, U in shapes:
             a = inputs(B, T, U, dev)
             diagonals = T + U
             for which in ("alpha", "beta", "beta_occ"):
-                ms = {k: [] for k in timed}
+                # a lattice the walk design takes in column tiles: the
+                # full kernel alone (the variants and the clock stamps
+                # are made for one launch a lattice)
+                stamped = design_name == "block" or len(
+                    lat.tile_plan(U + 1, which != "alpha")) == 1
+                variants = timed if stamped else ["full"]
+                ms = {k: [] for k in variants}
                 # in turns: every variant, then every variant in reverse
-                for order in (timed, timed[::-1]):
+                for order in (variants, variants[::-1]):
                     for k in order:
                         ms[k] += launch_ms(libs[k], which, design_name, a,
                                            dev, args.reps)
                 med = {k: statistics.median(v) for k, v in ms.items()}
-                clock = clock_cycles(libs["clock"], which, design_name, a,
-                                     dev)
+                clock = (clock_cycles(libs["clock"], which, design_name, a,
+                                      dev) if stamped else {})
                 split = (clock_cycles(libs["split"], which, design_name, a,
                                       dev, ("walk", "wait", "hand", "step"))
-                         if "split" in libs else {})
+                         if "split" in libs and stamped else {})
                 row = {"design": design_name, "kernel": which, "B": B,
                        "T": T, "U1": U + 1, "diagonals": diagonals,
                        "ms": med, "ms_min": {k: min(v) for k, v in
@@ -459,11 +484,12 @@ def main(argv=None) -> None:
                        "part_ns_a_diagonal": {
                            k: (med["full"] - v) / diagonals * 1e6
                            for k, v in med.items() if k != "full"},
-                       "clock": {**clock,
-                                 "walk_cycles_a_diagonal":
-                                 clock["walk_cycles"] / diagonals,
-                                 "wait_cycles_a_diagonal":
-                                 clock["wait_cycles"] / diagonals},
+                       "clock": {**clock, **({
+                           "walk_cycles_a_diagonal":
+                           clock["walk_cycles"] / diagonals,
+                           "wait_cycles_a_diagonal":
+                           clock["wait_cycles"] / diagonals} if clock
+                           else {})},
                        "split_cycles_a_diagonal": {
                            k: v / diagonals for k, v in split.items()},
                        "max_sm_clock": clock_mhz, "card": card}

@@ -9,14 +9,16 @@ and of libri100_conformer (8 conformer blocks of d=512, 8 heads, FFN x4,
 conv kernel 15, 4x input stacking, the same predictor and joint) with
 random weights from --seed, through the entry points a user calls:
 serving (BatchingEngine behind http_server, with serve.py's CLI
-defaults, and serve.py's CLI itself for the conformer) and training
+defaults, and serve.py's CLI itself for the conformer and for beam
+search) and training
 (init_train_state + make_train_step at bench.py's headline shape, B=32,
 T=400, U=40, through the default fused loss, and at U=80 through the
 two-pass loss, loss_impl="pallas"; the conformer at bench.py's B=64,
 T=400, U=40; the pruned two-pass loss at libri100 with a vocabulary of
 8192, U=100, and the alignment-restricted band at U=40; and the training
-CLI); int8 serving (serve.py --quantize int8) and the greedy decode in one
-program (recognize_greedy_fused).
+CLI); int8 serving (serve.py --quantize int8), the greedy decode in one
+program (recognize_greedy_fused) and beam serving with prefix merging and
+its shallow fusion (BatchingEngine(mode="beam")).
 Phases, in order:
 
   1. card   require CUDA; print the card's name and power limit
@@ -77,6 +79,17 @@ Phases, in order:
             recognize_greedy's; then serve.py's CLI with --config
             libri100_conformer, float and --quantize int8, answering a
             request each
+  4f. beam (after 5e)  the served model made to emit tens of
+            tokens a row (its joint's encoder side and logits scaled,
+            blank offset re-set; every check needs a mean top-beam
+            length of 5 or more): 8 requests to BatchingEngine(mode="beam")
+            (beam 8, 3 expansions): 4 lstm_fwd launches a batch, no K9; a
+            served batch at f32 through the kernels and the plain
+            versions, float and int8 (4 K7 launches), and each fusion
+            (LSTM LM, ILM, transformer LM, trigram, context trie): the
+            same n-best, live scores within 1e-3; bf16 host ms at
+            buckets 400 and 800, launches a frame and the busy share of
+            a profiled batch
   5. train  training steps: finite loss and grad norm on every step, no
             skipped update, the params move, every training kernel
             launched; ms/step by the slope of bench.py and utt/s; one
@@ -106,6 +119,11 @@ Phases, in order:
             each K6 kernel once a step, K3 once; ms/step, a profiled step
             (K6-A and K6-B two kernels a call each), the f32 check, the
             CLI with --ar-range 8
+  4g. lattice_tiles (last: no profiled check may follow the plain
+            versions' long, nearly idle loops) lattice_alpha and
+            lattice_beta with the occupancies at U+1 = 8,001, 11,137 and
+            22,401 (B=3, T'=40) in column tiles (tile_plan) against the
+            plain versions, kernel and plain ms
   6. the kernels' JSON line (sixteen kernels) (each kernel with its bound, the least time
      the card could take: bytes over 3.35 TB/s or operations over the
      peak for the operands' type, whichever is larger; and the time of one
@@ -205,6 +223,9 @@ PALLAS_U = 80
 # 1e-5 max(1, |plain|) (float32 sums of up to T + U terms, in the same
 # order on both sides), the occupancies within 1e-5 absolute.
 LATTICE_RTOL, OCC_ATOL = 1e-5, 1e-5
+# Label lengths past one walk plan (beta above U+1 = 7,936, alpha above
+# 11,136): the lattice in column tiles.
+LATTICE_TILE_U = (8_000, 11_136, 22_400)
 SLOPE_STEPS, SLOPE_REPEATS = (3, 8), 2  # bench.py's slope method, shorter
 # The W8A8 recurrence against its plain version: (name, B, T, I, nonzero
 # h0/c0). libri100 serving at the 800-frame bucket (B = 8: one 8-row batch
@@ -840,6 +861,50 @@ def lattice_vs_plain(rng: np.random.Generator, dev) -> dict:
     return {"rows": rows, "main": rows[TRAIN_U],
             "worst_alpha": max(r["alpha_max_abs_err"] for r in rows.values()),
             "worst_beta": max(r["beta_max_abs_err"] for r in rows.values())}
+
+
+def lattice_tiles_vs_plain(rng: np.random.Generator, dev) -> None:
+    """Phase 4g: lattice_alpha and lattice_beta (with the occupancies) on
+    diagonals longer than one walk plan takes, in column tiles
+    (`tile_plan`), against their plain versions: B=3 (a full row, a
+    zero-frame row, a label-less row), T'=40, U+1 of LATTICE_TILE_U. Run
+    last: the plain versions' diagonal loops leave the card nearly idle
+    for tens of seconds, and a torch.profiler window after such a stretch
+    misplaces its kernels, so no profiled check may follow."""
+    for U in LATTICE_TILE_U:
+        lpb, lpy, fl, ll = lattice_scores(rng, dev, 3, 40, U)
+        lpb_m, lpy_m = rl._masked_transitions(lpb, lpy, fl, ll)
+        accept = rl._accept_scores(lpb, fl, ll)
+        a_args = (lpb_m, lpy_m)
+        want_a = lat.alpha_wavefront_reference(*a_args)
+        got_a = lat.alpha_wavefront(*a_args)
+        b_args = (lpb_m, lpy_m, accept, want_a, fl)
+        want_b = lat.beta_occupancies_reference(*b_args)
+        got_b = lat.beta_occupancies(*b_args)
+        err_a, rel_a, unreach_a = lattice_err(got_a, want_a)
+        err_b, rel_b, unreach_b = lattice_err(got_b[0], want_b[0])
+        err_occ = max(max_abs(got_b[1], want_b[1]),
+                      max_abs(got_b[2], want_b[2]))
+        row = {"B": 3, "T": 40, "U1": U + 1,
+               "tiles": {k: [(t.u0, t.width, t.edge)
+                             for t in lat.tile_plan(U + 1, beta)]
+                         for k, beta in (("alpha", False), ("beta", True))},
+               "alpha_max_abs_err": err_a, "alpha_rel_err": rel_a,
+               "beta_max_abs_err": err_b, "beta_rel_err": rel_b,
+               "occ_max_abs_err": err_occ,
+               "alpha_ms": cuda_ms(lambda: lat.alpha_wavefront(*a_args)),
+               "beta_ms": cuda_ms(lambda: lat.beta_occupancies(*b_args)),
+               "alpha_plain_ms": cuda_ms(
+                   lambda: lat.alpha_wavefront_reference(*a_args)),
+               "beta_plain_ms": cuda_ms(
+                   lambda: lat.beta_occupancies_reference(*b_args))}
+        print("kernel lattice_tiles " + json.dumps(row))
+        check(rel_a <= LATTICE_RTOL and rel_b <= LATTICE_RTOL
+              and unreach_a and unreach_b and err_occ <= OCC_ATOL,
+              f"lattice in column tiles, U+1={U + 1}: alpha rel err "
+              f"{rel_a}, beta {rel_b}, occupancies {err_occ}")
+        check(float(got_b[0][0, 0, 0]) > -1e29,
+              f"lattice in column tiles, U+1={U + 1}: log Z unreachable")
 
 
 def loss_rows_vs_plain(rng: np.random.Generator, dev) -> dict:
@@ -1731,6 +1796,301 @@ def fused_greedy(serving: dict, qparams, dev) -> dict:
     return {"rows": rows, "launches": launches}
 
 
+# ------------------------------ phase 4f ---------------------------------
+
+# Beam serving: the JAX engine's defaults (beam 8, 3 expansions a frame),
+# with serve.py's max_symbols, max_batch and buckets.
+BEAM, EXPANSIONS, BEAM_REQUESTS = 8, 3, 8
+# Kernel path against plain path: live beams' scores within 1e-3; n-best
+# lists may differ only at the K-th beam, where two hypotheses within 1e-4
+# of each other can trade places (the near-tie rule of ROADMAP §3).
+BEAM_SCORE_ATOL, BEAM_CUT_GAP = 1e-3, 1e-4
+# The fusion LMs: tools/train_lm.py's defaults for the LSTM LM, and a
+# transformer LM of d_model 256, 4 heads, 4 layers, max_len 512 (capped by
+# beam_search at max_symbols + 1 = 101); their weights and the ILM's.
+LM_WEIGHT, ILM_WEIGHT, NGRAM_WEIGHT = 0.3, 0.1, 0.3
+BEAM_PROFILE_FRAMES = 25  # encoder frames of the profiled beam batch
+# The beam phase's model (`beam_serving_setup`): the served model with the
+# encoder side of its joint scaled BEAM_ENC_SCALE times, its logits
+# BEAM_LOGIT_SCALE times, and the blank offset of `walking_offset` at
+# BEAM_BLANK_SHARE, so that its rows emit along the utterance; every check
+# of the phase needs a mean top-beam length of BEAM_MIN_TOKENS or more.
+BEAM_ENC_SCALE, BEAM_LOGIT_SCALE, BEAM_BLANK_SHARE = 128.0, 16.0, 0.92
+BEAM_MIN_TOKENS = 5
+
+
+def beam_fusions(cfg, seed: int, dev) -> dict:
+    """name -> recognize_beam keyword arguments of each fusion, built from
+    the seed: an LSTM LM, the same with ILM subtraction, a transformer LM,
+    a trigram from train_ngram on seeded token sequences and a context
+    trie of 10 seeded phrases (f32 LMs; `lm_dtype` swaps their dtype)."""
+    from rnn_transducer_tpu_torch.decode.context import build_context_bias
+    from rnn_transducer_tpu_torch.models.lm import LMConfig, init_lm_params
+    from rnn_transducer_tpu_torch.models.lm_transformer import \
+        TransformerLMConfig
+    from rnn_transducer_tpu_torch.models.ngram import train_ngram
+
+    rng = np.random.default_rng(seed + 20)
+    V = cfg.vocab_size
+    lstm_cfg = LMConfig(vocab_size=V, embed_dim=128, hidden=256, layers=1)
+    tr_cfg = TransformerLMConfig(vocab_size=V, d_model=256, heads=4,
+                                 layers=4, max_len=512)
+    lstm_p = init_lm_params(lstm_cfg, rng, dev)
+    tr_p = init_lm_params(tr_cfg, rng, dev)
+    seqs = [rng.integers(1, V, size=int(rng.integers(4, 13))).tolist()
+            for _ in range(60)]
+    phrases = [rng.integers(1, V, size=int(rng.integers(1, 4))).tolist()
+               for _ in range(10)]
+    return {"lstm_lm": {"lm": (lstm_p, lstm_cfg, LM_WEIGHT)},
+            "ilm": {"lm": (lstm_p, lstm_cfg, LM_WEIGHT, ILM_WEIGHT)},
+            "transformer_lm": {"lm": (tr_p, tr_cfg, LM_WEIGHT)},
+            "ngram": {"ngram": (train_ngram(seqs, 3, V).to(dev),
+                                NGRAM_WEIGHT)},
+            "context": {"context": build_context_bias(
+                phrases, V, blank=cfg.blank).to(dev)}}
+
+
+def lm_dtype(fusion: dict, cd: str) -> dict:
+    """The fusion with its LM's compute dtype set to cd."""
+    if "lm" not in fusion:
+        return fusion
+    lm = fusion["lm"]
+    return {"lm": (lm[0], dataclasses.replace(lm[1], compute_dtype=cd),
+                   *lm[2:])}
+
+
+def decode_beam(params, cfg, feats, lens, plain: bool = False, **fusion):
+    """recognize_beam at the engine's settings -> numpy tokens, lengths,
+    scores; plain=True through the plain versions of the kernels."""
+    from rnn_transducer_tpu_torch.decode.beam import recognize_beam
+
+    ctx = plain_kernels() if plain else contextlib.nullcontext()
+    with ctx, torch.inference_mode():
+        out = recognize_beam(params, cfg, feats, lens, beam=BEAM,
+                             max_symbols=MAX_SYMBOLS, expansions=EXPANSIONS,
+                             **fusion)
+        return tuple(a.cpu().numpy() for a in out)
+
+
+def beams_agree(got, want, what: str) -> dict:
+    """Kernel-path beams against plain-path beams: the same top beam on
+    every row and the same n-best token lists, live beams' scores within
+    BEAM_SCORE_ATOL; a list that differs only at the K-th beam passes if
+    the two K-th scores lie within BEAM_CUT_GAP (reported)."""
+    tok, n, sc = got
+    tok_p, n_p, sc_p = want
+    B, K = n.shape
+    worst, cuts = 0.0, []
+    for b in range(B):
+        live, live_p = sc[b] > -5e29, sc_p[b] > -5e29
+        lists = [tok[b, k, :n[b, k]].tolist() for k in range(K) if live[k]]
+        lists_p = [tok_p[b, k, :n_p[b, k]].tolist() for k in range(K)
+                   if live_p[k]]
+        check(lists[:1] == lists_p[:1],
+              f"beam {what}: row {b}'s top beam differs between the kernel "
+              f"path and the plain path: {lists[:1]} vs {lists_p[:1]}")
+        longest = max(len(lists), len(lists_p))
+        same = next((k for k in range(longest) if k >= len(lists)
+                     or k >= len(lists_p) or lists[k] != lists_p[k]),
+                    longest)
+        if same < longest:
+            gap = float(abs(sc[b, same] - sc_p[b, same]))
+            cuts.append({"row": b, "beam": same, "gap": gap})
+            check(same == K - 1 and len(lists) == len(lists_p) == K
+                  and gap < BEAM_CUT_GAP,
+                  f"beam {what}: row {b}'s n-best differs at beam {same} "
+                  f"(score gap {gap})")
+        for k in range(same):
+            worst = max(worst, float(abs(sc[b, k] - sc_p[b, k])))
+    check(worst <= BEAM_SCORE_ATOL,
+          f"beam {what}: live beam scores differ by {worst}")
+    return {"max_score_err": worst, "cut_differences": cuts,
+            "top_lengths": n[:, 0].tolist(),
+            "live_beams": int((sc > -5e29).sum())}
+
+
+def beam_profile(call) -> dict:
+    """One call under torch.profiler: its wall ms, the CUDA kernels it
+    launched and their summed device ms (the spin pads left out)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        pad_profiler_window()
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        pad_profiler_window()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and "sleep" not in e.name and "Memcpy" not in e.name
+               and "Memset" not in e.name]
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    return {"wall_ms": wall_ms, "kernels": len(kernels),
+            "device_busy_ms": busy_ms, "busy_share": busy_ms / wall_ms}
+
+
+def beam_serving_setup(serving: dict, seed: int, dev) -> dict:
+    """The served libri100 model made to emit along an utterance. Its
+    random encoder's output is small (|h| ~0.01), so its joint barely sees
+    the frame: with `blank_offset` a row emits 0-2 tokens on its first
+    frames and walks the rest on blank, and a beam check would pass on
+    nearly empty lists. The encoder side of the joint scaled
+    BEAM_ENC_SCALE times makes the frame decide; the logits scaled
+    BEAM_LOGIT_SCALE times make the winner's probability high (over 1024
+    near-even classes a path that emits pays ~log(1/1024) a token and
+    loses to one that does not, whatever the argmax); the blank offset of
+    `walking_offset` lets blank win on BEAM_BLANK_SHARE of the (frame,
+    state) pairs."""
+    cfg, params = serving["cfg"], serving["params"]
+    jp = params["joint"]
+    out_b = jp["out"]["b"].clone()
+    out_b[cfg.blank] -= serving["offset"]
+    out_b *= BEAM_LOGIT_SCALE
+    joint = {**jp, "enc_proj": {"w": jp["enc_proj"]["w"] * BEAM_ENC_SCALE,
+                                "b": jp["enc_proj"]["b"]},
+             "out": {"w": jp["out"]["w"] * BEAM_LOGIT_SCALE, "b": out_b}}
+    params = {**params, "joint": joint}
+    offset = walking_offset(params, cfg, dev, np.random.default_rng(seed + 30),
+                            BEAM_BLANK_SHARE)
+    out_b[cfg.blank] += offset
+    return {**serving, "params": params, "offset": offset}
+
+
+def beam_serving(serving: dict, dev) -> dict:
+    """Phase 4f: beam search with prefix merging on the served libri100
+    model made to emit (`beam_serving_setup`), its rows' top beams
+    BEAM_MIN_TOKENS long or more on average. BatchingEngine(mode="beam")
+    behind http_server answers
+    BEAM_REQUESTS requests (4 K4-fwd launches a batch, no K9); a served
+    batch (B=8, bucket 800) at f32 through the kernels and through the
+    plain versions, with float and int8 params (4 K7 launches) and with
+    each fusion; the bf16 batch's host ms at buckets
+    400 and 800 and ms a frame, and the launches a frame and the device's
+    busy share of a profiled batch of its first frames."""
+    cfg, params = serving["cfg"], serving["params"]
+    qparams = quantize_params(params)
+    utts = serving["utts"][:BEAM_REQUESTS]
+    lengths = serving["lengths"][:BEAM_REQUESTS]
+    engine = BatchingEngine(params, cfg, mode="beam", beam=BEAM,
+                            expansions=EXPANSIONS, max_symbols=MAX_SYMBOLS,
+                            frame_buckets=BUCKETS, max_batch=MAX_BATCH,
+                            window_ms=WINDOW_MS, device=dev)
+    try:
+        t0 = time.perf_counter()
+        engine.warmup()
+        warmup_s = time.perf_counter() - t0
+        reset_counts()
+        t0 = time.perf_counter()
+        answers = serve_requests(engine, utts)
+        wall_s = time.perf_counter() - t0
+        counts = read_counts()
+        stats = engine.stats.summary()
+    finally:
+        engine.close()
+    codes = [a[0] for a in answers]
+    check(all(c == 200 for c in codes), f"beam HTTP codes {codes}")
+    for (_, out, _), T in zip(answers, lengths):
+        n = len(out["tokens"])
+        check(n == len(out["confidence"]) == len(out["frames"]) <= MAX_SYMBOLS,
+              "beam result fields disagree in length")
+        check(all(0 < k < cfg.vocab_size for k in out["tokens"]),
+              "beam token outside the vocabulary or blank")
+        check(all(np.isfinite(c) and c <= 1e-6 for c in out["confidence"]),
+              "beam confidence is not a finite log-probability")
+        check(all(0 <= f < T for f in out["frames"])
+              and out["frames"] == sorted(out["frames"]),
+              "beam frames out of order or past the utterance")
+        scores = [h["score"] for h in out["nbest"]]
+        check(1 <= len(out["nbest"]) <= BEAM and scores == sorted(
+            scores, reverse=True) and out["nbest"][0]["tokens"]
+            == out["tokens"] and np.isfinite(out["score"]),
+            "beam n-best not best first, or not led by the answer")
+    lat = sorted(a[2] * 1e3 for a in answers)
+    result = {"requests": len(answers), "batches": stats["batches"],
+              "mean_batch": stats["mean_batch"], "warmup_s": warmup_s,
+              "wall_s": wall_s, "p50_ms": lat[len(lat) // 2],
+              "stats": stats, "lstm_fwd_launches": counts["lstm_fwd"],
+              "greedy_fused_launches": counts["greedy_fused"],
+              "mean_tokens": statistics.mean(len(a[1]["tokens"])
+                                             for a in answers),
+              "mean_nbest": statistics.mean(len(a[1]["nbest"])
+                                            for a in answers)}
+    print("e2e_beam " + json.dumps(result))
+    check(result["mean_tokens"] >= BEAM_MIN_TOKENS,
+          f"beam serving: the answers hold {result['mean_tokens']} tokens "
+          f"on average, fewer than {BEAM_MIN_TOKENS}")
+    check(counts["lstm_fwd"] == cfg.enc_layers * stats["batches"],
+          f"beam serving launched lstm_fwd {counts['lstm_fwd']} times in "
+          f"{stats['batches']} batches, not {cfg.enc_layers} a batch")
+    check(counts["greedy_fused"] == 0, "beam serving launched greedy_fused")
+    check_no_band(counts, "beam serving")
+
+    # One served batch at f32 (bucket 800): kernels against plain
+    # versions, float, int8 and each fusion.
+    feats, lens = served_batch(serving, dev)
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    fusions = beam_fusions(cfg, 0, dev)
+    rows = []
+    for what, p, fusion in ([("float", params, {}), ("int8", qparams, {})]
+                            + [(name, params, lm_dtype(f, "float32"))
+                               for name, f in fusions.items()]):
+        reset_counts()
+        got = decode_beam(p, f32, feats, lens, **fusion)
+        counts = read_counts()
+        want = decode_beam(p, f32, feats, lens, plain=True, **fusion)
+        row = {"what": what, "bucket": BUCKETS[-1],
+               **beams_agree(got, want, what),
+               "lstm_fwd_launches": counts["lstm_fwd"],
+               "lstm_fwd_int8_launches": counts["lstm_fwd_int8"]}
+        row["mean_top_length"] = statistics.mean(row["top_lengths"])
+        print("beam_kernel_vs_plain " + json.dumps(row))
+        check(row["mean_top_length"] >= BEAM_MIN_TOKENS,
+              f"beam batch ({what}): top beams of {row['mean_top_length']} "
+              f"tokens on average, fewer than {BEAM_MIN_TOKENS}")
+        if what == "int8":
+            check(counts["lstm_fwd_int8"] == cfg.enc_layers
+                  and counts["lstm_fwd"] == 0,
+                  f"int8 beam batch: {counts['lstm_fwd_int8']} K7 and "
+                  f"{counts['lstm_fwd']} K4-fwd launches, not "
+                  f"{cfg.enc_layers} and 0")
+        else:
+            check(counts["lstm_fwd"] == cfg.enc_layers,
+                  f"beam batch ({what}): {counts['lstm_fwd']} K4-fwd "
+                  f"launches, not {cfg.enc_layers}")
+        rows.append(row)
+    result["kernel_vs_plain"] = rows
+
+    # bf16 (the served dtype): host ms a batch at buckets 400 and 800; the
+    # launches a frame and the device's busy share from a profiled batch
+    # of the first PROFILE_FRAMES frames (a whole batch is 200-600
+    # thousand kernels, more than a profiler window should hold).
+    timing = []
+    for name, fusion in [("beam", {})] + list(fusions.items()):
+        fusion = lm_dtype(fusion, "bfloat16")
+        short = BEAM_PROFILE_FRAMES * cfg.time_reduction
+        f, n = feats[:, :short], torch.clamp(lens, max=short)
+        decode_beam(params, cfg, f, n, **fusion)  # warm
+        if name in ("beam", "transformer_lm"):
+            prof = beam_profile(
+                lambda: decode_beam(params, cfg, f, n, **fusion))
+            prof.update({"what": name, "profiled_frames": BEAM_PROFILE_FRAMES,
+                         "launches_per_frame": prof["kernels"]
+                         / BEAM_PROFILE_FRAMES})
+            print("beam_profile " + json.dumps(prof))
+        for tb in (400, 800):
+            f, n = feats[:, :tb], torch.clamp(lens, max=tb)
+            ms = host_ms(lambda: decode_beam(params, cfg, f, n, **fusion), 1)
+            frames = tb // cfg.time_reduction
+            row = {"what": name, "bucket": tb, "host_ms": ms,
+                   "ms_per_frame": ms / frames}
+            print("beam_timing " + json.dumps(row))
+            timing.append(row)
+    result["timing"] = timing
+    return result
+
+
 def walking_offset(params, cfg, dev, rng, blank_share: float = 0.7) -> float:
     """Blank-bias offset for the random conformer: blank wins on
     `blank_share` of the (frame, predictor state) pairs, the state being
@@ -1819,12 +2179,13 @@ def conformer_end_to_end(conf: dict, dev) -> dict:
     return result
 
 
-def serve_cli(extra: list, utt: np.ndarray) -> dict:
-    """serve.py's CLI, --config libri100_conformer plus `extra`, in a
-    process of its own: it warms up, answers one /recognize and /stats,
-    and drains and exits 0 on SIGTERM."""
+def serve_cli(extra: list, utt: np.ndarray,
+              config: str = "libri100_conformer") -> dict:
+    """serve.py's CLI, --config `config` plus `extra`, in a process of its
+    own: it warms up, answers one /recognize (with an n-best under --mode
+    beam) and /stats, and drains and exits 0 on SIGTERM."""
     cmd = [sys.executable, "-m", "rnn_transducer_tpu_torch.serve",
-           "--config", "libri100_conformer", "--port", "0", *extra]
+           "--config", config, "--port", "0", *extra]
     t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(
         __file__)), stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
@@ -1862,6 +2223,10 @@ def serve_cli(extra: list, utt: np.ndarray) -> dict:
     print("serve_cli " + json.dumps(row))
     check(code == 200 and rc == 0 and row["drained"],
           f"serve CLI {extra}: code {code}, exit {rc}, log {lines[-5:]}")
+    if "beam" in extra:
+        row["nbest"] = len(out.get("nbest", []))
+        check(1 <= row["nbest"] <= BEAM and "score" in out,
+              f"serve CLI {extra}: no n-best in {sorted(out)}")
     return row
 
 
@@ -2519,8 +2884,9 @@ def main(argv=None):
     t0 = time.perf_counter()
     e2e_q = int8_serving(serving, dev)
     print(f"phase e2e_int8: {time.perf_counter() - t0:.1f} s")
+    qparams = e2e_q.pop("qparams")
     t0 = time.perf_counter()
-    fused = fused_greedy(serving, e2e_q.pop("qparams"), dev)
+    fused = fused_greedy(serving, qparams, dev)
     print(f"phase fused: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     conf = conformer_serving_setup(serving, args.seed, dev)
@@ -2530,8 +2896,19 @@ def main(argv=None):
     utt = serving["utts"][0]
     for extra in ([], ["--quantize", "int8"]):
         serve_cli(extra, utt)
+    with tempfile.TemporaryDirectory() as tmp:
+        # the beam entry point: libri100, --mode beam with a trigram
+        from rnn_transducer_tpu_torch.models.ngram import (save_ngram,
+                                                           train_ngram)
+        rng = np.random.default_rng(args.seed + 21)
+        V = serving["cfg"].vocab_size
+        save_ngram(train_ngram([rng.integers(1, V, size=8).tolist()
+                                for _ in range(40)], 3, V),
+                   os.path.join(tmp, "lm3"))
+        serve_cli(["--mode", "beam", "--ngram", os.path.join(tmp, "lm3")],
+                  utt, config="libri100")
     print(f"phase serve_cli: {time.perf_counter() - t0:.1f} s")
-    del serving, conf
+    del conf
     torch.cuda.empty_cache()
 
     # phase 5: training
@@ -2553,6 +2930,17 @@ def main(argv=None):
     t0 = time.perf_counter()
     train_ar_phase(args.seed, dev, args.profile_dir)
     print(f"phase train_ar: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    # phase 4f: beam serving (its profiled windows after the training
+    # phases' kernel-name checks); then 4g, after every profiled window
+    t0 = time.perf_counter()
+    beam_serving(beam_serving_setup(serving, args.seed, dev), dev)
+    print(f"phase beam: {time.perf_counter() - t0:.1f} s")
+    del serving, qparams
+    t0 = time.perf_counter()
+    lattice_tiles_vs_plain(np.random.default_rng(args.seed + 22), dev)
+    print(f"phase lattice_tiles: {time.perf_counter() - t0:.1f} s")
 
     # phase 6: results
     lp = "rnn_transducer_tpu/ops/lstm_pallas.py"

@@ -17,7 +17,6 @@ import torch
 
 from rnn_transducer_tpu_torch.models import transducer as m
 from rnn_transducer_tpu_torch.models.config import TransducerConfig
-from rnn_transducer_tpu_torch.ops.quant import maybe_dequant_tree
 
 
 def greedy_decode(params, cfg: TransducerConfig, enc_out, enc_lens,
@@ -41,17 +40,16 @@ def greedy_decode(params, cfg: TransducerConfig, enc_out, enc_lens,
         raise NotImplementedError(
             "carried decode_state (streaming) is not ported yet (ROADMAP "
             "queue 1, item 4: streaming)")
-    # int8 params dequantized once here, not in every step's predict_step
-    # and joint_step (the JAX package's jit hoists them out of its loop)
-    params = maybe_dequant_tree(params)
+    # int8 params dequantized and weights rounded once here, not in every
+    # step (the JAX package's jit hoists them out of its loop)
+    dw = m.DecodeWeights(params, cfg)
     B = enc_out.shape[0]
     dev = enc_out.device
     enc_lens = enc_lens.to(device=dev, dtype=torch.int32)
     rows = torch.arange(B, device=dev)
     blank = torch.full((B,), cfg.blank, dtype=torch.int64, device=dev)
 
-    pred_out, states = m.predict_step(params, cfg, blank,
-                                      m.init_pred_state(cfg, B, dev))
+    pred_out, states = dw.predict_step(blank, m.init_pred_state(cfg, B, dev))
     t = torch.zeros((B,), dtype=torch.int32, device=dev)
     u = torch.zeros((B,), dtype=torch.int32, device=dev)
     tokens = torch.full((B, max_symbols), cfg.blank, dtype=torch.int32,
@@ -65,7 +63,7 @@ def greedy_decode(params, cfg: TransducerConfig, enc_out, enc_lens,
         # zero-length rows (already done), where JAX's gather wraps -1.
         t_safe = torch.clamp(torch.minimum(t, enc_lens - 1), min=0)
         enc_t = enc_out[rows, t_safe.long()]
-        logits = m.joint_step(params, cfg, enc_t, pred_out)  # (B, V) fp32
+        logits = dw.joint(dw.enc_proj(enc_t), dw.pred_proj(pred_out))
         k = torch.argmax(logits, dim=-1)
         is_blank = (k == cfg.blank) | (k >= cfg.vocab_size)
         emit = ~(is_blank | done)
@@ -78,8 +76,8 @@ def greedy_decode(params, cfg: TransducerConfig, enc_out, enc_lens,
                                         tokens[rows, u_w])
         confs[rows, u_w] = torch.where(emit, k_lp, confs[rows, u_w])
         frames[rows, u_w] = torch.where(emit, t, frames[rows, u_w])
-        new_pred, new_states = m.predict_step(
-            params, cfg, torch.where(emit, k, blank), states)
+        new_pred, new_states = dw.predict_step(torch.where(emit, k, blank),
+                                               states)
         e = emit[:, None]
         pred_out = torch.where(e, new_pred, pred_out)
         states = [(torch.where(e, hn, h), torch.where(e, cn, c))

@@ -27,7 +27,7 @@ from rnn_transducer_tpu_torch.ops.conformer import (conformer_block,
                                                     init_conformer_block)
 from rnn_transducer_tpu_torch.ops.lstm import (
     _dot,
-    lstm_cell,
+    cell_update,
     lstm_layer,
     mask_padding,
 )
@@ -175,17 +175,10 @@ def predict_step(params: Params, cfg: TransducerConfig, label, states):
 
     label: (B,) int (the last emitted label; blank id = start symbol).
     states: list per layer of (h, c) each (B, H). Returns (out (B, H), states').
+    A decode loop builds `DecodeWeights` once and steps that instead.
     """
     check_supported(cfg)
-    params = maybe_dequant_tree(params)
-    x = params["embed"][label]  # (B, E)
-    new_states = []
-    for layer, (h, c) in zip(params["predictor"], states):
-        x_proj = _dot(x, layer["w_ih"], cfg.cdtype) + layer["b"].float()
-        h, c = lstm_cell(layer, x_proj, h, c, cfg.cdtype)
-        new_states.append((h, c))
-        x = h
-    return x, new_states
+    return DecodeWeights(params, cfg).predict_step(label, states)
 
 
 def init_pred_state(cfg: TransducerConfig, batch: int,
@@ -202,13 +195,57 @@ def init_pred_state(cfg: TransducerConfig, batch: int,
 
 def joint_step(params: Params, cfg: TransducerConfig, enc_t, pred_u):
     """Joint for single (t, u) positions: enc_t (B, De), pred_u (B, Dp) -> (B, V) fp32."""
-    params = maybe_dequant_tree(params)
-    jp = params["joint"]
-    cd = cfg.cdtype
-    f = _dot(enc_t, jp["enc_proj"]["w"], cd) + jp["enc_proj"]["b"].float()
-    g = _dot(pred_u, jp["pred_proj"]["w"], cd) + jp["pred_proj"]["b"].float()
-    z = torch.tanh(f + g)
-    return _dot(z, jp["out"]["w"], cd) + jp["out"]["b"].float()
+    dw = DecodeWeights(params, cfg)
+    return dw.joint(dw.enc_proj(enc_t), dw.pred_proj(pred_u))
+
+
+class DecodeWeights:
+    """The predictor's and the joint's weights rounded to the compute dtype
+    once, and the one body of `predict_step` and `joint_step`: a decode
+    loop builds it once a call, so that its products round only their
+    activations (`_dot`'s rounding, without a weight cast a step) and int8
+    params are dequantized once. The joint is split, `joint(enc_proj(enc),
+    pred_proj(pred))`, so that a loop can project the encoder output once
+    for all frames and share the predictor side between two joints."""
+
+    def __init__(self, params: Params, cfg: TransducerConfig):
+        params = maybe_dequant_tree(params)
+        cd = self.cd = cfg.cdtype
+
+        def r(w):
+            return w.to(cd).float()
+
+        self.embed = params["embed"]
+        self.layers = [(r(lay["w_ih"]), lay["b"].float(), r(lay["w_hh"]))
+                       for lay in params["predictor"]]
+        jp = params["joint"]
+        self.enc_w, self.enc_b = (r(jp["enc_proj"]["w"]),
+                                  jp["enc_proj"]["b"].float())
+        self.pred_w, self.pred_b = (r(jp["pred_proj"]["w"]),
+                                    jp["pred_proj"]["b"].float())
+        self.out_w, self.out_b = r(jp["out"]["w"]), jp["out"]["b"].float()
+
+    def _mm(self, x, w):
+        return torch.matmul(x.to(self.cd).float(), w)
+
+    def predict_step(self, label, states):
+        x = self.embed[label]
+        new_states = []
+        for (w_ih, b, w_hh), (h, c) in zip(self.layers, states):
+            gates = (self._mm(x, w_ih) + b) + self._mm(h, w_hh)
+            h, c = cell_update(gates, c)
+            new_states.append((h, c))
+            x = h
+        return x, new_states
+
+    def enc_proj(self, enc):
+        return self._mm(enc, self.enc_w) + self.enc_b
+
+    def pred_proj(self, pred):
+        return self._mm(pred, self.pred_w) + self.pred_b
+
+    def joint(self, f, g):
+        return self._mm(torch.tanh(f + g), self.out_w) + self.out_b
 
 
 def predict(params: Params, cfg: TransducerConfig, labels):

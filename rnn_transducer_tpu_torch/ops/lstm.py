@@ -54,6 +54,12 @@ def hidden_dim(params) -> int:
 def lstm_cell(params, x_proj, h, c, compute_dtype=torch.bfloat16):
     """One LSTM step. x_proj = x @ w_ih + b precomputed. h:(B,H) c:(B,H) fp32."""
     gates = x_proj + _dot(h, _whh(params, compute_dtype), compute_dtype)
+    return cell_update(gates, c)
+
+
+def cell_update(gates, c):
+    """An LSTM step from its gate pre-activations (B, 4H) f32 and c (B, H)
+    -> (h', c')."""
     i, f, g, o = gates.chunk(4, dim=-1)  # torch gate order: i, f, g, o
     c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
     h_new = torch.sigmoid(o) * torch.tanh(c_new)

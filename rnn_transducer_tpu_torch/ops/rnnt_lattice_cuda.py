@@ -12,7 +12,11 @@ through `alpha_wavefront` and `beta_wavefront`:
 Both launches walk each utterance's diagonals with up to four warps, each
 over a band of the lattice's columns, on the plan of `walk_plan`: the
 warps, the cells a lane, and the ring of staged diagonals in shared
-memory.
+memory. Where a diagonal is too long for that plan (U+1 above 11,136 for
+alpha, 7,936 for beta), `tile_plan` cuts the columns into tiles that fit
+it, and the kernel walks them one launch a tile, each tile reading its
+boundary column from the tile before it; beta_occupancies then adds one
+`lattice_occupancy` launch.
 
 All take the masked transition scores of `ops/rnnt_loss._masked_transitions`
 (and its `_accept_scores`), (B, T, U+1) f32; the lattice conventions are the
@@ -34,6 +38,7 @@ the other. Each counts the calls that launched its kernel.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import threading
 
 import torch
@@ -55,6 +60,7 @@ SLOTS = 4
 SMEM_BYTES = 232_448
 HAND_BYTES = 8 * 4 * 256
 
+# calls that launched the kernel (once a call, however many column tiles)
 LAUNCHES_ALPHA = 0  # alpha_wavefront calls that launched lattice_alpha
 LAUNCHES_BETA = 0   # beta_wavefront / beta_occupancies: lattice_beta
 _launches_lock = threading.Lock()
@@ -136,6 +142,58 @@ def walk_plan(U1: int, beta: bool) -> WalkPlan:
         f"memory for two staged diagonals; a block has {SMEM_BYTES}")
 
 
+@dataclasses.dataclass(frozen=True)
+class Tile:
+    """One launch of a lattice walked in column tiles: the columns u0 ..
+    u0 + width - 1, whether it reads its boundary column (alpha: u0 - 1,
+    beta: u0 + width) from the tile launched before it, and its plan."""
+    u0: int
+    width: int
+    edge: bool
+    plan: WalkPlan
+
+
+TILE_COLUMNS = 128  # a tile with an edge spans whole bands of 4 x 32 k
+
+
+@functools.lru_cache(maxsize=None)
+def tile_plan(U1: int, beta: bool) -> tuple[Tile, ...]:
+    """The launches of a lattice of U1 columns, in launch order: the whole
+    lattice where `walk_plan` takes it; else tiles of the widest multiple
+    of TILE_COLUMNS that it takes, each with an edge, and one tile of the
+    remaining columns without one, at the end the walk starts from
+    (alpha: the first columns, launched first; beta: the last columns,
+    launched first, the rest right to left)."""
+    try:
+        return (Tile(0, U1, False, walk_plan(U1, beta)),)
+    except ValueError:
+        if U1 < 1:
+            raise
+    full = U1 // TILE_COLUMNS * TILE_COLUMNS
+    while True:
+        try:
+            plan = walk_plan(full, beta)
+            break
+        except ValueError:
+            full -= TILE_COLUMNS
+    n_full = (U1 - 1) // full
+    rest = U1 - n_full * full
+    if beta:
+        tiles = [Tile(n_full * full, rest, False, walk_plan(rest, beta))]
+        tiles += [Tile(i * full, full, True, plan)
+                  for i in reversed(range(n_full))]
+    else:
+        tiles = [Tile(0, rest, False, walk_plan(rest, beta))]
+        tiles += [Tile(rest + i * full, full, True, plan)
+                  for i in range(n_full)]
+    return tuple(tiles)
+
+
+def _at(t: torch.Tensor, u0: int) -> int:
+    """Address of column u0 of row 0 of a (B, T, U+1) f32 array."""
+    return t.data_ptr() + 4 * u0
+
+
 def plan_args(plan: WalkPlan) -> tuple:
     """The plan as the C entries take it: warps, k, chunk, slots,
     smem_bytes."""
@@ -152,16 +210,24 @@ def alpha_wavefront(lp_blank_m, lp_y_m):
     if dev.type == "cpu":
         return alpha_wavefront_reference(lp_blank_m, lp_y_m)
     _require_cuda(dev, "lattice_alpha")
+    return _launch_alpha(build.load_library(), lp_blank_m, lp_y_m)
+
+
+def _launch_alpha(fn, lp_blank_m, lp_y_m):
+    """lattice_alpha of the library `fn` on the card -> alpha: one launch,
+    or one a column tile."""
+    dev = lp_blank_m.device
     B, T, U1 = lp_blank_m.shape
-    plan = walk_plan(U1, beta=False)
+    tiles = tile_plan(U1, beta=False)
     alpha = torch.empty((B, T, U1), dtype=torch.float32, device=dev)
     if B * T == 0:
         return alpha
-    fn = build.load_library()
-    err = fn.lattice_alpha(lp_blank_m.data_ptr(), lp_y_m.data_ptr(),
-                           alpha.data_ptr(), B, T, U1, *plan_args(plan),
-                           *build.stream_args(dev))
-    build.check_launch(fn, err, "lattice_alpha")
+    for tile in tiles:
+        err = fn.lattice_alpha(
+            _at(lp_blank_m, tile.u0), _at(lp_y_m, tile.u0),
+            _at(alpha, tile.u0), B, T, tile.width, U1, int(tile.edge),
+            *plan_args(tile.plan), *build.stream_args(dev))
+        build.check_launch(fn, err, "lattice_alpha")
     _count("LAUNCHES_ALPHA")
     return alpha
 
@@ -218,12 +284,14 @@ def alpha_wavefront_reference(lp_blank_m, lp_y_m):
 
 # ------------------------------- beta ------------------------------------
 
-def _launch_beta(lp_blank_m, lp_y_m, accept, alpha=None, frame_lens=None):
-    """lattice_beta on the card -> beta, and (g_blank, g_y) or (None,
-    None)."""
+def _launch_beta(fn, lp_blank_m, lp_y_m, accept, alpha=None,
+                 frame_lens=None):
+    """lattice_beta of the library `fn` on the card -> beta, and (g_blank,
+    g_y) or (None, None): one launch, or one a column tile and then
+    lattice_occupancy."""
     dev = lp_blank_m.device
     B, T, U1 = lp_blank_m.shape
-    plan = walk_plan(U1, beta=True)
+    tiles = tile_plan(U1, beta=True)
     beta = torch.empty((B, T, U1), dtype=torch.float32, device=dev)
     occ = alpha is not None
     g_blank = torch.empty_like(beta) if occ else None
@@ -231,14 +299,23 @@ def _launch_beta(lp_blank_m, lp_y_m, accept, alpha=None, frame_lens=None):
     if B * T == 0:
         return beta, g_blank, g_y
     fl = frame_lens.to(dev, torch.int32).contiguous() if occ else None
-    fn = build.load_library()
-    err = fn.lattice_beta(
-        lp_blank_m.data_ptr(), lp_y_m.data_ptr(), accept.data_ptr(),
-        alpha.data_ptr() if occ else None, fl.data_ptr() if occ else None,
-        beta.data_ptr(), g_blank.data_ptr() if occ else None,
-        g_y.data_ptr() if occ else None, B, T, U1, *plan_args(plan),
-        *build.stream_args(dev))
-    build.check_launch(fn, err, "lattice_beta")
+    fused = occ and len(tiles) == 1  # the occupancies in the walk's launch
+    for tile in tiles:
+        err = fn.lattice_beta(
+            _at(lp_blank_m, tile.u0), _at(lp_y_m, tile.u0),
+            _at(accept, tile.u0), alpha.data_ptr() if fused else None,
+            fl.data_ptr() if fused else None, _at(beta, tile.u0),
+            g_blank.data_ptr() if fused else None,
+            g_y.data_ptr() if fused else None, B, T, tile.width, U1,
+            int(tile.edge), *plan_args(tile.plan), *build.stream_args(dev))
+        build.check_launch(fn, err, "lattice_beta")
+    if occ and not fused:
+        err = fn.lattice_occupancy(
+            lp_blank_m.data_ptr(), lp_y_m.data_ptr(), accept.data_ptr(),
+            alpha.data_ptr(), fl.data_ptr(), beta.data_ptr(),
+            g_blank.data_ptr(), g_y.data_ptr(), B, T, U1,
+            *build.stream_args(dev))
+        build.check_launch(fn, err, "lattice_occupancy")
     _count("LAUNCHES_BETA")
     return beta, g_blank, g_y
 
@@ -251,7 +328,7 @@ def beta_wavefront(lp_blank_m, lp_y_m, accept):
     if dev.type == "cpu":
         return beta_wavefront_reference(lp_blank_m, lp_y_m, accept)
     _require_cuda(dev, "lattice_beta")
-    return _launch_beta(lp_blank_m, lp_y_m, accept)[0]
+    return _launch_beta(build.load_library(), lp_blank_m, lp_y_m, accept)[0]
 
 
 def beta_wavefront_reference(lp_blank_m, lp_y_m, accept):
@@ -301,7 +378,8 @@ def beta_occupancies(lp_blank_m, lp_y_m, accept, alpha, frame_lens):
         return beta_occupancies_reference(lp_blank_m, lp_y_m, accept, alpha,
                                           frame_lens)
     _require_cuda(dev, "lattice_beta")
-    return _launch_beta(lp_blank_m, lp_y_m, accept, alpha, frame_lens)
+    return _launch_beta(build.load_library(), lp_blank_m, lp_y_m, accept,
+                        alpha, frame_lens)
 
 
 def beta_occupancies_reference(lp_blank_m, lp_y_m, accept, alpha,

@@ -1,11 +1,17 @@
 """Serving runtime: dynamic request batching over HTTP (PyTorch port of
-`rnn_transducer_tpu/serve.py`, greedy offline recognition).
+`rnn_transducer_tpu/serve.py`, offline recognition).
 
 `BatchingEngine` queues requests on the host; a worker thread drains up to
 `max_batch` of them inside a `window_ms` batching window, pads them to a
-fixed (max_batch, bucket_frames) shape and runs one greedy decode for the
-whole group on the engine's device. `http_server` exposes it over stdlib
-HTTP with JSON bodies.
+fixed (max_batch, bucket_frames) shape and runs one decode for the whole
+group on the engine's device: greedy (`mode="greedy"`) or beam search
+with prefix merging (`mode="beam"`, decode/beam.py), which answers the
+top beam's tokens, score, confidences and frames and the n-best list.
+In beam mode the engine takes shallow fusion as the JAX engine does:
+`lm=(params, LMConfig or TransformerLMConfig, weight[, ilm_weight])`,
+`context=` a decode/context.py ContextBias and `ngram=(NgramLM, weight)`
+(`--ngram FILE --ngram-weight W` on the CLI). `http_server` exposes the
+engine over stdlib HTTP with JSON bodies.
 
 `--config libri100_conformer` serves the conformer encoder (every
 LayerNorm in the K8 kernel, `csrc/fused_ln.cu`). `--quantize int8` serves
@@ -15,12 +21,17 @@ are a multiple of 8, such as the default `--max-batch 8`, and the
 dequantized weights elsewhere; a conformer dequantizes every weight, as in
 the JAX package.
 
-Not ported yet, each with its ROADMAP item (queue 1): beam mode (item 3),
-streaming sessions (item 4: the session routes answer 404, as the JAX
-server does with streaming off), raw-audio bodies (item 5: the FBANK
-frontend) and LM / n-gram / context fusion (item 14).
+Not ported yet, each with its ROADMAP item (queue 1): streaming sessions
+(item 4: the session routes answer 404, as the JAX server does with
+streaming off), raw-audio bodies and `--boost-file` (item 5: the FBANK
+frontend and the tokenizer), and `--lm-ckpt` / `--lm-weight` /
+`--ilm-weight` (item 18: the LM checkpoints are orbax files, which the
+port does not read; the engine's `lm=` takes an LM's params directly).
 
     python -m rnn_transducer_tpu_torch.serve --config libri100 --port 8000
+    python -m rnn_transducer_tpu_torch.serve --config libri100 --mode beam
+    python -m rnn_transducer_tpu_torch.serve --config libri100 --mode beam \
+        --ngram lm3.npz --ngram-weight 0.3
     python -m rnn_transducer_tpu_torch.serve --config libri100 --quantize int8
     python -m rnn_transducer_tpu_torch.serve --config libri100_conformer
     curl -XPOST localhost:8000/recognize -d '{"feats": [[...80 floats...]]}'
@@ -40,6 +51,7 @@ import time
 import numpy as np
 import torch
 
+from rnn_transducer_tpu_torch.decode.beam import recognize_beam
 from rnn_transducer_tpu_torch.decode.greedy import recognize_greedy
 from rnn_transducer_tpu_torch.models import transducer as m
 
@@ -83,18 +95,29 @@ class BatchingEngine:
     device decode.
     """
 
-    def __init__(self, params, cfg, *, mode: str = "greedy",
-                 max_symbols: int = 100, frame_buckets=(200, 400, 800),
-                 max_batch: int = 8, window_ms: float = 5.0,
+    def __init__(self, params, cfg, *, mode: str = "greedy", beam: int = 8,
+                 expansions: int = 3, max_symbols: int = 100,
+                 frame_buckets=(200, 400, 800), max_batch: int = 8,
+                 window_ms: float = 5.0, lm=None, context=None, ngram=None,
                  device: str | torch.device = "cuda"):
-        if mode != "greedy":
-            raise NotImplementedError(
-                f"mode={mode!r} is not ported yet (ROADMAP queue 1, item 3: "
-                "beam decode)")
+        if mode == "greedy":
+            if context is not None or ngram is not None:
+                raise ValueError("contextual biasing / n-gram fusion "
+                                 "require mode='beam'")
+        elif mode != "beam":
+            raise ValueError(f"unknown mode {mode!r}")
         m.check_supported(cfg)
         self.params = params
         self.cfg = cfg
+        self.mode = mode
         self.device = torch.device(device)
+        self.beam = beam
+        self.expansions = expansions
+        self.lm = lm
+        # the tables ride to the engine's device once, not every batch
+        self.context = None if context is None else context.to(self.device)
+        self.ngram = (None if ngram is None
+                      else (ngram[0].to(self.device), ngram[1]))
         self.max_symbols = max_symbols
         self.max_batch = max_batch
         self.window_s = window_ms / 1e3
@@ -110,14 +133,23 @@ class BatchingEngine:
         self._worker.start()
 
     def _decode(self, feats: np.ndarray, lens: np.ndarray):
-        """(max_batch, T, D) feats -> numpy (tokens, lens, confs, frames)."""
+        """(max_batch, T, D) feats -> numpy (tokens, lens, confs, frames),
+        in beam mode (tokens, lens, scores, confs, frames) of every beam."""
         with torch.inference_mode():
-            out = recognize_greedy(
-                self.params, self.cfg,
-                torch.from_numpy(feats).to(self.device),
-                torch.from_numpy(lens).to(self.device),
-                max_symbols=self.max_symbols, with_confidence=True,
-                with_timestamps=True)
+            f = torch.from_numpy(feats).to(self.device)
+            n = torch.from_numpy(lens).to(self.device)
+            if self.mode == "greedy":
+                out = recognize_greedy(
+                    self.params, self.cfg, f, n,
+                    max_symbols=self.max_symbols, with_confidence=True,
+                    with_timestamps=True)
+            else:
+                out = recognize_beam(
+                    self.params, self.cfg, f, n, beam=self.beam,
+                    max_symbols=self.max_symbols,
+                    expansions=self.expansions, lm=self.lm,
+                    context=self.context, ngram=self.ngram,
+                    with_confidence=True, with_timestamps=True)
             return tuple(a.cpu().numpy() for a in out)
 
     def warmup(self):
@@ -135,7 +167,8 @@ class BatchingEngine:
         return self.submit_full(feats)["tokens"]
 
     def submit_full(self, feats: np.ndarray) -> dict:
-        """feats -> {"tokens", "confidence", "frames"}. Blocking.
+        """feats -> {"tokens", "confidence", "frames", and for beam engines
+        "score" + "nbest": [{"tokens", "score"}, ...]}. Blocking.
 
         "frames" holds each token's emission timestamp as an INPUT
         feature-frame index (encoder frame x cfg.time_reduction).
@@ -221,6 +254,8 @@ class BatchingEngine:
                     it["error"] = repr(e)
                     it["done"].set()
 
+    NEG_INF_HALF = -5.0e29  # beams below this are dead (decode/beam.py)
+
     def _process(self, batch):
         D = self.cfg.input_dim
         tb = max(self._bucket_for(it["feats"].shape[0]) for it in batch)
@@ -231,15 +266,36 @@ class BatchingEngine:
             feats[i, : f.shape[0]] = f
             lens[i] = f.shape[0]
         t0 = time.perf_counter()
-        toks, tlens, confs, frames = self._decode(feats, lens)
+        out = self._decode(feats, lens)
         self.stats.record(len(batch), time.perf_counter() - t0)
         tr = self.cfg.time_reduction
+        if self.mode == "greedy":
+            toks, tlens, confs, frames = out
+            for i, it in enumerate(batch):
+                n = tlens[i]
+                it["result"] = {
+                    "tokens": toks[i, :n].tolist(),
+                    "confidence": np.round(confs[i, :n], 4).tolist(),
+                    "frames": (frames[i, :n] * tr).tolist(),
+                }
+                it["done"].set()
+            return
+        # beam: the n-best, the top beam's score, confidences and frames
+        toks, tlens, scores, confs, frames = out
         for i, it in enumerate(batch):
-            n = tlens[i]
+            n0 = tlens[i, 0]
+            nbest = [
+                {"tokens": toks[i, k, : tlens[i, k]].tolist(),
+                 "score": round(float(scores[i, k]), 4)}
+                for k in range(toks.shape[1])
+                if scores[i, k] > self.NEG_INF_HALF
+            ]
             it["result"] = {
-                "tokens": toks[i, :n].tolist(),
-                "confidence": np.round(confs[i, :n], 4).tolist(),
-                "frames": (frames[i, :n] * tr).tolist(),
+                "tokens": toks[i, 0, :n0].tolist(),
+                "score": round(float(scores[i, 0]), 4),
+                "confidence": np.round(confs[i, 0, :n0], 4).tolist(),
+                "frames": (frames[i, 0, :n0] * tr).tolist(),
+                "nbest": nbest,
             }
             it["done"].set()
 
@@ -263,6 +319,7 @@ def http_server(host: str, port: int, offline: BatchingEngine,
     """Build (not start) a ThreadingHTTPServer exposing the engine.
 
     POST /recognize  {"feats": [[...]]}  -> {"tokens", "confidence", "frames"}
+                     (beam engines also "score" and "nbest")
     GET  /stats | /healthz
 
     Bodies above `max_body_bytes` are rejected with 413 before being read.
@@ -356,6 +413,8 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8000)
+    p.add_argument("--mode", default="greedy", choices=["greedy", "beam"])
+    p.add_argument("--beam", type=int, default=8)
     p.add_argument("--max-symbols", type=int, default=100)
     p.add_argument("--max-batch", type=int, default=8)
     p.add_argument("--window-ms", type=float, default=5.0)
@@ -365,16 +424,33 @@ def parse_args(argv=None):
                    help="post-training weight quantization: symmetric "
                         "per-channel int8 on every 2-D weight "
                         "(ops/quant.py)")
+    p.add_argument("--ngram", default=None,
+                   help="n-gram LM artifact (the JAX package's "
+                        "tools/train_ngram.py writes one; models/ngram.py "
+                        "save_ngram too), fused in beam mode")
+    p.add_argument("--ngram-weight", type=float, default=0.3)
     return p.parse_args(argv)
 
 
 def main(argv=None):
     args = parse_args(argv)
+    cfg = get_model_config(args.config)
+    ngram = None
+    if args.ngram:
+        if args.mode != "beam":
+            raise SystemExit("--ngram requires --mode beam")
+        from rnn_transducer_tpu_torch.models.ngram import load_ngram
+        ng_lm = load_ngram(args.ngram)
+        if ng_lm.lp.shape[1] != cfg.vocab_size:
+            raise SystemExit(f"n-gram vocab {ng_lm.lp.shape[1]} != model "
+                             f"vocab {cfg.vocab_size}")
+        ngram = (ng_lm, args.ngram_weight)
+        print(f"n-gram fusion: {args.ngram} ({ng_lm.lp.shape[0]} states)",
+              file=sys.stderr)
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: this server runs on the GPU")
     from rnn_transducer_tpu_torch.weights import load_state_dict
 
-    cfg = get_model_config(args.config)
     if args.state_dict:
         params = load_state_dict(args.state_dict, cfg, "cuda")
     else:
@@ -386,15 +462,17 @@ def main(argv=None):
         qb, fb = quantized_bytes(params)
         print(f"int8 weights: {qb / 1e6:.1f} MB (fp32 {fb / 1e6:.1f} MB)",
               file=sys.stderr)
-    engine = BatchingEngine(params, cfg, max_symbols=args.max_symbols,
+    engine = BatchingEngine(params, cfg, mode=args.mode, beam=args.beam,
+                            max_symbols=args.max_symbols,
                             frame_buckets=args.frame_buckets,
                             max_batch=args.max_batch,
-                            window_ms=args.window_ms, device="cuda")
+                            window_ms=args.window_ms, ngram=ngram,
+                            device="cuda")
     print("warming up (one decode per bucket)...", file=sys.stderr)
     engine.warmup()
     srv = http_server(args.host, args.port, engine)
     print(f"serving on http://{args.host}:{srv.server_address[1]} "
-          f"(greedy, max_batch={args.max_batch}, "
+          f"(mode={args.mode}, max_batch={args.max_batch}, "
           f"{torch.cuda.get_device_name(0)})", file=sys.stderr)
     import signal
 

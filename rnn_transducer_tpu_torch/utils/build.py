@@ -84,14 +84,18 @@ SIGNATURES = {
     # n_split, device, stream
     "joint_bwd_sums": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                             _I, _I, _I, _P]),
-    # lp_blank_m, lp_y_m, alpha, B, T, U1, warps, k, chunk, slots,
+    # lp_blank_m, lp_y_m, alpha, B, T, U1, ld, edge, warps, k, chunk, slots,
     # smem_bytes, device, stream
-    "lattice_alpha": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _LL, _I,
-                           _P]),
+    "lattice_alpha": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                           _LL, _I, _P]),
     # lp_blank_m, lp_y_m, accept, alpha, frame_lens, beta, g_blank, g_y,
-    # B, T, U1, warps, k, chunk, slots, smem_bytes, device, stream
+    # B, T, U1, ld, edge, warps, k, chunk, slots, smem_bytes, device, stream
     "lattice_beta": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                          _I, _I, _I, _LL, _I, _P]),
+                          _I, _I, _I, _I, _I, _LL, _I, _P]),
+    # lp_blank_m, lp_y_m, accept, alpha, frame_lens, beta, g_blank, g_y,
+    # B, T, U1, device, stream
+    "lattice_occupancy": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                               _I, _P]),
     # logits, logits_is_bf16, labels, lp_blank, lp_y, B, T, U1, V, blank,
     # device, stream
     "extract_lp": (_I, [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),

@@ -13,6 +13,14 @@ bridge is leaf by leaf:
     that `tools/export_torch_ckpt.py` writes (nn.LSTM / nn.Linear naming)
     and undoes its transposes, so the port serves a trained model without
     jax.
+
+The fusion LMs' params (the LSTM LM's {"embed", "lstm", "out"}, the
+transformer LM's {"embed", "pos", "blocks", "ln_f", "out"}) are trees of
+the same kind and cross with `params_from_numpy` too. The n-gram and
+context-biasing tables cross with `ngram_from_numpy` and
+`context_from_numpy`: any object with the JAX NamedTuples' fields and
+array-like tables (`jax.tree.map(np.asarray, ...)` of them, or the
+JAX NamedTuples themselves) becomes the port's NamedTuple on `device`.
 """
 
 from __future__ import annotations
@@ -120,3 +128,22 @@ def load_state_dict(path: str, cfg: TransducerConfig,
         },
     }
     return params_from_numpy(params, device)
+
+
+def ngram_from_numpy(lm, device: str | torch.device = "cpu"):
+    """A JAX package NgramLM (lp, next_state, start) -> the port's."""
+    from rnn_transducer_tpu_torch.models.ngram import NgramLM
+
+    return NgramLM(torch.from_numpy(np.array(lm.lp, np.float32)),
+                   torch.from_numpy(np.array(lm.next_state, np.int32)),
+                   int(lm.start)).to(device)
+
+
+def context_from_numpy(bias, device: str | torch.device = "cpu"):
+    """A JAX package ContextBias (next_node, delta, accum) -> the port's."""
+    from rnn_transducer_tpu_torch.decode.context import ContextBias
+
+    return ContextBias(torch.from_numpy(np.array(bias.next_node, np.int32)),
+                       torch.from_numpy(np.array(bias.delta, np.float32)),
+                       torch.from_numpy(np.array(bias.accum, np.float32))
+                       ).to(device)

@@ -1561,3 +1561,51 @@ def test_cuda_pruned_loss_matches_the_plain_path(cuda_device):
     torch.testing.assert_close(loss_k, loss_p, rtol=1e-5, atol=1e-5)
     for a, e in zip(grads_k, grads_p):
         assert _rel_err(a, e) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("U", [8_000, 11_136, 22_400])
+def test_cuda_lattice_walks_long_diagonals_in_column_tiles(cuda_device, U):
+    """U+1 = 8,001 (beta past its plan's 7,936: two column tiles), 11,137
+    (alpha past its 11,136 too) and 22,401 (three tiles both ways: an
+    edge tile reads the boundary column another edge tile wrote): alpha
+    and beta + occupancies on the card, within the plain versions'
+    tolerances, one kernel a tile and one lattice_occ_kernel by the
+    profiler. Last in this file: the plain versions' diagonal loops leave
+    the card nearly idle for up to ~20 s, and a torch.profiler window
+    after such a stretch misplaces its kernels, so a later test that
+    counts kernels by name would fail."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from rnn_transducer_tpu_torch.ops import rnnt_lattice_cuda as lat
+
+    lpb_m, lpy_m, accept, fl = _lattice_args(1, 40, U, cuda_device)
+    before = (lat.LAUNCHES_ALPHA, lat.LAUNCHES_BETA)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _pad_profiler_window()
+        alpha = lat.alpha_wavefront(lpb_m, lpy_m)
+        beta, gb, gy = lat.beta_occupancies(lpb_m, lpy_m, accept, alpha, fl)
+        torch.cuda.synchronize()
+        _pad_profiler_window()
+    assert (lat.LAUNCHES_ALPHA, lat.LAUNCHES_BETA) == (before[0] + 1,
+                                                      before[1] + 1)
+    want_a = lat.alpha_wavefront_reference(lpb_m, lpy_m)
+    want_b, want_gb, want_gy = lat.beta_occupancies_reference(
+        lpb_m, lpy_m, accept, want_a, fl)
+    _assert_lattice_close(alpha, want_a)
+    _assert_lattice_close(beta, want_b)
+    for got, want in ((gb, want_gb), (gy, want_gy)):
+        assert float((got - want).abs().max()) <= 1e-5
+    # the lattice is reachable end to end: log_z finite
+    assert float(beta[0, 0, 0]) > -1e29
+    assert torch.equal(lat.beta_wavefront(lpb_m, lpy_m, accept), beta)
+    counts = {}
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA and "lattice_" in evt.key:
+            name = ("alpha" if "lattice_alpha_kernel" in evt.key else
+                    "occ" if "lattice_occ_kernel" in evt.key else "beta")
+            counts[name] = counts.get(name, 0) + evt.count
+    assert counts == {"alpha": len(lat.tile_plan(U + 1, False)),
+                      "beta": len(lat.tile_plan(U + 1, True)), "occ": 1}

@@ -1,8 +1,9 @@
 """The host-side layout of K3's walk (`ops/rnnt_lattice_cuda.walk_plan`):
 the walking warps and the cells a lane of each holds, whether they fit in
 registers, the ring of staged diagonals in shared memory and its bytes,
-and the refusal of a diagonal too long for a block's shared memory. The
-kernel itself (csrc/lattice.cu) runs only on the card
+and the refusal of a diagonal too long for a block's shared memory; and
+the column tiles (`tile_plan`) that walk such a diagonal in several
+launches. The kernel itself (csrc/lattice.cu) runs only on the card
 (tests/test_torch_kernels.py); these checks need no card."""
 
 import pytest
@@ -80,3 +81,45 @@ def test_walk_plan_takes_diagonals_up_to_its_ceiling(beta):
     assert top.smem_bytes <= lat.SMEM_BYTES
     with pytest.raises(ValueError, match="two staged diagonals"):
         lat.walk_plan(MAX_U1[beta] + 1, beta)
+
+
+@pytest.mark.parametrize("beta", [False, True])
+@pytest.mark.parametrize("U1", [1, 101, 1101, 7_936, 7_937, 8_001, 11_136,
+                                11_137, 20_000, 50_001])
+def test_tile_plan_covers_every_column_with_plans_that_fit(U1, beta):
+    tiles = lat.tile_plan(U1, beta)
+    if U1 <= MAX_U1[beta]:  # what walk_plan takes stays one launch
+        assert tiles == (lat.Tile(0, U1, False, lat.walk_plan(U1, beta)),)
+        return
+    # every column in exactly one tile
+    cols = sorted((t.u0, t.width) for t in tiles)
+    assert cols[0][0] == 0
+    assert all(a + w == b for (a, w), (b, _) in zip(cols, cols[1:]))
+    assert cols[-1][0] + cols[-1][1] == U1
+    for t in tiles:
+        assert t.plan == lat.walk_plan(t.width, beta)
+        assert t.plan.smem_bytes <= lat.SMEM_BYTES
+        assert t.plan.smem_bytes == _bytes(t.plan, t.width, beta)
+    # one tile without an edge, at the end the walk starts from, launched
+    # first; every other tile reads the boundary column of the one
+    # launched before it: alpha left to right, beta right to left
+    assert [t.edge for t in tiles] == [False] + [True] * (len(tiles) - 1)
+    assert tiles[0].u0 == (cols[-1][0] if beta else 0)
+    for prev, t in zip(tiles, tiles[1:]):
+        if beta:
+            assert t.u0 + t.width == prev.u0
+        else:
+            assert prev.u0 + prev.width == t.u0
+    for t in tiles[1:]:
+        # edges need the lanes' cells in shared memory, and a beta tile's
+        # last column on its last lane
+        assert not t.plan.registers and t.width % lat.TILE_COLUMNS == 0
+        assert t.width == 32 * t.plan.k * t.plan.warps
+        # the widest such tile walk_plan takes
+        with pytest.raises(ValueError):
+            lat.walk_plan(t.width + lat.TILE_COLUMNS, beta)
+
+
+def test_tile_plan_refuses_an_empty_lattice():
+    with pytest.raises(ValueError, match="U\\+1"):
+        lat.tile_plan(0, False)

@@ -167,7 +167,10 @@ def test_unported_configs_raise(field, value):
                                 "models.transducer.init_pred_state",
                                 "weights.load_state_dict",
                                 "train.loop.init_train_state",
-                                "serve.BatchingEngine"])
+                                "serve.BatchingEngine",
+                                "decode.beam.init_beam_state",
+                                "models.lm.init_lm_params",
+                                "models.lm.init_lm_state"])
 def test_entry_points_default_to_the_card(fn):
     """An entry point runs on the card unless the caller asks for the CPU;
     read from the signature, nothing is run."""

@@ -1,8 +1,10 @@
 """PyTorch port serving: BatchingEngine and http_server on the CPU.
 
 Concurrent requests are batched by the engine and must come back as a
-direct `recognize_greedy` of each utterance alone gives them; the HTTP
-front end answers /recognize, /stats and /healthz and rejects bad bodies.
+direct `recognize_greedy` (beam mode: `recognize_beam`) of each utterance
+alone gives them; the beam engine answers what the JAX package's beam
+engine answers; the HTTP front end answers /recognize, /stats and
+/healthz and rejects bad bodies.
 """
 
 import dataclasses
@@ -15,11 +17,13 @@ import numpy as np
 import pytest
 import torch
 
+from rnn_transducer_tpu_torch.decode.beam import recognize_beam
 from rnn_transducer_tpu_torch.decode.greedy import recognize_greedy
 from rnn_transducer_tpu_torch import serve as port_serve
 from rnn_transducer_tpu_torch.serve import BatchingEngine, http_server
 from rnn_transducer_tpu_torch.weights import params_from_numpy
-from test_torch_greedy import TCFG, walking_params
+from test_torch_beam import beam_params
+from test_torch_greedy import JCFG, TCFG, walking_params
 
 pytestmark = pytest.mark.quick
 
@@ -117,9 +121,138 @@ def test_closed_engine_rejects_submits(params):
         eng.submit(np.zeros((4, TCFG.input_dim), np.float32))
 
 
-def test_beam_mode_is_not_ported(params):
-    with pytest.raises(NotImplementedError, match="beam"):
-        BatchingEngine(params, TCFG, mode="beam")
+# ------------------------------- beam mode -------------------------------
+
+BEAM = dict(mode="beam", beam=4, expansions=3, max_symbols=30,
+            frame_buckets=BUCKETS, max_batch=4, window_ms=20.0)
+
+
+def _direct_beam(params, feats, **fusion):
+    """recognize_beam of one utterance, zero-padded to its bucket as the
+    engine pads it: an odd length's last frame then stacks with a zero
+    frame into one more encoder frame (at every bucket, all even)."""
+    T = feats.shape[0]
+    padded = np.zeros((min(b for b in BUCKETS if b >= T), feats.shape[1]),
+                      np.float32)
+    padded[:T] = feats
+    tok, n, sc, conf, fr = recognize_beam(
+        params, TCFG, torch.from_numpy(padded)[None],
+        torch.tensor([T], dtype=torch.int32), beam=4,
+        max_symbols=30, expansions=3, with_confidence=True,
+        with_timestamps=True, **fusion)
+    n0 = int(n[0, 0])
+    return {"tokens": tok[0, 0, :n0].tolist(), "score": float(sc[0, 0]),
+            "confidence": conf[0, 0, :n0].tolist(),
+            "frames": (fr[0, 0, :n0] * TCFG.time_reduction).tolist(),
+            "nbest": [{"tokens": tok[0, k, :int(n[0, k])].tolist(),
+                       "score": float(sc[0, k])}
+                      for k in range(4) if float(sc[0, k]) > -5e29]}
+
+
+def _assert_beam_result(got, want, atol=2e-4):
+    _assert_result(got, want)
+    assert abs(got["score"] - want["score"]) <= atol
+    assert [b["tokens"] for b in got["nbest"]] == [
+        b["tokens"] for b in want["nbest"]]
+    np.testing.assert_allclose([b["score"] for b in got["nbest"]],
+                               [b["score"] for b in want["nbest"]],
+                               atol=atol)
+
+
+def _concurrent(engine, utts):
+    results = [None] * len(utts)
+
+    def call(i):
+        results[i] = engine.submit_full(utts[i])
+
+    threads = [threading.Thread(target=call, args=(i,))
+               for i in range(len(utts))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=120)
+    assert not any(th.is_alive() for th in threads)
+    return results
+
+
+def test_concurrent_beam_submits_match_direct_decode():
+    params = params_from_numpy(beam_params())
+    eng = BatchingEngine(params, TCFG, device="cpu", **BEAM)
+    try:
+        utts = _utterances()
+        results = _concurrent(eng, utts)
+        stats = eng.stats.summary()
+    finally:
+        eng.close()
+    for got, feats in zip(results, utts):
+        _assert_beam_result(got, _direct_beam(params, feats))
+    assert sum(len(r["tokens"]) for r in results) > len(utts)
+    assert max(len(r["nbest"]) for r in results) > 1
+    assert stats["max_batch"] > 1  # requests shared a decode
+
+
+def test_beam_engine_answers_as_the_jax_engine():
+    """The same params and requests through the JAX package's
+    BatchingEngine(mode="beam") and the port's: tokens, frames and the
+    n-best's tokens identical, scores within 1e-4 (plus the 4-place
+    rounding both engines apply)."""
+    import jax
+    import jax.numpy as jnp
+
+    from rnn_transducer_tpu.serve import BatchingEngine as JaxEngine
+
+    p = beam_params()
+    jeng = JaxEngine(jax.tree.map(jnp.asarray, p), JCFG, **BEAM)
+    teng = BatchingEngine(params_from_numpy(p), TCFG, device="cpu", **BEAM)
+    try:
+        for feats in _utterances()[:5]:
+            want, got = jeng.submit_full(feats), teng.submit_full(feats)
+            _assert_beam_result(got, want, atol=1e-4 + 1e-4)
+    finally:
+        jeng.close()
+        teng.close()
+
+
+def test_beam_engine_serves_context_and_ngram():
+    from rnn_transducer_tpu_torch.decode.context import build_context_bias
+    from rnn_transducer_tpu_torch.models.ngram import train_ngram
+
+    params = params_from_numpy(beam_params())
+    rng = np.random.default_rng(9)
+    seqs = [rng.integers(1, TCFG.vocab_size, size=6).tolist()
+            for _ in range(30)]
+    fusion = {"context": build_context_bias([[3, 4], [7]],
+                                            TCFG.vocab_size, boost=1.5),
+              "ngram": (train_ngram(seqs, 3, TCFG.vocab_size), 0.5)}
+    eng = BatchingEngine(params, TCFG, device="cpu", **BEAM, **fusion)
+    try:
+        feats = _utterances()[0]
+        _assert_beam_result(eng.submit_full(feats),
+                            _direct_beam(params, feats, **fusion))
+    finally:
+        eng.close()
+
+
+@pytest.mark.parametrize("fusion", ["context", "ngram"])
+def test_greedy_engine_refuses_context_and_ngram(params, fusion):
+    with pytest.raises(ValueError, match="mode='beam'"):
+        BatchingEngine(params, TCFG, device="cpu", **{fusion: object()})
+
+
+def test_unknown_mode_is_refused(params):
+    with pytest.raises(ValueError, match="unknown mode"):
+        BatchingEngine(params, TCFG, mode="sample", device="cpu")
+
+
+def test_cli_ngram_needs_beam_mode_and_the_model_vocab(tmp_path):
+    from rnn_transducer_tpu_torch.models.ngram import save_ngram, train_ngram
+
+    with pytest.raises(SystemExit, match="--ngram requires --mode beam"):
+        port_serve.main(["--ngram", str(tmp_path / "none")])
+    path = str(tmp_path / "lm3")
+    save_ngram(train_ngram([[1, 2, 3]], 3, 11), path)
+    with pytest.raises(SystemExit, match="n-gram vocab 11 != model vocab"):
+        port_serve.main(["--mode", "beam", "--ngram", path])
 
 
 def _request(url, method="GET", body=None):
