@@ -17,8 +17,9 @@ two-pass loss, loss_impl="pallas"; the conformer at bench.py's B=64,
 T=400, U=40; the pruned two-pass loss at libri100 with a vocabulary of
 8192, U=100, and the alignment-restricted band at U=40; and the training
 CLI); int8 serving (serve.py --quantize int8), the greedy decode in one
-program (recognize_greedy_fused) and beam serving with prefix merging and
-its shallow fusion (BatchingEngine(mode="beam")).
+program (recognize_greedy_fused), beam serving with prefix merging and
+its shallow fusion (BatchingEngine(mode="beam")) and streaming sessions
+(StreamingEngine behind the /session routes).
 Phases, in order:
 
   1. card   require CUDA; print the card's name and power limit
@@ -77,8 +78,9 @@ Phases, in order:
             lstm_fwd never; the f32 tokens of the kernel path and the
             plain path identical, and recognize_greedy_fused's equal to
             recognize_greedy's; then serve.py's CLI with --config
-            libri100_conformer, float and --quantize int8, answering a
-            request each
+            libri100_conformer, float and --quantize int8, and with
+            --config libri100 (a /session at the CLI's defaults too),
+            answering a request each
   4f. beam (after 5e)  the served model made to emit tens of
             tokens a row (its joint's encoder side and logits scaled,
             blank offset re-set; every check needs a mean top-beam
@@ -124,6 +126,22 @@ Phases, in order:
             lattice_beta with the occupancies at U+1 = 8,001, 11,137 and
             22,401 (B=3, T'=40) in column tiles (tile_plan) against the
             plain versions, kernel and plain ms
+  4h. streaming (after every profiled check) StreamingEngine and
+            BatchingEngine behind one http_server at the CLI's defaults
+            (8 slots, 32-frame chunks): 8 sessions and the same
+            utterances' /recognize requests at once, at f32 and bf16:
+            greedy float (4 lstm_fwd launches a tick; the f32 sessions
+            equal to the offline answers and to the recorded ticks
+            replayed through stream_chunk on the plain versions; a
+            reopened slot; the f32 encoder gap), int8 (4 K7 launches a
+            tick, no lstm_fwd; the plain replay on the same slot layout;
+            equal lengths against recognize_greedy), beam with the
+            serve_cli trigram on beam_serving_setup's model (beams_agree
+            against the offline beam engine and the plain replay),
+            libri100_conformer_chunked at 128-frame chunks (48
+            fused_ln_fwd launches a tick, the f32 sessions equal to the
+            offline answers); bf16 host ms a tick, RTF, the busy share
+            of a profiled tick; the streaming phase's launches apart
   6. the kernels' JSON line (sixteen kernels) (each kernel with its bound, the least time
      the card could take: bytes over 3.35 TB/s or operations over the
      peak for the operands' type, whichever is larger; and the time of one
@@ -165,9 +183,9 @@ from rnn_transducer_tpu_torch.bench_band_bwd_b import step_fit
 from rnn_transducer_tpu_torch.decode import greedy_fused as gf
 from rnn_transducer_tpu_torch.decode.greedy import greedy_decode, recognize_greedy
 from rnn_transducer_tpu_torch.models import transducer as m
-from rnn_transducer_tpu_torch.models.config import (TrainConfig,
-                                                    config_libri100,
-                                                    config_libri100_conformer)
+from rnn_transducer_tpu_torch.models.config import (
+    TrainConfig, config_libri100, config_libri100_conformer,
+    config_libri100_conformer_chunked)
 from rnn_transducer_tpu_torch.ops import fused_ln as fl
 from rnn_transducer_tpu_torch.ops import lstm_cuda
 from rnn_transducer_tpu_torch.ops import lstm_int8_cuda as q8
@@ -180,7 +198,8 @@ from rnn_transducer_tpu_torch.ops.lstm import _dot
 from rnn_transducer_tpu_torch.ops.quant import (quantize_params,
                                                 quantize_tensor,
                                                 quantized_bytes)
-from rnn_transducer_tpu_torch.serve import BatchingEngine, http_server
+from rnn_transducer_tpu_torch.serve import (BatchingEngine, StreamingEngine,
+                                            http_server)
 from rnn_transducer_tpu_torch.train import checkpoint as ckpt
 from rnn_transducer_tpu_torch.train import loop as tl
 from rnn_transducer_tpu_torch.train.__main__ import main as train_cli
@@ -1911,7 +1930,8 @@ def beams_agree(got, want, what: str) -> dict:
 
 def beam_profile(call) -> dict:
     """One call under torch.profiler: its wall ms, the CUDA kernels it
-    launched and their summed device ms (the spin pads left out)."""
+    launched and their summed device ms (the spin pads left out), and the
+    six kernels that took the most device time (name, calls, ms)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1924,11 +1944,18 @@ def beam_profile(call) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3
         pad_profiler_window()
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-               and "sleep" not in e.name and "Memcpy" not in e.name
+               and "spin_kernel" not in e.name and "Memcpy" not in e.name
                and "Memset" not in e.name]
     busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    by_name = {}
+    for e in kernels:
+        calls, us = by_name.get(e.name[:80], (0, 0.0))
+        by_name[e.name[:80]] = (calls + 1, us + e.time_range.elapsed_us())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
     return {"wall_ms": wall_ms, "kernels": len(kernels),
-            "device_busy_ms": busy_ms, "busy_share": busy_ms / wall_ms}
+            "device_busy_ms": busy_ms, "busy_share": busy_ms / wall_ms,
+            "top_kernels": [[name, calls, us / 1e3]
+                            for name, (calls, us) in top]}
 
 
 def beam_serving_setup(serving: dict, seed: int, dev) -> dict:
@@ -2121,15 +2148,17 @@ def walking_offset(params, cfg, dev, rng, blank_share: float = 0.7) -> float:
     return float(-torch.quantile(torch.cat(gaps), 1.0 - blank_share)) + 0.01
 
 
-def conformer_serving_setup(serving: dict, seed: int, dev) -> dict:
-    """libri100_conformer with random weights from the seed, serving the
-    libri100 engine's utterances. The predictor's side of the joint is
+def conformer_serving_setup(serving: dict, seed: int, dev,
+                            cfg=None) -> dict:
+    """libri100_conformer (or `cfg`, a config of its widths) with random
+    weights from the seed, serving the libri100 engine's
+    utterances. The predictor's side of the joint is
     scaled up 8x: at its random scale an emission barely moves the
     logits, so a frame that emits once emits up to max_symbols; scaled,
     an utterance emits a few tokens on some frames and walks all of them
     (with the blank offset of `walking_offset`)."""
     rng = np.random.default_rng(seed + 10)
-    cfg = config_libri100_conformer()
+    cfg = cfg or config_libri100_conformer()
     params = m.init_params(cfg, rng, dev)
     params["joint"]["pred_proj"]["w"] *= 8.0
     offset = walking_offset(params, cfg, dev, rng)
@@ -2183,7 +2212,9 @@ def serve_cli(extra: list, utt: np.ndarray,
               config: str = "libri100_conformer") -> dict:
     """serve.py's CLI, --config `config` plus `extra`, in a process of its
     own: it warms up, answers one /recognize (with an n-best under --mode
-    beam) and /stats, and drains and exits 0 on SIGTERM."""
+    beam) and /stats, a streamable model also one /session of the
+    utterance in the default 32-frame chunks, and drains and exits 0 on
+    SIGTERM."""
     cmd = [sys.executable, "-m", "rnn_transducer_tpu_torch.serve",
            "--config", config, "--port", "0", *extra]
     t0 = time.perf_counter()
@@ -2207,6 +2238,10 @@ def serve_cli(extra: list, utt: np.ndarray,
         url = next(ln for ln in lines if "serving on " in ln).split(
             "serving on ")[1].split()[0]
         code, out, lat = post(url + "/recognize", {"feats": utt.tolist()})
+        session = None
+        if f"stream_slots={STREAM_SLOTS}" in " ".join(lines):
+            sid = post(url + "/session", {})[1]["sid"]
+            session = session_over_http(url, sid, utt, CHUNK_FRAMES)
         with urllib.request.urlopen(url + "/stats", timeout=60) as r:
             stats = json.loads(r.read())
         proc.send_signal(signal.SIGTERM)
@@ -2220,6 +2255,11 @@ def serve_cli(extra: list, utt: np.ndarray,
            "tokens": len(out["tokens"]), "latency_ms": lat * 1e3,
            "stats": stats, "rc": rc,
            "drained": any("drained and closed" in ln for ln in lines)}
+    if session is not None:  # bf16: the same tokens are reported, not asked
+        row["session_tokens"] = len(session["final"])
+        row["session_equals_recognize"] = session["final"] == out["tokens"]
+        check(stats.get("streaming", {}).get("requests", 0) >= 1,
+              f"serve CLI {extra}: /stats shows no streaming request")
     print("serve_cli " + json.dumps(row))
     check(code == 200 and rc == 0 and row["drained"],
           f"serve CLI {extra}: code {code}, exit {rc}, log {lines[-5:]}")
@@ -2228,6 +2268,511 @@ def serve_cli(extra: list, utt: np.ndarray,
         check(1 <= row["nbest"] <= BEAM and "score" in out,
               f"serve CLI {extra}: no n-best in {sorted(out)}")
     return row
+
+
+# ------------------------------ phase 4h ---------------------------------
+
+# Streaming sessions: serve.py's CLI defaults (8 slots, 32-frame chunks;
+# bench.py's 128-frame chunks for the chunked-attention conformer).
+STREAM_SLOTS, CHUNK_FRAMES, CONF_CHUNK_FRAMES = 8, 32, 128
+FRAME_S = 0.01  # a feature frame's hop: 10 ms of audio
+CONF_ROUND = 2e-4  # the engines round confidences and scores to 4 places
+
+
+def delete(url: str) -> tuple[int, dict]:
+    with urllib.request.urlopen(urllib.request.Request(
+            url, method="DELETE"), timeout=300) as r:
+        return r.status, json.loads(r.read())
+
+
+def session_over_http(url: str, sid: str, utt: np.ndarray,
+                      chunk: int) -> dict:
+    """Every chunk of `utt` to /session/<sid> (the last one flagged, and
+    short where the length is not a multiple of the chunk), then DELETE:
+    the last partial result and the final tokens."""
+    out = None
+    for t0 in range(0, utt.shape[0], chunk):
+        code, out, _ = post(f"{url}/session/{sid}", {
+            "feats": utt[t0:t0 + chunk].tolist(),
+            "last": t0 + chunk >= utt.shape[0]})
+        check(code == 200, f"/session/{sid} answered {code}")
+    code, final = delete(f"{url}/session/{sid}")
+    check(code == 200, f"DELETE /session/{sid} answered {code}")
+    return {"last": out, "final": final["tokens"]}
+
+
+def serve_sessions(params, cfg, utts, dev, *, mode="greedy",
+                   chunk=CHUNK_FRAMES, ngram=None, record=False, reopen=False,
+                   at_once=True) -> dict:
+    """Both engines behind one http_server, the CLI's defaults: each
+    utterance as a /session of `chunk`-frame chunks and as a /recognize
+    request, all at once (at_once=False: the sessions first, all
+    concurrently, then the requests, so that the ticks' host ms are the
+    streaming engine's alone). Returns the sessions' results and slots,
+    the offline answers, the launch counts of the run, the ticks and
+    offline batches, each tick's host ms, and with record=True the inputs
+    of every tick (chunks, lens, active) for a replay. reopen=True then
+    opens one more session on a freed slot and feeds it the first
+    utterance."""
+    kw = dict(mode=mode, beam=BEAM, expansions=EXPANSIONS,
+              max_symbols=MAX_SYMBOLS, ngram=ngram)
+    offline = BatchingEngine(params, cfg, frame_buckets=BUCKETS,
+                             max_batch=MAX_BATCH, window_ms=WINDOW_MS,
+                             device=dev, **kw)
+    streaming = StreamingEngine(params, cfg, slots=STREAM_SLOTS,
+                                chunk_frames=chunk, window_ms=WINDOW_MS,
+                                device=dev, **kw)
+    srv = None
+    try:
+        t0 = time.perf_counter()
+        offline.warmup()
+        streaming.warmup()
+        warmup_s = time.perf_counter() - t0
+        ticks = []
+        if record:
+            step = streaming._step
+
+            def recording_step(p, lmp, state, chunks, lens, active, dw):
+                ticks.append((chunks.cpu(), lens.cpu(), active.cpu()))
+                return step(p, lmp, state, chunks, lens, active, dw)
+
+            streaming._step = recording_step
+        srv = http_server("127.0.0.1", 0, offline, streaming)
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        url = f"http://127.0.0.1:{srv.server_address[1]}"
+        sids = [post(f"{url}/session", {})[1]["sid"] for _ in utts]
+        slots = [streaming._live[s] for s in sids]
+        reset_counts()
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(2 * len(utts)) as ex:
+            sess = [ex.submit(session_over_http, url, s, u, chunk)
+                    for s, u in zip(sids, utts)]
+            if not at_once:
+                sessions = [f.result() for f in sess]
+                wall_s = time.perf_counter() - t0
+            offl = [ex.submit(post, f"{url}/recognize", {"feats": u.tolist()})
+                    for u in utts]
+            sessions = [f.result() for f in sess]
+            answers = [f.result() for f in offl]
+        if at_once:
+            wall_s = time.perf_counter() - t0
+        counts = read_counts()
+        if record:
+            streaming._step = step  # the replay covers these sessions alone
+        tick_ms = [s * 1e3 for s in streaming.stats.latency_s]
+        result = {"sessions": sessions, "slots": slots,
+                  "offline": [a[1] for a in answers],
+                  "offline_codes": [a[0] for a in answers],
+                  "counts": counts, "ticks": streaming.stats.batches,
+                  "offline_batches": offline.stats.batches,
+                  "tick_ms": tick_ms, "wall_s": wall_s,
+                  "warmup_s": warmup_s, "recorded": ticks,
+                  "stats": streaming.stats.summary()}
+        if reopen:  # a freed slot takes a new session and starts clean
+            sid = post(f"{url}/session", {})[1]["sid"]
+            result["reopened"] = session_over_http(url, sid, utts[0], chunk)
+        return result
+    finally:
+        if srv is not None:
+            srv.shutdown()
+            srv.server_close()
+        offline.close()
+        streaming.close()
+
+
+def replay_ticks(params, cfg, run: dict, dev, mode="greedy",
+                 ngram=None) -> list:
+    """The recorded ticks of a run through the direct stream_chunk (beam:
+    stream_chunk_beam) of all slots on the plain versions, the idle rows
+    re-selected as the engine does: each session's final tokens (beam: its
+    n-best tokens and scores) from its slot's row of the last state."""
+    from rnn_transducer_tpu_torch.decode import streaming as ts
+
+    S = STREAM_SLOTS
+    with plain_kernels(), torch.inference_mode():
+        dw = m.DecodeWeights(params, cfg)
+        if mode == "greedy":
+            state = ts.init_stream(params, cfg, S, MAX_SYMBOLS, device=dev,
+                                   decode_weights=dw)
+        else:
+            state = ts.init_stream_beam(params, cfg, S, beam=BEAM,
+                                        max_symbols=MAX_SYMBOLS, ngram=ngram,
+                                        device=dev, decode_weights=dw)
+        for chunks, lens, active in run["recorded"]:
+            chunks, lens, active = (a.to(dev) for a in (chunks, lens, active))
+            if mode == "greedy":
+                new = ts.stream_chunk(params, cfg, state, chunks, lens,
+                                      MAX_SYMBOLS, decode_weights=dw)[0]
+            else:
+                new = ts.stream_chunk_beam(
+                    params, cfg, state, chunks, lens, beam=BEAM,
+                    max_symbols=MAX_SYMBOLS, expansions=EXPANSIONS,
+                    ngram=ngram, decode_weights=dw)[0]
+            state = ts.select_rows(active, new, state)
+        dec = state.decode_state
+        if mode == "greedy":
+            u, tok = dec[0].cpu(), dec[1].cpu()
+            return [tok[s, :u[s]].tolist() for s in run["slots"]]
+        order = torch.argsort(-dec[2], dim=-1, stable=True)
+        tok = torch.gather(dec[0], 1, order[..., None].expand_as(dec[0]))
+        n, sc = torch.gather(dec[1], 1, order), torch.gather(dec[2], 1, order)
+        tok, n, sc = tok.cpu(), n.cpu(), sc.cpu()
+        return [[(tok[s, k, :n[s, k]].tolist(), float(sc[s, k]))
+                 for k in range(BEAM) if float(sc[s, k]) > -5e29]
+                for s in run["slots"]]
+
+
+def tick_timing(run: dict, chunk: int) -> dict:
+    ms = run["tick_ms"]
+    audio_ms = chunk * FRAME_S * 1e3  # a session's audio a tick
+    return {"ticks": run["ticks"], "tick_host_ms_mean": statistics.mean(ms),
+            "tick_host_ms_p50": statistics.median(ms),
+            "tick_host_ms_max": max(ms), "chunk_audio_ms": audio_ms,
+            "rtf": statistics.mean(ms) / audio_ms,
+            "offline_batches": run["offline_batches"],
+            "wall_s": run["wall_s"], "warmup_s": run["warmup_s"]}
+
+
+def check_launches(run: dict, name: str, per_call: int, what: str) -> float:
+    """`name` launched per_call times for each tick and each offline batch
+    of the run; returns the launches a tick."""
+    calls = run["ticks"] + run["offline_batches"]
+    got = run["counts"][name]
+    check(got == per_call * calls,
+          f"streaming {what}: {got} {name} launches in {run['ticks']} ticks "
+          f"and {run['offline_batches']} offline batches, not {per_call} "
+          "each")
+    check_no_band(run["counts"], f"streaming {what}")
+    check(run["counts"]["greedy_fused"] == 0,
+          f"streaming {what} launched greedy_fused")
+    return (got - per_call * run["offline_batches"]) / run["ticks"]
+
+
+def check_session_results(run: dict, lengths, what: str) -> None:
+    """Well-formed partial results: HTTP 200s, the last partial equal to
+    the final tokens, frames in order inside the utterance."""
+    check(all(c == 200 for c in run["offline_codes"]),
+          f"streaming {what}: /recognize codes {run['offline_codes']}")
+    for s, T in zip(run["sessions"], lengths):
+        last = s["last"]
+        check(last["tokens"] == s["final"], f"streaming {what}: the last "
+              "partial result differs from the closed session's tokens")
+        check(len(last["tokens"]) == len(last["confidence"])
+              == len(last["frames"]) <= MAX_SYMBOLS,
+              f"streaming {what}: result fields disagree in length")
+        check(all(0 <= f < T for f in last["frames"])
+              and last["frames"] == sorted(last["frames"]),
+              f"streaming {what}: frames out of order or past the utterance")
+        check(0 <= last["stable_len"] <= len(last["tokens"]),
+              f"streaming {what}: stable_len {last['stable_len']}")
+
+
+def greedy_agreement(run: dict) -> dict:
+    """Sessions against the offline engine's answers: rows with the same
+    tokens, the same frames, and the largest confidence gap."""
+    same_tok = same_fr = 0
+    conf_gap = 0.0
+    for s, a in zip(run["sessions"], run["offline"]):
+        last = s["last"]
+        same_tok += last["tokens"] == a["tokens"]
+        same_fr += last["frames"] == a["frames"]
+        if last["tokens"] == a["tokens"]:
+            conf_gap = max([conf_gap] + [abs(x - y) for x, y in zip(
+                last["confidence"], a["confidence"])])
+    n = len(run["sessions"])
+    return {"token_agreement": same_tok / n, "frame_agreement": same_fr / n,
+            "max_confidence_gap": conf_gap}
+
+
+def mixed_load(params, cfg, utts, dev, lengths, kernel: str,
+               per_call: int, what: str, **kw) -> dict:
+    """The sessions and the /recognize requests of the same utterances at
+    once (the server's default traffic, both engines' worker threads on
+    one card): checked as the sessions alone are, and the ticks' host ms
+    and RTF under that load, with the launches of `kernel`."""
+    run = serve_sessions(params, cfg, utts, dev, **kw)
+    check_session_results(run, lengths, what)
+    check_launches(run, kernel, per_call, what)
+    return {**tick_timing(run, kw.get("chunk", CHUNK_FRAMES)),
+            "launches": run["counts"][kernel]}
+
+
+def encoder_gap(params, cfg, utts, dev, chunk: int) -> float:
+    """Max |encode_chunk chunk by chunk - encode| over the valid frames of
+    the sessions' utterances in one batch, through the kernels."""
+    T = max(u.shape[0] for u in utts)
+    T = -(-T // chunk) * chunk
+    feats = np.zeros((len(utts), T, cfg.input_dim), np.float32)
+    lens = np.array([u.shape[0] for u in utts], np.int32)
+    for i, u in enumerate(utts):
+        feats[i, :u.shape[0]] = u
+    f, n = torch.from_numpy(feats).to(dev), torch.from_numpy(lens).to(dev)
+    with torch.inference_mode():
+        want, want_lens = m.encode(params, cfg, f, n)
+        state, outs = m.init_enc_state(cfg, len(utts), dev), []
+        for t0 in range(0, T, chunk):
+            out, _, state = m.encode_chunk(
+                params, cfg, f[:, t0:t0 + chunk],
+                torch.clamp(n - t0, 0, chunk).to(torch.int32), state)
+            outs.append(out)
+        got = torch.cat(outs, dim=1)
+    return max(float((got[b, :k] - want[b, :k]).abs().max())
+               for b, k in enumerate(want_lens.tolist()) if k)
+
+
+def stream_profile(params, cfg, utts, dev, *, mode="greedy",
+                   chunk=CHUNK_FRAMES, ngram=None) -> dict:
+    """One tick of every slot under torch.profiler, the engine alone (the
+    utterances' second chunks, after a tick of their first): its wall ms,
+    kernels and the device's busy share."""
+    streaming = StreamingEngine(params, cfg, slots=STREAM_SLOTS,
+                                chunk_frames=chunk, window_ms=50.0,
+                                device=dev, mode=mode, beam=BEAM,
+                                expansions=EXPANSIONS,
+                                max_symbols=MAX_SYMBOLS, ngram=ngram)
+    try:
+        streaming.warmup()
+        sids = [streaming.open_session() for _ in utts]
+
+        def tick(i):
+            with concurrent.futures.ThreadPoolExecutor(len(utts)) as ex:
+                list(ex.map(lambda s, u: streaming.feed_full(
+                    s, u[i * chunk:(i + 1) * chunk]), sids, utts))
+
+        tick(0)  # warm: the first chunk of every session
+        batches = streaming.stats.batches
+        prof = beam_profile(lambda: tick(1))
+        prof["ticks_in_window"] = streaming.stats.batches - batches
+        return prof
+    finally:
+        streaming.close()
+
+
+def streaming_phase(serving: dict, seed: int, dev) -> dict:
+    """Phase 4h: streaming sessions behind http_server with both engines,
+    the CLI's defaults (8 slots, 32-frame chunks, max_symbols 100): at
+    f32 the sessions and /recognize requests of the same utterances at
+    once (the checks), at bf16 (the served dtype) the sessions alone and
+    then the requests (the ticks' host ms, the RTF, the agreement with
+    the offline engine, reported), the same at once ("bf16_mixed": the
+    ticks under offline load), and one tick profiled:
+      greedy, float, on the served model and on beam_serving_setup's
+        model (which emits along the utterance): 4 K4-fwd launches a tick
+        with the carried state; each session's f32 tokens, frames and
+        confidences equal to the offline engine's answer and to the plain
+        path's (the recorded ticks replayed through stream_chunk on the
+        plain versions); a freed slot reopened gives the first answer
+        again;
+      int8 (quantize_params): 4 K7 launches a tick, no K4-fwd; the f32
+        sessions equal to the plain replay on the same slot layout; at
+        equal lengths, stream_transcribe equal to recognize_greedy;
+      beam with the serve CLI's trigram, on beam_serving_setup's emitting
+        model: each session's n-best that of the offline beam engine, and
+        of the plain replay, within beams_agree's tolerance;
+      libri100_conformer_chunked at 128-frame chunks: 48 K8-fwd launches a
+        tick; the f32 tokens equal to the offline engine's and to the
+        plain replay's; the f32 encoder gap within ATOL.
+    """
+    from rnn_transducer_tpu_torch.decode.streaming import stream_transcribe
+
+    cfg, params = serving["cfg"], serving["params"]
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    # the first 8 served utterances (150-800 frames, most ending in a
+    # short chunk)
+    utts = serving["utts"][:STREAM_SLOTS]
+    lengths = [u.shape[0] for u in utts]
+    rows = {}
+
+    def report(name, row):
+        row = {"what": name, **row}
+        print("streaming " + json.dumps(row))
+        rows[name] = row
+
+    # -- greedy, float: the served model, and the beam phase's model that
+    # emits along the utterance (so the carry crosses chunks) ------------
+    beam_setup = beam_serving_setup(serving, seed, dev)
+    for name, p in (("greedy", params), ("greedy_emitting",
+                                         beam_setup["params"])):
+        run = serve_sessions(p, f32, utts, dev, record=True, reopen=True)
+        check_session_results(run, lengths, f"{name} f32")
+        per_tick = check_launches(run, "lstm_fwd", cfg.enc_layers,
+                                  f"{name} f32")
+        agree = greedy_agreement(run)
+        check(agree["token_agreement"] == 1.0
+              and agree["frame_agreement"] == 1.0
+              and agree["max_confidence_gap"] <= CONF_ROUND,
+              f"streaming {name} f32: sessions differ from the offline "
+              f"engine {agree}")
+        plain = replay_ticks(p, f32, run, dev)
+        check(plain == [s["final"] for s in run["sessions"]],
+              f"streaming {name} f32: sessions differ from the plain replay")
+        check(run["reopened"]["final"] == run["sessions"][0]["final"],
+              f"streaming {name} f32: a reopened slot gave another answer")
+        gap = encoder_gap(p, f32, utts, dev, CHUNK_FRAMES)
+        check(gap <= ATOL[torch.float32], f"streaming f32 encoder gap {gap}")
+        bf = serve_sessions(p, cfg, utts, dev, at_once=False)
+        check_session_results(bf, lengths, f"{name} bf16")
+        check_launches(bf, "lstm_fwd", cfg.enc_layers, f"{name} bf16")
+        mixed = mixed_load(p, cfg, utts, dev, lengths, "lstm_fwd",
+                           cfg.enc_layers, f"{name} bf16 mixed")
+        report(name, {
+            "launches": run["counts"]["lstm_fwd"] + bf["counts"]["lstm_fwd"]
+            + mixed["launches"],
+            "lstm_fwd_per_tick": per_tick, "f32": agree,
+            "f32_encoder_gap": gap, "plain_replay_identical": True,
+            "reopened_identical": True,
+            "mean_tokens": statistics.mean(len(s["final"])
+                                           for s in run["sessions"]),
+            "bf16": {**greedy_agreement(bf), **tick_timing(bf, CHUNK_FRAMES)},
+            "bf16_mixed": mixed,
+            "profile": stream_profile(p, cfg, utts, dev)})
+
+    # -- int8 -------------------------------------------------------------
+    qparams = quantize_params(params)
+    run = serve_sessions(qparams, f32, utts, dev, record=True)
+    check_session_results(run, lengths, "int8 f32")
+    per_tick = check_launches(run, "lstm_fwd_int8", cfg.enc_layers,
+                              "int8 f32")
+    check(run["counts"]["lstm_fwd"] == 0, "streaming int8 launched lstm_fwd")
+    plain = replay_ticks(qparams, f32, run, dev)
+    check(plain == [s["final"] for s in run["sessions"]],
+          "streaming int8 f32: sessions differ from the plain replay on "
+          "the same slot layout")
+    # equal lengths: chunked == offline on the W8A8 route
+    T = 4 * CHUNK_FRAMES  # every utterance is longer
+    feats = torch.from_numpy(np.stack([u[:T] for u in utts])).to(dev)
+    lens = torch.full((len(utts),), T, dtype=torch.int32, device=dev)
+    with torch.inference_mode():
+        tok_s, n_s = stream_transcribe(qparams, f32, feats, lens,
+                                       CHUNK_FRAMES, MAX_SYMBOLS, device=dev)
+        tok_o, n_o = recognize_greedy(qparams, f32, feats, lens, MAX_SYMBOLS)
+    check(torch.equal(tok_s, tok_o) and torch.equal(n_s, n_o),
+          "streaming int8 f32 at equal lengths: tokens differ from "
+          "recognize_greedy")
+    bf = serve_sessions(qparams, cfg, utts, dev, at_once=False)
+    check_launches(bf, "lstm_fwd_int8", cfg.enc_layers, "int8 bf16")
+    check(bf["counts"]["lstm_fwd"] == 0, "streaming int8 launched lstm_fwd")
+    mixed = mixed_load(qparams, cfg, utts, dev, lengths, "lstm_fwd_int8",
+                       cfg.enc_layers, "int8 bf16 mixed")
+    report("int8", {
+        "launches": run["counts"]["lstm_fwd_int8"]
+        + bf["counts"]["lstm_fwd_int8"] + mixed["launches"],
+        "lstm_fwd_int8_per_tick": per_tick, "lstm_fwd_launches": 0,
+        "plain_replay_identical": True,
+        "equal_length_tokens_identical": True,
+        "equal_length_tokens": n_s.tolist(),
+        "f32_ragged_vs_offline": greedy_agreement(run),
+        "bf16": {**greedy_agreement(bf), **tick_timing(bf, CHUNK_FRAMES)},
+        "bf16_mixed": mixed})
+    del qparams
+
+    # -- beam with the trigram --------------------------------------------
+    bparams = beam_setup["params"]
+    ngram = (serve_trigram(cfg, seed), NGRAM_WEIGHT)
+    run = serve_sessions(bparams, f32, utts, dev, mode="beam", ngram=ngram,
+                         record=True)
+    check_session_results(run, lengths, "beam f32")
+    per_tick = check_launches(run, "lstm_fwd", cfg.enc_layers, "beam f32")
+    got = nbest_arrays([s["last"]["nbest"] for s in run["sessions"]])
+    want = nbest_arrays([a["nbest"] for a in run["offline"]])
+    vs_offline = beams_agree(got, want, "streaming vs offline")
+    replay = nbest_arrays([[{"tokens": t, "score": sc} for t, sc in r]
+                           for r in replay_ticks(bparams, f32, run, dev,
+                                                 "beam", (ngram[0].to(dev),
+                                                          ngram[1]))])
+    vs_plain = beams_agree(got, replay, "streaming vs plain replay")
+    mean_top = statistics.mean(vs_offline["top_lengths"])
+    check(mean_top >= BEAM_MIN_TOKENS,
+          f"streaming beam: top beams of {mean_top} tokens on average")
+    bf = serve_sessions(bparams, cfg, utts, dev, mode="beam", ngram=ngram,
+                        at_once=False)
+    check_launches(bf, "lstm_fwd", cfg.enc_layers, "beam bf16")
+    mixed = mixed_load(bparams, cfg, utts, dev, lengths, "lstm_fwd",
+                       cfg.enc_layers, "beam bf16 mixed", mode="beam",
+                       ngram=ngram)
+    prof = stream_profile(bparams, cfg, utts, dev, mode="beam", ngram=ngram)
+    report("beam", {
+        "launches": run["counts"]["lstm_fwd"] + bf["counts"]["lstm_fwd"]
+        + mixed["launches"],
+        "lstm_fwd_per_tick": per_tick, "f32_vs_offline": vs_offline,
+        "f32_vs_plain_replay": vs_plain, "mean_top_length": mean_top,
+        "bf16": {"top_agreement": statistics.mean(
+            s["last"]["tokens"] == a["tokens"]
+            for s, a in zip(bf["sessions"], bf["offline"])),
+            **tick_timing(bf, CHUNK_FRAMES)},
+        "bf16_mixed": mixed, "profile": prof})
+    del beam_setup, bparams
+
+    # -- the chunked-attention conformer at 128-frame chunks ----------------
+    conf = conformer_serving_setup(serving, seed, dev,
+                                   config_libri100_conformer_chunked())
+    ccfg, cparams = conf["cfg"], conf["params"]
+    c32 = dataclasses.replace(ccfg, compute_dtype="float32")
+    run = serve_sessions(cparams, c32, utts, dev, chunk=CONF_CHUNK_FRAMES,
+                         record=True)
+    check_session_results(run, lengths, "conformer f32")
+    per_tick = check_launches(run, "fused_ln_fwd", LN_PER_ENCODE,
+                              "conformer f32")
+    check(run["counts"]["lstm_fwd"] == 0,
+          "streaming conformer launched lstm_fwd")
+    agree = greedy_agreement(run)
+    check(agree["token_agreement"] == 1.0 and agree["frame_agreement"] == 1.0
+          and agree["max_confidence_gap"] <= CONF_ROUND,
+          f"streaming conformer f32: sessions differ from the offline "
+          f"engine {agree}")
+    # K8-fwd at the stream's own shapes (ln_att over the cache and the
+    # chunk) against the plain LayerNorm
+    plain = replay_ticks(cparams, c32, run, dev)
+    check(plain == [s["final"] for s in run["sessions"]],
+          "streaming conformer f32: sessions differ from the plain replay")
+    gap = encoder_gap(cparams, c32, utts, dev, CONF_CHUNK_FRAMES)
+    check(gap <= ATOL[torch.float32],
+          f"streaming conformer f32 encoder gap {gap}")
+    bf = serve_sessions(cparams, ccfg, utts, dev, chunk=CONF_CHUNK_FRAMES,
+                        at_once=False)
+    check_launches(bf, "fused_ln_fwd", LN_PER_ENCODE, "conformer bf16")
+    mixed = mixed_load(cparams, ccfg, utts, dev, lengths, "fused_ln_fwd",
+                       LN_PER_ENCODE, "conformer bf16 mixed",
+                       chunk=CONF_CHUNK_FRAMES)
+    prof = stream_profile(cparams, ccfg, utts, dev, chunk=CONF_CHUNK_FRAMES)
+    report("conformer_chunked", {
+        "launches": run["counts"]["fused_ln_fwd"]
+        + bf["counts"]["fused_ln_fwd"] + mixed["launches"],
+        "fused_ln_fwd_per_tick": per_tick, "f32": agree,
+        "f32_encoder_gap": gap, "plain_replay_identical": True,
+        "mean_tokens": statistics.mean(len(s["final"])
+                                       for s in run["sessions"]),
+        "bf16": {**greedy_agreement(bf),
+                 **tick_timing(bf, CONF_CHUNK_FRAMES)},
+        "bf16_mixed": mixed, "profile": prof})
+    print("streaming_card " + card_line())
+    return rows
+
+
+def nbest_arrays(nbests: list) -> tuple:
+    """n-best lists ({"tokens", "score"} each) -> beams_agree's numpy
+    tokens (B, K, U), lengths (B, K) and scores (B, K), dead beams at
+    -1e30."""
+    B = len(nbests)
+    tok = np.zeros((B, BEAM, MAX_SYMBOLS), np.int64)
+    n = np.zeros((B, BEAM), np.int64)
+    sc = np.full((B, BEAM), -1e30)
+    for b, hyps in enumerate(nbests):
+        for k, h in enumerate(hyps):
+            tok[b, k, :len(h["tokens"])] = h["tokens"]
+            n[b, k] = len(h["tokens"])
+            sc[b, k] = h["score"]
+    return tok, n, sc
+
+
+def serve_trigram(cfg, seed: int):
+    """The serve_cli phase's trigram: train_ngram on 40 seeded sequences."""
+    from rnn_transducer_tpu_torch.models.ngram import train_ngram
+
+    rng = np.random.default_rng(seed + 21)
+    V = cfg.vocab_size
+    return train_ngram([rng.integers(1, V, size=8).tolist()
+                        for _ in range(40)], 3, V)
 
 
 # ------------------------------ phase 5 ----------------------------------
@@ -2896,14 +3441,11 @@ def main(argv=None):
     utt = serving["utts"][0]
     for extra in ([], ["--quantize", "int8"]):
         serve_cli(extra, utt)
+    serve_cli([], utt, config="libri100")  # /session at the CLI's defaults
     with tempfile.TemporaryDirectory() as tmp:
         # the beam entry point: libri100, --mode beam with a trigram
-        from rnn_transducer_tpu_torch.models.ngram import (save_ngram,
-                                                           train_ngram)
-        rng = np.random.default_rng(args.seed + 21)
-        V = serving["cfg"].vocab_size
-        save_ngram(train_ngram([rng.integers(1, V, size=8).tolist()
-                                for _ in range(40)], 3, V),
+        from rnn_transducer_tpu_torch.models.ngram import save_ngram
+        save_ngram(serve_trigram(serving["cfg"], args.seed),
                    os.path.join(tmp, "lm3"))
         serve_cli(["--mode", "beam", "--ngram", os.path.join(tmp, "lm3")],
                   utt, config="libri100")
@@ -2937,10 +3479,22 @@ def main(argv=None):
     t0 = time.perf_counter()
     beam_serving(beam_serving_setup(serving, args.seed, dev), dev)
     print(f"phase beam: {time.perf_counter() - t0:.1f} s")
-    del serving, qparams
+    del qparams
     t0 = time.perf_counter()
     lattice_tiles_vs_plain(np.random.default_rng(args.seed + 22), dev)
     print(f"phase lattice_tiles: {time.perf_counter() - t0:.1f} s")
+
+    # phase 4h: streaming sessions (after every profiled window of the
+    # earlier phases)
+    t0 = time.perf_counter()
+    stream = streaming_phase(serving, args.seed, dev)
+    print(f"phase streaming: {time.perf_counter() - t0:.1f} s")
+    del serving
+    print("streaming_launches " + json.dumps({
+        "lstm_fwd": stream["greedy"]["launches"]
+        + stream["greedy_emitting"]["launches"] + stream["beam"]["launches"],
+        "lstm_fwd_int8": stream["int8"]["launches"],
+        "fused_ln_fwd": stream["conformer_chunked"]["launches"]}))
 
     # phase 6: results
     lp = "rnn_transducer_tpu/ops/lstm_pallas.py"

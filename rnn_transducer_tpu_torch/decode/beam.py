@@ -118,8 +118,11 @@ def _tree_map(fn, tree, *rest):
         return {k: _tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_tree_map(fn, v, *(r[i] for r in rest))
-                          for i, v in enumerate(tree))
+        items = [_tree_map(fn, v, *(r[i] for r in rest))
+                 for i, v in enumerate(tree)]
+        # a NamedTuple takes its fields as arguments
+        return type(tree)(*items) if hasattr(tree, "_fields") \
+            else type(tree)(items)
     return fn(tree, *rest)
 
 
@@ -161,7 +164,8 @@ def _take(x, idx):
 def init_beam_state(params, cfg: TransducerConfig, batch: int, *,
                     beam: int = 8, max_symbols: int = 200, lm=None,
                     context=None, ngram=None,
-                    device: str | torch.device = "cuda"):
+                    device: str | torch.device = "cuda",
+                    decode_weights=None):
     """Initial beam carry: beam 0 = empty prefix, the others dead.
 
     (tokens (B, K, U) int32, lens (B, K) int32, scores (B, K) f32, hashes
@@ -170,11 +174,10 @@ def init_beam_state(params, cfg: TransducerConfig, batch: int, *,
     encoder frame), "foff" (frames consumed by earlier chunks), "wake"
     (the frame a beam next consumes: t for the standard model), and with
     fusion "lm_lp", "cb_node", "ng_state"; states holds "pred" (and "lm").
-    `params` may be a `DecodeWeights` already built from them.
+    `decode_weights`, a `DecodeWeights` of `params`, spares building it.
     """
     m.check_supported(cfg)
-    dw = (params if isinstance(params, m.DecodeWeights)
-          else m.DecodeWeights(params, cfg))
+    dw = decode_weights or m.DecodeWeights(params, cfg)
     lm = _cap_lm_cache(lm, max_symbols)
     B, K, U = batch, beam, max_symbols
     dev = torch.device(device)
@@ -217,7 +220,8 @@ def init_beam_state(params, cfg: TransducerConfig, batch: int, *,
 
 def beam_search(params, cfg: TransducerConfig, enc_out, enc_lens, *,
                 beam: int = 8, max_symbols: int = 200, expansions: int = 3,
-                beam_state=None, lm=None, context=None, ngram=None):
+                beam_state=None, lm=None, context=None, ngram=None,
+                decode_weights=None):
     """Beam-search decode a batch of encoded utterances.
 
     Args:
@@ -227,6 +231,8 @@ def beam_search(params, cfg: TransducerConfig, enc_out, enc_lens, *,
       beam_state: a carry from `init_beam_state` or an earlier call; None
         starts fresh utterances.
       lm, context, ngram: shallow fusion (module docstring).
+      decode_weights: a `DecodeWeights` of `params` built by the caller
+        (a stream builds it once, not once a chunk); None builds it here.
 
     Returns:
       tokens: (B, K, max_symbols) int32 blank-padded, best beam first.
@@ -238,7 +244,7 @@ def beam_search(params, cfg: TransducerConfig, enc_out, enc_lens, *,
     # int8 params dequantized and weights rounded to the compute dtype once
     # here, not in every step (the JAX package's jit hoists them out of its
     # loop); the encoder side of the joint is projected once for all frames
-    dw = m.DecodeWeights(params, cfg)
+    dw = decode_weights or m.DecodeWeights(params, cfg)
     B, T, _ = enc_out.shape
     K, U = beam, max_symbols
     dev = enc_out.device
@@ -259,9 +265,9 @@ def beam_search(params, cfg: TransducerConfig, enc_out, enc_lens, *,
         return x.reshape((B, K) + tuple(x.shape[1:]))
 
     if beam_state is None:
-        beam_state = init_beam_state(dw, cfg, B, beam=K, max_symbols=U,
+        beam_state = init_beam_state(params, cfg, B, beam=K, max_symbols=U,
                                      lm=lm, context=context, ngram=ngram,
-                                     device=dev)
+                                     device=dev, decode_weights=dw)
     # made once: a host-to-device copy inside the loop would sync
     neg = torch.tensor(NEG_INF, dtype=torch.float32).to(dev)
     mult = _hash_mult(dev)

@@ -20,42 +20,60 @@ from rnn_transducer_tpu_torch.models.config import TransducerConfig
 
 
 def greedy_decode(params, cfg: TransducerConfig, enc_out, enc_lens,
-                  max_symbols: int = 200, decode_state=None):
+                  max_symbols: int = 200, decode_state=None, *,
+                  decode_weights=None):
     """Greedy decode a batch of encoded utterances (standard model).
 
     Args:
       enc_out: (B, T, De) encoder outputs. enc_lens: (B,) valid frames.
       max_symbols: cap on emitted labels per utterance.
+      decode_state: the carry of an earlier chunk (streaming), as returned
+        in the third output; None starts fresh utterances.
+      decode_weights: a `DecodeWeights` of `params` built by the caller
+        (a stream builds it once, not once a chunk); None builds it here.
 
     Returns:
       tokens: (B, max_symbols) int32, blank-padded.
       lengths: (B,) number of emitted labels.
       decode_state: (u, tokens, confs, frames, frame_off, pred_out,
         pred_states, t_over) as in the JAX function; confs[b, i] is the
-        emitted token's log-probability and frames[b, i] the encoder frame
-        it was emitted at, both 0 past the length.
+        emitted token's log-probability and frames[b, i] the GLOBAL
+        encoder frame it was emitted at (frame_off counts the frames of
+        earlier chunks), both 0 past the length; t_over is 0 for the
+        standard model.
     """
     m.check_supported(cfg)
-    if decode_state is not None:
-        raise NotImplementedError(
-            "carried decode_state (streaming) is not ported yet (ROADMAP "
-            "queue 1, item 4: streaming)")
-    # int8 params dequantized and weights rounded once here, not in every
-    # step (the JAX package's jit hoists them out of its loop)
-    dw = m.DecodeWeights(params, cfg)
+    # int8 params dequantized and weights rounded once, not in every step
+    # (the JAX package's jit hoists them out of its loop)
+    dw = decode_weights or m.DecodeWeights(params, cfg)
     B = enc_out.shape[0]
     dev = enc_out.device
     enc_lens = enc_lens.to(device=dev, dtype=torch.int32)
     rows = torch.arange(B, device=dev)
     blank = torch.full((B,), cfg.blank, dtype=torch.int64, device=dev)
 
-    pred_out, states = dw.predict_step(blank, m.init_pred_state(cfg, B, dev))
-    t = torch.zeros((B,), dtype=torch.int32, device=dev)
-    u = torch.zeros((B,), dtype=torch.int32, device=dev)
-    tokens = torch.full((B, max_symbols), cfg.blank, dtype=torch.int32,
-                        device=dev)
-    confs = torch.zeros((B, max_symbols), dtype=torch.float32, device=dev)
-    frames = torch.zeros((B, max_symbols), dtype=torch.int32, device=dev)
+    if decode_state is None:
+        pred_out, states = dw.predict_step(blank,
+                                           m.init_pred_state(cfg, B, dev))
+        u = torch.zeros((B,), dtype=torch.int32, device=dev)
+        tokens = torch.full((B, max_symbols), cfg.blank, dtype=torch.int32,
+                            device=dev)
+        confs = torch.zeros((B, max_symbols), dtype=torch.float32,
+                            device=dev)
+        frames = torch.zeros((B, max_symbols), dtype=torch.int32,
+                             device=dev)
+        foff = torch.zeros((B,), dtype=torch.int32, device=dev)
+        t = torch.zeros((B,), dtype=torch.int32, device=dev)
+    else:
+        (u, tokens, confs, frames, foff, pred_out, states,
+         t) = decode_state
+        if tuple(tokens.shape) != (B, max_symbols):
+            raise ValueError(f"carried tokens {tuple(tokens.shape)} are not "
+                             f"(B, max_symbols) = {(B, max_symbols)}")
+        # the loop writes its buffers in place: the caller's carry stays
+        tokens, confs, frames = tokens.clone(), confs.clone(), frames.clone()
+    # t starts at the carried overshoot t_over (frames a jump past the
+    # last chunk consumed; 0 for the standard model)
     done = (t >= enc_lens) | (u >= max_symbols)
 
     while bool((~done).any()):  # one host sync per iteration
@@ -75,7 +93,7 @@ def greedy_decode(params, cfg: TransducerConfig, enc_out, enc_lens,
         tokens[rows, u_w] = torch.where(emit, k.to(torch.int32),
                                         tokens[rows, u_w])
         confs[rows, u_w] = torch.where(emit, k_lp, confs[rows, u_w])
-        frames[rows, u_w] = torch.where(emit, t, frames[rows, u_w])
+        frames[rows, u_w] = torch.where(emit, foff + t, frames[rows, u_w])
         new_pred, new_states = dw.predict_step(torch.where(emit, k, blank),
                                                states)
         e = emit[:, None]
@@ -87,8 +105,8 @@ def greedy_decode(params, cfg: TransducerConfig, enc_out, enc_lens,
         done = (t >= enc_lens) | (u >= max_symbols)
 
     t_over = torch.clamp(t - enc_lens, min=0)
-    return tokens, u, (u, tokens, confs, frames, enc_lens, pred_out, states,
-                       t_over)
+    return tokens, u, (u, tokens, confs, frames, foff + enc_lens, pred_out,
+                       states, t_over)
 
 
 def recognize_greedy(params, cfg: TransducerConfig, feats, feat_lens,

@@ -1,15 +1,16 @@
 """The Transducer model (PyTorch port of
 `rnn_transducer_tpu/models/transducer.py`): the LSTM encoder and the
-offline conformer encoder, the LSTM predictor and the joint.
+conformer encoder, offline and chunk by chunk with a carried state, the
+LSTM predictor and the joint.
 
 Plain functions on tensors over a parameter dict in the JAX layout:
 {"encoder": [lstm layer, ...] or [{"in_proj"}, conformer block, ...],
 "embed": (V, E), "predictor": [lstm layer, ...], "joint": {"enc_proj",
 "pred_proj", "out": {"w": (in, out), "b"}}}.
-It covers greedy serving (`encode`, `predict_step`, `joint_step`) and
-the training forward (`predict`, `joint`, `joint_activations`,
-`forward`). Configurations outside it raise NotImplementedError naming
-their ROADMAP item. Every entry point takes int8 serving params
+It covers serving (`encode`, `predict_step`, `joint_step`), streaming
+(`init_enc_state`, `encode_chunk`) and the training forward (`predict`,
+`joint`, `joint_activations`, `forward`). Configurations outside it
+raise NotImplementedError naming their ROADMAP item. Every entry point takes int8 serving params
 (`ops/quant.py`) and dequantizes them as the JAX package does; `encode`
 keeps `w_hh` int8 for the W8A8 recurrence.
 """
@@ -24,6 +25,8 @@ import torch
 
 from rnn_transducer_tpu_torch.models.config import TransducerConfig
 from rnn_transducer_tpu_torch.ops.conformer import (conformer_block,
+                                                    conformer_block_chunk,
+                                                    init_block_cache,
                                                     init_conformer_block)
 from rnn_transducer_tpu_torch.ops.lstm import (
     _dot,
@@ -168,6 +171,89 @@ def encode(params: Params, cfg: TransducerConfig, feats, feat_lens):
             x = mask_padding(x, lens)
             x, lens = _time_reduce(x, lens, cfg.time_reduction)
     return mask_padding(x, lens), lens
+
+
+def _check_streamable(cfg: TransducerConfig) -> None:
+    """The JAX package's refusals of an encoder that cannot stream."""
+    if not cfg.streamable:
+        raise ValueError(
+            "streaming a conformer requires enc_att_left > 0 (causal/"
+            "windowed) or enc_chunk_att > 0 (chunked lookahead); full "
+            "attention needs the whole utterance"
+            if cfg.enc_type == "conformer"
+            else "streaming requires a unidirectional encoder")
+    check_supported(cfg)
+
+
+def init_enc_state(cfg: TransducerConfig, batch: int,
+                   device: str | torch.device = "cuda"):
+    """Streaming encoder carry: per-layer (h, c) f32 for the
+    unidirectional LSTM, or {"n_seen": (B,) frames consumed, "blocks":
+    per-block attention / conv caches} for the causal or chunked
+    conformer."""
+    _check_streamable(cfg)
+    if cfg.enc_type == "conformer":
+        return {"n_seen": torch.zeros((batch,), dtype=torch.int32,
+                                      device=device),
+                "blocks": [init_block_cache(batch, cfg.enc_hidden,
+                                            cfg.enc_att_left,
+                                            cfg.enc_conv_kernel, device)
+                           for _ in range(cfg.enc_layers)]}
+    return [(torch.zeros((batch, cfg.enc_hidden), dtype=torch.float32,
+                         device=device),
+             torch.zeros((batch, cfg.enc_hidden), dtype=torch.float32,
+                         device=device))
+            for _ in range(cfg.enc_layers)]
+
+
+def encode_chunk(params: Params, cfg: TransducerConfig, feats, chunk_lens,
+                 enc_state):
+    """Streaming encoder step: one chunk of frames with the carried state.
+
+    feats (B, C, input_dim) with C % time_reduction == 0. Only an
+    utterance's last chunk may be partly valid (chunk_lens < C): the
+    carried state past chunk_lens is garbage, harmless once the stream
+    ends there. Unlike `encode`, the LSTM branch zeroes the pad rows after
+    every layer, as the JAX function does. Returns (enc_out (B, C', De),
+    enc_lens (B,), new_enc_state).
+    """
+    _check_streamable(cfg)
+    params = maybe_dequant_tree(params, keep=("w_hh",))  # see encode()
+    C = feats.shape[1]
+    if cfg.time_reduction > 1 and C % cfg.time_reduction:
+        raise ValueError(f"chunk frames {C} must be divisible by "
+                         f"time_reduction {cfg.time_reduction}")
+    x = mask_padding(feats.float(), chunk_lens)
+    lens = chunk_lens.to(device=x.device, dtype=torch.int32)
+    cd = cfg.cdtype
+    if cfg.enc_type == "conformer":
+        if cfg.time_reduction > 1:
+            x, lens = _time_reduce(x, lens, cfg.time_reduction)
+        if cfg.enc_chunk_att > 0 and x.shape[1] % cfg.enc_chunk_att:
+            raise ValueError(
+                f"chunked attention: encoded chunk {x.shape[1]} must be a "
+                f"multiple of enc_chunk_att {cfg.enc_chunk_att} (chunk "
+                "starts must align across streaming and offline)")
+        proj = params["encoder"][0]["in_proj"]
+        x = _dot(x, proj["w"], cd) + proj["b"].float()
+        n_seen = enc_state["n_seen"]
+        blocks = []
+        for block, cache in zip(params["encoder"][1:], enc_state["blocks"]):
+            x, cache = conformer_block_chunk(
+                block, x, cache, n_seen, lens, cfg.enc_heads, cd,
+                cfg.enc_att_left, chunk_att=cfg.enc_chunk_att)
+            blocks.append(cache)
+        return mask_padding(x, lens), lens, {"n_seen": n_seen + lens,
+                                             "blocks": blocks}
+    new_state = []
+    for i, (layer, (h0, c0)) in enumerate(zip(params["encoder"],
+                                              enc_state)):
+        x, (h, c) = lstm_layer(layer, x, h0, c0, compute_dtype=cd)
+        new_state.append((h, c))
+        x = mask_padding(x, lens)
+        if i == 0 and cfg.time_reduction > 1:
+            x, lens = _time_reduce(x, lens, cfg.time_reduction)
+    return x, lens, new_state
 
 
 def predict_step(params: Params, cfg: TransducerConfig, label, states):

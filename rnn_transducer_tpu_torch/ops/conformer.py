@@ -1,5 +1,6 @@
 """Conformer encoder blocks (PyTorch port of
-`rnn_transducer_tpu/ops/conformer.py`, the offline block).
+`rnn_transducer_tpu/ops/conformer.py`): the offline block and its chunked
+streaming form.
 
 Per block (macaron order): half-FFN -> MHSA with a learned relative
 position bias per head, clipped at +/-`REL_CLIP` frames -> conv module
@@ -17,8 +18,10 @@ elementwise ops between (silu, the GLU product) run in that dtype.
 Masking uses NEG_INF = -1e30, not -inf: a zero-length row masks every
 key and gets a uniform softmax, which the output mask then zeroes.
 
-Not ported yet: the chunked streaming functions `init_block_cache` and
-`conformer_block_chunk` (ROADMAP queue 1, item 4: streaming).
+Streaming (`init_block_cache`, `conformer_block_chunk`): a block runs over
+one chunk with the carried history of its causal attention window and
+its causal depthwise conv, and equals the causal offline block on the
+concatenated stream.
 """
 
 from __future__ import annotations
@@ -168,13 +171,15 @@ def _conv_module(p, x, lens, cd, causal: bool = False):
     return _dw_and_out(p, h, cd, causal=causal)
 
 
-def _dw_and_out(p, h, cd, causal: bool):
+def _dw_and_out(p, h, cd, causal: bool, valid_from: int = 0):
     """Depthwise conv + LN + swish + pointwise-out over GLU activations.
 
     The depthwise conv is the JAX module's K shifted multiply-adds in f32,
     added in tap order k = 0 ... K-1 and then to dw_b (Python's `sum`),
     so the result is the JAX one bit for bit at f32; F.conv1d would let
-    cuDNN reorder the sum. causal pads K-1 zeros on the left only."""
+    cuDNN reorder the sum. causal pads K-1 zeros on the left only;
+    valid_from drops that many leading context frames from the output
+    (the chunked path, whose h starts with the carried history)."""
     kern = p["dw_w"].float()  # (K, D)
     K = kern.shape[0]
     T = h.shape[1]
@@ -184,6 +189,8 @@ def _dw_and_out(p, h, cd, causal: bool):
     for k in range(K):
         acc = acc + hp[:, k:k + T] * kern[k]
     h = p["dw_b"].float() + acc
+    if valid_from:
+        h = h[:, valid_from:]
     return _dense(p["pw2"], _ln_silu(p["ln"], h), cd)
 
 
@@ -200,3 +207,78 @@ def conformer_block(p, x, lens, heads: int, cd, att_left: int = 0,
                          causal=att_left > 0 or chunk_att > 0)
     x = x + 0.5 * _ffn(p["ff2"], _ln(p["ln_ff2"], x), cd)
     return _ln(p["ln_out"], x)
+
+
+# --------------------------- chunked / streaming --------------------------
+
+def init_block_cache(batch: int, d: int, att_left: int, conv_kernel: int,
+                     device: str | torch.device = "cuda") -> dict:
+    """A block's carried state for chunked inference, f32 zeros: "attn",
+    the last att_left post-macaron frames (the attention's keys and values
+    are functions of them), and "conv", the last conv_kernel - 1 GLU
+    activations (the causal depthwise window). Zeros and the n_seen
+    validity mask reproduce the offline zero padding at stream start."""
+    return {"attn": torch.zeros((batch, att_left, d), dtype=torch.float32,
+                                device=device),
+            "conv": torch.zeros((batch, conv_kernel - 1, d),
+                                dtype=torch.float32, device=device)}
+
+
+def conformer_block_chunk(p, x, cache, n_seen, chunk_lens, heads: int, cd,
+                          att_left: int, chunk_att: int = 0):
+    """One block over a chunk with its carried history; equal to the causal
+    (or chunked-attention) offline block on the concatenated stream.
+
+    x (B, C, D) f32; cache from `init_block_cache` or an earlier chunk;
+    n_seen (B,) frames consumed before this chunk; chunk_lens (B,) valid
+    frames in it (only the last chunk may be partial). The attention's
+    LayerNorm runs once over history and chunk together, B * (W + C)
+    rows. Returns (out (B, C, D), new_cache).
+    """
+    B, C, D = x.shape
+    W = att_left
+    dev = x.device
+    x1 = x + 0.5 * _ffn(p["ff1"], _ln(p["ln_ff1"], x), cd)
+    # ---- attention over [history, chunk] ----
+    kv_src = torch.cat([cache["attn"], x1], dim=1)  # (B, W+C, D)
+    kv_ln = _ln(p["ln_att"], kv_src)
+    q_in = kv_ln[:, W:]
+    i_ids = torch.arange(C, device=dev)
+    j_ids = torch.arange(W + C, device=dev)
+    ages = (W + i_ids)[:, None] - j_ids[None, :]  # (C, W+C)
+    if chunk_att > 0:
+        # query i sees its own chunk_att-frame chunk (in-chunk future
+        # included) and W frames left of the chunk start; encode_chunk
+        # keeps n_seen a multiple of chunk_att, so local chunk starts are
+        # the global ones
+        k_l = j_ids[None, :] - W  # key position in chunk coordinates
+        cs = (i_ids // chunk_att) * chunk_att
+        win_ok = (k_l >= (cs - W)[:, None]) & (k_l < (cs + chunk_att)[:, None])
+    else:
+        win_ok = (ages >= 0) & (ages <= W)
+    # cache slot j holds global frame n_seen - W + j; a chunk key j >= W is
+    # valid below chunk_lens
+    n_seen = n_seen.to(device=dev, dtype=torch.int64)
+    chunk_lens = chunk_lens.to(device=dev, dtype=torch.int64)
+    exists = torch.where(j_ids[None, :] < W,
+                         (n_seen[:, None] - W + j_ids[None, :]) >= 0,
+                         (j_ids[None, :] - W) < chunk_lens[:, None])
+    key_ok = win_ok[None] & exists[:, None, :]  # (B, C, W+C)
+    x2 = x1 + _attend(p["att"], q_in, kv_ln, ages, key_ok, heads, cd)
+    # ---- conv module over [history GLU, chunk GLU] ----
+    h = _dense(p["conv"]["pw1"], _ln(p["ln_conv"], x2), cd, out_dtype=cd)
+    h = h[..., :D] * _sigmoid(h[..., D:])
+    h = mask_padding(h, chunk_lens)
+    K = p["conv"]["dw_w"].shape[0]
+    # the f32 cache with the chunk's cd values in f32: what the offline tap
+    # sum reads, h.float() of the same values, so the stream is exact
+    h_cat = torch.cat([cache["conv"], h.float()], dim=1)  # (B, K-1+C, D)
+    # a valid conv over the concatenation is the causal conv on the stream
+    conv_out = _dw_and_out(p["conv"], h_cat, cd, causal=True,
+                           valid_from=K - 1)
+    x3 = x2 + conv_out
+    x4 = x3 + 0.5 * _ffn(p["ff2"], _ln(p["ln_ff2"], x3), cd)
+    new_cache = {"attn": kv_src[:, kv_src.shape[1] - W:] if W
+                 else cache["attn"],
+                 "conv": h_cat[:, h_cat.shape[1] - (K - 1):]}
+    return _ln(p["ln_out"], x4), new_cache

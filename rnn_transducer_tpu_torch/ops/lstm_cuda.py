@@ -109,12 +109,12 @@ def _launch_fwd(x_proj, w_hh, h0, c0, with_acts: bool):
     if with_acts:
         cs = torch.empty((B, T, H), dtype=torch.float32, device=dev)
         acts = torch.empty((B, T, H4), dtype=torch.float32, device=dev)
+    xbuf = _exchange_buffer(plan, w_hh.dtype, dev)
     err = fn.lstm_fwd(
         x_proj.data_ptr(), w_hh.data_ptr(), int(w_hh.dtype == torch.bfloat16),
         h0.data_ptr(), c0.data_ptr(), hs.data_ptr(), c.data_ptr(),
         acts.data_ptr() if with_acts else None,
-        cs.data_ptr() if with_acts else None,
-        _exchange_buffer(plan, w_hh.dtype, dev).data_ptr(), B, T, H,
+        cs.data_ptr() if with_acts else None, xbuf.data_ptr(), B, T, H,
         plan.units, plan.rows, plan.stage_rows, plan.stage_cols,
         *build.stream_args(dev))
     build.check_launch(fn, err, "lstm_fwd")
@@ -433,7 +433,13 @@ def _exchange_buffer(plan: LstmPlan, w_dtype: torch.dtype, dev):
     """The zeroed exchange buffer of a launch on `plan`: the rounded values
     of the last two steps, (2, grid.y * rows, k_pad) in the compute dtype
     (rows past B and columns past the reduction stay zero), then 16 bytes
-    for the grid barrier's counter."""
+    for the grid barrier's counter.
+
+    The caller holds the tensor until its launch is enqueued. A temporary
+    freed while the launch's arguments are gathered goes back to the
+    caching allocator first, and a launch from another thread (two serving
+    engines on one card) can take the block, zero it and leave its grid
+    barrier's counter in it before this launch runs."""
     elem = torch.empty((), dtype=w_dtype).element_size()
     return torch.zeros(2 * plan.grid[1] * plan.rows * plan.k_pad + 16 // elem,
                        dtype=w_dtype, device=dev)
@@ -465,11 +471,11 @@ def lstm_recurrence_bwd(acts, cs_prev, dhs, dcT, w_hh):
     dgates = torch.empty((B, T, H4), dtype=torch.float32, device=dev)
     dh0 = torch.empty((B, H), dtype=torch.float32, device=dev)
     dc0 = torch.empty((B, H), dtype=torch.float32, device=dev)
+    xbuf = _exchange_buffer(plan, w_hh.dtype, dev)
     err = fn.lstm_bwd(
         acts.data_ptr(), cs_prev.data_ptr(), dhs.data_ptr(), dcT.data_ptr(),
         w_hh.data_ptr(), int(w_hh.dtype == torch.bfloat16),
-        dgates.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
-        _exchange_buffer(plan, w_hh.dtype, dev).data_ptr(),
+        dgates.data_ptr(), dh0.data_ptr(), dc0.data_ptr(), xbuf.data_ptr(),
         B, T, H, plan.units, plan.rows, plan.stage_rows, plan.stage_cols,
         *build.stream_args(dev))
     build.check_launch(fn, err, "lstm_bwd")

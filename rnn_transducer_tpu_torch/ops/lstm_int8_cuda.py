@@ -94,7 +94,8 @@ def _exchange_buffer(plan: lstm_cuda.LstmPlan, dev):
     steps, (2, grid.y * rows, k_pad) f32 (rows past B and columns past H
     stay zero), the amax slots (2, grid.y * rows, grid.x) f32 (a block's
     max |h| of a row over its units), then 16 bytes for the grid
-    barrier's counter."""
+    barrier's counter. Held by the caller until its launch is enqueued,
+    as `lstm_cuda._exchange_buffer`."""
     bp = plan.grid[1] * plan.rows
     return torch.zeros(2 * bp * plan.k_pad + 2 * bp * plan.grid[0] + 4,
                        dtype=torch.float32, device=dev)
@@ -152,11 +153,12 @@ def lstm_recurrence_int8(x_proj, wq, scale, h0, c0):
     hs = torch.empty((B, T, H), dtype=torch.float32, device=dev)
     c = torch.empty((B, H), dtype=torch.float32, device=dev)
     for b0, b1, plan in device_groups(B, H, dev):
+        xbuf = _exchange_buffer(plan, dev)  # held through the launch
         err = fn.lstm_fwd_q(
             x_proj[b0:b1].data_ptr(), int(x_proj.dtype == torch.bfloat16),
             wq.data_ptr(), scale.data_ptr(), h0[b0:b1].data_ptr(),
             c0[b0:b1].data_ptr(), hs[b0:b1].data_ptr(), c[b0:b1].data_ptr(),
-            _exchange_buffer(plan, dev).data_ptr(), b1 - b0, T, H,
+            xbuf.data_ptr(), b1 - b0, T, H,
             batch_tile(B, H), plan.units, plan.rows, plan.stage_rows,
             plan.stage_cols, *build.stream_args(dev))
         build.check_launch(fn, err, "lstm_fwd_q")

@@ -125,7 +125,35 @@ def test_all_rows_empty_decodes_nothing():
 
 
 def test_decode_state_carry_is_not_ported():
-    p = params_from_numpy(walking_params())
-    enc, lens = tm.encode(p, TCFG, *map(torch.from_numpy, batch()))
-    with pytest.raises(NotImplementedError, match="streaming"):
-        greedy_decode(p, TCFG, enc, lens, 5, decode_state=())
+    """The carried decode_state: the encoder output fed in two parts, the
+    second starting from the first's carry, against JAX's greedy_decode
+    on the same parts (tokens, lengths, global frames, offsets), and
+    against one decode of the whole output."""
+    p = walking_params()
+    feats, lens = batch()
+    enc, enc_lens = jm.encode(jax.tree.map(jnp.asarray, p), JCFG,
+                              jnp.asarray(feats), jnp.asarray(lens))
+    enc, enc_lens = np.array(enc), np.array(enc_lens)
+    cut = 8
+    parts = [(enc[:, :cut], np.minimum(enc_lens, cut)),
+             (enc[:, cut:], np.maximum(enc_lens - cut, 0))]
+    tp = params_from_numpy(p)
+    st_w = st = None
+    for e, n in parts:
+        tok_w, n_w, st_w = jax_greedy_decode(
+            jax.tree.map(jnp.asarray, p), JCFG, jnp.asarray(e),
+            jnp.asarray(n), MAX_SYMBOLS, decode_state=st_w)
+        tok, n_t, st = greedy_decode(tp, TCFG, torch.from_numpy(e),
+                                     torch.from_numpy(n), MAX_SYMBOLS,
+                                     decode_state=st)
+        np.testing.assert_array_equal(tok.numpy(), np.asarray(tok_w))
+        np.testing.assert_array_equal(n_t.numpy(), np.asarray(n_w))
+        for i in (2, 3, 4, 7):  # confs, frames, frame_off, t_over
+            np.testing.assert_allclose(st[i].numpy(), np.asarray(st_w[i]),
+                                       atol=1e-5, rtol=0)
+    whole = greedy_decode(tp, TCFG, torch.from_numpy(enc),
+                          torch.from_numpy(enc_lens), MAX_SYMBOLS)
+    for a, b in zip((tok, n_t, st[3], st[4]),
+                    (whole[0], whole[1], whole[2][3], whole[2][4])):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert (st[3] >= cut).any()  # tokens emitted in the second part

@@ -1564,6 +1564,53 @@ def test_cuda_pruned_loss_matches_the_plain_path(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["lstm_fwd", "lstm_fwd_int8"])
+def test_cuda_lstm_launches_from_two_threads_keep_their_bits(cuda_device,
+                                                            kernel):
+    """Two threads launch K4-fwd (or K7) on one card at once, as the
+    offline and streaming engines do, each on its own inputs (a streaming
+    chunk's nonzero h0 / c0): every call gives the bits of the same call
+    made alone. Each launch holds its own exchange buffer, whose grid
+    barrier counter another thread's launch must never share."""
+    import threading
+
+    from rnn_transducer_tpu_torch.ops import lstm_int8_cuda as q8
+
+    def call_args(seed):
+        if kernel == "lstm_fwd_int8":
+            return _int8_args(8 + 8 * seed, 32, 512, torch.bfloat16,
+                              cuda_device)
+        g = torch.Generator().manual_seed(seed)
+        return [a.to(cuda_device) for a in (
+            torch.randn(8, 32, 2048, generator=g),
+            (torch.randn(512, 2048, generator=g) / 512 ** 0.5).to(
+                torch.bfloat16),
+            0.5 * torch.randn(8, 512, generator=g),
+            torch.randn(8, 512, generator=g))]
+
+    run = (q8.lstm_recurrence_int8 if kernel == "lstm_fwd_int8"
+           else lstm_cuda.lstm_recurrence)
+    args = [call_args(seed) for seed in (0, 1)]
+    alone = [run(*a)[0] for a in args]
+    torch.cuda.synchronize()
+    got = [[], []]
+
+    def worker(i):
+        for _ in range(50):
+            got[i].append(run(*args[i])[0])
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in (0, 1)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=120)
+    torch.cuda.synchronize()
+    for i in (0, 1):
+        assert len(got[i]) == 50
+        assert all(torch.equal(h, alone[i]) for h in got[i])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("U", [8_000, 11_136, 22_400])
 def test_cuda_lattice_walks_long_diagonals_in_column_tiles(cuda_device, U):
     """U+1 = 8,001 (beta past its plan's 7,936: two column tiles), 11,137

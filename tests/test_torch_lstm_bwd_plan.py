@@ -185,3 +185,27 @@ def test_fwd_plan_refuses_what_it_cannot_place(B, H, dtype, n_sm, smem):
 def test_fwd_plan_refuses_other_dtypes():
     with pytest.raises(TypeError):
         lstm_cuda.fwd_plan(8, 64, torch.float16, N_SM, SMEM)
+
+
+@pytest.mark.parametrize("module", ["lstm_cuda", "lstm_int8_cuda"])
+def test_exchange_buffers_are_held_through_their_launches(module):
+    """Every `_exchange_buffer(...)` is bound to a name before its launch.
+    A temporary passed as `_exchange_buffer(...).data_ptr()` is freed
+    while the launch's arguments are gathered: a launch from another
+    thread (the streaming and offline engines on one card) can then take
+    the block, and leave its grid barrier's counter in it before this
+    launch runs."""
+    import ast
+    import importlib
+    import inspect
+
+    mod = importlib.import_module(f"rnn_transducer_tpu_torch.ops.{module}")
+    tree = ast.parse(inspect.getsource(mod))
+    parents = {child: node for node in ast.walk(tree)
+               for child in ast.iter_child_nodes(node)}
+    calls = [n for n in ast.walk(tree) if isinstance(n, ast.Call)
+             and getattr(n.func, "id", None) == "_exchange_buffer"]
+    assert calls
+    for call in calls:
+        assert isinstance(parents[call], ast.Assign), ast.unparse(
+            parents[call])

@@ -170,7 +170,15 @@ def test_unported_configs_raise(field, value):
                                 "serve.BatchingEngine",
                                 "decode.beam.init_beam_state",
                                 "models.lm.init_lm_params",
-                                "models.lm.init_lm_state"])
+                                "models.lm.init_lm_state",
+                                "models.transducer.init_enc_state",
+                                "ops.conformer.init_block_cache",
+                                "decode.streaming.init_stream",
+                                "decode.streaming.init_stream_beam",
+                                "decode.streaming.stream_transcribe",
+                                "decode.streaming.stream_transcribe_beam",
+                                "serve.make_masked_chunk_step",
+                                "serve.StreamingEngine"])
 def test_entry_points_default_to_the_card(fn):
     """An entry point runs on the card unless the caller asks for the CPU;
     read from the signature, nothing is run."""

@@ -322,3 +322,399 @@ def test_cli_config_names(name):
     want = train.get_model_config(name or "smoke")
     got = port_serve.get_model_config(name)
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
+
+
+# ------------------------------ streaming --------------------------------
+
+STREAM = dict(slots=4, chunk_frames=8, max_symbols=30, window_ms=20.0)
+
+
+def _stream_utts():
+    """Utterances of 16-40 frames: whole 8-frame chunks and short last
+    chunks (odd lengths too: the last chunk's stacked pair then holds one
+    zero frame, as the offline engine's bucket padding gives it)."""
+    rng = np.random.default_rng(11)
+    return [(3 * rng.normal(size=(T, TCFG.input_dim))).astype(np.float32)
+            for T in (16, 21, 40, 13, 32, 27)]
+
+
+def _feed_all(engine, feats, chunk=8, full=True):
+    """Every chunk of one utterance to a new session -> (the last
+    feed_full result, close_session's tokens)."""
+    sid = engine.open_session()
+    for t0 in range(0, feats.shape[0], chunk):
+        out = engine.feed_full(sid, feats[t0:t0 + chunk])
+    return out, engine.close_session(sid)
+
+
+@pytest.fixture(scope="module")
+def streaming(params):
+    eng = port_serve.StreamingEngine(params, TCFG, device="cpu", **STREAM)
+    eng.warmup()
+    yield eng
+    eng.close()
+
+
+def test_streaming_sessions_match_the_offline_engine(streaming, engine):
+    """Concurrent sessions on the slots give each utterance the offline
+    engine's tokens, confidences and frames; a freed slot starts clean."""
+    utts = _stream_utts()
+    results = [None] * len(utts)
+
+    def call(i):
+        results[i] = _feed_all(streaming, utts[i])
+
+    for wave in (range(4), range(4, 6)):  # as many sessions as slots
+        threads = [threading.Thread(target=call, args=(i,)) for i in wave]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+        assert not any(th.is_alive() for th in threads)
+    for (out, final), feats in zip(results, utts):
+        want = engine.submit_full(feats)
+        assert out["tokens"] == final == want["tokens"]
+        assert out["frames"] == want["frames"]
+        assert out["stable_len"] == len(out["tokens"])
+        np.testing.assert_allclose(out["confidence"], want["confidence"],
+                                   atol=2e-4)
+    assert sum(len(r[1]) for r in results) > len(utts)
+    assert streaming.stats.summary()["max_batch"] > 1
+    # 6 sessions went through 4 slots: freed slots were reset
+    out, _ = _feed_all(streaming, utts[0])
+    assert out["tokens"] == results[0][1]
+
+
+def _jax_stream_engine(p, **kw):
+    import jax
+    import jax.numpy as jnp
+
+    from rnn_transducer_tpu.serve import StreamingEngine as JaxStreaming
+
+    return JaxStreaming(jax.tree.map(jnp.asarray, p), JCFG, **kw)
+
+
+@pytest.mark.parametrize("mode", ["greedy", "beam"])
+def test_streaming_engine_answers_as_the_jax_engine(mode):
+    """The same params and chunks through the JAX package's
+    StreamingEngine and the port's: every feed_full dict (tokens, frames,
+    stable_len, endpointing; beam: the n-best) and close_session's tokens
+    equal, confidences and scores within 1e-4 plus the 4-place rounding
+    both engines apply."""
+    p = beam_params() if mode == "beam" else walking_params()
+    kw = dict(STREAM, endpoint_frames=6, mode=mode,
+              **({"beam": 4, "expansions": 3} if mode == "beam" else {}))
+    jeng = _jax_stream_engine(p, **kw)
+    teng = port_serve.StreamingEngine(params_from_numpy(p), TCFG,
+                                      device="cpu", **kw)
+    try:
+        for feats in _stream_utts()[:4]:
+            sids = jeng.open_session(), teng.open_session()
+            for t0 in range(0, feats.shape[0], 8):
+                want, got = (e.feed_full(s, feats[t0:t0 + 8])
+                             for e, s in zip((jeng, teng), sids))
+                assert set(got) == set(want)
+                for key in ("tokens", "frames", "stable_len",
+                            "trailing_frames", "endpoint"):
+                    assert got[key] == want[key], key
+                np.testing.assert_allclose(got["confidence"],
+                                           want["confidence"], atol=2e-4)
+                if mode == "beam":
+                    assert abs(got["score"] - want["score"]) <= 2e-4
+                    assert [h["tokens"] for h in got["nbest"]] == [
+                        h["tokens"] for h in want["nbest"]]
+                    np.testing.assert_allclose(
+                        [h["score"] for h in got["nbest"]],
+                        [h["score"] for h in want["nbest"]], atol=2e-4)
+            assert teng.close_session(sids[1]) == \
+                jeng.close_session(sids[0])
+    finally:
+        jeng.close()
+        teng.close()
+
+
+def test_streaming_short_chunk_ends_session(params, streaming):
+    feats = _stream_utts()[1]  # 21 frames: 8 + 8 + 5
+    sid = streaming.open_session()
+    streaming.feed(sid, feats[:8])
+    streaming.feed(sid, feats[8:13])  # short -> the last chunk
+    with pytest.raises(ValueError, match="last chunk"):
+        streaming.feed(sid, feats[13:21])
+    final = streaming.close_session(sid)
+    with pytest.raises(KeyError):
+        streaming.feed(sid, feats[:8])
+    with pytest.raises(KeyError):
+        streaming.close_session(sid)
+    sid = streaming.open_session()
+    streaming.feed(sid, feats[:8])
+    assert streaming.feed(sid, feats[8:13], last=False) == final
+    for bad, match in ((np.zeros((9, 8), np.float32), "outside"),
+                       (np.zeros((8, 3), np.float32), "chunk must be")):
+        with pytest.raises(ValueError, match=match):
+            streaming.feed(sid, bad)
+    streaming.close_session(sid)
+
+
+def test_streaming_ttl_reaps_abandoned_sessions(params):
+    import time as _time
+
+    eng = port_serve.StreamingEngine(params, TCFG, slots=2, chunk_frames=8,
+                                     max_symbols=30, window_ms=1.0,
+                                     session_ttl_s=0.05, device="cpu")
+    try:
+        eng.open_session()
+        eng.open_session()  # both slots taken, the clients vanish
+        with pytest.raises(RuntimeError, match="slots busy"):
+            eng.session_ttl_s = 60.0
+            eng.open_session()
+        eng.session_ttl_s = 0.05
+        _time.sleep(0.1)
+        sid = eng.open_session()  # reaps an expired session
+        assert sid in eng._live and len(eng._live) == 1
+    finally:
+        eng.close()
+
+
+def test_streaming_closed_engine_rejects_feed_and_open(params):
+    eng = port_serve.StreamingEngine(params, TCFG, slots=2, chunk_frames=8,
+                                     device="cpu")
+    sid = eng.open_session()
+    eng.close()
+    assert not eng._worker.is_alive()
+    with pytest.raises(RuntimeError, match="closed"):
+        eng.feed(sid, np.zeros((8, TCFG.input_dim), np.float32))
+    with pytest.raises(RuntimeError, match="closed"):
+        eng.open_session()
+
+
+def test_streaming_endpointing():
+    """With endpoint_frames set, partial results carry trailing_frames
+    (input frames since the last emission) and the endpoint flag; without
+    it, neither key."""
+    silent = walking_params()
+    silent["joint"]["out"]["b"][JCFG.blank] += 50.0  # nothing is emitted
+    eng = port_serve.StreamingEngine(params_from_numpy(silent), TCFG,
+                                     slots=1, chunk_frames=8, window_ms=1.0,
+                                     endpoint_frames=12, device="cpu")
+    try:
+        feats = _stream_utts()[2]
+        sid = eng.open_session()
+        out = eng.feed_full(sid, feats[:8])
+        assert out["tokens"] == [] and out["trailing_frames"] == 8
+        assert out["endpoint"] is False
+        out = eng.feed_full(sid, feats[8:16])
+        assert out["trailing_frames"] == 16 and out["endpoint"] is True
+    finally:
+        eng.close()
+    eng = port_serve.StreamingEngine(params_from_numpy(walking_params()),
+                                     TCFG, slots=1, chunk_frames=8,
+                                     window_ms=1.0, device="cpu")
+    try:
+        out, _ = _feed_all(eng, _stream_utts()[0])
+        assert "endpoint" not in out and "trailing_frames" not in out
+    finally:
+        eng.close()
+
+
+@pytest.mark.parametrize("fusion", ["context", "ngram", "lm"])
+def test_streaming_greedy_engine_refuses_fusion(params, fusion):
+    lm = (None, object(), 0.3)
+    with pytest.raises(ValueError, match="mode='beam'"):
+        port_serve.StreamingEngine(params, TCFG, device="cpu",
+                                   **{fusion: lm if fusion == "lm"
+                                      else object()})
+
+
+def test_streaming_beam_engine_serves_context_and_ngram():
+    """The fusion tables ride through the beam slots: a session's answer
+    is the direct stream_transcribe_beam of its utterance."""
+    from rnn_transducer_tpu_torch.decode.context import build_context_bias
+    from rnn_transducer_tpu_torch.decode.streaming import \
+        stream_transcribe_beam
+    from rnn_transducer_tpu_torch.models.ngram import train_ngram
+
+    params = params_from_numpy(beam_params())
+    rng = np.random.default_rng(9)
+    seqs = [rng.integers(1, TCFG.vocab_size, size=6).tolist()
+            for _ in range(30)]
+    fusion = {"context": build_context_bias([[3, 4], [7]],
+                                            TCFG.vocab_size, boost=1.5),
+              "ngram": (train_ngram(seqs, 3, TCFG.vocab_size), 0.5)}
+    eng = port_serve.StreamingEngine(params, TCFG, mode="beam", beam=4,
+                                     device="cpu", **STREAM, **fusion)
+    try:
+        for feats in _stream_utts()[:2]:
+            out, final = _feed_all(eng, feats)
+            tok, n, sc = stream_transcribe_beam(
+                params, TCFG, torch.from_numpy(feats)[None],
+                torch.tensor([feats.shape[0]]), 8, beam=4, max_symbols=30,
+                device="cpu", **fusion)
+            assert final == out["tokens"] == tok[0, 0, :n[0, 0]].tolist()
+            assert abs(out["score"] - float(sc[0, 0])) <= 2e-4
+            assert len(out["nbest"]) > 1
+    finally:
+        eng.close()
+
+
+def test_int8_ragged_streaming_matches_direct_stream_chunk(monkeypatch):
+    """int8 params on the W8A8 route (8 slots, H=128) and sessions of
+    different lengths: a batch tile's rows share one requantisation scale,
+    so idle and short rows move the others' bits (ROADMAP §3). Each
+    session's answer is that of the direct stream_chunk of the same slot
+    layout, tick by tick, with the idle rows re-selected."""
+    from rnn_transducer_tpu_torch.decode import streaming as ts
+    from rnn_transducer_tpu_torch.ops import lstm_int8_cuda
+    from rnn_transducer_tpu_torch.ops.quant import quantize_params
+    from rnn_transducer_tpu_torch.models import transducer as tm
+
+    cfg = dataclasses.replace(TCFG, enc_hidden=128)
+    rng = np.random.default_rng(7)
+    p = tm.init_params(cfg, rng, "cpu")
+    p["joint"]["out"]["b"][cfg.blank] += 0.11  # rows emit at several frames
+    qp = quantize_params(p)
+    calls = []
+    real = lstm_int8_cuda.lstm_recurrence_int8
+
+    def spy(*a):
+        calls.append(a[0].shape[0])
+        return real(*a)
+
+    monkeypatch.setattr(lstm_int8_cuda, "lstm_recurrence_int8", spy)
+    lengths = (32, 21, 8, 27, 16, 32, 13)  # 7 sessions, one idle slot
+    utts = [(3 * rng.normal(size=(T, 8))).astype(np.float32)
+            for T in lengths]
+    eng = port_serve.StreamingEngine(qp, cfg, slots=8, chunk_frames=8,
+                                     max_symbols=30, window_ms=500.0,
+                                     device="cpu")
+    try:
+        sids = [eng.open_session() for _ in utts]
+        slots = [eng._live[s] for s in sids]
+        results = {}
+        for r in range(4):  # one tick a round: the sessions with a chunk
+            def call(i):
+                results[i] = eng.feed_full(sids[i], utts[i][8 * r:8 * r + 8])
+
+            threads = [threading.Thread(target=call, args=(i,))
+                       for i, u in enumerate(utts) if len(u) > 8 * r]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=60)
+        ticks = eng.stats.summary()["batches"]
+    finally:
+        eng.close()
+    assert ticks == 4 and calls and set(calls) == {8}
+    # the direct reference on the same slot layout
+    state = ts.init_stream(qp, cfg, 8, 30, device="cpu")
+    for r in range(4):
+        chunks = torch.zeros((8, 8, 8))
+        lens = torch.zeros((8,), dtype=torch.int32)
+        for u, s in zip(utts, slots):
+            c = torch.from_numpy(u[8 * r:8 * r + 8])
+            chunks[s, :len(c)] = c
+            lens[s] = len(c)
+        new, tok, n = ts.stream_chunk(qp, cfg, state, chunks, lens, 30)
+        state = ts.select_rows(lens > 0, new, state)
+    for i, s in enumerate(slots):
+        assert results[i]["tokens"] == tok[s, :n[s]].tolist()
+    assert sum(len(r["tokens"]) for r in results.values()) > 0
+
+
+def test_http_session_routes(params, engine, streaming):
+    """/session over HTTP: open, feed (the last chunk short), close; the
+    answer is the offline engine's; /stats gains "streaming"; an 'audio'
+    body and an unknown session answer 400."""
+    srv = http_server("127.0.0.1", 0, engine, streaming,
+                      max_body_bytes=1 << 20)
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    try:
+        feats = _stream_utts()[1]
+        code, out = _request(f"{url}/session", "POST", {})
+        assert code == 200
+        sid = out["sid"]
+        for t0 in range(0, 21, 8):
+            code, out = _request(f"{url}/session/{sid}", "POST",
+                                 {"feats": feats[t0:t0 + 8].tolist(),
+                                  "last": t0 + 8 >= 21})
+            assert code == 200
+        code, final = _request(f"{url}/session/{sid}", "DELETE")
+        want = engine.submit_full(feats)
+        assert code == 200 and final == {"tokens": want["tokens"]}
+        assert out["tokens"] == want["tokens"]
+        assert out["frames"] == want["frames"]
+        code, stats = _request(f"{url}/stats")
+        assert code == 200 and stats["streaming"]["requests"] >= 3
+        # a body on POST /session is read before the reply
+        code, out = _request(f"{url}/session", "POST",
+                             {"pad": "x" * (1 << 19)})
+        assert code == 200
+        sid = out["sid"]
+        code, out = _request(f"{url}/session/{sid}", "POST",
+                             {"audio": [0.0] * 160})
+        assert code == 400 and "item 5" in out["error"]
+        assert _request(f"{url}/session/{sid}", "DELETE")[0] == 200
+        for method in ("POST", "DELETE"):
+            code, out = _request(f"{url}/session/nope", method,
+                                 {"feats": feats[:8].tolist()}
+                                 if method == "POST" else None)
+            assert code == 400 and "unknown session" in out["error"]
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        th.join(timeout=10)
+
+
+def test_cli_refuses_chunks_off_the_attention_grid():
+    """libri100_conformer_chunked attends in 32-frame chunks of encoded
+    frames: --chunk-frames must give a multiple of 32 (4x stacking: 128)."""
+    with pytest.raises(SystemExit, match="not a multiple of enc_chunk_att"):
+        port_serve.main(["--config", "libri100_conformer_chunked"])
+
+
+def test_streaming_engine_under_thread_stress(params, engine):
+    """More clients than slots and cores, the interpreter switching threads
+    every microsecond: each client retries a busy engine, streams its
+    utterance and closes; every answer is the offline engine's, and every
+    slot ends free."""
+    import sys
+    import time as _time
+
+    utts = _stream_utts()[:4]
+    want = [engine.submit(u) for u in utts]
+    eng = port_serve.StreamingEngine(params, TCFG, slots=3, chunk_frames=8,
+                                     max_symbols=30, window_ms=1.0,
+                                     device="cpu")
+    got = {}
+
+    def client(i):
+        deadline = _time.monotonic() + 60
+        while True:
+            try:
+                sid = eng.open_session()
+                break
+            except RuntimeError:
+                assert _time.monotonic() < deadline
+                _time.sleep(0.001)
+        u = utts[i % len(utts)]
+        for t0 in range(0, u.shape[0], 8):
+            eng.feed(sid, u[t0:t0 + 8])
+        got[i] = eng.close_session(sid)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(12)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+        assert not any(th.is_alive() for th in threads)
+    finally:
+        sys.setswitchinterval(old)
+        eng.close()
+    assert {i: got.get(i) for i in range(12)} == {
+        i: want[i % len(utts)] for i in range(12)}
+    assert eng._free == {0, 1, 2} and not eng._live
