@@ -19,7 +19,10 @@ T=400, U=40; the pruned two-pass loss at libri100 with a vocabulary of
 CLI); int8 serving (serve.py --quantize int8), the greedy decode in one
 program (recognize_greedy_fused), beam serving with prefix merging and
 its shallow fusion (BatchingEngine(mode="beam")) and streaming sessions
-(StreamingEngine behind the /session routes).
+(StreamingEngine behind the /session routes), and raw audio in, text
+out (`ops/logmel.log_mel` on the card, PCM sessions, checkpoints of the
+port's trainer served by serve.py --ckpt-dir and decoded by
+`python -m rnn_transducer_tpu_torch.recognize`).
 Phases, in order:
 
   1. card   require CUDA; print the card's name and power limit
@@ -142,6 +145,26 @@ Phases, in order:
             fused_ln_fwd launches a tick, the f32 sessions equal to the
             offline answers); bf16 host ms a tick, RTF, the busy share
             of a profiled tick; the streaming phase's launches apart
+  4i. audio (last) raw 16 kHz PCM in, text out: the served utterances
+            as 0.1 * N(0, 1) audio from the seed (T*160 + 240 samples, T
+            frames), global CMVN stats of their features, a BPE tokenizer
+            learned from README.md. (a) the card log_mel of 8 utterances
+            (<= 8 s) against log_mel_oracle (float64): max abs <= 1e-3,
+            frame lens equal; card ms and kernels for the batch and one
+            8 s utterance. (b) f32, both engines behind http_server with
+            the tokenizer and CMVN: an {"audio"} /recognize gives the
+            tokens of its card log_mel sent as {"feats"}; text and words.
+            (c) 8 PCM sessions split at uneven points (a POST that
+            completes no frame) with their /recognize requests at once:
+            the features within 5e-4 of offline, the final tokens the
+            offline engine's on those features. (e) serve.py's defaults,
+            24 requests, bf16, float and int8: audio and feats bodies, 4
+            K4-fwd (K7) launches a batch, p50 of each, host ms to parse an
+            8 s body. (d) the training CLI with --tokenizer bpe:...,
+            serve.py --ckpt-dir (audio /recognize with text, a PCM
+            session; --mode beam --boost-file: an n-best with text) and
+            the decode CLI on a manifest of .npy audio (wer, rtf,
+            word_wer), libri100 and libri100_conformer
   6. the kernels' JSON line (sixteen kernels) (each kernel with its bound, the least time
      the card could take: bytes over 3.35 TB/s or operations over the
      peak for the operands' type, whichever is larger; and the time of one
@@ -162,6 +185,7 @@ import concurrent.futures
 import contextlib
 import dataclasses
 import hashlib
+import collections
 import io
 import itertools
 import json
@@ -180,6 +204,10 @@ import numpy as np
 import torch
 
 from rnn_transducer_tpu_torch.bench_band_bwd_b import step_fit
+from rnn_transducer_tpu_torch.data.bpe import BpeTokenizer
+from rnn_transducer_tpu_torch.data.cmvn import apply_cmvn, stats_arrays
+from rnn_transducer_tpu_torch.data.tokenizer import (decode_to_text,
+                                                     tokenizer_to_meta)
 from rnn_transducer_tpu_torch.decode import greedy_fused as gf
 from rnn_transducer_tpu_torch.decode.greedy import greedy_decode, recognize_greedy
 from rnn_transducer_tpu_torch.models import transducer as m
@@ -194,6 +222,8 @@ from rnn_transducer_tpu_torch.ops import rnnt_joint_fused as jf
 from rnn_transducer_tpu_torch.ops import rnnt_lattice_cuda as lat
 from rnn_transducer_tpu_torch.ops import rnnt_loss as rl
 from rnn_transducer_tpu_torch.ops import rnnt_loss_cuda as lc
+from rnn_transducer_tpu_torch.ops.logmel import (featurize, log_mel,
+                                                 log_mel_oracle)
 from rnn_transducer_tpu_torch.ops.lstm import _dot
 from rnn_transducer_tpu_torch.ops.quant import (quantize_params,
                                                 quantize_tensor,
@@ -1514,16 +1544,18 @@ def band_fused_vs_plain(rng: np.random.Generator, dev) -> dict:
 
 # ------------------------------ phase 4 ----------------------------------
 
-def blank_offset(params, cfg, dev, rng) -> float:
+def blank_offset(params, cfg, dev, rng, feats=None) -> float:
     """Blank-bias offset for the random model. Its joint logits barely
     depend on the frame (a random encoder's output is small), so the
     offset is set from the data: it leaves blank 0.1 below the best other
     token at the start symbol (median over frames), so each utterance
     emits a few tokens on its first frames and then walks the rest of its
-    frames on blank. The 0.1 margin keeps the decisions clear of ties."""
-    feats = torch.from_numpy(rng.normal(size=(4, 200, cfg.input_dim))
-                             ).float().to(dev)
-    lens = torch.full((4,), 200, dtype=torch.int32, device=dev)
+    frames on blank. The 0.1 margin keeps the decisions clear of ties.
+    The data: `feats` (4, T, D) where given, else N(0, 1) from `rng`."""
+    if feats is None:
+        feats = rng.normal(size=(4, 200, cfg.input_dim))
+    feats = torch.as_tensor(feats).float().to(dev)
+    lens = torch.full((4,), feats.shape[1], dtype=torch.int32, device=dev)
     f32 = dataclasses.replace(cfg, compute_dtype="float32")
     with torch.inference_mode():
         enc, _ = m.encode(params, f32, feats, lens)
@@ -2209,12 +2241,15 @@ def conformer_end_to_end(conf: dict, dev) -> dict:
 
 
 def serve_cli(extra: list, utt: np.ndarray,
-              config: str = "libri100_conformer") -> dict:
+              config: str = "libri100_conformer", audio: bool = False,
+              want_text: bool = False) -> dict:
     """serve.py's CLI, --config `config` plus `extra`, in a process of its
     own: it warms up, answers one /recognize (with an n-best under --mode
     beam) and /stats, a streamable model also one /session of the
     utterance in the default 32-frame chunks, and drains and exits 0 on
-    SIGTERM."""
+    SIGTERM. audio=True: `utt` is raw 16 kHz PCM, sent as an {"audio"}
+    body and as a PCM session split at `pcm_cuts`; want_text=True: the
+    answers carry "text" (and word segments), the n-best too."""
     cmd = [sys.executable, "-m", "rnn_transducer_tpu_torch.serve",
            "--config", config, "--port", "0", *extra]
     t0 = time.perf_counter()
@@ -2237,11 +2272,16 @@ def serve_cli(extra: list, utt: np.ndarray,
         start_s = time.perf_counter() - t0
         url = next(ln for ln in lines if "serving on " in ln).split(
             "serving on ")[1].split()[0]
-        code, out, lat = post(url + "/recognize", {"feats": utt.tolist()})
+        code, out, lat = post(url + "/recognize",
+                              {"audio" if audio else "feats": utt.tolist()})
         session = None
         if f"stream_slots={STREAM_SLOTS}" in " ".join(lines):
             sid = post(url + "/session", {})[1]["sid"]
-            session = session_over_http(url, sid, utt, CHUNK_FRAMES)
+            session = (pcm_session_over_http(
+                url, sid, utt, pcm_cuts(utt.shape[0],
+                                        np.random.default_rng(0)))
+                       if audio else
+                       session_over_http(url, sid, utt, CHUNK_FRAMES))
         with urllib.request.urlopen(url + "/stats", timeout=60) as r:
             stats = json.loads(r.read())
         proc.send_signal(signal.SIGTERM)
@@ -2260,13 +2300,23 @@ def serve_cli(extra: list, utt: np.ndarray,
         row["session_equals_recognize"] = session["final"] == out["tokens"]
         check(stats.get("streaming", {}).get("requests", 0) >= 1,
               f"serve CLI {extra}: /stats shows no streaming request")
+    if want_text:
+        row["text"] = out.get("text")
+        row["words"] = len(out.get("words", []))
     print("serve_cli " + json.dumps(row))
     check(code == 200 and rc == 0 and row["drained"],
           f"serve CLI {extra}: code {code}, exit {rc}, log {lines[-5:]}")
+    if want_text:
+        check(isinstance(out.get("text"), str) and "words" in out,
+              f"serve CLI {extra}: no text or words in {sorted(out)}")
+        check(session is None or "text" in session["payload"],
+              f"serve CLI {extra}: no text in the closed session")
     if "beam" in extra:
         row["nbest"] = len(out.get("nbest", []))
         check(1 <= row["nbest"] <= BEAM and "score" in out,
               f"serve CLI {extra}: no n-best in {sorted(out)}")
+        check(not want_text or all("text" in h for h in out["nbest"]),
+              f"serve CLI {extra}: an n-best entry without text")
     return row
 
 
@@ -2299,6 +2349,39 @@ def session_over_http(url: str, sid: str, utt: np.ndarray,
     code, final = delete(f"{url}/session/{sid}")
     check(code == 200, f"DELETE /session/{sid} answered {code}")
     return {"last": out, "final": final["tokens"]}
+
+
+def pcm_cuts(n: int, rng: np.random.Generator) -> list[int]:
+    """Uneven cut points of an n-sample waveform: a first piece of 237
+    samples (no whole window: its POST completes no frame), then pieces of
+    1,000-9,000 samples, none ending on the 160-sample hop."""
+    cuts = [237]
+    while True:
+        at = cuts[-1] + int(rng.integers(1000, 9000))
+        at += 7 if at % 160 == 0 else 0
+        if at >= n:
+            return cuts
+        cuts.append(at)
+
+
+def pcm_session_over_http(url: str, sid: str, audio: np.ndarray,
+                          cuts: list) -> dict:
+    """Raw PCM to /session/<sid> in the pieces `cuts` makes (the last one
+    flagged), then DELETE: the last partial result, the final tokens and
+    payload, and how many POSTs completed no slice (pending_frames)."""
+    parts = np.split(audio, cuts)
+    outs = []
+    for i, part in enumerate(parts):
+        code, out, _ = post(f"{url}/session/{sid}", {
+            "audio": part.tolist(), "last": i == len(parts) - 1})
+        check(code == 200, f"/session/{sid} answered {code}: {out}")
+        outs.append(out)
+    pending = sum("pending_frames" in o for o in outs[:-1])
+    check(pending >= 1, f"PCM session {sid}: every POST completed a slice")
+    code, final = delete(f"{url}/session/{sid}")
+    check(code == 200, f"DELETE /session/{sid} answered {code}")
+    return {"last": outs[-1], "final": final["tokens"], "payload": final,
+            "posts": len(parts), "pending_posts": pending}
 
 
 def serve_sessions(params, cfg, utts, dev, *, mode="greedy",
@@ -2773,6 +2856,350 @@ def serve_trigram(cfg, seed: int):
     V = cfg.vocab_size
     return train_ngram([rng.integers(1, V, size=8).tolist()
                         for _ in range(40)], 3, V)
+
+
+# ------------------------------ phase 4i ---------------------------------
+
+# Raw audio in, text out. A served utterance of T frames becomes T*160 +
+# AUDIO_PAD samples of 16 kHz PCM, which featurizes to T frames again.
+AUDIO_PAD = 240
+FRONTEND_ATOL = 1e-3  # card log_mel against the float64 oracle (JAX's bound)
+PCM_ATOL = 5e-4  # PCM sessions' features against offline (JAX's bound)
+BPE_VOCAB = 1024  # the model's vocabulary: at most that many BPE ids
+AUDIO_CLI_CONFIGS = ("libri100", "libri100_conformer")  # phase 4i (d)
+
+
+def audio_setup(serving: dict, seed: int, dev) -> dict:
+    """The served utterances as raw PCM (0.1 * N(0, 1) from the seed),
+    their card log_mel features, global CMVN stats of those features, the
+    served model with its blank offset set on them (`blank_offset`), and
+    a BPE tokenizer of at most BPE_VOCAB ids learned from README.md."""
+    rng = np.random.default_rng(seed + 40)
+    audio = [(0.1 * rng.normal(size=int(T) * 160 + AUDIO_PAD)).astype(
+        np.float32) for T in serving["lengths"]]
+    feats = [featurize(a, device=dev) for a in audio]
+    check([f.shape[0] for f in feats] == [int(T) for T in serving["lengths"]],
+          "the served lengths' audio does not featurize to those lengths")
+    cat = np.concatenate(feats)
+    cmvn = {"mean": cat.mean(0).tolist(), "std": cat.std(0).tolist()}
+    # the served model's blank offset again, on these normalized features
+    # (smooth in time, unlike N(0, 1) frames): a few tokens an utterance
+    cfg, params = serving["cfg"], serving["params"]
+    first = np.stack([apply_cmvn(f[:150], cmvn) for f in feats[:4]])
+    out_b = params["joint"]["out"]["b"].clone()
+    out_b[cfg.blank] += blank_offset(params, cfg, dev, None, first)
+    params = {**params, "joint": {**params["joint"], "out": {
+        "w": params["joint"]["out"]["w"], "b": out_b}}}
+    readme = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "README.md")
+    with open(readme) as f:
+        lines = [ln for ln in f.read().splitlines() if ln.strip()]
+    t0 = time.perf_counter()
+    tok = BpeTokenizer.train(lines, BPE_VOCAB)
+    print(f"audio_setup bpe: {tok.vocab_size} ids from {len(lines)} README "
+          f"lines in {time.perf_counter() - t0:.1f} s")
+    return {"audio": audio, "feats": feats, "cmvn": cmvn, "tok": tok,
+            "lines": lines, "params": params}
+
+
+def frontend_vs_plain(au: dict, dev) -> dict:
+    """(a) The card log_mel of the first 8 utterances (150-800 frames,
+    1.5-8 s) in one padded batch against log_mel_oracle (float64, host) on
+    the same samples: max abs error and frame lens; card ms (CUDA events
+    around a call, mean of 20) and kernels a call (torch.profiler) for the
+    batch and for one 8 s utterance."""
+    batch = au["audio"][:MAX_BATCH]
+    lens = np.array([a.shape[0] for a in batch], np.int32)
+    padded = np.zeros((len(batch), lens.max()), np.float32)
+    for i, a in enumerate(batch):
+        padded[i, :a.shape[0]] = a
+    x, n = torch.from_numpy(padded).to(dev), torch.from_numpy(lens).to(dev)
+    with torch.inference_mode():
+        f, fl = log_mel(x, n)
+    want, want_n = log_mel_oracle(padded, lens)
+    err = float(np.abs(f.cpu().numpy().astype(np.float64) - want).max())
+    row = {"batch": list(padded.shape), "frames": fl.tolist(),
+           "max_abs_err": err, "atol": FRONTEND_ATOL}
+    check(fl.cpu().numpy().tolist() == want_n.tolist(),
+          f"card log_mel frame lens {fl.tolist()} != the oracle's")
+    check(err <= FRONTEND_ATOL, f"card log_mel against its float64 plain "
+                                f"version: {err} > {FRONTEND_ATOL}")
+    longest = int(np.argmax(lens))
+    one = x[longest:longest + 1, :lens[longest]]
+    one_n = n[longest:longest + 1]
+    for name, args in (("batch", (x, n)), ("one_8s", (one, one_n))):
+        def call(args=args):
+            with torch.inference_mode():
+                log_mel(*args)
+        call()
+        row[f"{name}_ms"] = statistics.mean(cuda_ms(call) for _ in range(20))
+        # a profiled window of this ~0.5 ms call was seen to lose all its
+        # kernels on the H100 (the card's clock mapped outside it): the
+        # most of three windows
+        row[f"{name}_kernels"] = max(beam_profile(call)["kernels"]
+                                     for _ in range(3))
+    row["card"] = card_line()
+    print("audio_frontend " + json.dumps(row))
+    return row
+
+
+def body_parse_ms(au: dict) -> dict:
+    """Host ms to parse an 8 s body (json.loads + np.asarray, as the
+    server does), audio against its 800 x 80 feats; the mean of 5."""
+    i = int(np.argmax([a.shape[0] for a in au["audio"]]))
+    row = {}
+    for form, x in (("audio", au["audio"][i]), ("feats", au["feats"][i])):
+        body = json.dumps({form: x.tolist()}).encode()
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            np.asarray(json.loads(body)[form], np.float32)
+            times.append((time.perf_counter() - t0) * 1e3)
+        row[f"{form}_mb"] = len(body) / 1e6
+        row[f"{form}_parse_ms"] = statistics.mean(times)
+    return row
+
+
+def recording_feeds(streaming) -> dict:
+    """Wrap the engine's feed_full so that every chunk a session feeds it
+    is kept: sid -> [chunks]."""
+    fed = collections.defaultdict(list)
+    feed_full = streaming.feed_full
+
+    def recording(sid, chunk, last=False):
+        fed[sid].append(np.array(chunk, np.float32))
+        return feed_full(sid, chunk, last)
+
+    streaming.feed_full = recording
+    return fed
+
+
+def audio_f32(serving: dict, au: dict, dev) -> dict:
+    """(b) and (c) at f32 on the served model, both engines behind one
+    http_server with the BPE tokenizer and the global CMVN.
+    (b) Each of the first 8 utterances as an {"audio"} /recognize and as a
+        {"feats"} body of its card log_mel, one at a time: the same tokens
+        (same function, device and input); "text" is decode_to_text of the
+        tokens; "words" present.
+    (c) The same utterances as PCM sessions split at `pcm_cuts` (one POST
+        completes no frame) with their {"audio"} /recognize requests at
+        once: each session's features (the chunks the engine was fed, the
+        CMVN undone) within PCM_ATOL of the offline log_mel; its final
+        tokens equal to the offline engine's answer for those features.
+        The sessions equal to the /recognize answers are counted, not
+        gated (the two feature paths differ within PCM_ATOL)."""
+    cfg = dataclasses.replace(serving["cfg"], compute_dtype="float32")
+    params, tok, cmvn = au["params"], au["tok"], au["cmvn"]
+    audio, feats = au["audio"][:STREAM_SLOTS], au["feats"][:STREAM_SLOTS]
+    offline = BatchingEngine(params, cfg, max_symbols=MAX_SYMBOLS,
+                             frame_buckets=BUCKETS, max_batch=MAX_BATCH,
+                             window_ms=WINDOW_MS, device=dev)
+    streaming = StreamingEngine(params, cfg, slots=STREAM_SLOTS,
+                                chunk_frames=CHUNK_FRAMES,
+                                max_symbols=MAX_SYMBOLS, window_ms=WINDOW_MS,
+                                device=dev)
+    srv = None
+    try:
+        offline.warmup()
+        streaming.warmup()
+        fed = recording_feeds(streaming)
+        srv = http_server("127.0.0.1", 0, offline, streaming, tok,
+                          cmvn=cmvn)
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        url = f"http://127.0.0.1:{srv.server_address[1]}"
+        # (b)
+        tokens, words = [], 0
+        for a, f in zip(audio, feats):
+            code_a, out_a, _ = post(f"{url}/recognize",
+                                    {"audio": a.tolist()})
+            code_f, out_f, _ = post(f"{url}/recognize",
+                                    {"feats": f.tolist()})
+            check(code_a == code_f == 200,
+                  f"audio bodies: HTTP {code_a}, {code_f}")
+            check(out_a["tokens"] == out_f["tokens"], "an audio body's "
+                  "tokens differ from its card log_mel as a feats body")
+            check(out_a["text"] == decode_to_text(tok, out_a["tokens"])
+                  and "words" in out_a, "audio body: text or words wrong")
+            tokens.append(len(out_a["tokens"]))
+            words += len(out_a["words"])
+        row = {"audio_equals_feats": True, "tokens": tokens, "words": words,
+               "text_0": out_a["text"][:80]}
+        # (c)
+        sids = [post(f"{url}/session", {})[1]["sid"] for _ in audio]
+        rng = np.random.default_rng(41)
+        cuts = [pcm_cuts(a.shape[0], rng) for a in audio]
+        with concurrent.futures.ThreadPoolExecutor(2 * len(audio)) as ex:
+            sess = [ex.submit(pcm_session_over_http, url, s, a, c)
+                    for s, a, c in zip(sids, audio, cuts)]
+            recog = [ex.submit(post, f"{url}/recognize", {"audio": a.tolist()})
+                     for a in audio]
+            sessions = [x.result() for x in sess]
+            answers = [x.result() for x in recog]
+        check(all(a[0] == 200 for a in answers), "PCM phase: /recognize "
+              f"codes {[a[0] for a in answers]}")
+        mean, istd = stats_arrays(cmvn)
+        worst, same_recognize = 0.0, 0
+        for sid, f, s, a in zip(sids, feats, sessions, answers):
+            got = np.concatenate(fed[sid]) / istd + mean  # CMVN undone
+            check(got.shape == f.shape, f"PCM session {sid}: {got.shape} "
+                  f"features, offline {f.shape}")
+            worst = max(worst, float(np.abs(got - f).max()))
+            want = offline.submit_full(np.concatenate(fed[sid]))
+            check(s["final"] == want["tokens"], f"PCM session {sid}: final "
+                  "tokens differ from the offline engine's on the same "
+                  "features")
+            check(s["payload"]["text"] == decode_to_text(tok, s["final"]),
+                  f"PCM session {sid}: text")
+            same_recognize += s["final"] == a[1]["tokens"]
+        check(worst <= PCM_ATOL, f"PCM sessions' features {worst} from the "
+                                 f"offline log_mel (> {PCM_ATOL})")
+        row.update({"pcm_feature_err": worst, "pcm_atol": PCM_ATOL,
+                    "pcm_equals_offline_engine": True,
+                    "pcm_equals_recognize": same_recognize,
+                    "sessions": len(sessions),
+                    "posts": [s["posts"] for s in sessions],
+                    "pending_posts": [s["pending_posts"] for s in sessions],
+                    "session_tokens": [len(s["final"]) for s in sessions]})
+        print("audio_f32 " + json.dumps(row))
+        return row
+    finally:
+        if srv is not None:
+            srv.shutdown()
+            srv.server_close()
+        offline.close()
+        streaming.close()
+
+
+def audio_bf16(serving: dict, au: dict, dev) -> dict:
+    """(e) serve.py's defaults (24 requests at once, bf16), float and
+    int8 weights, behind http_server with the tokenizer and CMVN: every
+    request as an {"audio"} body, then as a {"feats"} body. K4-fwd (float)
+    or K7 (int8) launches 4 times a batch on each route, and K4-fwd never
+    on the int8 engine. p50 of each route; host ms to parse a body."""
+    cfg = serving["cfg"]
+    rows = {}
+    for what, params, kernel in (
+            ("float", au["params"], "lstm_fwd"),
+            ("int8", quantize_params(au["params"]), "lstm_fwd_int8")):
+        engine = BatchingEngine(params, cfg, max_symbols=MAX_SYMBOLS,
+                                frame_buckets=BUCKETS, max_batch=MAX_BATCH,
+                                window_ms=WINDOW_MS, device=dev)
+        srv = None
+        try:
+            engine.warmup()
+            srv = http_server("127.0.0.1", 0, engine, None, au["tok"],
+                              cmvn=au["cmvn"])
+            threading.Thread(target=srv.serve_forever, daemon=True).start()
+            url = f"http://127.0.0.1:{srv.server_address[1]}/recognize"
+            row = {}
+            for form in ("audio", "feats"):
+                batches = engine.stats.batches
+                reset_counts()
+                with concurrent.futures.ThreadPoolExecutor(
+                        len(au[form])) as ex:
+                    answers = list(ex.map(lambda x: post(
+                        url, {form: x.tolist()}), au[form]))
+                counts = read_counts()
+                batches = engine.stats.batches - batches
+                check(all(a[0] == 200 for a in answers),
+                      f"audio {what} {form}: codes {[a[0] for a in answers]}")
+                check(counts[kernel] == cfg.enc_layers * batches,
+                      f"audio {what} {form}: {counts[kernel]} {kernel} "
+                      f"launches in {batches} batches, not "
+                      f"{cfg.enc_layers} a batch")
+                check(what == "float" or counts["lstm_fwd"] == 0,
+                      f"audio int8 {form}: lstm_fwd launched")
+                check_no_band(counts, f"audio {what}")
+                lat = sorted(a[2] * 1e3 for a in answers)
+                row[form] = {"requests": len(answers), "batches": batches,
+                             "launches": counts[kernel],
+                             "p50_ms": lat[len(lat) // 2],
+                             "p95_ms": lat[min(len(lat) - 1,
+                                               int(0.95 * len(lat)))],
+                             "mean_tokens": statistics.mean(
+                                 len(a[1]["tokens"]) for a in answers)}
+            rows[what] = row
+        finally:
+            if srv is not None:
+                srv.shutdown()
+                srv.server_close()
+            engine.close()
+    rows["parse"] = body_parse_ms(au)
+    rows["card"] = card_line()
+    print("audio_bf16 " + json.dumps(rows))
+    return rows
+
+
+def audio_cli_chain(au: dict, dev) -> dict:
+    """(d) The port's own checkpoints through its CLIs, libri100 and
+    libri100_conformer: the training CLI for 2 steps with --tokenizer
+    bpe:<the README model> records it in meta.json; serve.py --ckpt-dir
+    answers an {"audio"} /recognize with text and words and (libri100) a
+    PCM session, and drains; --mode beam --boost-file answers an n-best
+    with text; the decode CLI on a manifest of .npy audio prints its JSON
+    line with wer, rtf and word_wer."""
+    from rnn_transducer_tpu_torch.recognize import main as recognize_cli
+
+    rows = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        bpe = os.path.join(tmp, "bpe.json")
+        au["tok"].save(bpe)
+        phrases = os.path.join(tmp, "phrases.txt")
+        with open(phrases, "w") as f:
+            f.write("the port\nkernel\t1.5\n")
+        man = os.path.join(tmp, "audio.jsonl")
+        with open(man, "w") as f:
+            for i, a in enumerate(au["audio"][:MAX_BATCH]):
+                np.save(os.path.join(tmp, f"a{i}.npy"), a)
+                labels = au["tok"].encode(au["lines"][i])[:20] or [1]
+                f.write(json.dumps({"audio": os.path.join(tmp, f"a{i}.npy"),
+                                    "labels": labels}) + "\n")
+        utt = au["audio"][0]
+        for config in AUDIO_CLI_CONFIGS:
+            d = os.path.join(tmp, os.path.basename(config))
+            cli_json(["--config", config, "--data", "synthetic", "--steps",
+                      "2", "--batch-size", "8", "--max-frames", "200",
+                      "--max-labels", "20", "--warmup-steps", "1",
+                      "--log-every", "1", "--tokenizer", f"bpe:{bpe}",
+                      "--ckpt-dir", d, "--device", dev.type], 2,
+                     f"tokenizer_{config}")
+            check(ckpt.load_meta(d)["tokenizer"]
+                  == tokenizer_to_meta(au["tok"]),
+                  f"{config}: meta.json lacks the BPE tokenizer")
+            row = {"serve": serve_cli(["--ckpt-dir", d], utt, config,
+                                      audio=True, want_text=True)}
+            if config == AUDIO_CLI_CONFIGS[0]:
+                row["serve_beam_boost"] = serve_cli(
+                    ["--ckpt-dir", d, "--mode", "beam", "--boost-file",
+                     phrases], utt, config, audio=True, want_text=True)
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                got = recognize_cli(["--ckpt-dir", d, "--data",
+                                     f"manifest:{man}", "--batch-size",
+                                     str(MAX_BATCH), "--device", dev.type])
+            last = json.loads(out.getvalue().strip().splitlines()[-1])
+            check(last == got and {"wer", "rtf", "p50_latency_s",
+                                   "word_wer"} <= set(last)
+                  and all(np.isfinite(last[k]) for k in ("wer", "rtf",
+                                                         "word_wer"))
+                  and last["n"] == MAX_BATCH,
+                  f"{config}: the decode CLI printed {last}")
+            row["recognize"] = last
+            print(f"audio_cli_{config} " + json.dumps(row["recognize"]))
+            rows[config] = row
+    return rows
+
+
+def audio_phase(serving: dict, seed: int, dev) -> dict:
+    """Phase 4i: raw 16 kHz PCM in, text out (a)-(e); see the docstrings
+    of frontend_vs_plain, audio_f32, audio_cli_chain and audio_bf16."""
+    au = audio_setup(serving, seed, dev)
+    front = frontend_vs_plain(au, dev)
+    f32 = audio_f32(serving, au, dev)
+    bf16 = audio_bf16(serving, au, dev)
+    chain = audio_cli_chain(au, dev)
+    print("audio_card " + card_line())
+    return {"frontend": front, "f32": f32, "bf16": bf16, "cli": chain}
 
 
 # ------------------------------ phase 5 ----------------------------------
@@ -3489,7 +3916,15 @@ def main(argv=None):
     t0 = time.perf_counter()
     stream = streaming_phase(serving, args.seed, dev)
     print(f"phase streaming: {time.perf_counter() - t0:.1f} s")
+    # phase 4i: raw audio in, text out
+    t0 = time.perf_counter()
+    audio = audio_phase(serving, args.seed, dev)
+    print(f"phase audio: {time.perf_counter() - t0:.1f} s")
     del serving
+    print("audio_launches " + json.dumps({
+        kernel: audio["bf16"][what]["audio"]["launches"]
+        for what, kernel in (("float", "lstm_fwd"),
+                             ("int8", "lstm_fwd_int8"))}))
     print("streaming_launches " + json.dumps({
         "lstm_fwd": stream["greedy"]["launches"]
         + stream["greedy_emitting"]["launches"] + stream["beam"]["launches"],

@@ -20,9 +20,17 @@ thread of its own:
 In beam mode both engines take shallow fusion as the JAX engines do:
 `lm=(params, LMConfig or TransformerLMConfig, weight[, ilm_weight])`,
 `context=` a decode/context.py ContextBias and `ngram=(NgramLM, weight)`
-(`--ngram FILE --ngram-weight W` on the CLI). `http_server` exposes the
-engines over stdlib HTTP with JSON bodies.
+(`--ngram FILE --ngram-weight W` on the CLI; `--boost-file` phrases,
+encoded with the checkpoint's tokenizer, for `context=`). `http_server`
+exposes the engines over stdlib HTTP with JSON bodies: precomputed
+features, or raw 16 kHz PCM featurized by `ops/logmel.log_mel` on the
+engine's device (a PcmFeaturizer a session for PCM sessions), with
+"text" and word segments (decode/words.py) whenever a tokenizer is known.
 
+`--ckpt-dir` serves a directory written by the port's trainer (`python -m
+rnn_transducer_tpu_torch.train --ckpt-dir D [--tokenizer SPEC]`), LSTM
+or conformer: the model config, the tokenizer and the global CMVN stats
+come from its meta.json, and a `--config` that differs is refused.
 `--config libri100_conformer` serves the conformer encoder (every
 LayerNorm in the K8 kernel, `csrc/fused_ln.cu`); its streaming twins
 `libri100_conformer_stream` (causal) and `libri100_conformer_chunked`
@@ -33,24 +41,28 @@ batch sizes that are a multiple of 8, such as the default `--max-batch 8`
 and `--stream-slots 8`, and the dequantized weights elsewhere; a
 conformer dequantizes every weight, as in the JAX package.
 
-Not ported yet, each with its ROADMAP item (queue 1): raw-audio bodies
-for /recognize and /session and `--boost-file` (item 5: the FBANK
-frontend and the tokenizer), `--lm-ckpt` / `--lm-weight` / `--ilm-weight`
-(item 18: the LM checkpoints are orbax files, which the port does not
-read; the engines' `lm=` takes an LM's params directly) and
-`--exported-streaming` (item 18: the export tool).
+Not ported yet, each with its ROADMAP item (queue 1): `--use-ema` (item
+13: EMA), `--lm-ckpt` / `--lm-weight` / `--ilm-weight` (item 18: the LM
+checkpoints are orbax files, which the port does not read; the engines'
+`lm=` takes an LM's params directly) and `--exported-streaming` (item 18:
+the export tool).
 
+    python -m rnn_transducer_tpu_torch.serve --ckpt-dir ckpt --port 8000
     python -m rnn_transducer_tpu_torch.serve --config libri100 --port 8000
     python -m rnn_transducer_tpu_torch.serve --config libri100 --mode beam
     python -m rnn_transducer_tpu_torch.serve --config libri100 --mode beam \
         --ngram lm3.npz --ngram-weight 0.3
+    python -m rnn_transducer_tpu_torch.serve --ckpt-dir ckpt --mode beam \
+        --boost-file phrases.txt
     python -m rnn_transducer_tpu_torch.serve --config libri100 --quantize int8
     python -m rnn_transducer_tpu_torch.serve --config libri100_conformer
     python -m rnn_transducer_tpu_torch.serve \
         --config libri100_conformer_chunked --chunk-frames 128
     curl -XPOST localhost:8000/recognize -d '{"feats": [[...80 floats...]]}'
+    curl -XPOST localhost:8000/recognize -d '{"audio": [...16 kHz PCM...]}'
     curl -XPOST localhost:8000/session                      # -> {"sid": ...}
     curl -XPOST localhost:8000/session/<sid> -d '{"feats": [[...]]}'
+    curl -XPOST localhost:8000/session/<sid> -d '{"audio": [...PCM...]}'
     curl -XPOST localhost:8000/session/<sid> \
         -d '{"feats": [[...]], "last": true}'          # the last chunk
     curl -XDELETE localhost:8000/session/<sid>
@@ -71,12 +83,17 @@ import uuid
 import numpy as np
 import torch
 
+from rnn_transducer_tpu_torch.data.cmvn import apply_cmvn
+from rnn_transducer_tpu_torch.data.pcm_stream import PcmFeaturizer
+from rnn_transducer_tpu_torch.data.tokenizer import decode_to_text
 from rnn_transducer_tpu_torch.decode import streaming as st
 from rnn_transducer_tpu_torch.decode.beam import (recognize_beam,
                                                   sorted_confidence,
                                                   sorted_frames)
 from rnn_transducer_tpu_torch.decode.greedy import recognize_greedy
+from rnn_transducer_tpu_torch.decode.words import attach_words
 from rnn_transducer_tpu_torch.models import transducer as m
+from rnn_transducer_tpu_torch.ops.logmel import featurize
 
 
 class EngineStats:
@@ -684,36 +701,133 @@ class StreamingEngine(_WorkerEngine):
 # HTTP transport (stdlib)
 # --------------------------------------------------------------------------
 
-def _feats_from_body(body: dict) -> np.ndarray:
-    """Request body -> (T, input_dim) features ({"feats": [[...]]})."""
+def _feats_from_body(body: dict, cfg, cmvn=None,
+                     device: str | torch.device = "cuda") -> np.ndarray:
+    """Request body -> (T, input_dim) features.
+
+    Accepts precomputed {"feats": [[...]]} or raw 16 kHz PCM
+    {"audio": [...]}, featurized by `log_mel` on `device` (the engine's:
+    on a card engine the frontend runs on the card or the request fails).
+    `cmvn`: global stats from the checkpoint's meta (data/cmvn.py),
+    applied to BOTH body forms, so a client sending raw audio needs no
+    knowledge of the training-time normalization. Audio shorter than one
+    window gives no frame, which the engine refuses as an empty
+    utterance."""
     if "feats" in body:
-        return np.asarray(body["feats"], np.float32)
-    if "audio" in body:
-        raise ValueError("'audio' bodies are not yet ported (ROADMAP queue "
-                         "1, item 5: FBANK frontend); send 'feats'")
-    raise ValueError("body needs 'feats'")
+        feats = np.asarray(body["feats"], np.float32)
+    else:
+        if "audio" not in body:
+            raise ValueError("body needs 'feats' or 'audio'")
+        audio = np.asarray(body["audio"], np.float32)
+        if audio.ndim != 1:
+            raise ValueError(f"audio must be 1-D PCM; got {audio.shape}")
+        feats = featurize(audio, device=device, n_mels=cfg.input_dim)
+    if cmvn is not None:
+        feats = apply_cmvn(feats, cmvn)
+    return feats
 
 
 def http_server(host: str, port: int, offline: BatchingEngine,
-                streaming: StreamingEngine | None = None,
-                max_body_bytes: int = 32 << 20):
+                streaming: StreamingEngine | None = None, tok=None,
+                max_body_bytes: int = 32 << 20, cmvn=None,
+                frame_hop_s: float = 0.01):
     """Build (not start) a ThreadingHTTPServer exposing the engines.
 
-    POST /recognize        {"feats": [[...]]} -> {"tokens", "confidence",
-                           "frames"} (beam engines also "score", "nbest")
+    POST /recognize        {"feats": [[...]]} or {"audio": [...16 kHz PCM]}
+                           -> {"tokens", "confidence", "frames"} (beam
+                           engines also "score", "nbest"), with "text" and
+                           "words" when a tokenizer is known
     POST /session                             -> {"sid": ...}
-    POST /session/<sid>    {"feats", "last"?} -> the cumulative partial
-                           result (feed_full)
+    POST /session/<sid>    {"feats"|"audio", "last"?} -> the cumulative
+                           partial result (feed_full)
     DELETE /session/<sid>                     -> {"tokens": final tokens}
     GET  /stats | /healthz
 
-    With streaming=None every /session route answers 404. Bodies above
-    `max_body_bytes` are rejected with 413 before being read.
+    Audio is featurized on the engine's device. A session POSTing
+    {"audio"} gets a PcmFeaturizer of its own (data/pcm_stream.py: exact
+    against offline featurization under any split) and a feature buffer:
+    whole `chunk_frames` slices feed the engine, the rest waits for more
+    audio, a POST that completes no slice answers the session's last
+    result with "pending_frames", and {"last": true} flushes the short
+    tail. `frame_hop_s` times the word segments. With streaming=None
+    every /session route answers 404. Bodies above `max_body_bytes` are
+    rejected with 413 before being read.
     """
     from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
     class _TooLarge(Exception):
         pass
+
+    # -- raw-PCM streaming sessions: sid -> featurizer, buffer, result ----
+    pcm_lock = threading.Lock()
+    pcm_sess: dict[str, dict] = {}
+
+    def _pcm_state(sid: str) -> dict:
+        with pcm_lock:
+            st = pcm_sess.get(sid)
+            if st is None:
+                d = streaming.cfg.input_dim
+                st = pcm_sess[sid] = {
+                    "fe": PcmFeaturizer(d, device=streaming.device),
+                    "buf": np.zeros((0, d), np.float32),
+                    "res": {"tokens": [], "confidence": [], "frames": [],
+                            "stable_len": 0},
+                    "lock": threading.Lock(),
+                }
+            return st
+
+    def _pcm_drop(sid: str):
+        with pcm_lock:
+            pcm_sess.pop(sid, None)
+            # engine sessions also die by TTL reaping without a DELETE:
+            # purge the adapters of sids the engine no longer knows
+            with streaming._lock:
+                live = set(streaming._live)
+            for stale in [s for s in pcm_sess if s not in live]:
+                del pcm_sess[stale]
+
+    def _pcm_feed(sid: str, audio: np.ndarray, last: bool) -> dict:
+        st = _pcm_state(sid)
+        with st["lock"]:
+            new = st["fe"].feed(audio)
+            if cmvn is not None and new.shape[0]:
+                new = apply_cmvn(new, cmvn)
+            buf = np.concatenate([st["buf"], new], axis=0)
+            C = streaming.chunk_frames
+            slices = []
+            while buf.shape[0] >= C:
+                slices.append(buf[:C])
+                buf = buf[C:]
+            if last and buf.shape[0]:
+                slices.append(buf)  # a short final slice ends the stream
+                buf = buf[:0]
+            st["buf"] = buf
+            res = None
+            try:
+                for i, s in enumerate(slices):
+                    res = streaming.feed_full(
+                        sid, s, last=last and i == len(slices) - 1)
+            except KeyError:
+                _pcm_drop(sid)
+                raise
+            if res is not None:
+                st["res"] = res
+            else:
+                res = dict(st["res"])
+                res["pending_frames"] = int(st["buf"].shape[0])
+            return res
+
+    def result(r):
+        """r: a token id list (close_session) or a result dict -> the JSON
+        payload, with "text" (and each n-best entry's) and "words" (when
+        the payload has frames) whenever a tokenizer is known."""
+        out = dict(r) if isinstance(r, dict) else {"tokens": r}
+        if tok is not None:
+            out["text"] = decode_to_text(tok, out["tokens"])
+            for h in out.get("nbest", []):
+                h["text"] = decode_to_text(tok, h["tokens"])
+            attach_words(out, tok, hop_s=frame_hop_s)
+        return out
 
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, *a):  # quiet
@@ -756,8 +870,9 @@ def http_server(host: str, port: int, offline: BatchingEngine,
         def do_POST(self):
             try:
                 if self.path == "/recognize":
-                    feats = _feats_from_body(self._body())
-                    self._json(200, offline.submit_full(feats))
+                    feats = _feats_from_body(self._body(), offline.cfg, cmvn,
+                                             offline.device)
+                    self._json(200, result(offline.submit_full(feats)))
                 elif self.path == "/session" and streaming is not None:
                     # read any body: a reply over unread request bytes
                     # makes the close reset the connection under it
@@ -767,9 +882,18 @@ def http_server(host: str, port: int, offline: BatchingEngine,
                       and streaming is not None):
                     sid = self.path.split("/")[2]
                     body = self._body()
-                    self._json(200, streaming.feed_full(
-                        sid, _feats_from_body(body),
-                        last=bool(body.get("last", False))))
+                    last = bool(body.get("last", False))
+                    if "audio" in body and "feats" not in body:
+                        audio = np.asarray(body["audio"], np.float32)
+                        if audio.ndim != 1:
+                            raise ValueError(
+                                f"audio must be 1-D PCM; got {audio.shape}")
+                        self._json(200, result(_pcm_feed(sid, audio, last)))
+                    else:
+                        feats = _feats_from_body(body, streaming.cfg, cmvn,
+                                                 streaming.device)
+                        self._json(200, result(streaming.feed_full(
+                            sid, feats, last=last)))
                 else:
                     self._json(404, {"error": "not found"})
             except _TooLarge as e:
@@ -782,7 +906,9 @@ def http_server(host: str, port: int, offline: BatchingEngine,
             try:
                 if self.path.startswith("/session/") and streaming is not None:
                     sid = self.path.split("/")[2]
-                    self._json(200, {"tokens": streaming.close_session(sid)})
+                    out = result(streaming.close_session(sid))
+                    _pcm_drop(sid)
+                    self._json(200, out)
                 else:
                     self._json(404, {"error": "not found"})
             except Exception as e:
@@ -813,11 +939,18 @@ def get_model_config(name: str | None):
 def parse_args(argv=None):
     p = argparse.ArgumentParser(
         description="RNN-T recognition server (PyTorch, CUDA)")
+    p.add_argument("--ckpt-dir", default=None,
+                   help="a checkpoint directory of the port's trainer "
+                        "(python -m rnn_transducer_tpu_torch.train "
+                        "--ckpt-dir): the model config, tokenizer and "
+                        "CMVN come from its meta.json; omit for fresh "
+                        "weights (--config)")
     p.add_argument("--config", default=None,
-                   help="named config or JSON file (default: smoke)")
+                   help="named config or JSON file (default: the "
+                        "checkpoint's, else smoke); must match --ckpt-dir's")
     p.add_argument("--state-dict", default=None,
-                   help="torch-layout .pt from tools/export_torch_ckpt.py; "
-                        "omit for fresh weights from --seed")
+                   help="torch-layout .pt from tools/export_torch_ckpt.py "
+                        "(LSTM encoders); omit for fresh weights from --seed")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8000)
@@ -845,12 +978,77 @@ def parse_args(argv=None):
                         "tools/train_ngram.py writes one; models/ngram.py "
                         "save_ngram too), fused in beam mode")
     p.add_argument("--ngram-weight", type=float, default=0.3)
+    p.add_argument("--boost-file", default=None,
+                   help="contextual-biasing phrase list (beam mode): one "
+                        "phrase per line, optional <TAB><per-token boost>; "
+                        "encoded with the checkpoint's tokenizer and "
+                        "boosted in both beam engines (decode/context.py)")
+    p.add_argument("--boost-score", type=float, default=2.0,
+                   help="default per-token boost for --boost-file phrases")
+    p.add_argument("--max-body-bytes", type=int, default=32 << 20)
+    p.add_argument("--frame-hop-s", type=float, default=0.01,
+                   help="feature frame hop in seconds, for the word-level "
+                        "segment times in responses (default 10 ms)")
     return p.parse_args(argv)
+
+
+def model_meta(args):
+    """The model's config, tokenizer and global CMVN stats, from
+    --ckpt-dir's meta.json (else --config): (cfg, tok, cmvn). Reads no
+    weights, so the CLIs' refusals come before any device work. A
+    --config that differs from the checkpoint's is refused. The decode
+    CLI (recognize.py) shares it and `load_params`."""
+    from rnn_transducer_tpu_torch.data.tokenizer import tokenizer_from_meta
+    from rnn_transducer_tpu_torch.train import checkpoint as ckpt
+
+    if args.ckpt_dir and getattr(args, "state_dict", None):
+        raise SystemExit("--ckpt-dir and --state-dict are two sources of "
+                         "weights; give one")
+    saved = ckpt.load_model_config(args.ckpt_dir) if args.ckpt_dir else None
+    if args.ckpt_dir and saved is None:
+        raise SystemExit(f"--ckpt-dir {args.ckpt_dir}: no meta.json with "
+                         "its model config")
+    if args.config is not None:
+        cfg = get_model_config(args.config)
+        if saved is not None and saved != cfg:
+            raise SystemExit("--config does not match the checkpoint")
+    else:
+        cfg = saved if saved is not None else get_model_config(None)
+    meta = (ckpt.load_meta(args.ckpt_dir) or {}) if args.ckpt_dir else {}
+    tok = (tokenizer_from_meta(meta["tokenizer"]) if meta.get("tokenizer")
+           else None)
+    return cfg, tok, meta.get("cmvn") or None
+
+
+def load_params(args, cfg, device: str | torch.device = "cuda"):
+    """The served weights on `device`: --ckpt-dir's latest step,
+    --state-dict's .pt, or fresh ones from --seed; int8 under --quantize."""
+    from rnn_transducer_tpu_torch.train import checkpoint as ckpt
+    from rnn_transducer_tpu_torch.weights import load_state_dict
+
+    if args.ckpt_dir:
+        state, step = ckpt.restore_checkpoint(args.ckpt_dir, device=device)
+        params = state.params
+        print(f"loaded checkpoint step {step}", file=sys.stderr)
+    elif getattr(args, "state_dict", None):  # serve.py's flag alone
+        params = load_state_dict(args.state_dict, cfg, device)
+    else:
+        params = m.init_params(cfg, np.random.default_rng(args.seed), device)
+    if args.quantize == "int8":
+        from rnn_transducer_tpu_torch.ops.quant import (quantize_params,
+                                                        quantized_bytes)
+        params = quantize_params(params)
+        qb, fb = quantized_bytes(params)
+        print(f"int8 weights: {qb / 1e6:.1f} MB (fp32 {fb / 1e6:.1f} MB)",
+              file=sys.stderr)
+    return params
 
 
 def main(argv=None):
     args = parse_args(argv)
-    cfg = get_model_config(args.config)
+    cfg, tok, cmvn = model_meta(args)
+    if cmvn is not None:
+        print("applying global CMVN from checkpoint meta", file=sys.stderr)
     ngram = None
     if args.ngram:
         if args.mode != "beam":
@@ -862,6 +1060,21 @@ def main(argv=None):
                              f"vocab {cfg.vocab_size}")
         ngram = (ng_lm, args.ngram_weight)
         print(f"n-gram fusion: {args.ngram} ({ng_lm.lp.shape[0]} states)",
+              file=sys.stderr)
+    context = None
+    if args.boost_file:
+        if args.mode != "beam":
+            raise SystemExit("--boost-file requires --mode beam")
+        if tok is None:
+            raise SystemExit("--boost-file needs a checkpoint with a "
+                             "tokenizer in meta.json")
+        from rnn_transducer_tpu_torch.decode.context import (
+            build_context_bias, load_boost_phrases)
+        phrases, boosts = load_boost_phrases(
+            args.boost_file, tok, default_boost=args.boost_score)
+        context = build_context_bias(phrases, cfg.vocab_size,
+                                     blank=cfg.blank, boosts=boosts)
+        print(f"boosting {len(phrases)} phrases from {args.boost_file}",
               file=sys.stderr)
     # streaming needs a streamable encoder (a unidirectional LSTM, or a
     # causal or chunked-attention conformer): an offline-only model serves
@@ -877,37 +1090,27 @@ def main(argv=None):
                 f"{cfg.enc_chunk_att}")
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: this server runs on the GPU")
-    from rnn_transducer_tpu_torch.weights import load_state_dict
-
-    if args.state_dict:
-        params = load_state_dict(args.state_dict, cfg, "cuda")
-    else:
-        params = m.init_params(cfg, np.random.default_rng(args.seed), "cuda")
-    if args.quantize == "int8":
-        from rnn_transducer_tpu_torch.ops.quant import (quantize_params,
-                                                        quantized_bytes)
-        params = quantize_params(params)
-        qb, fb = quantized_bytes(params)
-        print(f"int8 weights: {qb / 1e6:.1f} MB (fp32 {fb / 1e6:.1f} MB)",
-              file=sys.stderr)
+    params = load_params(args, cfg, "cuda")
     engine = BatchingEngine(params, cfg, mode=args.mode, beam=args.beam,
                             max_symbols=args.max_symbols,
                             frame_buckets=args.frame_buckets,
                             max_batch=args.max_batch,
-                            window_ms=args.window_ms, ngram=ngram,
-                            device="cuda")
+                            window_ms=args.window_ms, context=context,
+                            ngram=ngram, device="cuda")
     streaming = None
     if stream:
         streaming = StreamingEngine(
             params, cfg, slots=args.stream_slots,
             chunk_frames=args.chunk_frames, max_symbols=args.max_symbols,
-            mode=args.mode, beam=args.beam, ngram=ngram,
+            mode=args.mode, beam=args.beam, context=context, ngram=ngram,
             endpoint_frames=args.endpoint_frames, device="cuda")
     print("warming up (one decode per bucket)...", file=sys.stderr)
     engine.warmup()
     if streaming is not None:
         streaming.warmup()
-    srv = http_server(args.host, args.port, engine, streaming)
+    srv = http_server(args.host, args.port, engine, streaming, tok,
+                      max_body_bytes=args.max_body_bytes, cmvn=cmvn,
+                      frame_hop_s=args.frame_hop_s)
     print(f"serving on http://{args.host}:{srv.server_address[1]} "
           f"(mode={args.mode}, max_batch={args.max_batch}, "
           f"stream_slots={args.stream_slots if stream else 0}, "

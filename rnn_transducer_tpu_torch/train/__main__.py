@@ -19,7 +19,10 @@ restarts from the seed, as in train.py. --pruned-range S sets the config's
 pruned_range and trains the pruned two-pass loss (--simple-loss-scale
 weighs its first pass); --ar-range S trains the alignment-restricted band
 around the live model's Viterbi path, or around that of the checkpoint
---ar-align-from names (a port checkpoint with its meta.json). --device
+--ar-align-from names (a port checkpoint with its meta.json).
+--tokenizer SPEC records the tokenizer in meta.json, as train.py does, so
+`python -m rnn_transducer_tpu_torch.serve --ckpt-dir` answers with text;
+one whose vocabulary exceeds the model's is refused. --device
 defaults to cuda, and a
 run asked for cuda on a machine without a card fails rather than fall
 back to the CPU.
@@ -37,6 +40,8 @@ import numpy as np
 import torch
 
 from rnn_transducer_tpu_torch.data.synthetic import learnable_batch
+from rnn_transducer_tpu_torch.data.tokenizer import (tokenizer_from_spec,
+                                                     tokenizer_to_meta)
 from rnn_transducer_tpu_torch.models.config import (NAMED_CONFIGS,
                                                     TrainConfig,
                                                     TransducerConfig)
@@ -85,6 +90,10 @@ def parse_args(argv=None):
                         "vocab, blank and time_reduction); omit to "
                         "self-align")
     p.add_argument("--fastemit-lambda", type=float, default=0.0)
+    p.add_argument("--tokenizer", default=None,
+                   help="tokenizer spec (char | phone | bpe:<model.json>); "
+                        "stored inline in the checkpoint's meta.json so the "
+                        "server and the decode CLI can emit text")
     p.add_argument("--ckpt-dir", default=None)
     p.add_argument("--ckpt-every", type=int, default=500)
     p.add_argument("--resume", action="store_true")
@@ -141,6 +150,14 @@ def main(argv=None):
                        fastemit_lambda=args.fastemit_lambda,
                        simple_loss_scale=args.simple_loss_scale,
                        ar_range=args.ar_range, ar_left=args.ar_left)
+    tok_meta = None
+    if args.tokenizer:
+        tok = tokenizer_from_spec(args.tokenizer)
+        if tok.vocab_size > cfg.vocab_size:
+            raise SystemExit(
+                f"--tokenizer {args.tokenizer} needs vocab {tok.vocab_size} "
+                f"> model vocab_size {cfg.vocab_size}")
+        tok_meta = tokenizer_to_meta(tok)
     teacher_params = teacher_cfg = None
     if args.ar_align_from:
         if args.ar_range <= 0:
@@ -171,10 +188,13 @@ def main(argv=None):
         print(f"resumed from step {start_step}", file=sys.stderr)
     step_fn = make_train_step(cfg, tcfg, teacher_cfg=teacher_cfg)
     extra = () if teacher_params is None else (teacher_params,)
+    meta_extra = {"train_config": dataclasses.asdict(tcfg)}
+    if tok_meta is not None:
+        meta_extra["tokenizer"] = tok_meta
 
     def save(step_no, st):
         ckpt.save_checkpoint(args.ckpt_dir, step_no, st, model_cfg=cfg,
-                             train_config=dataclasses.asdict(tcfg))
+                             **meta_extra)
 
     t_start = time.perf_counter()
     utts = 0

@@ -1610,6 +1610,186 @@ def test_cuda_lstm_launches_from_two_threads_keep_their_bits(cuda_device,
         assert all(torch.equal(h, alone[i]) for h in got[i])
 
 
+# ------------------------- audio in: the frontend --------------------------
+
+def _pcm(lengths, seed=0):
+    """0.1 * N(0, 1) PCM of the given frame counts (T*160 + 240 samples
+    featurize to T frames)."""
+    g = torch.Generator().manual_seed(seed)
+    return [0.1 * torch.randn(T * 160 + 240, generator=g) for T in lengths]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cmvn", [False, True])
+def test_cuda_log_mel_matches_the_oracle(cuda_device, cmvn):
+    """`log_mel` on the card against its float64 plain version (cmvn=False)
+    within 1e-3, the JAX package's bound, frame lens equal; with cmvn on the
+    card against the CPU within the same bound (the per-utterance
+    normalization divides the two FFT libraries' ~1e-5 relative difference
+    by a bin's spread: 2.9e-4 seen on the H100); a batch with rows shorter
+    than a window; TF32 on for matmuls is refused, not used."""
+    import numpy as np
+
+    from rnn_transducer_tpu_torch.ops.logmel import log_mel, log_mel_oracle
+
+    audio = _pcm((800, 151, 37))
+    N = max(a.shape[0] for a in audio)
+    x = torch.zeros(len(audio) + 1, N)
+    for i, a in enumerate(audio):
+        x[i, :a.shape[0]] = a
+    lens = torch.tensor([a.shape[0] for a in audio] + [300],
+                        dtype=torch.int32)  # the last row: no whole window
+    got, n = log_mel(x.to(cuda_device), lens.to(cuda_device), cmvn=cmvn)
+    assert got.device.type == "cuda" and got.dtype == torch.float32
+    if cmvn:
+        want, want_n = log_mel(x, lens, cmvn=True)
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-3)
+        assert n.cpu().tolist() == want_n.tolist()
+    else:
+        want, want_n = log_mel_oracle(x.numpy(), lens.numpy())
+        assert n.cpu().tolist() == want_n.tolist() == [800, 151, 37, 0]
+        assert float(np.abs(got.cpu().numpy() - want).max()) <= 1e-3
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with pytest.raises(RuntimeError, match="tf32"):
+            log_mel(x.to(cuda_device), lens.to(cuda_device))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+
+
+def _audio_model(device):
+    """A small LSTM transducer at f32 on the card (K4-fwd at H=128), its
+    joint's blank bias lowered so that utterances emit tokens."""
+    import numpy as np
+
+    from rnn_transducer_tpu_torch.models import transducer as m
+    from rnn_transducer_tpu_torch.models.config import TransducerConfig
+
+    cfg = TransducerConfig(enc_layers=2, enc_hidden=128, pred_layers=1,
+                           pred_hidden=64, embed_dim=32, joint_dim=64,
+                           vocab_size=16, input_dim=80, time_reduction=2,
+                           compute_dtype="float32")
+    params = m.init_params(cfg, np.random.default_rng(3), device)
+    params["joint"]["pred_proj"]["w"] *= 8.0
+    return cfg, params
+
+
+def _post(url, body):
+    import json
+    import urllib.request
+
+    req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                 method="POST")
+    with urllib.request.urlopen(req, timeout=120) as r:
+        return json.loads(r.read())
+
+
+@pytest.mark.cuda
+def test_cuda_audio_body_equals_feats_body(cuda_device):
+    """An {"audio"} /recognize to a card engine answers the tokens of the
+    same audio's card log_mel sent as {"feats"}: the same function on the
+    same device and input, so the same bits; the engine's K4-fwd ran."""
+    import threading
+
+    from rnn_transducer_tpu_torch.ops.logmel import log_mel
+    from rnn_transducer_tpu_torch.serve import BatchingEngine, http_server
+
+    cfg, params = _audio_model(cuda_device)
+    eng = BatchingEngine(params, cfg, max_symbols=20, frame_buckets=(200,),
+                         max_batch=4, device=cuda_device)
+    srv = http_server("127.0.0.1", 0, eng)
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}/recognize"
+    try:
+        before = lstm_cuda.LAUNCHES
+        for a in _pcm((200, 63, 120), seed=1):
+            f, n = log_mel(a[None].to(cuda_device),
+                           torch.tensor([a.shape[0]], device=cuda_device))
+            feats = f[0, :int(n[0])].cpu()
+            got = _post(url, {"audio": a.tolist()})
+            want = _post(url, {"feats": feats.tolist()})
+            assert got == want
+        assert lstm_cuda.LAUNCHES - before == 2 * 6
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        th.join(timeout=30)
+        eng.close()
+
+
+@pytest.mark.cuda
+def test_cuda_pcm_sessions_beside_recognize_from_two_engine_threads(
+        cuda_device):
+    """PCM sessions (uneven splits) and /recognize audio requests at once:
+    both engines' worker threads launch on one card. Each session's final
+    tokens are the offline engine's for the features the session fed."""
+    import collections
+    import concurrent.futures
+    import json
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    from rnn_transducer_tpu_torch.serve import (BatchingEngine,
+                                                StreamingEngine, http_server)
+
+    cfg, params = _audio_model(cuda_device)
+    offline = BatchingEngine(params, cfg, max_symbols=20,
+                             frame_buckets=(200,), max_batch=4,
+                             device=cuda_device)
+    streaming = StreamingEngine(params, cfg, slots=4, chunk_frames=32,
+                                max_symbols=20, device=cuda_device)
+    fed = collections.defaultdict(list)
+    feed_full = streaming.feed_full
+
+    def recording(sid, chunk, last=False):
+        fed[sid].append(np.array(chunk, np.float32))
+        return feed_full(sid, chunk, last)
+
+    streaming.feed_full = recording
+    srv = http_server("127.0.0.1", 0, offline, streaming)
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+
+    def session(audio, cuts):
+        sid = _post(f"{url}/session", {})["sid"]
+        parts = np.split(audio.numpy(), cuts)
+        for i, p in enumerate(parts):
+            _post(f"{url}/session/{sid}", {"audio": p.tolist(),
+                                           "last": i == len(parts) - 1})
+        req = urllib.request.Request(f"{url}/session/{sid}",
+                                     method="DELETE")
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return sid, json.loads(r.read())["tokens"]
+
+    try:
+        audio = _pcm((190, 77, 141, 200), seed=2)
+        cuts = [[237, 3001, 3050, 9000], [399, 401, 7000], [5, 12345],
+                [160 * 31 + 1, 160 * 64 + 3]]
+        with concurrent.futures.ThreadPoolExecutor(8) as ex:
+            sess = [ex.submit(session, a, c) for a, c in zip(audio, cuts)]
+            recs = [ex.submit(_post, f"{url}/recognize",
+                              {"audio": a.tolist()}) for a in audio]
+            results = [f.result() for f in sess]
+            assert all("tokens" in f.result() for f in recs)
+        emitted = 0
+        for sid, tokens in results:
+            want = offline.submit_full(np.concatenate(fed[sid]))
+            assert tokens == want["tokens"]
+            emitted += len(tokens)
+        assert emitted > 0
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        th.join(timeout=30)
+        offline.close()
+        streaming.close()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("U", [8_000, 11_136, 22_400])
 def test_cuda_lattice_walks_long_diagonals_in_column_tiles(cuda_device, U):

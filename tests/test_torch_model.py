@@ -178,7 +178,13 @@ def test_unported_configs_raise(field, value):
                                 "decode.streaming.stream_transcribe",
                                 "decode.streaming.stream_transcribe_beam",
                                 "serve.make_masked_chunk_step",
-                                "serve.StreamingEngine"])
+                                "serve.StreamingEngine",
+                                "serve.load_params",
+                                "data.pcm_stream.PcmFeaturizer",
+                                "data.manifest.load_example",
+                                "data.manifest.manifest_examples",
+                                "data.cmvn.compute_cmvn",
+                                "ops.logmel.featurize"])
 def test_entry_points_default_to_the_card(fn):
     """An entry point runs on the card unless the caller asks for the CPU;
     read from the signature, nothing is run."""

@@ -280,7 +280,9 @@ def test_http_recognize_stats_healthz(server, params):
 @pytest.mark.parametrize("body, code, match", [
     (b"{not json", 400, "JSON|Expecting"),
     ({"feats": [[1.0, 2.0]]}, 400, "feats must be"),
-    ({"audio": [0.0] * 160}, 400, "not yet ported"),
+    # shorter than one 400-sample window: no frame, as the JAX server's
+    # native frontend gives it
+    ({"audio": [0.0] * 160}, 400, "empty utterance"),
     ({"nothing": 1}, 400, "needs 'feats'"),
     ({"feats": [[0.0] * 8] * 2000}, 413, "exceeds cap"),
 ])
@@ -304,7 +306,7 @@ def test_cli_flags_keep_the_jax_names_and_defaults():
 
     port = vars(port_serve.parse_args([]))
     jax_args = vars(jax_serve_cli.parse_args([]))
-    assert port.pop("state_dict") is None  # replaces --ckpt-dir
+    assert port.pop("state_dict") is None  # the port's own, beside --ckpt-dir
     for name, value in port.items():
         assert jax_args[name] == value, name
 
@@ -623,7 +625,8 @@ def test_int8_ragged_streaming_matches_direct_stream_chunk(monkeypatch):
 def test_http_session_routes(params, engine, streaming):
     """/session over HTTP: open, feed (the last chunk short), close; the
     answer is the offline engine's; /stats gains "streaming"; an 'audio'
-    body and an unknown session answer 400."""
+    body shorter than a window completes no frame and answers pending
+    frames; an unknown session answers 400."""
     srv = http_server("127.0.0.1", 0, engine, streaming,
                       max_body_bytes=1 << 20)
     th = threading.Thread(target=srv.serve_forever, daemon=True)
@@ -653,7 +656,8 @@ def test_http_session_routes(params, engine, streaming):
         sid = out["sid"]
         code, out = _request(f"{url}/session/{sid}", "POST",
                              {"audio": [0.0] * 160})
-        assert code == 400 and "item 5" in out["error"]
+        assert code == 200 and out["pending_frames"] == 0
+        assert out["tokens"] == []
         assert _request(f"{url}/session/{sid}", "DELETE")[0] == 200
         for method in ("POST", "DELETE"):
             code, out = _request(f"{url}/session/nope", method,
@@ -718,3 +722,245 @@ def test_streaming_engine_under_thread_stress(params, engine):
     assert {i: got.get(i) for i in range(12)} == {
         i: want[i % len(utts)] for i in range(12)}
     assert eng._free == {0, 1, 2} and not eng._live
+
+
+# ------------------------- audio bodies and text --------------------------
+
+ALPHABET = "ab cdefgh"  # 9 characters + blank: 10 ids of the model's 11
+
+
+def _audio_utts():
+    """Raw 16 kHz PCM of 12-47 frames (the buckets hold 48), each with a
+    partial window at its end that featurization drops."""
+    rng = np.random.default_rng(21)
+    return [(0.1 * rng.normal(size=400 + 160 * (F - 1) + extra)).astype(
+        np.float32) for F, extra in ((12, 7), (47, 159), (20, 80),
+                                     (33, 0), (28, 101))]
+
+
+def _logmel(audio):
+    from rnn_transducer_tpu_torch.ops.logmel import featurize
+
+    return featurize(audio, device="cpu", n_mels=TCFG.input_dim)
+
+
+@pytest.fixture(scope="module")
+def audio_cmvn():
+    """Global stats that put the utterances' log-mel features at mean 0
+    and scale 3, the walking model's input scale."""
+    f = np.concatenate([_logmel(a) for a in _audio_utts()])
+    return {"mean": f.mean(0).tolist(), "std": (f.std(0) / 3).tolist()}
+
+
+def _serve(srv):
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    return th, f"http://127.0.0.1:{srv.server_address[1]}"
+
+
+def _stop(srv, th):
+    srv.shutdown()
+    srv.server_close()
+    th.join(timeout=10)
+
+
+def test_http_audio_answers_as_the_jax_server(engine, audio_cmvn):
+    """{"audio"} bodies to the JAX http_server (its native FBANK) and to
+    the port's (`log_mel` on the engine's device, here the CPU), on the
+    same weights, char tokenizer and global CMVN at f32: tokens, frames,
+    text and word segments equal; confidences within 2e-4 (4-place
+    rounding)."""
+    import jax
+    import jax.numpy as jnp
+
+    from rnn_transducer_tpu.data.tokenizer import CharTokenizer as JaxChar
+    from rnn_transducer_tpu.serve import BatchingEngine as JaxEngine
+    from rnn_transducer_tpu.serve import http_server as jax_http_server
+    from rnn_transducer_tpu_torch.data.tokenizer import CharTokenizer
+
+    jeng = JaxEngine(jax.tree.map(jnp.asarray, walking_params()), JCFG,
+                     max_symbols=30, frame_buckets=BUCKETS, max_batch=4,
+                     window_ms=20.0)
+    jsrv = jax_http_server("127.0.0.1", 0, jeng, tok=JaxChar(ALPHABET),
+                           cmvn=audio_cmvn, frame_hop_s=0.02)
+    tsrv = http_server("127.0.0.1", 0, engine, tok=CharTokenizer(ALPHABET),
+                       cmvn=audio_cmvn, frame_hop_s=0.02)
+    jth, jurl = _serve(jsrv)
+    tth, turl = _serve(tsrv)
+    try:
+        n_words = 0
+        for audio in _audio_utts():
+            body = {"audio": audio.tolist()}
+            (jc, want), (tc, got) = (_request(f"{u}/recognize", "POST", body)
+                                     for u in (jurl, turl))
+            assert jc == tc == 200
+            assert set(got) == set(want)
+            for key in ("tokens", "frames", "text"):
+                assert got[key] == want[key], key
+            np.testing.assert_allclose(got["confidence"], want["confidence"],
+                                       atol=2e-4)
+            assert [(w["word"], w["start_s"], w["end_s"])
+                    for w in got["words"]] == [
+                (w["word"], w["start_s"], w["end_s"]) for w in want["words"]]
+            np.testing.assert_allclose([w["conf"] for w in got["words"]],
+                                       [w["conf"] for w in want["words"]],
+                                       atol=2e-4)
+            n_words += len(got["words"])
+        assert n_words > 0
+    finally:
+        _stop(jsrv, jth)
+        _stop(tsrv, tth)
+        jeng.close()
+
+
+def test_http_cmvn_applies_to_both_body_forms(engine, audio_cmvn):
+    """With global CMVN the server normalizes an audio body's features and
+    a feats body alike: both answer the engine's decode of the normalized
+    log-mel features."""
+    from rnn_transducer_tpu_torch.data.cmvn import apply_cmvn
+
+    srv = http_server("127.0.0.1", 0, engine, cmvn=audio_cmvn)
+    th, url = _serve(srv)
+    try:
+        for audio in _audio_utts()[:3]:
+            feats = _logmel(audio)
+            want = engine.submit_full(apply_cmvn(feats, audio_cmvn))
+            for body in ({"audio": audio.tolist()},
+                         {"feats": feats.tolist()}):
+                code, out = _request(f"{url}/recognize", "POST", body)
+                assert code == 200
+                _assert_result(out, want)
+    finally:
+        _stop(srv, th)
+
+
+def test_http_pcm_sessions_match_recognize(engine, streaming, audio_cmvn):
+    """Raw-PCM sessions split at uneven points, aligned neither to the
+    160-sample hop nor to the 8-frame chunks (one POST completes no frame
+    and answers pending_frames), end with /recognize's tokens on the whole
+    audio; the session's features are the offline features."""
+    from rnn_transducer_tpu_torch.data.tokenizer import CharTokenizer
+
+    srv = http_server("127.0.0.1", 0, engine, streaming,
+                      tok=CharTokenizer(ALPHABET), cmvn=audio_cmvn)
+    th, url = _serve(srv)
+    rng = np.random.default_rng(3)
+    try:
+        emitted = 0
+        for audio in _audio_utts():
+            code, ref = _request(f"{url}/recognize", "POST",
+                                 {"audio": audio.tolist()})
+            assert code == 200
+            sid = _request(f"{url}/session", "POST", {})[1]["sid"]
+            cuts = sorted(rng.choice(np.arange(1, audio.shape[0] - 60), 4,
+                                     replace=False).tolist())
+            cuts.insert(2, cuts[1] + 50)  # a 50-sample POST: no frame
+            parts = np.split(audio, cuts)
+            outs = []
+            for i, part in enumerate(parts):
+                code, out = _request(f"{url}/session/{sid}", "POST", {
+                    "audio": part.tolist(), "last": i == len(parts) - 1})
+                assert code == 200 and isinstance(out["tokens"], list)
+                outs.append(out)
+            assert any("pending_frames" in o for o in outs[:-1])
+            code, final = _request(f"{url}/session/{sid}", "DELETE")
+            assert code == 200 and final["tokens"] == ref["tokens"]
+            assert final["text"] == ref["text"]
+            assert outs[-1]["frames"] == ref["frames"]
+            emitted += len(ref["tokens"])
+        assert emitted > 0
+    finally:
+        _stop(srv, th)
+
+
+def test_pcm_session_closed_by_the_engine_answers_400(engine, streaming):
+    """A PCM session the engine no longer knows (closed or reaped without
+    a DELETE) answers 400 once its audio reaches the engine; DELETE of a
+    live PCM session answers 200."""
+    srv = http_server("127.0.0.1", 0, engine, streaming)
+    th, url = _serve(srv)
+    try:
+        a = _audio_utts()[0]
+        sids = [_request(f"{url}/session", "POST", {})[1]["sid"]
+                for _ in range(2)]
+        for sid in sids:
+            assert _request(f"{url}/session/{sid}", "POST",
+                            {"audio": a[:1000].tolist()})[0] == 200
+        streaming.close_session(sids[1])  # gone from the engine alone
+        assert _request(f"{url}/session/{sids[0]}", "DELETE")[0] == 200
+        code, out = _request(f"{url}/session/{sids[1]}", "POST",
+                             {"audio": a[1000:].tolist(), "last": True})
+        assert code == 400 and "unknown session" in out["error"]
+    finally:
+        _stop(srv, th)
+
+
+# ------------------------- the trainer's checkpoints ----------------------
+
+TRAIN_ARGS = ["--device", "cpu", "--steps", "2", "--batch-size", "4",
+              "--max-frames", "40", "--max-labels", "5", "--log-every", "1",
+              "--warmup-steps", "1"]
+
+
+@pytest.fixture(scope="module", params=["smoke", "conformer_smoke"])
+def trained(request, tmp_path_factory):
+    """2 CPU steps of the port's train CLI with a char tokenizer: the
+    checkpoint directory and the in-memory params."""
+    from rnn_transducer_tpu_torch.train.__main__ import main as train_main
+
+    d = str(tmp_path_factory.mktemp(f"ck_{request.param}"))
+    state = train_main(["--config", request.param, "--tokenizer", "char",
+                        "--ckpt-dir", d] + TRAIN_ARGS)
+    return request.param, d, state.params
+
+
+def test_ckpt_dir_serves_the_trained_params(trained):
+    """serve.py --ckpt-dir's model (config, tokenizer and weights from the
+    directory, on the CPU here) answers what the trainer's in-memory
+    params answer, LSTM and conformer alike."""
+    from rnn_transducer_tpu_torch.data.tokenizer import CharTokenizer
+
+    name, d, params = trained
+    args = port_serve.parse_args(["--ckpt-dir", d])
+    cfg, tok, cmvn = port_serve.model_meta(args)
+    assert cfg == port_serve.get_model_config(name)
+    assert isinstance(tok, CharTokenizer) and cmvn is None
+    loaded = port_serve.load_params(args, cfg, "cpu")
+    rng = np.random.default_rng(4)
+    utts = [rng.normal(size=(T, cfg.input_dim)).astype(np.float32)
+            for T in (40, 23, 64)]
+    answers = []
+    for p in (loaded, params):
+        eng = BatchingEngine(p, cfg, max_symbols=20, frame_buckets=(64,),
+                             max_batch=3, device="cpu")
+        try:
+            answers.append([eng.submit_full(u) for u in utts])
+        finally:
+            eng.close()
+    assert answers[0] == answers[1]
+
+
+def test_ckpt_dir_refuses_another_config(trained):
+    _, d, _ = trained
+    with pytest.raises(SystemExit, match="does not match the checkpoint"):
+        port_serve.main(["--ckpt-dir", d, "--config", "libri100"])
+    with pytest.raises(SystemExit, match="one"):
+        port_serve.main(["--ckpt-dir", d, "--state-dict", "x.pt"])
+
+
+def test_cli_boost_file_needs_beam_and_a_tokenizer(trained, tmp_path):
+    _, d, _ = trained
+    phrases = tmp_path / "phrases.txt"
+    phrases.write_text("a cab\nbad\t1.5\n")
+    with pytest.raises(SystemExit, match="requires --mode beam"):
+        port_serve.main(["--ckpt-dir", d, "--boost-file", str(phrases)])
+    with pytest.raises(SystemExit, match="tokenizer"):
+        port_serve.main(["--mode", "beam", "--boost-file", str(phrases)])
+    # with beam and the checkpoint's tokenizer the phrases are read, and
+    # the CLI goes on as far as the card
+    import unittest.mock as um
+
+    with um.patch.object(torch.cuda, "is_available", lambda: False):
+        with pytest.raises(SystemExit, match="CUDA"):
+            port_serve.main(["--ckpt-dir", d, "--mode", "beam",
+                             "--boost-file", str(phrases)])
