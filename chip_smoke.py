@@ -22,7 +22,11 @@ its shallow fusion (BatchingEngine(mode="beam")) and streaming sessions
 (StreamingEngine behind the /session routes), and raw audio in, text
 out (`ops/logmel.log_mel` on the card, PCM sessions, checkpoints of the
 port's trainer served by serve.py --ckpt-dir and decoded by
-`python -m rnn_transducer_tpu_torch.recognize`).
+`python -m rnn_transducer_tpu_torch.recognize`). BASELINE.json's
+configs[1] (TIMIT: 3x320 BiLSTM encoder, 1x320 predictor, joint 320,
+V=63) and configs[4] (libri960: 6x1024 LSTM, 2x stacking, 2x1024
+predictor, joint 1024, V=32; trained, served, streamed, and trained on
+two data-parallel ranks) run at full width in phase 5f.
 Phases, in order:
 
   1. card   require CUDA; print the card's name and power limit
@@ -84,7 +88,7 @@ Phases, in order:
             libri100_conformer, float and --quantize int8, and with
             --config libri100 (a /session at the CLI's defaults too),
             answering a request each
-  4f. beam (after 5e)  the served model made to emit tens of
+  4f. beam (after 5f)  the served model made to emit tens of
             tokens a row (its joint's encoder side and logits scaled,
             blank offset re-set; every check needs a mean top-beam
             length of 5 or more): 8 requests to BatchingEngine(mode="beam")
@@ -124,6 +128,32 @@ Phases, in order:
             each K6 kernel once a step, K3 once; ms/step, a profiled step
             (K6-A and K6-B two kernels a call each), the f32 check, the
             CLI with --ar-range 8
+  5f. configs (a) TIMIT: the BiLSTM encode at B=16, T=300 with ragged
+            lengths through the kernels and the plain versions (6 K4-fwd
+            launches; f32 within ATOL, bf16 within BILSTM_BF16_ATOL); a
+            3-step f32 trajectory, each step's loss and gradients through
+            both (LOSS_RTOL, GRAD_RTOL, no skipped step); bf16 steps at
+            B=16, T=300, U=40 (slope ms/step, 7 K4-fwd and 7 K4-bwd a
+            step, a profiled step with K1 / K2 in their CUDA-core form,
+            V=63 being odd, and its busy share); K1 and K2 at that joint
+            against their plain versions; 8 served requests, float and
+            int8 (which dequantizes w_hh at H=320: K4-fwd, not K7), f32
+            tokens equal through kernels and plain. (b) libri960: bf16
+            steps at bench.py's B=64, T=400, U=60 on `auto`'s two-pass
+            route (8 K4-fwd, 8 K4-bwd, one each of K5's and K3's kernels a
+            step; ms/step, peak memory, a profiled step); the f32 check
+            at B=8, T=64, U=10; 24 requests at serve.py's defaults, float
+            (6 K4-fwd a batch) and int8 (6 K7 a batch), f32 tokens equal
+            through kernels and plain; 8 streaming sessions of 32-frame
+            chunks (6 K4-fwd a tick, f32 sessions equal to the offline
+            answers; bf16 host ms a tick). (c) two gloo ranks share the
+            card at libri960 width (`parallel/mesh.spawn`: this process
+            is rank 0): the f32 loss and all-reduced gradient of B=64
+            split 32 / 32 against one process on the batch (LOSS_RTOL,
+            GRAD_RTOL), then bf16 steps with the ranks' params bit-equal
+            after each and ms a step beside the one-process step; over
+            two cards of their own on NCCL where the machine shows two,
+            else a line that NCCL went unchecked; `configs_launches`
   4g. lattice_tiles (last: no profiled check may follow the plain
             versions' long, nearly idle loops) lattice_alpha and
             lattice_beta with the occupancies at U+1 = 8,001, 11,137 and
@@ -190,6 +220,7 @@ import io
 import itertools
 import json
 import os
+import re
 import signal
 import statistics
 import subprocess
@@ -213,7 +244,7 @@ from rnn_transducer_tpu_torch.decode.greedy import greedy_decode, recognize_gree
 from rnn_transducer_tpu_torch.models import transducer as m
 from rnn_transducer_tpu_torch.models.config import (
     TrainConfig, config_libri100, config_libri100_conformer,
-    config_libri100_conformer_chunked)
+    config_libri100_conformer_chunked, config_libri960, config_timit)
 from rnn_transducer_tpu_torch.ops import fused_ln as fl
 from rnn_transducer_tpu_torch.ops import lstm_cuda
 from rnn_transducer_tpu_torch.ops import lstm_int8_cuda as q8
@@ -224,7 +255,8 @@ from rnn_transducer_tpu_torch.ops import rnnt_loss as rl
 from rnn_transducer_tpu_torch.ops import rnnt_loss_cuda as lc
 from rnn_transducer_tpu_torch.ops.logmel import (featurize, log_mel,
                                                  log_mel_oracle)
-from rnn_transducer_tpu_torch.ops.lstm import _dot
+from rnn_transducer_tpu_torch.ops.lstm import _dot, w8a8_supported
+from rnn_transducer_tpu_torch.parallel import mesh as meshlib
 from rnn_transducer_tpu_torch.ops.quant import (quantize_params,
                                                 quantize_tensor,
                                                 quantized_bytes)
@@ -257,6 +289,13 @@ TRAIN_LSTM_CASES = (("l0_train", 32, 400, 80, False),
                     ("pred_b64", 64, 41, 512, False),
                     ("ragged_b3", 3, 37, 80, True))
 TRAIN_MAIN = ("l0_train", torch.bfloat16)
+# libri960's training recurrences at H=1024, at the B=64 of its timed
+# step (phase 5f (b)): layer 0 at T=400 frames of 80 features, layers 1-5
+# at T'=200 of 2048 (2x stacking), the predictor (E=512) at U+1=61. B=64
+# and H=1024 give the K4 tiles nearest the card's shared-memory limit.
+L960_LSTM_CASES = (("l0_libri960", 64, 400, 80, False),
+                   ("l1_libri960", 64, 200, 2048, False),
+                   ("pred_libri960", 64, 61, 512, False))
 # Backward outputs and gradients: max |kernel - plain| over max |plain|.
 # f32: summation order only. bf16: both sides round the same operands, but
 # a 1-ulp difference before a rounding can flip one bf16 value (2^-8).
@@ -346,14 +385,19 @@ def card_line() -> str:
     return out[torch.cuda.current_device()]
 
 
-def cuda_ms(fn) -> float:
+def cuda_ms_out(fn):
+    """fn()'s result and its ms by CUDA events."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    fn()
+    out = fn()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end)
+    return out, start.elapsed_time(end)
+
+
+def cuda_ms(fn) -> float:
+    return cuda_ms_out(fn)[1]
 
 
 def rel_err(got, want) -> float:
@@ -578,16 +622,17 @@ def fwd_plan_row(B: int, H: int, cd, dev) -> dict:
             "smem_bytes": plan.smem_bytes, "passes": plan.passes}
 
 
-def lstm_train_vs_plain(rng: np.random.Generator, dev) -> dict:
+def lstm_train_vs_plain(rng: np.random.Generator, dev, H: int = 512,
+                        cases=TRAIN_LSTM_CASES, main_case=TRAIN_MAIN) -> dict:
     """lstm_fwd with activations and lstm_bwd against their plain loops at
-    the training path's shapes; lstm_bwd run twice must give identical
-    bits. Beside the kernel's time: the kernel with the dW_hh product, as
-    LSTMCore.backward runs them (`bwd_with_dw_ms`), and with the input
-    projection's gradients too (`bwd_layer_ms`: dx, dW_ih, db), the work
-    of cuDNN's backward; the kernel's tile (bwd_plan) and grid barriers."""
-    H = 512
+    the training path's shapes (`cases` at hidden width H); lstm_bwd run
+    twice must give identical bits. Beside the kernel's time: the kernel
+    with the dW_hh product, as LSTMCore.backward runs them
+    (`bwd_with_dw_ms`), and with the input projection's gradients too
+    (`bwd_layer_ms`: dx, dW_ih, db), the work of cuDNN's backward; the
+    kernel's tile (bwd_plan) and grid barriers."""
     rows, worst, main = [], {"fwd": 0.0, "bwd": 0.0}, None
-    for name, B, T, I, with_state in TRAIN_LSTM_CASES:
+    for name, B, T, I, with_state in cases:
         k = 1.0 / np.sqrt(H)
         w_ih = torch.from_numpy(rng.uniform(-k, k, (I, 4 * H))).float().to(dev)
         w_hh = torch.from_numpy(rng.uniform(-k, k, (H, 4 * H))).float().to(dev)
@@ -669,7 +714,7 @@ def lstm_train_vs_plain(rng: np.random.Generator, dev) -> dict:
                    "bwd_barriers": T,
                    "fwd_bound": bound(nbytes(fwd_args, got), ops, cd),
                    "bwd_bound": bound(nbytes(bwd_args, got_b), ops, cd)}
-            if (name, cd) == TRAIN_MAIN:
+            if (name, cd) == main_case:
                 row.update(cudnn_lstm_ms(x, w_ih, w_hh, b, h0, c0))
             print("kernel lstm_fwd_with_acts+lstm_bwd " + json.dumps(row))
             check(ok, f"lstm training kernels {name} {cd}: fwd err {err_f} "
@@ -682,7 +727,7 @@ def lstm_train_vs_plain(rng: np.random.Generator, dev) -> dict:
             rows.append(row)
             worst["fwd"] = max(worst["fwd"], err_f)
             worst["bwd"] = max(worst["bwd"], err_b)
-            if (name, cd) == TRAIN_MAIN:
+            if (name, cd) == main_case:
                 main = row
     return {"rows": rows, "worst": worst, "main": main}
 
@@ -925,10 +970,13 @@ def lattice_tiles_vs_plain(rng: np.random.Generator, dev) -> None:
         lpb_m, lpy_m = rl._masked_transitions(lpb, lpy, fl, ll)
         accept = rl._accept_scores(lpb, fl, ll)
         a_args = (lpb_m, lpy_m)
-        want_a = lat.alpha_wavefront_reference(*a_args)
+        # the plain versions' loops take seconds: timed on their one run
+        want_a, alpha_plain_ms = cuda_ms_out(
+            lambda: lat.alpha_wavefront_reference(*a_args))
         got_a = lat.alpha_wavefront(*a_args)
         b_args = (lpb_m, lpy_m, accept, want_a, fl)
-        want_b = lat.beta_occupancies_reference(*b_args)
+        want_b, beta_plain_ms = cuda_ms_out(
+            lambda: lat.beta_occupancies_reference(*b_args))
         got_b = lat.beta_occupancies(*b_args)
         err_a, rel_a, unreach_a = lattice_err(got_a, want_a)
         err_b, rel_b, unreach_b = lattice_err(got_b[0], want_b[0])
@@ -943,10 +991,8 @@ def lattice_tiles_vs_plain(rng: np.random.Generator, dev) -> None:
                "occ_max_abs_err": err_occ,
                "alpha_ms": cuda_ms(lambda: lat.alpha_wavefront(*a_args)),
                "beta_ms": cuda_ms(lambda: lat.beta_occupancies(*b_args)),
-               "alpha_plain_ms": cuda_ms(
-                   lambda: lat.alpha_wavefront_reference(*a_args)),
-               "beta_plain_ms": cuda_ms(
-                   lambda: lat.beta_occupancies_reference(*b_args))}
+               "alpha_plain_ms": alpha_plain_ms,
+               "beta_plain_ms": beta_plain_ms}
         print("kernel lattice_tiles " + json.dumps(row))
         check(rel_a <= LATTICE_RTOL and rel_b <= LATTICE_RTOL
               and unreach_a and unreach_b and err_occ <= OCC_ATOL,
@@ -1604,26 +1650,29 @@ def decode_batch(params, cfg, feats, lens, plain: bool):
     return enc, [tok[b, :n[b]].tolist() for b in range(len(n))]
 
 
-def serving_setup(seed: int, n_requests: int, dev) -> dict:
-    """The served model (libri100, random weights from the seed, the blank
-    offset of `blank_offset`) and the requests' utterances."""
+def serving_setup(seed: int, n_requests: int, dev, cfg=None,
+                  frames=(150, 800)) -> dict:
+    """The served model (libri100 unless `cfg` is given, random weights
+    from the seed, the blank offset of `blank_offset`) and the requests'
+    utterances, of `frames` frames (the first two at its ends)."""
     rng = np.random.default_rng(seed)
-    cfg = config_libri100()
+    cfg = cfg or config_libri100()
     params = m.init_params(cfg, rng, dev)
     offset = blank_offset(params, cfg, dev, rng)
     params["joint"]["out"]["b"][cfg.blank] += offset
-    lengths = rng.integers(150, 801, size=n_requests)
-    lengths[:2] = (150, 800)
+    lengths = rng.integers(frames[0], frames[1] + 1, size=n_requests)
+    lengths[:2] = frames
     utts = [rng.normal(size=(int(T), cfg.input_dim)).astype(np.float32)
             for T in lengths]
     return {"cfg": cfg, "params": params, "offset": offset,
             "lengths": lengths, "utts": utts}
 
 
-def served_batch(serving: dict, dev):
-    """The first max_batch utterances padded to the largest bucket, as the
-    engine pads a batch of them: feats (8, 800, 80) and lengths."""
-    B, tb = min(MAX_BATCH, len(serving["utts"])), BUCKETS[-1]
+def served_batch(serving: dict, dev, tb: int = BUCKETS[-1]):
+    """The first max_batch utterances padded to the bucket of tb frames
+    (the largest by default), as the engine pads a batch of them: feats
+    (8, tb, 80) and lengths."""
+    B = min(MAX_BATCH, len(serving["utts"]))
     feats = np.zeros((B, tb, serving["cfg"].input_dim), np.float32)
     lens = np.zeros((B,), np.int32)
     for i in range(B):
@@ -3204,17 +3253,21 @@ def audio_phase(serving: dict, seed: int, dev) -> dict:
 
 # ------------------------------ phase 5 ----------------------------------
 
-def bench_batch(cfg, seed: int, dev, U: int = TRAIN_U, B: int = TRAIN_B):
-    """bench.py's batch: B utterances of noise features, full frame and
-    label lengths, U random labels, from the seed."""
+def bench_batch(cfg, seed: int, dev, U: int = TRAIN_U, B: int = TRAIN_B,
+                T: int = TRAIN_T, ragged: bool = False):
+    """bench.py's batch: B utterances of T noise frames, full frame and
+    label lengths, U random labels, from the seed. ragged=True: frame
+    lengths in [T/2, T] and label lengths in [U/2, U], the first row
+    full."""
     rng = np.random.default_rng(seed)
-    T = TRAIN_T
     feats = rng.normal(size=(B, T, cfg.input_dim)).astype(np.float32)
     labels = rng.integers(1, cfg.vocab_size, size=(B, U)).astype(np.int32)
-    return (torch.from_numpy(feats).to(dev),
-            torch.full((B,), T, dtype=torch.int32, device=dev),
-            torch.from_numpy(labels).to(dev),
-            torch.full((B,), U, dtype=torch.int32, device=dev))
+    fl, ll = np.full((B,), T, np.int32), np.full((B,), U, np.int32)
+    if ragged:
+        fl[1:] = rng.integers(T // 2, T + 1, size=B - 1)
+        ll[1:] = rng.integers(U // 2, U + 1, size=B - 1)
+    return (torch.from_numpy(feats).to(dev), torch.from_numpy(fl).to(dev),
+            torch.from_numpy(labels).to(dev), torch.from_numpy(ll).to(dev))
 
 
 def leaves(tree):
@@ -3277,7 +3330,7 @@ def profile_step(step, state, batch, profile_dir, name="train_step"):
                 "reduce": ("reduce_kernel",)}
     device = {k: 0.0 for k in (*families, "other")}
     launches = {k: 0 for k in device}
-    host, span, ops = {}, {}, []
+    host, span, ops, joint_kernels = {}, {}, [], {}
     for evt in prof.key_averages():
         if evt.key in tl.SPANS:  # a span: host time, and its device range
             if evt.device_type == DeviceType.CUDA:
@@ -3294,13 +3347,17 @@ def profile_step(step, state, batch, profile_dir, name="train_step"):
         device[fam] += ms
         launches[fam] += evt.count
         ops.append((ms, evt.count, evt.key))
+        if fam.startswith("joint_"):  # which form of K1 / K2 ran
+            hit = re.search(r"joint_[a-z_]+", evt.key)
+            name = hit.group(0) if hit else evt.key[:60]
+            joint_kernels[name] = joint_kernels.get(name, 0) + evt.count
     busy = sum(device.values())
     top = [{"op": k[:120], "ms": ms, "launches": n}
            for ms, n, k in sorted(ops, reverse=True)[:10]]
     out = {"wall_ms": wall_ms, "device_ms": device, "device_launches":
            launches, "device_busy_share": busy / wall_ms,
            "host_span_ms": host, "device_span_ms": span,
-           "top_device_ops": top}
+           "top_device_ops": top, "joint_kernels": joint_kernels}
     if profile_dir:
         os.makedirs(profile_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(profile_dir, f"{name}.json"))
@@ -3409,7 +3466,8 @@ def leaf_paths(tree, path: str = ""):
 
 def f32_kernels_vs_plain(seed: int, dev, loss_impl: str = "fused",
                          U: int = TRAIN_U, cfg=None,
-                         B: int = TRAIN_B, **loss_kw) -> dict:
+                         B: int = TRAIN_B, T: int = TRAIN_T,
+                         **loss_kw) -> dict:
     """One f32 loss and gradient of the model (libri100 unless `cfg` is
     given), B utterances, T=400, U labels, through the kernels and through
     the plain versions.
@@ -3422,7 +3480,7 @@ def f32_kernels_vs_plain(seed: int, dev, loss_impl: str = "fused",
     cfg = dataclasses.replace(cfg or config_libri100(),
                               compute_dtype="float32")
     params = m.init_params(cfg, np.random.default_rng(seed + 2), dev)
-    batch = bench_batch(cfg, seed + 2, dev, U, B)
+    batch = bench_batch(cfg, seed + 2, dev, U, B, T)
     flat, spec = torch.utils._pytree.tree_flatten(params)
     names = list(leaf_paths(params))
     check(len(names) == len(flat), "leaf_paths disagrees with the pytree")
@@ -3446,7 +3504,7 @@ def f32_kernels_vs_plain(seed: int, dev, loss_impl: str = "fused",
                                                           noise + noise)
                      if z] or [0.0])
     row = {"model": "conformer" if cfg.enc_type == "conformer" else "lstm",
-           "B": B, "loss_impl": loss_impl, "U": U, "loss_kernels": lk,
+           "B": B, "T": T, "loss_impl": loss_impl, "U": U, "loss_kernels": lk,
            "loss_plain": lp, "loss_rel_err": loss_rel,
            "loss_rtol": LOSS_RTOL, "grad_worst_rel_err": worst,
            "grad_rtol": GRAD_RTOL, "leaves": len(gk),
@@ -3547,7 +3605,7 @@ def timed_steps(step, state, batch, B: int = TRAIN_B):
 
 
 def train_run(seed: int, dev, loss_impl: str, U: int, cfg=None,
-              B: int = TRAIN_B, **tcfg_kw):
+              B: int = TRAIN_B, T: int = TRAIN_T, **tcfg_kw):
     """A fresh state (libri100 unless `cfg` is given) trained on bench.py's
     batch of B utterances with U labels: the step, its state after the
     timed steps, the batch and the result."""
@@ -3557,13 +3615,13 @@ def train_run(seed: int, dev, loss_impl: str, U: int, cfg=None,
                        loss_impl=loss_impl, **tcfg_kw)
     state = tl.init_train_state(np.random.default_rng(seed), cfg, tcfg, dev)
     step = tl.make_train_step(cfg, tcfg)
-    batch = bench_batch(cfg, seed, dev, U, B)
+    batch = bench_batch(cfg, seed, dev, U, B, T)
     p0 = [p.clone() for p in leaves(state.params)]
     torch.cuda.reset_peak_memory_stats()
     state, result = timed_steps(step, state, batch, B)
     moved = max(float((a - b).abs().max())
                 for a, b in zip(leaves(state.params), p0))
-    result = {"B": B, "T": TRAIN_T, "U": U, "dtype": "bfloat16",
+    result = {"B": B, "T": T, "U": U, "dtype": "bfloat16",
               "loss_impl": loss_impl, **result, "param_max_change": moved}
     check(moved > 0.0, "the params did not change over the training steps")
     return step, state, batch, result
@@ -3789,6 +3847,587 @@ def train_ar_phase(seed: int, dev, profile_dir) -> dict:
     return result
 
 
+# ------------------------------ phase 5f ---------------------------------
+# BASELINE.json's configs[1] and configs[4] at full width, random weights
+# from the seed. TIMIT: the 3x320 BiLSTM (no frame stacking, 1x320
+# predictor, joint 320, V=63) at a batch of 16 utterances of T=300 frames
+# (3 s) and U=40 phones; served requests of 1-3 s. libri960: the 6x1024
+# LSTM (2x stacking, 2x1024 predictor, embed 512, joint 1024, V=32) at
+# bench.py's B=64, T=400, U=60 (bench.py:126-133), where `auto` takes the
+# two-pass loss (J > MAX_J), and its f32 kernel-vs-plain step at the same
+# B=64 (so the K4 kernels take the timed step's tiles) and a short T=64,
+# U=10 (the plain recurrences run step by step).
+TIMIT_B, TIMIT_T, TIMIT_U = 16, 300, 40
+TIMIT_FRAMES, TIMIT_BUCKET = (100, 300), 400
+L960_B, L960_T, L960_U = 64, 400, 60
+L960_F32 = dict(B=L960_B, T=64, U=10)
+# The BiLSTM encode's bf16 kernel-vs-plain bound: ATOL's 2e-2 for each of
+# TIMIT's three layers (both sides round the same operands; a 1-ulp gap
+# before a rounding flips a bf16 value, and the flips carry into the next
+# layer).
+BILSTM_BF16_ATOL = 3 * ATOL[torch.bfloat16]
+TRAJECTORY_STEPS = 3
+# Two gloo ranks share the card at libri960 width: one f32 step, then
+# DP_STEPS bf16 steps (the first warms the ranks' kernels and handles;
+# the others are timed). A collective waits at most DP_TIMEOUT_S.
+DP_RANKS, DP_STEPS, DP_TIMEOUT_S = 2, 4, 600
+
+
+def bilstm_encode_vs_plain(seed: int, dev) -> dict:
+    """TIMIT's BiLSTM `encode` at B=16, T=300, ragged lengths (one row of a
+    single frame) through the kernels and the plain versions: 6 K4-fwd
+    launches (3 layers x 2 directions), f32 within ATOL, bf16 within
+    BILSTM_BF16_ATOL (the output is masked past each row's length)."""
+    cfg = config_timit()
+    rng = np.random.default_rng(seed)
+    params = m.init_params(cfg, rng, dev)
+    B, T = TIMIT_B, TIMIT_T
+    feats = torch.from_numpy(rng.normal(size=(B, T, cfg.input_dim)).astype(
+        np.float32)).to(dev)
+    lens = rng.integers(T // 3, T + 1, size=B)
+    lens[0], lens[1] = T, 1
+    lens = torch.from_numpy(lens.astype(np.int32)).to(dev)
+    row = {"B": B, "T": T, "H": cfg.enc_hidden, "layers": cfg.enc_layers,
+           "lens_min": int(lens.min())}
+    for cd in ("float32", "bfloat16"):
+        c = dataclasses.replace(cfg, compute_dtype=cd)
+        with torch.inference_mode():
+            reset_counts()
+            got = m.encode(params, c, feats, lens)[0]
+            torch.cuda.synchronize()
+            n = read_counts()["lstm_fwd"]
+            kms = cuda_ms(lambda: m.encode(params, c, feats, lens))
+            with plain_kernels():
+                want = m.encode(params, c, feats, lens)[0]
+                pms = cuda_ms(lambda: m.encode(params, c, feats, lens))
+        tol = ATOL[torch.float32] if cd == "float32" else BILSTM_BF16_ATOL
+        err = max_abs(got, want)
+        row[cd] = {"max_abs_err": err, "atol": tol, "kernel_ms": kms,
+                   "plain_ms": pms, "lstm_fwd_launches": n}
+        check(n == 2 * cfg.enc_layers,
+              f"TIMIT encode {cd}: {n} K4-fwd launches, not "
+              f"{2 * cfg.enc_layers}")
+        check(err <= tol, f"TIMIT BiLSTM encode {cd}: kernels vs plain "
+                          f"{err} > {tol}")
+    print("timit_encode " + json.dumps(row))
+    return row
+
+
+def f32_trajectory_vs_plain(cfg, seed: int, dev, B: int, T: int,
+                            U: int) -> list:
+    """TRAJECTORY_STEPS f32 training steps of `cfg` through the kernels on
+    a ragged batch; at each step the loss and gradients of its params
+    through the kernels and through the plain versions: the loss within
+    LOSS_RTOL, every gradient leaf within GRAD_RTOL of its largest value,
+    no step skipped."""
+    cfg = dataclasses.replace(cfg, compute_dtype="float32")
+    # no warmup: every step moves the params
+    tcfg = TrainConfig(batch_size=B, warmup_steps=0, total_steps=100)
+    state = tl.init_train_state(np.random.default_rng(seed + 2), cfg, tcfg,
+                                dev)
+    step = tl.make_train_step(cfg, tcfg)
+    batch = bench_batch(cfg, seed + 2, dev, U, B, T, ragged=True)
+    rows = []
+    for i in range(TRAJECTORY_STEPS):
+        flat, spec = torch.utils._pytree.tree_flatten(state.params)
+        lk, gk = tl.loss_and_grads(flat, spec, cfg, *batch)
+        with plain_kernels():
+            lp, gp = tl.loss_and_grads(flat, spec, cfg, *batch)
+        lk, lp = float(lk), float(lp)
+        row = {"step": i, "loss_kernels": lk, "loss_plain": lp,
+               "loss_rel_err": abs(lk - lp) / abs(lp),
+               "grad_worst_rel_err": max(rel_err(a, b)
+                                         for a, b in zip(gk, gp)),
+               "leaves": len(gk)}
+        del gk, gp
+        state, info = step(state, *batch)
+        row.update(step_loss=float(info["loss"]),
+                   skipped=int(info["skipped_nonfinite"]))
+        rows.append(row)
+        check(row["loss_rel_err"] <= LOSS_RTOL
+              and row["grad_worst_rel_err"] <= GRAD_RTOL
+              and row["skipped"] == 0,
+              f"f32 trajectory step {i}: kernels vs plain {row}")
+    print("train_f32_trajectory " + json.dumps(
+        {"enc_hidden": cfg.enc_hidden, "bidirectional": cfg.bidirectional,
+         "B": B, "T": T, "U": U, "steps": rows}))
+    return rows
+
+
+def check_step_counts(result: dict, want: dict, what: str) -> None:
+    """Each kernel's launches over the timed steps: `want` a step."""
+    counts, steps = result["launches"], result["steps"]
+    for name, per_step in want.items():
+        check(counts[name] == per_step * steps,
+              f"{what}: {counts[name]} {name} launches in {steps} steps, "
+              f"not {per_step} a step")
+    check_no_band(counts, what)
+
+
+def joint_cuda_core_ms(seed: int, dev, B, T, U, J, V) -> dict:
+    """K1 and K2 at a joint whose V is odd, where both take their
+    CUDA-core form at bf16 (TIMIT's V=63): against their plain versions,
+    ms of each by CUDA events in turns, beside the bound."""
+    rng = np.random.default_rng(seed)
+    k = 1.0 / np.sqrt(J)
+    f = torch.from_numpy(0.5 * rng.normal(size=(B, T, J))).float().to(dev)
+    g = torch.from_numpy(0.5 * rng.normal(size=(B, U + 1, J))).float().to(dev)
+    w = torch.from_numpy(rng.uniform(-k, k, (J, V))).to(torch.bfloat16).to(
+        dev)
+    b = torch.from_numpy(rng.uniform(-k, k, V)).float().to(dev)
+    labels = torch.from_numpy(rng.integers(1, V, (B, U))).int().to(dev)
+    fl = torch.full((B,), T, dtype=torch.int32, device=dev)
+    ll = torch.full((B,), U, dtype=torch.int32, device=dev)
+    gbar = torch.full((B,), 1.0 / B, device=dev)
+    fwd_args = (f, g, labels, w, b)
+    want = jf.joint_lp_fwd_reference(*fwd_args)
+    got = jf.joint_lp_fwd(*fwd_args)
+    gb, gy = rl.occupancies_from_lp(want[0], want[1], fl, ll)
+    bwd_args = (f, g, labels, w, b, gb, gy, want[2], gbar)
+    want_b = jf.joint_lp_bwd_reference(*bwd_args)
+    got_b = jf.joint_lp_bwd(*bwd_args)
+    err_f = max(max_abs(x, y) for x, y in zip(got, want))
+    rel_b = max(rel_err(x, y) for x, y in zip(got_b, want_b))
+    kf, pf = timed_pair(lambda: jf.joint_lp_fwd(*fwd_args),
+                        lambda: jf.joint_lp_fwd_reference(*fwd_args))
+    kb, pb = timed_pair(lambda: jf.joint_lp_bwd(*bwd_args),
+                        lambda: jf.joint_lp_bwd_reference(*bwd_args))
+    ops = 2 * B * T * (U + 1) * J * V
+    row = {"B": B, "T": T, "U1": U + 1, "J": J, "V": V, "dtype": "bfloat16",
+           "tensor_core_form": jf.tensor_core_form(torch.bfloat16, J, V),
+           "fwd_max_abs_err": err_f, "bwd_max_rel_err": rel_b,
+           "fwd_kernel_ms": kf, "fwd_plain_ms": pf, "bwd_kernel_ms": kb,
+           "bwd_plain_ms": pb,
+           "fwd_bound": bound(nbytes(fwd_args, got), ops, torch.bfloat16),
+           "bwd_bound": bound(nbytes(bwd_args, got_b), 3 * ops,
+                              torch.bfloat16)}
+    print("kernel joint_cuda_core " + json.dumps(row))
+    check(not row["tensor_core_form"], "odd V took the ring form")
+    check(err_f <= ATOL[torch.bfloat16] and rel_b <= REL_TOL[torch.bfloat16],
+          f"K1 / K2 at odd V: fwd err {err_f}, bwd rel err {rel_b}")
+    return row
+
+
+# The served TIMIT and libri960 models, made to emit along an utterance
+# (`emitting_model`): the joint's predictor side standardized to
+# EMIT_PRED_STD over EMIT_WALKS random-token walks of EMIT_DEPTH steps and
+# the repeated-token runs, its encoder side to 1 over EMIT_CAL_UTTS
+# calibration utterances. Chosen on the H100 among predictor stds 1-3
+# (and encoder input gains 1-8): the one that left both models a few
+# tokens an utterance and no calibration utterance at max_symbols.
+EMIT_PRED_STD = 3.0
+EMIT_WALKS, EMIT_DEPTH, EMIT_CAL_UTTS = 8, 16, 8
+
+
+def emitting_model(params, cfg, dev, rng, frames) -> dict:
+    """Make a random LSTM transducer (params, in place) emit a few tokens
+    along an utterance; its calibration. At init a deep random LSTM
+    barely sees its input (libri960's joint input varies ~3e-4 over
+    frames against a mean of ~6e-3), and every emission moves the
+    predictor's output the same way: with `blank_offset` each utterance
+    emits nothing or runs to max_symbols on its first frames, and the
+    token checks compare empty or frame-blind lists. Here the joint's
+    encoder side is standardized over the frames of EMIT_CAL_UTTS
+    calibration utterances (mean 0, std 1 a unit); the predictor's drift
+    with the number of emissions (the means over walks at each depth) is
+    projected out of pred_proj and the rest standardized to
+    EMIT_PRED_STD; and blank's offset is the least, by bisection to
+    2^-11 over [-4, 4], at which no calibration utterance reaches
+    max_symbols, in f32 or in `cfg`'s compute dtype (the engine's)."""
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    n, V, jp = EMIT_CAL_UTTS, cfg.vocab_size, params["joint"]
+    feats = torch.from_numpy(rng.normal(size=(n, frames[1], cfg.input_dim))
+                             ).float().to(dev)
+    lens = torch.from_numpy(np.linspace(frames[0], frames[1], n).astype(
+        np.int32)).to(dev)
+    walks = torch.cat([torch.from_numpy(rng.integers(1, V, (
+        EMIT_DEPTH, EMIT_WALKS))).to(dev),
+        torch.arange(1, V, device=dev).repeat(EMIT_DEPTH, 1)], 1)
+    with torch.no_grad():
+        enc, el = m.encode(params, f32, feats, lens)
+        enc = torch.cat([enc[b, :int(el[b])] for b in range(n)])
+        state = m.init_pred_state(f32, walks.shape[1], dev)
+        label = torch.full((walks.shape[1],), cfg.blank, device=dev)
+        preds = []
+        for d in range(EMIT_DEPTH + 1):
+            pred, state = m.predict_step(params, f32, label, state)
+            preds.append(pred)
+            label = walks[min(d, EMIT_DEPTH - 1)]
+        preds = torch.stack(preds)  # (depth + 1, walks, H)
+        means = preds.mean(1)
+        q = torch.linalg.qr((means - means.mean(0)).T)[0]
+        w = jp["pred_proj"]["w"]
+        w -= q @ (q.T @ w)
+        row = {"pred_std": EMIT_PRED_STD}
+        for side, x, std in (("enc_proj", enc, 1.0),
+                             ("pred_proj", preds.flatten(0, 1),
+                              EMIT_PRED_STD)):
+            z = x @ jp[side]["w"]
+            scale = std / float(z.std(0).mean())
+            row[f"{side}_frame_std" if side == "enc_proj" else
+                f"{side}_state_std"] = float(z.std(0).mean())
+            jp[side]["w"] *= scale
+            jp[side]["b"] -= scale * z.mean(0)
+    blank_b = jp["out"]["b"][cfg.blank].clone()
+    lo, hi, trace = -4.0, 4.0, []
+    for _ in range(14):
+        mid = (lo + hi) / 2
+        jp["out"]["b"][cfg.blank] = blank_b + mid
+        with torch.inference_mode():
+            k = [recognize_greedy(params, c, feats, lens, MAX_SYMBOLS)[1]
+                 .tolist() for c in (f32, cfg)]
+        trace.append((mid, k))
+        if max(max(k[0]), max(k[1])) >= MAX_SYMBOLS:
+            lo = mid
+        else:
+            hi = mid
+    check(hi < 4.0, f"no blank offset up to 4 keeps the calibration "
+                    f"utterances under {MAX_SYMBOLS} tokens: {trace}")
+    jp["out"]["b"][cfg.blank] = blank_b + hi
+    row.update(offset=hi, calibration_tokens=dict(trace)[hi])
+    return row
+
+
+def emitting_setup(seed: int, n: int, dev, cfg, frames, what: str) -> dict:
+    """serving_setup's requests, to `cfg`'s random model made to emit by
+    `emitting_model` (calibrated on utterances of its own)."""
+    serving = serving_setup(seed, n, dev, cfg, frames)
+    params = serving["params"]
+    params["joint"]["out"]["b"][cfg.blank] -= serving["offset"]
+    cal = emitting_model(params, cfg, dev, np.random.default_rng(seed + 1),
+                         frames)
+    print("emitting_model " + json.dumps({"what": what, **cal}))
+    return {**serving, "offset": cal["offset"], "calibration": cal}
+
+
+def config_serving(cfg, seed: int, n: int, dev, frames, bucket: int,
+                   int8: bool, what: str) -> tuple[dict, dict]:
+    """n requests to a BatchingEngine of `cfg` (made to emit by
+    `emitting_setup`) at serve.py's defaults, float and (int8=True) int8:
+    one K4-fwd launch a layer direction a batch (K7 under int8 where the
+    W8A8 route runs, else K4-fwd on the dequantized w_hh), a mean of
+    tokens a request strictly between 0 and max_symbols, and one served
+    batch's f32 tokens equal through the kernels and the plain
+    versions."""
+    serving = emitting_setup(seed, n, dev, cfg, frames, what)
+    params = serving["params"]
+    feats, lens = served_batch(serving, dev, bucket)
+    per_batch = cfg.enc_layers * (2 if cfg.bidirectional else 1)
+    w8a8 = int8 and w8a8_supported(MAX_BATCH, cfg.enc_hidden)
+    out = {}
+    for name, p in (("float", params),) + ((("int8", quantize_params(
+            params)),) if int8 else ()):
+        _, res, counts = serve_all(serving, p, dev)
+        k = "lstm_fwd_int8" if name == "int8" and w8a8 else "lstm_fwd"
+        other = "lstm_fwd" if k == "lstm_fwd_int8" else "lstm_fwd_int8"
+        res.update(launches=counts[k], kernel=k)
+        print(f"{what}_{name} " + json.dumps(res))
+        check(counts[k] == per_batch * res["batches"]
+              and counts[other] == 0,
+              f"{what} {name}: {counts[k]} {k} and {counts[other]} {other} "
+              f"launches in {res['batches']} batches, not {per_batch} {k} "
+              "a batch")
+        check_no_band(counts, f"{what} {name}")
+        check(0 < res["mean_tokens"] < MAX_SYMBOLS,
+              f"{what} {name}: {res['mean_tokens']} tokens a request on "
+              f"average, not between 0 and {MAX_SYMBOLS}")
+        res["kernel_vs_plain"] = kernel_vs_plain_tokens(p, cfg, feats, lens,
+                                                        f"{what} {name}")
+        res["kernel_vs_plain"].pop("enc_f32")
+        out[name] = res
+    return out, serving
+
+
+@contextlib.contextmanager
+def part(seconds: dict, name: str):
+    """The wall seconds of the block, into seconds[name]."""
+    t0 = time.perf_counter()
+    yield
+    seconds[name] = time.perf_counter() - t0
+
+
+def timit_phase(seed: int, dev, profile_dir) -> dict:
+    """Phase 5f (a): configs[1], TIMIT's 3x320 BiLSTM."""
+    cfg = config_timit()
+    out, sec = {}, {}
+    with part(sec, "encode"):
+        out["encode"] = bilstm_encode_vs_plain(seed + 40, dev)
+    with part(sec, "f32_trajectory"):
+        out["f32_trajectory"] = f32_trajectory_vs_plain(
+            cfg, seed + 41, dev, TIMIT_B, TIMIT_T, TIMIT_U)
+    torch.cuda.empty_cache()
+    with part(sec, "train"):
+        step, state, batch, result = train_run(seed + 42, dev, "auto",
+                                               TIMIT_U, cfg, TIMIT_B,
+                                               TIMIT_T)
+        layer_calls = 2 * cfg.enc_layers + cfg.pred_layers  # 7
+        check_step_counts(result, {"lstm_fwd_with_acts": layer_calls,
+                                   "lstm_bwd": layer_calls, "lstm_fwd": 0,
+                                   "joint_fwd": 1, "joint_bwd": 1,
+                                   "lattice_alpha": 1, "lattice_beta": 1,
+                                   "extract_lp": 0, "assemble_grad": 0},
+                          "the TIMIT step")
+        state, prof = profile_step(step, state, batch, profile_dir,
+                                   "train_timit_step")
+        check_lstm_launches(prof, result, "TIMIT")
+        jk = prof["joint_kernels"]
+        check(jk.get("joint_fwd_kernel") == 1
+              and jk.get("joint_bwd_a_kernel") == 1
+              and jk.get("joint_bwd_b_kernel") == 1
+              and not any(("ring" in n or "_wt" in n or "_zb" in n)
+                          for n in jk),
+              f"the TIMIT step's joint kernels {jk}: not K1 / K2's "
+              "CUDA-core form (V = 63 is odd)")
+        result["profile"] = prof
+        print("train_timit " + json.dumps(result))
+        out["train"] = result
+        del step, state, batch
+        torch.cuda.empty_cache()
+    with part(sec, "joint"):
+        out["joint"] = joint_cuda_core_ms(seed + 43, dev, TIMIT_B, TIMIT_T,
+                                          TIMIT_U, cfg.joint_dim,
+                                          cfg.vocab_size)
+    with part(sec, "serve"):
+        out["serve"], _ = config_serving(
+            cfg, seed + 44, MAX_BATCH, dev, TIMIT_FRAMES, TIMIT_BUCKET, True,
+            "timit_serve")
+    torch.cuda.empty_cache()
+    print("configs_seconds " + json.dumps({"timit": sec}))
+    return out
+
+
+def libri960_phase(seed: int, dev, profile_dir, n_requests: int) -> dict:
+    """Phase 5f (b): configs[4], libri960's 6x1024 LSTM."""
+    cfg = config_libri960()
+    out, sec = {}, {}
+    with part(sec, "train"):
+        step, state, batch, result = train_run(seed + 50, dev, "auto",
+                                               L960_U, cfg, L960_B, L960_T)
+        layer_calls = cfg.enc_layers + cfg.pred_layers  # 8
+        check_step_counts(result, {"lstm_fwd_with_acts": layer_calls,
+                                   "lstm_bwd": layer_calls, "lstm_fwd": 0,
+                                   "extract_lp": 1, "assemble_grad": 1,
+                                   "lattice_alpha": 1, "lattice_beta": 1,
+                                   "joint_fwd": 0, "joint_bwd": 0},
+                          "the libri960 step")
+        state, prof = profile_step(step, state, batch, profile_dir,
+                                   "train_libri960_step")
+        check_lstm_launches(prof, result, "libri960")
+        result["profile"] = prof
+        print("train_libri960 " + json.dumps(result))
+        out["train"] = result
+        del step, state, batch
+        torch.cuda.empty_cache()
+    with part(sec, "f32"):
+        out["f32"] = f32_kernels_vs_plain(seed + 51, dev, "auto",
+                                          L960_F32["U"], cfg, L960_F32["B"],
+                                          L960_F32["T"])
+    torch.cuda.empty_cache()
+    with part(sec, "serve"):
+        out["serve"], serving = config_serving(
+            cfg, seed + 52, n_requests, dev, (150, 800), BUCKETS[-1], True,
+            "libri960_serve")
+    with part(sec, "streaming"):
+        out["streaming"] = config_streaming(serving, dev, "libri960")
+    del serving
+    torch.cuda.empty_cache()
+    print("configs_seconds " + json.dumps({"libri960": sec}))
+    return out
+
+
+def config_streaming(serving: dict, dev, what: str) -> dict:
+    """8 sessions of 32-frame chunks of the first 8 served utterances with
+    their /recognize requests at once: at f32 one K4-fwd launch a layer a
+    tick on the carried state, each session equal to the offline
+    engine's answer; at bf16 the sessions alone, then the requests (the
+    ticks' host ms)."""
+    cfg, params = serving["cfg"], serving["params"]
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    utts = serving["utts"][:STREAM_SLOTS]
+    lengths = [u.shape[0] for u in utts]
+    run = serve_sessions(params, f32, utts, dev)
+    check_session_results(run, lengths, f"{what} f32")
+    per_tick = check_launches(run, "lstm_fwd", cfg.enc_layers, f"{what} f32")
+    agree = greedy_agreement(run)
+    check(agree["token_agreement"] == 1.0 and agree["frame_agreement"] == 1.0
+          and agree["max_confidence_gap"] <= CONF_ROUND,
+          f"streaming {what} f32: sessions differ from the offline engine "
+          f"{agree}")
+    bf = serve_sessions(params, cfg, utts, dev, at_once=False)
+    check_session_results(bf, lengths, f"{what} bf16")
+    check_launches(bf, "lstm_fwd", cfg.enc_layers, f"{what} bf16")
+    row = {"what": what, "launches": run["counts"]["lstm_fwd"]
+           + bf["counts"]["lstm_fwd"], "lstm_fwd_per_tick": per_tick,
+           "f32": agree, "mean_tokens": statistics.mean(
+               len(s["final"]) for s in run["sessions"]),
+           "bf16": {**greedy_agreement(bf), **tick_timing(bf, CHUNK_FRAMES)}}
+    print("streaming " + json.dumps(row))
+    check(0 < row["mean_tokens"] < MAX_SYMBOLS,
+          f"streaming {what} f32: {row['mean_tokens']} tokens a session on "
+          f"average, not between 0 and {MAX_SYMBOLS}")
+    return row
+
+
+def flat_digest(params) -> str:
+    """sha256 of every param leaf's bytes, in the pytree's order."""
+    h = hashlib.sha256()
+    for leaf in leaves(params):
+        h.update(leaf.detach().reshape(-1).contiguous().view(torch.uint8)
+                 .cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def dp_rank(mesh, seed: int, steps: int, f32: bool) -> dict:
+    """One rank of libri960's data-parallel run (phase 5f (c)): every rank
+    draws the whole B=64 batch and takes its rows. With f32: the loss and
+    gradients of the rank's rows averaged over the ranks (`pmean`, the
+    step's all-reduce). Then `steps` bf16 steps of make_train_step(mesh=),
+    each followed by every rank's params digest. Rank 0's result."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = mesh.device
+    cfg = config_libri960()
+    shard = meshlib.shard_batch(mesh, bench_batch(cfg, seed, dev, L960_U,
+                                                  L960_B, L960_T))
+    out = {"rank": mesh.rank, "rows": int(shard[0].shape[0]),
+           "backend": mesh.backend}
+    if f32:
+        c32 = dataclasses.replace(cfg, compute_dtype="float32")
+        params = meshlib.replicate(mesh, m.init_params(
+            c32, np.random.default_rng(seed + 2), dev))
+        flat, spec = torch.utils._pytree.tree_flatten(params)
+        loss, grads = tl.pmean(mesh, *tl.loss_and_grads(flat, spec, c32,
+                                                        *shard))
+        out["f32"] = (float(loss), grads)
+        del params, flat, grads
+        torch.cuda.empty_cache()
+    tcfg = TrainConfig(batch_size=L960_B, warmup_steps=100,
+                       total_steps=10000)
+    state = tl.init_train_state(np.random.default_rng(seed), cfg, tcfg, dev)
+    state = dataclasses.replace(
+        state, params=meshlib.replicate(mesh, state.params),
+        opt_state=meshlib.replicate(mesh, state.opt_state))
+    step = tl.make_train_step(cfg, tcfg, mesh=mesh)
+    torch.cuda.reset_peak_memory_stats()
+    rows = []
+    reset_counts()
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, info = step(state, *shard)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        rows.append({"ms": ms, "loss": float(info["loss"]),
+                     "skipped": int(info["skipped_nonfinite"]),
+                     "digests": meshlib.all_gather_objects(
+                         mesh, flat_digest(state.params))})
+    out.update(steps=rows, launches=read_counts(),
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return out
+
+
+def dp_phase(seed: int, dev, one_process_ms: float) -> dict:
+    """Phase 5f (c): two gloo ranks share the card at libri960 width. The
+    f32 loss and all-reduced gradient of B=64 split 32 / 32 against one
+    process on the whole batch (LOSS_RTOL; every leaf within GRAD_RTOL of
+    its largest value); then bf16 steps, the ranks' params bit-equal
+    after each, ms a step beside the one-process step. Over two cards
+    of their own (where the machine shows two), the same steps on NCCL."""
+    cfg = config_libri960()
+    c32 = dataclasses.replace(cfg, compute_dtype="float32")
+    batch = bench_batch(cfg, seed, dev, L960_U, L960_B, L960_T)
+    params = m.init_params(c32, np.random.default_rng(seed + 2), dev)
+    flat, spec = torch.utils._pytree.tree_flatten(params)
+    want_loss, want_grads = tl.loss_and_grads(flat, spec, c32, *batch)
+    want_loss = float(want_loss)
+    del params, flat, batch
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    got = meshlib.spawn(dp_rank, DP_RANKS, [str(dev)] * DP_RANKS,
+                        args=(seed, DP_STEPS, True), timeout_s=DP_TIMEOUT_S)
+    wall_s = time.perf_counter() - t0
+    loss, grads = got.pop("f32")
+    loss_rel = abs(loss - want_loss) / abs(want_loss)
+    worst = max(rel_err(a, b) for a, b in zip(grads, want_grads))
+    del grads, want_grads
+    torch.cuda.empty_cache()
+    steps = got.pop("steps")
+    timed = [r["ms"] for r in steps[1:]]
+    row = {"ranks": DP_RANKS, "backend": got["backend"],
+           "devices": [str(dev)] * DP_RANKS,
+           "rows_a_rank": got["rows"], "f32_loss": loss,
+           "f32_loss_one_process": want_loss, "f32_loss_rel_err": loss_rel,
+           "f32_grad_worst_rel_err": worst,
+           "bf16_ms_per_step": statistics.mean(timed),
+           "bf16_step_ms": [r["ms"] for r in steps],
+           "one_process_ms_per_step": one_process_ms,
+           "losses": [r["loss"] for r in steps],
+           "params_bit_equal": [len(set(r["digests"])) == 1 for r in steps],
+           "launches_rank0": {k: v for k, v in got["launches"].items() if v},
+           "peak_mem_gb_rank0": got["peak_mem_gb"], "wall_s": wall_s}
+    print("dp " + json.dumps(row))
+    check(loss_rel <= LOSS_RTOL and worst <= GRAD_RTOL,
+          f"two ranks' f32 loss / gradient against one process: {loss_rel}, "
+          f"{worst}")
+    check(all(row["params_bit_equal"]),
+          f"the ranks' params differ after a step: {row['params_bit_equal']}")
+    check(all(r["skipped"] == 0 and np.isfinite(r["loss"]) for r in steps),
+          "a data-parallel step was skipped or non-finite")
+    layer_calls = cfg.enc_layers + cfg.pred_layers
+    n = len(steps)
+    for name, per_step in (("lstm_fwd_with_acts", layer_calls),
+                           ("lstm_bwd", layer_calls), ("extract_lp", 1),
+                           ("assemble_grad", 1), ("lattice_alpha", 1),
+                           ("lattice_beta", 1)):
+        check(got["launches"][name] == per_step * n,
+              f"rank 0 launched {name} {got['launches'][name]} times in {n} "
+              f"steps, not {per_step} a step")
+    if torch.cuda.device_count() >= 2:
+        nccl = meshlib.spawn(dp_rank, 2, ["cuda:0", "cuda:1"],
+                             args=(seed, 2, False), timeout_s=DP_TIMEOUT_S)
+        row["nccl"] = {"bit_equal": [len(set(r["digests"])) == 1
+                                     for r in nccl["steps"]],
+                       "ms": [r["ms"] for r in nccl["steps"]]}
+        print("dp_nccl " + json.dumps(row["nccl"]))
+        check(all(row["nccl"]["bit_equal"]),
+              "NCCL ranks' params differ after a step")
+    else:
+        print(f"dp_nccl unchecked: {torch.cuda.device_count()} card visible "
+              "(NCCL needs a card a rank)")
+    return row
+
+
+def configs_phase(seed: int, dev, profile_dir, n_requests: int) -> dict:
+    """Phase 5f: TIMIT (a), libri960 (b), libri960 on two ranks (c)."""
+    out = {}
+    for name, fn in (("timit", lambda: timit_phase(seed, dev, profile_dir)),
+                     ("libri960", lambda: libri960_phase(
+                         seed, dev, profile_dir, n_requests))):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        print(f"phase configs_{name}: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out["dp"] = dp_phase(seed + 60, dev,
+                         out["libri960"]["train"]["ms_per_step"])
+    print(f"phase configs_dp: {time.perf_counter() - t0:.1f} s")
+    launches = {
+        "timit_train": out["timit"]["train"]["launches"],
+        "timit_train_steps": out["timit"]["train"]["steps"],
+        "timit_serve": {k: out["timit"]["serve"][k]["launches"]
+                        for k in out["timit"]["serve"]},
+        "libri960_train": out["libri960"]["train"]["launches"],
+        "libri960_train_steps": out["libri960"]["train"]["steps"],
+        "libri960_serve": {k: out["libri960"]["serve"][k]["launches"]
+                           for k in out["libri960"]["serve"]},
+        "libri960_streaming": out["libri960"]["streaming"]["launches"],
+        "dp_rank0": out["dp"]["launches_rank0"]}
+    for k in ("timit_train", "libri960_train"):
+        launches[k] = {n: v for n, v in launches[k].items() if v}
+    print("configs_launches " + json.dumps(launches))
+    return out
+
+
+
 def kernel_entry(name, source, replaces, launches, err, ms, plain_ms,
                  bnd: dict, library_ms=None, kernel=None,
                  device_ms=None) -> dict:
@@ -3839,6 +4478,8 @@ def main(argv=None):
     t0 = time.perf_counter()
     k = kernel_vs_plain(np.random.default_rng(args.seed + 1), dev)
     kt = lstm_train_vs_plain(np.random.default_rng(args.seed + 3), dev)
+    k960 = lstm_train_vs_plain(np.random.default_rng(args.seed + 10), dev,
+                               1024, L960_LSTM_CASES, None)
     kj = joint_vs_plain(np.random.default_rng(args.seed + 4), dev)
     kl = lattice_vs_plain(np.random.default_rng(args.seed + 5), dev)
     kr = loss_rows_vs_plain(np.random.default_rng(args.seed + 6), dev)
@@ -3900,6 +4541,11 @@ def main(argv=None):
     train_ar_phase(args.seed, dev, args.profile_dir)
     print(f"phase train_ar: {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
+    # phase 5f: configs[1] (TIMIT) and configs[4] (libri960, two ranks)
+    t0 = time.perf_counter()
+    configs_phase(args.seed, dev, args.profile_dir, args.requests)
+    print(f"phase configs: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
 
     # phase 4f: beam serving (its profiled windows after the training
     # phases' kernel-name checks); then 4g, after every profiled window
@@ -3950,11 +4596,13 @@ def main(argv=None):
                      k["max_abs_err"], km["kernel_ms"], km["plain_ms"], km,
                      km["library_ms"]),
         kernel_entry("lstm_fwd_with_acts", "lstm_fwd.cu", f"{lp}:119",
-                     counts["lstm_fwd_with_acts"], kt["worst"]["fwd"],
+                     counts["lstm_fwd_with_acts"],
+                     max(kt["worst"]["fwd"], k960["worst"]["fwd"]),
                      tm_["fwd_kernel_ms"], tm_["fwd_plain_ms"],
                      tm_["fwd_bound"], tm_["cudnn_train_fwd_ms"]),
         kernel_entry("lstm_bwd", "lstm_bwd.cu", f"{lp}:222",
-                     counts["lstm_bwd"], kt["worst"]["bwd"],
+                     counts["lstm_bwd"],
+                     max(kt["worst"]["bwd"], k960["worst"]["bwd"]),
                      tm_["bwd_kernel_ms"], tm_["bwd_plain_ms"],
                      tm_["bwd_bound"], tm_["cudnn_bwd_ms"]),
         kernel_entry("joint_fwd", "joint_fwd.cu", f"{jp}:132",

@@ -1,10 +1,11 @@
 """The Transducer model (PyTorch port of
-`rnn_transducer_tpu/models/transducer.py`): the LSTM encoder and the
-conformer encoder, offline and chunk by chunk with a carried state, the
-LSTM predictor and the joint.
+`rnn_transducer_tpu/models/transducer.py`): the LSTM encoder (one
+direction or both) and the conformer encoder, offline and chunk by chunk
+with a carried state, the LSTM predictor and the joint.
 
 Plain functions on tensors over a parameter dict in the JAX layout:
-{"encoder": [lstm layer, ...] or [{"in_proj"}, conformer block, ...],
+{"encoder": [lstm layer, ...], [{"fwd": lstm layer, "bwd": lstm layer},
+...] or [{"in_proj"}, conformer block, ...],
 "embed": (V, E), "predictor": [lstm layer, ...], "joint": {"enc_proj",
 "pred_proj", "out": {"w": (in, out), "b"}}}.
 It covers serving (`encode`, `predict_step`, `joint_step`), streaming
@@ -30,6 +31,7 @@ from rnn_transducer_tpu_torch.ops.conformer import (conformer_block,
                                                     init_conformer_block)
 from rnn_transducer_tpu_torch.ops.lstm import (
     _dot,
+    bilstm_layer,
     cell_update,
     lstm_layer,
     mask_padding,
@@ -47,8 +49,6 @@ def check_supported(cfg: TransducerConfig) -> None:
     if cfg.enc_type == "conformer" and cfg.remat_encoder:
         todo.append("remat_encoder for the conformer (ROADMAP queue 1, item "
                     "9: conformer, activation checkpointing)")
-    if cfg.bidirectional:
-        todo.append("bidirectional (ROADMAP queue 1, item 6: BiLSTM)")
     if cfg.pred_type != "lstm":
         todo.append(f"pred_type={cfg.pred_type!r} (ROADMAP queue 1, item "
                     "12: stateless predictor)")
@@ -103,10 +103,16 @@ def init_params(cfg: TransducerConfig, rng: np.random.Generator,
                                             cfg.enc_heads, cfg.enc_ff_mult,
                                             cfg.enc_conv_kernel))
     else:
+        # a BiLSTM layer is {"fwd", "bwd"}, each over the same input, and
+        # feeds 2H to the next
         in_dim = cfg.input_dim
         for i in range(cfg.enc_layers):
-            enc.append(_init_lstm(rng, in_dim, cfg.enc_hidden))
-            in_dim = cfg.enc_hidden
+            if cfg.bidirectional:
+                enc.append({"fwd": _init_lstm(rng, in_dim, cfg.enc_hidden),
+                            "bwd": _init_lstm(rng, in_dim, cfg.enc_hidden)})
+            else:
+                enc.append(_init_lstm(rng, in_dim, cfg.enc_hidden))
+            in_dim = cfg.enc_out_dim
             if i == 0 and cfg.time_reduction > 1:
                 in_dim *= cfg.time_reduction
     embed = rng.standard_normal((cfg.vocab_size, cfg.embed_dim),
@@ -148,6 +154,8 @@ def encode(params: Params, cfg: TransducerConfig, feats, feat_lens):
 
     As in JAX, pad-region values between layers are garbage that stays in
     the pad region; the input to frame stacking and the output are masked.
+    A bidirectional encoder runs `bilstm_layer` on each layer's
+    {"fwd", "bwd"} params.
     """
     check_supported(cfg)
     params = maybe_dequant_tree(params, keep=("w_hh",))
@@ -166,7 +174,11 @@ def encode(params: Params, cfg: TransducerConfig, feats, feat_lens):
                                 chunk_att=cfg.enc_chunk_att)
         return mask_padding(x, lens), lens
     for i, layer in enumerate(params["encoder"]):
-        x = lstm_layer(layer, x, compute_dtype=cd)[0]
+        if cfg.bidirectional:
+            x = bilstm_layer(layer["fwd"], layer["bwd"], x, lens,
+                             compute_dtype=cd)
+        else:
+            x = lstm_layer(layer, x, compute_dtype=cd)[0]
         if i == 0 and cfg.time_reduction > 1:
             x = mask_padding(x, lens)
             x, lens = _time_reduce(x, lens, cfg.time_reduction)

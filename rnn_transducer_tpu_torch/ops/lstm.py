@@ -7,7 +7,9 @@ recurrence runs in `ops/lstm_cuda.py`: the hand-written CUDA kernels for a
 CUDA tensor, their plain PyTorch step loops for a CPU tensor. The cell
 state is fp32; matmul operands are rounded to the compute dtype (`_dot`).
 `LSTMCore` is the recurrence's autograd op, the counterpart of the JAX
-package's `_lstm_core` custom VJP.
+package's `_lstm_core` custom VJP. `bilstm_layer` runs a bidirectional
+layer as two `lstm_layer` calls, the second on the time-reversed valid
+prefix (`reverse_padded`).
 
 A layer whose `w_hh` is an int8 `QTensor` (serving params, `ops/quant.py`)
 takes one of the two routes of the JAX package's TPU dispatch, which
@@ -182,6 +184,45 @@ class LSTMCore(torch.autograd.Function):
         dw_hh = _dot(hs_prev.reshape(B * T, H).t(),
                      dgates.reshape(B * T, 4 * H), w_c.dtype)
         return dgates, dw_hh.to(ctx.w_dtype), dh0, dc0, None
+
+
+def reverse_padded(x, lens):
+    """Reverse the valid prefix of each (T, ...) sequence in a padded batch.
+
+    x (B, T, ...), lens (B,). Position t of row b reads lens[b] - 1 - t;
+    where that is below 0 (t >= lens[b]) it reads t itself, so padding
+    maps to itself and a zero-length row stays as it was. A gather on
+    int64 indices, as JAX's `take_along_axis` (ops/lstm.py:126).
+    """
+    B, T = x.shape[0], x.shape[1]
+    t_ids = torch.arange(T, dtype=torch.int64, device=x.device)[None, :]
+    idx = lens.to(device=x.device, dtype=torch.int64)[:, None] - 1 - t_ids
+    idx = torch.where(idx >= 0, idx, t_ids)  # padding maps to itself
+    idx = idx.reshape(idx.shape + (1,) * (x.dim() - 2)).expand(x.shape)
+    return torch.gather(x, 1, idx)
+
+
+def bilstm_layer(params_fwd, params_bwd, x, lens, *,
+                 compute_dtype=torch.bfloat16):
+    """Bidirectional layer: the forward run of `params_fwd` concatenated
+    with the backward run of `params_bwd` over the reversed valid prefix,
+    reversed back. (B, T, I) -> (B, T, 2H) fp32.
+
+    Both directions are `lstm_layer` calls, so each reaches the same
+    kernels as a unidirectional layer: K4-fwd (with activations and
+    K4-bwd through `LSTMCore` in training), and K7 for int8 params on
+    `w8a8_supported` shapes. At H % 128 != 0 (TIMIT's H = 320) an int8
+    w_hh is dequantized instead, as the JAX package does.
+
+    The pad region of x is irrelevant (reverse_padded maps pads to
+    themselves, so the reversed pass starts from the true last frame and
+    no pad enters a valid position); the pad positions of the output are
+    garbage, as in JAX's `bilstm_layer`.
+    """
+    y_f, _ = lstm_layer(params_fwd, x, compute_dtype=compute_dtype)
+    y_b, _ = lstm_layer(params_bwd, reverse_padded(x, lens),
+                        compute_dtype=compute_dtype)
+    return torch.cat([y_f, reverse_padded(y_b, lens)], dim=-1)
 
 
 def mask_padding(x, lens):

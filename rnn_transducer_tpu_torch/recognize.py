@@ -21,9 +21,17 @@ explicit --config must match it), its tokenizer and its CMVN stats
 run asked for cuda on a machine without a card fails rather than fall
 back to the CPU.
 
+--data-parallel N (greedy and beam) decodes every batch on N ranks
+(parallel/mesh.py): each decodes its contiguous slice of the batch and
+rank 0 gathers the hypotheses (through the host) and writes them in
+single-device order. N > 1 starts N - 1 worker processes beside this one,
+or joins a torchrun environment when RANK and WORLD_SIZE are set; a batch
+size that N does not divide and the streaming modes are refused, as in
+recognize.py.
+
 Not ported yet, each refused with its ROADMAP item (queue 1): the CTC
-modes (item 8), --data-parallel > 1 (item 6), --loader native and
---use-ema (item 13), --lm-ckpt and --lm-rescore (item 18).
+modes (item 8), --loader native and --use-ema (item 13), --lm-ckpt and
+--lm-rescore (item 18).
 """
 
 from __future__ import annotations
@@ -56,7 +64,7 @@ def parse_args(argv=None):
     p.add_argument("--chunk-frames", type=int, default=32)
     p.add_argument("--ckpt-dir", default=None)
     p.add_argument("--data-parallel", type=int, default=1,
-                   help="not ported yet (ROADMAP item 6); only 1")
+                   help="decode each batch over N ranks (greedy, beam)")
     p.add_argument("--loader", default="python",
                    choices=["python", "native"],
                    help="manifest input pipeline; 'native' is not ported "
@@ -119,9 +127,6 @@ def refuse_unported(args) -> None:
     if args.mode.startswith("ctc_"):
         raise SystemExit(f"--mode {args.mode} is not ported yet (ROADMAP "
                          "queue 1, item 8: CTC)")
-    if args.data_parallel > 1:
-        raise SystemExit("--data-parallel > 1 is not ported yet (ROADMAP "
-                         "queue 1, item 6: data-parallel)")
     if args.loader == "native":
         raise SystemExit("--loader native is not ported yet (ROADMAP queue "
                          "1, item 13: training data)")
@@ -189,6 +194,17 @@ def make_decoder(args, params, cfg, device, context=None, ngram=None):
     return decode
 
 
+def _gathered(parts):
+    """The ranks' decode outputs joined row-wise in rank order: the
+    single-device batch's."""
+    def cat(xs):
+        return None if xs[0] is None else np.concatenate(xs)
+
+    nb = (None if parts[0][4] is None else
+          tuple(cat([p[4][j] for p in parts]) for j in range(3)))
+    return (*(cat([p[i] for p in parts]) for i in range(4)), nb)
+
+
 def main(argv=None):
     args = parse_args(argv)
     refuse_unported(args)
@@ -196,6 +212,22 @@ def main(argv=None):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device available "
                          "(pass --device cpu to decode on the CPU)")
+    dp = args.data_parallel
+    if dp <= 1:
+        return _decode(None, args)
+    if args.mode not in ("greedy", "beam"):
+        raise SystemExit("--data-parallel supports --mode greedy|beam "
+                         "(streaming decode is a host-driven chunk loop)")
+    if args.batch_size % dp:
+        raise SystemExit(f"--batch-size {args.batch_size} must divide by "
+                         f"--data-parallel {dp}")
+    from rnn_transducer_tpu_torch.parallel import mesh as meshlib
+    return meshlib.launch(_decode, dp, device.type, args=(args,))
+
+
+def _decode(mesh, args):
+    """The decode run of one rank (of `mesh`, or the only one when mesh
+    is None); rank 0's output dict, None on the other ranks."""
     from rnn_transducer_tpu_torch.data.bucketing import bucket_stream
     from rnn_transducer_tpu_torch.data.cmvn import load_cmvn
     from rnn_transducer_tpu_torch.data.synthetic import learnable_batch
@@ -206,12 +238,25 @@ def main(argv=None):
                                                          tokens_to_lists)
     from rnn_transducer_tpu_torch.decode.words import word_segments
     from rnn_transducer_tpu_torch.models.config import TrainConfig
+    from rnn_transducer_tpu_torch.parallel import mesh as meshlib
     from rnn_transducer_tpu_torch.serve import load_params, model_meta
 
+    device = mesh.device if mesh is not None else torch.device(args.device)
+    lead = mesh is None or mesh.rank == 0
     # the config, tokenizer and CMVN of --ckpt-dir (a --config that differs
     # is refused) and its weights, int8 under --quantize: serve.py's
     cfg, tok, cmvn_stats = model_meta(args)
+    if args.mode.startswith("streaming"):
+        # a BiLSTM or a full-attention conformer: the JAX package's words
+        from rnn_transducer_tpu_torch.models.transducer import (
+            _check_streamable)
+        try:
+            _check_streamable(cfg)
+        except ValueError as e:
+            raise SystemExit(f"--mode {args.mode}: {e}") from None
     params = load_params(args, cfg, device)
+    if mesh is not None:
+        params = meshlib.replicate(mesh, params)
     if args.cmvn:
         cmvn_stats = load_cmvn(args.cmvn)
     if args.tokenizer:
@@ -232,9 +277,10 @@ def main(argv=None):
         context = build_context_bias(phrases, cfg.vocab_size,
                                      blank=cfg.blank,
                                      boosts=boosts).to(device)
-        print(f"boosting {len(phrases)} phrases from {args.boost_file} "
-              f"(default per-token boost {args.boost_score})",
-              file=sys.stderr)
+        if lead:
+            print(f"boosting {len(phrases)} phrases from {args.boost_file} "
+                  f"(default per-token boost {args.boost_score})",
+                  file=sys.stderr)
     ngram = None
     if args.ngram:
         if args.mode not in ("beam", "streaming_beam"):
@@ -245,8 +291,9 @@ def main(argv=None):
             raise SystemExit(f"n-gram vocab {ng_lm.lp.shape[1]} != model "
                              f"vocab {cfg.vocab_size}")
         ngram = (ng_lm.to(device), args.ngram_weight)
-        print(f"n-gram fusion: {args.ngram} ({ng_lm.lp.shape[0]} states) "
-              f"weight={args.ngram_weight}", file=sys.stderr)
+        if lead:
+            print(f"n-gram fusion: {args.ngram} ({ng_lm.lp.shape[0]} "
+                  f"states) weight={args.ngram_weight}", file=sys.stderr)
     if args.confidence and args.mode not in ("greedy", "beam"):
         raise SystemExit("--confidence supports --mode greedy|beam")
     decode = make_decoder(args, params, cfg, device, context, ngram)
@@ -278,15 +325,23 @@ def main(argv=None):
     warmed: set[tuple] = set()
     with torch.inference_mode():
         for feats, fl, labels, ll, n_valid in batches():
-            f = torch.from_numpy(feats).to(device)
-            l = torch.from_numpy(fl).to(device)
+            if mesh is not None:  # this rank's rows of the batch
+                f, l = meshlib.shard_batch(mesh, (feats, fl))
+            else:
+                f = torch.from_numpy(feats).to(device)
+                l = torch.from_numpy(fl).to(device)
             if feats.shape not in warmed:
                 # each bucket shape once outside the timed region
                 warmed.add(feats.shape)
                 decode(f, l)
             t0 = time.perf_counter()
-            toks, lens, frames, confs, nb = decode(f, l)  # on the host
+            out = decode(f, l)  # on the host
+            if mesh is not None:
+                out = _gathered(meshlib.all_gather_objects(mesh, out))
             wall = time.perf_counter() - t0
+            if not lead:
+                continue
+            toks, lens, frames, confs, nb = out
             # padding rows (drained partial batches repeat real
             # utterances) are left out of WER and RTF
             audio_s = float(np.sum(fl[:n_valid])) * args.frame_hop_s
@@ -309,6 +364,8 @@ def main(argv=None):
                          float(nb_s[i, k]))
                         for k in range(min(args.nbest, nb_t.shape[1]))
                         if nb_s[i, k] > -1e29])
+    if not lead:
+        return None
     wer = error_rate(refs, hyps)
     out = {"mode": args.mode, "wer": round(wer, 4), **{
         k: round(v, 5) for k, v in meter.summary().items()}}

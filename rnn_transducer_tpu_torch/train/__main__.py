@@ -26,6 +26,19 @@ one whose vocabulary exceeds the model's is refused. --device
 defaults to cuda, and a
 run asked for cuda on a machine without a card fails rather than fall
 back to the CPU.
+
+--data-parallel N trains on N ranks (parallel/mesh.py): each takes its
+contiguous slice of every --batch-size batch, and the gradients are
+averaged over the ranks every step. 0, the default as in train.py, is
+every local device (the visible cards on cuda, 1 on the CPU). N > 1
+starts N - 1 worker processes beside this one, or joins a torchrun
+environment when RANK and WORLD_SIZE are set; ranks on cards of their
+own talk over NCCL, ranks on the CPU over gloo. Rank 0 alone logs and
+writes checkpoints; --resume loads on every rank. A batch size that N
+does not divide, and an N above the visible cards, are refused.
+
+    python -m rnn_transducer_tpu_torch.train --config libri960 \
+        --batch-size 64 --max-frames 400 --max-labels 60 --data-parallel 2
 """
 
 from __future__ import annotations
@@ -45,6 +58,7 @@ from rnn_transducer_tpu_torch.data.tokenizer import (tokenizer_from_spec,
 from rnn_transducer_tpu_torch.models.config import (NAMED_CONFIGS,
                                                     TrainConfig,
                                                     TransducerConfig)
+from rnn_transducer_tpu_torch.parallel import mesh as meshlib
 from rnn_transducer_tpu_torch.train import checkpoint as ckpt
 from rnn_transducer_tpu_torch.train.loop import (LOSS_IMPLS,
                                                  init_train_state,
@@ -100,6 +114,8 @@ def parse_args(argv=None):
     p.add_argument("--log-every", type=int, default=10)
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; no fallback to cpu)")
+    p.add_argument("--data-parallel", type=int, default=0,
+                   help="mesh size; 0 = all local devices")
     return p.parse_args(argv)
 
 
@@ -126,16 +142,13 @@ def synthetic_batches(args, cfg: TransducerConfig, batch_size: int):
                                   2, args.max_frames // n_labels // 2))
 
 
-def main(argv=None):
-    args = parse_args(argv)
+def _setup(args):
+    """(cfg, tcfg, tokenizer meta or None) from the arguments; refuses
+    what the run cannot do before any rank starts."""
     if args.data != "synthetic":
         raise NotImplementedError(
             f"--data {args.data!r} is not ported yet (ROADMAP queue 1, item "
             "13: training data)")
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("--device cuda: no CUDA device available "
-                         "(pass --device cpu to train on the CPU)")
     cfg = get_model_config(args.config)
     if args.pruned_range > 0:
         cfg = dataclasses.replace(cfg, pruned_range=args.pruned_range)
@@ -149,7 +162,8 @@ def main(argv=None):
                        loss_impl=args.loss_impl, lr_schedule=args.lr_schedule,
                        fastemit_lambda=args.fastemit_lambda,
                        simple_loss_scale=args.simple_loss_scale,
-                       ar_range=args.ar_range, ar_left=args.ar_left)
+                       ar_range=args.ar_range, ar_left=args.ar_left,
+                       data_parallel=args.data_parallel)
     tok_meta = None
     if args.tokenizer:
         tok = tokenizer_from_spec(args.tokenizer)
@@ -158,10 +172,42 @@ def main(argv=None):
                 f"--tokenizer {args.tokenizer} needs vocab {tok.vocab_size} "
                 f"> model vocab_size {cfg.vocab_size}")
         tok_meta = tokenizer_to_meta(tok)
+    if args.ar_align_from and args.ar_range <= 0:
+        raise SystemExit("--ar-align-from needs --ar-range N")
+    return cfg, tcfg, tok_meta
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("--device cuda: no CUDA device available "
+                         "(pass --device cpu to train on the CPU)")
+    n = args.data_parallel or (torch.cuda.device_count()
+                               if device.type == "cuda" else 1)
+    if n > 1 and args.batch_size % n:
+        raise SystemExit(f"--batch-size {args.batch_size} must divide by "
+                         f"--data-parallel {n}")
+    args.data_parallel = n
+    _setup(args)  # refuse here, before any rank starts
+    if n == 1:
+        return _train(None, args)
+    return meshlib.launch(_train, n, device.type, args=(args,))
+
+
+def _train(mesh, args):
+    """The training run of one rank (of `mesh`, or the only one when
+    mesh is None); rank 0's final TrainState."""
+    cfg, tcfg, tok_meta = _setup(args)
+    device = mesh.device if mesh is not None else torch.device(args.device)
+    lead = mesh is None or mesh.rank == 0
+
+    def log(msg):
+        if lead:
+            print(msg, file=sys.stderr, flush=True)
+
     teacher_params = teacher_cfg = None
     if args.ar_align_from:
-        if args.ar_range <= 0:
-            raise SystemExit("--ar-align-from needs --ar-range N")
         teacher_cfg = ckpt.load_model_config(args.ar_align_from)
         if teacher_cfg is None:
             raise SystemExit(f"--ar-align-from: {args.ar_align_from} has no "
@@ -169,8 +215,8 @@ def main(argv=None):
         aligner, a_step = ckpt.restore_checkpoint(args.ar_align_from,
                                                   device=device)
         teacher_params = aligner.params
-        print(f"ar band from {args.ar_align_from} (step {a_step}, range "
-              f"{args.ar_range}, left {args.ar_left})", file=sys.stderr)
+        log(f"ar band from {args.ar_align_from} (step {a_step}, range "
+            f"{args.ar_range}, left {args.ar_left})")
 
     state = init_train_state(np.random.default_rng(args.seed), cfg, tcfg,
                              device)
@@ -185,16 +231,24 @@ def main(argv=None):
                              "of another model config")
         state, start_step = ckpt.restore_checkpoint(args.ckpt_dir,
                                                     device=device)
-        print(f"resumed from step {start_step}", file=sys.stderr)
-    step_fn = make_train_step(cfg, tcfg, teacher_cfg=teacher_cfg)
+        log(f"resumed from step {start_step}")
+    if mesh is not None:
+        state = dataclasses.replace(
+            state, params=meshlib.replicate(mesh, state.params),
+            opt_state=meshlib.replicate(mesh, state.opt_state))
+        if teacher_params is not None:
+            teacher_params = meshlib.replicate(mesh, teacher_params)
+    step_fn = make_train_step(cfg, tcfg, mesh=mesh, teacher_cfg=teacher_cfg,
+                              device=device)
     extra = () if teacher_params is None else (teacher_params,)
     meta_extra = {"train_config": dataclasses.asdict(tcfg)}
     if tok_meta is not None:
         meta_extra["tokenizer"] = tok_meta
 
     def save(step_no, st):
-        ckpt.save_checkpoint(args.ckpt_dir, step_no, st, model_cfg=cfg,
-                             **meta_extra)
+        if lead:
+            ckpt.save_checkpoint(args.ckpt_dir, step_no, st, model_cfg=cfg,
+                                 **meta_extra)
 
     t_start = time.perf_counter()
     utts = 0
@@ -204,26 +258,28 @@ def main(argv=None):
     for i, batch in enumerate(batches):
         if i >= args.steps - start_step:
             break
-        feats, fl, labels, ll = (torch.from_numpy(x).to(device)
-                                 for x in batch)
+        if mesh is not None:  # every rank draws the batch, takes its slice
+            feats, fl, labels, ll = meshlib.shard_batch(mesh, batch)
+        else:
+            feats, fl, labels, ll = (torch.from_numpy(x).to(device)
+                                     for x in batch)
         state, info = step_fn(state, feats, fl, labels, ll, *extra)
-        utts += feats.shape[0]
+        utts += tcfg.batch_size
         step_no = start_step + i + 1
         if step_no % args.log_every == 0:
             dt = time.perf_counter() - t_start
-            print(json.dumps({"step": step_no,
-                              "loss": round(float(info["loss"]), 4),
-                              "grad_norm": round(float(info["grad_norm"]), 4),
-                              "utt_per_sec": round(utts / dt, 2)}),
-                  file=sys.stderr, flush=True)
+            log(json.dumps({"step": step_no,
+                            "loss": round(float(info["loss"]), 4),
+                            "grad_norm": round(float(info["grad_norm"]), 4),
+                            "utt_per_sec": round(utts / dt, 2)}))
         if args.ckpt_dir and step_no % args.ckpt_every == 0:
             save(step_no, state)
     if args.ckpt_dir:
         save(step_no, state)
-        print(f"saved final checkpoint at step {step_no} to {args.ckpt_dir}",
-              file=sys.stderr)
-    print(json.dumps({"final_loss": round(float(info["loss"]), 4),
-                      "steps": step_no}))
+        log(f"saved final checkpoint at step {step_no} to {args.ckpt_dir}")
+    if lead:
+        print(json.dumps({"final_loss": round(float(info["loss"]), 4),
+                          "steps": step_no}), flush=True)
     return state
 
 

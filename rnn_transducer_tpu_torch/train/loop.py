@@ -13,8 +13,13 @@ count before the update (the first update under warmup_cosine has
 learning rate schedule(0) = 0), and a skipped non-finite update advances
 `TrainState.step` but neither Adam's count nor the schedule's.
 
-The options not ported yet (CTC multitask, the regularizers, data
-parallelism) raise NotImplementedError naming their ROADMAP item. The
+Under a data-parallel mesh (`parallel/mesh.py`) each rank computes the
+loss and gradients of its shard, and one all-reduce of a flat f32 buffer
+averages them (JAX's `pmean` in its `shard_map` step); the guard, clip
+and AdamW then run on every rank alike, so the ranks keep equal params.
+The options not ported yet (CTC multitask, the regularizers) raise
+NotImplementedError naming their ROADMAP item, as do the fused, pruned
+and AR losses on the card above the rings' joint width (item 6(b)). The
 step is functional: it returns a new TrainState and leaves the one it was
 given as it was.
 
@@ -31,13 +36,15 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.utils import _pytree as pytree
 
 from rnn_transducer_tpu_torch.models import transducer as m
 from rnn_transducer_tpu_torch.models.config import TrainConfig, TransducerConfig
 from rnn_transducer_tpu_torch.ops.rnnt_align import (emit_frames_device,
                                                      rnnt_viterbi)
-from rnn_transducer_tpu_torch.ops.rnnt_joint_fused import (fused_supported,
+from rnn_transducer_tpu_torch.ops.rnnt_joint_fused import (MAX_J,
+                                                          fused_supported,
                                                           rnnt_loss_fused)
 from rnn_transducer_tpu_torch.ops.rnnt_loss import (_gather_label_logprobs,
                                                    rnnt_loss)
@@ -48,7 +55,8 @@ from rnn_transducer_tpu_torch.ops.rnnt_pruned import (alignment_bounds,
 
 # optax.adamw's defaults
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
-SPANS = ("encode", "predict", "align", "joint_loss", "backward", "optimizer")
+SPANS = ("encode", "predict", "align", "joint_loss", "backward", "all_reduce",
+         "optimizer")
 # the CLI's choices, train.py's; "ar" is set by TrainConfig.ar_range
 LOSS_IMPLS = ("auto", "fused", "pallas", "xla", "pruned")
 _span = torch.profiler.record_function
@@ -81,9 +89,6 @@ def check_train_supported(tcfg: TrainConfig) -> None:
         todo.append("ctc_weight (ROADMAP queue 1, item 8: CTC multitask)")
     if tcfg.loss_impl not in LOSS_IMPLS + ("ar",):
         raise ValueError(f"unknown loss_impl {tcfg.loss_impl!r}")
-    if tcfg.data_parallel > 1:
-        todo.append("data_parallel > 1 (ROADMAP queue 1, item 6: "
-                    "data-parallel training)")
     if todo:
         raise NotImplementedError("not ported yet: " + "; ".join(todo))
 
@@ -302,8 +307,55 @@ def check_ar_compat(cfg: TransducerConfig, align_cfg: TransducerConfig):
 
 # -------------------------------- steps ----------------------------------
 
+def check_ring_width(cfg: TransducerConfig, loss_impl: str,
+                     device) -> None:
+    """Refuse, before a step is built, a loss whose kernels on the card
+    keep (64, J) rows of the joint in shared memory (the fused joint K1 /
+    K2, the band K6 of the pruned and AR losses) at J > MAX_J; the kernel
+    wrappers would raise mid-step. `auto` takes the two-pass loss there."""
+    if (torch.device(device).type == "cuda" and cfg.joint_dim > MAX_J
+            and loss_impl in ("fused", "pruned", "ar")):
+        raise NotImplementedError(
+            f"not ported yet: loss_impl={loss_impl!r} at joint_dim "
+            f"{cfg.joint_dim} on the card (ROADMAP queue 1, item 6(b): J > "
+            f"{MAX_J} in the ring kernels); loss_impl='auto' or 'pallas' "
+            "takes the two-pass loss")
+
+
+def loss_and_grads(p_leaves, spec, cfg: TransducerConfig, feats, feat_lens,
+                   labels, label_lens, **loss_kw):
+    """The batch-mean loss (detached) and its gradient for every leaf of
+    the flattened params (zeros for a leaf the loss does not reach)."""
+    leaves = [p.detach().requires_grad_(True) for p in p_leaves]
+    loss, _ = loss_fn(pytree.tree_unflatten(leaves, spec), cfg, feats,
+                      feat_lens, labels, label_lens, **loss_kw)
+    with _span("backward"):
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(p) if gr is None else gr
+             for p, gr in zip(p_leaves, grads)]
+    return loss.detach(), grads
+
+
+def pmean(mesh, loss, grads):
+    """The mean over the mesh's ranks of the loss and every gradient, as
+    JAX's `lax.pmean`: one all-reduce (SUM) of a flat f32 buffer, then a
+    division by the world size as a tensor (a Python-scalar divide would
+    be a product with its reciprocal). Every rank gets the same bits."""
+    if mesh is None or mesh.size == 1:
+        return loss, grads
+    with _span("all_reduce"):
+        flat = torch.cat([loss.float().reshape(1)]
+                         + [g.float().reshape(-1) for g in grads])
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=mesh.group)
+        flat = flat / torch.tensor(float(mesh.size), dtype=torch.float32,
+                                   device=flat.device)
+        pieces = flat[1:].split([g.numel() for g in grads])
+        return (flat[0].to(loss.dtype),
+                [p.view(g.shape).to(g.dtype) for p, g in zip(pieces, grads)])
+
+
 def make_train_step(cfg: TransducerConfig, tcfg: TrainConfig, mesh=None,
-                    teacher_cfg=None):
+                    teacher_cfg=None, device: str | torch.device = "cuda"):
     """Build the training step:
     step(state, feats, feat_lens, labels, label_lens) -> (state', metrics)
     with metrics {"loss", "grad_norm", "skipped_nonfinite"} as tensors.
@@ -311,10 +363,16 @@ def make_train_step(cfg: TransducerConfig, tcfg: TrainConfig, mesh=None,
     With ar_range > 0 the loss is the alignment-restricted band (JAX
     make_train_step :441-456); given `teacher_cfg`, the aligner is a
     checkpoint of that config and the step takes its params as a sixth
-    argument, `teacher_params`, else the live model aligns itself."""
-    if mesh is not None:
-        raise NotImplementedError("not ported yet: mesh (ROADMAP queue 1, "
-                                  "item 6: data-parallel training)")
+    argument, `teacher_params`, else the live model aligns itself.
+
+    With a `mesh` of several ranks (`parallel/mesh.make_mesh`), each rank
+    calls the step with its shard of the batch (`shard_batch`) and the
+    replicated state and teacher (`replicate`); the loss and gradients
+    are averaged over the ranks (`pmean`) before the guard, as in JAX's
+    `shard_map` step (:548-588). `device` (the mesh's, when given) is
+    where the step will run; it decides only the refusal of
+    `check_ring_width`."""
+    dev = mesh.device if mesh is not None else torch.device(device)
     ar = tcfg.ar_range > 0
     if ar:
         if tcfg.distill_weight > 0.0:
@@ -327,6 +385,7 @@ def make_train_step(cfg: TransducerConfig, tcfg: TrainConfig, mesh=None,
             check_ar_compat(cfg, teacher_cfg)
     check_train_supported(tcfg)
     m.check_supported(cfg)
+    check_ring_width(cfg, "ar" if ar else tcfg.loss_impl, dev)
     schedule = make_lr_schedule(tcfg)
     k = tcfg.grad_accum
     loss_kw = dict(loss_impl=tcfg.loss_impl, fastemit=tcfg.fastemit_lambda,
@@ -342,16 +401,11 @@ def make_train_step(cfg: TransducerConfig, tcfg: TrainConfig, mesh=None,
             raise ValueError("this step aligns with a checkpoint: pass its "
                              "params as teacher_params")
         p_leaves, spec = pytree.tree_flatten(state.params)
-        leaves = [p.detach().requires_grad_(True) for p in p_leaves]
-        loss, _ = loss_fn(pytree.tree_unflatten(leaves, spec), cfg, feats,
-                          feat_lens, labels, label_lens,
-                          teacher_params=(teacher_params if uses_teacher
-                                          else None), **loss_kw)
-        with _span("backward"):
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = [torch.zeros_like(p) if gr is None else gr
-                 for p, gr in zip(p_leaves, grads)]
-        loss = loss.detach()
+        loss, grads = loss_and_grads(
+            p_leaves, spec, cfg, feats, feat_lens, labels, label_lens,
+            teacher_params=teacher_params if uses_teacher else None,
+            **loss_kw)
+        loss, grads = pmean(mesh, loss, grads)
         gnorm = global_norm(grads)
         ok = bool(torch.isfinite(loss) & torch.isfinite(gnorm))
         metrics = {"loss": loss, "grad_norm": gnorm,

@@ -12,7 +12,7 @@ bridge is leaf by leaf:
   * `load_state_dict(path, cfg, device)` reads the torch-layout `.pt` file
     that `tools/export_torch_ckpt.py` writes (nn.LSTM / nn.Linear naming)
     and undoes its transposes, so the port serves a trained model without
-    jax.
+    jax; a BiLSTM layer's `_reverse` keys become its "bwd" dict.
 
 The fusion LMs' params (the LSTM LM's {"embed", "lstm", "out"}, the
 transformer LM's {"embed", "pos", "blocks", "ln_f", "out"}) are trees of
@@ -74,13 +74,17 @@ def _take(sd: dict, key: str, shape: tuple) -> np.ndarray:
     return a
 
 
-def _lstm_from_torch(sd, prefix: str, in_dim: int, H: int) -> dict:
-    """Undo `_t_lstm`: w = weight.T, b = bias_ih + bias_hh."""
+def _lstm_from_torch(sd, prefix: str, in_dim: int, H: int,
+                     suffix: str = "") -> dict:
+    """Undo `_t_lstm`: w = weight.T, b = bias_ih + bias_hh; suffix
+    "_reverse" reads a BiLSTM layer's backward direction, as nn.LSTM
+    names it."""
     return {
-        "w_ih": _take(sd, f"{prefix}.weight_ih_l0", (4 * H, in_dim)).T,
-        "w_hh": _take(sd, f"{prefix}.weight_hh_l0", (4 * H, H)).T,
-        "b": (_take(sd, f"{prefix}.bias_ih_l0", (4 * H,))
-              + _take(sd, f"{prefix}.bias_hh_l0", (4 * H,))),
+        "w_ih": _take(sd, f"{prefix}.weight_ih_l0{suffix}",
+                      (4 * H, in_dim)).T,
+        "w_hh": _take(sd, f"{prefix}.weight_hh_l0{suffix}", (4 * H, H)).T,
+        "b": (_take(sd, f"{prefix}.bias_ih_l0{suffix}", (4 * H,))
+              + _take(sd, f"{prefix}.bias_hh_l0{suffix}", (4 * H,))),
     }
 
 
@@ -103,11 +107,17 @@ def load_state_dict(path: str, cfg: TransducerConfig,
     enc = []
     in_dim = cfg.input_dim
     for i in range(cfg.enc_layers):
-        enc.append(_lstm_from_torch(sd, f"enc_layers.{i}", in_dim,
-                                    cfg.enc_hidden))
-        in_dim = cfg.enc_hidden * (cfg.time_reduction
-                                   if i == 0 and cfg.time_reduction > 1
-                                   else 1)
+        layer = [_lstm_from_torch(sd, f"enc_layers.{i}", in_dim,
+                                  cfg.enc_hidden, sfx)
+                 for sfx in (("", "_reverse") if cfg.bidirectional
+                             else ("",))]
+        enc.append(dict(zip(("fwd", "bwd"), layer)) if cfg.bidirectional
+                   else layer[0])
+        # the next layer reads H, or 2H from a BiLSTM, stacked after
+        # layer 0
+        in_dim = cfg.enc_out_dim * (cfg.time_reduction
+                                    if i == 0 and cfg.time_reduction > 1
+                                    else 1)
     pred = []
     pin = cfg.embed_dim
     for i in range(cfg.pred_layers):

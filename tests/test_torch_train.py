@@ -201,12 +201,34 @@ def test_nonfinite_step_is_skipped():
 @pytest.mark.parametrize("tcfg_kw, item", [
     (dict(dropout=0.1), "item 13"), (dict(ema_decay=0.9), "item 13"),
     (dict(weight_noise_std=0.1), "item 13"), (dict(ctc_weight=0.3), "item 8"),
-    (dict(data_parallel=2), "item 6"),
 ])
 def test_unported_options_raise(tcfg_kw, item):
     cfg = port_config.TransducerConfig(**TINY)
     with pytest.raises(NotImplementedError, match=item):
         tloop.make_train_step(cfg, port_config.TrainConfig(**tcfg_kw))
+
+
+@pytest.mark.parametrize("cfg_kw, tcfg_kw", [
+    pytest.param(dict(), dict(loss_impl="fused"), id="fused"),
+    pytest.param(dict(pruned_range=4), dict(loss_impl="pruned"),
+                 id="pruned"),
+    pytest.param(dict(), dict(ar_range=4), id="ar"),
+])
+def test_ring_losses_refuse_a_wide_joint_on_the_card(cfg_kw, tcfg_kw):
+    """libri960's J = 1024 is above the ring kernels' MAX_J: on the card an
+    explicit fused, pruned or AR loss is refused when the step is built
+    (item 6(b)), not by a kernel wrapper mid-step; auto and pallas take
+    the two-pass loss, and the CPU's plain versions take any J."""
+    cfg = dataclasses.replace(port_config.config_libri960(), **cfg_kw)
+    tcfg = port_config.TrainConfig(**tcfg_kw)
+    assert cfg.joint_dim > MAX_J
+    with pytest.raises(NotImplementedError, match=r"item 6\(b\)"):
+        tloop.make_train_step(cfg, tcfg)
+    with pytest.raises(NotImplementedError, match=r"J > 512"):
+        tloop.make_train_step(cfg, tcfg, device="cuda:0")
+    tloop.make_train_step(cfg, tcfg, device="cpu")
+    for impl in ("auto", "pallas"):
+        tloop.make_train_step(cfg, port_config.TrainConfig(loss_impl=impl))
 
 
 def test_pruned_without_a_pruned_range_raises():
