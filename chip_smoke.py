@@ -26,7 +26,9 @@ port's trainer served by serve.py --ckpt-dir and decoded by
 configs[1] (TIMIT: 3x320 BiLSTM encoder, 1x320 predictor, joint 320,
 V=63) and configs[4] (libri960: 6x1024 LSTM, 2x stacking, 2x1024
 predictor, joint 1024, V=32; trained, served, streamed, and trained on
-two data-parallel ranks) run at full width in phase 5f.
+two data-parallel ranks) run at full width in phase 5f, and configs[2]
+(libri100 on manifest data in its three buckets, with SortaGrad, CMVN,
+SpecAugment, speed perturbation, dropout, weight noise and EMA) in 5g.
 Phases, in order:
 
   1. card   require CUDA; print the card's name and power limit
@@ -88,7 +90,7 @@ Phases, in order:
             libri100_conformer, float and --quantize int8, and with
             --config libri100 (a /session at the CLI's defaults too),
             answering a request each
-  4f. beam (after 5f)  the served model made to emit tens of
+  4f. beam (after 5g)  the served model made to emit tens of
             tokens a row (its joint's encoder side and logits scaled,
             blank offset re-set; every check needs a mean top-beam
             length of 5 or more): 8 requests to BatchingEngine(mode="beam")
@@ -97,8 +99,8 @@ Phases, in order:
             versions, float and int8 (4 K7 launches), and each fusion
             (LSTM LM, ILM, transformer LM, trigram, context trie): the
             same n-best, live scores within 1e-3; bf16 host ms at
-            buckets 400 and 800, launches a frame and the busy share of
-            a profiled batch
+            buckets 400 and 800 (each fusion at 400), launches a frame
+            and the busy share of a profiled batch
   5. train  training steps: finite loss and grad norm on every step, no
             skipped update, the params move, every training kernel
             launched; ms/step by the slope of bench.py and utt/s; one
@@ -154,6 +156,27 @@ Phases, in order:
             after each and ms a step beside the one-process step; over
             two cards of their own on NCCL where the machine shows two,
             else a line that NCCL went unchecked; `configs_launches`
+  5g. manifest (after 5f) BASELINE.json's configs[2] on manifest data:
+            (a) 300 wav files from the seed (0.1 * N(0, 1), 1-18 s,
+            README words) through the port's prepare tool on the card
+            (BPE <= 1024 ids), CMVN stats, 8 utterances' features within
+            1e-3 of log_mel_oracle, two full batches a bucket after the
+            held-out dev batch; (b) f32 libri100 through the kernels and
+            the plain versions on 4 rows of each bucket's batch (400,
+            800, 1600 frames) with the draws fixed (speed perturbation,
+            SpecAugment, dropout masks, weight noise): LOSS_RTOL,
+            GRAD_RTOL, and the EMA after 2 steps; (c) the training CLI,
+            --config libri100 --batch-size 32 with every regularizer, one
+            SortaGrad epoch (every bucket, dev loss and PER, no skipped
+            step; its launch counts as `manifest_launches`), then in
+            process ms a step by slope, peak memory and the host's ms to
+            load a batch a bucket, and a profiled 1600 step (5 lstm_fwd,
+            5 lstm_bwd, K1 and K2 on their rings, K3, no K5 or K6, each
+            family's ms beside its bound); (d) f32 SIGTERM to the CLI in
+            a process of its own, exit 0 with a checkpoint, --resume
+            --resume-data exact bit-equal to an uninterrupted run; (e)
+            serve.py --ckpt-dir --use-ema (an audio /recognize) and the
+            decode CLI --use-ema on the dev utterances (wer, rtf)
   4g. lattice_tiles (last: no profiled check may follow the plain
             versions' long, nearly idle loops) lattice_alpha and
             lattice_beta with the occupancies at U+1 = 8,001, 11,137 and
@@ -229,6 +252,7 @@ import tempfile
 import threading
 import time
 import urllib.request
+import wave
 from unittest import mock
 
 import numpy as np
@@ -265,6 +289,8 @@ from rnn_transducer_tpu_torch.serve import (BatchingEngine, StreamingEngine,
 from rnn_transducer_tpu_torch.train import checkpoint as ckpt
 from rnn_transducer_tpu_torch.train import loop as tl
 from rnn_transducer_tpu_torch.train.__main__ import main as train_cli
+from rnn_transducer_tpu_torch.train.__main__ import parse_args as train_args
+from rnn_transducer_tpu_torch.train.__main__ import train_batch
 from rnn_transducer_tpu_torch.utils import build
 from rnn_transducer_tpu_torch.weights import params_from_numpy, params_to_numpy
 
@@ -1081,7 +1107,7 @@ def kernel_launches(call, fragment: str) -> dict:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        pad_profiler_window()
+        lead_profiler_window()
         call()
         torch.cuda.synchronize()
         pad_profiler_window()
@@ -1415,7 +1441,7 @@ def kernel_ms_by_name(call, names, reps: int = 3) -> dict:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        pad_profiler_window()
+        lead_profiler_window()
         for _ in range(reps):
             call()
         torch.cuda.synchronize()
@@ -1822,7 +1848,7 @@ def k7_calls(qparams, cfg, feats, lens) -> list:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            pad_profiler_window()
+            lead_profiler_window()
             m.encode(qparams, cfg, feats, lens)
             torch.cuda.synchronize()
             pad_profiler_window()
@@ -2018,7 +2044,7 @@ def beam_profile(call) -> dict:
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        pad_profiler_window()
+        lead_profiler_window()
         t0 = time.perf_counter()
         call()
         torch.cuda.synchronize()
@@ -2075,8 +2101,9 @@ def beam_serving(serving: dict, dev) -> dict:
     batch (B=8, bucket 800) at f32 through the kernels and through the
     plain versions, with float and int8 params (4 K7 launches) and with
     each fusion; the bf16 batch's host ms at buckets
-    400 and 800 and ms a frame, and the launches a frame and the device's
-    busy share of a profiled batch of its first frames."""
+    400 and 800 (with a fusion, at 400) and ms a frame, and the launches a
+    frame and the device's busy share of a profiled batch of its first
+    frames."""
     cfg, params = serving["cfg"], serving["params"]
     qparams = quantize_params(params)
     utts = serving["utts"][:BEAM_REQUESTS]
@@ -2170,10 +2197,12 @@ def beam_serving(serving: dict, dev) -> dict:
         rows.append(row)
     result["kernel_vs_plain"] = rows
 
-    # bf16 (the served dtype): host ms a batch at buckets 400 and 800; the
-    # launches a frame and the device's busy share from a profiled batch
-    # of the first PROFILE_FRAMES frames (a whole batch is 200-600
-    # thousand kernels, more than a profiler window should hold).
+    # bf16 (the served dtype): host ms a batch at buckets 400 and 800 (a
+    # fusion at 400 alone: its ms a frame hardly moves with the length,
+    # and the script's time limit is shared); the launches a frame and the
+    # device's busy share from a profiled batch of the first
+    # PROFILE_FRAMES frames (a whole batch is 200-600 thousand kernels,
+    # more than a profiler window should hold).
     timing = []
     for name, fusion in [("beam", {})] + list(fusions.items()):
         fusion = lm_dtype(fusion, "bfloat16")
@@ -2187,7 +2216,7 @@ def beam_serving(serving: dict, dev) -> dict:
                          "launches_per_frame": prof["kernels"]
                          / BEAM_PROFILE_FRAMES})
             print("beam_profile " + json.dumps(prof))
-        for tb in (400, 800):
+        for tb in ((400, 800) if name == "beam" else (400,)):
             f, n = feats[:, :tb], torch.clamp(lens, max=tb)
             ms = host_ms(lambda: decode_beam(params, cfg, f, n, **fusion), 1)
             frames = tb // cfg.time_reduction
@@ -3286,16 +3315,64 @@ def pad_profiler_window() -> None:
     torch.cuda.synchronize()
 
 
+# The start of a profiler window: short spin kernels, then a long spin
+# (~80 ms), ahead of the profiled work.
+LEAD_SPINS, LEAD_SPIN_CYCLES = 256, 160_000_000
+
+
+def lead_profiler_window() -> None:
+    """The start of a profiler window: LEAD_SPINS short spin kernels
+    (~10 µs each), then a spin of LEAD_SPIN_CYCLES, then a synchronise.
+    Late in one run of this script an H100 host lost the first ~26 ms and
+    21 kernels of every window of a step (the ~20 ms pad, then the step's
+    kernels up to its second lstm_fwd), in all three windows of the TIMIT
+    and libri960 steps, while the same steps alone lost nothing; so a
+    window starts with kernels and time to lose, all left out of every
+    count, as `pad_profiler_window` ends it."""
+    for _ in range(LEAD_SPINS):
+        torch.cuda._sleep(20_000)
+    torch.cuda._sleep(LEAD_SPIN_CYCLES)
+    torch.cuda.synchronize()
+
+
+# Profiled windows a step: the profiler can drop kernels of a window on
+# the H100 (a libri960 step's trace lost one of its 8 lstm_fwd kernels),
+# so a step is profiled this many times and the window holding the most
+# kernels is read, as the card tests read theirs.
+PROFILE_WINDOWS = 3
+
+
 def profile_step(step, state, batch, profile_dir, name="train_step"):
-    """One training step under torch.profiler: device time by kernel
-    family, host time by the step's spans, the device's busy share."""
+    """A training step under torch.profiler, PROFILE_WINDOWS times (the
+    state goes on through each), read from the window that holds the most
+    kernels: device time by kernel family, host time by the step's spans,
+    the device's busy share."""
+    best = None
+    for _ in range(PROFILE_WINDOWS):
+        state, out, prof = profile_window(step, state, batch)
+        if best is None or (sum(out["device_launches"].values())
+                            > sum(best[0]["device_launches"].values())):
+            best = (out, prof)
+    out, prof = best
+    if profile_dir:
+        os.makedirs(profile_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(profile_dir, f"{name}.json"))
+        with open(os.path.join(profile_dir, f"{name}.txt"), "w") as f:
+            f.write(prof.key_averages().table(sort_by="self_cuda_time_total",
+                                              row_limit=60))
+    return state, out
+
+
+def profile_window(step, state, batch):
+    """One training step in one profiler window: (state, its families'
+    device ms and launches, spans, busy share, the profiler)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        pad_profiler_window()
+        lead_profiler_window()
         t0 = time.perf_counter()
         state, _ = step(state, *batch)
         torch.cuda.synchronize()
@@ -3358,13 +3435,7 @@ def profile_step(step, state, batch, profile_dir, name="train_step"):
            launches, "device_busy_share": busy / wall_ms,
            "host_span_ms": host, "device_span_ms": span,
            "top_device_ops": top, "joint_kernels": joint_kernels}
-    if profile_dir:
-        os.makedirs(profile_dir, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(profile_dir, f"{name}.json"))
-        with open(os.path.join(profile_dir, f"{name}.txt"), "w") as f:
-            f.write(prof.key_averages().table(sort_by="self_cuda_time_total",
-                                              row_limit=60))
-    return state, out
+    return state, out, prof
 
 
 def check_fused_joint_profile(prof: dict, result: dict, what: str) -> None:
@@ -4427,6 +4498,524 @@ def configs_phase(seed: int, dev, profile_dir, n_requests: int) -> dict:
     return out
 
 
+# ------------------------------ phase 5g ---------------------------------
+#
+# BASELINE.json configs[2] on manifest data: libri100 at B=32 in
+# TrainConfig's buckets (400, 50), (800, 100) and (1600, 200). The corpus
+# is made from --seed: 0.1 * N(0, 1) 16 kHz PCM16 wav files, each with a
+# transcript cut from README.md's words (2.5 words a second), in four
+# spans of lengths (utterances, seconds from, seconds to): one span a
+# bucket, each enough for two full batches besides the held-out dev
+# batch, and a few utterances past 16 s that the buckets drop.
+MANIFEST_SPANS = ((100, 1.0, 3.9), (100, 4.2, 7.9), (96, 8.2, 15.9),
+                  (4, 16.5, 18.0))
+MANIFEST_B, MANIFEST_F32_B, MANIFEST_RESUME_B = 32, 4, 8
+# one epoch of the corpus under SortaGrad: two full batches a bucket,
+# shortest first, then each bucket's flush
+MANIFEST_STEPS = 9
+# the CLI's regularizers, configs[2]'s recipe
+MANIFEST_REG = ["--sortagrad", "--spec-augment", "--speed-perturb",
+                "0.9,1.0,1.1", "--dropout", "0.1", "--embed-dropout", "0.1",
+                "--weight-noise", "0.01", "--ema-decay", "0.999"]
+# the prepare tool's card log_mel against the float64 oracle
+FEATS_ATOL = 1e-3
+
+
+def write_wav(path: str, pcm: np.ndarray) -> None:
+    with wave.open(path, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(16000)
+        w.writeframes(np.clip(pcm * 32768.0, -32768, 32767)
+                      .astype(np.int16).tobytes())
+
+
+def manifest_corpus(seed: int, tmp: str, dev) -> dict:
+    """(a) The corpus as paired wav + txt files, named in a shuffled order
+    so that the held-out first batch mixes the buckets; its manifest by
+    `python -m rnn_transducer_tpu_torch.tools.prepare_manifest
+    --tokenizer bpe` on the card; CMVN stats by `compute_cmvn`; 8
+    utterances' features against `log_mel_oracle`; the examples each
+    bucket gets after the dev batch is held out."""
+    from rnn_transducer_tpu_torch.data.bucketing import BucketBatcher
+    from rnn_transducer_tpu_torch.data.cmvn import compute_cmvn, save_cmvn
+    from rnn_transducer_tpu_torch.data.manifest import (example_length,
+                                                        read_manifest)
+    from rnn_transducer_tpu_torch.tools import prepare_manifest as prep
+
+    rng = np.random.default_rng(seed + 70)
+    readme = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "README.md")
+    with open(readme) as f:
+        words = re.findall(r"[a-z][a-z']*", f.read().lower())
+    secs = np.concatenate([rng.uniform(lo, hi, n)
+                           for n, lo, hi in MANIFEST_SPANS])
+    names = rng.permutation(len(secs))
+    corpus = os.path.join(tmp, "corpus")
+    os.makedirs(corpus)
+    t0 = time.perf_counter()
+    for k, s in zip(names, secs):
+        n_words = max(2, int(round(2.5 * s)))
+        at = int(rng.integers(0, len(words) - n_words))
+        stem = os.path.join(corpus, f"utt{k:04d}")
+        write_wav(stem + ".wav", 0.1 * rng.normal(size=int(s * 16000)))
+        with open(stem + ".txt", "w") as f:
+            f.write(" ".join(words[at:at + n_words]))
+    write_s = time.perf_counter() - t0
+    out = os.path.join(tmp, "train")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        summary = prep.main(["--in-dir", corpus, "--out-dir", out,
+                             "--tokenizer", "bpe", "--vocab-size",
+                             str(BPE_VOCAB), "--device", dev.type])
+    prepare_s = time.perf_counter() - t0
+    man = summary["manifest"]
+    recs = list(read_manifest(man))
+    check(summary["utts"] == len(secs) == len(recs)
+          and summary["vocab_size"] <= BPE_VOCAB,
+          f"prepare tool: {summary}")
+    t0 = time.perf_counter()
+    stats = compute_cmvn(man, 80, device=dev)
+    cmvn_s = time.perf_counter() - t0
+    cmvn_path = os.path.join(tmp, "cmvn.json")
+    save_cmvn(stats, cmvn_path)
+    # 8 of the shorter utterances against the float64 oracle
+    lens = [example_length(r) for r in recs]
+    worst = 0.0
+    for i in sorted(range(len(recs)), key=lens.__getitem__)[::12][:8]:
+        stem = os.path.join(corpus, f"utt{i:04d}")  # manifest order = names
+        pcm, _ = prep.read_audio(stem + ".wav")
+        want, _ = log_mel_oracle(pcm[None], np.array([len(pcm)]))
+        got = np.load(recs[i]["feats"])
+        check(got.shape == want[0].shape, f"prepared feats {got.shape} vs "
+              f"the oracle's {want[0].shape}")
+        worst = max(worst, float(np.abs(got - want[0]).max()))
+    check(worst <= FEATS_ATOL, f"prepared features {worst} from the oracle")
+    # examples a bucket after the first batch is held out; the dropped
+    sizer = BucketBatcher(TrainConfig().buckets, MANIFEST_B)
+    counts = collections.Counter(
+        sizer._bucket_for(t, len(r["labels"])) for t, r in
+        zip(lens[MANIFEST_B:], recs[MANIFEST_B:]))
+    dropped = counts.pop(None, 0)
+    check(len(counts) == 3 and min(counts.values()) >= 2 * MANIFEST_B
+          and dropped == MANIFEST_SPANS[-1][0],
+          f"bucket counts {counts}, dropped {dropped}")
+    # the held-out batch's utterances that a bucket takes, for the decode CLI
+    dev_man = os.path.join(tmp, "dev.jsonl")
+    dev_recs = [r for t, r in zip(lens[:MANIFEST_B], recs[:MANIFEST_B])
+                if sizer._bucket_for(t, len(r["labels"])) is not None]
+    with open(dev_man, "w") as f:
+        for r in dev_recs:
+            f.write(json.dumps(r) + "\n")
+    row = {"utts": len(recs), "hours": float(secs.sum()) / 3600,
+           "vocab_size": summary["vocab_size"],
+           "bucket_examples": {str(b[0]): n for b, n in sorted(
+               counts.items())}, "dropped": dropped,
+           "label_len_max": max(len(r["labels"]) for r in recs),
+           "oracle_max_abs_err": worst, "oracle_atol": FEATS_ATOL,
+           "write_s": write_s, "prepare_s": prepare_s, "cmvn_s": cmvn_s,
+           "cmvn_frames": stats["frames"]}
+    print("manifest_corpus " + json.dumps(row))
+    return {"manifest": man, "dev_manifest": dev_man,
+            "dev_utts": len(dev_recs), "cmvn": cmvn_path,
+            "stats": stats, "bpe": summary["bpe_model"], "corpus": corpus,
+            "recs": recs, "row": row}
+
+
+def manifest_args(corpus: dict, seed: int, *extra):
+    """The training CLI's arguments for the corpus with MANIFEST_REG."""
+    return train_args(["--data", f"manifest:{corpus['manifest']}",
+                       "--cmvn", corpus["cmvn"], "--seed", str(seed),
+                       *MANIFEST_REG, *extra])
+
+
+def bucket_batches(corpus: dict, seed: int, dev) -> dict:
+    """The first B=32 batch of each bucket from the CLI's stream (the dev
+    batch held out, SortaGrad, the seed's shuffle, CMVN), numpy, and the
+    host's ms to load a batch of the bucket: the mean over the stream's
+    batches up to the second of the 1600 bucket, less its first, which
+    also scans the manifest's lengths for SortaGrad (`first_batch_ms`)."""
+    from rnn_transducer_tpu_torch.data.manifest import manifest_batches
+
+    tcfg = TrainConfig(batch_size=MANIFEST_B)
+    cfg = config_libri100()
+    stream = manifest_batches(corpus["manifest"], cfg, tcfg,
+                              skip_first=MANIFEST_B, sortagrad=True,
+                              shuffle_seed=seed, cmvn=corpus["stats"],
+                              device=dev)
+    out, load_ms = {}, collections.defaultdict(list)
+    first_ms = None
+    longest = max(b[0] for b in tcfg.buckets)
+    while len(load_ms[longest]) < 2:
+        t0 = time.perf_counter()
+        batch = next(stream)
+        ms = (time.perf_counter() - t0) * 1e3
+        T = batch[0].shape[1]
+        if first_ms is None:
+            first_ms = ms
+        else:
+            load_ms[T].append(ms)
+        out.setdefault(T, batch)
+    row = {"first_batch_ms": first_ms,
+           "load_ms": {str(T): v for T, v in sorted(load_ms.items())}}
+    print("manifest_loader " + json.dumps(row))
+    check(len(out) == 3 and all(load_ms[T] for T in out),
+          f"the stream's first batches: {row}")
+    return {T: (out[T], statistics.mean(load_ms[T])) for T in sorted(out)}
+
+
+def manifest_f32(corpus: dict, batches: dict, seed: int, dev) -> dict:
+    """(b) f32 libri100 through the kernels and through their plain
+    versions on the first 4 rows of each bucket's batch, with the draws
+    fixed: the batch augmented once (the CLI's speed perturbation and
+    SpecAugment of step 0), step 0's dropout masks and weight noise. The
+    loss within LOSS_RTOL, every gradient leaf within GRAD_RTOL of its
+    largest value; then two steps of make_train_step on the 400 bucket
+    each way, the EMA within GRAD_RTOL of each leaf's largest value."""
+    from rnn_transducer_tpu_torch.train import regularizers as reg
+
+    cfg = dataclasses.replace(config_libri100(), compute_dtype="float32")
+    params = m.init_params(cfg, np.random.default_rng(seed + 71), dev)
+    flat, spec = torch.utils._pytree.tree_flatten(params)
+    paths = list(reg.leaf_paths(params))
+    noisy = [p + 0.01 * z for p, z in
+             zip(flat, reg.weight_noise(seed, 0, paths, flat))]
+    args = manifest_args(corpus, seed)
+    B = MANIFEST_F32_B
+    rows, small = {}, {}
+    for T, (batch, _) in batches.items():
+        small[T] = train_batch(args, tuple(x[:B] for x in batch), 0, None,
+                               dev)
+
+        def loss_and_grads(plain: bool):
+            ctx = plain_kernels() if plain else contextlib.nullcontext()
+            with ctx:
+                xs = [p.detach().requires_grad_(True) for p in noisy]
+                loss, _ = tl.loss_fn(
+                    torch.utils._pytree.tree_unflatten(xs, spec), cfg,
+                    *small[T], dropout=0.1, embed_dropout=0.1,
+                    drop=reg.DropoutMasks(seed, 0, 0, B))
+                grads = torch.autograd.grad(loss, xs)
+            return float(loss.detach()), grads
+
+        t0 = time.perf_counter()
+        lk, gk = loss_and_grads(False)
+        lp, gp = loss_and_grads(True)
+        rows[T] = {"B": B, "T": T, "U1": small[T][2].shape[1] + 1,
+                   "loss_kernels": lk, "loss_plain": lp,
+                   "loss_rel_err": abs(lk - lp) / abs(lp),
+                   "grad_worst_rel_err": max(rel_err(a, b)
+                                             for a, b in zip(gk, gp)),
+                   "seconds": time.perf_counter() - t0}
+        del gk, gp
+        torch.cuda.empty_cache()
+    tcfg = TrainConfig(batch_size=B, warmup_steps=1, seed=seed,
+                       dropout=0.1, embed_dropout=0.1, weight_noise_std=0.01,
+                       ema_decay=0.999)
+
+    def two_steps(plain: bool):
+        ctx = plain_kernels() if plain else contextlib.nullcontext()
+        with ctx:
+            st = tl.init_train_state(None, cfg, tcfg, params=params)
+            step = tl.make_train_step(cfg, tcfg, device=dev)
+            for _ in range(2):
+                st, info = step(st, *small[min(small)])
+                check(int(info["skipped_nonfinite"]) == 0,
+                      "f32 manifest step skipped")
+        return st
+
+    ek, ep = two_steps(False), two_steps(True)
+    ema_err = max(rel_err(a, b) for a, b in zip(leaves(ek.ema),
+                                                leaves(ep.ema)))
+    ema_moved = max(float((a - b).abs().max())
+                    for a, b in zip(leaves(ek.ema), flat))
+    out = {"buckets": rows, "ema_worst_rel_err": ema_err,
+           "ema_max_change": ema_moved, "loss_rtol": LOSS_RTOL,
+           "grad_rtol": GRAD_RTOL}
+    print("manifest_f32 " + json.dumps(out))
+    for T, r in rows.items():
+        check(r["loss_rel_err"] <= LOSS_RTOL,
+              f"f32 manifest loss at bucket {T}: {r}")
+        check(r["grad_worst_rel_err"] <= GRAD_RTOL,
+              f"f32 manifest gradients at bucket {T}: {r}")
+    check(ema_err <= GRAD_RTOL and ema_moved > 0,
+          f"f32 EMA after 2 steps: rel err {ema_err}, change {ema_moved}")
+    return out
+
+
+def manifest_cli(corpus: dict, seed: int, tmp: str, dev) -> dict:
+    """(c) The main path: `python -m rnn_transducer_tpu_torch.train
+    --config libri100 --data manifest:... --batch-size 32` in bf16 with
+    MANIFEST_REG, CMVN, the corpus's BPE tokenizer and dev evaluation,
+    one SortaGrad epoch (every bucket), with the launch counts set to 0
+    just before it and read just after: every step finite and none
+    skipped, every bucket seen, dev_loss and dev_per in the log."""
+    d = os.path.join(tmp, "ck")
+    log = os.path.join(tmp, "train.jsonl")
+    argv = ["--config", "libri100", "--data",
+            f"manifest:{corpus['manifest']}", "--batch-size",
+            str(MANIFEST_B), "--steps", str(MANIFEST_STEPS), *MANIFEST_REG,
+            "--cmvn", corpus["cmvn"], "--tokenizer", f"bpe:{corpus['bpe']}",
+            "--eval-every", "3", "--log-every", "1", "--log-file", log,
+            "--ckpt-dir", d, "--seed", str(seed), "--device", dev.type]
+    reset_counts()
+    t0 = time.perf_counter()
+    last = cli_json(argv, MANIFEST_STEPS, "manifest")
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    with open(log) as f:
+        recs = [json.loads(ln) for ln in f]
+    steps = [r for r in recs if "loss" in r]
+    evals = [r for r in recs if "dev_loss" in r]
+    row = {"steps": len(steps), "wall_s": wall, "final": last,
+           "frames": [r["frames"] for r in steps],
+           "losses": [r["loss"] for r in steps],
+           "skipped": sum(r["skipped_nonfinite"] for r in steps),
+           "dev": evals, "launches": counts}
+    print("manifest_cli " + json.dumps(row))
+    check(len(steps) == MANIFEST_STEPS
+          and all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
+                  for r in steps) and row["skipped"] == 0,
+          f"manifest CLI: steps {steps}")
+    check(set(row["frames"]) == {b[0] for b in TrainConfig().buckets},
+          f"manifest CLI saw buckets {sorted(set(row['frames']))}")
+    check(len(evals) == MANIFEST_STEPS // 3
+          and all(np.isfinite(r["dev_loss"]) and np.isfinite(r["dev_per"])
+                  for r in evals), f"manifest CLI dev records {evals}")
+    for name in ("lstm_fwd_with_acts", "lstm_bwd", "joint_fwd", "joint_bwd",
+                 "lattice_alpha", "lattice_beta"):
+        check(counts[name] > 0, f"the manifest CLI never launched {name}")
+    check(counts["extract_lp"] == counts["assemble_grad"] == 0,
+          "the manifest CLI launched K5")
+    check_no_band(counts, "the manifest CLI")
+    meta = ckpt.load_meta(d)
+    check(meta.get("cmvn") and meta.get("tokenizer")
+          and meta["train_config"]["ema_decay"] == 0.999,
+          "the manifest CLI's meta.json lacks cmvn, tokenizer or ema_decay")
+    check(ckpt.restore_checkpoint(d, device=dev)[0].ema is not None,
+          "the manifest CLI's checkpoint has no EMA")
+    return {**row, "ckpt_dir": d}
+
+
+def bucket_bounds(cfg, B: int, T: int, U1: int) -> dict:
+    """Bounds of K4 (every LSTM layer of a step: encoder layer 0 at T
+    frames, the rest at T / time_reduction, the predictor at U1), K1, K2
+    and K3 at a bucket's shape, in bf16 with f32 activations, counted as
+    the kernel-vs-plain lines count them: inputs read once, outputs
+    written once. K4-fwd: x_proj, w_hh, h0, c0 in; hs, cs and the gate
+    activations out. K4-bwd: activations, c_{t-1}, dh, dc_T, w_hh in;
+    dgates, dh0, dc0 out. K1: f, g, W, b, labels in; blank and label
+    log-probs and the log-sum-exp out. K2: those and the two gradient
+    rows in; df, dg, dW, db out. K3: alpha over two score planes, beta
+    and the two occupancy planes over four."""
+    H, J, V = cfg.enc_hidden, cfg.joint_dim, cfg.n_classes
+    T2 = T // cfg.time_reduction
+    lay = [(T, H)] + [(T2, H)] * (cfg.enc_layers - 1) + [(U1,
+                                                          cfg.pred_hidden)]
+    f_b = b_b = ops = 0
+    for t, h in lay:
+        bth, bt4h = B * t * h * 4, B * t * 4 * h * 4
+        w = h * 4 * h * 2
+        f_b += bt4h + w + 2 * B * h * 4 + 2 * bth + bt4h
+        b_b += bt4h + 2 * bth + B * h * 4 + w + bt4h + 2 * B * h * 4
+        ops += 2 * B * t * h * 4 * h
+    cells = B * T2 * U1
+    lin = B * T2 * J * 4 + B * U1 * J * 4 + J * V * 2 + V * 4 + B * U1 * 4
+    jops = 2 * cells * J * V
+    return {"lstm_fwd": bound(f_b, ops, torch.bfloat16),
+            "lstm_bwd": bound(b_b, ops, torch.bfloat16),
+            "joint_fwd": bound(lin + 3 * cells * 4, jops, torch.bfloat16),
+            "joint_bwd": bound(lin + 5 * cells * 4 + B * T2 * J * 4
+                               + B * U1 * J * 4 + J * V * 4 + V * 4,
+                               3 * jops, torch.bfloat16),
+            "lattice": bound(2 * cells * 4 + cells * 4 + 4 * cells * 4
+                             + 3 * cells * 4, 24 * cells, torch.float32)}
+
+
+def manifest_timing(corpus: dict, batches: dict, seed: int, dev,
+                    profile_dir) -> dict:
+    """(c) In process, the CLI's step (libri100 bf16, MANIFEST_REG) on
+    each bucket's first B=32 batch, augmented as the CLI augments it:
+    ms a step by slope, peak memory, the host's ms to load a batch and
+    its share of a step that waits for it, and a profiled step: 5
+    lstm_fwd and 5 lstm_bwd kernels, K1's and K2's ring kernels, K3, no
+    K5 or K6, and its busy share; at the 1600 bucket each family's device
+    ms beside its bound at that shape."""
+    cfg = config_libri100()
+    args = manifest_args(corpus, seed)
+    tcfg = TrainConfig(batch_size=MANIFEST_B, seed=seed, dropout=0.1,
+                       embed_dropout=0.1, weight_noise_std=0.01,
+                       ema_decay=0.999)
+    state = tl.init_train_state(np.random.default_rng(seed + 72), cfg, tcfg,
+                                dev)
+    step = tl.make_train_step(cfg, tcfg, device=dev)
+    rows, profs = {}, {}
+    for i, (T, (batch, load_ms)) in enumerate(batches.items()):
+        aug = train_batch(args, batch, i, None, dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state, res = timed_steps(step, state, aug, MANIFEST_B)
+        state, prof = profile_step(step, state, aug, profile_dir,
+                                   f"manifest_{T}_step")
+        check_lstm_launches(prof, res, f"manifest {T}")
+        check_fused_joint_profile(prof, res, f"manifest {T}")
+        seen = prof["device_launches"]
+        check(seen["lattice"] > 0 and seen["loss_rows"] == 0,
+              f"the profiled {T} step: lattice {seen['lattice']}, "
+              f"loss_rows {seen['loss_rows']}")
+        res.update({"T": T, "U1": batch[2].shape[1] + 1,
+                    "load_ms": load_ms,
+                    "loader_share": load_ms / (load_ms + res["ms_per_step"]),
+                    "busy_share": prof["device_busy_share"],
+                    "card": card_line()})
+        rows[T], profs[T] = res, prof
+        print(f"manifest_bucket_{T} " + json.dumps(res))
+    T = max(batches)
+    prof = profs[T]
+    seen = prof["device_launches"]
+    bounds = bucket_bounds(cfg, MANIFEST_B, T, rows[T]["U1"])
+    dms = prof["device_ms"]
+    fam = {"lstm_fwd": dms["lstm_fwd"], "lstm_bwd": dms["lstm_bwd"],
+           "joint_fwd": dms["joint_fwd"],
+           "joint_bwd": dms["joint_bwd_a"] + dms["joint_bwd_b"]
+           + dms["joint_bwd_sums"], "lattice": dms["lattice"]}
+    k1600 = {k: {"device_ms": fam[k], "bound_ms": bounds[k]["bound_ms"],
+                 "bound_by": bounds[k]["bound_by"]} for k in fam}
+    for k, n in (("lstm_fwd", "lstm_fwd"), ("lstm_bwd", "lstm_bwd"),
+                 ("joint_fwd", "joint_fwd"), ("lattice", "lattice")):
+        k1600[k]["launches"] = seen[n]
+    k1600["joint_bwd"]["launches"] = (seen["joint_bwd_a"]
+                                      + seen["joint_bwd_b"]
+                                      + seen["joint_bwd_sums"])
+    out = {"card": card_line(), "profile_1600": prof,
+           "kernels_1600": k1600}
+    print("manifest_profile_1600 " + json.dumps(out))
+    return {"buckets": rows, **out}
+
+
+def manifest_resume(corpus: dict, seed: int, tmp: str, dev) -> dict:
+    """(d) f32 libri100 (a JSON config) at B=8 with MANIFEST_REG: the CLI
+    in a process of its own, SIGTERM after step 2: it finishes its step,
+    checkpoints there and exits 0; --resume (--resume-data exact) to two
+    steps past it, and an uninterrupted run to the same step: params,
+    Adam state and EMA compared bit for bit."""
+    cfg_path = os.path.join(tmp, "libri100_f32.json")
+    with open(cfg_path, "w") as f:
+        json.dump(dataclasses.asdict(dataclasses.replace(
+            config_libri100(), compute_dtype="float32")), f)
+    base = ["--config", cfg_path, "--data", f"manifest:{corpus['manifest']}",
+            "--batch-size", str(MANIFEST_RESUME_B), *MANIFEST_REG,
+            "--cmvn", corpus["cmvn"], "--eval-every", "0", "--log-every",
+            "1", "--seed", str(seed), "--device", dev.type]
+    da, db = os.path.join(tmp, "resume_a"), os.path.join(tmp, "resume_b")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "rnn_transducer_tpu_torch.train", *base,
+         "--steps", "60", "--ckpt-dir", da],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    err = []
+    watchdog = threading.Timer(300, proc.kill)  # a run that never logs
+    watchdog.start()
+    try:
+        for line in proc.stderr:
+            err.append(line)
+            if line.startswith("{") and json.loads(line).get("step",
+                                                             0) >= 2:
+                proc.send_signal(signal.SIGTERM)
+                break
+        out, rest = proc.communicate(timeout=300)
+    finally:
+        watchdog.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    err = "".join(err) + rest
+    check(proc.returncode == 0, f"SIGTERM run: exit {proc.returncode}, "
+          f"{err[-2000:]}")
+    stopped = json.loads(out.strip().splitlines()[-1])["steps"]
+    check(2 <= stopped < 60 and ckpt.latest_step(da) == stopped
+          and f"SIGTERM: rank 0 stops after step {stopped}" in err,
+          f"SIGTERM run stopped at {stopped}, checkpoint "
+          f"{ckpt.latest_step(da)}")
+    term_s = time.perf_counter() - t0
+    n = stopped + 2
+    cli_json(base + ["--steps", str(n), "--ckpt-dir", da, "--resume",
+                     "--resume-data", "exact"], n, "manifest_resumed")
+    cli_json(base + ["--steps", str(n), "--ckpt-dir", db], n,
+             "manifest_uninterrupted")
+    a, _ = ckpt.restore_checkpoint(da, device=dev)
+    b, _ = ckpt.restore_checkpoint(db, device=dev)
+    diff = {k: max(float((x - y).abs().max()) / max(
+        float(y.abs().max()), 1e-30) for x, y in zip(
+            leaves(getattr(a, k)), leaves(getattr(b, k)))
+        if isinstance(x, torch.Tensor)) for k in ("params", "ema")}
+    row = {"stopped_at": stopped, "resumed_to": n, "sigterm_run_s": term_s,
+           "params_bit_equal": trees_equal(a.params, b.params),
+           "opt_state_bit_equal": trees_equal(a.opt_state, b.opt_state),
+           "ema_bit_equal": trees_equal(a.ema, b.ema),
+           "worst_rel_diff": diff}
+    print("manifest_resume " + json.dumps(row))
+    check(row["params_bit_equal"] and row["opt_state_bit_equal"]
+          and row["ema_bit_equal"],
+          f"the resumed run differs from the uninterrupted one: {row}")
+    return row
+
+
+def manifest_serve(corpus: dict, cli: dict, dev) -> dict:
+    """(e) The CLI run's EMA served and decoded: serve.py --ckpt-dir
+    --use-ema answers an {"audio"} /recognize with text (and a PCM
+    session), and the decode CLI with --use-ema on the dev manifest (the
+    held-out batch) prints wer and rtf."""
+    from rnn_transducer_tpu_torch.recognize import main as recognize_cli
+    from rnn_transducer_tpu_torch.tools.prepare_manifest import read_audio
+
+    utt, _ = read_audio(os.path.join(corpus["corpus"], "utt0000.wav"))
+    d = cli["ckpt_dir"]
+    served = serve_cli(["--ckpt-dir", d, "--use-ema"], utt, "libri100",
+                       audio=True, want_text=True)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        got = recognize_cli(["--ckpt-dir", d, "--use-ema", "--data",
+                             f"manifest:{corpus['dev_manifest']}",
+                             "--batch-size", str(MAX_BATCH), "--device",
+                             dev.type])
+    last = json.loads(out.getvalue().strip().splitlines()[-1])
+    print("manifest_recognize_ema " + json.dumps(last))
+    check(last == got and last["n"] == corpus["dev_utts"]
+          and all(np.isfinite(last[k]) for k in ("wer", "rtf")),
+          f"the decode CLI with --use-ema printed {last}")
+    return {"serve": served, "recognize": last}
+
+
+def manifest_phase(seed: int, dev, profile_dir) -> dict:
+    """Phase 5g: configs[2] on manifest data, (a)-(e) above; the CLI
+    run's launch counts on a line of their own."""
+    out, seconds = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, fn in (
+                ("corpus", lambda: manifest_corpus(seed, tmp, dev)),
+                ("batches", lambda: bucket_batches(out["corpus"], seed,
+                                                   dev)),
+                ("f32", lambda: manifest_f32(out["corpus"], out["batches"],
+                                             seed, dev)),
+                ("cli", lambda: manifest_cli(out["corpus"], seed, tmp, dev)),
+                ("timing", lambda: manifest_timing(
+                    out["corpus"], out["batches"], seed, dev, profile_dir)),
+                ("resume", lambda: manifest_resume(out["corpus"], seed, tmp,
+                                                   dev)),
+                ("serve", lambda: manifest_serve(out["corpus"], out["cli"],
+                                                 dev))):
+            t0 = time.perf_counter()
+            out[name] = fn()
+            seconds[name] = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+    print("manifest_launches " + json.dumps(
+        {k: v for k, v in out["cli"]["launches"].items() if v}))
+    print("manifest_seconds " + json.dumps(seconds))
+    return out
+
+
 
 def kernel_entry(name, source, replaces, launches, err, ms, plain_ms,
                  bnd: dict, library_ms=None, kernel=None,
@@ -4545,6 +5134,11 @@ def main(argv=None):
     t0 = time.perf_counter()
     configs_phase(args.seed, dev, args.profile_dir, args.requests)
     print(f"phase configs: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    # phase 5g: configs[2] on manifest data (its profiled step before 4f)
+    t0 = time.perf_counter()
+    manifest_phase(args.seed, dev, args.profile_dir)
+    print(f"phase manifest: {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
 
     # phase 4f: beam serving (its profiled windows after the training

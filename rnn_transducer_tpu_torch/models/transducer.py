@@ -10,7 +10,8 @@ Plain functions on tensors over a parameter dict in the JAX layout:
 "pred_proj", "out": {"w": (in, out), "b"}}}.
 It covers serving (`encode`, `predict_step`, `joint_step`), streaming
 (`init_enc_state`, `encode_chunk`) and the training forward (`predict`,
-`joint`, `joint_activations`, `forward`). Configurations outside it
+`joint`, `joint_activations`, `forward`), with the JAX package's dropout
+sites in `encode` and `predict`. Configurations outside it
 raise NotImplementedError naming their ROADMAP item. Every entry point takes int8 serving params
 (`ops/quant.py`) and dequantizes them as the JAX package does; `encode`
 keeps `w_hh` int8 for the W8A8 recurrence.
@@ -149,14 +150,30 @@ def _time_reduce(x, lens, factor: int):
     return x, lens
 
 
-def encode(params: Params, cfg: TransducerConfig, feats, feat_lens):
+def _dropout(x, rate: float, drop, site: int):
+    """Inverted dropout (train time): `drop(site, x, keep)` gives the keep
+    mask of x's shape, one mask a row, drawn per global row so that a
+    data-parallel shard keeps what one process keeps
+    (train/regularizers.py `DropoutMasks`). `site` separates the mask
+    streams of the dropout sites, as in JAX's `_dropout`: encoder layer i
+    (or conformer block i) is site i, the label embeddings 1000, predictor
+    layer i 1001 + i."""
+    keep = 1.0 - rate
+    return torch.where(drop(site, x, keep), x / keep, 0.0)
+
+
+def encode(params: Params, cfg: TransducerConfig, feats, feat_lens, *,
+           dropout: float = 0.0, drop=None):
     """feats: (B, T, input_dim) -> (enc_out (B, T', enc_out_dim), enc_lens).
 
     As in JAX, pad-region values between layers are garbage that stays in
     the pad region; the input to frame stacking and the output are masked.
     A bidirectional encoder runs `bilstm_layer` on each layer's
-    {"fwd", "bwd"} params.
+    {"fwd", "bwd"} params. dropout (with a mask source `drop`): on every
+    layer's output but the last, before layer 0's masking and frame
+    stacking, as JAX's stacked-LSTM dropout.
     """
+    dropping = dropout > 0.0 and drop is not None
     check_supported(cfg)
     params = maybe_dequant_tree(params, keep=("w_hh",))
     x = mask_padding(feats.float(), feat_lens)
@@ -168,17 +185,23 @@ def encode(params: Params, cfg: TransducerConfig, feats, feat_lens):
             x, lens = _time_reduce(x, lens, cfg.time_reduction)
         proj = params["encoder"][0]["in_proj"]
         x = _dot(x, proj["w"], cd) + proj["b"].float()
-        for block in params["encoder"][1:]:
+        n = cfg.enc_layers
+        for i, block in enumerate(params["encoder"][1:]):
             x = conformer_block(block, x, lens, cfg.enc_heads, cd,
                                 att_left=cfg.enc_att_left,
                                 chunk_att=cfg.enc_chunk_att)
+            if dropping and i < n - 1:
+                x = _dropout(x, dropout, drop, site=i)
         return mask_padding(x, lens), lens
+    n = len(params["encoder"])
     for i, layer in enumerate(params["encoder"]):
         if cfg.bidirectional:
             x = bilstm_layer(layer["fwd"], layer["bwd"], x, lens,
                              compute_dtype=cd)
         else:
             x = lstm_layer(layer, x, compute_dtype=cd)[0]
+        if dropping and i < n - 1:
+            x = _dropout(x, dropout, drop, site=i)
         if i == 0 and cfg.time_reduction > 1:
             x = mask_padding(x, lens)
             x, lens = _time_reduce(x, lens, cfg.time_reduction)
@@ -346,12 +369,15 @@ class DecodeWeights:
         return self._mm(torch.tanh(f + g), self.out_w) + self.out_b
 
 
-def predict(params: Params, cfg: TransducerConfig, labels):
+def predict(params: Params, cfg: TransducerConfig, labels, *,
+            dropout: float = 0.0, embed_dropout: float = 0.0, drop=None):
     """Prediction network over blank-prefixed labels.
 
     labels (B, U) -> (outputs (B, U+1, pred_hidden), final states): position
     u conditions on labels[:u]; u = 0 is the start symbol, the blank
     embedding. The final states are a list of (h, c) per layer.
+    dropout / embed_dropout (with a mask source `drop`, see `_dropout`):
+    between the LSTM layers and on the label embeddings.
     """
     check_supported(cfg)
     params = maybe_dequant_tree(params)
@@ -360,9 +386,14 @@ def predict(params: Params, cfg: TransducerConfig, labels):
     bos = torch.full((B, 1), cfg.blank, dtype=torch.int64,
                      device=labels.device)
     x = params["embed"][torch.cat([bos, labels], dim=1)]  # (B, U+1, E)
+    if embed_dropout > 0.0 and drop is not None:
+        x = _dropout(x, embed_dropout, drop, site=1000)
     states = []
-    for layer in params["predictor"]:
+    n = len(params["predictor"])
+    for i, layer in enumerate(params["predictor"]):
         x, st = lstm_layer(layer, x, compute_dtype=cfg.cdtype)
+        if dropout > 0.0 and drop is not None and i < n - 1:
+            x = _dropout(x, dropout, drop, site=1001 + i)
         states.append(st)
     return x, states
 

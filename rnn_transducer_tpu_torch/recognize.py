@@ -29,9 +29,12 @@ or joins a torchrun environment when RANK and WORLD_SIZE are set; a batch
 size that N does not divide and the streaming modes are refused, as in
 recognize.py.
 
+--use-ema decodes a checkpoint's Polyak average (a run of the trainer
+with --ema-decay) instead of its params.
+
 Not ported yet, each refused with its ROADMAP item (queue 1): the CTC
-modes (item 8), --loader native and --use-ema (item 13), --lm-ckpt and
---lm-rescore (item 18).
+modes (item 8), --loader native (item 13(b)), --lm-ckpt and --lm-rescore
+(item 18).
 """
 
 from __future__ import annotations
@@ -68,13 +71,14 @@ def parse_args(argv=None):
     p.add_argument("--loader", default="python",
                    choices=["python", "native"],
                    help="manifest input pipeline; 'native' is not ported "
-                        "yet (ROADMAP item 13)")
+                        "yet (ROADMAP item 13(b))")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--cmvn", default=None,
                    help="global CMVN stats JSON; defaults to the stats "
                         "recorded in the checkpoint's meta.json (if any)")
     p.add_argument("--use-ema", action="store_true",
-                   help="not ported yet (ROADMAP item 13)")
+                   help="decode the checkpoint's EMA params (trained with "
+                        "--ema-decay > 0)")
     p.add_argument("--quantize", default=None, choices=["int8"],
                    help="post-training weight quantization for decode: "
                         "symmetric per-channel int8 on every 2-D weight "
@@ -129,10 +133,7 @@ def refuse_unported(args) -> None:
                          "queue 1, item 8: CTC)")
     if args.loader == "native":
         raise SystemExit("--loader native is not ported yet (ROADMAP queue "
-                         "1, item 13: training data)")
-    if args.use_ema:
-        raise SystemExit("--use-ema is not ported yet (ROADMAP queue 1, "
-                         "item 13: EMA)")
+                         "1, item 13(b): the native loader)")
     if args.lm_ckpt or args.lm_rescore:
         raise SystemExit("--lm-ckpt / --lm-rescore are not ported yet "
                          "(ROADMAP queue 1, item 18: LM checkpoints)")

@@ -30,7 +30,8 @@ engine's device (a PcmFeaturizer a session for PCM sessions), with
 `--ckpt-dir` serves a directory written by the port's trainer (`python -m
 rnn_transducer_tpu_torch.train --ckpt-dir D [--tokenizer SPEC]`), LSTM
 or conformer: the model config, the tokenizer and the global CMVN stats
-come from its meta.json, and a `--config` that differs is refused.
+come from its meta.json, and a `--config` that differs is refused;
+`--use-ema` serves its Polyak average (a run with --ema-decay).
 `--config libri100_conformer` serves the conformer encoder (every
 LayerNorm in the K8 kernel, `csrc/fused_ln.cu`); its streaming twins
 `libri100_conformer_stream` (causal) and `libri100_conformer_chunked`
@@ -41,8 +42,8 @@ batch sizes that are a multiple of 8, such as the default `--max-batch 8`
 and `--stream-slots 8`, and the dequantized weights elsewhere; a
 conformer dequantizes every weight, as in the JAX package.
 
-Not ported yet, each with its ROADMAP item (queue 1): `--use-ema` (item
-13: EMA), `--lm-ckpt` / `--lm-weight` / `--ilm-weight` (item 18: the LM
+Not ported yet, each with its ROADMAP item (queue 1): `--lm-ckpt` /
+`--lm-weight` / `--ilm-weight` (item 18: the LM
 checkpoints are orbax files, which the port does not read; the engines'
 `lm=` takes an LM's params directly) and `--exported-streaming` (item 18:
 the export tool).
@@ -951,6 +952,9 @@ def parse_args(argv=None):
     p.add_argument("--state-dict", default=None,
                    help="torch-layout .pt from tools/export_torch_ckpt.py "
                         "(LSTM encoders); omit for fresh weights from --seed")
+    p.add_argument("--use-ema", action="store_true",
+                   help="serve --ckpt-dir's EMA params (trained with "
+                        "--ema-decay > 0)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8000)
@@ -1021,15 +1025,23 @@ def model_meta(args):
 
 
 def load_params(args, cfg, device: str | torch.device = "cuda"):
-    """The served weights on `device`: --ckpt-dir's latest step,
-    --state-dict's .pt, or fresh ones from --seed; int8 under --quantize."""
+    """The served weights on `device`: --ckpt-dir's latest step (its EMA
+    under --use-ema), --state-dict's .pt, or fresh ones from --seed; int8
+    under --quantize."""
     from rnn_transducer_tpu_torch.train import checkpoint as ckpt
     from rnn_transducer_tpu_torch.weights import load_state_dict
 
+    use_ema = getattr(args, "use_ema", False)
+    if use_ema and not args.ckpt_dir:
+        raise SystemExit("--use-ema needs --ckpt-dir")
     if args.ckpt_dir:
-        state, step = ckpt.restore_checkpoint(args.ckpt_dir, device=device)
-        params = state.params
-        print(f"loaded checkpoint step {step}", file=sys.stderr)
+        try:
+            params, _, step, _ = ckpt.load_plain_params(
+                args.ckpt_dir, cfg, prefer_ema=use_ema, device=device)
+        except ValueError as e:
+            raise SystemExit(str(e)) from None
+        print(f"loaded checkpoint step {step}"
+              + (" (EMA params)" if use_ema else ""), file=sys.stderr)
     elif getattr(args, "state_dict", None):  # serve.py's flag alone
         params = load_state_dict(args.state_dict, cfg, device)
     else:

@@ -8,15 +8,37 @@
         --pruned-range 8 --steps 100        # the pruned two-pass loss
     python -m rnn_transducer_tpu_torch.train --config libri100 \\
         --ar-range 8 [--ar-left N] [--ar-align-from CKPT_DIR]  # AR band
+    python -m rnn_transducer_tpu_torch.train --config libri100 \\
+        --data manifest:data/train/manifest.jsonl --batch-size 32 \\
+        --sortagrad --cmvn cmvn.json --spec-augment \\
+        --speed-perturb 0.9,1.0,1.1 --dropout 0.1 --ema-decay 0.999 \\
+        --ckpt-dir ckpt --log-file train.jsonl   # configs[2]
 
 Runs the standard training step (`train/loop.py`) on the `learnable_batch`
 stream of train.py (features that encode their labels, drawn from
---seed), logs one JSON line per --log-every steps to stderr, checkpoints
-every --ckpt-every steps and at the end, and prints
+--seed), or with --data manifest:<path> on a JSONL manifest
+(data/manifest.py; `python -m
+rnn_transducer_tpu_torch.tools.prepare_manifest` writes one) in TrainConfig's length buckets, (400, 50),
+(800, 100) and (1600, 200) frames and labels: --sortagrad makes the first
+epoch shortest-first, every later one is shuffled from --seed, and the
+first --batch-size examples are held out as the dev batch when the corpus
+has more (or --dev-manifest's first batch is). --cmvn applies global CMVN
+stats (data/cmvn.py) and records them in meta.json. --speed-perturb and
+--spec-augment (--spec-augment-warp W) augment every batch from draws
+keyed by the global step, before it is split over ranks; --dropout,
+--embed-dropout, --weight-noise and --ema-decay are the step's
+regularizers. Logs one JSON record per --log-every steps to stderr (and
+--log-file), dev loss and dev PER (greedy decode) every --eval-every
+steps, checkpoints every --ckpt-every steps and at the end, and prints
 {"final_loss": ..., "steps": ...} as the last line of stdout. --resume
-continues from the latest checkpoint in --ckpt-dir; the synthetic stream
-restarts from the seed, as in train.py. --pruned-range S sets the config's
-pruned_range and trains the pruned two-pass loss (--simple-loss-scale
+continues from the latest checkpoint in --ckpt-dir; on manifest data
+the stream is fast-forwarded past the restored steps on metadata alone
+(--resume-data exact, the default; fresh restarts the stream), so that a
+resumed run trains on the batches and draws of an uninterrupted one,
+while the synthetic stream restarts from the seed, as in train.py.
+SIGTERM with --ckpt-dir finishes the step, checkpoints and exits 0; under
+--data-parallel the ranks agree on the step to stop at.
+--pruned-range S sets the config's pruned_range and trains the pruned two-pass loss (--simple-loss-scale
 weighs its first pass); --ar-range S trains the alignment-restricted band
 around the live model's Viterbi path, or around that of the checkpoint
 --ar-align-from names (a port checkpoint with its meta.json).
@@ -35,7 +57,8 @@ starts N - 1 worker processes beside this one, or joins a torchrun
 environment when RANK and WORLD_SIZE are set; ranks on cards of their
 own talk over NCCL, ranks on the CPU over gloo. Rank 0 alone logs and
 writes checkpoints; --resume loads on every rank. A batch size that N
-does not divide, and an N above the visible cards, are refused.
+does not divide, and an N above the visible cards, are refused. Every
+rank reads the manifest and keeps its rows of each batch.
 
     python -m rnn_transducer_tpu_torch.train --config libri960 \
         --batch-size 64 --max-frames 400 --max-labels 60 --data-parallel 2
@@ -46,12 +69,19 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import signal
 import sys
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from rnn_transducer_tpu_torch.data import augment
+from rnn_transducer_tpu_torch.data.cmvn import load_cmvn
+from rnn_transducer_tpu_torch.data.manifest import (manifest_batches,
+                                                    manifest_dev_batch,
+                                                    read_manifest)
 from rnn_transducer_tpu_torch.data.synthetic import learnable_batch
 from rnn_transducer_tpu_torch.data.tokenizer import (tokenizer_from_spec,
                                                      tokenizer_to_meta)
@@ -60,9 +90,15 @@ from rnn_transducer_tpu_torch.models.config import (NAMED_CONFIGS,
                                                     TransducerConfig)
 from rnn_transducer_tpu_torch.parallel import mesh as meshlib
 from rnn_transducer_tpu_torch.train import checkpoint as ckpt
+from rnn_transducer_tpu_torch.decode.greedy import recognize_greedy
+from rnn_transducer_tpu_torch.decode.metrics import (error_rate,
+                                                     tokens_to_lists)
 from rnn_transducer_tpu_torch.train.loop import (LOSS_IMPLS,
                                                  init_train_state,
+                                                 make_eval_step,
                                                  make_train_step)
+from rnn_transducer_tpu_torch.utils.logging import MetricsLogger
+from rnn_transducer_tpu_torch.utils.seeds import generator
 
 
 def parse_args(argv=None):
@@ -71,7 +107,7 @@ def parse_args(argv=None):
                    help="named config: smoke|" + "|".join(NAMED_CONFIGS)
                         + ", or a JSON file path")
     p.add_argument("--data", default="synthetic",
-                   help="'synthetic' (manifest data is not ported yet)")
+                   help="'synthetic' or 'manifest:<jsonl path>'")
     p.add_argument("--steps", type=int, default=100)
     p.add_argument("--batch-size", type=int, default=16)
     p.add_argument("--lr", type=float, default=1e-3)
@@ -108,6 +144,46 @@ def parse_args(argv=None):
                    help="tokenizer spec (char | phone | bpe:<model.json>); "
                         "stored inline in the checkpoint's meta.json so the "
                         "server and the decode CLI can emit text")
+    p.add_argument("--spec-augment", action="store_true",
+                   help="SpecAugment time / frequency masks on the features")
+    p.add_argument("--spec-augment-warp", type=int, default=0,
+                   help="with --spec-augment: time-warp each utterance too "
+                        "(Park et al.'s W, e.g. 80; 0 = masks only)")
+    p.add_argument("--speed-perturb", default=None,
+                   help="feature-domain speed perturbation, a factor a row "
+                        "from this comma-separated set (e.g. "
+                        "'0.9,1.0,1.1'); before SpecAugment")
+    p.add_argument("--cmvn", default=None,
+                   help="global CMVN stats JSON (data/cmvn.py): normalize "
+                        "the features with the corpus mean / std; recorded "
+                        "in meta.json for the decode CLI and the server")
+    p.add_argument("--sortagrad", action="store_true",
+                   help="first epoch shortest-first (manifest data)")
+    p.add_argument("--dev-manifest", default=None,
+                   help="JSONL manifest whose first batch is the dev batch; "
+                        "with manifest training data and none, the first "
+                        "batch of examples is held out instead")
+    p.add_argument("--eval-every", type=int, default=100,
+                   help="dev loss and dev PER every N steps (0 = never)")
+    p.add_argument("--log-file", default=None,
+                   help="append the JSONL metrics records here (mirrored "
+                        "to stderr)")
+    p.add_argument("--resume-data", choices=["exact", "fresh"], default=None,
+                   help="with --resume and manifest data: 'exact' (the "
+                        "default) fast-forwards the batch stream past the "
+                        "restored steps on metadata alone; 'fresh' restarts "
+                        "it from epoch 0. Synthetic data restarts always")
+    p.add_argument("--weight-noise", type=float, default=0.0,
+                   help="Graves weight noise std (gradients at params + "
+                        "N(0, std))")
+    p.add_argument("--dropout", type=float, default=0.0,
+                   help="dropout between the LSTM layers (encoder and "
+                        "predictor)")
+    p.add_argument("--embed-dropout", type=float, default=0.0,
+                   help="dropout on the predictor's label embeddings")
+    p.add_argument("--ema-decay", type=float, default=0.0,
+                   help="keep a Polyak average of the params (e.g. 0.999); "
+                        "decode it with --use-ema")
     p.add_argument("--ckpt-dir", default=None)
     p.add_argument("--ckpt-every", type=int, default=500)
     p.add_argument("--resume", action="store_true")
@@ -142,13 +218,24 @@ def synthetic_batches(args, cfg: TransducerConfig, batch_size: int):
                                   2, args.max_frames // n_labels // 2))
 
 
+def _manifest_path(args) -> str | None:
+    return (args.data.split(":", 1)[1] if args.data.startswith("manifest:")
+            else None)
+
+
 def _setup(args):
     """(cfg, tcfg, tokenizer meta or None) from the arguments; refuses
     what the run cannot do before any rank starts."""
-    if args.data != "synthetic":
-        raise NotImplementedError(
-            f"--data {args.data!r} is not ported yet (ROADMAP queue 1, item "
-            "13: training data)")
+    if args.data != "synthetic" and _manifest_path(args) is None:
+        raise SystemExit(f"--data {args.data!r}: 'synthetic' or "
+                         "'manifest:<path>'")
+    if args.cmvn and not (_manifest_path(args) or args.dev_manifest):
+        raise SystemExit("--cmvn requires manifest data (synthetic "
+                         "features are already standardized draws)")
+    if args.resume_data == "exact" and _manifest_path(args) is None:
+        raise SystemExit("--resume-data exact requires manifest data "
+                         "(synthetic batches are i.i.d. draws; the stream "
+                         "restarts deterministically from the seed)")
     cfg = get_model_config(args.config)
     if args.pruned_range > 0:
         cfg = dataclasses.replace(cfg, pruned_range=args.pruned_range)
@@ -163,7 +250,11 @@ def _setup(args):
                        fastemit_lambda=args.fastemit_lambda,
                        simple_loss_scale=args.simple_loss_scale,
                        ar_range=args.ar_range, ar_left=args.ar_left,
-                       data_parallel=args.data_parallel)
+                       data_parallel=args.data_parallel,
+                       weight_noise_std=args.weight_noise,
+                       dropout=args.dropout,
+                       embed_dropout=args.embed_dropout,
+                       ema_decay=args.ema_decay)
     tok_meta = None
     if args.tokenizer:
         tok = tokenizer_from_spec(args.tokenizer)
@@ -221,21 +312,28 @@ def _train(mesh, args):
     state = init_train_state(np.random.default_rng(args.seed), cfg, tcfg,
                              device)
     start_step = 0
-    if args.resume and args.ckpt_dir and ckpt.latest_step(args.ckpt_dir) \
-            is not None:
+    resuming = (args.resume and args.ckpt_dir
+                and ckpt.latest_step(args.ckpt_dir) is not None)
+    if resuming:
         meta = ckpt.load_meta(args.ckpt_dir) or {}
         saved = meta.get("model_config")
         if saved is not None and saved != json.loads(json.dumps(
                 dataclasses.asdict(cfg))):
             raise SystemExit(f"--resume: {args.ckpt_dir} holds a checkpoint "
                              "of another model config")
-        state, start_step = ckpt.restore_checkpoint(args.ckpt_dir,
-                                                    device=device)
+        restored, start_step = ckpt.restore_checkpoint(args.ckpt_dir,
+                                                       device=device)
+        ema = restored.ema if tcfg.ema_decay > 0 else None
+        if tcfg.ema_decay > 0 and ema is None:  # a run without one: start
+            ema = torch.utils._pytree.tree_map(torch.clone, restored.params)
+        state = dataclasses.replace(restored, ema=ema)
         log(f"resumed from step {start_step}")
     if mesh is not None:
         state = dataclasses.replace(
             state, params=meshlib.replicate(mesh, state.params),
-            opt_state=meshlib.replicate(mesh, state.opt_state))
+            opt_state=meshlib.replicate(mesh, state.opt_state),
+            ema=(None if state.ema is None
+                 else meshlib.replicate(mesh, state.ema)))
         if teacher_params is not None:
             teacher_params = meshlib.replicate(mesh, teacher_params)
     step_fn = make_train_step(cfg, tcfg, mesh=mesh, teacher_cfg=teacher_cfg,
@@ -244,36 +342,66 @@ def _train(mesh, args):
     meta_extra = {"train_config": dataclasses.asdict(tcfg)}
     if tok_meta is not None:
         meta_extra["tokenizer"] = tok_meta
+    cmvn = load_cmvn(args.cmvn) if args.cmvn else None
+    if cmvn is not None:  # the decode CLI and the server apply the same
+        meta_extra["cmvn"] = {"mean": cmvn["mean"], "std": cmvn["std"]}
+    batches, dev_batch = _data(args, cfg, tcfg, cmvn, device, log,
+                               resume_skip=start_step if resuming else 0)
+    run_eval = _evaluator(args, cfg, tcfg, dev_batch, device)
+    mlog = MetricsLogger(args.log_file if lead else None, mirror=lead)
 
     def save(step_no, st):
         if lead:
             ckpt.save_checkpoint(args.ckpt_dir, step_no, st, model_cfg=cfg,
                                  **meta_extra)
 
+    # preemption: SIGTERM finishes the step, checkpoints, and exits 0
+    stop = {"flag": False}
+    previous = None
+    if args.ckpt_dir:
+        def _on_term(signum, frame):
+            stop["flag"] = True
+        try:
+            previous = signal.signal(signal.SIGTERM, _on_term)
+        except ValueError:
+            pass  # not the main thread (embedded use)
+
     t_start = time.perf_counter()
     utts = 0
     step_no = start_step
     info = {"loss": float("nan"), "grad_norm": float("nan")}
-    batches = synthetic_batches(args, cfg, tcfg.batch_size)
-    for i, batch in enumerate(batches):
-        if i >= args.steps - start_step:
-            break
-        if mesh is not None:  # every rank draws the batch, takes its slice
-            feats, fl, labels, ll = meshlib.shard_batch(mesh, batch)
-        else:
-            feats, fl, labels, ll = (torch.from_numpy(x).to(device)
-                                     for x in batch)
-        state, info = step_fn(state, feats, fl, labels, ll, *extra)
-        utts += tcfg.batch_size
-        step_no = start_step + i + 1
-        if step_no % args.log_every == 0:
-            dt = time.perf_counter() - t_start
-            log(json.dumps({"step": step_no,
-                            "loss": round(float(info["loss"]), 4),
-                            "grad_norm": round(float(info["grad_norm"]), 4),
-                            "utt_per_sec": round(utts / dt, 2)}))
-        if args.ckpt_dir and step_no % args.ckpt_every == 0:
-            save(step_no, state)
+    try:
+        for i, batch in enumerate(batches):
+            if i >= args.steps - start_step:
+                break
+            feats, fl, labels, ll = train_batch(args, batch, start_step + i,
+                                                 mesh, device)
+            state, info = step_fn(state, feats, fl, labels, ll, *extra)
+            utts += tcfg.batch_size
+            step_no = start_step + i + 1
+            if step_no % args.log_every == 0:
+                dt = time.perf_counter() - t_start
+                mlog.log(step=step_no, phase="rnnt",
+                         loss=round(float(info["loss"]), 4),
+                         grad_norm=round(float(info["grad_norm"]), 4),
+                         utt_per_sec=round(utts / dt, 2),
+                         frames=int(feats.shape[1]),
+                         skipped_nonfinite=int(info["skipped_nonfinite"]))
+            if lead and args.eval_every and step_no % args.eval_every == 0:
+                dev_loss, per = run_eval(state.params)
+                mlog.log(step=step_no, dev_loss=round(dev_loss, 4),
+                         dev_per=round(per, 4))
+            if args.ckpt_dir and step_no % args.ckpt_every == 0:
+                save(step_no, state)
+            if args.ckpt_dir and _agreed(mesh, stop["flag"]):
+                rank = 0 if mesh is None else mesh.rank
+                print(f"SIGTERM: rank {rank} stops after step {step_no}",
+                      file=sys.stderr, flush=True)
+                break
+    finally:
+        mlog.close()
+        if previous is not None:
+            signal.signal(signal.SIGTERM, previous)
     if args.ckpt_dir:
         save(step_no, state)
         log(f"saved final checkpoint at step {step_no} to {args.ckpt_dir}")
@@ -281,6 +409,97 @@ def _train(mesh, args):
         print(json.dumps({"final_loss": round(float(info["loss"]), 4),
                           "steps": step_no}), flush=True)
     return state
+
+
+def _agreed(mesh, flag: bool) -> bool:
+    """Whether any rank was asked to stop: one all-reduce (MAX) of the
+    flag a step, so that every rank stops after the same step."""
+    if mesh is None or mesh.size == 1:
+        return flag
+    t = torch.tensor([int(flag)], dtype=torch.int32, device=mesh.device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=mesh.group)
+    return bool(t.item())
+
+
+def _data(args, cfg, tcfg, cmvn, device, log, resume_skip: int):
+    """(the stream of numpy training batches, the dev batch (feats,
+    feat_lens, labels, label_lens, n_valid)), as train.py builds them."""
+    path = _manifest_path(args)
+    dev_batch = None
+    if args.dev_manifest:
+        dev_batch = manifest_dev_batch(args.dev_manifest, cfg, tcfg,
+                                       cmvn=cmvn, device=device)
+    if path is not None:
+        skip_first = 0
+        if not args.dev_manifest:
+            # hold the first batch_size examples out of every epoch as the
+            # dev batch, when the corpus has more than that; else the dev
+            # batch overlaps the training data
+            dev_batch = manifest_dev_batch(path, cfg, tcfg, cmvn=cmvn,
+                                           device=device)
+            n_utts = sum(1 for _ in read_manifest(path))
+            skip_first = (tcfg.batch_size if dev_batch is not None
+                          and n_utts > tcfg.batch_size else 0)
+        skip = resume_skip if args.resume_data != "fresh" else 0
+        if skip:
+            log(f"fast-forwarding the data stream past {skip} batches "
+                "(--resume-data exact)")
+        batches = manifest_batches(path, cfg, tcfg, skip_first=skip_first,
+                                   sortagrad=args.sortagrad,
+                                   shuffle_seed=args.seed,
+                                   resume_batches=skip, cmvn=cmvn,
+                                   device=device)
+    else:
+        batches = synthetic_batches(args, cfg, tcfg.batch_size)
+    if dev_batch is None:
+        n = min(tcfg.batch_size, 8)
+        dev_batch = learnable_batch(
+            np.random.default_rng(args.seed + 12345), n,
+            n_labels=min(args.max_labels, 20), input_dim=cfg.input_dim,
+            vocab=cfg.vocab_size, frames_per_label=4) + (n,)
+    return batches, dev_batch
+
+
+def train_batch(args, batch, global_step: int, mesh, device):
+    """A numpy batch as this rank's tensors: speed-perturbed and
+    SpecAugmented (draws keyed by the global step, on the whole batch)
+    when asked, then this rank's rows."""
+    aug = args.speed_perturb or args.spec_augment
+    if not aug:
+        if mesh is not None:
+            return meshlib.shard_batch(mesh, batch)
+        return tuple(torch.from_numpy(x).to(device) for x in batch)
+    feats, fl, labels, ll = (torch.from_numpy(x).to(device) for x in batch)
+    if args.speed_perturb:
+        factors = tuple(float(x) for x in args.speed_perturb.split(","))
+        feats, fl = augment.speed_perturb(
+            generator(args.seed + 778, global_step), feats, fl, factors)
+    if args.spec_augment:
+        feats = augment.spec_augment(
+            generator(args.seed + 777, global_step), feats, fl,
+            time_warp_frames=args.spec_augment_warp)
+    batch = (feats, fl, labels, ll)
+    return batch if mesh is None else meshlib.shard_batch(mesh, batch)
+
+
+def _evaluator(args, cfg, tcfg, dev_batch, device):
+    """run_eval(params) -> (dev loss, dev PER by greedy decode) on the real
+    rows of the dev batch, as train.py's run_eval."""
+    eval_fn = make_eval_step(cfg)
+    f, flen, lab, lablen = (torch.from_numpy(np.asarray(x)).to(device)
+                            for x in dev_batch[:4])
+    nv = int(dev_batch[4])
+
+    def run_eval(params):
+        _, per_utt = eval_fn(params, f, flen, lab, lablen)
+        with torch.no_grad():
+            toks, lens = recognize_greedy(
+                params, cfg, f, flen, max_symbols=max(args.max_labels * 2, 8))
+        per = error_rate(
+            tokens_to_lists(*(x[:nv].cpu().numpy() for x in (lab, lablen))),
+            tokens_to_lists(*(x[:nv].cpu().numpy() for x in (toks, lens))))
+        return float(per_utt[:nv].mean()), per
+    return run_eval
 
 
 if __name__ == "__main__":

@@ -1,10 +1,14 @@
 """Checkpoints of the training state (port of `rnn_transducer_tpu/train/checkpoint.py`).
 
 A checkpoint directory holds one `step_<N>.pt` per saved step, written
-with `torch.save` ({"params", "opt_state", "step"}), and a `meta.json`
-beside them with the model and train configs, as the JAX package's
-`save_meta` writes it, so a run can be resumed or served without naming
-its config again. The JAX package's orbax format is not read.
+with `torch.save` ({"params", "opt_state", "step", "ema"}; "ema" is None
+unless the run keeps a Polyak average, and a file without it loads with
+ema None), and a `meta.json` beside them with the model and train configs
+(and the global CMVN stats and the tokenizer when the run had them), as
+the JAX package's `save_meta` writes it, so a run can be resumed or
+served without naming its config again. `load_plain_params` gives the
+params, or with prefer_ema the EMA, of a checkpoint to the decode CLI and
+the server. The JAX package's orbax format is not read.
 
 A step file is written to a temporary name and renamed into place, so a
 reader never sees half of one.
@@ -79,7 +83,7 @@ def save_checkpoint(ckpt_dir: str, step: int, state: TrainState,
     path = step_path(ckpt_dir, step)
     tmp = f"{path}.{os.getpid()}.tmp"
     torch.save({"params": state.params, "opt_state": state.opt_state,
-                "step": state.step}, tmp)
+                "step": state.step, "ema": state.ema}, tmp)
     os.replace(tmp, path)
     if model_cfg is not None or extra_meta:
         save_meta(ckpt_dir, model_cfg, **extra_meta)
@@ -97,4 +101,25 @@ def restore_checkpoint(ckpt_dir: str, step: int | None = None,
     tree = torch.load(step_path(ckpt_dir, step), map_location=device,
                       weights_only=True)
     return TrainState(params=tree["params"], opt_state=tree["opt_state"],
-                      step=tree["step"]), step
+                      step=tree["step"], ema=tree.get("ema")), step
+
+
+def load_plain_params(ckpt_dir: str, cfg=None, prefer_ema: bool = False,
+                      device: str | torch.device = "cpu"):
+    """The latest checkpoint's params (with prefer_ema, its Polyak
+    average, which a checkpoint without one refuses) on `device`:
+    (params, cfg, step, meta). cfg defaults to the one in meta.json (JAX
+    `load_plain_params`)."""
+    meta = load_meta(ckpt_dir) or {}
+    if cfg is None:
+        cfg = load_model_config(ckpt_dir)
+        if cfg is None:
+            raise FileNotFoundError(
+                f"{ckpt_dir}/meta.json has no model_config; pass cfg")
+    state, got = restore_checkpoint(ckpt_dir, device=device)
+    if prefer_ema:
+        if state.ema is None:
+            raise ValueError(f"{ckpt_dir} carries no EMA params (train "
+                             "with --ema-decay > 0)")
+        return state.ema, cfg, got, meta
+    return state.params, cfg, got, meta

@@ -5,7 +5,11 @@ or `xla` over the full lattice; `pruned`, the k2 two-pass objective; and
 `ar`, the alignment-restricted band, routed by `TrainConfig.ar_range`),
 backward, the non-finite guard, the clip by the guard's global norm and
 AdamW as `optax.adamw` with the repo's learning rate schedules, with
-optional gradient accumulation as `optax.MultiSteps`.
+optional gradient accumulation as `optax.MultiSteps`; and the training
+regularizers: dropout between the LSTM layers and on the label
+embeddings, Graves weight noise (gradients taken at params + noise, the
+update applied to the clean params) and a Polyak average of the params
+(`TrainState.ema`), whose draws come from train/regularizers.py.
 
 The optimizer is written out here rather than taken from `torch.optim`,
 so that it follows optax step for step: the schedule is evaluated at the
@@ -17,7 +21,7 @@ Under a data-parallel mesh (`parallel/mesh.py`) each rank computes the
 loss and gradients of its shard, and one all-reduce of a flat f32 buffer
 averages them (JAX's `pmean` in its `shard_map` step); the guard, clip
 and AdamW then run on every rank alike, so the ranks keep equal params.
-The options not ported yet (CTC multitask, the regularizers) raise
+The options not ported yet (CTC multitask, distillation) raise
 NotImplementedError naming their ROADMAP item, as do the fused, pruned
 and AR losses on the card above the rings' joint width (item 6(b)). The
 step is functional: it returns a new TrainState and leaves the one it was
@@ -52,6 +56,9 @@ from rnn_transducer_tpu_torch.ops.rnnt_loss_cuda import rnnt_loss_twopass
 from rnn_transducer_tpu_torch.ops.rnnt_pruned import (alignment_bounds,
                                                       pruned_two_pass_loss,
                                                       rnnt_loss_pruned)
+from rnn_transducer_tpu_torch.train.regularizers import (DropoutMasks,
+                                                         leaf_paths,
+                                                         weight_noise)
 
 # optax.adamw's defaults
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
@@ -68,23 +75,20 @@ class TrainState:
     "nu"} as optax's ScaleByAdamState (the schedule's count equals
     Adam's), wrapped as {"mini_step", "gradient_step", "acc_grads",
     "inner"} when grad_accum > 1, as optax.MultiStepsState. step: every
-    call of the training step, skipped or not."""
+    call of the training step, skipped or not. ema: the Polyak average of
+    the params when TrainConfig.ema_decay > 0, else None."""
     params: Any
     opt_state: Any
     step: int
+    ema: Any = None
 
 
 def check_train_supported(tcfg: TrainConfig) -> None:
     """Raise NotImplementedError for a TrainConfig outside the port."""
     todo = []
-    for field, item in (("dropout", "dropout"),
-                        ("embed_dropout", "dropout"),
-                        ("ema_decay", "EMA"),
-                        ("weight_noise_std", "weight noise"),
-                        ("distill_weight", "distillation")):
-        if getattr(tcfg, field):
-            todo.append(f"{field} (ROADMAP queue 1, item 13: training "
-                        f"regularizers, {item})")
+    if tcfg.distill_weight:
+        todo.append("distill_weight (ROADMAP queue 1, item 13(b): "
+                    "distillation)")
     if tcfg.ctc_weight:
         todo.append("ctc_weight (ROADMAP queue 1, item 8: CTC multitask)")
     if tcfg.loss_impl not in LOSS_IMPLS + ("ar",):
@@ -184,14 +188,17 @@ def init_train_state(rng, cfg: TransducerConfig, tcfg: TrainConfig,
                      device: str | torch.device = "cuda",
                      params=None) -> TrainState:
     """Fresh TrainState: params from `m.init_params` with the numpy
-    Generator `rng` (or the given tree of tensors), zero Adam moments."""
+    Generator `rng` (or the given tree of tensors), zero Adam moments, and
+    with ema_decay > 0 an EMA that starts as a copy of the params."""
     check_train_supported(tcfg)
     if params is None:
         if not isinstance(rng, np.random.Generator):
             rng = np.random.default_rng(rng)
         params = m.init_params(cfg, rng, device)
+    ema = (pytree.tree_map(torch.clone, params) if tcfg.ema_decay > 0
+           else None)
     return TrainState(params=params, opt_state=init_opt_state(params, tcfg),
-                      step=0)
+                      step=0, ema=ema)
 
 
 # -------------------------------- loss -----------------------------------
@@ -211,7 +218,8 @@ def _resolve_loss_impl(loss_impl: str, device: torch.device,
 def loss_fn(params, cfg: TransducerConfig, feats, feat_lens, labels,
             label_lens, loss_impl: str = "auto", fastemit: float = 0.0,
             simple_loss_scale: float = 0.5, ar_range: int = 0,
-            ar_left: int = -1, align_cfg=None, teacher_params=None):
+            ar_left: int = -1, align_cfg=None, teacher_params=None,
+            dropout: float = 0.0, embed_dropout: float = 0.0, drop=None):
     """Batch-mean RNN-T loss and the per-utterance losses (B,).
 
     "fused" never materialises the (B, T, U+1, V) logits (joint + loss in
@@ -225,7 +233,9 @@ def loss_fn(params, cfg: TransducerConfig, feats, feat_lens, labels,
     aligner: `teacher_params` (of `align_cfg`) or, when None, the live
     model without gradient; the band keeps `ar_left` positions behind the
     aligned path (-1: centred) and spans ar_range. Every route runs its
-    alpha / beta through the K3 lattice kernel on the card.
+    alpha / beta through the K3 lattice kernel on the card. dropout and
+    embed_dropout act when a mask source `drop` is given
+    (regularizers.DropoutMasks); the AR aligner runs without them.
     """
     m.check_supported(cfg)
     impl = _resolve_loss_impl(loss_impl, feats.device, cfg)
@@ -237,9 +247,11 @@ def loss_fn(params, cfg: TransducerConfig, feats, feat_lens, labels,
         raise ValueError("loss_impl='pruned' requires "
                          "TransducerConfig.pruned_range > 0")
     with _span("encode"):
-        enc_out, enc_lens = m.encode(params, cfg, feats, feat_lens)
+        enc_out, enc_lens = m.encode(params, cfg, feats, feat_lens,
+                                     dropout=dropout, drop=drop)
     with _span("predict"):
-        pred_out, _ = m.predict(params, cfg, labels)
+        pred_out, _ = m.predict(params, cfg, labels, dropout=dropout,
+                                embed_dropout=embed_dropout, drop=drop)
     if impl == "ar":
         with _span("align"), torch.no_grad():
             sb = _alignment_band(params if teacher_params is None
@@ -355,10 +367,21 @@ def pmean(mesh, loss, grads):
 
 
 def make_train_step(cfg: TransducerConfig, tcfg: TrainConfig, mesh=None,
-                    teacher_cfg=None, device: str | torch.device = "cuda"):
+                    teacher_cfg=None, device: str | torch.device = "cuda",
+                    noise_fn=None):
     """Build the training step:
     step(state, feats, feat_lens, labels, label_lens) -> (state', metrics)
     with metrics {"loss", "grad_norm", "skipped_nonfinite"} as tensors.
+
+    With dropout or embed_dropout, every step draws fresh masks
+    (regularizers.DropoutMasks on TrainConfig.seed and the step) for this
+    rank's rows of the global batch. With weight_noise_std, the gradients are
+    taken at params + std * noise_fn(step, paths, leaves) (default
+    regularizers.weight_noise; paths as regularizers.leaf_paths) and the
+    update is applied to the clean params. With ema_decay d, every update
+    (each of grad_accum's mini-steps too) sets ema = d ema + (1 - d)
+    params; a skipped step leaves it. `step` is the state's count before
+    the call, so a resumed run draws what an uninterrupted one would.
 
     With ar_range > 0 the loss is the alignment-restricted band (JAX
     make_train_step :441-456); given `teacher_cfg`, the aligner is a
@@ -394,6 +417,12 @@ def make_train_step(cfg: TransducerConfig, tcfg: TrainConfig, mesh=None,
         loss_kw.update(loss_impl="ar", ar_range=tcfg.ar_range,
                        ar_left=tcfg.ar_left, align_cfg=teacher_cfg)
     uses_teacher = ar and teacher_cfg is not None
+    has_dropout = tcfg.dropout > 0.0 or tcfg.embed_dropout > 0.0
+    if has_dropout:
+        loss_kw.update(dropout=tcfg.dropout, embed_dropout=tcfg.embed_dropout)
+    noise_fn = noise_fn or (lambda step, paths, leaves: weight_noise(
+        tcfg.seed, step, paths, leaves))
+    n_ranks, rank = (1, 0) if mesh is None else (mesh.size, mesh.rank)
 
     def step_fn(state: TrainState, feats, feat_lens, labels, label_lens,
                 teacher_params=None):
@@ -401,16 +430,26 @@ def make_train_step(cfg: TransducerConfig, tcfg: TrainConfig, mesh=None,
             raise ValueError("this step aligns with a checkpoint: pass its "
                              "params as teacher_params")
         p_leaves, spec = pytree.tree_flatten(state.params)
+        at = p_leaves
+        if tcfg.weight_noise_std > 0.0:  # gradients at params + noise
+            noise = noise_fn(state.step, list(leaf_paths(state.params)),
+                             p_leaves)
+            at = [p + tcfg.weight_noise_std * z
+                  for p, z in zip(p_leaves, noise)]
+        drop = None
+        if has_dropout:
+            B = feats.shape[0]
+            drop = DropoutMasks(tcfg.seed, state.step, rank * B, n_ranks * B)
         loss, grads = loss_and_grads(
-            p_leaves, spec, cfg, feats, feat_lens, labels, label_lens,
+            at, spec, cfg, feats, feat_lens, labels, label_lens,
             teacher_params=teacher_params if uses_teacher else None,
-            **loss_kw)
+            drop=drop, **loss_kw)
         loss, grads = pmean(mesh, loss, grads)
         gnorm = global_norm(grads)
         ok = bool(torch.isfinite(loss) & torch.isfinite(gnorm))
         metrics = {"loss": loss, "grad_norm": gnorm,
                    "skipped_nonfinite": torch.tensor(int(not ok))}
-        if not ok:  # skip: params and opt_state (Adam's count) unchanged
+        if not ok:  # skip: params, opt_state (Adam's count) and ema stay
             return dataclasses.replace(state, step=state.step + 1), metrics
         with torch.no_grad(), _span("optimizer"):
             if k == 1:
@@ -421,8 +460,15 @@ def make_train_step(cfg: TransducerConfig, tcfg: TrainConfig, mesh=None,
                 new_p, opt_state = _multi_steps(p_leaves, grads,
                                                 state.opt_state, tcfg,
                                                 schedule)
+            ema = state.ema
+            if tcfg.ema_decay > 0:
+                d = tcfg.ema_decay
+                ema = pytree.tree_unflatten(
+                    [d * e + (1.0 - d) * p for e, p in
+                     zip(pytree.tree_leaves(state.ema), new_p)], spec)
         return TrainState(params=pytree.tree_unflatten(new_p, spec),
-                          opt_state=opt_state, step=state.step + 1), metrics
+                          opt_state=opt_state, step=state.step + 1,
+                          ema=ema), metrics
 
     return step_fn
 

@@ -198,9 +198,10 @@ def test_nonfinite_step_is_skipped():
         np.testing.assert_array_equal(a, b)
 
 
-@pytest.mark.parametrize("tcfg_kw, item", [
-    (dict(dropout=0.1), "item 13"), (dict(ema_decay=0.9), "item 13"),
-    (dict(weight_noise_std=0.1), "item 13"), (dict(ctc_weight=0.3), "item 8"),
+@pytest.mark.parametrize("tcfg_kw, item", [  # explicit ids: stable names
+    pytest.param(dict(distill_weight=0.3), r"item 13\(b\)",
+                 id="distill-item 13(b)"),
+    pytest.param(dict(ctc_weight=0.3), "item 8", id="tcfg_kw3-item 8"),
 ])
 def test_unported_options_raise(tcfg_kw, item):
     cfg = port_config.TransducerConfig(**TINY)
