@@ -28,7 +28,9 @@ V=63) and configs[4] (libri960: 6x1024 LSTM, 2x stacking, 2x1024
 predictor, joint 1024, V=32; trained, served, streamed, and trained on
 two data-parallel ranks) run at full width in phase 5f, and configs[2]
 (libri100 on manifest data in its three buckets, with SortaGrad, CMVN,
-SpecAugment, speed perturbation, dropout, weight noise and EMA) in 5g.
+SpecAugment, speed perturbation, dropout, weight noise and EMA) in 5g;
+5h adds the C++ prefetch loader, lattice distillation from a BiLSTM
+teacher and MWER fine-tuning on that corpus.
 Phases, in order:
 
   1. card   require CUDA; print the card's name and power limit
@@ -177,6 +179,26 @@ Phases, in order:
             --resume-data exact bit-equal to an uninterrupted run; (e)
             serve.py --ckpt-dir --use-ema (an audio /recognize) and the
             decode CLI --use-ema on the dev utterances (wer, rtf)
+  5h. recipes (after 5g, on its corpus) the rest of training: (a) the
+            C++ prefetch loader (data/native_loader.py, csrc/loader.cpp
+            built by g++): one thread, seed=None, the dev batch held out,
+            CMVN: every batch bit-equal to the python loader's; the
+            configs[2] CLI epoch (libri100 bf16, B=32, 9 steps, the 5g
+            regularizers but SortaGrad) with --loader native (two
+            threads) and --loader python, each with its launch counts:
+            the training thread's wait for a batch and the step's host
+            ms a bucket; (b) distillation: a BiLSTM libri100 teacher (2
+            CLI steps) into the libri100 student, bf16 steps at B=32,
+            T=400, U=40 (ms by slope, peak GB, 9 lstm_fwd, 5 K4 with
+            activations, 5 lstm_bwd and one alpha and beta of K3 a step,
+            no K1 / K2 / K5), the f32 loss and gradients at B=4 through
+            the kernels and the plain versions (LOSS_RTOL, GRAD_RTOL),
+            the --distill-from CLI with its launches; (c) MWER on
+            libri100 made to emit (emitting_model), B=8 rows of the 400
+            bucket, beam 4, 2 expansions, 64 symbols: the f32 N-best
+            through both paths (beams_agree) and the risk and gradients
+            on it; bf16 steps, host ms, the beam's share, 5 K4 each way
+            and K3 once a step; the CLI with --mwer-steps 2 of 3
   4g. lattice_tiles (last: no profiled check may follow the plain
             versions' long, nearly idle loops) lattice_alpha and
             lattice_beta with the occupancies at U+1 = 8,001, 11,137 and
@@ -4988,31 +5010,416 @@ def manifest_serve(corpus: dict, cli: dict, dev) -> dict:
     return {"serve": served, "recognize": last}
 
 
-def manifest_phase(seed: int, dev, profile_dir) -> dict:
-    """Phase 5g: configs[2] on manifest data, (a)-(e) above; the CLI
-    run's launch counts on a line of their own."""
+def manifest_phase(seed: int, dev, profile_dir, tmp: str) -> dict:
+    """Phase 5g: configs[2] on manifest data, (a)-(e) above, its files
+    under `tmp` (phase 5h reads the corpus); the CLI run's launch counts
+    on a line of their own."""
     out, seconds = {}, {}
-    with tempfile.TemporaryDirectory() as tmp:
-        for name, fn in (
-                ("corpus", lambda: manifest_corpus(seed, tmp, dev)),
-                ("batches", lambda: bucket_batches(out["corpus"], seed,
-                                                   dev)),
-                ("f32", lambda: manifest_f32(out["corpus"], out["batches"],
-                                             seed, dev)),
-                ("cli", lambda: manifest_cli(out["corpus"], seed, tmp, dev)),
-                ("timing", lambda: manifest_timing(
-                    out["corpus"], out["batches"], seed, dev, profile_dir)),
-                ("resume", lambda: manifest_resume(out["corpus"], seed, tmp,
-                                                   dev)),
-                ("serve", lambda: manifest_serve(out["corpus"], out["cli"],
-                                                 dev))):
-            t0 = time.perf_counter()
-            out[name] = fn()
-            seconds[name] = time.perf_counter() - t0
-            torch.cuda.empty_cache()
+    for name, fn in (
+            ("corpus", lambda: manifest_corpus(seed, tmp, dev)),
+            ("batches", lambda: bucket_batches(out["corpus"], seed, dev)),
+            ("f32", lambda: manifest_f32(out["corpus"], out["batches"],
+                                         seed, dev)),
+            ("cli", lambda: manifest_cli(out["corpus"], seed, tmp, dev)),
+            ("timing", lambda: manifest_timing(
+                out["corpus"], out["batches"], seed, dev, profile_dir)),
+            ("resume", lambda: manifest_resume(out["corpus"], seed, tmp,
+                                               dev)),
+            ("serve", lambda: manifest_serve(out["corpus"], out["cli"],
+                                             dev))):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        seconds[name] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
     print("manifest_launches " + json.dumps(
         {k: v for k, v in out["cli"]["launches"].items() if v}))
     print("manifest_seconds " + json.dumps(seconds))
+    return out
+
+
+# ------------------------------ phase 5h ---------------------------------
+#
+# The training recipes at libri100 width on phase 5g's corpus: the C++
+# prefetch loader, lattice distillation from an offline BiLSTM teacher
+# and MWER fine-tuning on the live beam N-best.
+RECIPE_STEPS = 9  # the CLI epoch of each loader (5g's epoch length)
+# the CLI's regularizers without SortaGrad, which the native loader lacks
+RECIPE_REG = [a for a in MANIFEST_REG if a != "--sortagrad"]
+DISTILL_F32_B, DISTILL_CLI_B = 4, 8
+MWER_B, MWER_BEAM, MWER_EXPANSIONS, MWER_MAX_SYMBOLS = 8, 4, 2, 64
+MWER_STEPS = 3  # timed bf16 MWER steps, each ended by a synchronise
+
+
+def recipe_loader_gate(corpus: dict, dev) -> dict:
+    """(a) One thread, seed=None, the dev batch held out, CMVN on the
+    padded batch: every batch of the native loader's pass equal bit for
+    bit to the python loader's first epoch (manifest order, CMVN a record
+    before padding). The first batch of each bucket is kept for (c)."""
+    from rnn_transducer_tpu_torch.data.manifest import manifest_batches
+    from rnn_transducer_tpu_torch.data.native_loader import NativeLoader
+
+    cfg, tcfg = config_libri100(), TrainConfig(batch_size=MANIFEST_B)
+    t0 = time.perf_counter()
+    build.load_loader_library()  # g++, once
+    gxx_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with NativeLoader(corpus["manifest"], cfg, tcfg.buckets, MANIFEST_B,
+                      seed=None, n_threads=1, skip_first=MANIFEST_B,
+                      cmvn=corpus["stats"], device=dev) as ld:
+        got = [b[:4] for b in ld]
+        dropped = ld.dropped
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = list(itertools.islice(manifest_batches(
+        corpus["manifest"], cfg, tcfg, skip_first=MANIFEST_B,
+        cmvn=corpus["stats"], device=dev), len(got)))
+    python_s = time.perf_counter() - t0
+    equal = len(got) == len(want) and all(
+        a.shape == b.shape and np.array_equal(a, b)
+        for g, w in zip(got, want) for a, b in zip(g, w))
+    row = {"batches": len(got), "frames": [b[0].shape[1] for b in got],
+           "dropped": dropped, "bit_equal": equal, "gxx_build_s": gxx_s,
+           "native_pass_s": native_s, "python_pass_s": python_s}
+    print("recipe_loader_gate " + json.dumps(row))
+    check(equal and len(got) >= 3,
+          f"the native loader's batches differ from the python loader's: "
+          f"{row}")
+    check(dropped == MANIFEST_SPANS[-1][0],
+          f"the native loader dropped {dropped} utterances")
+    first = {}
+    for b in got:
+        first.setdefault(b[0].shape[1], b)
+    return first
+
+
+def recipe_loader_cli(corpus: dict, seed: int, tmp: str, dev,
+                      load_5g=None) -> dict:
+    """(a) The configs[2] CLI epoch, libri100 bf16, B=32, RECIPE_REG and
+    CMVN, with --loader native (two threads) and with --loader python,
+    each its launch counts set to 0 just before it and read just after:
+    every step finite, every bucket seen; the training thread's wait for
+    a batch and the step's host ms a bucket from the CLI's log (each
+    step's `load_ms` and `step_ms`; the first step's wait, the threads'
+    start, apart), beside phase 5g's host ms to load a batch of the
+    bucket in this run (`load_5g`, when 5g ran)."""
+    rows = {}
+    for loader in ("native", "python"):
+        log = os.path.join(tmp, f"recipe_{loader}.jsonl")
+        argv = ["--config", "libri100", "--data",
+                f"manifest:{corpus['manifest']}", "--batch-size",
+                str(MANIFEST_B), "--steps", str(RECIPE_STEPS), *RECIPE_REG,
+                "--cmvn", corpus["cmvn"], "--loader", loader,
+                "--eval-every", "0", "--log-every", "1", "--log-file", log,
+                "--seed", str(seed), "--device", dev.type]
+        reset_counts()
+        t0 = time.perf_counter()
+        cli_json(argv, RECIPE_STEPS, f"recipe_{loader}")
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        with open(log) as f:
+            steps = [json.loads(ln) for ln in f]
+        wait, step_ms = collections.defaultdict(list), \
+            collections.defaultdict(list)
+        for r in steps[1:]:
+            wait[r["frames"]].append(r["load_ms"])
+            step_ms[r["frames"]].append(r["step_ms"])
+        row = {"loader": loader, "wall_s": wall,
+               "frames": [r["frames"] for r in steps],
+               "first_wait_ms": steps[0]["load_ms"],
+               "wait_ms": {str(T): statistics.mean(v)
+                           for T, v in sorted(wait.items())},
+               "wait_max_ms": {str(T): max(v)
+                               for T, v in sorted(wait.items())},
+               "step_ms": {str(T): statistics.mean(v)
+                           for T, v in sorted(step_ms.items())},
+               "phase_5g_load_ms": load_5g,
+               "launches": {k: v for k, v in counts.items() if v},
+               "card": card_line()}
+        print(f"recipe_loader_{loader} " + json.dumps(row))
+        check(len(steps) == RECIPE_STEPS and all(
+            np.isfinite(r["loss"]) and r["skipped_nonfinite"] == 0
+            for r in steps), f"the {loader} loader's CLI epoch: {steps}")
+        check(set(row["frames"]) == {b[0] for b in TrainConfig().buckets},
+              f"the {loader} loader's CLI epoch saw buckets "
+              f"{sorted(set(row['frames']))}")
+        for name in ("lstm_fwd_with_acts", "lstm_bwd", "joint_fwd",
+                     "joint_bwd", "lattice_alpha", "lattice_beta"):
+            check(counts[name] > 0,
+                  f"the {loader} loader's CLI epoch never launched {name}")
+        rows[loader] = row
+    return rows
+
+
+# A distillation step's launches: the student's 4 encoder layers and
+# predictor with activations and their backward, the BiLSTM teacher's 4 x 2
+# directions and predictor forward under no_grad, the xla lattice's alpha
+# and beta once each, no K1 / K2 / K5.
+DISTILL_STEP = {"lstm_fwd": 9, "lstm_fwd_with_acts": 5, "lstm_bwd": 5,
+                "lattice_alpha": 1, "lattice_beta": 1, "joint_fwd": 0,
+                "joint_bwd": 0, "extract_lp": 0, "assemble_grad": 0}
+# An MWER step's (nll_weight 0): the encoder's 4 layers and the predictor
+# over the B*K hypotheses with activations and their backward, the xla
+# lattice's alpha and beta once each; the beam's predictor steps are
+# products (`DecodeWeights.predict_step`), no K4.
+MWER_STEP = {**DISTILL_STEP, "lstm_fwd": 0}
+
+
+def recipe_distill(seed: int, tmp: str, dev) -> dict:
+    """(b) The teacher, dataclasses.replace(config_libri100(),
+    bidirectional=True), trained 2 CLI steps into a checkpoint; the
+    student config_libri100 distilled from it (weight 0.3, tau 2): bf16
+    steps at B=32, T=400, U=40 (ms a step by slope, peak GB, launches a
+    step by DISTILL_STEP); the f32 loss and gradients at B=4 through
+    the kernels and the plain versions (LOSS_RTOL, GRAD_RTOL); the
+    --distill-from CLI for 2 steps, its launches read around it."""
+    teacher_cfg = dataclasses.replace(config_libri100(), bidirectional=True)
+    cfg_path = os.path.join(tmp, "libri100_bilstm.json")
+    with open(cfg_path, "w") as f:
+        json.dump(dataclasses.asdict(teacher_cfg), f)
+    tdir = os.path.join(tmp, "teacher")
+    cli_json(["--config", cfg_path, "--data", "synthetic", "--steps", "2",
+              "--batch-size", str(DISTILL_CLI_B), "--max-frames", "200",
+              "--max-labels", "20", "--eval-every", "0", "--ckpt-dir", tdir,
+              "--seed", str(seed), "--device", dev.type], 2, "teacher")
+    teacher = ckpt.restore_checkpoint(tdir, device=dev)[0].params
+    check(ckpt.load_model_config(tdir).bidirectional,
+          "the teacher checkpoint is not a BiLSTM")
+    cfg = config_libri100()
+    tcfg = TrainConfig(batch_size=TRAIN_B, warmup_steps=100,
+                       total_steps=10000, distill_weight=0.3,
+                       distill_temp=2.0, seed=seed)
+    state = tl.init_train_state(np.random.default_rng(seed + 80), cfg, tcfg,
+                                dev)
+    step = tl.make_train_step(cfg, tcfg, teacher_cfg=teacher_cfg, device=dev)
+    batch = bench_batch(cfg, seed + 80, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, res = timed_steps(lambda st, *b: step(st, *b, teacher), state,
+                             batch)
+    check_step_counts(res, DISTILL_STEP, "the distillation steps")
+    res.update({"B": TRAIN_B, "T": TRAIN_T, "U": TRAIN_U, "dtype": "bfloat16",
+                "card": card_line()})
+    print("recipe_distill_bf16 " + json.dumps(res))
+    del state, step
+    torch.cuda.empty_cache()
+
+    # f32 at B=4: the student's loss and gradients, kernels vs plain
+    c32 = dataclasses.replace(cfg, compute_dtype="float32")
+    t32 = dataclasses.replace(teacher_cfg, compute_dtype="float32")
+    params = m.init_params(c32, np.random.default_rng(seed + 81), dev)
+    small = bench_batch(c32, seed + 81, dev, B=DISTILL_F32_B, ragged=True)
+    flat, spec = torch.utils._pytree.tree_flatten(params)
+
+    def loss_and_grads(plain: bool):
+        with plain_kernels() if plain else contextlib.nullcontext():
+            xs = [p.detach().requires_grad_(True) for p in flat]
+            loss, _ = tl.distill_loss_fn(
+                torch.utils._pytree.tree_unflatten(xs, spec), teacher, c32,
+                t32, *small, distill_weight=0.3, distill_temp=2.0)
+            return float(loss.detach()), torch.autograd.grad(loss, xs)
+
+    reset_counts()
+    lk, gk = loss_and_grads(False)
+    f32_counts = read_counts()
+    lp, gp = loss_and_grads(True)
+    f32 = {"B": DISTILL_F32_B, "T": TRAIN_T, "U": TRAIN_U, "loss_kernels": lk,
+           "loss_plain": lp, "loss_rel_err": abs(lk - lp) / abs(lp),
+           "grad_worst_rel_err": max(rel_err(a, b) for a, b in zip(gk, gp)),
+           "loss_rtol": LOSS_RTOL, "grad_rtol": GRAD_RTOL,
+           "launches": {k: v for k, v in f32_counts.items() if v}}
+    print("recipe_distill_f32 " + json.dumps(f32))
+    check_step_counts({"launches": f32_counts, "steps": 1}, DISTILL_STEP,
+                      "the f32 distillation loss")
+    check(f32["loss_rel_err"] <= LOSS_RTOL,
+          f"f32 distillation loss: kernels {lk} vs plain {lp}")
+    check(f32["grad_worst_rel_err"] <= GRAD_RTOL,
+          f"f32 distillation gradients: {f32['grad_worst_rel_err']}")
+    del gk, gp, params
+    torch.cuda.empty_cache()
+
+    reset_counts()
+    cli = cli_json(["--config", "libri100", "--data", "synthetic", "--steps",
+                    "2", "--batch-size", str(DISTILL_CLI_B), "--max-frames",
+                    "200", "--max-labels", "20", "--eval-every", "0",
+                    "--distill-from", tdir, "--distill-temp", "2.0",
+                    "--seed", str(seed), "--device", dev.type], 2,
+                   "distill")
+    counts = read_counts()
+    print("recipe_distill_cli " + json.dumps(
+        {k: v for k, v in counts.items() if v}))
+    check_step_counts({"launches": counts, "steps": 2}, DISTILL_STEP,
+                      "the --distill-from CLI")
+    return {"bf16": res, "f32": f32, "cli": cli, "cli_launches": counts}
+
+
+def recipe_mwer(batch, seed: int, dev) -> dict:
+    """(c) libri100 made to emit by `emitting_model`, on the first MWER_B
+    rows of the corpus's 400-frame batch, beam 4, 2 expansions, 64
+    symbols. f32: the N-best through the kernels and the plain versions
+    (`beams_agree`), then the risk and its gradients on the kernels'
+    N-best both ways (LOSS_RTOL, GRAD_RTOL); bf16: MWER_STEPS steps of
+    make_train_step(loss_kind="mwer"), each timed to a synchronise, the
+    beam alone on the same batch (its share of a step), launches a step by
+    MWER_STEP; the CLI with --mwer-steps 2 of 3."""
+    from rnn_transducer_tpu_torch.decode.beam import beam_search
+    from rnn_transducer_tpu_torch.train import mwer
+
+    cfg = config_libri100()
+    params = m.init_params(cfg, np.random.default_rng(seed + 90), dev)
+    cal = emitting_model(params, cfg, dev, np.random.default_rng(seed + 91),
+                         (200, 400))
+    feats, fl, labels, ll = (torch.from_numpy(x[:MWER_B]).to(dev)
+                             for x in batch)
+    kw = dict(beam=MWER_BEAM, expansions=MWER_EXPANSIONS,
+              max_symbols=MWER_MAX_SYMBOLS)
+    c32 = dataclasses.replace(cfg, compute_dtype="float32")
+
+    def nbest(plain: bool):
+        with plain_kernels() if plain else contextlib.nullcontext(), \
+                torch.no_grad():
+            enc, lens = m.encode(params, c32, feats, fl)
+            return tuple(beam_search(params, c32, enc, lens, **kw)[:3])
+
+    got, want = nbest(False), nbest(True)
+    agree = beams_agree(tuple(t.cpu().numpy() for t in got),
+                        tuple(t.cpu().numpy() for t in want), "mwer f32")
+    hyps, hyp_lens, scores = got
+    valid = scores > mwer.NEG_INF / 2
+    distinct = [len({tuple(h[:n].tolist()) for h, n, v in zip(
+        hyps[b].cpu(), hyp_lens[b].tolist(), valid[b].tolist()) if v})
+        for b in range(hyps.shape[0])]
+    flat, spec = torch.utils._pytree.tree_flatten(params)
+
+    def risk_and_grads(plain: bool, weights=None):
+        """The hypotheses' log-probs, the risk, its weights d risk / d
+        logp, and the params' gradients of sum(weights * logp) with these
+        weights and with `weights` (the kernels' run's) where given."""
+        with plain_kernels() if plain else contextlib.nullcontext():
+            xs = [p.detach().requires_grad_(True) for p in flat]
+            p = torch.utils._pytree.tree_unflatten(xs, spec)
+            enc, lens = m.encode(p, c32, feats, fl)
+            logp = mwer.hyp_logprobs(p, c32, enc, lens, hyps, hyp_lens)
+            per_utt = mwer.expected_edits(logp, valid, hyps, hyp_lens,
+                                          labels, ll)
+            risk = per_utt.mean()
+            w = torch.autograd.grad(risk, logp, retain_graph=True)[0]
+            own = torch.autograd.grad(logp, xs, w, retain_graph=True)
+            fixed = (own if weights is None else
+                     torch.autograd.grad(logp, xs, weights))
+            return logp.detach(), float(risk.detach()), w, own, fixed
+
+    lk, rk, wk, gk, _ = risk_and_grads(False)
+    lp, rp, _, gp, fp = risk_and_grads(True, wk)
+    live = valid & (lp.abs() > 0)
+    # the risk's weights d risk / d logp_k = p_k (W_k - W_bar) / B are
+    # differences of nearly equal f32 numbers when one hypothesis holds
+    # almost all of a row's mass (p_hat up to 0.999994 here; W_bar then
+    # sits within an ulp of W_top), so the risk's own gradient differs
+    # between two runs by f32 rounding, whatever computes the lattices;
+    # the kernels are held on what they compute: the log-probs
+    # (LOSS_RTOL) and the gradient of sum(w * logp) with the kernels'
+    # weights w on both paths (GRAD_RTOL)
+    f32 = {"B": MWER_B, "T": int(feats.shape[1]), "U": int(labels.shape[1]),
+           **kw, "calibration_offset": cal["offset"], "beams": agree,
+           "distinct_hyps": distinct, "risk_kernels": rk, "risk_plain": rp,
+           "risk_rel_err": abs(rk - rp) / abs(rp),
+           "logp_max_abs": float(lp[valid].abs().max()),
+           "logp_max_abs_err": float((lk - lp)[valid].abs().max()),
+           "logp_worst_rel_err": float(((lk - lp).abs() / lp.abs())[live]
+                                       .max()),
+           "p_hat_max": torch.softmax(torch.where(
+               valid, lk, torch.full_like(lk, mwer.NEG_INF)), -1)
+           .max(-1).values.tolist(),
+           "grad_fixed_weights_worst_rel_err": max(
+               rel_err(a, b) for a, b in zip(gk, fp)),
+           "grad_own_weights_worst_rel_err": max(
+               rel_err(a, b) for a, b in zip(gk, gp)),
+           "loss_rtol": LOSS_RTOL, "grad_rtol": GRAD_RTOL}
+    print("recipe_mwer_f32 " + json.dumps(f32))
+    check(sum(d > 1 for d in distinct) >= len(distinct) // 2,
+          f"MWER: the N-best of fewer than half the rows differ: {distinct}")
+    check(f32["risk_rel_err"] <= LOSS_RTOL,
+          f"f32 MWER risk: kernels {rk} vs plain {rp}")
+    check(f32["logp_worst_rel_err"] <= LOSS_RTOL,
+          f"f32 MWER hypothesis log-probs: {f32['logp_worst_rel_err']}")
+    check(f32["grad_fixed_weights_worst_rel_err"] <= GRAD_RTOL,
+          "f32 MWER gradients (the kernels' weights): "
+          f"{f32['grad_fixed_weights_worst_rel_err']}")
+    del gk, gp, fp
+    torch.cuda.empty_cache()
+
+    tcfg = TrainConfig(batch_size=MWER_B, warmup_steps=1, mwer_beam=MWER_BEAM,
+                       mwer_expansions=MWER_EXPANSIONS,
+                       mwer_max_symbols=MWER_MAX_SYMBOLS)
+    state = tl.init_train_state(None, cfg, tcfg, params=params)
+    step = tl.make_train_step(cfg, tcfg, device=dev, loss_kind="mwer")
+    state, info = step(state, feats, fl, labels, ll)  # warm
+    torch.cuda.synchronize()
+    reset_counts()
+    ms, risks = [], []
+    for _ in range(MWER_STEPS):
+        t0 = time.perf_counter()
+        state, info = step(state, feats, fl, labels, ll)
+        risks.append(float(info["loss"]))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        check(int(info["skipped_nonfinite"]) == 0, "an MWER step skipped")
+    counts = read_counts()
+    with torch.no_grad():
+        enc, lens = m.encode(state.params, cfg, feats, fl)
+        torch.cuda.synchronize()
+        beam_ms = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            beam_search(state.params, cfg, enc, lens, **kw)[2].cpu()
+            beam_ms.append((time.perf_counter() - t0) * 1e3)
+    bf16 = {"B": MWER_B, "T": int(feats.shape[1]), "dtype": "bfloat16",
+            "ms_per_step": statistics.mean(ms), "step_ms": ms,
+            "beam_ms": min(beam_ms), "beam_share": min(beam_ms)
+            / statistics.mean(ms), "risks": risks,
+            "launches": {k: v for k, v in counts.items() if v},
+            "card": card_line()}
+    print("recipe_mwer_bf16 " + json.dumps(bf16))
+    check(all(np.isfinite(risks)), f"MWER risks {risks}")
+    check_step_counts({"launches": counts, "steps": MWER_STEPS}, MWER_STEP,
+                      "the MWER steps")
+    del state, step
+    torch.cuda.empty_cache()
+
+    reset_counts()
+    cli = cli_json(["--config", "libri100", "--data", "synthetic", "--steps",
+                    "3", "--mwer-steps", "2", "--mwer-beam", str(MWER_BEAM),
+                    "--batch-size", str(MWER_B), "--max-frames", "200",
+                    "--max-labels", "20", "--eval-every", "0", "--seed",
+                    str(seed), "--device", dev.type], 3, "mwer")
+    counts = read_counts()
+    print("recipe_mwer_cli " + json.dumps(
+        {k: v for k, v in counts.items() if v}))
+    # one NLL step (fused: K1 / K2) and two MWER steps
+    check(counts["lstm_fwd_with_acts"] == 15 and counts["lstm_bwd"] == 15
+          and counts["lattice_alpha"] == counts["lattice_beta"] == 3
+          and counts["joint_fwd"] == counts["joint_bwd"] == 1,
+          f"the --mwer-steps CLI's launches {counts}")
+    return {"f32": f32, "bf16": bf16, "cli": cli, "cli_launches": counts}
+
+
+def recipes_phase(seed: int, dev, corpus: dict, tmp: str,
+                  load_5g=None) -> dict:
+    """Phase 5h: the training recipes, (a)-(c) above, on phase 5g's
+    corpus; each part's seconds on a line of their own."""
+    out, seconds = {}, {}
+    for name, fn in (
+            ("loader_gate", lambda: recipe_loader_gate(corpus, dev)),
+            ("loader_cli", lambda: recipe_loader_cli(corpus, seed, tmp,
+                                                     dev, load_5g)),
+            ("distill", lambda: recipe_distill(seed, tmp, dev)),
+            ("mwer", lambda: recipe_mwer(out["loader_gate"][400], seed,
+                                         dev))):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        seconds[name] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    print("recipe_seconds " + json.dumps(seconds))
     return out
 
 
@@ -5135,11 +5542,19 @@ def main(argv=None):
     configs_phase(args.seed, dev, args.profile_dir, args.requests)
     print(f"phase configs: {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
-    # phase 5g: configs[2] on manifest data (its profiled step before 4f)
-    t0 = time.perf_counter()
-    manifest_phase(args.seed, dev, args.profile_dir)
-    print(f"phase manifest: {time.perf_counter() - t0:.1f} s")
-    torch.cuda.empty_cache()
+    # phase 5g: configs[2] on manifest data (its profiled step before 4f);
+    # phase 5h: the training recipes on its corpus
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        manifest = manifest_phase(args.seed, dev, args.profile_dir, tmp)
+        print(f"phase manifest: {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        recipes_phase(args.seed, dev, manifest["corpus"], tmp,
+                      {str(T): ms for T, (_, ms)
+                       in manifest["batches"].items()})
+        print(f"phase recipes: {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
 
     # phase 4f: beam serving (its profiled windows after the training
     # phases' kernel-name checks); then 4g, after every profiled window

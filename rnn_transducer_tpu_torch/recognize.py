@@ -32,9 +32,14 @@ recognize.py.
 --use-ema decodes a checkpoint's Polyak average (a run of the trainer
 with --ema-decay) instead of its params.
 
+--loader native reads a manifest with the C++ prefetch threads of
+data/native_loader.py (manifest order; two threads, so the batches come
+in the order the threads finish them, and one under several ranks, so
+that every rank cuts the same batch; audio featurized by log_mel on
+--device, CMVN applied to the padded batch).
+
 Not ported yet, each refused with its ROADMAP item (queue 1): the CTC
-modes (item 8), --loader native (item 13(b)), --lm-ckpt and --lm-rescore
-(item 18).
+modes (item 8), --lm-ckpt and --lm-rescore (item 18).
 """
 
 from __future__ import annotations
@@ -70,8 +75,8 @@ def parse_args(argv=None):
                    help="decode each batch over N ranks (greedy, beam)")
     p.add_argument("--loader", default="python",
                    choices=["python", "native"],
-                   help="manifest input pipeline; 'native' is not ported "
-                        "yet (ROADMAP item 13(b))")
+                   help="manifest input pipeline ('native': C++ "
+                        "prefetch threads, csrc/loader.cpp)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--cmvn", default=None,
                    help="global CMVN stats JSON; defaults to the stats "
@@ -131,9 +136,6 @@ def refuse_unported(args) -> None:
     if args.mode.startswith("ctc_"):
         raise SystemExit(f"--mode {args.mode} is not ported yet (ROADMAP "
                          "queue 1, item 8: CTC)")
-    if args.loader == "native":
-        raise SystemExit("--loader native is not ported yet (ROADMAP queue "
-                         "1, item 13(b): the native loader)")
     if args.lm_ckpt or args.lm_rescore:
         raise SystemExit("--lm-ckpt / --lm-rescore are not ported yet "
                          "(ROADMAP queue 1, item 18: LM checkpoints)")
@@ -209,6 +211,9 @@ def _gathered(parts):
 def main(argv=None):
     args = parse_args(argv)
     refuse_unported(args)
+    if args.loader == "native" and not args.data.startswith("manifest:"):
+        raise SystemExit("--loader native reads manifest data (--data "
+                         "manifest:<path>)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device available "
@@ -299,7 +304,17 @@ def _decode(mesh, args):
         raise SystemExit("--confidence supports --mode greedy|beam")
     decode = make_decoder(args, params, cfg, device, context, ngram)
 
-    if args.data.startswith("manifest:"):
+    if args.data.startswith("manifest:") and args.loader == "native":
+        from rnn_transducer_tpu_torch.data.native_loader import NativeLoader
+        man_path = args.data.split(":", 1)[1]
+
+        def batches():
+            with NativeLoader(man_path, cfg, TrainConfig().buckets,
+                              args.batch_size, loop=False, seed=None,
+                              n_threads=1 if mesh is not None else 2,
+                              cmvn=cmvn_stats, device=device) as ld:
+                yield from ld
+    elif args.data.startswith("manifest:"):
         from rnn_transducer_tpu_torch.data.manifest import manifest_examples
         man_path = args.data.split(":", 1)[1]
 

@@ -13,6 +13,9 @@
         --sortagrad --cmvn cmvn.json --spec-augment \\
         --speed-perturb 0.9,1.0,1.1 --dropout 0.1 --ema-decay 0.999 \\
         --ckpt-dir ckpt --log-file train.jsonl   # configs[2]
+    python -m rnn_transducer_tpu_torch.train --config libri100 \
+        --data manifest:data/train/manifest.jsonl --loader native \
+        --distill-from teacher_ckpt --mwer-steps 100 --steps 1000
 
 Runs the standard training step (`train/loop.py`) on the `learnable_batch`
 stream of train.py (features that encode their labels, drawn from
@@ -42,6 +45,24 @@ SIGTERM with --ckpt-dir finishes the step, checkpoints and exits 0; under
 weighs its first pass); --ar-range S trains the alignment-restricted band
 around the live model's Viterbi path, or around that of the checkpoint
 --ar-align-from names (a port checkpoint with its meta.json).
+--loader native reads the manifest with the C++ prefetch threads of
+data/native_loader.py (csrc/loader.cpp, built by g++ at first use; two
+threads, one under several ranks so that every rank sees the same batch
+sequence): the batches of the python loader in another order, a shuffle
+of --seed every epoch, CMVN applied to the padded batch, audio records
+featurized by log_mel on --device. It has no SortaGrad (--sortagrad is
+refused) and no fast-forward (--resume-data exact is refused; a plain
+--resume restarts its stream from epoch 0). --distill-from CKPT_DIR adds
+--distill-weight times the lattice KL(teacher || student) at temperature
+--distill-temp (train/loop.distill_loss_fn; the teacher a port checkpoint
+with the student's vocab, blank and time_reduction, run under no_grad;
+the student always on the xla loss route); it excludes --ar-range.
+--mwer-steps N makes the last N of --steps MWER fine-tuning steps
+(train/mwer.py: the expected edit count over the live --mwer-beam
+N-best, --mwer-nll-weight of NLL beside it) with the same optimizer
+state. Each step's log record carries `load_ms`, the host ms the
+training thread waited for its batch, and `step_ms`, the host ms from
+the batch's arrival to the logged loss (one step's at --log-every 1).
 --tokenizer SPEC records the tokenizer in meta.json, as train.py does, so
 `python -m rnn_transducer_tpu_torch.serve --ckpt-dir` answers with text;
 one whose vocabulary exceeds the model's is refused. --device
@@ -82,6 +103,7 @@ from rnn_transducer_tpu_torch.data.cmvn import load_cmvn
 from rnn_transducer_tpu_torch.data.manifest import (manifest_batches,
                                                     manifest_dev_batch,
                                                     read_manifest)
+from rnn_transducer_tpu_torch.data.native_loader import NativeLoader
 from rnn_transducer_tpu_torch.data.synthetic import learnable_batch
 from rnn_transducer_tpu_torch.data.tokenizer import (tokenizer_from_spec,
                                                      tokenizer_to_meta)
@@ -139,6 +161,23 @@ def parse_args(argv=None):
                    help="checkpoint dir of the aligner for --ar-range (same "
                         "vocab, blank and time_reduction); omit to "
                         "self-align")
+    p.add_argument("--distill-from", default=None,
+                   help="teacher checkpoint dir for knowledge distillation "
+                        "(same vocab, blank and time_reduction): adds "
+                        "--distill-weight times the lattice KL(teacher || "
+                        "student) of the temperature-softened joint "
+                        "posteriors to the loss")
+    p.add_argument("--distill-weight", type=float, default=0.3,
+                   help="weight of the KD term (with --distill-from)")
+    p.add_argument("--distill-temp", type=float, default=1.0,
+                   help="KD softmax temperature tau (the term is scaled by "
+                        "tau^2)")
+    p.add_argument("--mwer-steps", type=int, default=0,
+                   help="MWER fine-tuning (expected edit count over the "
+                        "live N-best, train/mwer.py) for the LAST N steps")
+    p.add_argument("--mwer-beam", type=int, default=4)
+    p.add_argument("--mwer-nll-weight", type=float, default=0.0,
+                   help="interpolate this much NLL into the MWER objective")
     p.add_argument("--fastemit-lambda", type=float, default=0.0)
     p.add_argument("--tokenizer", default=None,
                    help="tokenizer spec (char | phone | bpe:<model.json>); "
@@ -158,7 +197,13 @@ def parse_args(argv=None):
                         "the features with the corpus mean / std; recorded "
                         "in meta.json for the decode CLI and the server")
     p.add_argument("--sortagrad", action="store_true",
-                   help="first epoch shortest-first (manifest data)")
+                   help="first epoch shortest-first (manifest data, the "
+                        "python loader)")
+    p.add_argument("--loader", default="python",
+                   choices=["python", "native"],
+                   help="manifest input pipeline: 'python' reads each "
+                        "batch on the training thread, 'native' prefetches "
+                        "with C++ threads (csrc/loader.cpp)")
     p.add_argument("--dev-manifest", default=None,
                    help="JSONL manifest whose first batch is the dev batch; "
                         "with manifest training data and none, the first "
@@ -236,6 +281,18 @@ def _setup(args):
         raise SystemExit("--resume-data exact requires manifest data "
                          "(synthetic batches are i.i.d. draws; the stream "
                          "restarts deterministically from the seed)")
+    if args.loader == "native":
+        if _manifest_path(args) is None:
+            raise SystemExit("--loader native reads manifest data "
+                             "(--data manifest:<path>)")
+        if args.sortagrad:
+            raise SystemExit("--sortagrad is not supported with --loader "
+                             "native (its C++ pipeline shuffles every epoch "
+                             "and has no shortest-first epoch); use the "
+                             "python loader")
+    if args.distill_from and args.ar_range > 0:
+        raise SystemExit("--distill-from and --ar-range are mutually "
+                         "exclusive (one teacher slot)")
     cfg = get_model_config(args.config)
     if args.pruned_range > 0:
         cfg = dataclasses.replace(cfg, pruned_range=args.pruned_range)
@@ -250,6 +307,11 @@ def _setup(args):
                        fastemit_lambda=args.fastemit_lambda,
                        simple_loss_scale=args.simple_loss_scale,
                        ar_range=args.ar_range, ar_left=args.ar_left,
+                       mwer_beam=args.mwer_beam,
+                       mwer_nll_weight=args.mwer_nll_weight,
+                       distill_weight=(args.distill_weight
+                                       if args.distill_from else 0.0),
+                       distill_temp=args.distill_temp,
                        data_parallel=args.data_parallel,
                        weight_noise_std=args.weight_noise,
                        dropout=args.dropout,
@@ -298,15 +360,19 @@ def _train(mesh, args):
             print(msg, file=sys.stderr, flush=True)
 
     teacher_params = teacher_cfg = None
-    if args.ar_align_from:
-        teacher_cfg = ckpt.load_model_config(args.ar_align_from)
+    teacher_dir = args.distill_from or args.ar_align_from
+    if teacher_dir:
+        flag = "--distill-from" if args.distill_from else "--ar-align-from"
+        teacher_cfg = ckpt.load_model_config(teacher_dir)
         if teacher_cfg is None:
-            raise SystemExit(f"--ar-align-from: {args.ar_align_from} has no "
-                             "meta.json with its model config")
-        aligner, a_step = ckpt.restore_checkpoint(args.ar_align_from,
-                                                  device=device)
-        teacher_params = aligner.params
-        log(f"ar band from {args.ar_align_from} (step {a_step}, range "
+            raise SystemExit(f"{flag}: {teacher_dir} has no meta.json with "
+                             "its model config")
+        teacher, t_step = ckpt.restore_checkpoint(teacher_dir, device=device)
+        teacher_params = teacher.params
+        log(f"distilling from {teacher_dir} (step {t_step}, weight "
+            f"{args.distill_weight}, tau {args.distill_temp})"
+            if args.distill_from else
+            f"ar band from {teacher_dir} (step {t_step}, range "
             f"{args.ar_range}, left {args.ar_left})")
 
     state = init_train_state(np.random.default_rng(args.seed), cfg, tcfg,
@@ -339,6 +405,10 @@ def _train(mesh, args):
     step_fn = make_train_step(cfg, tcfg, mesh=mesh, teacher_cfg=teacher_cfg,
                               device=device)
     extra = () if teacher_params is None else (teacher_params,)
+    # MWER fine-tuning: the last --mwer-steps steps, same optimizer state
+    mwer_step_fn = (make_train_step(cfg, tcfg, mesh=mesh, device=device,
+                                    loss_kind="mwer")
+                    if args.mwer_steps > 0 else None)
     meta_extra = {"train_config": dataclasses.asdict(tcfg)}
     if tok_meta is not None:
         meta_extra["tokenizer"] = tok_meta
@@ -370,23 +440,33 @@ def _train(mesh, args):
     utts = 0
     step_no = start_step
     info = {"loss": float("nan"), "grad_norm": float("nan")}
+    t_prev = time.perf_counter()
     try:
         for i, batch in enumerate(batches):
             if i >= args.steps - start_step:
                 break
+            t_got = time.perf_counter()
             feats, fl, labels, ll = train_batch(args, batch, start_step + i,
                                                  mesh, device)
-            state, info = step_fn(state, feats, fl, labels, ll, *extra)
+            mwer = (mwer_step_fn is not None
+                    and start_step + i >= args.steps - args.mwer_steps)
+            if mwer:
+                state, info = mwer_step_fn(state, feats, fl, labels, ll)
+            else:
+                state, info = step_fn(state, feats, fl, labels, ll, *extra)
             utts += tcfg.batch_size
             step_no = start_step + i + 1
             if step_no % args.log_every == 0:
-                dt = time.perf_counter() - t_start
-                mlog.log(step=step_no, phase="rnnt",
-                         loss=round(float(info["loss"]), 4),
+                loss = float(info["loss"])  # waits for the step
+                now = time.perf_counter()
+                mlog.log(step=step_no, phase="mwer" if mwer else "rnnt",
+                         loss=round(loss, 4),
                          grad_norm=round(float(info["grad_norm"]), 4),
-                         utt_per_sec=round(utts / dt, 2),
+                         utt_per_sec=round(utts / (now - t_start), 2),
                          frames=int(feats.shape[1]),
-                         skipped_nonfinite=int(info["skipped_nonfinite"]))
+                         skipped_nonfinite=int(info["skipped_nonfinite"]),
+                         load_ms=round((t_got - t_prev) * 1e3, 3),
+                         step_ms=round((now - t_got) * 1e3, 3))
             if lead and args.eval_every and step_no % args.eval_every == 0:
                 dev_loss, per = run_eval(state.params)
                 mlog.log(step=step_no, dev_loss=round(dev_loss, 4),
@@ -398,7 +478,9 @@ def _train(mesh, args):
                 print(f"SIGTERM: rank {rank} stops after step {step_no}",
                       file=sys.stderr, flush=True)
                 break
+            t_prev = time.perf_counter()
     finally:
+        batches.close()  # the native loader's threads are joined here
         mlog.close()
         if previous is not None:
             signal.signal(signal.SIGTERM, previous)
@@ -441,14 +523,29 @@ def _data(args, cfg, tcfg, cmvn, device, log, resume_skip: int):
             skip_first = (tcfg.batch_size if dev_batch is not None
                           and n_utts > tcfg.batch_size else 0)
         skip = resume_skip if args.resume_data != "fresh" else 0
-        if skip:
-            log(f"fast-forwarding the data stream past {skip} batches "
-                "(--resume-data exact)")
-        batches = manifest_batches(path, cfg, tcfg, skip_first=skip_first,
-                                   sortagrad=args.sortagrad,
-                                   shuffle_seed=args.seed,
-                                   resume_batches=skip, cmvn=cmvn,
-                                   device=device)
+        if args.loader == "native":
+            if skip and args.resume_data == "exact":
+                raise SystemExit("--resume-data exact is not supported with "
+                                 "--loader native; use the python loader "
+                                 "or --resume-data fresh")
+            if skip:
+                log("note: native loader resumes the data stream from epoch "
+                    "0 (no exact fast-forward); the model/optimizer state "
+                    "is unaffected")
+            batches = _native_batches(path, cfg, tcfg, skip_first, args.seed,
+                                      cmvn, device, n_threads=(
+                                          1 if args.data_parallel > 1
+                                          else 2))
+        else:
+            if skip:
+                log(f"fast-forwarding the data stream past {skip} batches "
+                    "(--resume-data exact)")
+            batches = manifest_batches(path, cfg, tcfg,
+                                       skip_first=skip_first,
+                                       sortagrad=args.sortagrad,
+                                       shuffle_seed=args.seed,
+                                       resume_batches=skip, cmvn=cmvn,
+                                       device=device)
     else:
         batches = synthetic_batches(args, cfg, tcfg.batch_size)
     if dev_batch is None:
@@ -458,6 +555,19 @@ def _data(args, cfg, tcfg, cmvn, device, log, resume_skip: int):
             n_labels=min(args.max_labels, 20), input_dim=cfg.input_dim,
             vocab=cfg.vocab_size, frames_per_label=4) + (n,)
     return batches, dev_batch
+
+
+def _native_batches(path, cfg, tcfg, skip_first: int, seed: int, cmvn,
+                    device, n_threads: int):
+    """The C++ prefetch loader's endless stream (loop mode, a shuffle of
+    `seed` every epoch) as (feats, feat_lens, labels, label_lens), CMVN
+    applied to each padded batch after the pipeline; the threads are
+    joined when the stream is closed."""
+    with NativeLoader(path, cfg, tcfg.buckets, tcfg.batch_size, loop=True,
+                      seed=seed, n_threads=n_threads, skip_first=skip_first,
+                      cmvn=cmvn, device=device) as loader:
+        for b in loader:
+            yield b[:4]
 
 
 def train_batch(args, batch, global_step: int, mesh, device):

@@ -17,15 +17,22 @@ count before the update (the first update under warmup_cosine has
 learning rate schedule(0) = 0), and a skipped non-finite update advances
 `TrainState.step` but neither Adam's count nor the schedule's.
 
+Two more objectives share the step: lattice distillation
+(`distill_loss_fn`, TrainConfig.distill_weight: the RNN-T loss plus a
+KL(teacher || student) of the temperature-softened joint posteriors,
+from a teacher checkpoint's forward under no_grad, always over
+materialised logits at the `xla` tier) and MWER fine-tuning
+(`make_train_step(loss_kind="mwer")`, train/mwer.py: the expected edit
+count over the live beam N-best).
+
 Under a data-parallel mesh (`parallel/mesh.py`) each rank computes the
 loss and gradients of its shard, and one all-reduce of a flat f32 buffer
 averages them (JAX's `pmean` in its `shard_map` step); the guard, clip
 and AdamW then run on every rank alike, so the ranks keep equal params.
-The options not ported yet (CTC multitask, distillation) raise
-NotImplementedError naming their ROADMAP item, as do the fused, pruned
-and AR losses on the card above the rings' joint width (item 6(b)). The
-step is functional: it returns a new TrainState and leaves the one it was
-given as it was.
+The option not ported yet (CTC multitask) raises NotImplementedError
+naming its ROADMAP item, as do the fused, pruned and AR losses on the
+card above the rings' joint width (item 6(b)). The step is functional:
+it returns a new TrainState and leaves the one it was given as it was.
 
 The step's phases run under `torch.profiler.record_function` spans
 (SPANS), which cost nothing measurable outside a profiler; a profile of a
@@ -56,14 +63,15 @@ from rnn_transducer_tpu_torch.ops.rnnt_loss_cuda import rnnt_loss_twopass
 from rnn_transducer_tpu_torch.ops.rnnt_pruned import (alignment_bounds,
                                                       pruned_two_pass_loss,
                                                       rnnt_loss_pruned)
+from rnn_transducer_tpu_torch.train.mwer import mwer_loss_fn
 from rnn_transducer_tpu_torch.train.regularizers import (DropoutMasks,
                                                          leaf_paths,
                                                          weight_noise)
 
 # optax.adamw's defaults
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
-SPANS = ("encode", "predict", "align", "joint_loss", "backward", "all_reduce",
-         "optimizer")
+SPANS = ("encode", "predict", "align", "teacher", "joint_loss", "backward",
+         "all_reduce", "optimizer")
 # the CLI's choices, train.py's; "ar" is set by TrainConfig.ar_range
 LOSS_IMPLS = ("auto", "fused", "pallas", "xla", "pruned")
 _span = torch.profiler.record_function
@@ -86,9 +94,6 @@ class TrainState:
 def check_train_supported(tcfg: TrainConfig) -> None:
     """Raise NotImplementedError for a TrainConfig outside the port."""
     todo = []
-    if tcfg.distill_weight:
-        todo.append("distill_weight (ROADMAP queue 1, item 13(b): "
-                    "distillation)")
     if tcfg.ctc_weight:
         todo.append("ctc_weight (ROADMAP queue 1, item 8: CTC multitask)")
     if tcfg.loss_impl not in LOSS_IMPLS + ("ar",):
@@ -317,6 +322,78 @@ def check_ar_compat(cfg: TransducerConfig, align_cfg: TransducerConfig):
                          "transducers (no TDT / multi-blank joint grids)")
 
 
+def distill_loss_fn(params, teacher_params, cfg: TransducerConfig,
+                    teacher_cfg: TransducerConfig, feats, feat_lens, labels,
+                    label_lens, distill_weight: float,
+                    distill_temp: float = 1.0, dropout: float = 0.0,
+                    embed_dropout: float = 0.0, drop=None):
+    """RNN-T NLL + distill_weight * lattice KD, batch mean and per
+    utterance (JAX `distill_loss_fn` :317-361).
+
+    The KD term is KL(p_teacher || p_student) of the temperature-softened
+    joint posteriors, averaged over the valid lattice cells (t < enc_len,
+    u <= label_len) and scaled by tau^2, so that its gradient does not
+    scale with the temperature. The teacher (any config whose lattice grid
+    matches: `check_distill_compat`) runs its forward under no_grad and
+    without dropout. The student's loss is always the `xla` route,
+    `rnnt_loss` over the materialised logits (K3 on the card), whatever
+    `auto` would pick: the KD term needs the logits, which the fused
+    kernels never form."""
+    with _span("encode"):
+        enc_out, enc_lens = m.encode(params, cfg, feats, feat_lens,
+                                     dropout=dropout, drop=drop)
+    with _span("predict"):
+        pred_out, _ = m.predict(params, cfg, labels, dropout=dropout,
+                                embed_dropout=embed_dropout, drop=drop)
+    with _span("teacher"), torch.no_grad():
+        t_logits, _ = m.forward(teacher_params, teacher_cfg, feats,
+                                feat_lens, labels)
+    with _span("joint_loss"):
+        logits = m.joint(params, cfg, enc_out, pred_out)
+        per_utt = rnnt_loss(logits, labels, enc_lens, label_lens, cfg.blank)
+        tau = distill_temp
+        lp_s = torch.log_softmax(logits.float() / tau, dim=-1)
+        lp_t = torch.log_softmax(t_logits.float() / tau, dim=-1)
+        kl = torch.sum(torch.exp(lp_t) * (lp_t - lp_s), dim=-1)  # (B,T,U+1)
+        B, T, U1 = kl.shape
+        dev = kl.device
+        tmask = (torch.arange(T, device=dev)[None, :, None]
+                 < enc_lens.to(dev)[:, None, None])
+        umask = (torch.arange(U1, device=dev)[None, None, :]
+                 <= label_lens.to(dev)[:, None, None])
+        mask = (tmask & umask).to(kl.dtype)
+        kd_pu = (torch.sum(kl * mask, dim=(1, 2))
+                 / torch.clamp(torch.sum(mask, dim=(1, 2)), min=1.0)
+                 ) * tau * tau
+        per_utt = per_utt + distill_weight * kd_pu
+    return per_utt.mean(), per_utt
+
+
+def check_distill_compat(cfg: TransducerConfig,
+                         teacher_cfg: TransducerConfig, tcfg: TrainConfig):
+    """Raise unless the teacher's lattice grid matches the student's and
+    the TrainConfig composes with the KD term (JAX :364-388)."""
+    for field in ("vocab_size", "blank", "time_reduction"):
+        a, b = getattr(cfg, field), getattr(teacher_cfg, field)
+        if a != b:
+            raise ValueError(f"distillation needs teacher {field} == "
+                             f"student {field} (teacher {b}, student {a})")
+    if cfg.tdt_durations or cfg.big_blank_durations or \
+            teacher_cfg.tdt_durations or teacher_cfg.big_blank_durations:
+        raise ValueError("distillation supports standard transducers "
+                         "(no TDT / multi-blank joint grids)")
+    if cfg.joint_experts > 0:
+        raise ValueError("distillation with an MoE student joint is not "
+                         "supported")
+    if tcfg.loss_impl not in ("auto", "xla"):
+        raise ValueError("distillation trains at the xla loss tier "
+                         f"(loss_impl {tcfg.loss_impl!r}); the KD term "
+                         "needs materialized joint logits")
+    if tcfg.ctc_weight or tcfg.fastemit_lambda:
+        raise ValueError("distillation does not compose with ctc_weight/"
+                         "fastemit_lambda")
+
+
 # -------------------------------- steps ----------------------------------
 
 def check_ring_width(cfg: TransducerConfig, loss_impl: str,
@@ -335,12 +412,15 @@ def check_ring_width(cfg: TransducerConfig, loss_impl: str,
 
 
 def loss_and_grads(p_leaves, spec, cfg: TransducerConfig, feats, feat_lens,
-                   labels, label_lens, **loss_kw):
+                   labels, label_lens, batch_loss=None, **loss_kw):
     """The batch-mean loss (detached) and its gradient for every leaf of
-    the flattened params (zeros for a leaf the loss does not reach)."""
+    the flattened params (zeros for a leaf the loss does not reach).
+    batch_loss(params, cfg, feats, feat_lens, labels, label_lens,
+    **loss_kw) -> (loss, per_utt) is `loss_fn` unless given."""
     leaves = [p.detach().requires_grad_(True) for p in p_leaves]
-    loss, _ = loss_fn(pytree.tree_unflatten(leaves, spec), cfg, feats,
-                      feat_lens, labels, label_lens, **loss_kw)
+    loss, _ = (batch_loss or loss_fn)(
+        pytree.tree_unflatten(leaves, spec), cfg, feats, feat_lens, labels,
+        label_lens, **loss_kw)
     with _span("backward"):
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if gr is None else gr
@@ -368,7 +448,7 @@ def pmean(mesh, loss, grads):
 
 def make_train_step(cfg: TransducerConfig, tcfg: TrainConfig, mesh=None,
                     teacher_cfg=None, device: str | torch.device = "cuda",
-                    noise_fn=None):
+                    noise_fn=None, loss_kind: str = "rnnt"):
     """Build the training step:
     step(state, feats, feat_lens, labels, label_lens) -> (state', metrics)
     with metrics {"loss", "grad_norm", "skipped_nonfinite"} as tensors.
@@ -386,7 +466,14 @@ def make_train_step(cfg: TransducerConfig, tcfg: TrainConfig, mesh=None,
     With ar_range > 0 the loss is the alignment-restricted band (JAX
     make_train_step :441-456); given `teacher_cfg`, the aligner is a
     checkpoint of that config and the step takes its params as a sixth
-    argument, `teacher_params`, else the live model aligns itself.
+    argument, `teacher_params`, else the live model aligns itself. With
+    distill_weight > 0 the loss is `distill_loss_fn` and the teacher, a
+    checkpoint of `teacher_cfg`, rides the same sixth argument (JAX
+    :426-440); ar_range and distill_weight are mutually exclusive.
+    loss_kind="mwer" makes the step minimize train/mwer.py's expected
+    edit count over the beam N-best of the live params (TrainConfig's
+    mwer_beam, mwer_expansions, mwer_max_symbols, mwer_nll_weight; JAX
+    :419-425), without dropout and without a teacher.
 
     With a `mesh` of several ranks (`parallel/mesh.make_mesh`), each rank
     calls the step with its shard of the batch (`shard_batch`) and the
@@ -396,28 +483,54 @@ def make_train_step(cfg: TransducerConfig, tcfg: TrainConfig, mesh=None,
     where the step will run; it decides only the refusal of
     `check_ring_width`."""
     dev = mesh.device if mesh is not None else torch.device(device)
-    ar = tcfg.ar_range > 0
+    if loss_kind == "ctc":
+        raise NotImplementedError("not ported yet: loss_kind='ctc' (ROADMAP "
+                                  "queue 1, item 8: CTC)")
+    if loss_kind not in ("rnnt", "mwer"):
+        raise ValueError(f"unknown loss_kind {loss_kind!r}")
+    rnnt = loss_kind == "rnnt"
+    if rnnt and tcfg.ar_range > 0 and tcfg.distill_weight > 0.0:
+        raise ValueError("ar_range and distill_weight are mutually "
+                         "exclusive (one teacher slot)")
+    ar = rnnt and tcfg.ar_range > 0
+    distilling = rnnt and tcfg.distill_weight > 0.0
     if ar:
-        if tcfg.distill_weight > 0.0:
-            raise ValueError("ar_range and distill_weight are mutually "
-                             "exclusive (one teacher slot)")
         if tcfg.loss_impl not in ("auto", "ar"):
             raise ValueError("ar_range > 0 trains with loss_impl='auto'|"
                              f"'ar' (got {tcfg.loss_impl!r})")
         if teacher_cfg is not None:
             check_ar_compat(cfg, teacher_cfg)
+    if distilling:
+        if teacher_cfg is None:
+            raise ValueError("distill_weight > 0 needs teacher_cfg (and "
+                             "the step must be called with teacher_params)")
+        check_distill_compat(cfg, teacher_cfg, tcfg)
     check_train_supported(tcfg)
     m.check_supported(cfg)
-    check_ring_width(cfg, "ar" if ar else tcfg.loss_impl, dev)
+    check_ring_width(cfg, "ar" if ar else tcfg.loss_impl if rnnt
+                     and not distilling else "xla", dev)
     schedule = make_lr_schedule(tcfg)
     k = tcfg.grad_accum
     loss_kw = dict(loss_impl=tcfg.loss_impl, fastemit=tcfg.fastemit_lambda,
                    simple_loss_scale=tcfg.simple_loss_scale)
+    batch_loss = loss_fn
     if ar:
         loss_kw.update(loss_impl="ar", ar_range=tcfg.ar_range,
                        ar_left=tcfg.ar_left, align_cfg=teacher_cfg)
-    uses_teacher = ar and teacher_cfg is not None
-    has_dropout = tcfg.dropout > 0.0 or tcfg.embed_dropout > 0.0
+    elif distilling:
+        loss_kw = dict(distill_weight=tcfg.distill_weight,
+                       distill_temp=tcfg.distill_temp)
+
+        def batch_loss(params, cfg, *batch, teacher_params, **kw):
+            return distill_loss_fn(params, teacher_params, cfg, teacher_cfg,
+                                   *batch, **kw)
+    elif not rnnt:
+        loss_kw = dict(beam=tcfg.mwer_beam, expansions=tcfg.mwer_expansions,
+                       max_symbols=tcfg.mwer_max_symbols,
+                       nll_weight=tcfg.mwer_nll_weight)
+        batch_loss = mwer_loss_fn
+    uses_teacher = (ar or distilling) and teacher_cfg is not None
+    has_dropout = rnnt and (tcfg.dropout > 0.0 or tcfg.embed_dropout > 0.0)
     if has_dropout:
         loss_kw.update(dropout=tcfg.dropout, embed_dropout=tcfg.embed_dropout)
     noise_fn = noise_fn or (lambda step, paths, leaves: weight_noise(
@@ -427,8 +540,8 @@ def make_train_step(cfg: TransducerConfig, tcfg: TrainConfig, mesh=None,
     def step_fn(state: TrainState, feats, feat_lens, labels, label_lens,
                 teacher_params=None):
         if uses_teacher and teacher_params is None:
-            raise ValueError("this step aligns with a checkpoint: pass its "
-                             "params as teacher_params")
+            raise ValueError("this step's teacher or aligner is a "
+                             "checkpoint: pass its params as teacher_params")
         p_leaves, spec = pytree.tree_flatten(state.params)
         at = p_leaves
         if tcfg.weight_noise_std > 0.0:  # gradients at params + noise
@@ -436,14 +549,16 @@ def make_train_step(cfg: TransducerConfig, tcfg: TrainConfig, mesh=None,
                              p_leaves)
             at = [p + tcfg.weight_noise_std * z
                   for p, z in zip(p_leaves, noise)]
-        drop = None
+        kw = dict(loss_kw)
         if has_dropout:
             B = feats.shape[0]
-            drop = DropoutMasks(tcfg.seed, state.step, rank * B, n_ranks * B)
+            kw["drop"] = DropoutMasks(tcfg.seed, state.step, rank * B,
+                                      n_ranks * B)
+        if rnnt:
+            kw["teacher_params"] = teacher_params if uses_teacher else None
         loss, grads = loss_and_grads(
             at, spec, cfg, feats, feat_lens, labels, label_lens,
-            teacher_params=teacher_params if uses_teacher else None,
-            drop=drop, **loss_kw)
+            batch_loss=batch_loss, **kw)
         loss, grads = pmean(mesh, loss, grads)
         gnorm = global_norm(grads)
         ok = bool(torch.isfinite(loss) & torch.isfinite(gnorm))

@@ -1,15 +1,23 @@
-"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+"""Build the port's native libraries and load them with ctypes.
 
-Every `csrc/*.cu` file is compiled for Hopper (`sm_90a`), one nvcc per
-source, all started together, and the objects are linked into one shared
-library with a plain C interface; the counterpart of `utils/hostio.py` in
-the JAX package, which loads its C++ host library the same way. The
-library is built at first use into `csrc/build/` (listed in .gitignore),
-under a name keyed by a hash of the sources and flags, so a changed source
-builds anew and an unchanged one loads what is there. The build holds a
+Two libraries, each with a plain C interface, the counterparts of
+`utils/hostio.py` in the JAX package, which loads its C++ host library
+the same way:
+
+- the kernels (`load_library`): every `csrc/*.cu` file compiled for
+  Hopper (`sm_90a`), one nvcc per source, all started together, and the
+  objects linked into one shared library;
+- the host loader (`load_loader_library`): `csrc/loader.cpp`, the
+  manifest prefetch threads of data/native_loader.py, by g++ (nvcc's host
+  compiler on the card's machine; no nvcc needed, so it builds on the CPU
+  too).
+
+Each is built at first use into `csrc/build/` (listed in .gitignore),
+under a name keyed by a hash of its sources and flags, so a changed source
+builds anew and an unchanged one loads what is there. The builds hold a
 lock because the serving engine launches kernels from its worker thread;
-the library is written to a temporary name and renamed into place, so a
-second process never loads a half-written file.
+a library is written to a temporary name and renamed into place, so a
+second process never loads a half-written file. A failed build raises.
 
 Nothing here runs at import: the CPU tests import every module, and the
 CPU has no nvcc.
@@ -30,6 +38,8 @@ _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
 BUILD_DIR = os.path.join(_CSRC, "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LOADER_SOURCE = os.path.join(_CSRC, "loader.cpp")
+GXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17")
 
 # C signatures of the library's entry points: name -> (restype, argtypes).
 # Every pointer and the stream are c_void_p: ctypes would otherwise pass a
@@ -158,9 +168,22 @@ SIGNATURES = {
                              _P]),
     "kernel_error_string": (ctypes.c_char_p, [_I]),
 }
+# the host loader's entry points (csrc/loader.cpp)
+LOADER_SIGNATURES = {
+    # paths_joined, audio, n_paths, labels_cat, label_lens, buckets_tu,
+    # n_buckets, batch_size, feat_dim, blank, loop, seed, n_threads,
+    # queue_cap, win, hop
+    "loader_create": (_P, [ctypes.c_char_p, _I, _I, _P, _P, _P, _I, _I, _I,
+                           _I, _I, ctypes.c_int64, _I, _I, _I, _I]),
+    # handle, feats, feat_lens, labels, label_lens, out_shape
+    "loader_next": (_I, [_P, _P, _P, _P, _P, _P]),
+    "loader_dropped": (ctypes.c_int64, [_P]),
+    "loader_destroy": (None, [_P]),
+}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+_loader_lib: ctypes.CDLL | None = None
 
 
 def sources() -> list[str]:
@@ -243,18 +266,61 @@ def check_launch(lib: ctypes.CDLL, err: int, what: str) -> None:
                            f"{lib.kernel_error_string(err).decode()} ({err})")
 
 
+def loader_library_path() -> str:
+    """Where the host loader library for loader.cpp and GXX_FLAGS lives."""
+    h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
+    with open(LOADER_SOURCE, "rb") as f:
+        h.update(f.read())
+    return os.path.join(BUILD_DIR, f"libloader-{h.hexdigest()[:16]}.so")
+
+
+def _gxx() -> str:
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("g++ not found: put g++ on PATH")
+    return gxx
+
+
+def _build_loader(path: str) -> None:
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{path[:-3]}.{os.getpid()}.tmp"
+    rcs, log = _run_all([[_gxx(), *GXX_FLAGS, "-o", tmp, LOADER_SOURCE,
+                          "-lpthread"]])
+    with open(path[:-3] + ".log", "w") as f:
+        f.write(log)
+    if any(rcs):
+        if os.path.exists(tmp):
+            os.remove(tmp)
+        raise RuntimeError(f"g++ failed ({rcs}):\n{log}")
+    os.replace(tmp, path)
+
+
+def _open(path: str, build_fn, signatures: dict) -> ctypes.CDLL:
+    """Build `path` if it is not there, load it and set its signatures."""
+    if not os.path.exists(path):
+        build_fn(path)
+    lib = ctypes.CDLL(path)
+    for name, (restype, argtypes) in signatures.items():
+        fn = getattr(lib, name)
+        fn.restype = restype
+        fn.argtypes = argtypes
+    return lib
+
+
 def load_library() -> ctypes.CDLL:
     """Build (once) and load the kernel library, with signatures set."""
     global _lib
     with _lock:
         if _lib is None:
-            path = library_path()
-            if not os.path.exists(path):
-                _build(path)
-            lib = ctypes.CDLL(path)
-            for name, (restype, argtypes) in SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.restype = restype
-                fn.argtypes = argtypes
-            _lib = lib
+            _lib = _open(library_path(), _build, SIGNATURES)
         return _lib
+
+
+def load_loader_library() -> ctypes.CDLL:
+    """Build (once, by g++) and load the host loader library."""
+    global _loader_lib
+    with _lock:
+        if _loader_lib is None:
+            _loader_lib = _open(loader_library_path(), _build_loader,
+                                LOADER_SIGNATURES)
+        return _loader_lib

@@ -199,8 +199,6 @@ def test_nonfinite_step_is_skipped():
 
 
 @pytest.mark.parametrize("tcfg_kw, item", [  # explicit ids: stable names
-    pytest.param(dict(distill_weight=0.3), r"item 13\(b\)",
-                 id="distill-item 13(b)"),
     pytest.param(dict(ctc_weight=0.3), "item 8", id="tcfg_kw3-item 8"),
 ])
 def test_unported_options_raise(tcfg_kw, item):
