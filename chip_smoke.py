@@ -30,7 +30,9 @@ two data-parallel ranks) run at full width in phase 5f, and configs[2]
 (libri100 on manifest data in its three buckets, with SortaGrad, CMVN,
 SpecAugment, speed perturbation, dropout, weight noise and EMA) in 5g;
 5h adds the C++ prefetch loader, lattice distillation from a BiLSTM
-teacher and MWER fine-tuning on that corpus.
+teacher and MWER fine-tuning on that corpus; 5i CTC (pretraining,
+multitask, greedy and prefix-beam decode), the stateless predictor
+(trained, served, decoded from its checkpoint) and encoder remat.
 Phases, in order:
 
   1. card   require CUDA; print the card's name and power limit
@@ -199,6 +201,31 @@ Phases, in order:
             through both paths (beams_agree) and the risk and gradients
             on it; bf16 steps, host ms, the beam's share, 5 K4 each way
             and K3 once a step; the CLI with --mwer-steps 2 of 3
+  5i. ctc (after 5h) CTC, the stateless predictor and encoder remat: (a)
+            f32 gates at B=4 rows of bench.py's batch, kernels against
+            the plain versions (LOSS_RTOL, GRAD_RTOL): the CTC
+            pretraining loss, the fused multitask loss (ctc_weight 0.3),
+            the stateless fused loss, libri100_conformer and libri100
+            each also with remat_encoder (the same bits expected, the
+            gap reported; each encoder layer's forward kernel launched
+            twice); (b) bf16 steps: CTC pretraining, the multitask step
+            and the stateless hybrid at (32, 400, 40) (ms by slope, peak
+            GB, launches a step, a profiled step with the share of the
+            `ctc` and `ctc_backward` spans), libri100_conformer at B=64
+            and libri960 at B=64, U=60 with and without remat (GB saved,
+            ms added); (c) the CLIs on synthetic B=8 data: the training
+            CLI (--pred-type stateless --ctc-pretrain-steps 2
+            --ctc-weight 0.3, 4 steps: phases ctc, ctc, rnnt, rnnt and
+            their K4 / K1 / K2 / K3 launches), the decode CLI on its
+            checkpoint in greedy, beam, ctc_greedy and ctc_beam with a
+            trigram (4 K4-fwd an encode) and serve.py --ckpt-dir (greedy
+            with a /session, --mode beam, --quantize int8); on a fresh
+            model of its config made to emit by `emitting_model`: f32
+            tokens of the kernel and the plain paths equal for greedy,
+            beam (`beams_agree`), CTC greedy and the CTC prefix beam's
+            n-best, and the engines in this process (greedy, beam: 4
+            K4-fwd a batch; int8: 4 K7; a session: 4 K4-fwd a tick);
+            `ctc_launches` joins the kernels line's counts
   4g. lattice_tiles (last: no profiled check may follow the plain
             versions' long, nearly idle loops) lattice_alpha and
             lattice_beta with the occupancies at U+1 = 8,001, 11,137 and
@@ -2341,17 +2368,18 @@ def conformer_end_to_end(conf: dict, dev) -> dict:
 
 
 def serve_cli(extra: list, utt: np.ndarray,
-              config: str = "libri100_conformer", audio: bool = False,
+              config: str | None = "libri100_conformer", audio: bool = False,
               want_text: bool = False) -> dict:
-    """serve.py's CLI, --config `config` plus `extra`, in a process of its
-    own: it warms up, answers one /recognize (with an n-best under --mode
-    beam) and /stats, a streamable model also one /session of the
+    """serve.py's CLI, --config `config` (None: the --ckpt-dir's own) plus
+    `extra`, in a process of its own: it warms up, answers one /recognize
+    (with an n-best under --mode beam) and /stats, a streamable model also one /session of the
     utterance in the default 32-frame chunks, and drains and exits 0 on
     SIGTERM. audio=True: `utt` is raw 16 kHz PCM, sent as an {"audio"}
     body and as a PCM session split at `pcm_cuts`; want_text=True: the
     answers carry "text" (and word segments), the n-best too."""
     cmd = [sys.executable, "-m", "rnn_transducer_tpu_torch.serve",
-           "--config", config, "--port", "0", *extra]
+           *(["--config", config] if config else []), "--port", "0",
+           *extra]
     t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(
         __file__)), stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
@@ -3266,12 +3294,16 @@ def audio_cli_chain(au: dict, dev) -> dict:
             check(ckpt.load_meta(d)["tokenizer"]
                   == tokenizer_to_meta(au["tok"]),
                   f"{config}: meta.json lacks the BPE tokenizer")
-            row = {"serve": serve_cli(["--ckpt-dir", d], utt, config,
-                                      audio=True, want_text=True)}
+            calls = {"serve": ["--ckpt-dir", d]}
             if config == AUDIO_CLI_CONFIGS[0]:
-                row["serve_beam_boost"] = serve_cli(
-                    ["--ckpt-dir", d, "--mode", "beam", "--boost-file",
-                     phrases], utt, config, audio=True, want_text=True)
+                calls["serve_beam_boost"] = ["--ckpt-dir", d, "--mode",
+                                             "beam", "--boost-file", phrases]
+            # the servers at once, each a process of its own on the card
+            with concurrent.futures.ThreadPoolExecutor(len(calls)) as ex:
+                futs = {k: ex.submit(serve_cli, extra, utt, config,
+                                     audio=True, want_text=True)
+                        for k, extra in calls.items()}
+                row = {k: f.result() for k, f in futs.items()}
             out = io.StringIO()
             with contextlib.redirect_stdout(out):
                 got = recognize_cli(["--ckpt-dir", d, "--data",
@@ -3364,13 +3396,14 @@ def lead_profiler_window() -> None:
 PROFILE_WINDOWS = 3
 
 
-def profile_step(step, state, batch, profile_dir, name="train_step"):
-    """A training step under torch.profiler, PROFILE_WINDOWS times (the
-    state goes on through each), read from the window that holds the most
+def profile_step(step, state, batch, profile_dir, name="train_step",
+                 windows: int = PROFILE_WINDOWS):
+    """A training step under torch.profiler, `windows` times (the state
+    goes on through each), read from the window that holds the most
     kernels: device time by kernel family, host time by the step's spans,
     the device's busy share."""
     best = None
-    for _ in range(PROFILE_WINDOWS):
+    for _ in range(windows):
         state, out, prof = profile_window(step, state, batch)
         if best is None or (sum(out["device_launches"].values())
                             > sum(best[0]["device_launches"].values())):
@@ -5424,6 +5457,434 @@ def recipes_phase(seed: int, dev, corpus: dict, tmp: str,
 
 
 
+# ------------------------------ phase 5i ---------------------------------
+
+# Phase 5i's model: libri100 (4x512 LSTM, 2x stacking, V=1024, bf16) with
+# the stateless predictor at JAX's default context of 2 and the CTC head,
+# the CTC term at the CLI's typical --ctc-weight.
+CTC_WEIGHT = 0.3
+STATELESS = dict(pred_type="stateless", pred_context=2, ctc_head=True)
+CTC_F32_B = 4  # the f32 gates' batch (rows of bench_batch, ragged)
+CTC_BUCKET = 400  # (c)'s utterances: 150-400 frames, one serving bucket
+# Per-step launches of the bf16 cells. CTC pretraining: the encoder's 4
+# layers (K4 with activations and K4-bwd), no joint, no RNN-T lattice
+# (the CTC lattice is plain PyTorch). Multitask: those and the LSTM
+# predictor's, and K1, K2 and K3 once each (the fused route). Stateless:
+# the multitask step without the predictor's recurrence. The conformer:
+# the predictor's K4, 48 LayerNorms (K8), K1 / K2 / K3. libri960: 6 + 2
+# layers, the two-pass route (K5, K3).
+NO_LAUNCH = {k: 0 for k in ("lstm_fwd", "lstm_fwd_with_acts", "lstm_bwd",
+                            "joint_fwd", "joint_bwd", "lattice_alpha",
+                            "lattice_beta", "extract_lp", "assemble_grad",
+                            "lstm_fwd_int8", "greedy_fused", "fused_ln_fwd",
+                            "fused_ln_bwd")}
+CTC_STEP = {**NO_LAUNCH, "lstm_fwd_with_acts": 4, "lstm_bwd": 4}
+MULTITASK_STEP = {**CTC_STEP, "lstm_fwd_with_acts": 5, "lstm_bwd": 5,
+                  "joint_fwd": 1, "joint_bwd": 1, "lattice_alpha": 1,
+                  "lattice_beta": 1}
+STATELESS_STEP = {**MULTITASK_STEP, "lstm_fwd_with_acts": 4, "lstm_bwd": 4}
+CONF_STEP = {**MULTITASK_STEP, "lstm_fwd_with_acts": 1, "lstm_bwd": 1,
+             "fused_ln_fwd": LN_PER_ENCODE, "fused_ln_bwd": LN_PER_ENCODE}
+L960_STEP = {**NO_LAUNCH, "lstm_fwd_with_acts": 8, "lstm_bwd": 8,
+             "extract_lp": 1, "assemble_grad": 1, "lattice_alpha": 1,
+             "lattice_beta": 1}
+
+
+def remat_step(want: dict, cfg) -> dict:
+    """A step's launches under remat_encoder: every encoder layer's (or
+    block's) forward kernels run again in the backward."""
+    if cfg.enc_type == "conformer":
+        return {**want, "fused_ln_fwd": 2 * want["fused_ln_fwd"]}
+    return {**want, "lstm_fwd_with_acts": want["lstm_fwd_with_acts"]
+            + cfg.enc_layers * (2 if cfg.bidirectional else 1)}
+
+
+def ctc_f32_gate(what: str, cfg, seed: int, dev, fn, U: int = TRAIN_U,
+                 remat: bool = False, **kw) -> dict:
+    """(a) One f32 loss and its gradients, fn(params, cfg, *batch, **kw),
+    on CTC_F32_B ragged rows of bench.py's batch through the kernels and
+    the plain versions (LOSS_RTOL, GRAD_RTOL; the conformer's attention
+    key bias held to 1e-4 of the largest gradient, its noise level, as in
+    `f32_kernels_vs_plain`); with remat=True also through the kernels with
+    remat_encoder, whose loss and gradients should be the same bits, and
+    whose launches show each encoder layer recomputed."""
+    cfg = dataclasses.replace(cfg, compute_dtype="float32")
+    params = m.init_params(cfg, np.random.default_rng(seed), dev)
+    batch = bench_batch(cfg, seed, dev, U, CTC_F32_B, ragged=True)
+    flat, spec = torch.utils._pytree.tree_flatten(params)
+    noise = [n.endswith("/att/k/b") for n in leaf_paths(params)]
+
+    def run(c, plain: bool):
+        with plain_kernels() if plain else contextlib.nullcontext():
+            xs = [p.detach().requires_grad_(True) for p in flat]
+            reset_counts()
+            loss, _ = fn(torch.utils._pytree.tree_unflatten(xs, spec), c,
+                         *batch, **kw)
+            grads = torch.autograd.grad(loss, xs, allow_unused=True)
+            torch.cuda.synchronize()
+            counts = read_counts()
+        return (float(loss.detach()), [torch.zeros_like(x) if g is None
+                                       else g for x, g in zip(xs, grads)],
+                {k: v for k, v in counts.items() if v})
+
+    lk, gk, ck = run(cfg, plain=False)
+    lp, gp, _ = run(cfg, plain=True)
+    top = max(float(a.abs().max()) for a in gp)
+    row = {"what": what, "B": CTC_F32_B, "T": TRAIN_T, "U": U,
+           "loss_kernels": lk, "loss_plain": lp,
+           "loss_rel_err": abs(lk - lp) / abs(lp),
+           "grad_worst_rel_err": max(rel_err(a, b) for a, b, z
+                                     in zip(gk, gp, noise) if not z),
+           "key_bias_max_abs": max([float(a.abs().max()) for a, z in
+                                    zip(gk + gp, noise + noise) if z]
+                                   or [0.0]),
+           "max_abs_grad": top, "loss_rtol": LOSS_RTOL,
+           "grad_rtol": GRAD_RTOL, "launches": ck}
+    if remat:
+        lr_, gr, cr = run(dataclasses.replace(cfg, remat_encoder=True),
+                          plain=False)
+        row.update(remat_launches=cr, remat_loss=lr_,
+                   remat_same_bits=lr_ == lk and all(
+                       torch.equal(a, b) for a, b in zip(gr, gk)),
+                   remat_loss_gap=abs(lr_ - lk),
+                   remat_grad_gap=max(float((a - b).abs().max())
+                                      for a, b in zip(gr, gk)))
+        want = remat_step({k: ck.get(k, 0) for k in NO_LAUNCH}, cfg)
+        check(all(cr.get(k, 0) == v for k, v in want.items()),
+              f"f32 {what} with remat launched {cr}, not {want}")
+        check(abs(lr_ - lp) / abs(lp) <= LOSS_RTOL and max(
+            rel_err(a, b) for a, b, z in zip(gr, gp, noise) if not z)
+            <= GRAD_RTOL, f"f32 {what} with remat against the plain path")
+    print("ctc_f32 " + json.dumps(row))
+    check(row["loss_rel_err"] <= LOSS_RTOL,
+          f"f32 {what}: loss kernels {lk} vs plain {lp}")
+    check(row["grad_worst_rel_err"] <= GRAD_RTOL,
+          f"f32 {what}: gradients {row['grad_worst_rel_err']}")
+    check(row["key_bias_max_abs"] <= 1e-4 * top,
+          f"f32 {what}: key-bias gradients above noise level")
+    return row
+
+
+def ctc_gates(seed: int, dev) -> dict:
+    """(a) The f32 gates: the CTC pretraining loss, the fused multitask
+    loss, the stateless fused loss, and libri100_conformer and libri100
+    with and without remat."""
+    lib = dataclasses.replace(config_libri100(), ctc_head=True)
+    out = {
+        "ctc": ctc_f32_gate("ctc_pretrain", lib, seed + 90, dev,
+                            tl.ctc_loss_fn),
+        "multitask": ctc_f32_gate("multitask", lib, seed + 91, dev,
+                                  tl.loss_fn, loss_impl="fused",
+                                  ctc_weight=CTC_WEIGHT),
+        "stateless": ctc_f32_gate(
+            "stateless", dataclasses.replace(config_libri100(), **STATELESS),
+            seed + 92, dev, tl.loss_fn, loss_impl="fused",
+            ctc_weight=CTC_WEIGHT),
+        "conformer": ctc_f32_gate("conformer", config_libri100_conformer(),
+                                  seed + 93, dev, tl.loss_fn, remat=True,
+                                  loss_impl="fused"),
+        "lstm": ctc_f32_gate("lstm", config_libri100(), seed + 94, dev,
+                             tl.loss_fn, remat=True, loss_impl="fused")}
+    torch.cuda.empty_cache()
+    return out
+
+
+def ctc_cell(what: str, cfg, seed: int, dev, want: dict, B: int, U: int,
+             profile: bool = False, profile_dir=None, loss_kind: str = "rnnt",
+             params=None, **tcfg_kw) -> dict:
+    """(b) bf16 steps of one cell at bench.py's T=400: ms a step by slope,
+    peak GB, launches a step (`want`); with profile (a CTC cell) a
+    profiled step and the share of its wall time in the CTC spans (the
+    forward's `ctc` and the backward's `ctc_backward`). `params` (the
+    step leaves them as they are) spares a second init of a remat pair."""
+    tcfg = TrainConfig(batch_size=B, warmup_steps=100, total_steps=10000,
+                       **tcfg_kw)
+    state = tl.init_train_state(np.random.default_rng(seed), cfg, tcfg, dev,
+                                params=params)
+    step = tl.make_train_step(cfg, tcfg, device=dev, loss_kind=loss_kind)
+    batch = bench_batch(cfg, seed, dev, U, B)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, res = timed_steps(step, state, batch, B)
+    check_step_counts(res, want, f"phase 5i's {what} steps")
+    res.update({"what": what, "B": B, "T": TRAIN_T, "U": U,
+                "dtype": "bfloat16", "remat": cfg.remat_encoder,
+                "launches_per_step": {k: v / res["steps"] for k, v in
+                                      res["launches"].items() if v}})
+    if profile:
+        # one window: the spans' host ms are read, not kernel counts
+        state, prof = profile_step(step, state, batch, profile_dir,
+                                   f"ctc_{what}_step", windows=1)
+        host, span = prof["host_span_ms"], prof["device_span_ms"]
+        ctc_ms = host.get("ctc", 0.0) + host.get("ctc_backward", 0.0)
+        res["profile"] = {"wall_ms": prof["wall_ms"],
+                          "device_busy_share": prof["device_busy_share"],
+                          "host_span_ms": host, "device_span_ms": span,
+                          "ctc_host_ms": ctc_ms,
+                          "ctc_share": ctc_ms / prof["wall_ms"],
+                          "top_device_ops": prof["top_device_ops"][:5]}
+    res["card"] = card_line()
+    print("ctc_bf16 " + json.dumps(res))
+    del state, step
+    torch.cuda.empty_cache()
+    return res
+
+
+def ctc_cells(seed: int, dev, profile_dir) -> dict:
+    """(b) The bf16 cells: CTC pretraining, the multitask step and the
+    stateless hybrid at (32, 400, 40) (each with a profiled step);
+    libri100_conformer at B=64 and libri960 at B=64, U=60 with and without
+    remat; `remat_saved_gb` and `remat_added_ms` of the last two."""
+    lib = dataclasses.replace(config_libri100(), ctc_head=True)
+    sl = dataclasses.replace(config_libri100(), **STATELESS)
+    prof = dict(profile=True, profile_dir=profile_dir)
+    out = {
+        "ctc": ctc_cell("ctc_pretrain", lib, seed + 95, dev, CTC_STEP,
+                        TRAIN_B, TRAIN_U, loss_kind="ctc", **prof),
+        "multitask": ctc_cell("multitask", lib, seed + 96, dev,
+                              MULTITASK_STEP, TRAIN_B, TRAIN_U,
+                              ctc_weight=CTC_WEIGHT, **prof),
+        "stateless": ctc_cell("stateless", sl, seed + 97, dev,
+                              STATELESS_STEP, TRAIN_B, TRAIN_U,
+                              ctc_weight=CTC_WEIGHT, **prof)}
+    for name, cfg, want, B, U in (
+            ("conformer", config_libri100_conformer(), CONF_STEP, CONF_B,
+             CONF_U),
+            ("libri960", config_libri960(), L960_STEP, L960_B, L960_U)):
+        params = m.init_params(cfg, np.random.default_rng(seed + 98), dev)
+        for remat in (False, True):
+            c = dataclasses.replace(cfg, remat_encoder=remat)
+            out[f"{name}{'_remat' if remat else ''}"] = ctc_cell(
+                name + ("_remat" if remat else ""), c, seed + 98, dev,
+                remat_step(want, c) if remat else want, B, U, params=params)
+        del params
+        a, b = out[name], out[f"{name}_remat"]
+        row = {"what": name, "remat_saved_gb": a["peak_mem_gb"]
+               - b["peak_mem_gb"], "remat_added_ms": b["ms_per_step"]
+               - a["ms_per_step"], "card": card_line()}
+        print("ctc_remat " + json.dumps(row))
+        out[f"{name}_remat_delta"] = row
+    return out
+
+
+def ctc_tokens(params, cfg, dev, feats, lens) -> dict:
+    """(c) f32 tokens through the kernels and through the plain versions:
+    stateless greedy, its beam (`beams_agree`), CTC greedy and the CTC
+    prefix beam's n-best (equal lists, scores within BEAM_SCORE_ATOL)."""
+    from rnn_transducer_tpu_torch.decode.ctc import recognize_ctc
+
+    c = dataclasses.replace(cfg, compute_dtype="float32")
+    out = {}
+    _, tok_k = decode_batch(params, c, feats, lens, plain=False)
+    _, tok_p = decode_batch(params, c, feats, lens, plain=True)
+    check(tok_k == tok_p, "stateless greedy: f32 tokens differ between the "
+                          "kernel path and the plain path")
+    out["greedy_tokens"] = [len(t) for t in tok_k]
+    out["beam"] = beams_agree(decode_beam(params, c, feats, lens),
+                              decode_beam(params, c, feats, lens, plain=True),
+                              "stateless")
+
+    def ctc(mode: str, plain: bool):
+        with plain_kernels() if plain else contextlib.nullcontext(), \
+                torch.inference_mode():
+            res = recognize_ctc(params, c, feats, lens, mode=mode, beam=BEAM,
+                                max_symbols=MAX_SYMBOLS)
+        return [a.cpu().numpy() for a in res]
+
+    gk, gp = ctc("greedy", False), ctc("greedy", True)
+    check(all(np.array_equal(a, b) for a, b in zip(gk, gp)),
+          "CTC greedy: f32 tokens differ between the kernel path and the "
+          "plain path")
+    out["ctc_greedy_tokens"] = gk[1].tolist()
+    bk, bp = ctc("beam", False), ctc("beam", True)
+    live = bp[2] > -5e29
+    check(np.array_equal(bk[0], bp[0]) and np.array_equal(bk[1], bp[1])
+          and np.array_equal(bk[2] > -5e29, live)
+          and float(np.abs(bk[2] - bp[2])[live].max()) <= BEAM_SCORE_ATOL,
+          "CTC prefix beam: the f32 n-best differs between the kernel path "
+          "and the plain path")
+    out["ctc_beam_top_lengths"] = bk[1][:, 0].tolist()
+    out["ctc_beam_max_score_err"] = float(np.abs(bk[2] - bp[2])[live].max())
+    print("ctc_tokens " + json.dumps(out))
+    check(sum(out["greedy_tokens"]) > 0 and sum(out["ctc_greedy_tokens"]) > 0,
+          "the f32 token checks compare empty lists")
+    return out
+
+
+def ctc_serving(params, cfg, dev, utts) -> dict:
+    """(c) The stateless model in the engines on the card, one bucket of
+    CTC_BUCKET frames: a greedy and a beam BatchingEngine (4 K4-fwd launches a batch, no K9), a
+    StreamingEngine session (4 a tick) and an int8 engine (4 K7 a batch, no
+    K4-fwd), the launches read around the served requests."""
+    out = {}
+    for what, p, kw, kernel in (
+            ("greedy", params, {}, "lstm_fwd"),
+            ("beam", params, {"mode": "beam", "beam": BEAM,
+                              "expansions": EXPANSIONS}, "lstm_fwd"),
+            ("int8", quantize_params(params), {}, "lstm_fwd_int8")):
+        eng = BatchingEngine(p, cfg, max_symbols=MAX_SYMBOLS, device=dev,
+                             frame_buckets=(CTC_BUCKET,), **kw)
+        try:
+            eng.warmup()
+            torch.cuda.synchronize()
+            reset_counts()
+            answers = serve_requests(eng, utts)
+            counts = read_counts()
+            batches = eng.stats.summary()["batches"]
+        finally:
+            eng.close()
+        others = {k: v for k, v in counts.items() if v and k != kernel}
+        row = {"requests": len(answers), "batches": batches,
+               "launches": counts[kernel], "other_launches": others,
+               "tokens": [len(a[1]["tokens"]) for a in answers]}
+        print(f"ctc_serve_{what} " + json.dumps(row))
+        check(all(a[0] == 200 for a in answers) and not others
+              and counts[kernel] == cfg.enc_layers * batches,
+              f"stateless {what} serving: {row}")
+        out[what] = row
+    st = StreamingEngine(params, cfg, max_symbols=MAX_SYMBOLS, device=dev)
+    try:
+        st.warmup()
+        torch.cuda.synchronize()
+        reset_counts()
+        sid = st.open_session()
+        utt = utts[0]
+        ticks = 0
+        for t0 in range(0, utt.shape[0], CHUNK_FRAMES):
+            res = st.feed_full(sid, utt[t0:t0 + CHUNK_FRAMES])
+            ticks += 1
+        final = st.close_session(sid)
+        counts = read_counts()
+    finally:
+        st.close()
+    row = {"ticks": ticks, "launches": counts["lstm_fwd"],
+           "tokens": len(final), "stable_len": res["stable_len"]}
+    print("ctc_serve_session " + json.dumps(row))
+    check(counts["lstm_fwd"] == cfg.enc_layers * ticks
+          and counts["lstm_fwd_int8"] == 0 and counts["greedy_fused"] == 0,
+          f"stateless streaming: {row}")
+    out["session"] = row
+    return out
+
+
+def ctc_cli(seed: int, tmp: str, dev) -> dict:
+    """(c) The CLI path on synthetic B=8 data: the training CLI (libri100,
+    --pred-type stateless, 2 CTC steps then 2 RNN-T steps with
+    --ctc-weight 0.3) with its launches and phases; the decode CLI on its
+    checkpoint in greedy, beam, ctc_greedy and ctc_beam with a trigram (4
+    K4-fwd launches an encode: a warm-up and a timed batch); serve.py
+    --ckpt-dir (greedy with a /session, --mode beam, --quantize int8); on
+    a fresh model of its config made to emit by `emitting_model`, the
+    engines in this process (`ctc_serving`) and the f32 tokens of the
+    kernel and the plain paths (`ctc_tokens`)."""
+    from rnn_transducer_tpu_torch.models.ngram import save_ngram, train_ngram
+    from rnn_transducer_tpu_torch.recognize import main as recognize_cli
+
+    d = os.path.join(tmp, "stateless_ctc")
+    log = os.path.join(tmp, "stateless_ctc.jsonl")
+    reset_counts()
+    cli = cli_json(["--config", "libri100", "--pred-type", "stateless",
+                    "--ctc-pretrain-steps", "2", "--ctc-weight",
+                    str(CTC_WEIGHT), "--steps", "4", "--batch-size", "8",
+                    "--max-frames", "200", "--max-labels", "20",
+                    "--warmup-steps", "1", "--log-every", "1",
+                    "--eval-every", "0", "--log-file", log, "--ckpt-dir", d,
+                    "--seed", str(seed), "--device", dev.type], 4,
+                   "stateless_ctc")
+    counts = read_counts()
+    phases = [r["phase"] for r in map(json.loads, open(log)) if "loss" in r]
+    cfg = ckpt.load_model_config(d)
+    want = {k: 2 * (CTC_STEP[k] + STATELESS_STEP[k]) for k in NO_LAUNCH}
+    row = {"phases": phases, "launches": {k: v for k, v in counts.items()
+                                          if v},
+           "pred_type": cfg.pred_type, "pred_context": cfg.pred_context,
+           "ctc_head": cfg.ctc_head}
+    print("ctc_cli_train " + json.dumps(row))
+    check(phases == ["ctc", "ctc", "rnnt", "rnnt"],
+          f"the training CLI's phases: {phases}")
+    check(cfg == dataclasses.replace(config_libri100(), **STATELESS),
+          f"the checkpoint's config: {cfg}")
+    check_step_counts({"launches": counts, "steps": 1}, want,
+                      "the stateless CTC training CLI")
+    out = {"train": cli, "train_row": row}
+
+    trigram = os.path.join(tmp, "ctc_lm3")
+    rng = np.random.default_rng(seed + 99)
+    save_ngram(train_ngram([rng.integers(1, cfg.vocab_size, size=20).tolist()
+                            for _ in range(200)], 3, cfg.vocab_size), trigram)
+    for mode, extra in (("greedy", []), ("beam", []), ("ctc_greedy", []),
+                        ("ctc_beam", ["--ngram", trigram + ".npz"])):
+        reset_counts()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            got = recognize_cli(["--ckpt-dir", d, "--mode", mode,
+                                 "--batch-size", "8", "--batches", "1",
+                                 "--beam", str(BEAM), "--device", dev.type,
+                                 *extra])
+        counts = read_counts()
+        others = {k: v for k, v in counts.items() if v and k != "lstm_fwd"}
+        row = {"mode": mode, "out": got, "lstm_fwd": counts["lstm_fwd"],
+               "other_launches": others}
+        print("ctc_cli_decode " + json.dumps(row))
+        check(got["n"] == 8 and np.isfinite(got["wer"]) and not others
+              and counts["lstm_fwd"] == 2 * cfg.enc_layers,
+              f"the decode CLI --mode {mode}: {row}")
+        out[f"decode_{mode}"] = row
+
+    # a fresh model of the checkpoint's config made to emit (the 4-step
+    # checkpoint itself needs a blank offset of ~7, outside the [-4, 4]
+    # that `emitting_model` searches, and then emits ~2 tokens a row),
+    # served and decoded: 8 utterances of 150-800 frames (noise from the
+    # seed) in the 400-frame bucket
+    params = m.init_params(cfg, np.random.default_rng(seed + 102), dev)
+    cal = emitting_model(params, cfg, dev, np.random.default_rng(seed + 101),
+                         (150, CTC_BUCKET))
+    print("emitting_model " + json.dumps({"what": "stateless_ctc", **cal}))
+    rng = np.random.default_rng(seed + 100)
+    lengths = rng.integers(150, CTC_BUCKET + 1, size=MAX_BATCH)
+    lengths[:2] = (150, CTC_BUCKET)
+    srv = {"cfg": cfg, "lengths": lengths,
+           "utts": [rng.normal(size=(int(T), cfg.input_dim)).astype(
+               np.float32) for T in lengths]}
+    feats, lens = served_batch(srv, dev, CTC_BUCKET)
+    out["tokens"] = ctc_tokens(params, cfg, dev, feats, lens)
+    out["serve"] = ctc_serving(params, cfg, dev, srv["utts"])
+    # the three servers at once: each a process of its own on the card
+    utt = srv["utts"][0]
+    with concurrent.futures.ThreadPoolExecutor(3) as ex:
+        futs = [ex.submit(serve_cli, ["--ckpt-dir", d, *extra], utt, None)
+                for extra in ([], ["--mode", "beam"], ["--quantize", "int8"])]
+        out["serve_cli"] = [f.result() for f in futs]
+    return out
+
+
+def ctc_phase(seed: int, dev, profile_dir, tmp: str) -> dict:
+    """Phase 5i: CTC, the stateless predictor and encoder remat, (a)-(c)
+    above; each part's seconds on a line of their own, and the launches
+    of the bf16 cells, the engines and the CLIs for the kernels line."""
+    out, seconds = {}, {}
+    for name, fn in (("gates", lambda: ctc_gates(seed, dev)),
+                     ("cells", lambda: ctc_cells(seed, dev, profile_dir)),
+                     ("cli", lambda: ctc_cli(seed, tmp, dev))):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        seconds[name] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    print("ctc_seconds " + json.dumps(seconds))
+    launches = dict.fromkeys(NO_LAUNCH, 0)
+    for cell in out["cells"].values():
+        for k, v in cell.get("launches", {}).items():
+            launches[k] = launches.get(k, 0) + v
+    serve = out["cli"]["serve"]
+    launches["lstm_fwd"] += (serve["greedy"]["launches"]
+                             + serve["beam"]["launches"]
+                             + serve["session"]["launches"])
+    launches["lstm_fwd_int8"] += serve["int8"]["launches"]
+    out["launches"] = launches
+    print("ctc_launches " + json.dumps(launches))
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, err, ms, plain_ms,
                  bnd: dict, library_ms=None, kernel=None,
                  device_ms=None) -> dict:
@@ -5503,16 +5964,21 @@ def main(argv=None):
     print(f"phase e2e_conformer: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     utt = serving["utts"][0]
-    for extra in ([], ["--quantize", "int8"]):
-        serve_cli(extra, utt)
-    serve_cli([], utt, config="libri100")  # /session at the CLI's defaults
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp, \
+            concurrent.futures.ThreadPoolExecutor(4) as ex:
         # the beam entry point: libri100, --mode beam with a trigram
         from rnn_transducer_tpu_torch.models.ngram import save_ngram
         save_ngram(serve_trigram(serving["cfg"], args.seed),
                    os.path.join(tmp, "lm3"))
-        serve_cli(["--mode", "beam", "--ngram", os.path.join(tmp, "lm3")],
-                  utt, config="libri100")
+        # the four servers at once, each a process of its own on the card;
+        # libri100 at the CLI's defaults answers a /session too
+        futs = [ex.submit(serve_cli, extra, utt, **kw) for extra, kw in (
+            ([], {}), (["--quantize", "int8"], {}),
+            ([], {"config": "libri100"}),
+            (["--mode", "beam", "--ngram", os.path.join(tmp, "lm3")],
+             {"config": "libri100"}))]
+        for f in futs:
+            f.result()
     print(f"phase serve_cli: {time.perf_counter() - t0:.1f} s")
     del conf
     torch.cuda.empty_cache()
@@ -5554,6 +6020,11 @@ def main(argv=None):
                       {str(T): ms for T, (_, ms)
                        in manifest["batches"].items()})
         print(f"phase recipes: {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+        # phase 5i: CTC, the stateless predictor and encoder remat
+        t0 = time.perf_counter()
+        ctc = ctc_phase(args.seed, dev, args.profile_dir, tmp)
+        print(f"phase ctc: {time.perf_counter() - t0:.1f} s")
         torch.cuda.empty_cache()
 
     # phase 4f: beam serving (its profiled windows after the training
@@ -5600,46 +6071,54 @@ def main(argv=None):
                                      kl["main"], kr["main"], kln["main"],
                                      kb["main"])
     band_counts = pruned["launches"]
+    cl = ctc["launches"]  # phase 5i's cells, engines: added to each count
     print(json.dumps({"kernels": [
-        kernel_entry("lstm_fwd", "lstm_fwd.cu", f"{lp}:119", e2e["launches"],
+        kernel_entry("lstm_fwd", "lstm_fwd.cu", f"{lp}:119",
+                     e2e["launches"] + cl["lstm_fwd"],
                      k["max_abs_err"], km["kernel_ms"], km["plain_ms"], km,
                      km["library_ms"]),
         kernel_entry("lstm_fwd_with_acts", "lstm_fwd.cu", f"{lp}:119",
-                     counts["lstm_fwd_with_acts"],
+                     counts["lstm_fwd_with_acts"]
+                     + cl["lstm_fwd_with_acts"],
                      max(kt["worst"]["fwd"], k960["worst"]["fwd"]),
                      tm_["fwd_kernel_ms"], tm_["fwd_plain_ms"],
                      tm_["fwd_bound"], tm_["cudnn_train_fwd_ms"]),
         kernel_entry("lstm_bwd", "lstm_bwd.cu", f"{lp}:222",
-                     counts["lstm_bwd"],
+                     counts["lstm_bwd"] + cl["lstm_bwd"],
                      max(kt["worst"]["bwd"], k960["worst"]["bwd"]),
                      tm_["bwd_kernel_ms"], tm_["bwd_plain_ms"],
                      tm_["bwd_bound"], tm_["cudnn_bwd_ms"]),
         kernel_entry("joint_fwd", "joint_fwd.cu", f"{jp}:132",
-                     counts["joint_fwd"], kj["worst_fwd"],
+                     counts["joint_fwd"] + cl["joint_fwd"], kj["worst_fwd"],
                      jm_["fwd_kernel_ms"], jm_["fwd_plain_ms"],
                      jm_["fwd_bound"]),
         kernel_entry("joint_bwd", "joint_bwd.cu", f"{jp}:374",
-                     counts["joint_bwd"], kj["worst_bwd"],
+                     counts["joint_bwd"] + cl["joint_bwd"], kj["worst_bwd"],
                      jm_["bwd_kernel_ms"], jm_["bwd_plain_ms"],
                      jm_["bwd_bound"]),
         kernel_entry("lattice_alpha", "lattice.cu", f"{wp}:65",
-                     counts["lattice_alpha"], kl["worst_alpha"],
+                     counts["lattice_alpha"] + cl["lattice_alpha"],
+                     kl["worst_alpha"],
                      lm["alpha_kernel_ms"], lm["alpha_plain_ms"],
                      lm["alpha_bound"], device_ms=lm["alpha_device_ms"]),
         kernel_entry("lattice_beta", "lattice.cu", f"{wp}:65",
-                     counts["lattice_beta"], kl["worst_beta"],
+                     counts["lattice_beta"] + cl["lattice_beta"],
+                     kl["worst_beta"],
                      lm["beta_kernel_ms"], lm["beta_plain_ms"],
                      lm["beta_bound"], device_ms=lm["beta_device_ms"]),
         kernel_entry("extract_lp", "loss_rows.cu", f"{rp}:82",
-                     two_pass["extract_lp"], kr["worst_extract"],
+                     two_pass["extract_lp"] + cl["extract_lp"],
+                     kr["worst_extract"],
                      rm["extract_kernel_ms"], rm["extract_plain_ms"],
                      rm["extract_bound"]),
         kernel_entry("assemble_grad", "loss_rows.cu", f"{rp}:126",
-                     two_pass["assemble_grad"], kr["worst_grad"],
+                     two_pass["assemble_grad"] + cl["assemble_grad"],
+                     kr["worst_grad"],
                      rm["grad_kernel_ms"], rm["grad_plain_ms"],
                      rm["grad_bound"]),
         kernel_entry("lstm_fwd_int8", "lstm_fwd_q.cu", f"{lp}:532",
-                     e2e_q["launches"], kq["max_abs_err"],
+                     e2e_q["launches"] + cl["lstm_fwd_int8"],
+                     kq["max_abs_err"],
                      kq["main"]["kernel_ms"], kq["main"]["plain_ms"],
                      kq["main"], kernel="lstm_q_persistent_kernel"),
         kernel_entry("greedy_fused", "greedy_fused.cu", f"{gp}:107",
@@ -5647,13 +6126,15 @@ def main(argv=None):
                      kg["main"]["kernel_ms"], kg["main"]["plain_ms"],
                      kg["main"], kernel=" + ".join(K9_KERNELS)),
         kernel_entry("fused_ln_fwd", "fused_ln.cu", f"{fp}:118",
-                     e2e_c["launches"], kln["worst"]["fwd"],
+                     e2e_c["launches"] + cl["fused_ln_fwd"],
+                     kln["worst"]["fwd"],
                      lnm["fwd_kernel_ms"], lnm["fwd_plain_ms"],
                      lnm["fwd_bound"], lnm["fwd_library_ms"]),
         kernel_entry("fused_ln_bwd", "fused_ln.cu", f"{fp}:152",
-                     conf_train["launches"]["fused_ln_bwd"],
-                     kln["worst"]["bwd"], lnm["bwd_kernel_ms"],
-                     lnm["bwd_plain_ms"], lnm["bwd_bound"],
+                     conf_train["launches"]["fused_ln_bwd"]
+                     + cl["fused_ln_bwd"], kln["worst"]["bwd"],
+                     lnm["bwd_kernel_ms"], lnm["bwd_plain_ms"],
+                     lnm["bwd_bound"],
                      lnm["bwd_library_ms"]),
         kernel_entry("band_lp_fwd", "band_fused.cu", f"{bp}:95",
                      band_counts["band_lp_fwd"], kb["worst"]["fwd"],

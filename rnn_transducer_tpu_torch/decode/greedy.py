@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from rnn_transducer_tpu_torch.decode.beam import _tree_map
 from rnn_transducer_tpu_torch.models import transducer as m
 from rnn_transducer_tpu_torch.models.config import TransducerConfig
 
@@ -98,8 +99,9 @@ def greedy_decode(params, cfg: TransducerConfig, enc_out, enc_lens,
                                                states)
         e = emit[:, None]
         pred_out = torch.where(e, new_pred, pred_out)
-        states = [(torch.where(e, hn, h), torch.where(e, cn, c))
-                  for (hn, cn), (h, c) in zip(new_states, states)]
+        # the LSTM's (h, c) a layer, or the stateless label buffer
+        states = _tree_map(lambda n, o: torch.where(e, n, o), new_states,
+                           states)
         u = u + emit.to(torch.int32)
         t = t + (is_blank & ~done).to(torch.int32)
         done = (t >= enc_lens) | (u >= max_symbols)

@@ -341,9 +341,11 @@ def pack_weights(weights, plan: ClusterPlan) -> torch.Tensor:
 
 
 def supported(cfg: TransducerConfig) -> bool:
-    """The JAX kernel's predicate: one predictor layer, E, H and J
-    multiples of 128."""
-    return (cfg.pred_layers == 1
+    """The JAX kernel's predicate, one predictor layer and E, H and J
+    multiples of 128, and an LSTM predictor: the kernel steps w_ih and
+    w_hh, which a stateless predictor has not (JAX's predicate does not
+    ask, greedy_pallas.py:33-37)."""
+    return (cfg.pred_type == "lstm" and cfg.pred_layers == 1
             and cfg.embed_dim % LANE == 0
             and cfg.pred_hidden % LANE == 0
             and cfg.joint_dim % LANE == 0)
@@ -503,10 +505,7 @@ def fused_inputs(params, cfg: TransducerConfig, enc_out, enc_lens):
     """The arguments of `greedy_fused_tokens` for an encoded batch: f (the
     encoder side of the joint, one matmul), int32 lengths and the f32
     weights. Raises ValueError for a config outside `supported()`."""
-    m.check_supported(cfg)
-    if not supported(cfg):
-        raise ValueError("greedy_decode_fused needs one predictor layer and "
-                         "E, H, J multiples of 128; use decode.greedy")
+    _check_fused(cfg)
     params = maybe_dequant_tree(params)  # int8 serving params
     jp = params["joint"]
     f = (_dot(enc_out, jp["enc_proj"]["w"], cfg.cdtype)
@@ -520,8 +519,18 @@ def fused_inputs(params, cfg: TransducerConfig, enc_out, enc_lens):
     return f, lens, weights
 
 
+def _check_fused(cfg: TransducerConfig) -> None:
+    m.check_supported(cfg)
+    if not supported(cfg):
+        raise ValueError("greedy_decode_fused needs an LSTM predictor of "
+                         "one layer and E, H, J multiples of 128; use "
+                         "decode.greedy")
+
+
 def recognize_greedy_fused(params, cfg: TransducerConfig, feats, feat_lens,
                            max_symbols: int = 200):
-    """Features -> (tokens, lengths) through `encode` and the fused loop."""
+    """Features -> (tokens, lengths) through `encode` and the fused loop;
+    a config outside `supported()` is refused before the encoder runs."""
+    _check_fused(cfg)
     enc_out, enc_lens = m.encode(params, cfg, feats, feat_lens)
     return greedy_decode_fused(params, cfg, enc_out, enc_lens, max_symbols)

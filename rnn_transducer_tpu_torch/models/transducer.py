@@ -1,20 +1,26 @@
 """The Transducer model (PyTorch port of
 `rnn_transducer_tpu/models/transducer.py`): the LSTM encoder (one
 direction or both) and the conformer encoder, offline and chunk by chunk
-with a carried state, the LSTM predictor and the joint.
+with a carried state, the LSTM or stateless predictor, the joint and the
+CTC head.
 
 Plain functions on tensors over a parameter dict in the JAX layout:
 {"encoder": [lstm layer, ...], [{"fwd": lstm layer, "bwd": lstm layer},
 ...] or [{"in_proj"}, conformer block, ...],
-"embed": (V, E), "predictor": [lstm layer, ...], "joint": {"enc_proj",
-"pred_proj", "out": {"w": (in, out), "b"}}}.
-It covers serving (`encode`, `predict_step`, `joint_step`), streaming
-(`init_enc_state`, `encode_chunk`) and the training forward (`predict`,
-`joint`, `joint_activations`, `forward`), with the JAX package's dropout
-sites in `encode` and `predict`. Configurations outside it
-raise NotImplementedError naming their ROADMAP item. Every entry point takes int8 serving params
-(`ops/quant.py`) and dequantizes them as the JAX package does; `encode`
-keeps `w_hh` int8 for the W8A8 recurrence.
+"embed": (V, E), "predictor": [lstm layer, ...] or, for
+pred_type="stateless", [{"w": (pred_context * E, pred_hidden), "b"}],
+"joint": {"enc_proj", "pred_proj", "out": {"w": (in, out), "b"}}[,
+"ctc_head": {"w": (enc_out_dim, V), "b"}]}.
+It covers serving (`encode`, `predict_step`, `joint_step`, `ctc_logits`),
+streaming (`init_enc_state`, `encode_chunk`) and the training forward
+(`predict`, `joint`, `joint_activations`, `forward`), with the JAX
+package's dropout sites in `encode` and `predict`. With remat_encoder,
+`encode` recomputes each conformer block or LSTM layer in the backward
+(`torch.utils.checkpoint`, as JAX's `jax.checkpoint`), its dropout left
+outside the recomputed function. Configurations outside it raise
+NotImplementedError naming their ROADMAP item. Every entry point takes
+int8 serving params (`ops/quant.py`) and dequantizes them as the JAX
+package does; `encode` keeps `w_hh` int8 for the W8A8 recurrence.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from rnn_transducer_tpu_torch.models.config import TransducerConfig
 from rnn_transducer_tpu_torch.ops.conformer import (conformer_block,
@@ -46,13 +53,9 @@ def check_supported(cfg: TransducerConfig) -> None:
     """Raise NotImplementedError for a config this port cannot run yet."""
     if cfg.enc_type not in ("lstm", "conformer"):
         raise ValueError(f"unknown enc_type {cfg.enc_type!r}")
+    if cfg.pred_type not in ("lstm", "stateless"):
+        raise ValueError(f"unknown pred_type {cfg.pred_type!r}")
     todo = []
-    if cfg.enc_type == "conformer" and cfg.remat_encoder:
-        todo.append("remat_encoder for the conformer (ROADMAP queue 1, item "
-                    "9: conformer, activation checkpointing)")
-    if cfg.pred_type != "lstm":
-        todo.append(f"pred_type={cfg.pred_type!r} (ROADMAP queue 1, item "
-                    "12: stateless predictor)")
     if cfg.big_blank_durations:
         todo.append("big_blank_durations (ROADMAP queue 1, item 11: "
                     "duration families)")
@@ -119,10 +122,15 @@ def init_params(cfg: TransducerConfig, rng: np.random.Generator,
     embed = rng.standard_normal((cfg.vocab_size, cfg.embed_dim),
                                 dtype=np.float32)
     pred = []
-    pin = cfg.embed_dim
-    for _ in range(cfg.pred_layers):
-        pred.append(_init_lstm(rng, pin, cfg.pred_hidden))
-        pin = cfg.pred_hidden
+    if cfg.pred_type == "stateless":
+        # one projection of the window of the last pred_context embeddings
+        pred.append(_init_linear(rng, cfg.pred_context * cfg.embed_dim,
+                                 cfg.pred_hidden))
+    else:
+        pin = cfg.embed_dim
+        for _ in range(cfg.pred_layers):
+            pred.append(_init_lstm(rng, pin, cfg.pred_hidden))
+            pin = cfg.pred_hidden
     joint = {
         "enc_proj": _init_linear(rng, cfg.enc_out_dim, cfg.joint_dim),
         "pred_proj": _init_linear(rng, cfg.pred_hidden, cfg.joint_dim),
@@ -171,7 +179,9 @@ def encode(params: Params, cfg: TransducerConfig, feats, feat_lens, *,
     A bidirectional encoder runs `bilstm_layer` on each layer's
     {"fwd", "bwd"} params. dropout (with a mask source `drop`): on every
     layer's output but the last, before layer 0's masking and frame
-    stacking, as JAX's stacked-LSTM dropout.
+    stacking, as JAX's stacked-LSTM dropout. With cfg.remat_encoder each
+    conformer block or LSTM (BiLSTM) layer is recomputed in the backward
+    instead of keeping its activations; the dropout after it is not.
     """
     dropping = dropout > 0.0 and drop is not None
     check_supported(cfg)
@@ -185,27 +195,43 @@ def encode(params: Params, cfg: TransducerConfig, feats, feat_lens, *,
             x, lens = _time_reduce(x, lens, cfg.time_reduction)
         proj = params["encoder"][0]["in_proj"]
         x = _dot(x, proj["w"], cd) + proj["b"].float()
+
+        def blk(block, x):
+            return conformer_block(block, x, lens, cfg.enc_heads, cd,
+                                   att_left=cfg.enc_att_left,
+                                   chunk_att=cfg.enc_chunk_att)
+
         n = cfg.enc_layers
         for i, block in enumerate(params["encoder"][1:]):
-            x = conformer_block(block, x, lens, cfg.enc_heads, cd,
-                                att_left=cfg.enc_att_left,
-                                chunk_att=cfg.enc_chunk_att)
+            x = _remat(cfg, blk, block, x)
             if dropping and i < n - 1:
                 x = _dropout(x, dropout, drop, site=i)
         return mask_padding(x, lens), lens
+
+    def run_layer(layer, x, lens):
+        if cfg.bidirectional:
+            return bilstm_layer(layer["fwd"], layer["bwd"], x, lens,
+                                compute_dtype=cd)
+        return lstm_layer(layer, x, compute_dtype=cd)[0]
+
     n = len(params["encoder"])
     for i, layer in enumerate(params["encoder"]):
-        if cfg.bidirectional:
-            x = bilstm_layer(layer["fwd"], layer["bwd"], x, lens,
-                             compute_dtype=cd)
-        else:
-            x = lstm_layer(layer, x, compute_dtype=cd)[0]
+        x = _remat(cfg, run_layer, layer, x, lens)
         if dropping and i < n - 1:
             x = _dropout(x, dropout, drop, site=i)
         if i == 0 and cfg.time_reduction > 1:
             x = mask_padding(x, lens)
             x, lens = _time_reduce(x, lens, cfg.time_reduction)
     return mask_padding(x, lens), lens
+
+
+def _remat(cfg: TransducerConfig, fn, *args):
+    """fn(*args), recomputed in the backward under cfg.remat_encoder
+    (JAX's `jax.checkpoint` of an encoder block or layer); a plain call
+    when nothing needs a gradient."""
+    if cfg.remat_encoder and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def _check_streamable(cfg: TransducerConfig) -> None:
@@ -295,7 +321,9 @@ def predict_step(params: Params, cfg: TransducerConfig, label, states):
     """Single step of the prediction network (for decoding).
 
     label: (B,) int (the last emitted label; blank id = start symbol).
-    states: list per layer of (h, c) each (B, H). Returns (out (B, H), states').
+    states: for the LSTM predictor a list per layer of (h, c) each (B, H);
+    for pred_type="stateless" the (B, pred_context - 1) int32 buffer of
+    the most recently consumed label ids. Returns (out (B, H), states').
     A decode loop builds `DecodeWeights` once and steps that instead.
     """
     check_supported(cfg)
@@ -304,7 +332,13 @@ def predict_step(params: Params, cfg: TransducerConfig, label, states):
 
 def init_pred_state(cfg: TransducerConfig, batch: int,
                     device: str | torch.device = "cuda"):
+    """The predictor's decode state before any label: per-layer zero (h, c)
+    f32 for the LSTM predictor; for pred_type="stateless" a (batch,
+    pred_context - 1) int32 buffer of blanks ((batch, 0) at context 1)."""
     check_supported(cfg)
+    if cfg.pred_type == "stateless":
+        return torch.full((batch, cfg.pred_context - 1), cfg.blank,
+                          dtype=torch.int32, device=device)
     return [
         (torch.zeros((batch, cfg.pred_hidden), dtype=torch.float32,
                      device=device),
@@ -327,7 +361,10 @@ class DecodeWeights:
     activations (`_dot`'s rounding, without a weight cast a step) and int8
     params are dequantized once. The joint is split, `joint(enc_proj(enc),
     pred_proj(pred))`, so that a loop can project the encoder output once
-    for all frames and share the predictor side between two joints."""
+    for all frames and share the predictor side between two joints.
+    `predict_step(label, states)` takes the LSTM predictor's list of (h, c)
+    a layer or the stateless predictor's (B, pred_context - 1) int32 label
+    buffer, as `init_pred_state` makes them."""
 
     def __init__(self, params: Params, cfg: TransducerConfig):
         params = maybe_dequant_tree(params)
@@ -337,8 +374,14 @@ class DecodeWeights:
             return w.to(cd).float()
 
         self.embed = params["embed"]
-        self.layers = [(r(lay["w_ih"]), lay["b"].float(), r(lay["w_hh"]))
-                       for lay in params["predictor"]]
+        self.stateless = cfg.pred_type == "stateless"
+        if self.stateless:  # one projection of the label window
+            lay = params["predictor"][0]
+            self.win_w, self.win_b = r(lay["w"]), lay["b"].float()
+        else:
+            self.layers = [(r(lay["w_ih"]), lay["b"].float(),
+                            r(lay["w_hh"]))
+                           for lay in params["predictor"]]
         jp = params["joint"]
         self.enc_w, self.enc_b = (r(jp["enc_proj"]["w"]),
                                   jp["enc_proj"]["b"].float())
@@ -350,6 +393,12 @@ class DecodeWeights:
         return torch.matmul(x.to(self.cd).float(), w)
 
     def predict_step(self, label, states):
+        if self.stateless:
+            # the window: the buffered ids, then this label (JAX :362-373)
+            win = torch.cat([states.to(torch.int32),
+                             label.to(torch.int32)[:, None]], dim=1)
+            x = self.embed[win.long()].reshape(win.shape[0], -1)
+            return self._mm(x, self.win_w) + self.win_b, win[:, 1:]
         x = self.embed[label]
         new_states = []
         for (w_ih, b, w_hh), (h, c) in zip(self.layers, states):
@@ -375,7 +424,11 @@ def predict(params: Params, cfg: TransducerConfig, labels, *,
 
     labels (B, U) -> (outputs (B, U+1, pred_hidden), final states): position
     u conditions on labels[:u]; u = 0 is the start symbol, the blank
-    embedding. The final states are a list of (h, c) per layer.
+    embedding. The final states are a list of (h, c) per layer, or for the
+    stateless predictor the (B, pred_context - 1) int32 ids of the last
+    inputs, as `predict_step` leaves them. The stateless output at u is
+    one projection of the window of the last pred_context input
+    embeddings, blank-padded before the start (JAX :323-342).
     dropout / embed_dropout (with a mask source `drop`, see `_dropout`):
     between the LSTM layers and on the label embeddings.
     """
@@ -385,9 +438,20 @@ def predict(params: Params, cfg: TransducerConfig, labels, *,
     labels = labels.to(torch.int64)
     bos = torch.full((B, 1), cfg.blank, dtype=torch.int64,
                      device=labels.device)
-    x = params["embed"][torch.cat([bos, labels], dim=1)]  # (B, U+1, E)
+    inp = torch.cat([bos, labels], dim=1)  # (B, U+1)
+    x = params["embed"][inp]  # (B, U+1, E)
     if embed_dropout > 0.0 and drop is not None:
         x = _dropout(x, embed_dropout, drop, site=1000)
+    if cfg.pred_type == "stateless":
+        C, U1 = cfg.pred_context, inp.shape[1]
+        pad = torch.full((B, C - 1), cfg.blank, dtype=torch.int64,
+                         device=inp.device)
+        xp = torch.cat([params["embed"][pad], x], dim=1)  # (B, U+C, E)
+        win = torch.cat([xp[:, c:c + U1] for c in range(C)], dim=-1)
+        layer = params["predictor"][0]
+        out = _dot(win, layer["w"], cfg.cdtype) + layer["b"].float()
+        ids = torch.cat([pad, inp], dim=1)[:, U1:].to(torch.int32)
+        return out, ids
     states = []
     n = len(params["predictor"])
     for i, layer in enumerate(params["predictor"]):
@@ -418,6 +482,12 @@ def joint(params: Params, cfg: TransducerConfig, enc_out, pred_out):
     f, g, w, b = joint_activations(params, cfg, enc_out, pred_out)
     z = torch.tanh(f[:, :, None, :] + g[:, None, :, :])
     return _dot(z, w, cfg.cdtype) + b.float()
+
+
+def ctc_logits(params: Params, cfg: TransducerConfig, enc_out):
+    """CTC head: encoder output (B, T', De) -> (B, T', V) fp32 logits."""
+    head = maybe_dequant_tree(params)["ctc_head"]
+    return _dot(enc_out, head["w"], cfg.cdtype) + head["b"].float()
 
 
 def forward(params: Params, cfg: TransducerConfig, feats, feat_lens,

@@ -10,8 +10,9 @@ Decodes synthetic batches (`data/synthetic.learnable_batch`, from --seed)
 or a JSONL manifest of features or audio (data/manifest.py: audio through
 `ops/logmel.log_mel` on --device), bucketed into fixed shapes
 (data/bucketing.py), with the greedy, beam, streaming or streaming-beam
-decoder, and prints one JSON line: the mode, the token WER, RtfMeter's
-RTF and p50 / p90 latency, the beam in beam mode and the word WER when a
+decoder, or through the CTC head alone (ctc_greedy, ctc_beam:
+decode/ctc.py; a checkpoint without the head is refused), and prints one
+JSON line: the mode, the token WER, RtfMeter's RTF and p50 / p90 latency, the beam in beam mode and the word WER when a
 tokenizer is known. Each bucket shape is decoded once before it is
 timed, and the clock stops when the tokens are on the host.
 
@@ -21,13 +22,13 @@ explicit --config must match it), its tokenizer and its CMVN stats
 run asked for cuda on a machine without a card fails rather than fall
 back to the CPU.
 
---data-parallel N (greedy and beam) decodes every batch on N ranks
-(parallel/mesh.py): each decodes its contiguous slice of the batch and
-rank 0 gathers the hypotheses (through the host) and writes them in
-single-device order. N > 1 starts N - 1 worker processes beside this one,
-or joins a torchrun environment when RANK and WORLD_SIZE are set; a batch
-size that N does not divide and the streaming modes are refused, as in
-recognize.py.
+--data-parallel N (greedy, beam and the CTC modes) decodes every batch
+on N ranks (parallel/mesh.py): each decodes its contiguous slice of the
+batch and rank 0 gathers the hypotheses (through the host) and writes
+them in single-device order. N > 1 starts N - 1 worker processes beside
+this one, or joins a torchrun environment when RANK and WORLD_SIZE are
+set; a batch size that N does not divide and the streaming modes are
+refused, as in recognize.py.
 
 --use-ema decodes a checkpoint's Polyak average (a run of the trainer
 with --ema-decay) instead of its params.
@@ -38,13 +39,15 @@ in the order the threads finish them, and one under several ranks, so
 that every rank cuts the same batch; audio featurized by log_mel on
 --device, CMVN applied to the padded batch).
 
-Not ported yet, each refused with its ROADMAP item (queue 1): the CTC
-modes (item 8), --lm-ckpt and --lm-rescore (item 18).
+--mode ctc_beam fuses --ngram and --length-bonus (a bonus a token) into
+the prefix search. Not ported yet, refused with its ROADMAP item (queue
+1): --lm-ckpt and --lm-rescore (item 18).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import sys
 import time
@@ -101,6 +104,8 @@ def parse_args(argv=None):
                    help="n-gram LM artifact (models/ngram.py) for shallow "
                         "fusion in beam / streaming_beam modes")
     p.add_argument("--ngram-weight", type=float, default=0.3)
+    p.add_argument("--length-bonus", type=float, default=0.0,
+                   help="ctc_beam: additive bonus per emitted token")
     p.add_argument("--boost-file", default=None,
                    help="contextual-biasing phrase list for beam / "
                         "streaming_beam modes: one phrase per line, "
@@ -133,9 +138,6 @@ def parse_args(argv=None):
 def refuse_unported(args) -> None:
     """Options of the JAX CLI the port does not run yet, each with its
     ROADMAP item (queue 1)."""
-    if args.mode.startswith("ctc_"):
-        raise SystemExit(f"--mode {args.mode} is not ported yet (ROADMAP "
-                         "queue 1, item 8: CTC)")
     if args.lm_ckpt or args.lm_rescore:
         raise SystemExit("--lm-ckpt / --lm-rescore are not ported yet "
                          "(ROADMAP queue 1, item 18: LM checkpoints)")
@@ -146,6 +148,7 @@ def make_decoder(args, params, cfg, device, context=None, ngram=None):
     frames (B, U) encoder frames or None, confs (B, U) or None, nbest
     (tokens (B, K, U), lens (B, K), scores (B, K)) or None)."""
     from rnn_transducer_tpu_torch.decode.beam import recognize_beam
+    from rnn_transducer_tpu_torch.decode.ctc import recognize_ctc
     from rnn_transducer_tpu_torch.decode.greedy import recognize_greedy
     from rnn_transducer_tpu_torch.decode.streaming import (
         stream_transcribe, stream_transcribe_beam)
@@ -179,6 +182,20 @@ def make_decoder(args, params, cfg, device, context=None, ngram=None):
                     None if frames is None else frames[:, 0],
                     None if confs is None else confs[:, 0],
                     (toks, lens, scores))
+    elif args.mode == "ctc_greedy":
+        def decode(f, l):
+            out = host(*recognize_ctc(params, cfg, f, l, mode="greedy",
+                                      max_symbols=ms,
+                                      with_confidence=conf_on,
+                                      with_timestamps=ts))
+            return (out[0], out[1], out[-1] if ts else None,
+                    out[2] if conf_on else None, None)
+    elif args.mode == "ctc_beam":
+        def decode(f, l):
+            toks, lens, scores = host(*recognize_ctc(
+                params, cfg, f, l, mode="beam", beam=args.beam,
+                max_symbols=ms, ngram=ngram, length_bonus=args.length_bonus))
+            return toks[:, 0], lens[:, 0], None, None, (toks, lens, scores)
     elif args.mode == "streaming_beam":
         def decode(f, l):
             out = host(*stream_transcribe_beam(
@@ -221,9 +238,10 @@ def main(argv=None):
     dp = args.data_parallel
     if dp <= 1:
         return _decode(None, args)
-    if args.mode not in ("greedy", "beam"):
-        raise SystemExit("--data-parallel supports --mode greedy|beam "
-                         "(streaming decode is a host-driven chunk loop)")
+    if args.mode not in ("greedy", "beam", "ctc_greedy", "ctc_beam"):
+        raise SystemExit("--data-parallel supports --mode "
+                         "greedy|beam|ctc_greedy|ctc_beam (streaming "
+                         "decode is a host-driven chunk loop)")
     if args.batch_size % dp:
         raise SystemExit(f"--batch-size {args.batch_size} must divide by "
                          f"--data-parallel {dp}")
@@ -252,6 +270,16 @@ def _decode(mesh, args):
     # the config, tokenizer and CMVN of --ckpt-dir (a --config that differs
     # is refused) and its weights, int8 under --quantize: serve.py's
     cfg, tok, cmvn_stats = model_meta(args)
+    if args.mode.startswith("ctc_") and not cfg.ctc_head:
+        if args.ckpt_dir:
+            raise SystemExit("--mode ctc_* needs a checkpoint trained with "
+                             "a CTC head (--ctc-pretrain-steps)")
+        cfg = dataclasses.replace(cfg, ctc_head=True)  # fresh weights
+    if args.mode == "ctc_beam" and args.timestamps:
+        raise SystemExit("--timestamps is not supported with ctc_beam "
+                         "(prefix scores sum over alignments)")
+    if args.length_bonus and args.mode != "ctc_beam":
+        raise SystemExit("--length-bonus requires --mode ctc_beam")
     if args.mode.startswith("streaming"):
         # a BiLSTM or a full-attention conformer: the JAX package's words
         from rnn_transducer_tpu_torch.models.transducer import (
@@ -289,8 +317,9 @@ def _decode(mesh, args):
                   file=sys.stderr)
     ngram = None
     if args.ngram:
-        if args.mode not in ("beam", "streaming_beam"):
-            raise SystemExit("--ngram requires --mode beam|streaming_beam")
+        if args.mode not in ("beam", "streaming_beam", "ctc_beam"):
+            raise SystemExit("--ngram requires --mode "
+                             "beam|streaming_beam|ctc_beam")
         from rnn_transducer_tpu_torch.models.ngram import load_ngram
         ng_lm = load_ngram(args.ngram)
         if ng_lm.lp.shape[1] != cfg.vocab_size:
@@ -300,8 +329,9 @@ def _decode(mesh, args):
         if lead:
             print(f"n-gram fusion: {args.ngram} ({ng_lm.lp.shape[0]} "
                   f"states) weight={args.ngram_weight}", file=sys.stderr)
-    if args.confidence and args.mode not in ("greedy", "beam"):
-        raise SystemExit("--confidence supports --mode greedy|beam")
+    if args.confidence and args.mode not in ("greedy", "beam", "ctc_greedy"):
+        raise SystemExit("--confidence supports --mode "
+                         "greedy|beam|ctc_greedy")
     decode = make_decoder(args, params, cfg, device, context, ngram)
 
     if args.data.startswith("manifest:") and args.loader == "native":

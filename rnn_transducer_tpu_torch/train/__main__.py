@@ -16,6 +16,9 @@
     python -m rnn_transducer_tpu_torch.train --config libri100 \
         --data manifest:data/train/manifest.jsonl --loader native \
         --distill-from teacher_ckpt --mwer-steps 100 --steps 1000
+    python -m rnn_transducer_tpu_torch.train --config libri100 \
+        --pred-type stateless --ctc-pretrain-steps 500 --ctc-weight 0.3 \
+        --steps 5000 --ckpt-dir ckpt     # CTC first, then CTC-hybrid RNN-T
 
 Runs the standard training step (`train/loop.py`) on the `learnable_batch`
 stream of train.py (features that encode their labels, drawn from
@@ -60,7 +63,14 @@ the student always on the xla loss route); it excludes --ar-range.
 --mwer-steps N makes the last N of --steps MWER fine-tuning steps
 (train/mwer.py: the expected edit count over the live --mwer-beam
 N-best, --mwer-nll-weight of NLL beside it) with the same optimizer
-state. Each step's log record carries `load_ms`, the host ms the
+state. --ctc-pretrain-steps N makes the first N steps CTC steps on the
+encoder's auxiliary head (train/loop.ctc_loss_fn), --ctc-weight W adds W
+times that CTC loss to every RNN-T step (either switches the config's
+ctc_head on); --pred-type stateless [--pred-context C] trains the
+bounded-context predictor. The phase of a step (ctc, then rnnt, then
+mwer) follows from its global step alone, so a resumed run crosses the
+boundaries where an uninterrupted one would, and every log record names
+it. Each step's log record carries `load_ms`, the host ms the
 training thread waited for its batch, and `step_ms`, the host ms from
 the batch's arrival to the logged loss (one step's at --log-every 1).
 --tokenizer SPEC records the tokenizer in meta.json, as train.py does, so
@@ -178,6 +188,20 @@ def parse_args(argv=None):
     p.add_argument("--mwer-beam", type=int, default=4)
     p.add_argument("--mwer-nll-weight", type=float, default=0.0,
                    help="interpolate this much NLL into the MWER objective")
+    p.add_argument("--ctc-pretrain-steps", type=int, default=0,
+                   help="warm up the encoder with CTC loss for N steps "
+                        "before switching to the RNN-T loss")
+    p.add_argument("--ctc-weight", type=float, default=0.0,
+                   help="joint CTC + RNN-T multitask: add this much CTC "
+                        "(auxiliary encoder head) to the RNN-T loss every "
+                        "step (typical 0.1-0.3)")
+    p.add_argument("--pred-type", default=None, choices=["lstm", "stateless"],
+                   help="prediction network type override: 'stateless' = "
+                        "k2-style bounded-context decoder (see "
+                        "--pred-context)")
+    p.add_argument("--pred-context", type=int, default=0,
+                   help="stateless decoder context size (labels of history "
+                        "per position; 0 = config default)")
     p.add_argument("--fastemit-lambda", type=float, default=0.0)
     p.add_argument("--tokenizer", default=None,
                    help="tokenizer spec (char | phone | bpe:<model.json>); "
@@ -294,6 +318,13 @@ def _setup(args):
         raise SystemExit("--distill-from and --ar-range are mutually "
                          "exclusive (one teacher slot)")
     cfg = get_model_config(args.config)
+    if (args.ctc_pretrain_steps > 0 or args.ctc_weight > 0) \
+            and not cfg.ctc_head:
+        cfg = dataclasses.replace(cfg, ctc_head=True)
+    if args.pred_type:
+        cfg = dataclasses.replace(cfg, pred_type=args.pred_type)
+    if args.pred_context > 0:
+        cfg = dataclasses.replace(cfg, pred_context=args.pred_context)
     if args.pruned_range > 0:
         cfg = dataclasses.replace(cfg, pruned_range=args.pruned_range)
         args.loss_impl = "pruned"
@@ -305,6 +336,7 @@ def _setup(args):
                        grad_clip_norm=args.grad_clip, seed=args.seed,
                        loss_impl=args.loss_impl, lr_schedule=args.lr_schedule,
                        fastemit_lambda=args.fastemit_lambda,
+                       ctc_weight=args.ctc_weight,
                        simple_loss_scale=args.simple_loss_scale,
                        ar_range=args.ar_range, ar_left=args.ar_left,
                        mwer_beam=args.mwer_beam,
@@ -405,7 +437,11 @@ def _train(mesh, args):
     step_fn = make_train_step(cfg, tcfg, mesh=mesh, teacher_cfg=teacher_cfg,
                               device=device)
     extra = () if teacher_params is None else (teacher_params,)
-    # MWER fine-tuning: the last --mwer-steps steps, same optimizer state
+    # CTC pretraining: the first --ctc-pretrain-steps steps, and MWER
+    # fine-tuning: the last --mwer-steps; one optimizer state throughout
+    ctc_step_fn = (make_train_step(cfg, tcfg, mesh=mesh, device=device,
+                                   loss_kind="ctc")
+                   if args.ctc_pretrain_steps > 0 else None)
     mwer_step_fn = (make_train_step(cfg, tcfg, mesh=mesh, device=device,
                                     loss_kind="mwer")
                     if args.mwer_steps > 0 else None)
@@ -448,9 +484,10 @@ def _train(mesh, args):
             t_got = time.perf_counter()
             feats, fl, labels, ll = train_batch(args, batch, start_step + i,
                                                  mesh, device)
-            mwer = (mwer_step_fn is not None
-                    and start_step + i >= args.steps - args.mwer_steps)
-            if mwer:
+            phase = _phase(args, start_step + i)
+            if phase == "ctc":
+                state, info = ctc_step_fn(state, feats, fl, labels, ll)
+            elif phase == "mwer":
                 state, info = mwer_step_fn(state, feats, fl, labels, ll)
             else:
                 state, info = step_fn(state, feats, fl, labels, ll, *extra)
@@ -459,7 +496,7 @@ def _train(mesh, args):
             if step_no % args.log_every == 0:
                 loss = float(info["loss"])  # waits for the step
                 now = time.perf_counter()
-                mlog.log(step=step_no, phase="mwer" if mwer else "rnnt",
+                mlog.log(step=step_no, phase=phase,
                          loss=round(loss, 4),
                          grad_norm=round(float(info["grad_norm"]), 4),
                          utt_per_sec=round(utts / (now - t_start), 2),
@@ -491,6 +528,17 @@ def _train(mesh, args):
         print(json.dumps({"final_loss": round(float(info["loss"]), 4),
                           "steps": step_no}), flush=True)
     return state
+
+
+def _phase(args, step: int) -> str:
+    """The objective of the step after `step` steps (train.py's order):
+    ctc for the first --ctc-pretrain-steps, mwer for the last
+    --mwer-steps outside those, rnnt between."""
+    if step < args.ctc_pretrain_steps:
+        return "ctc"
+    if args.mwer_steps > 0 and step >= args.steps - args.mwer_steps:
+        return "mwer"
+    return "rnnt"
 
 
 def _agreed(mesh, flag: bool) -> bool:

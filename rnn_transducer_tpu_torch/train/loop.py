@@ -17,22 +17,27 @@ count before the update (the first update under warmup_cosine has
 learning rate schedule(0) = 0), and a skipped non-finite update advances
 `TrainState.step` but neither Adam's count nor the schedule's.
 
-Two more objectives share the step: lattice distillation
+Three more objectives share the step: CTC on the encoder's auxiliary
+head (`make_train_step(loss_kind="ctc")`, `ctc_loss_fn`: the
+pretraining phase of the CLI's --ctc-pretrain-steps), lattice distillation
 (`distill_loss_fn`, TrainConfig.distill_weight: the RNN-T loss plus a
 KL(teacher || student) of the temperature-softened joint posteriors,
 from a teacher checkpoint's forward under no_grad, always over
 materialised logits at the `xla` tier) and MWER fine-tuning
 (`make_train_step(loss_kind="mwer")`, train/mwer.py: the expected edit
-count over the live beam N-best).
+count over the live beam N-best). TrainConfig.ctc_weight adds that
+weight times the CTC loss to the RNN-T loss of every route (`loss_fn`'s
+with_ctc, on the one encoder pass): the per-utterance losses are the
+combined ones.
 
 Under a data-parallel mesh (`parallel/mesh.py`) each rank computes the
 loss and gradients of its shard, and one all-reduce of a flat f32 buffer
 averages them (JAX's `pmean` in its `shard_map` step); the guard, clip
 and AdamW then run on every rank alike, so the ranks keep equal params.
-The option not ported yet (CTC multitask) raises NotImplementedError
-naming its ROADMAP item, as do the fused, pruned and AR losses on the
-card above the rings' joint width (item 6(b)). The step is functional:
-it returns a new TrainState and leaves the one it was given as it was.
+The fused, pruned and AR losses on the card above the rings' joint width
+raise NotImplementedError naming their ROADMAP item (6(b)). The step is
+functional: it returns a new TrainState and leaves the one it was given
+as it was.
 
 The step's phases run under `torch.profiler.record_function` spans
 (SPANS), which cost nothing measurable outside a profiler; a profile of a
@@ -52,6 +57,7 @@ from torch.utils import _pytree as pytree
 
 from rnn_transducer_tpu_torch.models import transducer as m
 from rnn_transducer_tpu_torch.models.config import TrainConfig, TransducerConfig
+from rnn_transducer_tpu_torch.ops.ctc_loss import ctc_loss_from_logits
 from rnn_transducer_tpu_torch.ops.rnnt_align import (emit_frames_device,
                                                      rnnt_viterbi)
 from rnn_transducer_tpu_torch.ops.rnnt_joint_fused import (MAX_J,
@@ -70,8 +76,8 @@ from rnn_transducer_tpu_torch.train.regularizers import (DropoutMasks,
 
 # optax.adamw's defaults
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
-SPANS = ("encode", "predict", "align", "teacher", "joint_loss", "backward",
-         "all_reduce", "optimizer")
+SPANS = ("encode", "predict", "align", "teacher", "joint_loss", "ctc",
+         "backward", "ctc_backward", "all_reduce", "optimizer")
 # the CLI's choices, train.py's; "ar" is set by TrainConfig.ar_range
 LOSS_IMPLS = ("auto", "fused", "pallas", "xla", "pruned")
 _span = torch.profiler.record_function
@@ -92,14 +98,15 @@ class TrainState:
 
 
 def check_train_supported(tcfg: TrainConfig) -> None:
-    """Raise NotImplementedError for a TrainConfig outside the port."""
-    todo = []
-    if tcfg.ctc_weight:
-        todo.append("ctc_weight (ROADMAP queue 1, item 8: CTC multitask)")
+    """Raise ValueError for a TrainConfig the step does not know."""
     if tcfg.loss_impl not in LOSS_IMPLS + ("ar",):
         raise ValueError(f"unknown loss_impl {tcfg.loss_impl!r}")
-    if todo:
-        raise NotImplementedError("not ported yet: " + "; ".join(todo))
+
+
+def _check_ctc_weight(cfg: TransducerConfig, ctc_weight: float) -> None:
+    """JAX loss_fn :138-139."""
+    if ctc_weight and cfg.joint_experts > 0:
+        raise ValueError("ctc_weight with an MoE joint is not supported")
 
 
 # ------------------------------ schedules --------------------------------
@@ -224,7 +231,8 @@ def loss_fn(params, cfg: TransducerConfig, feats, feat_lens, labels,
             label_lens, loss_impl: str = "auto", fastemit: float = 0.0,
             simple_loss_scale: float = 0.5, ar_range: int = 0,
             ar_left: int = -1, align_cfg=None, teacher_params=None,
-            dropout: float = 0.0, embed_dropout: float = 0.0, drop=None):
+            dropout: float = 0.0, embed_dropout: float = 0.0, drop=None,
+            ctc_weight: float = 0.0):
     """Batch-mean RNN-T loss and the per-utterance losses (B,).
 
     "fused" never materialises the (B, T, U+1, V) logits (joint + loss in
@@ -241,7 +249,11 @@ def loss_fn(params, cfg: TransducerConfig, feats, feat_lens, labels,
     alpha / beta through the K3 lattice kernel on the card. dropout and
     embed_dropout act when a mask source `drop` is given
     (regularizers.DropoutMasks); the AR aligner runs without them.
+    ctc_weight > 0 (with cfg.ctc_head) adds ctc_weight times the CTC loss
+    of the encoder's auxiliary head, on the same encoder output, to every
+    route's per-utterance losses (JAX `with_ctc`, :141-150).
     """
+    _check_ctc_weight(cfg, ctc_weight)
     m.check_supported(cfg)
     impl = _resolve_loss_impl(loss_impl, feats.device, cfg)
     if impl not in ("fused", "pallas", "xla", "pruned", "ar"):
@@ -265,6 +277,15 @@ def loss_fn(params, cfg: TransducerConfig, feats, feat_lens, labels,
                                  feats, feat_lens, labels, label_lens,
                                  enc_out.shape[1], enc_lens, ar_range,
                                  ar_left)
+
+    def with_ctc(per_utt):
+        if not ctc_weight:
+            return per_utt
+        with _span("ctc"):
+            return per_utt + ctc_weight * ctc_loss_from_logits(
+                m.ctc_logits(params, cfg, enc_out), labels, enc_lens,
+                label_lens, cfg.blank)
+
     with _span("joint_loss"):
         if impl in ("fused", "pruned", "ar"):
             f, g, w, b = m.joint_activations(params, cfg, enc_out, pred_out)
@@ -281,13 +302,30 @@ def loss_fn(params, cfg: TransducerConfig, feats, feat_lens, labels,
                 params["simple"], f, g, w, b, enc_out, pred_out, labels,
                 enc_lens, label_lens, cfg.pruned_range, cfg.blank,
                 cfg.cdtype, fastemit)
-            return (per_utt.mean() + simple_loss_scale * simple_pu.mean(),
-                    per_utt)
         else:
             logits = m.joint(params, cfg, enc_out, pred_out)
             loss_op = rnnt_loss_twopass if impl == "pallas" else rnnt_loss
             per_utt = loss_op(logits, labels, enc_lens, label_lens,
                               cfg.blank, fastemit)
+    per_utt = with_ctc(per_utt)
+    if impl == "pruned":
+        return (per_utt.mean() + simple_loss_scale * simple_pu.mean(),
+                per_utt)
+    return per_utt.mean(), per_utt
+
+
+def ctc_loss_fn(params, cfg: TransducerConfig, feats, feat_lens, labels,
+                label_lens):
+    """Batch-mean CTC loss of the encoder's auxiliary head and the
+    per-utterance losses (JAX `ctc_loss_fn` :306): the pretraining
+    objective, with neither the predictor nor the joint."""
+    m.check_supported(cfg)
+    with _span("encode"):
+        enc_out, enc_lens = m.encode(params, cfg, feats, feat_lens)
+    with _span("ctc"):
+        per_utt = ctc_loss_from_logits(m.ctc_logits(params, cfg, enc_out),
+                                       labels, enc_lens, label_lens,
+                                       cfg.blank)
     return per_utt.mean(), per_utt
 
 
@@ -473,7 +511,11 @@ def make_train_step(cfg: TransducerConfig, tcfg: TrainConfig, mesh=None,
     loss_kind="mwer" makes the step minimize train/mwer.py's expected
     edit count over the beam N-best of the live params (TrainConfig's
     mwer_beam, mwer_expansions, mwer_max_symbols, mwer_nll_weight; JAX
-    :419-425), without dropout and without a teacher.
+    :419-425), without dropout and without a teacher. loss_kind="ctc"
+    makes it minimize `ctc_loss_fn`, the CTC loss of the encoder's
+    auxiliary head (JAX :417-418), without dropout and without a teacher.
+    TrainConfig.ctc_weight joins the RNN-T loss of every route but
+    distillation, which refuses it (`check_distill_compat`).
 
     With a `mesh` of several ranks (`parallel/mesh.make_mesh`), each rank
     calls the step with its shard of the batch (`shard_batch`) and the
@@ -483,10 +525,7 @@ def make_train_step(cfg: TransducerConfig, tcfg: TrainConfig, mesh=None,
     where the step will run; it decides only the refusal of
     `check_ring_width`."""
     dev = mesh.device if mesh is not None else torch.device(device)
-    if loss_kind == "ctc":
-        raise NotImplementedError("not ported yet: loss_kind='ctc' (ROADMAP "
-                                  "queue 1, item 8: CTC)")
-    if loss_kind not in ("rnnt", "mwer"):
+    if loss_kind not in ("rnnt", "mwer", "ctc"):
         raise ValueError(f"unknown loss_kind {loss_kind!r}")
     rnnt = loss_kind == "rnnt"
     if rnnt and tcfg.ar_range > 0 and tcfg.distill_weight > 0.0:
@@ -506,13 +545,16 @@ def make_train_step(cfg: TransducerConfig, tcfg: TrainConfig, mesh=None,
                              "the step must be called with teacher_params)")
         check_distill_compat(cfg, teacher_cfg, tcfg)
     check_train_supported(tcfg)
+    if rnnt:
+        _check_ctc_weight(cfg, tcfg.ctc_weight)
     m.check_supported(cfg)
     check_ring_width(cfg, "ar" if ar else tcfg.loss_impl if rnnt
                      and not distilling else "xla", dev)
     schedule = make_lr_schedule(tcfg)
     k = tcfg.grad_accum
     loss_kw = dict(loss_impl=tcfg.loss_impl, fastemit=tcfg.fastemit_lambda,
-                   simple_loss_scale=tcfg.simple_loss_scale)
+                   simple_loss_scale=tcfg.simple_loss_scale,
+                   ctc_weight=tcfg.ctc_weight)
     batch_loss = loss_fn
     if ar:
         loss_kw.update(loss_impl="ar", ar_range=tcfg.ar_range,
@@ -524,6 +566,9 @@ def make_train_step(cfg: TransducerConfig, tcfg: TrainConfig, mesh=None,
         def batch_loss(params, cfg, *batch, teacher_params, **kw):
             return distill_loss_fn(params, teacher_params, cfg, teacher_cfg,
                                    *batch, **kw)
+    elif loss_kind == "ctc":
+        loss_kw = {}
+        batch_loss = ctc_loss_fn
     elif not rnnt:
         loss_kw = dict(beam=tcfg.mwer_beam, expansions=tcfg.mwer_expansions,
                        max_symbols=tcfg.mwer_max_symbols,

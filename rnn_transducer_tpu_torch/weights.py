@@ -5,7 +5,9 @@ bridge is leaf by leaf:
 
   * `params_from_numpy(tree, device)` takes the JAX params pytree with numpy
     leaves (`jax.tree.map(np.asarray, params)`) and returns the same tree of
-    torch tensors on `device`; `params_to_numpy` is its inverse. An int8
+    torch tensors on `device`; `params_to_numpy` is its inverse. Every
+    branch of the tree crosses alike: the LSTM or stateless predictor, the
+    CTC head, the pruned loss's simple heads. An int8
     leaf of a quantized tree (the JAX package's `QTensor`, a NamedTuple
     with fields `q` and `scale`) becomes the port's `ops.quant.QTensor`
     and back, bit for bit.
@@ -103,6 +105,12 @@ def load_state_dict(path: str, cfg: TransducerConfig,
             f"enc_type={cfg.enc_type!r}: tools/export_torch_ckpt.py writes "
             "only LSTM encoders, so there is no torch-layout state dict of "
             "one to read; carry JAX params over with params_from_numpy")
+    if cfg.pred_type != "lstm":
+        raise NotImplementedError(
+            f"pred_type={cfg.pred_type!r}: tools/export_torch_ckpt.py:57-59 "
+            "writes only LSTM predictors, so there is no torch-layout state "
+            "dict of one to read; carry JAX params over with "
+            "params_from_numpy")
     sd = torch.load(path, map_location="cpu", weights_only=True)
     enc = []
     in_dim = cfg.input_dim

@@ -203,14 +203,6 @@ def test_params_round_trip_is_exact():
         np.testing.assert_array_equal(a, b)
 
 
-def test_remat_encoder_raises_naming_its_roadmap_item():
-    _, tcfg = _cfgs(remat_encoder=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 9"):
-        tm.init_params(tcfg, np.random.default_rng(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 9"):
-        tm.encode({}, tcfg, torch.zeros(1, 8, 8), torch.ones(1))
-
-
 def test_load_state_dict_refuses_the_conformer(tmp_path):
     path = tmp_path / "model.pt"
     torch.save({}, path)

@@ -1961,3 +1961,154 @@ def test_cuda_lattice_walks_long_diagonals_in_column_tiles(cuda_device, U):
     assert torch.equal(lat.beta_wavefront(lpb_m, lpy_m, accept), beta)
     assert counts == {"alpha": len(lat.tile_plan(U + 1, False)),
                       "beta": len(lat.tile_plan(U + 1, True)), "occ": 1}
+
+
+# CTC (plain PyTorch on the caller's device: it has no kernel of its own),
+# the stateless predictor and encoder remat on the card.
+
+def _ctc_inputs(device, B=6, T=50, V=40, U=12, seed=0):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    logits = torch.from_numpy((2 * rng.normal(size=(B, T, V))).astype(
+        np.float32))
+    labels = torch.from_numpy(rng.integers(1, V, size=(B, U)).astype(
+        np.int32))
+    fl = torch.tensor([50, 41, 3, 0, 33, 12], dtype=torch.int32)[:B]
+    ll = torch.tensor([12, 9, 6, 0, 12, 2], dtype=torch.int32)[:B]
+    return logits, labels, fl, ll
+
+
+@pytest.mark.cuda
+def test_cuda_ctc_loss_and_decoders_match_the_cpu(cuda_device):
+    """ctc_loss_from_logits (loss and dlogits), ctc_greedy_decode and
+    ctc_prefix_beam_search on CUDA tensors against the same calls on CPU
+    tensors (a dead lattice in row 2: 6 labels in 3 frames; a zero-frame
+    row 3)."""
+    from rnn_transducer_tpu_torch.decode import ctc as tctc
+    from rnn_transducer_tpu_torch.ops import ctc_loss as tloss
+
+    cpu = _ctc_inputs("cpu")
+    outs = []
+    for dev in ("cpu", cuda_device):
+        logits, labels, fl, ll = (a.to(dev) for a in cpu)
+        x = logits.clone().requires_grad_(True)
+        loss = tloss.ctc_loss_from_logits(x, labels, fl, ll)
+        loss.sum().backward()
+        greedy = tctc.ctc_greedy_decode(logits, fl, max_symbols=20)
+        beam = tctc.ctc_prefix_beam_search(torch.log_softmax(logits, -1), fl,
+                                           beam=4, cand=8, max_symbols=20)
+        outs.append([t.detach().cpu() for t in (loss, x.grad, *greedy,
+                                                *beam)])
+    (loss, grad, *rest), (loss_c, grad_c, *rest_c) = outs
+    assert float(loss[2]) > 1e29 and float(loss_c[2]) > 1e29
+    torch.testing.assert_close(loss_c, loss, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(grad_c, grad, rtol=1e-5, atol=1e-5)
+    g_tok, g_len, g_conf, g_fr, b_tok, b_len, b_sc = rest
+    c_tok, c_len, c_conf, c_fr, cb_tok, cb_len, cb_sc = rest_c
+    for a, b in ((g_tok, c_tok), (g_len, c_len), (g_fr, c_fr),
+                 (b_tok, cb_tok), (b_len, cb_len)):
+        assert torch.equal(a, b)
+    torch.testing.assert_close(c_conf, g_conf, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(cb_sc, b_sc, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_ctc_refuses_tf32(cuda_device, monkeypatch):
+    """The occupancy's S -> V product is an f32 product, never TF32."""
+    from rnn_transducer_tpu_torch.ops import ctc_loss as tloss
+
+    logits, labels, fl, ll = (a.to(cuda_device)
+                              for a in _ctc_inputs(cuda_device))
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    with pytest.raises(RuntimeError, match="allow_tf32"):
+        tloss.ctc_loss_from_logits(logits, labels, fl, ll)
+
+
+# libri100's widths at a short shape: 4x512 LSTM (2x stacking), a
+# stateless predictor of context 2, joint 512, V=1024, with a CTC head.
+STATELESS_CFG = dict(pred_type="stateless", pred_context=2, ctc_head=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["stateless", "ctc", "multitask"])
+def test_cuda_stateless_and_ctc_steps_launch_their_kernels(cuda_device,
+                                                           kind):
+    """One bf16 step at libri100 width: the stateless fused step, the CTC
+    pretraining step and the multitask step (ctc_weight 0.3) launch 4
+    K4-fwd with activations and 4 K4-bwd (the encoder's layers; the
+    stateless predictor has no recurrence), and K1 / K2 / K3 once each
+    where an RNN-T loss runs, none in the CTC step."""
+    import dataclasses
+
+    import numpy as np
+
+    from rnn_transducer_tpu_torch.data.synthetic import random_batch
+    from rnn_transducer_tpu_torch.models.config import (TrainConfig,
+                                                        config_libri100)
+    from rnn_transducer_tpu_torch.ops import rnnt_joint_fused as jf
+    from rnn_transducer_tpu_torch.ops import rnnt_lattice_cuda as lat
+    from rnn_transducer_tpu_torch.train import loop as tloop
+
+    cfg = dataclasses.replace(config_libri100(), **STATELESS_CFG)
+    tcfg = TrainConfig(batch_size=4, warmup_steps=1, total_steps=10,
+                       ctc_weight=0.3 if kind == "multitask" else 0.0)
+    state = tloop.init_train_state(0, cfg, tcfg, cuda_device)
+    step = tloop.make_train_step(cfg, tcfg, device=cuda_device,
+                                 loss_kind="ctc" if kind == "ctc" else "rnnt")
+    batch = tuple(torch.from_numpy(a).to(cuda_device) for a in random_batch(
+        np.random.default_rng(0), 4, 120, 10, 80, 1024))
+    counts = (lambda: (lstm_cuda.LAUNCHES_WITH_ACTS, lstm_cuda.LAUNCHES_BWD,
+                       jf.LAUNCHES_FWD, jf.LAUNCHES_BWD,
+                       lat.LAUNCHES_ALPHA))
+    before = counts()
+    state, info = step(state, *batch)
+    torch.cuda.synchronize()
+    got = tuple(a - b for a, b in zip(counts(), before))
+    rnnt = 0 if kind == "ctc" else 1
+    assert got == (4, 4, rnnt, rnnt, rnnt)
+    assert int(info["skipped_nonfinite"]) == 0
+    assert np.isfinite(float(info["loss"]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("enc", ["lstm", "conformer"])
+def test_cuda_remat_recomputes_on_the_kernels(cuda_device, enc):
+    """A bf16 step with remat_encoder launches each encoder layer's
+    forward kernel twice (K4-fwd with activations: 4 encoder + 1
+    predictor -> 9; K8-fwd: 48 -> 96) and each backward kernel once, and
+    gives the loss of the step without remat, bit for bit."""
+    import dataclasses
+
+    import numpy as np
+
+    from rnn_transducer_tpu_torch.data.synthetic import random_batch
+    from rnn_transducer_tpu_torch.models.config import (
+        TrainConfig, config_libri100, config_libri100_conformer)
+    from rnn_transducer_tpu_torch.ops import fused_ln as fl
+    from rnn_transducer_tpu_torch.train import loop as tloop
+
+    base = config_libri100() if enc == "lstm" else config_libri100_conformer()
+    batch = tuple(torch.from_numpy(a).to(cuda_device) for a in random_batch(
+        np.random.default_rng(0), 4, 160, 10, 80, 1024))
+    tcfg = TrainConfig(batch_size=4, warmup_steps=1, total_steps=10)
+    seen = {}
+    for remat in (False, True):
+        cfg = dataclasses.replace(base, remat_encoder=remat)
+        state = tloop.init_train_state(0, cfg, tcfg, cuda_device)
+        step = tloop.make_train_step(cfg, tcfg, device=cuda_device)
+        before = (lstm_cuda.LAUNCHES_WITH_ACTS, lstm_cuda.LAUNCHES_BWD,
+                  fl.LAUNCHES_FWD, fl.LAUNCHES_BWD)
+        _, info = step(state, *batch)
+        torch.cuda.synchronize()
+        after = (lstm_cuda.LAUNCHES_WITH_ACTS, lstm_cuda.LAUNCHES_BWD,
+                 fl.LAUNCHES_FWD, fl.LAUNCHES_BWD)
+        seen[remat] = (tuple(a - b for a, b in zip(after, before)),
+                       float(info["loss"]))
+    if enc == "lstm":
+        assert seen[False][0] == (5, 5, 0, 0)
+        assert seen[True][0] == (9, 5, 0, 0)
+    else:
+        assert seen[False][0] == (1, 1, 48, 48)
+        assert seen[True][0] == (1, 1, 96, 48)
+    assert seen[True][1] == seen[False][1]

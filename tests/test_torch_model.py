@@ -151,7 +151,6 @@ def test_init_params_has_the_jax_tree_shapes(params_np):
 
 
 @pytest.mark.parametrize("field, value", [  # explicit ids: stable names
-    ("pred_type", "stateless"),
     pytest.param("big_blank_durations", (2, 4),
                  id="big_blank_durations-value2"),
     pytest.param("tdt_durations", (0, 1, 2), id="tdt_durations-value3"),

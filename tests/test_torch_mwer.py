@@ -229,11 +229,13 @@ def test_mwer_finetune_reduces_risk_on_toy_task():
     assert np.mean(risks[-5:]) < 0.3 * risks[0], (risks[0], risks[-5:])
 
 
-@pytest.mark.parametrize("kind, cfg_kw, err, match", [
-    ("ctc", {}, NotImplementedError, "item 8"),
-    ("sequence", {}, ValueError, "unknown loss_kind"),
-    ("mwer", dict(big_blank_durations=(2,)), NotImplementedError, "item 11"),
-    ("mwer", dict(tdt_durations=(0, 1, 2)), NotImplementedError, "item 11"),
+@pytest.mark.parametrize("kind, cfg_kw, err, match", [  # stable ids
+    pytest.param("sequence", {}, ValueError, "unknown loss_kind",
+                 id="sequence-cfg_kw1-ValueError-unknown loss_kind"),
+    pytest.param("mwer", dict(big_blank_durations=(2,)), NotImplementedError,
+                 "item 11", id="mwer-cfg_kw2-NotImplementedError-item 11"),
+    pytest.param("mwer", dict(tdt_durations=(0, 1, 2)), NotImplementedError,
+                 "item 11", id="mwer-cfg_kw3-NotImplementedError-item 11"),
 ])
 def test_mwer_guards(kind, cfg_kw, err, match):
     cfg = port_config.TransducerConfig(**{**SMALL, **cfg_kw})

@@ -237,8 +237,6 @@ def test_cli_prints_the_jax_clis_keys(mode, capsys):
 
 
 @pytest.mark.parametrize("argv, item", [  # explicit ids: stable names
-    (["--mode", "ctc_greedy"], "item 8"),
-    (["--mode", "ctc_beam"], "item 8"),
     pytest.param(["--lm-ckpt", "lm"], "item 18", id="argv5-item 18"),
     pytest.param(["--lm-rescore"], "item 18", id="argv6-item 18"),
 ])

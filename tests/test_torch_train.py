@@ -198,15 +198,6 @@ def test_nonfinite_step_is_skipped():
         np.testing.assert_array_equal(a, b)
 
 
-@pytest.mark.parametrize("tcfg_kw, item", [  # explicit ids: stable names
-    pytest.param(dict(ctc_weight=0.3), "item 8", id="tcfg_kw3-item 8"),
-])
-def test_unported_options_raise(tcfg_kw, item):
-    cfg = port_config.TransducerConfig(**TINY)
-    with pytest.raises(NotImplementedError, match=item):
-        tloop.make_train_step(cfg, port_config.TrainConfig(**tcfg_kw))
-
-
 @pytest.mark.parametrize("cfg_kw, tcfg_kw", [
     pytest.param(dict(), dict(loss_impl="fused"), id="fused"),
     pytest.param(dict(pruned_range=4), dict(loss_impl="pruned"),
