@@ -32,15 +32,15 @@ SpecAugment, speed perturbation, dropout, weight noise and EMA) in 5g;
 5h adds the C++ prefetch loader, lattice distillation from a BiLSTM
 teacher and MWER fine-tuning on that corpus; 5i CTC (pretraining,
 multitask, greedy and prefix-beam decode), the stateless predictor
-(trained, served, decoded from its checkpoint) and encoder remat.
+(trained, served, decoded from its checkpoint) and encoder remat; 5j
+the duration families (multi-blank and TDT: trained, served, decoded).
 Phases, in order:
 
   1. card   require CUDA; print the card's name and power limit
   2. build  build the kernel library from csrc/ with nvcc
   3. kernel each kernel against its plain PyTorch version on the card, at
             the main paths' shapes, in f32 and bf16 (max error, kernel ms
-            and plain ms from CUDA events, in turns plain, kernel, kernel,
-            plain); lstm_fwd (one persistent launch a layer, with and
+            and plain ms from CUDA events, one run of each); lstm_fwd (one persistent launch a layer, with and
             without activations, with its tile, two runs giving identical
             bits, and a line through its time against T: µs a step and
             the fixed cost of a launch) and lstm_bwd (one persistent
@@ -100,7 +100,9 @@ Phases, in order:
             length of 5 or more): 8 requests to BatchingEngine(mode="beam")
             (beam 8, 3 expansions): 4 lstm_fwd launches a batch, no K9; a
             served batch at f32 through the kernels and the plain
-            versions, float and int8 (4 K7 launches), and each fusion
+            versions (the two encoder outputs' rows in one search,
+            `decode_beam_pair`), float and int8 (4 K7 launches), and each
+            fusion
             (LSTM LM, ILM, transformer LM, trigram, context trie): the
             same n-best, live scores within 1e-3; bf16 host ms at
             buckets 400 and 800 (each fusion at 400), launches a frame
@@ -226,6 +228,22 @@ Phases, in order:
             n-best, and the engines in this process (greedy, beam: 4
             K4-fwd a batch; int8: 4 K7; a session: 4 K4-fwd a tick);
             `ctc_launches` joins the kernels line's counts
+  5j. duration (after 5i) the duration families at libri100 width,
+            multi-blank (big blanks 2, 4, 8) and TDT (0, 1, 2, 4): the
+            training CLI 2 steps each into a checkpoint, whose serve.py
+            --ckpt-dir processes (8 /recognize, 4 /session streams each)
+            run while (a) the f32 gates (each family's loss_fn at B=4 on
+            the card against the CPU: LOSS_RTOL, GRAD_RTOL; 5 / 5 K4,
+            no K1, K2, K3, K5) and the decode gates (a libri100 model
+            made to emit and its twins made to jump: greedy tokens,
+            frames and t_over through K4-fwd and the plain LSTM with the
+            jumps taken, beams_agree, 4 StreamingEngine sessions equal
+            to offline) and the decode CLI (greedy, beam 4) run; (b) bf16
+            at (32, 400, 40) with and without ctc_weight 0.3: ms by
+            slope, peak GB, 5 / 5 K4 a step, a profiled step's
+            `joint_loss` and lattice-walk spans; (c) the lock-step
+            greedy iterations of the standard model and its twins on one
+            encoder output; `dur_launches` joins the kernels line
   4g. lattice_tiles (last: no profiled check may follow the plain
             versions' long, nearly idle loops) lattice_alpha and
             lattice_beta with the occupancies at U+1 = 8,001, 11,137 and
@@ -389,7 +407,7 @@ LATTICE_RTOL, OCC_ATOL = 1e-5, 1e-5
 # Label lengths past one walk plan (beta above U+1 = 7,936, alpha above
 # 11,136): the lattice in column tiles.
 LATTICE_TILE_U = (8_000, 11_136, 22_400)
-SLOPE_STEPS, SLOPE_REPEATS = (3, 8), 2  # bench.py's slope method, shorter
+SLOPE_STEPS, SLOPE_REPEATS = (2, 6), 1  # bench.py's slope method, shorter
 # The W8A8 recurrence against its plain version: (name, B, T, I, nonzero
 # h0/c0). libri100 serving at the 800-frame bucket (B = 8: one 8-row batch
 # tile, as every served batch), and batch tiles of 32 and 16 rows.
@@ -485,10 +503,10 @@ def max_abs(got, want) -> float:
 
 
 def timed_pair(kernel_fn, plain_fn) -> tuple[float, float]:
-    """Mean kernel ms and plain ms from CUDA events, in turns plain,
-    kernel, kernel, plain."""
+    """Kernel ms and plain ms from CUDA events, one run of each, kernel
+    then plain."""
     times = {"plain": [], "kernel": []}
-    for which in ("plain", "kernel", "kernel", "plain"):
+    for which in ("kernel", "plain"):
         times[which].append(cuda_ms(kernel_fn if which == "kernel"
                                     else plain_fn))
     return statistics.mean(times["kernel"]), statistics.mean(times["plain"])
@@ -2034,17 +2052,36 @@ def lm_dtype(fusion: dict, cd: str) -> dict:
                    *lm[2:])}
 
 
-def decode_beam(params, cfg, feats, lens, plain: bool = False, **fusion):
+def decode_beam(params, cfg, feats, lens, **fusion):
     """recognize_beam at the engine's settings -> numpy tokens, lengths,
-    scores; plain=True through the plain versions of the kernels."""
+    scores."""
     from rnn_transducer_tpu_torch.decode.beam import recognize_beam
 
-    ctx = plain_kernels() if plain else contextlib.nullcontext()
-    with ctx, torch.inference_mode():
+    with torch.inference_mode():
         out = recognize_beam(params, cfg, feats, lens, beam=BEAM,
                              max_symbols=MAX_SYMBOLS, expansions=EXPANSIONS,
                              **fusion)
         return tuple(a.cpu().numpy() for a in out)
+
+
+def decode_beam_pair(params, cfg, feats, lens, **fusion):
+    """decode_beam through the kernels and through the plain versions in
+    one search: the batch encoded both ways, the two encoder outputs'
+    rows stacked into one beam_search (each row's beams are its own) ->
+    (the kernel path's tokens, lengths, scores), (the plain path's)."""
+    from rnn_transducer_tpu_torch.decode.beam import beam_search
+
+    with torch.inference_mode():
+        enc, el = m.encode(params, cfg, feats, lens)
+        with plain_kernels():
+            enc_p, _ = m.encode(params, cfg, feats, lens)
+        out = beam_search(params, cfg, torch.cat([enc, enc_p]),
+                          torch.cat([el, el]), beam=BEAM,
+                          max_symbols=MAX_SYMBOLS, expansions=EXPANSIONS,
+                          **fusion)[:3]
+    B = feats.shape[0]
+    out = [a.cpu().numpy() for a in out]
+    return tuple(a[:B] for a in out), tuple(a[B:] for a in out)
 
 
 def beams_agree(got, want, what: str) -> dict:
@@ -2153,6 +2190,7 @@ def beam_serving(serving: dict, dev) -> dict:
     400 and 800 (with a fusion, at 400) and ms a frame, and the launches a
     frame and the device's busy share of a profiled batch of its first
     frames."""
+    seconds, t0 = {}, time.perf_counter()
     cfg, params = serving["cfg"], serving["params"]
     qparams = quantize_params(params)
     utts = serving["utts"][:BEAM_REQUESTS]
@@ -2211,6 +2249,8 @@ def beam_serving(serving: dict, dev) -> dict:
     check(counts["greedy_fused"] == 0, "beam serving launched greedy_fused")
     check_no_band(counts, "beam serving")
 
+    seconds["engine"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     # One served batch at f32 (bucket 800): kernels against plain
     # versions, float, int8 and each fusion.
     feats, lens = served_batch(serving, dev)
@@ -2221,9 +2261,8 @@ def beam_serving(serving: dict, dev) -> dict:
                             + [(name, params, lm_dtype(f, "float32"))
                                for name, f in fusions.items()]):
         reset_counts()
-        got = decode_beam(p, f32, feats, lens, **fusion)
+        got, want = decode_beam_pair(p, f32, feats, lens, **fusion)
         counts = read_counts()
-        want = decode_beam(p, f32, feats, lens, plain=True, **fusion)
         row = {"what": what, "bucket": BUCKETS[-1],
                **beams_agree(got, want, what),
                "lstm_fwd_launches": counts["lstm_fwd"],
@@ -2245,6 +2284,8 @@ def beam_serving(serving: dict, dev) -> dict:
                   f"launches, not {cfg.enc_layers}")
         rows.append(row)
     result["kernel_vs_plain"] = rows
+    seconds["kernel_vs_plain"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
 
     # bf16 (the served dtype): host ms a batch at buckets 400 and 800 (a
     # fusion at 400 alone: its ms a frame hardly moves with the length,
@@ -2274,6 +2315,8 @@ def beam_serving(serving: dict, dev) -> dict:
             print("beam_timing " + json.dumps(row))
             timing.append(row)
     result["timing"] = timing
+    seconds["timing"] = time.perf_counter() - t0
+    print("beam_seconds " + json.dumps(seconds))
     return result
 
 
@@ -2367,19 +2410,13 @@ def conformer_end_to_end(conf: dict, dev) -> dict:
     return result
 
 
-def serve_cli(extra: list, utt: np.ndarray,
-              config: str | None = "libri100_conformer", audio: bool = False,
-              want_text: bool = False) -> dict:
-    """serve.py's CLI, --config `config` (None: the --ckpt-dir's own) plus
-    `extra`, in a process of its own: it warms up, answers one /recognize
-    (with an n-best under --mode beam) and /stats, a streamable model also one /session of the
-    utterance in the default 32-frame chunks, and drains and exits 0 on
-    SIGTERM. audio=True: `utt` is raw 16 kHz PCM, sent as an {"audio"}
-    body and as a PCM session split at `pcm_cuts`; want_text=True: the
-    answers carry "text" (and word segments), the n-best too."""
-    cmd = [sys.executable, "-m", "rnn_transducer_tpu_torch.serve",
-           *(["--config", config] if config else []), "--port", "0",
-           *extra]
+@contextlib.contextmanager
+def serve_process(argv: list):
+    """serve.py's CLI with `argv` in a process of its own: yields a dict
+    with its "url", "start_s" (to its "serving on" line), "argv" and log
+    "lines"; on leaving, SIGTERM drains it, and the dict gets its exit
+    code "rc" and "drained"."""
+    cmd = [sys.executable, "-m", "rnn_transducer_tpu_torch.serve", *argv]
     t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(
         __file__)), stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
@@ -2396,10 +2433,35 @@ def serve_cli(extra: list, utt: np.ndarray,
     reader.start()
     try:
         check(started.wait(timeout=300),
-              f"serve CLI {extra} did not start: {lines[-5:]}")
-        start_s = time.perf_counter() - t0
-        url = next(ln for ln in lines if "serving on " in ln).split(
-            "serving on ")[1].split()[0]
+              f"serve CLI {argv} did not start: {lines[-5:]}")
+        info = {"argv": argv, "lines": lines,
+                "start_s": time.perf_counter() - t0,
+                "url": next(ln for ln in lines if "serving on " in ln).split(
+                    "serving on ")[1].split()[0]}
+        yield info
+        proc.send_signal(signal.SIGTERM)
+        info["rc"] = proc.wait(timeout=120)
+        reader.join(timeout=30)
+        info["drained"] = any("drained and closed" in ln for ln in lines)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def serve_cli(extra: list, utt: np.ndarray,
+              config: str | None = "libri100_conformer", audio: bool = False,
+              want_text: bool = False) -> dict:
+    """serve.py's CLI, --config `config` (None: the --ckpt-dir's own) plus
+    `extra`, in a process of its own: it warms up, answers one /recognize
+    (with an n-best under --mode beam) and /stats, a streamable model also one /session of the
+    utterance in the default 32-frame chunks, and drains and exits 0 on
+    SIGTERM. audio=True: `utt` is raw 16 kHz PCM, sent as an {"audio"}
+    body and as a PCM session split at `pcm_cuts`; want_text=True: the
+    answers carry "text" (and word segments), the n-best too."""
+    with serve_process([*(["--config", config] if config else []),
+                        "--port", "0", *extra]) as srv:
+        url, lines = srv["url"], srv["lines"]
         code, out, lat = post(url + "/recognize",
                               {"audio" if audio else "feats": utt.tolist()})
         session = None
@@ -2412,17 +2474,10 @@ def serve_cli(extra: list, utt: np.ndarray,
                        session_over_http(url, sid, utt, CHUNK_FRAMES))
         with urllib.request.urlopen(url + "/stats", timeout=60) as r:
             stats = json.loads(r.read())
-        proc.send_signal(signal.SIGTERM)
-        rc = proc.wait(timeout=120)
-        reader.join(timeout=30)
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
-    row = {"argv": cmd[3:], "start_s": start_s, "code": code,
+    rc = srv["rc"]
+    row = {"argv": srv["argv"], "start_s": srv["start_s"], "code": code,
            "tokens": len(out["tokens"]), "latency_ms": lat * 1e3,
-           "stats": stats, "rc": rc,
-           "drained": any("drained and closed" in ln for ln in lines)}
+           "stats": stats, "rc": rc, "drained": srv["drained"]}
     if session is not None:  # bf16: the same tokens are reported, not asked
         row["session_tokens"] = len(session["final"])
         row["session_equals_recognize"] = session["final"] == out["tokens"]
@@ -2792,7 +2847,13 @@ def streaming_phase(serving: dict, seed: int, dev) -> dict:
     # short chunk)
     utts = serving["utts"][:STREAM_SLOTS]
     lengths = [u.shape[0] for u in utts]
-    rows = {}
+    rows, seconds, last = {}, {}, [time.perf_counter()]
+
+    def lap(key):
+        """The wall seconds since the last lap, into seconds[key]."""
+        now = time.perf_counter()
+        seconds[key] = seconds.get(key, 0.0) + now - last[0]
+        last[0] = now
 
     def report(name, row):
         row = {"what": name, **row}
@@ -2804,7 +2865,9 @@ def streaming_phase(serving: dict, seed: int, dev) -> dict:
     beam_setup = beam_serving_setup(serving, seed, dev)
     for name, p in (("greedy", params), ("greedy_emitting",
                                          beam_setup["params"])):
+        lap("setup")
         run = serve_sessions(p, f32, utts, dev, record=True, reopen=True)
+        lap(f"{name}_f32")
         check_session_results(run, lengths, f"{name} f32")
         per_tick = check_launches(run, "lstm_fwd", cfg.enc_layers,
                                   f"{name} f32")
@@ -2821,11 +2884,14 @@ def streaming_phase(serving: dict, seed: int, dev) -> dict:
               f"streaming {name} f32: a reopened slot gave another answer")
         gap = encoder_gap(p, f32, utts, dev, CHUNK_FRAMES)
         check(gap <= ATOL[torch.float32], f"streaming f32 encoder gap {gap}")
+        lap(f"{name}_replay")
         bf = serve_sessions(p, cfg, utts, dev, at_once=False)
         check_session_results(bf, lengths, f"{name} bf16")
         check_launches(bf, "lstm_fwd", cfg.enc_layers, f"{name} bf16")
+        lap(f"{name}_bf16")
         mixed = mixed_load(p, cfg, utts, dev, lengths, "lstm_fwd",
                            cfg.enc_layers, f"{name} bf16 mixed")
+        lap(f"{name}_mixed")
         report(name, {
             "launches": run["counts"]["lstm_fwd"] + bf["counts"]["lstm_fwd"]
             + mixed["launches"],
@@ -2837,8 +2903,10 @@ def streaming_phase(serving: dict, seed: int, dev) -> dict:
             "bf16": {**greedy_agreement(bf), **tick_timing(bf, CHUNK_FRAMES)},
             "bf16_mixed": mixed,
             "profile": stream_profile(p, cfg, utts, dev)})
+        lap(f"{name}_profile")
 
     # -- int8 -------------------------------------------------------------
+    lap("setup")
     qparams = quantize_params(params)
     run = serve_sessions(qparams, f32, utts, dev, record=True)
     check_session_results(run, lengths, "int8 f32")
@@ -2876,6 +2944,7 @@ def streaming_phase(serving: dict, seed: int, dev) -> dict:
         "bf16": {**greedy_agreement(bf), **tick_timing(bf, CHUNK_FRAMES)},
         "bf16_mixed": mixed})
     del qparams
+    lap("int8")
 
     # -- beam with the trigram --------------------------------------------
     bparams = beam_setup["params"]
@@ -2901,7 +2970,9 @@ def streaming_phase(serving: dict, seed: int, dev) -> dict:
     mixed = mixed_load(bparams, cfg, utts, dev, lengths, "lstm_fwd",
                        cfg.enc_layers, "beam bf16 mixed", mode="beam",
                        ngram=ngram)
+    lap("beam_checks")
     prof = stream_profile(bparams, cfg, utts, dev, mode="beam", ngram=ngram)
+    lap("beam_profile")
     report("beam", {
         "launches": run["counts"]["lstm_fwd"] + bf["counts"]["lstm_fwd"]
         + mixed["launches"],
@@ -2956,6 +3027,8 @@ def streaming_phase(serving: dict, seed: int, dev) -> dict:
         "bf16": {**greedy_agreement(bf),
                  **tick_timing(bf, CONF_CHUNK_FRAMES)},
         "bf16_mixed": mixed, "profile": prof})
+    lap("conformer_chunked")
+    print("streaming_seconds " + json.dumps(seconds))
     print("streaming_card " + card_line())
     return rows
 
@@ -3283,8 +3356,9 @@ def audio_cli_chain(au: dict, dev) -> dict:
                 f.write(json.dumps({"audio": os.path.join(tmp, f"a{i}.npy"),
                                     "labels": labels}) + "\n")
         utt = au["audio"][0]
+        dirs, calls = {}, {}
         for config in AUDIO_CLI_CONFIGS:
-            d = os.path.join(tmp, os.path.basename(config))
+            d = dirs[config] = os.path.join(tmp, os.path.basename(config))
             cli_json(["--config", config, "--data", "synthetic", "--steps",
                       "2", "--batch-size", "8", "--max-frames", "200",
                       "--max-labels", "20", "--warmup-steps", "1",
@@ -3294,19 +3368,23 @@ def audio_cli_chain(au: dict, dev) -> dict:
             check(ckpt.load_meta(d)["tokenizer"]
                   == tokenizer_to_meta(au["tok"]),
                   f"{config}: meta.json lacks the BPE tokenizer")
-            calls = {"serve": ["--ckpt-dir", d]}
+            calls[config, "serve"] = ["--ckpt-dir", d]
             if config == AUDIO_CLI_CONFIGS[0]:
-                calls["serve_beam_boost"] = ["--ckpt-dir", d, "--mode",
-                                             "beam", "--boost-file", phrases]
-            # the servers at once, each a process of its own on the card
-            with concurrent.futures.ThreadPoolExecutor(len(calls)) as ex:
-                futs = {k: ex.submit(serve_cli, extra, utt, config,
-                                     audio=True, want_text=True)
-                        for k, extra in calls.items()}
-                row = {k: f.result() for k, f in futs.items()}
+                calls[config, "serve_beam_boost"] = [
+                    "--ckpt-dir", d, "--mode", "beam", "--boost-file",
+                    phrases]
+        # every config's servers at once, each a process of its own on
+        # the card
+        with concurrent.futures.ThreadPoolExecutor(len(calls)) as ex:
+            futs = {k: ex.submit(serve_cli, extra, utt, k[0], audio=True,
+                                 want_text=True)
+                    for k, extra in calls.items()}
+            served = {k: f.result() for k, f in futs.items()}
+        for config in AUDIO_CLI_CONFIGS:
+            row = {k[1]: v for k, v in served.items() if k[0] == config}
             out = io.StringIO()
             with contextlib.redirect_stdout(out):
-                got = recognize_cli(["--ckpt-dir", d, "--data",
+                got = recognize_cli(["--ckpt-dir", dirs[config], "--data",
                                      f"manifest:{man}", "--batch-size",
                                      str(MAX_BATCH), "--device", dev.type])
             last = json.loads(out.getvalue().strip().splitlines()[-1])
@@ -3325,11 +3403,18 @@ def audio_cli_chain(au: dict, dev) -> dict:
 def audio_phase(serving: dict, seed: int, dev) -> dict:
     """Phase 4i: raw 16 kHz PCM in, text out (a)-(e); see the docstrings
     of frontend_vs_plain, audio_f32, audio_cli_chain and audio_bf16."""
-    au = audio_setup(serving, seed, dev)
-    front = frontend_vs_plain(au, dev)
-    f32 = audio_f32(serving, au, dev)
-    bf16 = audio_bf16(serving, au, dev)
-    chain = audio_cli_chain(au, dev)
+    seconds = {}
+    with part(seconds, "setup"):
+        au = audio_setup(serving, seed, dev)
+    with part(seconds, "frontend"):
+        front = frontend_vs_plain(au, dev)
+    with part(seconds, "f32"):
+        f32 = audio_f32(serving, au, dev)
+    with part(seconds, "bf16"):
+        bf16 = audio_bf16(serving, au, dev)
+    with part(seconds, "cli"):
+        chain = audio_cli_chain(au, dev)
+    print("audio_seconds " + json.dumps(seconds))
     print("audio_card " + card_line())
     return {"frontend": front, "f32": f32, "bf16": bf16, "cli": chain}
 
@@ -3552,7 +3637,7 @@ def lattice_ms(dev, seed: int) -> dict:
     """The loss's lattice layer at the training shape, through K3 and
     through the plain versions, masking and gathers included:
     forward_from_lp_with_alpha (alpha) and occupancies_from_lp (beta and
-    the occupancies); CUDA events, in turns plain, kernel, kernel, plain."""
+    the occupancies); CUDA events, one run of each (`timed_pair`)."""
     rng = np.random.default_rng(seed)
     lpb, lpy, fl, ll = lattice_scores(rng, dev, TRAIN_B, TRAIN_T // 2,
                                       TRAIN_U)
@@ -5680,8 +5765,7 @@ def ctc_tokens(params, cfg, dev, feats, lens) -> dict:
     check(tok_k == tok_p, "stateless greedy: f32 tokens differ between the "
                           "kernel path and the plain path")
     out["greedy_tokens"] = [len(t) for t in tok_k]
-    out["beam"] = beams_agree(decode_beam(params, c, feats, lens),
-                              decode_beam(params, c, feats, lens, plain=True),
+    out["beam"] = beams_agree(*decode_beam_pair(params, c, feats, lens),
                               "stateless")
 
     def ctc(mode: str, plain: bool):
@@ -5885,6 +5969,445 @@ def ctc_phase(seed: int, dev, profile_dir, tmp: str) -> dict:
     return out
 
 
+# ------------------------------ phase 5j ---------------------------------
+
+# The duration families at libri100 width: multi-blank with big blanks of
+# 2, 4 and 8 frames (the joint's 1027 columns) and TDT over the durations
+# 0, 1, 2 and 4 (a 4-logit duration head); tools/bench_duration.py's sets.
+DUR_FAMILIES = {"multiblank": dict(big_blank_durations=(2, 4, 8)),
+                "tdt": dict(tdt_durations=(0, 1, 2, 4))}
+DUR_F32_B = 4  # the f32 gates' batch (rows of bench_batch, ragged)
+DUR_BUCKET = 400  # the decode gates' utterances: 150-400 frames
+DUR_SESSIONS = 4  # streaming sessions in the gates and per served CLI
+# The jump models (`jump_models`): the big blanks' noise, in units of the
+# output columns' spread, and the TDT durations' > 1 bias.
+DUR_NOISE, DUR_JUMP_BIAS = 0.1, 0.3
+# A bf16 step of either family: the encoder's 4 layers and the predictor
+# through K4 each way; the xla route runs no K1, K2, K3 or K5 (the
+# consumed-frames lattice is plain PyTorch).
+DUR_STEP = {**NO_LAUNCH, "lstm_fwd_with_acts": 5, "lstm_bwd": 5}
+
+
+def dur_cfg(family: str, **kw):
+    return dataclasses.replace(config_libri100(), **DUR_FAMILIES[family],
+                               **kw)
+
+
+class StepRecorder(m.DecodeWeights):
+    """DecodeWeights that keeps each lock-step iteration's argmax class
+    (and, for TDT, its argmax duration index): one joint call an
+    iteration of `greedy_decode`."""
+
+    def __init__(self, params, cfg):
+        super().__init__(params, cfg)
+        self.ks, self.ds = [], []
+
+    def joint(self, f, g):
+        logits = super().joint(f, g)
+        self.ks.append(logits.argmax(-1))
+        return logits
+
+    def joint_tdt(self, f, g):
+        logits, dur = super().joint_tdt(f, g)
+        self.ks.append(logits.argmax(-1))
+        self.ds.append(dur.argmax(-1))
+        return logits, dur
+
+
+def replay_steps(rec: StepRecorder, cfg, lens, max_symbols: int) -> dict:
+    """greedy_decode's state machine replayed on the host from the
+    recorded argmaxes: its lock-step iterations, each row's steps, the
+    jumps taken (an advance of more than one frame) and the tokens."""
+    ks = torch.stack(rec.ks).cpu()
+    lens = lens.cpu().to(torch.int64)
+    B = ks.shape[1]
+    t, u = torch.zeros(B, dtype=torch.int64), torch.zeros(B, dtype=torch.int64)
+    steps, jumps = torch.zeros_like(t), torch.zeros_like(t)
+    durs = torch.ones(cfg.n_classes, dtype=torch.int64)
+    for i, d in enumerate(cfg.big_blank_durations):
+        durs[cfg.vocab_size + i] = d
+    dvals = torch.tensor(cfg.tdt_durations or (1,), dtype=torch.int64)
+    done = (t >= lens) | (u >= max_symbols)
+    for i in range(ks.shape[0]):
+        k, active = ks[i], ~done
+        blank = (k == cfg.blank) | (k >= cfg.vocab_size)
+        if cfg.tdt_durations:
+            d = dvals[rec.ds[i].cpu()]
+            d = torch.where(blank & (d == 0), 1, d)
+        else:
+            d = torch.where(blank, durs[k], 0)
+        steps += active
+        jumps += active & (d > 1)
+        u += active & ~blank
+        t += torch.where(active, d, 0)
+        done = (t >= lens) | (u >= max_symbols)
+    return {"iterations": int(ks.shape[0]), "row_steps": steps.tolist(),
+            "jumps": int(jumps.sum()), "tokens": u.tolist(),
+            "frames": int(lens.sum())}
+
+
+def dur_f32_gate(family: str, seed: int, dev) -> dict:
+    """(a) The family's f32 loss and gradients through loss_fn on the card
+    (K4 each way) against the same call on the CPU (the plain LSTM),
+    DUR_F32_B ragged rows of bench.py's batch: the loss within
+    LOSS_RTOL, every gradient leaf within GRAD_RTOL of its largest
+    value; 5 K4-fwd and 5 K4-bwd, and no K1, K2, K3 or K5."""
+    cfg = dur_cfg(family, compute_dtype="float32")
+    params = m.init_params(cfg, np.random.default_rng(seed), dev)
+    batch = bench_batch(cfg, seed, dev, TRAIN_U, DUR_F32_B, ragged=True)
+
+    def run(p, b):
+        flat, spec = torch.utils._pytree.tree_flatten(p)
+        xs = [x.detach().requires_grad_(True) for x in flat]
+        reset_counts()
+        loss, per_utt = tl.loss_fn(torch.utils._pytree.tree_unflatten(
+            xs, spec), cfg, *b)
+        grads = torch.autograd.grad(loss, xs, allow_unused=True)
+        if loss.is_cuda:
+            torch.cuda.synchronize()
+        return (float(loss.detach()), per_utt.detach().cpu(),
+                [torch.zeros_like(x) if g is None else g
+                 for x, g in zip(xs, grads)], read_counts())
+
+    t0 = time.perf_counter()
+    lk, pk, gk, ck = run(params, batch)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lp, pp, gp, _ = run(torch.utils._pytree.tree_map(lambda x: x.cpu(),
+                                                     params),
+                        tuple(a.cpu() for a in batch))
+    cpu_s = time.perf_counter() - t0
+    row = {"what": family, "B": DUR_F32_B, "T": TRAIN_T, "U": TRAIN_U,
+           "classes": cfg.n_classes, "loss_card": lk, "loss_cpu": lp,
+           "loss_rel_err": abs(lk - lp) / abs(lp),
+           "per_utt_max_rel_err": float(((pk - pp).abs()
+                                         / pp.abs()).max()),
+           "grad_worst_rel_err": max(rel_err(a.cpu(), b)
+                                     for a, b in zip(gk, gp)),
+           "max_abs_grad": max(float(b.abs().max()) for b in gp),
+           "loss_rtol": LOSS_RTOL, "grad_rtol": GRAD_RTOL,
+           "launches": {k: v for k, v in ck.items() if v},
+           "card_s": card_s, "cpu_s": cpu_s}
+    print("dur_f32 " + json.dumps(row))
+    check(row["loss_rel_err"] <= LOSS_RTOL,
+          f"f32 {family}: loss card {lk} vs CPU {lp}")
+    check(row["grad_worst_rel_err"] <= GRAD_RTOL,
+          f"f32 {family}: gradients {row['grad_worst_rel_err']}")
+    check(all(ck[k] == v for k, v in DUR_STEP.items()),
+          f"f32 {family}: launches {ck}, not {DUR_STEP}")
+    return row
+
+
+def jump_models(seed: int, dev) -> dict:
+    """A libri100 model made to emit by `emitting_setup` (the standard
+    family) and its two duration twins on the same encoder, predictor and
+    token columns, made to jump: multi-blank's big-blank columns are the
+    blank's column plus noise of DUR_NOISE times the columns' spread, at
+    the blank's bias (a blank-like frame picks among the four by the
+    noise, and the blank-like and the label classes compete as in the
+    standard model); TDT's duration head is its init's draws with the
+    durations > 1 raised by DUR_JUMP_BIAS."""
+    base = config_libri100()
+    setup = emitting_setup(seed, MAX_BATCH, dev, base, (150, DUR_BUCKET),
+                           "duration_base")
+    params = setup["params"]
+    rng = np.random.default_rng(seed + 3)
+    models = {"standard": (base, params)}
+    for family in DUR_FAMILIES:
+        cfg = dur_cfg(family)
+        p = {**params, "joint": dict(params["joint"])}
+        jp = p["joint"]
+        if family == "multiblank":
+            w, b = jp["out"]["w"], jp["out"]["b"]
+            K = len(cfg.big_blank_durations)
+            noise = torch.from_numpy(rng.normal(size=(w.shape[0], K))).to(
+                w) * (DUR_NOISE * w.std())
+            jp["out"] = {"w": torch.cat([w, w[:, cfg.blank:cfg.blank + 1]
+                                         + noise], 1),
+                         "b": torch.cat([b, b[cfg.blank].repeat(K)])}
+        else:
+            D = len(cfg.tdt_durations)
+            k = 1.0 / np.sqrt(cfg.joint_dim)
+            dur_b = torch.from_numpy(rng.uniform(-k, k, D)).float().to(dev)
+            dur_b += torch.tensor([DUR_JUMP_BIAS if d > 1 else 0.0
+                                   for d in cfg.tdt_durations], device=dev)
+            jp["dur"] = {"w": torch.from_numpy(rng.uniform(
+                -k, k, (cfg.joint_dim, D))).float().to(dev), "b": dur_b}
+        models[family] = (cfg, p)
+    return {"models": models, "setup": setup}
+
+
+def dur_decode_gates(jm_: dict, dev) -> dict:
+    """(a) On the models made to jump, f32: greedy tokens, frames and
+    t_over equal through the kernels (K4-fwd) and the plain LSTM, with
+    the jumps taken; beam n-best (`beams_agree`); DUR_SESSIONS
+    StreamingEngine sessions at 32-frame chunks equal to the offline
+    greedy tokens, 4 K4-fwd a tick."""
+    feats, lens = served_batch(jm_["setup"], dev, DUR_BUCKET)
+    utts = jm_["setup"]["utts"][:DUR_SESSIONS]
+    out = {}
+    for family in DUR_FAMILIES:
+        cfg, p = jm_["models"][family]
+        c = dataclasses.replace(cfg, compute_dtype="float32")
+        res = []
+        for plain in (False, True):
+            with plain_kernels() if plain else contextlib.nullcontext(), \
+                    torch.inference_mode():
+                reset_counts()
+                enc, el = m.encode(p, c, feats, lens)
+                rec = StepRecorder(p, c)
+                tok, n, st = greedy_decode(p, c, enc, el, MAX_SYMBOLS,
+                                           decode_weights=rec)
+                res.append(([tok[b, :n[b]].tolist() for b in range(len(n))],
+                            st[3].cpu(), st[7].cpu(), read_counts(),
+                            replay_steps(rec, c, el, MAX_SYMBOLS)))
+        (tk, fk, ok, ck, sk), (tp, fp, op, _, _) = res
+        check(tk == tp and torch.equal(fk, fp) and torch.equal(ok, op),
+              f"{family} greedy: f32 tokens, frames or t_over differ "
+              "between the kernel path and the plain path")
+        check(sk["tokens"] == [len(x) for x in tk],
+              f"{family} greedy: the replayed steps disagree: {sk}")
+        check(ck["lstm_fwd"] == c.enc_layers,
+              f"{family} greedy: {ck['lstm_fwd']} K4-fwd launches")
+        check(sk["jumps"] > 0 and sum(sk["tokens"]) > 0,
+              f"{family} greedy: no jump taken, or no token: {sk}")
+        row = {"what": family, "greedy_tokens": [len(x) for x in tk],
+               "t_over": ok.tolist(), "jumps": sk["jumps"],
+               "iterations": sk["iterations"]}
+        row["beam"] = beams_agree(*decode_beam_pair(p, c, feats, lens),
+                                  family)
+        st_eng = StreamingEngine(p, c, slots=DUR_SESSIONS,
+                                 chunk_frames=CHUNK_FRAMES,
+                                 max_symbols=MAX_SYMBOLS, device=dev)
+        try:
+            st_eng.warmup()
+            torch.cuda.synchronize()
+            reset_counts()
+            sids = [st_eng.open_session() for _ in utts]
+            for t0 in range(0, max(u.shape[0] for u in utts), CHUNK_FRAMES):
+                for sid, u in zip(sids, utts):
+                    if t0 < u.shape[0]:
+                        st_eng.feed_full(sid, u[t0:t0 + CHUNK_FRAMES])
+            finals = [st_eng.close_session(s) for s in sids]
+            counts = read_counts()
+            ticks = st_eng.stats.batches
+        finally:
+            st_eng.close()
+        check(finals == tk[:len(utts)],
+              f"{family}: streaming sessions differ from offline greedy")
+        check(counts["lstm_fwd"] == c.enc_layers * ticks,
+              f"{family} streaming: {counts['lstm_fwd']} K4-fwd in "
+              f"{ticks} ticks")
+        row["sessions"] = {"ticks": ticks, "launches": counts["lstm_fwd"],
+                           "tokens": [len(x) for x in finals]}
+        print("dur_decode " + json.dumps(row))
+        out[family] = row
+    return out
+
+
+def dur_cell(family: str, seed: int, dev, profile_dir,
+             ctc_weight: float = 0.0) -> dict:
+    """(b) bf16 steps of the family at (32, 400, 40), with ctc_weight:
+    ms a step by slope, peak GB, DUR_STEP's launches a step, and a
+    profiled step: its kernels, the `joint_loss` span's share of the
+    step and the lattice walks' (`duration_lattice` in the forward,
+    `duration_lattice_backward` in the backward)."""
+    what = family + ("_ctc" if ctc_weight else "")
+    cfg = dur_cfg(family, ctc_head=bool(ctc_weight))
+    tcfg = TrainConfig(batch_size=TRAIN_B, warmup_steps=100,
+                       total_steps=10000, ctc_weight=ctc_weight)
+    state = tl.init_train_state(np.random.default_rng(seed), cfg, tcfg, dev)
+    step = tl.make_train_step(cfg, tcfg, device=dev)
+    batch = bench_batch(cfg, seed, dev, TRAIN_U, TRAIN_B)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, res = timed_steps(step, state, batch, TRAIN_B)
+    check_step_counts(res, DUR_STEP, f"phase 5j's {what} steps")
+    state, prof = profile_step(step, state, batch, profile_dir,
+                               f"dur_{what}_step", windows=1)
+    host, wall = prof["host_span_ms"], prof["wall_ms"]
+    lat_ms = (host.get("duration_lattice", 0.0)
+              + host.get("duration_lattice_backward", 0.0))
+    res.update({"what": what, "B": TRAIN_B, "T": TRAIN_T, "U": TRAIN_U,
+                "dtype": "bfloat16", "ctc_weight": ctc_weight,
+                "launches_per_step": {k: v / res["steps"] for k, v in
+                                      res["launches"].items() if v},
+                "profile": {
+                    "wall_ms": wall,
+                    "device_busy_share": prof["device_busy_share"],
+                    "kernels": sum(prof["device_launches"].values()),
+                    "host_span_ms": host,
+                    "device_span_ms": prof["device_span_ms"],
+                    "joint_loss_share": host.get("joint_loss", 0.0) / wall,
+                    "lattice_host_ms": lat_ms, "lattice_share": lat_ms / wall,
+                    "lattice_fwd_share_of_joint_loss":
+                        host.get("duration_lattice", 0.0)
+                        / max(host.get("joint_loss", 0.0), 1e-9),
+                    "top_device_ops": prof["top_device_ops"][:5]},
+                "card": card_line()})
+    print("dur_bf16 " + json.dumps(res))
+    del state, step
+    torch.cuda.empty_cache()
+    return res
+
+
+def dur_serve_cli(ckpt_dir: str, utts: list) -> dict:
+    """serve.py --ckpt-dir in a process of its own: the model config (and
+    durations) from its meta.json; MAX_BATCH /recognize requests and
+    DUR_SESSIONS /session streams of 32-frame chunks at once; /stats;
+    SIGTERM drains it and exits 0."""
+    with serve_process(["--ckpt-dir", ckpt_dir, "--port", "0"]) as srv:
+        url = srv["url"]
+        with concurrent.futures.ThreadPoolExecutor(
+                len(utts) + DUR_SESSIONS) as ex:
+            recs = [ex.submit(post, url + "/recognize",
+                              {"feats": u.tolist()}) for u in utts]
+            sids = [post(url + "/session", {})[1]["sid"]
+                    for _ in range(DUR_SESSIONS)]
+            sess = [ex.submit(session_over_http, url, s, u, CHUNK_FRAMES)
+                    for s, u in zip(sids, utts)]
+            answers = [f.result() for f in recs]
+            sessions = [f.result() for f in sess]
+        with urllib.request.urlopen(url + "/stats", timeout=60) as r:
+            stats = json.loads(r.read())
+    row = {"argv": srv["argv"], "start_s": srv["start_s"],
+           "codes": [a[0] for a in answers], "rc": srv["rc"],
+           "tokens": [len(a[1]["tokens"]) for a in answers],
+           "session_tokens": [len(s["final"]) for s in sessions],
+           "sessions_equal_recognize": sum(
+               s["final"] == a[1]["tokens"]
+               for s, a in zip(sessions, answers)),
+           "offline": stats.get("offline"),
+           "streaming": stats.get("streaming"), "drained": srv["drained"]}
+    print("dur_serve_cli " + json.dumps(row))
+    check(all(c == 200 for c in row["codes"]) and row["rc"] == 0
+          and row["drained"]
+          and stats.get("streaming", {}).get("requests", 0) >= DUR_SESSIONS,
+          f"serve CLI --ckpt-dir {ckpt_dir}: {row}, log {srv['lines'][-5:]}")
+    return row
+
+
+def dur_cli_train(family: str, seed: int, tmp: str, dev) -> dict:
+    """(c) The training CLI for 2 steps with the family's flag into a
+    checkpoint directory (5 K4 each way a step); the config it records."""
+    flag = ("--big-blanks", "2,4,8") if family == "multiblank" else (
+        "--tdt-durations", "0,1,2,4")
+    d = os.path.join(tmp, f"dur_{family}")
+    reset_counts()
+    last = cli_json(["--config", "libri100", *flag, "--steps", "2",
+                     "--batch-size", "8", "--max-frames", "200",
+                     "--max-labels", "20", "--warmup-steps", "1",
+                     "--log-every", "1", "--eval-every", "0",
+                     "--ckpt-dir", d, "--seed", str(seed),
+                     "--device", dev.type], 2, f"dur_{family}")
+    counts = read_counts()
+    cfg = ckpt.load_model_config(d)
+    check(cfg == dur_cfg(family), f"the {family} checkpoint's config: {cfg}")
+    check_step_counts({"launches": counts, "steps": 2}, DUR_STEP,
+                      f"the {family} training CLI")
+    return {"dir": d, "last": last,
+            "launches": {k: v for k, v in counts.items() if v}}
+
+
+def dur_cli_decode(family: str, d: str, dev) -> dict:
+    """(c) The decode CLI on the checkpoint, greedy and beam 4: 8
+    utterances, a finite WER, 4 K4-fwd an encode (a warm-up and the
+    batch)."""
+    from rnn_transducer_tpu_torch.recognize import main as recognize_cli
+
+    cfg = dur_cfg(family)
+    rows = {}
+    for mode in ("greedy", "beam"):
+        reset_counts()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            got = recognize_cli(["--ckpt-dir", d, "--mode", mode,
+                                 "--batch-size", "8", "--batches", "1",
+                                 "--beam", "4", "--device", dev.type])
+        counts = read_counts()
+        others = {k: v for k, v in counts.items() if v and k != "lstm_fwd"}
+        row = {"what": family, "mode": mode, "out": got,
+               "lstm_fwd": counts["lstm_fwd"], "other_launches": others}
+        print("dur_cli_decode " + json.dumps(row))
+        check(got["n"] == 8 and np.isfinite(got["wer"]) and not others
+              and counts["lstm_fwd"] == 2 * cfg.enc_layers,
+              f"the decode CLI --mode {mode} on {family}: {row}")
+        rows[mode] = row
+    return rows
+
+
+def lockstep_iterations(jm_: dict, dev) -> dict:
+    """(c) The served batch (bucket 400, bf16) through the lock-step
+    greedy loop of the standard model and of its two duration twins on
+    the same encoder output: iterations, frames, tokens and jumps."""
+    feats, lens = served_batch(jm_["setup"], dev, DUR_BUCKET)
+    cfg0, p0 = jm_["models"]["standard"]
+    with torch.inference_mode():
+        enc, el = m.encode(p0, cfg0, feats, lens)
+        row = {}
+        for name, (cfg, p) in jm_["models"].items():
+            rec = StepRecorder(p, cfg)
+            t0 = time.perf_counter()
+            greedy_decode(p, cfg, enc, el, MAX_SYMBOLS, decode_weights=rec)
+            torch.cuda.synchronize()
+            row[name] = {**replay_steps(rec, cfg, el, MAX_SYMBOLS),
+                         "host_ms": (time.perf_counter() - t0) * 1e3}
+    row["iterations_vs_standard"] = {
+        k: row[k]["iterations"] / row["standard"]["iterations"]
+        for k in DUR_FAMILIES}
+    row["card"] = card_line()
+    print("dur_lockstep " + json.dumps(row))
+    return row
+
+
+def duration_phase(seed: int, dev, profile_dir, tmp: str) -> dict:
+    """Phase 5j: the duration families, (a)-(c) above. The CLI
+    checkpoints come first, so that their two servers (processes of
+    their own) run while the f32 gates and the decode CLI do; the timed
+    bf16 cells run with no server alive. Each part's seconds on a line,
+    and `dur_launches` for the kernels line."""
+    out, seconds = {}, {}
+    with part(seconds, "cli_train"):
+        out["train_cli"] = {f: dur_cli_train(f, seed, tmp, dev)
+                            for f in DUR_FAMILIES}
+    with part(seconds, "models"):
+        jm_ = jump_models(seed + 110, dev)
+    utts = jm_["setup"]["utts"][:MAX_BATCH]
+    with concurrent.futures.ThreadPoolExecutor(len(DUR_FAMILIES)) as ex:
+        servers = {f: ex.submit(dur_serve_cli, out["train_cli"][f]["dir"],
+                                utts) for f in DUR_FAMILIES}
+        with part(seconds, "f32_gates"):
+            out["f32"] = {f: dur_f32_gate(f, seed + 111, dev)
+                          for f in DUR_FAMILIES}
+        with part(seconds, "decode_gates"):
+            out["decode"] = dur_decode_gates(jm_, dev)
+        with part(seconds, "cli_decode"):
+            out["decode_cli"] = {f: dur_cli_decode(
+                f, out["train_cli"][f]["dir"], dev) for f in DUR_FAMILIES}
+        with part(seconds, "serve_cli_wait"):
+            out["serve_cli"] = {f: s.result() for f, s in servers.items()}
+    torch.cuda.empty_cache()
+    with part(seconds, "cells"):
+        out["cells"] = {}
+        for i, family in enumerate(DUR_FAMILIES):
+            for ctc_weight in (0.0, CTC_WEIGHT):
+                res = dur_cell(family, seed + 112 + i, dev, profile_dir,
+                               ctc_weight)
+                out["cells"][res["what"]] = res
+    with part(seconds, "lockstep"):
+        out["lockstep"] = lockstep_iterations(jm_, dev)
+    print("dur_seconds " + json.dumps(seconds))
+    launches = dict.fromkeys(NO_LAUNCH, 0)
+    for cell in out["cells"].values():
+        for k, v in cell["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    for row in out["decode"].values():
+        launches["lstm_fwd"] += row["sessions"]["launches"]
+    out["launches"] = launches
+    print("dur_launches " + json.dumps(launches))
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, err, ms, plain_ms,
                  bnd: dict, library_ms=None, kernel=None,
                  device_ms=None) -> dict:
@@ -6026,6 +6549,11 @@ def main(argv=None):
         ctc = ctc_phase(args.seed, dev, args.profile_dir, tmp)
         print(f"phase ctc: {time.perf_counter() - t0:.1f} s")
         torch.cuda.empty_cache()
+        # phase 5j: the duration families (multi-blank and TDT)
+        t0 = time.perf_counter()
+        dur = duration_phase(args.seed, dev, args.profile_dir, tmp)
+        print(f"phase duration: {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
 
     # phase 4f: beam serving (its profiled windows after the training
     # phases' kernel-name checks); then 4g, after every profiled window
@@ -6072,19 +6600,20 @@ def main(argv=None):
                                      kb["main"])
     band_counts = pruned["launches"]
     cl = ctc["launches"]  # phase 5i's cells, engines: added to each count
+    dl = dur["launches"]  # phase 5j's cells and sessions: K4 alone
     print(json.dumps({"kernels": [
         kernel_entry("lstm_fwd", "lstm_fwd.cu", f"{lp}:119",
-                     e2e["launches"] + cl["lstm_fwd"],
+                     e2e["launches"] + cl["lstm_fwd"] + dl["lstm_fwd"],
                      k["max_abs_err"], km["kernel_ms"], km["plain_ms"], km,
                      km["library_ms"]),
         kernel_entry("lstm_fwd_with_acts", "lstm_fwd.cu", f"{lp}:119",
                      counts["lstm_fwd_with_acts"]
-                     + cl["lstm_fwd_with_acts"],
+                     + cl["lstm_fwd_with_acts"] + dl["lstm_fwd_with_acts"],
                      max(kt["worst"]["fwd"], k960["worst"]["fwd"]),
                      tm_["fwd_kernel_ms"], tm_["fwd_plain_ms"],
                      tm_["fwd_bound"], tm_["cudnn_train_fwd_ms"]),
         kernel_entry("lstm_bwd", "lstm_bwd.cu", f"{lp}:222",
-                     counts["lstm_bwd"] + cl["lstm_bwd"],
+                     counts["lstm_bwd"] + cl["lstm_bwd"] + dl["lstm_bwd"],
                      max(kt["worst"]["bwd"], k960["worst"]["bwd"]),
                      tm_["bwd_kernel_ms"], tm_["bwd_plain_ms"],
                      tm_["bwd_bound"], tm_["cudnn_bwd_ms"]),

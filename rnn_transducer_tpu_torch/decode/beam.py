@@ -41,8 +41,19 @@ encoder output zeroed, renormalised over labels); `context` (a
 decode/context.py ContextBias) adds the trie's boost and advances each
 beam's trie node; `ngram=(NgramLM, weight)` adds weight * lp[state,
 label] and advances each beam's n-gram state. Their tables must lie on the
-decode's device. Multi-blank and TDT models are not ported yet
-(`check_supported`).
+decode's device.
+
+Multi-blank and TDT models (duration jumps), as in JAX: a transition that
+consumes d > 1 frames (a big blank, or a TDT emission of duration d) sets
+the beam's `wake` to t + d, and the beam sleeps: at frames before its wake
+it enters the pool unchanged and pays nothing. A multi-blank model's
+blank arcs are (V + k, durations[k]) beside the standard blank's (blank,
+1). A TDT model's blank arcs are one a duration d > 0 (a blank of
+duration 0 is skipped), each adding the duration head's log-prob; each of
+the top K label extensions forks over the duration set, d > 0 asleep in
+the pool, d = 0 live at this frame (the selection is over the token
+scores before the fork: the duration log-probs are shared by a beam's
+labels). The merge asks for equal wake as well as equal prefixes.
 """
 
 from __future__ import annotations
@@ -281,6 +292,12 @@ def beam_search(params, cfg: TransducerConfig, enc_out, enc_lens, *,
     C = cfg.n_classes
     col = torch.arange(C, device=dev)
     nonlabel = (col == cfg.blank) | (col >= V)  # blank, big blanks
+    tdt = bool(cfg.tdt_durations)
+    dvals = tuple(int(d) for d in cfg.tdt_durations)
+    # (joint column, frames consumed) of each blank class: the standard
+    # blank, and a multi-blank model's big blanks
+    blank_arcs = [(cfg.blank, 1)] + [
+        (V + k, int(d)) for k, d in enumerate(cfg.big_blank_durations)]
     carry = beam_state
     for t in range(T):
         tokens, lens, scores, hashes, outs, states = carry
@@ -308,10 +325,23 @@ def beam_search(params, cfg: TransducerConfig, enc_out, enc_lens, *,
         for e in range(expansions + 1):
             tokens, lens, scores, hashes, outs, states = live
             g = dw.pred_proj(flat(outs["pred"]))
-            lp = unflat(torch.log_softmax(dw.joint(f_tk, g), dim=-1))
-            # --- blank transition: consume the frame ----------------------
-            cand.append((tokens, lens, scores + lp[:, :, cfg.blank], hashes,
-                         with_wake(outs, lens, 1), states))
+            if tdt:
+                logits, dur_logits = dw.joint_tdt(f_tk, g)
+                dlp = unflat(torch.log_softmax(dur_logits, dim=-1))
+            else:
+                logits = dw.joint(f_tk, g)
+            lp = unflat(torch.log_softmax(logits, dim=-1))
+            # --- blank transitions: consume d frames, asleep until t+d ----
+            if tdt:
+                for i, d in enumerate(dvals):
+                    if d:  # a blank of duration 0 would self-loop
+                        cand.append((tokens, lens, scores + lp[:, :, cfg.blank]
+                                     + dlp[:, :, i], hashes,
+                                     with_wake(outs, lens, d), states))
+            else:
+                for c, d in blank_arcs:
+                    cand.append((tokens, lens, scores + lp[:, :, c], hashes,
+                                 with_wake(outs, lens, d), states))
             if e == expansions:
                 break  # final round: forced blank only
             # --- label extensions, one selection over K*C an utterance ----
@@ -372,6 +402,18 @@ def beam_search(params, cfg: TransducerConfig, enc_out, enc_lens, *,
                 new_outs["lm_lp"] = unflat(new_lm_lp)
                 new_states["lm"] = _tree_map(unflat, new_lm_st)
             g_len1 = torch.clamp(g_len + 1, max=U)
+            if tdt:
+                # every TDT emission consumes its duration: the top K fork
+                # over the duration set, d > 0 into the pool (asleep until
+                # t+d), d = 0 live, free to emit again at this frame
+                dsel = take(dlp)
+                for i, d in enumerate(dvals):
+                    if d:
+                        cand.append((g_tok, g_len1, top_sc + dsel[:, :, i],
+                                     g_hash, with_wake(new_outs, g_len1, d),
+                                     new_states))
+                top_sc = (top_sc + dsel[:, :, dvals.index(0)] if 0 in dvals
+                          else torch.full_like(top_sc, NEG_INF))
             live = (g_tok, g_len1, top_sc, g_hash, new_outs, new_states)
 
         # --- prefix merge over the pool -------------------------------------

@@ -7,6 +7,12 @@ utterances are masked, not branched on. Per iteration: gather each
 utterance's current encoder frame, run one joint evaluation, emit the
 argmax or advance time. Worst-case iteration count is T + max_symbols.
 
+The duration families step as JAX's loop does: a multi-blank model's
+winning big blank (class >= V) is a blank that skips its duration in one
+iteration; a TDT model advances t by the argmax of its duration head after
+every emission, token or blank (a blank of duration 0 by 1). A jump past
+the last frame is carried as t_over into the next chunk.
+
 The JAX `lax.while_loop` becomes a Python `while` over batched tensor ops;
 its condition `any(~done)` is one host sync per iteration.
 """
@@ -18,12 +24,13 @@ import torch
 from rnn_transducer_tpu_torch.decode.beam import _tree_map
 from rnn_transducer_tpu_torch.models import transducer as m
 from rnn_transducer_tpu_torch.models.config import TransducerConfig
+from rnn_transducer_tpu_torch.ops.rnnt_multiblank import duration_table
 
 
 def greedy_decode(params, cfg: TransducerConfig, enc_out, enc_lens,
                   max_symbols: int = 200, decode_state=None, *,
                   decode_weights=None):
-    """Greedy decode a batch of encoded utterances (standard model).
+    """Greedy decode a batch of encoded utterances.
 
     Args:
       enc_out: (B, T, De) encoder outputs. enc_lens: (B,) valid frames.
@@ -40,8 +47,9 @@ def greedy_decode(params, cfg: TransducerConfig, enc_out, enc_lens,
         pred_states, t_over) as in the JAX function; confs[b, i] is the
         emitted token's log-probability and frames[b, i] the GLOBAL
         encoder frame it was emitted at (frame_off counts the frames of
-        earlier chunks), both 0 past the length; t_over is 0 for the
-        standard model.
+        earlier chunks), both 0 past the length; t_over carries a
+        duration jump past the chunk's end into the next chunk (0 for
+        the standard model).
     """
     m.check_supported(cfg)
     # int8 params dequantized and weights rounded once, not in every step
@@ -52,6 +60,12 @@ def greedy_decode(params, cfg: TransducerConfig, enc_out, enc_lens,
     enc_lens = enc_lens.to(device=dev, dtype=torch.int32)
     rows = torch.arange(B, device=dev)
     blank = torch.full((B,), cfg.blank, dtype=torch.int64, device=dev)
+    tdt = bool(cfg.tdt_durations)
+    if cfg.big_blank_durations:  # frames a winning class advances by
+        durs = duration_table(cfg.vocab_size, cfg.big_blank_durations,
+                              cfg.n_classes, device=dev)
+    if tdt:
+        dvals = torch.tensor(cfg.tdt_durations, dtype=torch.int32).to(dev)
 
     if decode_state is None:
         pred_out, states = dw.predict_step(blank,
@@ -82,9 +96,13 @@ def greedy_decode(params, cfg: TransducerConfig, enc_out, enc_lens,
         # zero-length rows (already done), where JAX's gather wraps -1.
         t_safe = torch.clamp(torch.minimum(t, enc_lens - 1), min=0)
         enc_t = enc_out[rows, t_safe.long()]
-        logits = dw.joint(dw.enc_proj(enc_t), dw.pred_proj(pred_out))
+        f, g = dw.enc_proj(enc_t), dw.pred_proj(pred_out)
+        if tdt:
+            logits, dur_logits = dw.joint_tdt(f, g)
+        else:
+            logits = dw.joint(f, g)
         k = torch.argmax(logits, dim=-1)
-        is_blank = (k == cfg.blank) | (k >= cfg.vocab_size)
+        is_blank = (k == cfg.blank) | (k >= cfg.vocab_size)  # big blanks
         emit = ~(is_blank | done)
         # Emit: write token + its log-prob at position u, bump u, step
         # the predictor. Emitting rows have u < max_symbols.
@@ -103,7 +121,17 @@ def greedy_decode(params, cfg: TransducerConfig, enc_out, enc_lens,
         states = _tree_map(lambda n, o: torch.where(e, n, o), new_states,
                            states)
         u = u + emit.to(torch.int32)
-        t = t + (is_blank & ~done).to(torch.int32)
+        # done rows freeze t, so that the carried overshoot stays exact
+        if tdt:
+            # every emission, token or blank, advances t by its argmax
+            # duration; a blank of duration 0 (a self-loop) advances by 1
+            d = dvals[torch.argmax(dur_logits, dim=-1)]
+            d = torch.where(is_blank & (d == 0), 1, d)
+        elif cfg.big_blank_durations:  # a big blank skips its duration
+            d = torch.where(is_blank, durs[k], 0)
+        else:
+            d = is_blank.to(torch.int32)
+        t = t + torch.where(done, 0, d)
         done = (t >= enc_lens) | (u >= max_symbols)
 
     t_over = torch.clamp(t - enc_lens, min=0)

@@ -342,10 +342,13 @@ def pack_weights(weights, plan: ClusterPlan) -> torch.Tensor:
 
 def supported(cfg: TransducerConfig) -> bool:
     """The JAX kernel's predicate, one predictor layer and E, H and J
-    multiples of 128, and an LSTM predictor: the kernel steps w_ih and
-    w_hh, which a stateless predictor has not (JAX's predicate does not
-    ask, greedy_pallas.py:33-37)."""
+    multiples of 128, and two more conditions that JAX's predicate
+    (greedy_pallas.py:33-37) does not ask: an LSTM predictor (the kernel
+    steps w_ih and w_hh, which a stateless predictor has not), and no
+    duration family (the kernel advances one frame a blank and has no
+    duration head; JAX's engine never calls its kernel on one)."""
     return (cfg.pred_type == "lstm" and cfg.pred_layers == 1
+            and not cfg.big_blank_durations and not cfg.tdt_durations
             and cfg.embed_dim % LANE == 0
             and cfg.pred_hidden % LANE == 0
             and cfg.joint_dim % LANE == 0)

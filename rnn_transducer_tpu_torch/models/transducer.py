@@ -9,11 +9,14 @@ Plain functions on tensors over a parameter dict in the JAX layout:
 ...] or [{"in_proj"}, conformer block, ...],
 "embed": (V, E), "predictor": [lstm layer, ...] or, for
 pred_type="stateless", [{"w": (pred_context * E, pred_hidden), "b"}],
-"joint": {"enc_proj", "pred_proj", "out": {"w": (in, out), "b"}}[,
-"ctc_head": {"w": (enc_out_dim, V), "b"}]}.
-It covers serving (`encode`, `predict_step`, `joint_step`, `ctc_logits`),
-streaming (`init_enc_state`, `encode_chunk`) and the training forward
-(`predict`, `joint`, `joint_activations`, `forward`), with the JAX
+"joint": {"enc_proj", "pred_proj", "out": {"w": (in, out), "b"}[,
+"dur": the TDT duration head]}[, "ctc_head": {"w": (enc_out_dim, V),
+"b"}]}; a multi-blank joint's "out" has V + len(big_blank_durations)
+columns (`n_classes`).
+It covers serving (`encode`, `predict_step`, `joint_step`,
+`joint_step_tdt`, `ctc_logits`), streaming (`init_enc_state`,
+`encode_chunk`) and the training forward (`predict`, `joint`,
+`joint_tdt`, `joint_activations`, `forward`), with the JAX
 package's dropout sites in `encode` and `predict`. With remat_encoder,
 `encode` recomputes each conformer block or LSTM layer in the backward
 (`torch.utils.checkpoint`, as JAX's `jax.checkpoint`), its dropout left
@@ -55,17 +58,19 @@ def check_supported(cfg: TransducerConfig) -> None:
         raise ValueError(f"unknown enc_type {cfg.enc_type!r}")
     if cfg.pred_type not in ("lstm", "stateless"):
         raise ValueError(f"unknown pred_type {cfg.pred_type!r}")
-    todo = []
-    if cfg.big_blank_durations:
-        todo.append("big_blank_durations (ROADMAP queue 1, item 11: "
-                    "duration families)")
-    if cfg.tdt_durations:
-        todo.append("tdt_durations (ROADMAP queue 1, item 11: duration "
-                    "families)")
     if cfg.joint_experts > 0:
-        todo.append("joint_experts (ROADMAP queue 1, item 16: MoE joint)")
-    if todo:
-        raise NotImplementedError("not ported yet: " + "; ".join(todo))
+        raise NotImplementedError("not ported yet: joint_experts (ROADMAP "
+                                  "queue 1, item 16: MoE joint)")
+
+
+def _check_families(cfg: TransducerConfig) -> None:
+    """The JAX `init_params` refusals of the duration families (:102-106)."""
+    if cfg.tdt_durations:
+        if cfg.big_blank_durations:
+            raise ValueError("tdt_durations and big_blank_durations are "
+                             "mutually exclusive")
+        if cfg.joint_experts > 0:
+            raise ValueError("TDT with an MoE joint is not supported")
 
 
 def _uniform(rng: np.random.Generator, shape, k: float) -> np.ndarray:
@@ -96,6 +101,7 @@ def init_params(cfg: TransducerConfig, rng: np.random.Generator,
     """
     from rnn_transducer_tpu_torch.weights import params_from_numpy
 
+    _check_families(cfg)
     check_supported(cfg)
     enc = []
     if cfg.enc_type == "conformer":
@@ -136,6 +142,9 @@ def init_params(cfg: TransducerConfig, rng: np.random.Generator,
         "pred_proj": _init_linear(rng, cfg.pred_hidden, cfg.joint_dim),
         "out": _init_linear(rng, cfg.joint_dim, cfg.n_classes),
     }
+    if cfg.tdt_durations:  # the TDT duration head, off the same activation
+        joint["dur"] = _init_linear(rng, cfg.joint_dim,
+                                    len(cfg.tdt_durations))
     params = {"encoder": enc, "embed": embed, "predictor": pred,
               "joint": joint}
     if cfg.ctc_head:
@@ -354,6 +363,13 @@ def joint_step(params: Params, cfg: TransducerConfig, enc_t, pred_u):
     return dw.joint(dw.enc_proj(enc_t), dw.pred_proj(pred_u))
 
 
+def joint_step_tdt(params: Params, cfg: TransducerConfig, enc_t, pred_u):
+    """TDT joint for single positions: enc_t (B, De), pred_u (B, Dp) ->
+    (logits (B, V), dur_logits (B, D)), both fp32."""
+    dw = DecodeWeights(params, cfg)
+    return dw.joint_tdt(dw.enc_proj(enc_t), dw.pred_proj(pred_u))
+
+
 class DecodeWeights:
     """The predictor's and the joint's weights rounded to the compute dtype
     once, and the one body of `predict_step` and `joint_step`: a decode
@@ -388,6 +404,8 @@ class DecodeWeights:
         self.pred_w, self.pred_b = (r(jp["pred_proj"]["w"]),
                                     jp["pred_proj"]["b"].float())
         self.out_w, self.out_b = r(jp["out"]["w"]), jp["out"]["b"].float()
+        if "dur" in jp:  # the TDT duration head
+            self.dur_w, self.dur_b = r(jp["dur"]["w"]), jp["dur"]["b"].float()
 
     def _mm(self, x, w):
         return torch.matmul(x.to(self.cd).float(), w)
@@ -416,6 +434,12 @@ class DecodeWeights:
 
     def joint(self, f, g):
         return self._mm(torch.tanh(f + g), self.out_w) + self.out_b
+
+    def joint_tdt(self, f, g):
+        """(token logits, duration logits) off one activation."""
+        z = torch.tanh(f + g)
+        return (self._mm(z, self.out_w) + self.out_b,
+                self._mm(z, self.dur_w) + self.dur_b)
 
 
 def predict(params: Params, cfg: TransducerConfig, labels, *,
@@ -482,6 +506,19 @@ def joint(params: Params, cfg: TransducerConfig, enc_out, pred_out):
     f, g, w, b = joint_activations(params, cfg, enc_out, pred_out)
     z = torch.tanh(f[:, :, None, :] + g[:, None, :, :])
     return _dot(z, w, cfg.cdtype) + b.float()
+
+
+def joint_tdt(params: Params, cfg: TransducerConfig, enc_out, pred_out):
+    """TDT joint over the lattice: (token logits (B, T, U+1, V), duration
+    logits (B, T, U+1, D)), both fp32 and materialised, off one shared
+    activation."""
+    check_supported(cfg)
+    params = maybe_dequant_tree(params)
+    f, g, w, b = joint_activations(params, cfg, enc_out, pred_out)
+    z = torch.tanh(f[:, :, None, :] + g[:, None, :, :])
+    dur = params["joint"]["dur"]
+    return (_dot(z, w, cfg.cdtype) + b.float(),
+            _dot(z, dur["w"], cfg.cdtype) + dur["b"].float())
 
 
 def ctc_logits(params: Params, cfg: TransducerConfig, enc_out):

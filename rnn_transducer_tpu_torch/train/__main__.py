@@ -19,6 +19,9 @@
     python -m rnn_transducer_tpu_torch.train --config libri100 \
         --pred-type stateless --ctc-pretrain-steps 500 --ctc-weight 0.3 \
         --steps 5000 --ckpt-dir ckpt     # CTC first, then CTC-hybrid RNN-T
+    python -m rnn_transducer_tpu_torch.train --config libri100 \
+        --big-blanks 2,4,8 --ckpt-dir ckpt    # multi-blank; or the TDT:
+        # --tdt-durations 0,1,2,4 (both train at the xla loss tier)
 
 Runs the standard training step (`train/loop.py`) on the `learnable_batch`
 stream of train.py (features that encode their labels, drawn from
@@ -67,7 +70,11 @@ state. --ctc-pretrain-steps N makes the first N steps CTC steps on the
 encoder's auxiliary head (train/loop.ctc_loss_fn), --ctc-weight W adds W
 times that CTC loss to every RNN-T step (either switches the config's
 ctc_head on); --pred-type stateless [--pred-context C] trains the
-bounded-context predictor. The phase of a step (ctc, then rnnt, then
+bounded-context predictor. --big-blanks D,... (each > 1) trains a
+multi-blank transducer and --tdt-durations D,... a TDT one, each only
+with --loss-impl auto|xla (train.py's checks); meta.json carries the
+durations, so --resume, the decode CLI and serve.py --ckpt-dir rebuild
+the config. The phase of a step (ctc, then rnnt, then
 mwer) follows from its global step alone, so a resumed run crosses the
 boundaries where an uninterrupted one would, and every log record names
 it. Each step's log record carries `load_ms`, the host ms the
@@ -202,6 +209,18 @@ def parse_args(argv=None):
     p.add_argument("--pred-context", type=int, default=0,
                    help="stateless decoder context size (labels of history "
                         "per position; 0 = config default)")
+    p.add_argument("--tdt-durations", default=None,
+                   help="token-and-duration transducer: comma-separated "
+                        "duration set (e.g. '0,1,2,3,4') predicted by a "
+                        "second joint head; greedy decode advances by the "
+                        "predicted duration after every emission (trains "
+                        "at the xla loss tier)")
+    p.add_argument("--big-blanks", default=None,
+                   help="multi-blank transducer: comma-separated big-blank "
+                        "frame durations (e.g. '2,4,8') appended as extra "
+                        "joint output classes; greedy decode skips that "
+                        "many frames when one wins (trains at the xla "
+                        "loss tier)")
     p.add_argument("--fastemit-lambda", type=float, default=0.0)
     p.add_argument("--tokenizer", default=None,
                    help="tokenizer spec (char | phone | bpe:<model.json>); "
@@ -325,6 +344,19 @@ def _setup(args):
         cfg = dataclasses.replace(cfg, pred_type=args.pred_type)
     if args.pred_context > 0:
         cfg = dataclasses.replace(cfg, pred_context=args.pred_context)
+    if args.big_blanks:  # train.py's checks (:230-241)
+        durs = tuple(int(d) for d in args.big_blanks.split(","))
+        if any(d <= 1 for d in durs):
+            raise SystemExit("--big-blanks durations must be > 1")
+        cfg = dataclasses.replace(cfg, big_blank_durations=durs)
+        if args.loss_impl not in ("auto", "xla"):
+            raise SystemExit("--big-blanks requires --loss-impl auto|xla")
+    if args.tdt_durations:
+        durs = tuple(int(d) for d in args.tdt_durations.split(","))
+        cfg = dataclasses.replace(cfg, tdt_durations=durs)
+        if args.loss_impl not in ("auto", "xla"):
+            raise SystemExit("--tdt-durations requires --loss-impl "
+                             "auto|xla")
     if args.pruned_range > 0:
         cfg = dataclasses.replace(cfg, pruned_range=args.pruned_range)
         args.loss_impl = "pruned"

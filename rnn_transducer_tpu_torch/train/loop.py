@@ -17,6 +17,10 @@ count before the update (the first update under warmup_cosine has
 learning rate schedule(0) = 0), and a skipped non-finite update advances
 `TrainState.step` but neither Adam's count nor the schedule's.
 
+The duration families (multi-blank, TDT) train on the `xla` route alone,
+over their consumed-frames lattices (`ops/rnnt_multiblank.py`,
+`ops/rnnt_tdt.py`), whatever `auto` picks for the standard model.
+
 Three more objectives share the step: CTC on the encoder's auxiliary
 head (`make_train_step(loss_kind="ctc")`, `ctc_loss_fn`: the
 pretraining phase of the CLI's --ctc-pretrain-steps), lattice distillation
@@ -69,7 +73,8 @@ from rnn_transducer_tpu_torch.ops.rnnt_loss_cuda import rnnt_loss_twopass
 from rnn_transducer_tpu_torch.ops.rnnt_pruned import (alignment_bounds,
                                                       pruned_two_pass_loss,
                                                       rnnt_loss_pruned)
-from rnn_transducer_tpu_torch.train.mwer import mwer_loss_fn
+from rnn_transducer_tpu_torch.train.mwer import (mwer_loss_fn,
+                                                 sequence_nll)
 from rnn_transducer_tpu_torch.train.regularizers import (DropoutMasks,
                                                          leaf_paths,
                                                          weight_noise)
@@ -77,7 +82,8 @@ from rnn_transducer_tpu_torch.train.regularizers import (DropoutMasks,
 # optax.adamw's defaults
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 SPANS = ("encode", "predict", "align", "teacher", "joint_loss", "ctc",
-         "backward", "ctc_backward", "all_reduce", "optimizer")
+         "duration_lattice", "backward", "ctc_backward",
+         "duration_lattice_backward", "all_reduce", "optimizer")
 # the CLI's choices, train.py's; "ar" is set by TrainConfig.ar_range
 LOSS_IMPLS = ("auto", "fused", "pallas", "xla", "pruned")
 _span = torch.profiler.record_function
@@ -107,6 +113,23 @@ def _check_ctc_weight(cfg: TransducerConfig, ctc_weight: float) -> None:
     """JAX loss_fn :138-139."""
     if ctc_weight and cfg.joint_experts > 0:
         raise ValueError("ctc_weight with an MoE joint is not supported")
+
+
+def check_duration_route(cfg: TransducerConfig, loss_impl: str,
+                         fastemit: float) -> None:
+    """The duration families train at the xla tier only (JAX loss_fn
+    :163-169, :182-188): the fused, two-pass, pruned and AR routes and
+    FastEmit do not model the jump arcs."""
+    what = ("TDT" if cfg.tdt_durations else "multi-blank"
+            if cfg.big_blank_durations else None)
+    if what is None:
+        return
+    if loss_impl not in ("auto", "xla"):
+        raise ValueError(f"{what} models train with loss_impl='auto'|'xla' "
+                         f"(got {loss_impl!r})")
+    if fastemit:
+        raise ValueError(f"fastemit_lambda is not supported with {what} "
+                         "models")
 
 
 # ------------------------------ schedules --------------------------------
@@ -251,10 +274,18 @@ def loss_fn(params, cfg: TransducerConfig, feats, feat_lens, labels,
     (regularizers.DropoutMasks); the AR aligner runs without them.
     ctc_weight > 0 (with cfg.ctc_head) adds ctc_weight times the CTC loss
     of the encoder's auxiliary head, on the same encoder output, to every
-    route's per-utterance losses (JAX `with_ctc`, :141-150).
+    route's per-utterance losses (JAX `with_ctc`, :141-150). A duration
+    family (multi-blank or TDT) takes the xla route whatever `auto` would
+    pick: its materialised logits (`joint`, or `joint_tdt` with the
+    duration logits) and its loss on the consumed-frames lattice
+    (train/mwer.sequence_nll); any other loss_impl, and fastemit, raise.
     """
     _check_ctc_weight(cfg, ctc_weight)
     m.check_supported(cfg)
+    duration = bool(cfg.tdt_durations or cfg.big_blank_durations)
+    if duration:  # before any route is chosen: auto is xla here
+        check_duration_route(cfg, loss_impl, fastemit)
+        loss_impl = "xla"
     impl = _resolve_loss_impl(loss_impl, feats.device, cfg)
     if impl not in ("fused", "pallas", "xla", "pruned", "ar"):
         raise ValueError(f"unknown loss_impl {loss_impl!r}")
@@ -289,7 +320,10 @@ def loss_fn(params, cfg: TransducerConfig, feats, feat_lens, labels,
     with _span("joint_loss"):
         if impl in ("fused", "pruned", "ar"):
             f, g, w, b = m.joint_activations(params, cfg, enc_out, pred_out)
-        if impl == "fused":
+        if duration:
+            per_utt = sequence_nll(params, cfg, enc_out, pred_out, labels,
+                                   enc_lens, label_lens)
+        elif impl == "fused":
             per_utt = rnnt_loss_fused(f, g, w, b, labels, enc_lens,
                                       label_lens, cfg.blank, cfg.cdtype,
                                       fastemit)
@@ -547,6 +581,8 @@ def make_train_step(cfg: TransducerConfig, tcfg: TrainConfig, mesh=None,
     check_train_supported(tcfg)
     if rnnt:
         _check_ctc_weight(cfg, tcfg.ctc_weight)
+        check_duration_route(cfg, "ar" if ar else tcfg.loss_impl,
+                             tcfg.fastemit_lambda)
     m.check_supported(cfg)
     check_ring_width(cfg, "ar" if ar else tcfg.loss_impl if rnnt
                      and not distilling else "xla", dev)

@@ -13,16 +13,17 @@ Autograd of L gives the variance-reduced MWER gradient sum_i p_hat_i (W_i
 - W_bar) d logP_i: the baseline falls out of the softmax's derivative.
 log P(y_i | x) = -rnnt_loss, the lattice marginal at the `xla` tier
 ((B*K, T, U+1, V) logits over the encoder output repeated K times; on the
-card its alpha / beta run in the K3 kernel), so gradients flow only
-through the lattice losses. The beam search (decode/beam.py, whose
-predictor steps are single-step products, not K4) and the edit distances
-carry none.
+card its alpha / beta run in the K3 kernel), or for a multi-blank or TDT
+model the marginal on its consumed-frames lattice (`sequence_nll`, as
+JAX's `_seq_nll`), so gradients flow only through the lattice losses.
+The beam search (decode/beam.py, whose predictor steps are single-step
+products, not K4; the duration families' wake-time search) and the edit
+distances carry none.
 
 The edit-distance row recurrence has the insertion closure row[j] =
 min_{k<=j} cand[k] + (j - k), solved in parallel on the device as j +
-cummin(cand - j). Duration families (item 11) are refused by
-`models/transducer.check_supported`; the port has no sequence-parallel
-mode to run MWER under (item 16).
+cummin(cand - j). The port has no sequence-parallel mode to run MWER
+under (item 16).
 """
 
 from __future__ import annotations
@@ -32,6 +33,8 @@ import torch
 from rnn_transducer_tpu_torch.decode.beam import beam_search
 from rnn_transducer_tpu_torch.models import transducer as m
 from rnn_transducer_tpu_torch.ops.rnnt_loss import rnnt_loss
+from rnn_transducer_tpu_torch.ops.rnnt_multiblank import rnnt_loss_multiblank
+from rnn_transducer_tpu_torch.ops.rnnt_tdt import rnnt_loss_tdt
 
 NEG_INF = -1.0e30
 
@@ -63,10 +66,20 @@ def edit_distance_device(ref, ref_len, hyp, hyp_len):
     return table[n, ref_len.long(), hyp_len.long()]
 
 
-def _seq_nll(params, cfg, enc_out, pred_out, labels, enc_lens, label_lens):
-    """Differentiable per-utterance NLL of a label sequence: the lattice
-    marginal over materialised logits."""
+def sequence_nll(params, cfg, enc_out, pred_out, labels, enc_lens,
+                 label_lens):
+    """Differentiable per-utterance NLL of a label sequence over
+    materialised logits: the standard lattice marginal, or the
+    consumed-frames marginal of a multi-blank or TDT model (JAX
+    `_seq_nll`, train/mwer.py:105-116)."""
+    if cfg.tdt_durations:
+        logits, dur_logits = m.joint_tdt(params, cfg, enc_out, pred_out)
+        return rnnt_loss_tdt(logits, dur_logits, labels, enc_lens,
+                             label_lens, cfg.tdt_durations, cfg.blank)
     logits = m.joint(params, cfg, enc_out, pred_out)
+    if cfg.big_blank_durations:
+        return rnnt_loss_multiblank(logits, labels, enc_lens, label_lens,
+                                    cfg.big_blank_durations, cfg.blank)
     return rnnt_loss(logits, labels, enc_lens, label_lens, cfg.blank)
 
 
@@ -77,7 +90,7 @@ def hyp_logprobs(params, cfg, enc_out, enc_lens, hyps, hyp_lens):
     B, K, U = hyps.shape
     flat_h, flat_l = hyps.reshape(B * K, U), hyp_lens.reshape(B * K)
     pred_out, _ = m.predict(params, cfg, flat_h)
-    return -_seq_nll(params, cfg, enc_out.repeat_interleave(K, dim=0),
+    return -sequence_nll(params, cfg, enc_out.repeat_interleave(K, dim=0),
                      pred_out, flat_h, enc_lens.repeat_interleave(K, dim=0),
                      flat_l).reshape(B, K)
 
@@ -107,7 +120,7 @@ def mwer_loss_from_hyps(params, cfg, enc_out, enc_lens, hyps, hyp_lens,
     per_utt = expected_edits(logp, valid, hyps, hyp_lens, labels, label_lens)
     loss = per_utt.mean()
     if nll_weight:
-        nll = _seq_nll(params, cfg, enc_out, m.predict(params, cfg,
+        nll = sequence_nll(params, cfg, enc_out, m.predict(params, cfg,
                                                        labels)[0],
                        labels, enc_lens, label_lens)
         loss = loss + nll_weight * nll.mean()

@@ -7,14 +7,16 @@ bridge is leaf by leaf:
     leaves (`jax.tree.map(np.asarray, params)`) and returns the same tree of
     torch tensors on `device`; `params_to_numpy` is its inverse. Every
     branch of the tree crosses alike: the LSTM or stateless predictor, the
-    CTC head, the pruned loss's simple heads. An int8
+    CTC head, the pruned loss's simple heads, the TDT duration head. An int8
     leaf of a quantized tree (the JAX package's `QTensor`, a NamedTuple
     with fields `q` and `scale`) becomes the port's `ops.quant.QTensor`
     and back, bit for bit.
   * `load_state_dict(path, cfg, device)` reads the torch-layout `.pt` file
     that `tools/export_torch_ckpt.py` writes (nn.LSTM / nn.Linear naming)
     and undoes its transposes, so the port serves a trained model without
-    jax; a BiLSTM layer's `_reverse` keys become its "bwd" dict.
+    jax; a BiLSTM layer's `_reverse` keys become its "bwd" dict. A
+    multi-blank joint's `out` is n_classes wide there too; a TDT model is
+    refused, as the exporter writes no duration head.
 
 The fusion LMs' params (the LSTM LM's {"embed", "lstm", "out"}, the
 transformer LM's {"embed", "pos", "blocks", "ln_f", "out"}) are trees of
@@ -111,6 +113,12 @@ def load_state_dict(path: str, cfg: TransducerConfig,
             "writes only LSTM predictors, so there is no torch-layout state "
             "dict of one to read; carry JAX params over with "
             "params_from_numpy")
+    if cfg.tdt_durations:
+        raise NotImplementedError(
+            "tdt_durations: tools/export_torch_ckpt.py writes no TDT "
+            "duration head (joint.dur), so there is no torch-layout state "
+            "dict of one to read (ROADMAP queue 1, item 18: tools); carry "
+            "JAX params over with params_from_numpy")
     sd = torch.load(path, map_location="cpu", weights_only=True)
     enc = []
     in_dim = cfg.input_dim

@@ -312,7 +312,7 @@ def test_conformer_encoder_matches_jax():
 
 
 def test_unported_configs_raise():
-    cfg = dataclasses.replace(TCFG, tdt_durations=(0, 1, 2))
+    cfg = dataclasses.replace(TCFG, joint_experts=2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tb.beam_search({}, cfg, torch.zeros(1, 2, 16),
                        torch.ones(1, dtype=torch.int32))

@@ -2112,3 +2112,119 @@ def test_cuda_remat_recomputes_on_the_kernels(cuda_device, enc):
         assert seen[False][0] == (1, 1, 48, 48)
         assert seen[True][0] == (1, 1, 96, 48)
     assert seen[True][1] == seen[False][1]
+
+
+# The duration families (multi-blank and TDT): their lattices are plain
+# PyTorch on the caller's device, so the card must give the CPU's losses
+# and gradients; their greedy decode runs the encoder through K4-fwd.
+DURATION_FAMILIES = {"multiblank": dict(big_blank_durations=(2, 4, 8)),
+                     "tdt": dict(tdt_durations=(0, 1, 2, 4)),
+                     "tdt_no_zero": dict(tdt_durations=(1, 2))}
+
+
+def _duration_inputs(family, device):
+    """Logits (and TDT duration logits) of (4, 40, 9, C) f32 with ragged
+    lengths, a zero-frame row and a row of 8 labels in 5 frames (which a
+    TDT set without 0 cannot align)."""
+    g = torch.Generator().manual_seed(0)
+    B, T, U, V = 4, 40, 8, 32
+    durs = DURATION_FAMILIES[family]
+    C = V + len(durs.get("big_blank_durations", ()))
+    logits = 2 * torch.randn(B, T, U + 1, C, generator=g)
+    dur = torch.randn(B, T, U + 1, len(durs.get("tdt_durations", ())),
+                      generator=g)
+    labels = torch.randint(1, V, (B, U), generator=g, dtype=torch.int32)
+    fl = torch.tensor([40, 31, 0, 5], dtype=torch.int32)
+    ll = torch.tensor([8, 5, 2, 8], dtype=torch.int32)
+    return [a.to(device) for a in (logits, dur, labels, fl, ll)]
+
+
+def _duration_loss(family, logits, dur, labels, fl, ll):
+    from rnn_transducer_tpu_torch.ops import rnnt_multiblank, rnnt_tdt
+
+    durs = DURATION_FAMILIES[family]
+    if "tdt_durations" in durs:
+        return rnnt_tdt.rnnt_loss_tdt(logits, dur, labels, fl, ll,
+                                      durs["tdt_durations"])
+    return rnnt_multiblank.rnnt_loss_multiblank(logits, labels, fl, ll,
+                                                durs["big_blank_durations"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", sorted(DURATION_FAMILIES))
+def test_cuda_duration_losses_match_the_cpu(cuda_device, family):
+    """The multi-blank and TDT losses and their gradients (logits and
+    duration logits) on CUDA tensors against the same calls on CPU
+    tensors, f32: within 1e-5."""
+    outs = []
+    for dev in ("cpu", cuda_device):
+        logits, dur, labels, fl, ll = _duration_inputs(family, dev)
+        x = logits.clone().requires_grad_(True)
+        d = dur.clone().requires_grad_(True)
+        loss = _duration_loss(family, x, d, labels, fl, ll)
+        (loss * torch.arange(1, 5, device=dev)).sum().backward()
+        outs.append([t.detach().cpu() for t in (loss, x.grad)]
+                    + ([d.grad.cpu()] if d.grad is not None else []))
+    (cpu, card) = outs
+    assert float(card[0][2]) == 0.0
+    assert (float(card[0][3]) > 1e29) == (family == "tdt_no_zero")
+    for a, b in zip(card, cpu):
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["multiblank", "tdt"])
+def test_cuda_duration_losses_refuse_tf32(cuda_device, family, monkeypatch):
+    logits, dur, labels, fl, ll = _duration_inputs(family, cuda_device)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    with pytest.raises(RuntimeError, match="allow_tf32"):
+        _duration_loss(family, logits, dur, labels, fl, ll)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["multiblank", "tdt"])
+def test_cuda_duration_greedy_matches_the_plain_lstm(cuda_device, family):
+    """Greedy decode of a duration model at libri100 width, f32: the
+    encoder through K4-fwd (4 launches, one a layer) against the same
+    decode with the plain LSTM; tokens, lengths, frames and t_over
+    equal. The big blanks' (or the durations > 1) biases are raised so
+    that jumps win on some frames."""
+    import contextlib
+    import dataclasses
+    from unittest import mock
+
+    import numpy as np
+
+    from rnn_transducer_tpu_torch.decode.greedy import greedy_decode
+    from rnn_transducer_tpu_torch.models import transducer as tm
+    from rnn_transducer_tpu_torch.models.config import config_libri100
+
+    cfg = dataclasses.replace(config_libri100(), compute_dtype="float32",
+                              **DURATION_FAMILIES[family])
+    params = tm.init_params(cfg, np.random.default_rng(0), cuda_device)
+    if family == "multiblank":
+        params["joint"]["out"]["b"][cfg.vocab_size:] += 0.3
+    else:
+        params["joint"]["dur"]["b"][2:] += 0.3
+    g = torch.Generator().manual_seed(1)
+    feats = torch.randn(3, 160, cfg.input_dim, generator=g).to(cuda_device)
+    lens = torch.tensor([160, 97, 40], dtype=torch.int32,
+                        device=cuda_device)
+    outs = []
+    for plain in (False, True):
+        with contextlib.ExitStack() as stack, torch.no_grad():
+            if plain:
+                stack.enter_context(mock.patch.object(
+                    lstm_cuda, "lstm_recurrence",
+                    lstm_cuda.lstm_recurrence_reference))
+            before = lstm_cuda.LAUNCHES
+            enc, enc_lens = tm.encode(params, cfg, feats, lens)
+            tok, n, st = greedy_decode(params, cfg, enc, enc_lens,
+                                       max_symbols=60)
+            outs.append((lstm_cuda.LAUNCHES - before, tok.cpu(), n.cpu(),
+                         st[3].cpu(), st[7].cpu()))
+    (launches, *got), (plain_launches, *want) = outs
+    assert launches == cfg.enc_layers and plain_launches == 0
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)

@@ -232,23 +232,12 @@ def test_mwer_finetune_reduces_risk_on_toy_task():
 @pytest.mark.parametrize("kind, cfg_kw, err, match", [  # stable ids
     pytest.param("sequence", {}, ValueError, "unknown loss_kind",
                  id="sequence-cfg_kw1-ValueError-unknown loss_kind"),
-    pytest.param("mwer", dict(big_blank_durations=(2,)), NotImplementedError,
-                 "item 11", id="mwer-cfg_kw2-NotImplementedError-item 11"),
-    pytest.param("mwer", dict(tdt_durations=(0, 1, 2)), NotImplementedError,
-                 "item 11", id="mwer-cfg_kw3-NotImplementedError-item 11"),
 ])
 def test_mwer_guards(kind, cfg_kw, err, match):
     cfg = port_config.TransducerConfig(**{**SMALL, **cfg_kw})
     with pytest.raises(err, match=match):
         tloop.make_train_step(cfg, port_config.TrainConfig(), device="cpu",
                               loss_kind=kind)
-
-
-def test_mwer_loss_fn_refuses_duration_families():
-    cfg = port_config.TransducerConfig(**{**SMALL,
-                                          "tdt_durations": (0, 1, 2)})
-    with pytest.raises(NotImplementedError, match="item 11"):
-        mwer.mwer_loss_fn({}, cfg, *_t(_batch(0)))
 
 
 def test_train_cli_mwer_phase(tmp_path, capsys):
