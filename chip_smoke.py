@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (rnn_transducer_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py [--seed 0] [--requests 24] [--profile-dir DIR]
+    python3 chip_smoke.py [--seed 0] [--requests 24] [--profile-dir DIR] [--only moe]
 
 Drives the port's main paths at the full width and depth of the libri100
 config (4x512 LSTM encoder, 1x512 predictor, joint 512, vocab 1024, bf16)
@@ -33,7 +33,9 @@ SpecAugment, speed perturbation, dropout, weight noise and EMA) in 5g;
 teacher and MWER fine-tuning on that corpus; 5i CTC (pretraining,
 multitask, greedy and prefix-beam decode), the stateless predictor
 (trained, served, decoded from its checkpoint) and encoder remat; 5j
-the duration families (multi-blank and TDT: trained, served, decoded).
+the duration families (multi-blank and TDT: trained, served, decoded);
+5k the MoE joint (libri100 with 8 experts) in one process and on two
+model ranks in the sp and ep modes, served and decoded.
 Phases, in order:
 
   1. card   require CUDA; print the card's name and power limit
@@ -244,6 +246,30 @@ Phases, in order:
             `joint_loss` and lattice-walk spans; (c) the lock-step
             greedy iterations of the standard model and its twins on one
             encoder output; `dur_launches` joins the kernels line
+  5k. moe (after 5j; `--only moe` runs phases 1-2 and this alone)
+            libri100 with 8 experts of 1024, capacity 1.25, aux 0.01:
+            (c) the training CLI --model-parallel 2 --parallel-mode ep, 2
+            steps into a checkpoint and 1 on --resume (rank 0: 5 / 5 K4,
+            one K3 alpha / beta a step), a resume as sp refused
+            ("topology"); its serve.py --ckpt-dir processes, float and
+            --quantize int8, answer while (a) the f32 gates (B=4 ragged,
+            card against CPU: routes equal, LOSS_RTOL, GRAD_RTOL on auto
+            and pallas, K5 on pallas; the dense decode step within ATOL),
+            the decode CLI greedy / beam and an emitting MoE model in a
+            BatchingEngine float and int8 (4 K4-fwd / K7 a batch, f32
+            tokens equal through the kernels and the plain LSTM) run;
+            then (b) bf16 at (32, 400, 40): the one-process step (ms by
+            slope, GB, 5 / 5 K4 and one K3 each a step, the MoE spans'
+            host and device shares of a profiled step) and two gloo
+            ranks sharing the card (`moe_rank`, a 1x2 mesh): the f32 sp
+            and ep steps at capacity 8 against the one-process step,
+            which has no warm-up and moves the params (the loss and the
+            gradient norm within LOSS_RTOL_MP, each gradient leaf, read
+            from Adam's first moment, within GRAD_RTOL of its largest,
+            the params within PARAM_ATOL_MP where the gradient is above
+            that noise: `step_errs`), bf16 ep and sp ms a step with
+            the exchanges' and gathers' host ms, a conformer ep step (48
+            / 48 K8); `moe_launches` joins the kernels line
   4g. lattice_tiles (last: no profiled check may follow the plain
             versions' long, nearly idle loops) lattice_alpha and
             lattice_beta with the occupancies at U+1 = 8,001, 11,137 and
@@ -339,6 +365,7 @@ from rnn_transducer_tpu_torch.models.config import (
 from rnn_transducer_tpu_torch.ops import fused_ln as fl
 from rnn_transducer_tpu_torch.ops import lstm_cuda
 from rnn_transducer_tpu_torch.ops import lstm_int8_cuda as q8
+from rnn_transducer_tpu_torch.ops import moe
 from rnn_transducer_tpu_torch.ops import rnnt_band_fused as bf
 from rnn_transducer_tpu_torch.ops import rnnt_joint_fused as jf
 from rnn_transducer_tpu_torch.ops import rnnt_lattice_cuda as lat
@@ -348,6 +375,8 @@ from rnn_transducer_tpu_torch.ops.logmel import (featurize, log_mel,
                                                  log_mel_oracle)
 from rnn_transducer_tpu_torch.ops.lstm import _dot, w8a8_supported
 from rnn_transducer_tpu_torch.parallel import mesh as meshlib
+from rnn_transducer_tpu_torch.parallel import tp as tpx
+from rnn_transducer_tpu_torch.parallel.mesh import shard_batch_2d
 from rnn_transducer_tpu_torch.ops.quant import (quantize_params,
                                                 quantize_tensor,
                                                 quantized_bytes)
@@ -4312,15 +4341,17 @@ def emitting_setup(seed: int, n: int, dev, cfg, frames, what: str) -> dict:
 
 
 def config_serving(cfg, seed: int, n: int, dev, frames, bucket: int,
-                   int8: bool, what: str) -> tuple[dict, dict]:
+                   int8: bool, what: str,
+                   serving: dict | None = None) -> tuple[dict, dict]:
     """n requests to a BatchingEngine of `cfg` (made to emit by
     `emitting_setup`) at serve.py's defaults, float and (int8=True) int8:
     one K4-fwd launch a layer direction a batch (K7 under int8 where the
     W8A8 route runs, else K4-fwd on the dequantized w_hh), a mean of
     tokens a request strictly between 0 and max_symbols, and one served
     batch's f32 tokens equal through the kernels and the plain
-    versions."""
-    serving = emitting_setup(seed, n, dev, cfg, frames, what)
+    versions. `serving`: emitting_setup's result, where the caller made
+    it already."""
+    serving = serving or emitting_setup(seed, n, dev, cfg, frames, what)
     params = serving["params"]
     feats, lens = served_batch(serving, dev, bucket)
     per_batch = cfg.enc_layers * (2 if cfg.bidirectional else 1)
@@ -6251,12 +6282,14 @@ def dur_cell(family: str, seed: int, dev, profile_dir,
     return res
 
 
-def dur_serve_cli(ckpt_dir: str, utts: list) -> dict:
-    """serve.py --ckpt-dir in a process of its own: the model config (and
-    durations) from its meta.json; MAX_BATCH /recognize requests and
-    DUR_SESSIONS /session streams of 32-frame chunks at once; /stats;
-    SIGTERM drains it and exits 0."""
-    with serve_process(["--ckpt-dir", ckpt_dir, "--port", "0"]) as srv:
+def ckpt_serve_cli(ckpt_dir: str, utts: list, extra=(),
+                   what: str = "dur") -> dict:
+    """serve.py --ckpt-dir (and `extra`) in a process of its own: the
+    model config (durations, experts) from its meta.json; MAX_BATCH
+    /recognize requests and DUR_SESSIONS /session streams of 32-frame
+    chunks at once; /stats; SIGTERM drains it and exits 0."""
+    with serve_process(["--ckpt-dir", ckpt_dir, "--port", "0",
+                        *extra]) as srv:
         url = srv["url"]
         with concurrent.futures.ThreadPoolExecutor(
                 len(utts) + DUR_SESSIONS) as ex:
@@ -6279,7 +6312,7 @@ def dur_serve_cli(ckpt_dir: str, utts: list) -> dict:
                for s, a in zip(sessions, answers)),
            "offline": stats.get("offline"),
            "streaming": stats.get("streaming"), "drained": srv["drained"]}
-    print("dur_serve_cli " + json.dumps(row))
+    print(f"{what}_serve_cli " + json.dumps(row))
     check(all(c == 200 for c in row["codes"]) and row["rc"] == 0
           and row["drained"]
           and stats.get("streaming", {}).get("requests", 0) >= DUR_SESSIONS,
@@ -6309,13 +6342,12 @@ def dur_cli_train(family: str, seed: int, tmp: str, dev) -> dict:
             "launches": {k: v for k, v in counts.items() if v}}
 
 
-def dur_cli_decode(family: str, d: str, dev) -> dict:
+def ckpt_cli_decode(what: str, cfg, d: str, dev) -> dict:
     """(c) The decode CLI on the checkpoint, greedy and beam 4: 8
     utterances, a finite WER, 4 K4-fwd an encode (a warm-up and the
     batch)."""
     from rnn_transducer_tpu_torch.recognize import main as recognize_cli
 
-    cfg = dur_cfg(family)
     rows = {}
     for mode in ("greedy", "beam"):
         reset_counts()
@@ -6326,12 +6358,12 @@ def dur_cli_decode(family: str, d: str, dev) -> dict:
                                  "--beam", "4", "--device", dev.type])
         counts = read_counts()
         others = {k: v for k, v in counts.items() if v and k != "lstm_fwd"}
-        row = {"what": family, "mode": mode, "out": got,
+        row = {"what": what, "mode": mode, "out": got,
                "lstm_fwd": counts["lstm_fwd"], "other_launches": others}
-        print("dur_cli_decode " + json.dumps(row))
+        print("cli_decode " + json.dumps(row))
         check(got["n"] == 8 and np.isfinite(got["wer"]) and not others
               and counts["lstm_fwd"] == 2 * cfg.enc_layers,
-              f"the decode CLI --mode {mode} on {family}: {row}")
+              f"the decode CLI --mode {mode} on {what}: {row}")
         rows[mode] = row
     return rows
 
@@ -6374,7 +6406,7 @@ def duration_phase(seed: int, dev, profile_dir, tmp: str) -> dict:
         jm_ = jump_models(seed + 110, dev)
     utts = jm_["setup"]["utts"][:MAX_BATCH]
     with concurrent.futures.ThreadPoolExecutor(len(DUR_FAMILIES)) as ex:
-        servers = {f: ex.submit(dur_serve_cli, out["train_cli"][f]["dir"],
+        servers = {f: ex.submit(ckpt_serve_cli, out["train_cli"][f]["dir"],
                                 utts) for f in DUR_FAMILIES}
         with part(seconds, "f32_gates"):
             out["f32"] = {f: dur_f32_gate(f, seed + 111, dev)
@@ -6382,8 +6414,9 @@ def duration_phase(seed: int, dev, profile_dir, tmp: str) -> dict:
         with part(seconds, "decode_gates"):
             out["decode"] = dur_decode_gates(jm_, dev)
         with part(seconds, "cli_decode"):
-            out["decode_cli"] = {f: dur_cli_decode(
-                f, out["train_cli"][f]["dir"], dev) for f in DUR_FAMILIES}
+            out["decode_cli"] = {f: ckpt_cli_decode(
+                f, dur_cfg(f), out["train_cli"][f]["dir"], dev)
+                for f in DUR_FAMILIES}
         with part(seconds, "serve_cli_wait"):
             out["serve_cli"] = {f: s.result() for f, s in servers.items()}
     torch.cuda.empty_cache()
@@ -6405,6 +6438,436 @@ def duration_phase(seed: int, dev, profile_dir, tmp: str) -> dict:
         launches["lstm_fwd"] += row["sessions"]["launches"]
     out["launches"] = launches
     print("dur_launches " + json.dumps(launches))
+    return out
+
+
+# ------------------------------ phase 5k ---------------------------------
+
+# libri100 with an 8-expert MoE joint of expert hidden 1024 (the shape of
+# docs/PERFORMANCE.md:172-181), capacity factor 1.25, aux weight 0.01.
+MOE_KW = dict(joint_experts=8, joint_expert_hidden=1024,
+              moe_capacity_factor=1.25, moe_aux_weight=0.01)
+MOE_F32_B = 4  # the f32 gates' batch (rows of bench_batch, ragged)
+# The two-rank f32 gates run at a capacity factor of E: per-rank capacity
+# (JAX's ep semantics) then drops no token, as the one process drops none.
+MOE_AMPLE_CF = 8.0
+MOE_RANKS = 2  # a 1x2 (data, model) mesh on gloo, the ranks sharing a card
+MOE_MP_STEPS = 3  # bf16 steps of each mode on the ranks; the first untimed
+MOE_CONF_B = 8  # the conformer's ep step (K8 under ep): rows of bench_batch
+MOE_BUCKET = 400  # the served utterances: 150-400 frames
+# A bf16 step of the one-process MoE model: the encoder's 4 layers and the
+# predictor through K4 each way, K3's alpha and beta once (the xla route
+# over the routed joint's logits); no K1, K2 or K5.
+MOE_STEP = {**NO_LAUNCH, "lstm_fwd_with_acts": 5, "lstm_bwd": 5,
+            "lattice_alpha": 1, "lattice_beta": 1}
+# The two-rank steps against one process: test_moe.py's bounds (:224-232).
+LOSS_RTOL_MP, PARAM_ATOL_MP = 2e-5, 2e-5
+# the f32 gate's step must move the params: no warm-up (lr > 0 at step 0)
+MOE_MOVED_MIN = 1e-4
+
+
+def moe_cfg(**kw):
+    return dataclasses.replace(config_libri100(), **{**MOE_KW, **kw})
+
+
+def moe_f32_gates(seed: int, dev) -> dict:
+    """(a) The MoE model's f32 loss and gradients on the card against the
+    CPU at MOE_F32_B ragged rows of bench.py's batch: the routes of every
+    lattice token equal (the count that differs, 0), the loss within
+    LOSS_RTOL, every gradient leaf within GRAD_RTOL of its largest value,
+    on `auto` (the xla route: K3) and `pallas` (K5 and K3) against the
+    CPU's one loss; each route's launches. Then the dense decode step
+    (`DecodeWeights.joint` on every expert) at B=8 positions, card
+    against CPU, within ATOL."""
+    cfg = moe_cfg(compute_dtype="float32")
+    params = m.init_params(cfg, np.random.default_rng(seed), dev)
+    batch = bench_batch(cfg, seed, dev, TRAIN_U, MOE_F32_B, ragged=True)
+
+    def routes(p, b):
+        with torch.no_grad():
+            enc, _ = m.encode(p, cfg, *b[:2])
+            pred, _ = m.predict(p, cfg, b[2])
+            f, g, _, _ = m.joint_activations(p, cfg, enc, pred)
+            z = torch.tanh(f[:, :, None] + g[:, None])
+            return moe.router_top1(p["moe"], z.reshape(-1, z.shape[-1])
+                                   )[1].cpu()
+
+    def run(p, b, impl):
+        flat, spec = torch.utils._pytree.tree_flatten(p)
+        xs = [x.detach().requires_grad_(True) for x in flat]
+        reset_counts()
+        loss, _ = tl.loss_fn(torch.utils._pytree.tree_unflatten(xs, spec),
+                             cfg, *b, loss_impl=impl)
+        grads = torch.autograd.grad(loss, xs, allow_unused=True)
+        if loss.is_cuda:
+            torch.cuda.synchronize()
+        return (float(loss.detach()), [torch.zeros_like(x) if g is None
+                                       else g for x, g in zip(xs, grads)],
+                read_counts())
+
+    cpu_params = torch.utils._pytree.tree_map(lambda x: x.cpu(), params)
+    cpu_batch = tuple(a.cpu() for a in batch)
+    t0 = time.perf_counter()
+    lp, gp, _ = run(cpu_params, cpu_batch, "auto")
+    cpu_s = time.perf_counter() - t0
+    diff = int((routes(params, batch) != routes(cpu_params, cpu_batch)).sum())
+    row = {"B": MOE_F32_B, "T": TRAIN_T, "U": TRAIN_U, **MOE_KW,
+           "tokens": MOE_F32_B * TRAIN_T // 2 * (TRAIN_U + 1),
+           "routes_differing": diff, "loss_cpu": lp, "cpu_s": cpu_s,
+           "loss_rtol": LOSS_RTOL, "grad_rtol": GRAD_RTOL}
+    check(diff == 0, f"MoE f32: {diff} tokens routed differently on the card")
+    want = {"auto": {**MOE_STEP}, "pallas": {**MOE_STEP, "extract_lp": 1,
+                                              "assemble_grad": 1}}
+    launches = dict.fromkeys(NO_LAUNCH, 0)
+    for impl in ("auto", "pallas"):
+        lk, gk, ck = run(params, batch, impl)
+        r = {"loss_card": lk, "loss_rel_err": abs(lk - lp) / abs(lp),
+             "grad_worst_rel_err": max(rel_err(a.cpu(), b)
+                                       for a, b in zip(gk, gp)),
+             "launches": {k: v for k, v in ck.items() if v}}
+        row[impl] = r
+        check(r["loss_rel_err"] <= LOSS_RTOL,
+              f"MoE f32 {impl}: loss card {lk} vs CPU {lp}")
+        check(r["grad_worst_rel_err"] <= GRAD_RTOL,
+              f"MoE f32 {impl}: gradients {r['grad_worst_rel_err']}")
+        check(all(ck[k] == v for k, v in want[impl].items()),
+              f"MoE f32 {impl}: launches {ck}, not {want[impl]}")
+        for k, v in ck.items():
+            launches[k] = launches.get(k, 0) + v
+    rng = np.random.default_rng(seed + 1)
+    enc_t = torch.from_numpy(rng.normal(size=(8, cfg.enc_out_dim))).float()
+    pred_u = torch.from_numpy(rng.normal(size=(8, cfg.pred_hidden))).float()
+    outs = []
+    for p, d in ((params, dev), (cpu_params, "cpu")):
+        dw = m.DecodeWeights(p, cfg)
+        with torch.no_grad():
+            outs.append(dw.joint(dw.enc_proj(enc_t.to(d)),
+                                 dw.pred_proj(pred_u.to(d))).cpu())
+    row["decode_step_max_abs_err"] = float((outs[0] - outs[1]).abs().max())
+    check(row["decode_step_max_abs_err"] <= ATOL[torch.float32],
+          f"MoE dense decode step: card vs CPU {row}")
+    row["launches"] = launches
+    print("moe_f32 " + json.dumps(row))
+    return row
+
+
+def step_errs(params, mu, want, want_mu) -> dict:
+    """The errors of one optimizer step against another from the same
+    params. Adam's first moment after one step is 0.1 times the (clipped)
+    gradient, so mu holds the gradient: each leaf's largest error over its
+    largest value (`grad_worst_rel_err`). The params after Adam's first
+    step moved by lr * g / (|g| + eps), about +-lr whatever the size of
+    g, so where the gradient is at the level of its rounding, a sign that
+    differs puts two params 2 lr apart: the params are held where the
+    gradient exceeds GRAD_RTOL of its leaf's largest
+    (`param_max_abs_err_above_noise`); `param_max_abs_err` is over all of
+    them, and `params_at_noise` counts the rest."""
+    g_err, p_err, p_all, n_noise = 0.0, 0.0, 0.0, 0
+    for p, g, wp, wg in zip(leaves(params), leaves(mu), leaves(want),
+                            leaves(want_mu)):
+        g, wg = g.float(), wg.float()
+        top = float(wg.abs().max())
+        g_err = max(g_err, float((g - wg).abs().max()) / max(top, 1e-30))
+        d = (p.float() - wp.float()).abs()
+        above = wg.abs() > GRAD_RTOL * top
+        p_all = max(p_all, float(d.max()))
+        if bool(above.any()):
+            p_err = max(p_err, float(d[above].max()))
+        n_noise += int((~above).sum())
+    return {"grad_worst_rel_err": g_err, "param_max_abs_err_above_noise":
+            p_err, "param_max_abs_err": p_all, "params_at_noise": n_noise}
+
+
+def moe_f32_tcfg() -> TrainConfig:
+    """The f32 gate's one step: no warm-up, so that it moves the params,
+    and no clip, so that the ranks' gradient norm is held on its own."""
+    return TrainConfig(batch_size=MOE_F32_B, warmup_steps=0,
+                       total_steps=100, grad_clip_norm=1e9)
+
+
+def moe_rank(mesh, seed: int) -> dict:
+    """One rank of phase 5k's 1x2 mesh (`parallel/tp.py`). (a) f32 at
+    MOE_AMPLE_CF: one sp step and one ep step of the MoE model on the
+    rank's batch, the plain params after it (ep's experts gathered). (b)
+    bf16 at (32, 400, 40): MOE_MP_STEPS ep and sp steps, ms a step and
+    the host ms of the exchanges and gathers (`COLLECTIVE_STATS`) a step;
+    one ep step of libri100_conformer with the same experts (K8 under
+    ep). Rank 0's launches over each."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = mesh.device
+    out = {"rank": mesh.rank, "backend": mesh.backend}
+    c32 = moe_cfg(compute_dtype="float32", moe_capacity_factor=MOE_AMPLE_CF)
+    tcfg = moe_f32_tcfg()
+    batch = shard_batch_2d(mesh, bench_batch(c32, seed, "cpu", TRAIN_U,
+                                             MOE_F32_B, ragged=True))
+    for mode in ("sp", "ep"):
+        params = m.init_params(c32, np.random.default_rng(seed + 2), dev)
+        state = (tpx.init_ep_train_state(None, c32, tcfg, mesh.n_model,
+                                         mesh.model_rank, dev, params=params)
+                 if mode == "ep" else
+                 tpx.init_sp_train_state(None, c32, tcfg, dev, params=params))
+        state, info = tpx.make_tp_train_step(c32, tcfg, mesh, mode)(state,
+                                                                   *batch)
+        out[f"f32_{mode}"] = (
+            float(info["loss"]), float(info["grad_norm"]),
+            tpx.plain_params(mesh, state.params, mode, c32),
+            tpx.plain_params(mesh, state.opt_state["mu"], mode, c32))
+        del params, state
+    torch.cuda.empty_cache()
+    cfg = moe_cfg()
+    tcfg = TrainConfig(batch_size=TRAIN_B, warmup_steps=100,
+                       total_steps=10000)
+    batch = shard_batch_2d(mesh, bench_batch(cfg, seed, "cpu", TRAIN_U,
+                                             TRAIN_B))
+    for mode in ("ep", "sp"):
+        state = (tpx.init_ep_train_state(np.random.default_rng(seed), cfg,
+                                         tcfg, mesh.n_model, mesh.model_rank,
+                                         dev) if mode == "ep" else
+                 tpx.init_sp_train_state(np.random.default_rng(seed), cfg,
+                                         tcfg, dev))
+        step = tpx.make_tp_train_step(cfg, tcfg, mesh, mode)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        rows = []
+        for i in range(MOE_MP_STEPS):
+            meshlib.COLLECTIVE_STATS.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, info = step(state, *batch)
+            torch.cuda.synchronize()
+            rows.append({"ms": (time.perf_counter() - t0) * 1e3,
+                         "loss": float(info["loss"]),
+                         "skipped": int(info["skipped_nonfinite"]),
+                         "collectives": {k: dict(v) for k, v in
+                                         meshlib.COLLECTIVE_STATS.items()}})
+        out[f"bf16_{mode}"] = {"steps": rows, "launches": read_counts(),
+                               "peak_mem_gb":
+                                   torch.cuda.max_memory_allocated() / 1e9}
+        del state, step
+        torch.cuda.empty_cache()
+    conf = dataclasses.replace(config_libri100_conformer(), **MOE_KW)
+    tcfg = TrainConfig(batch_size=MOE_CONF_B, warmup_steps=100,
+                       total_steps=10000)
+    state = tpx.init_ep_train_state(np.random.default_rng(seed), conf, tcfg,
+                                    mesh.n_model, mesh.model_rank, dev)
+    reset_counts()
+    state, info = tpx.make_tp_train_step(conf, tcfg, mesh, "ep")(
+        state, *shard_batch_2d(mesh, bench_batch(conf, seed, "cpu", TRAIN_U,
+                                                 MOE_CONF_B)))
+    torch.cuda.synchronize()
+    out["bf16_conformer_ep"] = {"loss": float(info["loss"]),
+                                "skipped": int(info["skipped_nonfinite"]),
+                                "launches": read_counts()}
+    return out
+
+
+def moe_ranks(seed: int, dev, one_process_ms: float) -> dict:
+    """(a) and (b) on MOE_RANKS gloo ranks sharing the card: the f32 sp
+    and ep steps against one process's step on the card (LOSS_RTOL_MP,
+    PARAM_ATOL_MP), and the bf16 rows."""
+    c32 = moe_cfg(compute_dtype="float32", moe_capacity_factor=MOE_AMPLE_CF)
+    tcfg = moe_f32_tcfg()
+    init = m.init_params(c32, np.random.default_rng(seed + 2), dev)
+    state = tl.init_train_state(None, c32, tcfg, params=init)
+    state, info = tl.make_train_step(c32, tcfg)(state, *bench_batch(
+        c32, seed, dev, TRAIN_U, MOE_F32_B, ragged=True))
+    want_loss, want = float(info["loss"]), state.params
+    want_norm, want_mu = float(info["grad_norm"]), state.opt_state["mu"]
+    moved = max(float((a - b).abs().max()) for a, b in zip(leaves(want),
+                                                           leaves(init)))
+    check(moved > MOE_MOVED_MIN, f"the one-process f32 MoE step moved the "
+          f"params by {moved}")
+    del state, init
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    got = meshlib.spawn(moe_rank, MOE_RANKS, [str(dev)] * MOE_RANKS,
+                        args=(seed,), timeout_s=DP_TIMEOUT_S,
+                        n_model=MOE_RANKS)
+    row = {"ranks": MOE_RANKS, "mesh": f"1x{MOE_RANKS}",
+           "backend": got["backend"], "wall_s": time.perf_counter() - t0}
+    for mode in ("sp", "ep"):
+        loss, norm, params, mu = got.pop(f"f32_{mode}")
+        row[f"f32_{mode}"] = {"loss": loss, "loss_one_process": want_loss,
+                              "loss_rel_err": abs(loss - want_loss)
+                              / abs(want_loss),
+                              "grad_norm": norm,
+                              "grad_norm_one_process": want_norm,
+                              "grad_norm_rel_err": abs(norm - want_norm)
+                              / abs(want_norm),
+                              **step_errs(params, mu, want, want_mu),
+                              "one_process_param_max_change": moved}
+        r = row[f"f32_{mode}"]
+        check(r["loss_rel_err"] <= LOSS_RTOL_MP
+              and r["grad_norm_rel_err"] <= LOSS_RTOL_MP
+              and r["grad_worst_rel_err"] <= GRAD_RTOL
+              and r["param_max_abs_err_above_noise"] <= PARAM_ATOL_MP,
+              f"MoE {mode} on {MOE_RANKS} ranks against one process: "
+              f"{row[f'f32_{mode}']}")
+    for mode in ("ep", "sp"):
+        r = got[f"bf16_{mode}"]
+        timed = r["steps"][1:]
+        ex = [sum(v["ms"] for v in s["collectives"].values()) for s in timed]
+        row[f"bf16_{mode}"] = {
+            "ms_per_step": statistics.mean(s["ms"] for s in timed),
+            "step_ms": [s["ms"] for s in r["steps"]],
+            "one_process_ms_per_step": one_process_ms,
+            "collective_host_ms_per_step": statistics.mean(ex),
+            "collectives": timed[-1]["collectives"],
+            "losses": [s["loss"] for s in r["steps"]],
+            "peak_mem_gb_rank0": r["peak_mem_gb"],
+            "launches_rank0": {k: v for k, v in r["launches"].items() if v}}
+        check(all(s["skipped"] == 0 and np.isfinite(s["loss"])
+                  for s in r["steps"]),
+              f"a bf16 {mode} step was skipped or non-finite")
+        check_step_counts({"launches": r["launches"],
+                           "steps": MOE_MP_STEPS}, MOE_STEP,
+                          f"rank 0's bf16 {mode} steps")
+    ce = got["bf16_conformer_ep"]
+    row["bf16_conformer_ep"] = {**ce, "launches": {
+        k: v for k, v in ce["launches"].items() if v}}
+    check(ce["skipped"] == 0 and np.isfinite(ce["loss"])
+          and ce["launches"]["fused_ln_fwd"] == LN_PER_ENCODE
+          and ce["launches"]["fused_ln_bwd"] == LN_PER_ENCODE,
+          f"the conformer's ep step: {row['bf16_conformer_ep']}")
+    row["card"] = card_line()
+    print("moe_ranks " + json.dumps(row))
+    launches = dict.fromkeys(NO_LAUNCH, 0)
+    for r in (got["bf16_ep"], got["bf16_sp"], ce):
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    row["launches"] = launches
+    return row
+
+
+def moe_cell(seed: int, dev, profile_dir) -> dict:
+    """(b) bf16 steps of the one-process MoE model at (32, 400, 40) (the
+    xla route over the routed joint's logits): ms a step by slope, peak
+    GB, MOE_STEP's launches a step, and a profiled step: the MoE spans'
+    host ms and the device time inside them, each as a share of the
+    step."""
+    cfg = moe_cfg()
+    tcfg = TrainConfig(batch_size=TRAIN_B, warmup_steps=100,
+                       total_steps=10000)
+    state = tl.init_train_state(np.random.default_rng(seed), cfg, tcfg, dev)
+    step = tl.make_train_step(cfg, tcfg, device=dev)
+    batch = bench_batch(cfg, seed, dev, TRAIN_U, TRAIN_B)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, res = timed_steps(step, state, batch, TRAIN_B)
+    check_step_counts(res, MOE_STEP, "phase 5k's MoE steps")
+    state, prof = profile_step(step, state, batch, profile_dir,
+                               "moe_step", windows=1)
+    host, wall = prof["host_span_ms"], prof["wall_ms"]
+    res.update({"B": TRAIN_B, "T": TRAIN_T, "U": TRAIN_U, **MOE_KW,
+                "dtype": "bfloat16",
+                "tokens": TRAIN_B * TRAIN_T // 2 * (TRAIN_U + 1),
+                "capacity": moe.capacity(TRAIN_B * TRAIN_T // 2
+                                         * (TRAIN_U + 1), 8, 1.25),
+                "launches_per_step": {k: v / res["steps"] for k, v in
+                                      res["launches"].items() if v},
+                "profile": {
+                    "wall_ms": wall,
+                    "device_busy_share": prof["device_busy_share"],
+                    "host_span_ms": host,
+                    "device_span_ms": prof["device_span_ms"],
+                    "moe_span_share": {k: host.get(k, 0.0) / wall
+                                       for k in moe.SPANS},
+                    "moe_device_span_share": {
+                        k: prof["device_span_ms"].get(k, 0.0) / wall
+                        for k in moe.SPANS},
+                    "device_ms": prof["device_ms"],
+                    "top_device_ops": prof["top_device_ops"][:6]},
+                "card": card_line()})
+    print("moe_bf16 " + json.dumps(res))
+    del state, step
+    torch.cuda.empty_cache()
+    return res
+
+
+def moe_cli(seed: int, tmp: str, dev) -> dict:
+    """(c) The training CLI on the MoE config (a JSON file): 2 steps with
+    --model-parallel 2 --parallel-mode ep into a checkpoint (rank 0's
+    launches: MOE_STEP's a step), one more on --resume, and a resume under
+    another topology refused."""
+    path = os.path.join(tmp, "moe_libri100.json")
+    with open(path, "w") as f:
+        json.dump(dataclasses.asdict(moe_cfg()), f)
+    d = os.path.join(tmp, "moe_ep")
+    common = ["--config", path, "--model-parallel", str(MOE_RANKS),
+              "--parallel-mode", "ep", "--batch-size", "8",
+              "--max-frames", "200", "--max-labels", "20",
+              "--warmup-steps", "1", "--log-every", "1", "--eval-every", "0",
+              "--ckpt-dir", d, "--seed", str(seed), "--device", dev.type]
+    reset_counts()
+    first = cli_json(common + ["--steps", "2"], 2, "moe_ep")
+    resumed = cli_json(common + ["--steps", "3", "--resume"], 3,
+                       "moe_ep_resume")
+    counts = read_counts()
+    check_step_counts({"launches": counts, "steps": 3}, MOE_STEP,
+                      "the ep training CLI (rank 0)")
+    meta = ckpt.load_meta(d)
+    check(meta.get("parallel") == {"mode": "ep", "mp": MOE_RANKS}
+          and ckpt.load_model_config(d) == moe_cfg(),
+          f"the ep checkpoint's meta.json: {meta.get('parallel')}")
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            train_cli([*common[:5], "sp", *common[6:], "--steps", "4",
+                       "--resume"])
+        refused = None
+    except SystemExit as e:
+        refused = str(e)
+    check(refused is not None and "topology" in refused,
+          f"a resume under another topology: {refused}")
+    return {"dir": d, "first": first, "resumed": resumed,
+            "refused": refused,
+            "launches": {k: v for k, v in counts.items() if v}}
+
+
+def moe_phase(seed: int, dev, profile_dir, tmp: str) -> dict:
+    """Phase 5k: the MoE joint with the sp and ep modes, (a)-(c) above.
+    The CLI's checkpoint comes first, so that its two serve.py processes
+    (float and --quantize int8) answer while the f32 gates, the decode
+    CLI and the served emitting model run; the timed bf16 cells run with
+    no server alive. Each part's seconds on a line, and `moe_launches`
+    for the kernels line."""
+    out, seconds = {}, {}
+    with part(seconds, "cli_train"):
+        out["cli"] = moe_cli(seed, tmp, dev)
+    d = out["cli"]["dir"]
+    with part(seconds, "serving_setup"):
+        serving = emitting_setup(seed + 120, MAX_BATCH, dev, moe_cfg(),
+                                 (150, MOE_BUCKET), "moe")
+    utts = serving["utts"]
+    with concurrent.futures.ThreadPoolExecutor(2) as ex:
+        servers = {what: ex.submit(ckpt_serve_cli, d, utts, extra, "moe")
+                   for what, extra in (("float", ()),
+                                       ("int8", ("--quantize", "int8")))}
+        with part(seconds, "f32_gates"):
+            out["f32"] = moe_f32_gates(seed + 121, dev)
+        with part(seconds, "cli_decode"):
+            out["decode_cli"] = ckpt_cli_decode("moe", moe_cfg(), d, dev)
+        with part(seconds, "served"):
+            out["served"], _ = config_serving(
+                moe_cfg(), seed + 120, MAX_BATCH, dev, (150, MOE_BUCKET),
+                MOE_BUCKET, True, "moe", serving=serving)
+        with part(seconds, "serve_cli_wait"):
+            out["serve_cli"] = {w: s.result() for w, s in servers.items()}
+    torch.cuda.empty_cache()
+    with part(seconds, "cell"):
+        out["cell"] = moe_cell(seed + 122, dev, profile_dir)
+    with part(seconds, "ranks"):
+        out["ranks"] = moe_ranks(seed + 123, dev, out["cell"]["ms_per_step"])
+    print("moe_seconds " + json.dumps(seconds))
+    launches = dict.fromkeys(NO_LAUNCH, 0)
+    for counts in (out["cell"]["launches"], out["f32"]["launches"],
+                   out["ranks"]["launches"]):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+    for name, row in out["served"].items():
+        launches[row["kernel"]] += row["launches"]
+    out["launches"] = launches
+    print("moe_launches " + json.dumps(launches))
     return out
 
 
@@ -6430,6 +6893,9 @@ def main(argv=None):
     p.add_argument("--profile-dir", default=None,
                    help="write the training step's torch.profiler trace "
                         "and table here")
+    p.add_argument("--only", default=None, choices=["moe"],
+                   help="phases 1-2, then this phase alone (moe: 5k), and "
+                        "no kernels line")
     args = p.parse_args(argv)
 
     # phase 1: card
@@ -6453,6 +6919,16 @@ def main(argv=None):
     for line in build.build_log().splitlines():
         if "ptxas info" in line and ("Used" in line or "Compiling" in line):
             print(f"build: {line.strip()}")
+    if args.only == "moe":
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            moe_phase(args.seed, dev, args.profile_dir, tmp)
+        print(f"phase moe: {time.perf_counter() - t0:.1f} s")
+        print(card_line())
+        print(json.dumps({"ok": True, "only": args.only, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
 
     # phase 3: each kernel against its plain version
     t0 = time.perf_counter()
@@ -6554,6 +7030,11 @@ def main(argv=None):
         dur = duration_phase(args.seed, dev, args.profile_dir, tmp)
         print(f"phase duration: {time.perf_counter() - t0:.1f} s")
         torch.cuda.empty_cache()
+        # phase 5k: the MoE joint with the sp and ep modes
+        t0 = time.perf_counter()
+        mo = moe_phase(args.seed, dev, args.profile_dir, tmp)
+        print(f"phase moe: {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
 
     # phase 4f: beam serving (its profiled windows after the training
     # phases' kernel-name checks); then 4g, after every profiled window
@@ -6601,19 +7082,23 @@ def main(argv=None):
     band_counts = pruned["launches"]
     cl = ctc["launches"]  # phase 5i's cells, engines: added to each count
     dl = dur["launches"]  # phase 5j's cells and sessions: K4 alone
+    ml = mo["launches"]  # phase 5k's cells, gates, rank 0 and engines
     print(json.dumps({"kernels": [
         kernel_entry("lstm_fwd", "lstm_fwd.cu", f"{lp}:119",
-                     e2e["launches"] + cl["lstm_fwd"] + dl["lstm_fwd"],
+                     e2e["launches"] + cl["lstm_fwd"] + dl["lstm_fwd"]
+                     + ml["lstm_fwd"],
                      k["max_abs_err"], km["kernel_ms"], km["plain_ms"], km,
                      km["library_ms"]),
         kernel_entry("lstm_fwd_with_acts", "lstm_fwd.cu", f"{lp}:119",
                      counts["lstm_fwd_with_acts"]
-                     + cl["lstm_fwd_with_acts"] + dl["lstm_fwd_with_acts"],
+                     + cl["lstm_fwd_with_acts"] + dl["lstm_fwd_with_acts"]
+                     + ml["lstm_fwd_with_acts"],
                      max(kt["worst"]["fwd"], k960["worst"]["fwd"]),
                      tm_["fwd_kernel_ms"], tm_["fwd_plain_ms"],
                      tm_["fwd_bound"], tm_["cudnn_train_fwd_ms"]),
         kernel_entry("lstm_bwd", "lstm_bwd.cu", f"{lp}:222",
-                     counts["lstm_bwd"] + cl["lstm_bwd"] + dl["lstm_bwd"],
+                     counts["lstm_bwd"] + cl["lstm_bwd"] + dl["lstm_bwd"]
+                     + ml["lstm_bwd"],
                      max(kt["worst"]["bwd"], k960["worst"]["bwd"]),
                      tm_["bwd_kernel_ms"], tm_["bwd_plain_ms"],
                      tm_["bwd_bound"], tm_["cudnn_bwd_ms"]),
@@ -6626,27 +7111,32 @@ def main(argv=None):
                      jm_["bwd_kernel_ms"], jm_["bwd_plain_ms"],
                      jm_["bwd_bound"]),
         kernel_entry("lattice_alpha", "lattice.cu", f"{wp}:65",
-                     counts["lattice_alpha"] + cl["lattice_alpha"],
+                     counts["lattice_alpha"] + cl["lattice_alpha"]
+                     + ml["lattice_alpha"],
                      kl["worst_alpha"],
                      lm["alpha_kernel_ms"], lm["alpha_plain_ms"],
                      lm["alpha_bound"], device_ms=lm["alpha_device_ms"]),
         kernel_entry("lattice_beta", "lattice.cu", f"{wp}:65",
-                     counts["lattice_beta"] + cl["lattice_beta"],
+                     counts["lattice_beta"] + cl["lattice_beta"]
+                     + ml["lattice_beta"],
                      kl["worst_beta"],
                      lm["beta_kernel_ms"], lm["beta_plain_ms"],
                      lm["beta_bound"], device_ms=lm["beta_device_ms"]),
         kernel_entry("extract_lp", "loss_rows.cu", f"{rp}:82",
-                     two_pass["extract_lp"] + cl["extract_lp"],
+                     two_pass["extract_lp"] + cl["extract_lp"]
+                     + ml["extract_lp"],
                      kr["worst_extract"],
                      rm["extract_kernel_ms"], rm["extract_plain_ms"],
                      rm["extract_bound"]),
         kernel_entry("assemble_grad", "loss_rows.cu", f"{rp}:126",
-                     two_pass["assemble_grad"] + cl["assemble_grad"],
+                     two_pass["assemble_grad"] + cl["assemble_grad"]
+                     + ml["assemble_grad"],
                      kr["worst_grad"],
                      rm["grad_kernel_ms"], rm["grad_plain_ms"],
                      rm["grad_bound"]),
         kernel_entry("lstm_fwd_int8", "lstm_fwd_q.cu", f"{lp}:532",
-                     e2e_q["launches"] + cl["lstm_fwd_int8"],
+                     e2e_q["launches"] + cl["lstm_fwd_int8"]
+                     + ml["lstm_fwd_int8"],
                      kq["max_abs_err"],
                      kq["main"]["kernel_ms"], kq["main"]["plain_ms"],
                      kq["main"], kernel="lstm_q_persistent_kernel"),
@@ -6655,13 +7145,15 @@ def main(argv=None):
                      kg["main"]["kernel_ms"], kg["main"]["plain_ms"],
                      kg["main"], kernel=" + ".join(K9_KERNELS)),
         kernel_entry("fused_ln_fwd", "fused_ln.cu", f"{fp}:118",
-                     e2e_c["launches"] + cl["fused_ln_fwd"],
+                     e2e_c["launches"] + cl["fused_ln_fwd"]
+                     + ml["fused_ln_fwd"],
                      kln["worst"]["fwd"],
                      lnm["fwd_kernel_ms"], lnm["fwd_plain_ms"],
                      lnm["fwd_bound"], lnm["fwd_library_ms"]),
         kernel_entry("fused_ln_bwd", "fused_ln.cu", f"{fp}:152",
                      conf_train["launches"]["fused_ln_bwd"]
-                     + cl["fused_ln_bwd"], kln["worst"]["bwd"],
+                     + cl["fused_ln_bwd"] + ml["fused_ln_bwd"],
+                     kln["worst"]["bwd"],
                      lnm["bwd_kernel_ms"], lnm["bwd_plain_ms"],
                      lnm["bwd_bound"],
                      lnm["bwd_library_ms"]),

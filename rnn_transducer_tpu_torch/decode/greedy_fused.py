@@ -342,13 +342,16 @@ def pack_weights(weights, plan: ClusterPlan) -> torch.Tensor:
 
 def supported(cfg: TransducerConfig) -> bool:
     """The JAX kernel's predicate, one predictor layer and E, H and J
-    multiples of 128, and two more conditions that JAX's predicate
+    multiples of 128, and three more conditions that JAX's predicate
     (greedy_pallas.py:33-37) does not ask: an LSTM predictor (the kernel
-    steps w_ih and w_hh, which a stateless predictor has not), and no
+    steps w_ih and w_hh, which a stateless predictor has not), no
     duration family (the kernel advances one frame a blank and has no
-    duration head; JAX's engine never calls its kernel on one)."""
+    duration head; JAX's engine never calls its kernel on one), and no
+    MoE joint (the kernel's joint has no experts, so it would decode the
+    model without them)."""
     return (cfg.pred_type == "lstm" and cfg.pred_layers == 1
             and not cfg.big_blank_durations and not cfg.tdt_durations
+            and cfg.joint_experts == 0
             and cfg.embed_dim % LANE == 0
             and cfg.pred_hidden % LANE == 0
             and cfg.joint_dim % LANE == 0)
@@ -526,8 +529,8 @@ def _check_fused(cfg: TransducerConfig) -> None:
     m.check_supported(cfg)
     if not supported(cfg):
         raise ValueError("greedy_decode_fused needs an LSTM predictor of "
-                         "one layer and E, H, J multiples of 128; use "
-                         "decode.greedy")
+                         "one layer, E, H, J multiples of 128, no duration "
+                         "family and no MoE joint; use decode.greedy")
 
 
 def recognize_greedy_fused(params, cfg: TransducerConfig, feats, feat_lens,

@@ -11,8 +11,13 @@ Plain functions on tensors over a parameter dict in the JAX layout:
 pred_type="stateless", [{"w": (pred_context * E, pred_hidden), "b"}],
 "joint": {"enc_proj", "pred_proj", "out": {"w": (in, out), "b"}[,
 "dur": the TDT duration head]}[, "ctc_head": {"w": (enc_out_dim, V),
-"b"}]}; a multi-blank joint's "out" has V + len(big_blank_durations)
-columns (`n_classes`).
+"b"}][, "moe": {"router": (J, E), "w1": (E, J, H), "b1": (E, H), "w2":
+(E, H, J), "b2": (E, J)}]}; a multi-blank joint's "out" has V +
+len(big_blank_durations) columns (`n_classes`). With joint_experts > 0
+a residual top-1 MoE FFN (`ops/moe.py`) runs on the joint's activation:
+routed through the capacity buffer on the lattice (`joint`, which can
+also return the load-balance aux loss), dense in the decode steps
+(`DecodeWeights.joint`, `joint_step`), as in JAX.
 It covers serving (`encode`, `predict_step`, `joint_step`,
 `joint_step_tdt`, `ctc_logits`), streaming (`init_enc_state`,
 `encode_chunk`) and the training forward (`predict`, `joint`,
@@ -20,8 +25,7 @@ It covers serving (`encode`, `predict_step`, `joint_step`,
 package's dropout sites in `encode` and `predict`. With remat_encoder,
 `encode` recomputes each conformer block or LSTM layer in the backward
 (`torch.utils.checkpoint`, as JAX's `jax.checkpoint`), its dropout left
-outside the recomputed function. Configurations outside it raise
-NotImplementedError naming their ROADMAP item. Every entry point takes
+outside the recomputed function. Every entry point takes
 int8 serving params (`ops/quant.py`) and dequantizes them as the JAX
 package does; `encode` keeps `w_hh` int8 for the W8A8 recurrence.
 """
@@ -47,20 +51,20 @@ from rnn_transducer_tpu_torch.ops.lstm import (
     lstm_layer,
     mask_padding,
 )
+from rnn_transducer_tpu_torch.ops.moe import (init_moe_params, moe_dense,
+                                             moe_top1)
 from rnn_transducer_tpu_torch.ops.quant import maybe_dequant_tree
 
 Params = dict[str, Any]
 
 
 def check_supported(cfg: TransducerConfig) -> None:
-    """Raise NotImplementedError for a config this port cannot run yet."""
+    """Raise ValueError for an encoder or predictor type the model does
+    not know."""
     if cfg.enc_type not in ("lstm", "conformer"):
         raise ValueError(f"unknown enc_type {cfg.enc_type!r}")
     if cfg.pred_type not in ("lstm", "stateless"):
         raise ValueError(f"unknown pred_type {cfg.pred_type!r}")
-    if cfg.joint_experts > 0:
-        raise NotImplementedError("not ported yet: joint_experts (ROADMAP "
-                                  "queue 1, item 16: MoE joint)")
 
 
 def _check_families(cfg: TransducerConfig) -> None:
@@ -155,6 +159,9 @@ def init_params(cfg: TransducerConfig, rng: np.random.Generator,
             "am": _init_linear(rng, cfg.enc_out_dim, cfg.vocab_size),
             "lm": _init_linear(rng, cfg.pred_hidden, cfg.vocab_size),
         }
+    if cfg.joint_experts > 0:  # the residual MoE on the joint activation
+        params["moe"] = init_moe_params(rng, cfg.joint_experts,
+                                        cfg.joint_dim, cfg.moe_hidden)
     return params_from_numpy(params, device)
 
 
@@ -406,6 +413,12 @@ class DecodeWeights:
         self.out_w, self.out_b = r(jp["out"]["w"]), jp["out"]["b"].float()
         if "dur" in jp:  # the TDT duration head
             self.dur_w, self.dur_b = r(jp["dur"]["w"]), jp["dur"]["b"].float()
+        self.moe = None
+        if cfg.joint_experts > 0:  # the dense residual MoE, w1 / w2 rounded
+            mp = params["moe"]
+            self.moe = {"router": mp["router"].float(), "w1": r(mp["w1"]),
+                        "b1": mp["b1"].float(), "w2": r(mp["w2"]),
+                        "b2": mp["b2"].float()}
 
     def _mm(self, x, w):
         return torch.matmul(x.to(self.cd).float(), w)
@@ -433,7 +446,13 @@ class DecodeWeights:
         return self._mm(pred, self.pred_w) + self.pred_b
 
     def joint(self, f, g):
-        return self._mm(torch.tanh(f + g), self.out_w) + self.out_b
+        z = torch.tanh(f + g)
+        if self.moe is not None:  # JAX joint_step's dense residual
+            shape = z.shape
+            y, _ = moe_dense(self.moe, z.reshape(-1, shape[-1]),
+                             compute_dtype=self.cd, rounded=True)
+            z = z + y.reshape(shape)
+        return self._mm(z, self.out_w) + self.out_b
 
     def joint_tdt(self, f, g):
         """(token logits, duration logits) off one activation."""
@@ -499,13 +518,33 @@ def joint_activations(params: Params, cfg: TransducerConfig, enc_out,
     return f, g, jp["out"]["w"], jp["out"]["b"]
 
 
-def joint(params: Params, cfg: TransducerConfig, enc_out, pred_out):
+def _moe_residual(params: Params, cfg: TransducerConfig, z):
+    """Residual top-1 MoE on the lattice's joint activations z (..., J)
+    through the capacity buffer (`moe_top1`) -> (z', aux) (JAX
+    `_moe_residual`; its dense form is `DecodeWeights.joint`'s)."""
+    shape = z.shape
+    y, aux = moe_top1(params["moe"], z.reshape(-1, shape[-1]),
+                      capacity_factor=cfg.moe_capacity_factor,
+                      compute_dtype=cfg.cdtype)
+    return z + y.reshape(shape), aux
+
+
+def joint(params: Params, cfg: TransducerConfig, enc_out, pred_out,
+          with_aux: bool = False):
     """Joint network over the lattice: enc_out (B, T, De), pred_out
-    (B, U+1, Dp) -> fp32 logits (B, T, U+1, V), materialised."""
+    (B, U+1, Dp) -> fp32 logits (B, T, U+1, V), materialised. With
+    cfg.joint_experts > 0 the routed MoE residual runs on the lattice's
+    activations; with_aux=True returns (logits, its load-balance loss),
+    0 without experts."""
     check_supported(cfg)
+    params = maybe_dequant_tree(params)
     f, g, w, b = joint_activations(params, cfg, enc_out, pred_out)
     z = torch.tanh(f[:, :, None, :] + g[:, None, :, :])
-    return _dot(z, w, cfg.cdtype) + b.float()
+    aux = torch.zeros((), dtype=torch.float32, device=z.device)
+    if cfg.joint_experts > 0:
+        z, aux = _moe_residual(params, cfg, z)
+    logits = _dot(z, w, cfg.cdtype) + b.float()
+    return (logits, aux) if with_aux else logits
 
 
 def joint_tdt(params: Params, cfg: TransducerConfig, enc_out, pred_out):
@@ -528,8 +567,10 @@ def ctc_logits(params: Params, cfg: TransducerConfig, enc_out):
 
 
 def forward(params: Params, cfg: TransducerConfig, feats, feat_lens,
-            labels):
-    """features + labels -> (logits (B, T', U+1, V), enc_lens (B,))."""
+            labels, with_aux: bool = False):
+    """features + labels -> (logits (B, T', U+1, V), enc_lens (B,));
+    with_aux=True gives ((logits, moe aux), enc_lens)."""
     enc_out, enc_lens = encode(params, cfg, feats, feat_lens)
     pred_out, _ = predict(params, cfg, labels)
-    return joint(params, cfg, enc_out, pred_out), enc_lens
+    return joint(params, cfg, enc_out, pred_out,
+                 with_aux=with_aux), enc_lens

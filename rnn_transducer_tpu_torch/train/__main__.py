@@ -100,6 +100,25 @@ rank reads the manifest and keeps its rows of each batch.
 
     python -m rnn_transducer_tpu_torch.train --config libri960 \
         --batch-size 64 --max-frames 400 --max-labels 60 --data-parallel 2
+
+--model-parallel M (> 1) trains on a (data, model) mesh of
+--data-parallel N rows of M ranks (parallel/mesh.make_mesh_2d; N defaults
+to the visible cards over M, at least 1; the ranks share the cards when
+there are fewer, over gloo) with --parallel-mode sp (sequence parallel:
+replicated params, the lattice's frames sharded over the model ranks) or
+ep (expert parallel: sp plus the MoE joint's experts sharded; the config
+needs joint_experts > 0), parallel/tp.py. tp and pp are not ported
+(items 16(b) and 16(c)), nor --microbatches, which is pp's. train.py's
+checks hold: --mwer-steps only under sp, the duration families not
+under ep, --loss-impl pruned, --distill-from and --ar-range not under ep
+(and, item 16(b), not yet under sp). meta.json records {"parallel":
+{"mode", "mp"}}; --resume refuses a checkpoint of another topology. Rank
+0 saves the ep state in JAX's stacked TPParams layout ({"rep", "shd"},
+the experts (M, E / M, ...)), which `train/checkpoint.load_plain_params`
+merges, so the decode CLI and serve.py --ckpt-dir read it.
+
+    python -m rnn_transducer_tpu_torch.train --config moe.json \
+        --model-parallel 2 --parallel-mode ep --ckpt-dir ckpt
 """
 
 from __future__ import annotations
@@ -128,6 +147,7 @@ from rnn_transducer_tpu_torch.models.config import (NAMED_CONFIGS,
                                                     TrainConfig,
                                                     TransducerConfig)
 from rnn_transducer_tpu_torch.parallel import mesh as meshlib
+from rnn_transducer_tpu_torch.parallel import tp
 from rnn_transducer_tpu_torch.train import checkpoint as ckpt
 from rnn_transducer_tpu_torch.decode.greedy import recognize_greedy
 from rnn_transducer_tpu_torch.decode.metrics import (error_rate,
@@ -280,6 +300,16 @@ def parse_args(argv=None):
                    help="torch device (default cuda; no fallback to cpu)")
     p.add_argument("--data-parallel", type=int, default=0,
                    help="mesh size; 0 = all local devices")
+    p.add_argument("--model-parallel", type=int, default=1,
+                   help="model-axis size of a 2-D (data, model) mesh; "
+                        "> 1 enables --parallel-mode")
+    p.add_argument("--parallel-mode", default="tp", choices=list(tp.MODES),
+                   help="model-axis strategy: sequence parallel (sp: the "
+                        "lattice's frames sharded) or expert parallel (ep: "
+                        "sp plus the MoE joint's experts sharded; needs "
+                        "joint_experts > 0); tp and pp are not ported")
+    p.add_argument("--microbatches", type=int, default=0,
+                   help="pp only: microbatches per step (not ported)")
     return p.parse_args(argv)
 
 
@@ -391,7 +421,79 @@ def _setup(args):
         tok_meta = tokenizer_to_meta(tok)
     if args.ar_align_from and args.ar_range <= 0:
         raise SystemExit("--ar-align-from needs --ar-range N")
+    _check_parallel(args, cfg)
     return cfg, tcfg, tok_meta
+
+
+def _par_mode(args) -> str | None:
+    """The model-parallel mode, None without --model-parallel > 1."""
+    return args.parallel_mode if args.model_parallel > 1 else None
+
+
+def _check_parallel(args, cfg: TransducerConfig) -> None:
+    """train.py's model-parallel checks (:275-350) as they apply to sp and
+    ep, in its words; tp and pp refused, naming their items."""
+    mode = _par_mode(args)
+    if mode is not None:
+        try:
+            tp.check_mode(mode)
+        except NotImplementedError as e:
+            raise SystemExit(str(e)) from None
+    if args.microbatches:  # pp's, and pp is refused above
+        raise SystemExit("--microbatches applies to --parallel-mode pp only")
+    if mode is None:
+        return
+    if args.distill_from:
+        if mode == "ep":
+            raise SystemExit("--distill-from supports single-device, "
+                             "data-parallel, and --parallel-mode sp|tp "
+                             "training (not pp/ep)")
+        raise SystemExit("--distill-from with --parallel-mode sp is not "
+                         "ported yet (ROADMAP queue 1, item 16(b))")
+    if args.ar_range > 0:
+        if mode == "ep":
+            raise SystemExit("--ar-range supports single-device, "
+                             "data-parallel, and --parallel-mode sp|tp "
+                             "training (not pp/ep) — parallel/tp.py "
+                             "sp/tp_ar_loss_fn")
+        raise SystemExit("--ar-range with --parallel-mode sp is not ported "
+                         "yet (ROADMAP queue 1, item 16(b))")
+    if args.mwer_steps > 0 and mode != "sp":
+        raise SystemExit("--mwer-steps with --model-parallel requires "
+                         "--parallel-mode sp (or data parallelism)")
+    if (cfg.big_blank_durations or cfg.tdt_durations) and mode == "ep":
+        raise SystemExit("--big-blanks/--tdt-durations with "
+                         "--model-parallel require --parallel-mode sp, tp, "
+                         "or pp (or data parallelism)")
+    if args.loss_impl == "pruned":
+        if mode == "ep":
+            raise SystemExit("--loss-impl pruned with --model-parallel "
+                             "requires --parallel-mode sp, tp, or pp (or "
+                             "data parallelism)")
+        raise SystemExit("--loss-impl pruned with --parallel-mode sp is not "
+                         "ported yet (ROADMAP queue 1, item 16(b))")
+    if mode == "ep":
+        if cfg.joint_experts <= 0:
+            raise SystemExit("--parallel-mode ep needs an MoE joint "
+                             "(joint_experts > 0 in --config)")
+        if cfg.joint_experts % args.model_parallel:
+            raise SystemExit(f"experts {cfg.joint_experts} not divisible by "
+                             f"--model-parallel {args.model_parallel}")
+
+
+def _check_topology(args) -> None:
+    """--resume into a checkpoint of another (mode, mp) is refused, as
+    train.py refuses it."""
+    if not (args.resume and args.ckpt_dir
+            and ckpt.latest_step(args.ckpt_dir) is not None):
+        return
+    saved = (ckpt.load_meta(args.ckpt_dir) or {}).get("parallel") or {}
+    mode = _par_mode(args)
+    want = (mode, args.model_parallel if mode else None)
+    if (saved.get("mode"), saved.get("mp")) != want:
+        raise SystemExit(
+            f"checkpoint topology {saved} does not match --parallel-mode "
+            f"{mode} --model-parallel {args.model_parallel}")
 
 
 def main(argv=None):
@@ -400,13 +502,18 @@ def main(argv=None):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device available "
                          "(pass --device cpu to train on the CPU)")
-    n = args.data_parallel or (torch.cuda.device_count()
-                               if device.type == "cuda" else 1)
+    mp = args.model_parallel
+    cards = torch.cuda.device_count() if device.type == "cuda" else 1
+    n = args.data_parallel or (max(1, cards // mp) if mp > 1 else cards)
     if n > 1 and args.batch_size % n:
         raise SystemExit(f"--batch-size {args.batch_size} must divide by "
                          f"--data-parallel {n}")
     args.data_parallel = n
     _setup(args)  # refuse here, before any rank starts
+    _check_topology(args)
+    if _par_mode(args) is not None:
+        return meshlib.launch(_train, n * mp, device.type, args=(args,),
+                              n_model=mp)
     if n == 1:
         return _train(None, args)
     return meshlib.launch(_train, n, device.type, args=(args,))
@@ -439,8 +546,17 @@ def _train(mesh, args):
             f"ar band from {teacher_dir} (step {t_step}, range "
             f"{args.ar_range}, left {args.ar_left})")
 
-    state = init_train_state(np.random.default_rng(args.seed), cfg, tcfg,
-                             device)
+    mode = _par_mode(args)
+    if mode == "ep":
+        state = tp.init_ep_train_state(np.random.default_rng(args.seed), cfg,
+                                       tcfg, mesh.n_model, mesh.model_rank,
+                                       device)
+    elif mode == "sp":
+        state = tp.init_sp_train_state(np.random.default_rng(args.seed), cfg,
+                                       tcfg, device)
+    else:
+        state = init_train_state(np.random.default_rng(args.seed), cfg, tcfg,
+                                 device)
     start_step = 0
     resuming = (args.resume and args.ckpt_dir
                 and ckpt.latest_step(args.ckpt_dir) is not None)
@@ -453,12 +569,14 @@ def _train(mesh, args):
                              "of another model config")
         restored, start_step = ckpt.restore_checkpoint(args.ckpt_dir,
                                                        device=device)
+        if mode == "ep":
+            restored = tp.ep_state_from_checkpoint(restored, mesh.model_rank)
         ema = restored.ema if tcfg.ema_decay > 0 else None
         if tcfg.ema_decay > 0 and ema is None:  # a run without one: start
             ema = torch.utils._pytree.tree_map(torch.clone, restored.params)
         state = dataclasses.replace(restored, ema=ema)
         log(f"resumed from step {start_step}")
-    if mesh is not None:
+    if mesh is not None and mode is None:
         state = dataclasses.replace(
             state, params=meshlib.replicate(mesh, state.params),
             opt_state=meshlib.replicate(mesh, state.opt_state),
@@ -466,18 +584,24 @@ def _train(mesh, args):
                  else meshlib.replicate(mesh, state.ema)))
         if teacher_params is not None:
             teacher_params = meshlib.replicate(mesh, teacher_params)
-    step_fn = make_train_step(cfg, tcfg, mesh=mesh, teacher_cfg=teacher_cfg,
-                              device=device)
+    if mode is None:
+        def build_step(kind, **kw):
+            return make_train_step(cfg, tcfg, mesh=mesh, device=device,
+                                   loss_kind=kind, **kw)
+    else:
+        def build_step(kind, **kw):
+            return tp.make_tp_train_step(cfg, tcfg, mesh, mode,
+                                         loss_kind=kind)
+    step_fn = build_step("rnnt", teacher_cfg=teacher_cfg)
     extra = () if teacher_params is None else (teacher_params,)
     # CTC pretraining: the first --ctc-pretrain-steps steps, and MWER
     # fine-tuning: the last --mwer-steps; one optimizer state throughout
-    ctc_step_fn = (make_train_step(cfg, tcfg, mesh=mesh, device=device,
-                                   loss_kind="ctc")
-                   if args.ctc_pretrain_steps > 0 else None)
-    mwer_step_fn = (make_train_step(cfg, tcfg, mesh=mesh, device=device,
-                                    loss_kind="mwer")
-                    if args.mwer_steps > 0 else None)
+    ctc_step_fn = (build_step("ctc") if args.ctc_pretrain_steps > 0
+                   else None)
+    mwer_step_fn = build_step("mwer") if args.mwer_steps > 0 else None
     meta_extra = {"train_config": dataclasses.asdict(tcfg)}
+    if mode is not None:
+        meta_extra["parallel"] = {"mode": mode, "mp": args.model_parallel}
     if tok_meta is not None:
         meta_extra["tokenizer"] = tok_meta
     cmvn = load_cmvn(args.cmvn) if args.cmvn else None
@@ -489,6 +613,8 @@ def _train(mesh, args):
     mlog = MetricsLogger(args.log_file if lead else None, mirror=lead)
 
     def save(step_no, st):
+        if mode == "ep":  # every rank gathers the experts; rank 0 saves
+            st = tp.ep_checkpoint_state(mesh, st)
         if lead:
             ckpt.save_checkpoint(args.ckpt_dir, step_no, st, model_cfg=cfg,
                                  **meta_extra)
@@ -536,10 +662,12 @@ def _train(mesh, args):
                          skipped_nonfinite=int(info["skipped_nonfinite"]),
                          load_ms=round((t_got - t_prev) * 1e3, 3),
                          step_ms=round((now - t_got) * 1e3, 3))
-            if lead and args.eval_every and step_no % args.eval_every == 0:
-                dev_loss, per = run_eval(state.params)
-                mlog.log(step=step_no, dev_loss=round(dev_loss, 4),
-                         dev_per=round(per, 4))
+            if args.eval_every and step_no % args.eval_every == 0:
+                plain = tp.plain_params(mesh, state.params, mode, cfg)
+                if lead:
+                    dev_loss, per = run_eval(plain)
+                    mlog.log(step=step_no, dev_loss=round(dev_loss, 4),
+                             dev_per=round(per, 4))
             if args.ckpt_dir and step_no % args.ckpt_every == 0:
                 save(step_no, state)
             if args.ckpt_dir and _agreed(mesh, stop["flag"]):
@@ -614,7 +742,8 @@ def _data(args, cfg, tcfg, cmvn, device, log, resume_skip: int):
                     "is unaffected")
             batches = _native_batches(path, cfg, tcfg, skip_first, args.seed,
                                       cmvn, device, n_threads=(
-                                          1 if args.data_parallel > 1
+                                          1 if args.data_parallel
+                                          * args.model_parallel > 1
                                           else 2))
         else:
             if skip:
@@ -655,9 +784,11 @@ def train_batch(args, batch, global_step: int, mesh, device):
     SpecAugmented (draws keyed by the global step, on the whole batch)
     when asked, then this rank's rows."""
     aug = args.speed_perturb or args.spec_augment
+    shard = (meshlib.shard_batch_2d if isinstance(mesh, meshlib.Mesh2D)
+             else meshlib.shard_batch)
     if not aug:
         if mesh is not None:
-            return meshlib.shard_batch(mesh, batch)
+            return shard(mesh, batch)
         return tuple(torch.from_numpy(x).to(device) for x in batch)
     feats, fl, labels, ll = (torch.from_numpy(x).to(device) for x in batch)
     if args.speed_perturb:
@@ -669,7 +800,7 @@ def train_batch(args, batch, global_step: int, mesh, device):
             generator(args.seed + 777, global_step), feats, fl,
             time_warp_frames=args.spec_augment_warp)
     batch = (feats, fl, labels, ll)
-    return batch if mesh is None else meshlib.shard_batch(mesh, batch)
+    return batch if mesh is None else shard(mesh, batch)
 
 
 def _evaluator(args, cfg, tcfg, dev_batch, device):

@@ -8,7 +8,11 @@ ema None), and a `meta.json` beside them with the model and train configs
 the JAX package's `save_meta` writes it, so a run can be resumed or
 served without naming its config again. `load_plain_params` gives the
 params, or with prefer_ema the EMA, of a checkpoint to the decode CLI and
-the server. The JAX package's orbax format is not read.
+the server; a checkpoint of the expert-parallel trainer (meta.json's
+"parallel" {"mode": "ep"}: its params are the stacked TPParams dict
+{"rep", "shd"}) is merged into plain params first, as JAX's
+`load_plain_params` merges it. The JAX package's orbax format is not
+read.
 
 A step file is written to a temporary name and renamed into place, so a
 reader never sees half of one.
@@ -107,9 +111,9 @@ def restore_checkpoint(ckpt_dir: str, step: int | None = None,
 def load_plain_params(ckpt_dir: str, cfg=None, prefer_ema: bool = False,
                       device: str | torch.device = "cpu"):
     """The latest checkpoint's params (with prefer_ema, its Polyak
-    average, which a checkpoint without one refuses) on `device`:
-    (params, cfg, step, meta). cfg defaults to the one in meta.json (JAX
-    `load_plain_params`)."""
+    average, which a checkpoint without one refuses) on `device`, an ep
+    checkpoint's merged: (params, cfg, step, meta). cfg defaults to the
+    one in meta.json (JAX `load_plain_params`)."""
     meta = load_meta(ckpt_dir) or {}
     if cfg is None:
         cfg = load_model_config(ckpt_dir)
@@ -117,9 +121,13 @@ def load_plain_params(ckpt_dir: str, cfg=None, prefer_ema: bool = False,
             raise FileNotFoundError(
                 f"{ckpt_dir}/meta.json has no model_config; pass cfg")
     state, got = restore_checkpoint(ckpt_dir, device=device)
+    tree = state.params
     if prefer_ema:
         if state.ema is None:
             raise ValueError(f"{ckpt_dir} carries no EMA params (train "
                              "with --ema-decay > 0)")
-        return state.ema, cfg, got, meta
-    return state.params, cfg, got, meta
+        tree = state.ema  # the same layout as the params: merged alike
+    if (meta.get("parallel") or {}).get("mode") == "ep":
+        from rnn_transducer_tpu_torch.parallel.tp import merge_params_ep
+        tree = merge_params_ep(tree, cfg)
+    return tree, cfg, got, meta

@@ -19,7 +19,11 @@ learning rate schedule(0) = 0), and a skipped non-finite update advances
 
 The duration families (multi-blank, TDT) train on the `xla` route alone,
 over their consumed-frames lattices (`ops/rnnt_multiblank.py`,
-`ops/rnnt_tdt.py`), whatever `auto` picks for the standard model.
+`ops/rnnt_tdt.py`), whatever `auto` picks for the standard model. An
+MoE joint (`ops/moe.py`) trains over the routed joint's materialised
+logits, `pallas` on the two-pass loss and every other route on the xla
+loss (`moe_route`), with the router's load-balance loss added; the
+model-parallel sp and ep steps are parallel/tp.py's.
 
 Three more objectives share the step: CTC on the encoder's auxiliary
 head (`make_train_step(loss_kind="ctc")`, `ctc_loss_fn`: the
@@ -61,6 +65,7 @@ from torch.utils import _pytree as pytree
 
 from rnn_transducer_tpu_torch.models import transducer as m
 from rnn_transducer_tpu_torch.models.config import TrainConfig, TransducerConfig
+from rnn_transducer_tpu_torch.ops import moe
 from rnn_transducer_tpu_torch.ops.ctc_loss import ctc_loss_from_logits
 from rnn_transducer_tpu_torch.ops.rnnt_align import (emit_frames_device,
                                                      rnnt_viterbi)
@@ -83,7 +88,8 @@ from rnn_transducer_tpu_torch.train.regularizers import (DropoutMasks,
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 SPANS = ("encode", "predict", "align", "teacher", "joint_loss", "ctc",
          "duration_lattice", "backward", "ctc_backward",
-         "duration_lattice_backward", "all_reduce", "optimizer")
+         "duration_lattice_backward", "all_reduce",
+         "optimizer") + moe.SPANS
 # the CLI's choices, train.py's; "ar" is set by TrainConfig.ar_range
 LOSS_IMPLS = ("auto", "fused", "pallas", "xla", "pruned")
 _span = torch.profiler.record_function
@@ -113,6 +119,30 @@ def _check_ctc_weight(cfg: TransducerConfig, ctc_weight: float) -> None:
     """JAX loss_fn :138-139."""
     if ctc_weight and cfg.joint_experts > 0:
         raise ValueError("ctc_weight with an MoE joint is not supported")
+
+
+def check_moe(cfg: TransducerConfig, loss_impl: str) -> None:
+    """An MoE joint trains on the routed joint's materialised logits: the
+    alignment-restricted band refuses it (JAX loss_fn :197-199), and so
+    does a duration family (multi-blank; TDT is refused at init), whose
+    lattices the port does not run through the experts."""
+    if cfg.joint_experts <= 0:
+        return
+    if loss_impl == "ar":
+        raise ValueError("alignment-restricted training (ar_range) does "
+                         "not support an MoE joint")
+    if cfg.big_blank_durations or cfg.tdt_durations:
+        raise ValueError("an MoE joint with the duration families "
+                         "(big_blank_durations, tdt_durations) is not "
+                         "supported")
+
+
+def moe_route(loss_impl: str) -> str:
+    """The loss route of an MoE model (JAX loss_fn :204-206): the routed
+    joint's logits are materialised, so `pallas` takes the two-pass loss
+    and every other route (auto, fused, pruned, xla) the xla loss; off
+    the TPU, JAX's `select_rnnt_loss` resolves pruned to xla too."""
+    return "pallas" if loss_impl == "pallas" else "xla"
 
 
 def check_duration_route(cfg: TransducerConfig, loss_impl: str,
@@ -279,13 +309,21 @@ def loss_fn(params, cfg: TransducerConfig, feats, feat_lens, labels,
     pick: its materialised logits (`joint`, or `joint_tdt` with the
     duration logits) and its loss on the consumed-frames lattice
     (train/mwer.sequence_nll); any other loss_impl, and fastemit, raise.
+    An MoE joint (cfg.joint_experts > 0) materialises the routed joint's
+    logits (`m.joint(with_aux=True)`) on the route of `moe_route`, and the
+    loss is mean(per_utt) + cfg.moe_aux_weight * aux, the router's
+    load-balance term (JAX :196-210); ar and ctc_weight refuse it.
     """
     _check_ctc_weight(cfg, ctc_weight)
     m.check_supported(cfg)
+    check_moe(cfg, loss_impl)
     duration = bool(cfg.tdt_durations or cfg.big_blank_durations)
     if duration:  # before any route is chosen: auto is xla here
         check_duration_route(cfg, loss_impl, fastemit)
         loss_impl = "xla"
+    experts = cfg.joint_experts > 0
+    if experts:
+        loss_impl = moe_route(loss_impl)
     impl = _resolve_loss_impl(loss_impl, feats.device, cfg)
     if impl not in ("fused", "pallas", "xla", "pruned", "ar"):
         raise ValueError(f"unknown loss_impl {loss_impl!r}")
@@ -337,7 +375,8 @@ def loss_fn(params, cfg: TransducerConfig, feats, feat_lens, labels,
                 enc_lens, label_lens, cfg.pruned_range, cfg.blank,
                 cfg.cdtype, fastemit)
         else:
-            logits = m.joint(params, cfg, enc_out, pred_out)
+            logits, aux = m.joint(params, cfg, enc_out, pred_out,
+                                  with_aux=True)
             loss_op = rnnt_loss_twopass if impl == "pallas" else rnnt_loss
             per_utt = loss_op(logits, labels, enc_lens, label_lens,
                               cfg.blank, fastemit)
@@ -345,6 +384,8 @@ def loss_fn(params, cfg: TransducerConfig, feats, feat_lens, labels,
     if impl == "pruned":
         return (per_utt.mean() + simple_loss_scale * simple_pu.mean(),
                 per_utt)
+    if experts:
+        return per_utt.mean() + cfg.moe_aux_weight * aux, per_utt
     return per_utt.mean(), per_utt
 
 
@@ -579,13 +620,16 @@ def make_train_step(cfg: TransducerConfig, tcfg: TrainConfig, mesh=None,
                              "the step must be called with teacher_params)")
         check_distill_compat(cfg, teacher_cfg, tcfg)
     check_train_supported(tcfg)
+    check_moe(cfg, "ar" if ar else tcfg.loss_impl)
     if rnnt:
         _check_ctc_weight(cfg, tcfg.ctc_weight)
         check_duration_route(cfg, "ar" if ar else tcfg.loss_impl,
                              tcfg.fastemit_lambda)
     m.check_supported(cfg)
-    check_ring_width(cfg, "ar" if ar else tcfg.loss_impl if rnnt
-                     and not distilling else "xla", dev)
+    route = "ar" if ar else tcfg.loss_impl if rnnt and not distilling \
+        else "xla"
+    check_ring_width(cfg, moe_route(route) if cfg.joint_experts > 0
+                     else route, dev)
     schedule = make_lr_schedule(tcfg)
     k = tcfg.grad_accum
     loss_kw = dict(loss_impl=tcfg.loss_impl, fastemit=tcfg.fastemit_lambda,

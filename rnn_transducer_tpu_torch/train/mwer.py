@@ -22,8 +22,10 @@ distances carry none.
 
 The edit-distance row recurrence has the insertion closure row[j] =
 min_{k<=j} cand[k] + (j - k), solved in parallel on the device as j +
-cummin(cand - j). The port has no sequence-parallel mode to run MWER
-under (item 16).
+cummin(cand - j). Under the sequence-parallel mode (parallel/tp.py,
+mode="sp", loss_kind="mwer") every model rank runs this loss whole on its
+data shard, with the replicated params, so its beam is the same on every
+model rank.
 """
 
 from __future__ import annotations

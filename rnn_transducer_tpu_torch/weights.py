@@ -15,8 +15,9 @@ bridge is leaf by leaf:
     that `tools/export_torch_ckpt.py` writes (nn.LSTM / nn.Linear naming)
     and undoes its transposes, so the port serves a trained model without
     jax; a BiLSTM layer's `_reverse` keys become its "bwd" dict. A
-    multi-blank joint's `out` is n_classes wide there too; a TDT model is
-    refused, as the exporter writes no duration head.
+    multi-blank joint's `out` is n_classes wide there too; a TDT model and
+    an MoE joint are refused, as the exporter writes neither the duration
+    head nor the experts.
 
 The fusion LMs' params (the LSTM LM's {"embed", "lstm", "out"}, the
 transformer LM's {"embed", "pos", "blocks", "ln_f", "out"}) are trees of
@@ -119,6 +120,12 @@ def load_state_dict(path: str, cfg: TransducerConfig,
             "duration head (joint.dur), so there is no torch-layout state "
             "dict of one to read (ROADMAP queue 1, item 18: tools); carry "
             "JAX params over with params_from_numpy")
+    if cfg.joint_experts > 0:
+        raise NotImplementedError(
+            "joint_experts: tools/export_torch_ckpt.py writes no MoE "
+            "leaves (moe), so there is no torch-layout state dict of one "
+            "to read (ROADMAP queue 1, item 18: tools); carry JAX params "
+            "over with params_from_numpy")
     sd = torch.load(path, map_location="cpu", weights_only=True)
     enc = []
     in_dim = cfg.input_dim

@@ -311,13 +311,6 @@ def test_conformer_encoder_matches_jax():
     assert got[1][live].max() >= 2
 
 
-def test_unported_configs_raise():
-    cfg = dataclasses.replace(TCFG, joint_experts=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tb.beam_search({}, cfg, torch.zeros(1, 2, 16),
-                       torch.ones(1, dtype=torch.int32))
-
-
 def test_int8_params_are_dequantized_once_a_call(monkeypatch):
     """beam_search dequantizes an int8 tree once a call, before its frame
     loop: as many dequantizations at 3 frames as at 9, and as many as one

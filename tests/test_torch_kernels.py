@@ -2228,3 +2228,179 @@ def test_cuda_duration_greedy_matches_the_plain_lstm(cuda_device, family):
     assert launches == cfg.enc_layers and plain_launches == 0
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+MOE_CUDA = dict(input_dim=80, enc_layers=2, enc_hidden=128, time_reduction=2,
+                pred_layers=1, pred_hidden=128, embed_dim=64, joint_dim=128,
+                vocab_size=64, compute_dtype="float32", joint_experts=4,
+                joint_expert_hidden=256, moe_capacity_factor=1.0)
+
+
+def _moe_batch(dev, B=4, T=48, U=6):
+    import numpy as np
+
+    from rnn_transducer_tpu_torch.data.synthetic import random_batch
+
+    batch = random_batch(np.random.default_rng(5), B, T, U, 80, 64)
+    return tuple(torch.from_numpy(a).to(dev) for a in batch)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("loss_impl", ["auto", "pallas"])
+def test_cuda_moe_loss_matches_the_cpu(cuda_device, loss_impl):
+    """The MoE model's loss_fn (routed joint, capacity 1 so tokens drop)
+    and its gradients on the card against the same call on the CPU, f32:
+    the routes identical, the loss within 1e-5 relative, every gradient
+    leaf within 1e-3 of its largest value; K4 each way a layer, K3's
+    alpha and beta once, and K5's two kernels on the two-pass route."""
+    import numpy as np
+
+    from rnn_transducer_tpu_torch.models import transducer as tm
+    from rnn_transducer_tpu_torch.models.config import TransducerConfig
+    from rnn_transducer_tpu_torch.ops import moe as tmoe
+    from rnn_transducer_tpu_torch.ops import rnnt_lattice_cuda as lat
+    from rnn_transducer_tpu_torch.ops import rnnt_loss_cuda as lc
+    from rnn_transducer_tpu_torch.train import loop as tloop
+
+    cfg = TransducerConfig(**MOE_CUDA)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        params = tm.init_params(cfg, np.random.default_rng(0), dev)
+        leaves, spec = torch.utils._pytree.tree_flatten(params)
+        xs = [x.requires_grad_(True) for x in leaves]
+        p = torch.utils._pytree.tree_unflatten(xs, spec)
+        batch = _moe_batch(dev)
+        counts = (lstm_cuda.LAUNCHES_WITH_ACTS, lstm_cuda.LAUNCHES_BWD,
+                  lat.LAUNCHES_ALPHA, lat.LAUNCHES_BETA, lc.LAUNCHES_EXTRACT)
+        enc, _ = tm.encode(p, cfg, *batch[:2])
+        pred, _ = tm.predict(p, cfg, batch[2])
+        f, g, _, _ = tm.joint_activations(p, cfg, enc, pred)
+        z = torch.tanh(f[:, :, None] + g[:, None]).reshape(-1, cfg.joint_dim)
+        routes = tmoe.router_top1(p["moe"], z)[1].cpu()
+        loss, _ = tloop.loss_fn(p, cfg, *batch, loss_impl=loss_impl)
+        grads = torch.autograd.grad(loss, xs)
+        after = (lstm_cuda.LAUNCHES_WITH_ACTS, lstm_cuda.LAUNCHES_BWD,
+                 lat.LAUNCHES_ALPHA, lat.LAUNCHES_BETA, lc.LAUNCHES_EXTRACT)
+        out[str(dev)] = (float(loss), [x.cpu() for x in grads], routes,
+                         [a - b for a, b in zip(after, counts)])
+    loss_c, grads_c, routes_c, _ = out["cpu"]
+    loss_k, grads_k, routes_k, launches = out[str(cuda_device)]
+    assert int((routes_c != routes_k).sum()) == 0
+    assert abs(loss_k - loss_c) <= 1e-5 * abs(loss_c)
+    for a, b in zip(grads_k, grads_c):
+        assert float((a - b).abs().max()) <= 1e-3 * max(
+            float(b.abs().max()), 1e-30)
+    # 2 encoder layers + the predictor each way (the routing probe above
+    # runs its own encode and predict forward)
+    assert launches[0] == 2 * (cfg.enc_layers + 1)
+    assert launches[1] == cfg.enc_layers + 1
+    assert launches[2] == 1 and launches[3] == 1
+    assert launches[4] == (1 if loss_impl == "pallas" else 0)
+
+
+@pytest.mark.cuda
+def test_cuda_moe_greedy_matches_the_plain_lstm(cuda_device):
+    """Greedy decode of an MoE model at libri100 width (8 experts of 1024),
+    f32: the encoder through K4-fwd (one launch a layer) against the same
+    decode with the plain LSTM, tokens and lengths equal; the dense MoE
+    residual runs in every joint step."""
+    import contextlib
+    import dataclasses
+    from unittest import mock
+
+    import numpy as np
+
+    from rnn_transducer_tpu_torch.decode.greedy import greedy_decode
+    from rnn_transducer_tpu_torch.models import transducer as tm
+    from rnn_transducer_tpu_torch.models.config import config_libri100
+
+    cfg = dataclasses.replace(config_libri100(), compute_dtype="float32",
+                              joint_experts=8, joint_expert_hidden=1024)
+    params = tm.init_params(cfg, np.random.default_rng(0), cuda_device)
+    g = torch.Generator().manual_seed(1)
+    feats = torch.randn(3, 160, cfg.input_dim, generator=g).to(cuda_device)
+    lens = torch.tensor([160, 97, 40], dtype=torch.int32,
+                        device=cuda_device)
+    outs = []
+    for plain in (False, True):
+        with contextlib.ExitStack() as stack, torch.no_grad():
+            if plain:
+                stack.enter_context(mock.patch.object(
+                    lstm_cuda, "lstm_recurrence",
+                    lstm_cuda.lstm_recurrence_reference))
+            before = lstm_cuda.LAUNCHES
+            enc, enc_lens = tm.encode(params, cfg, feats, lens)
+            tok, n, _ = greedy_decode(params, cfg, enc, enc_lens,
+                                      max_symbols=60)
+            outs.append((lstm_cuda.LAUNCHES - before, tok.cpu(), n.cpu()))
+    (launches, *got), (plain_launches, *want) = outs
+    assert launches == cfg.enc_layers and plain_launches == 0
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def _ep_card_rank(mesh, mode, params_np):
+    from rnn_transducer_tpu_torch.models.config import (TrainConfig,
+                                                        TransducerConfig)
+    from rnn_transducer_tpu_torch.parallel import mesh as meshlib
+    from rnn_transducer_tpu_torch.parallel import tp
+    from rnn_transducer_tpu_torch.weights import (params_from_numpy,
+                                                  params_to_numpy)
+
+    cfg = TransducerConfig(**dict(MOE_CUDA, moe_capacity_factor=4.0))
+    tcfg = TrainConfig(batch_size=4, learning_rate=1e-3, warmup_steps=0,
+                       total_steps=10, grad_clip_norm=1e9)
+    params = params_from_numpy(params_np, mesh.device)
+    if mode == "ep":
+        state = tp.init_ep_train_state(None, cfg, tcfg, mesh.n_model,
+                                       mesh.model_rank, mesh.device,
+                                       params=params)
+    else:
+        state = tp.init_sp_train_state(None, cfg, tcfg, mesh.device,
+                                       params=params)
+    step = tp.make_tp_train_step(cfg, tcfg, mesh, mode)
+    batch = tuple(a.cpu().numpy() for a in _moe_batch("cpu"))
+    state, info = step(state, *meshlib.shard_batch_2d(mesh, batch))
+    plain = tp.plain_params(mesh, state.params, mode, cfg)
+    return (float(info["loss"]), float(info["grad_norm"]),
+            params_to_numpy(plain))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["sp", "ep"])
+def test_cuda_two_gloo_ranks_match_one_process(cuda_device, mode, tmp_path):
+    """sp and ep on two gloo ranks sharing the card (the exchanges and
+    gathers through host copies) against the one-process step on the
+    card, f32 at ample capacity, one step with no warm-up (so that it
+    moves the params): the loss and the gradient norm within 2e-5
+    relative, the params within 2e-5."""
+    import numpy as np
+
+    from rnn_transducer_tpu_torch.models import transducer as tm
+    from rnn_transducer_tpu_torch.models.config import (TrainConfig,
+                                                        TransducerConfig)
+    from rnn_transducer_tpu_torch.parallel import mesh as meshlib
+    from rnn_transducer_tpu_torch.train import loop as tloop
+    from rnn_transducer_tpu_torch.weights import params_to_numpy
+
+    cfg = TransducerConfig(**dict(MOE_CUDA, moe_capacity_factor=4.0))
+    tcfg = TrainConfig(batch_size=4, learning_rate=1e-3, warmup_steps=0,
+                       total_steps=10, grad_clip_norm=1e9)
+    params = tm.init_params(cfg, np.random.default_rng(2), cuda_device)
+    params_np = params_to_numpy(params)
+    state = tloop.init_train_state(None, cfg, tcfg, params=params)
+    state, info = tloop.make_train_step(cfg, tcfg)(state,
+                                                   *_moe_batch(cuda_device))
+    want = params_to_numpy(state.params)
+    want_norm = float(info["grad_norm"])
+    loss, norm, got = meshlib.spawn(
+        _ep_card_rank, 2, [str(cuda_device)] * 2, args=(mode, params_np),
+        init_method=f"file://{tmp_path}/rendezvous", timeout_s=300,
+        n_model=2)
+    assert abs(loss - float(info["loss"])) <= 2e-5 * abs(float(info["loss"]))
+    assert abs(norm - want_norm) <= 2e-5 * want_norm
+    leaves = torch.utils._pytree.tree_leaves
+    for a, b in zip(leaves(got), leaves(want)):
+        np.testing.assert_allclose(a, b, rtol=0, atol=2e-5)
+    assert max(np.abs(a - b).max() for a, b in zip(
+        leaves(want), leaves(params_np))) > 1e-4  # the step moved them

@@ -150,15 +150,6 @@ def test_init_params_has_the_jax_tree_shapes(params_np):
     assert got == want
 
 
-@pytest.mark.parametrize("field, value", [("joint_experts", 2)])
-def test_unported_configs_raise(field, value):
-    cfg = dataclasses.replace(TCFG, **{field: value})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.init_params(cfg, np.random.default_rng(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.encode({}, cfg, torch.zeros(1, 4, 8), torch.ones(1))
-
-
 @pytest.mark.parametrize("fn", ["models.transducer.init_params",
                                 "models.transducer.init_pred_state",
                                 "weights.load_state_dict",
